@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of spark_text_clustering_tpu for an NVIDIA H100.
+
+Imports ``torch``, never ``jax``, and nothing of the JAX package.  Entry
+points take ``device=`` and default to ``"cuda"``; pass ``device="cpu"``
+to run the plain PyTorch versions of the kernels on the host.
+"""
+
+from .config import Params
+from .models.base import LDAModel
+from .models.em_lda import EMLDA
+from .models.persistence import load_model
+from .pipeline import IDF, LDA, CountVectorizer
+
+__all__ = ["CountVectorizer", "EMLDA", "IDF", "LDA", "LDAModel", "Params",
+           "load_model"]

@@ -1,0 +1,55 @@
+"""Carrying weights across from numpy (and so from the JAX package).
+
+``lda_model_from_numpy`` builds the port's ``LDAModel`` from arrays;
+``em_state_from_numpy`` writes an ``em_state.npz`` checkpoint that
+``EMLDA.fit`` resumes from.  A model dir the JAX package saved needs
+neither: ``models.persistence.load_model`` reads it directly.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Sequence
+
+import numpy as np
+
+from .models.base import LDAModel
+from .models.persistence import save_train_state
+
+__all__ = ["em_state_from_numpy", "lda_model_from_numpy"]
+
+
+def lda_model_from_numpy(
+    lam: np.ndarray,
+    alpha,
+    eta: float,
+    vocab: Sequence[str],
+    gamma_shape: float = 100.0,
+    algorithm: str = "em",
+    step: int = 0,
+    device="cuda",
+) -> LDAModel:
+    """An ``LDAModel`` from a [k, V] pseudo-count table and its priors."""
+    lam = np.asarray(lam, np.float32)
+    if lam.ndim != 2 or lam.shape[1] != len(vocab):
+        raise ValueError(f"lam {lam.shape} does not match {len(vocab)} terms")
+    return LDAModel(
+        lam=lam,
+        vocab=list(vocab),
+        alpha=np.broadcast_to(np.asarray(alpha, np.float32), (lam.shape[0],)).copy(),
+        eta=float(eta),
+        gamma_shape=gamma_shape,
+        algorithm=algorithm,
+        step=step,
+        device=device,
+    )
+
+
+def em_state_from_numpy(
+    checkpoint_dir: str, n_wk: np.ndarray, n_dk: np.ndarray, step: int = 0
+) -> str:
+    """Write ``<checkpoint_dir>/em_state.npz`` (n_wk [k, V], n_dk [n, k] in
+    corpus order); returns its path."""
+    path = os.path.join(checkpoint_dir, "em_state.npz")
+    save_train_state(path, step, n_wk=n_wk, n_dk=n_dk)
+    return path

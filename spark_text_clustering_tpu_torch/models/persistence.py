@@ -1,0 +1,240 @@
+"""Model persistence: one self-contained, integrity-checked artifact dir,
+in the JAX package's layout, so a model saved by either package loads in
+the other:
+
+    <path>/meta.json      k, vocab_size, eta, gamma_shape, step, algorithm,
+                          iteration_times, format version, "class"
+    <path>/arrays.npz     lam [k, V] float32, alpha [k]
+    <path>/vocab.txt      one term per line (utf-8)
+    <path>/MANIFEST.json  per-file SHA-256
+    <path>/COMMIT         written last
+
+``save_train_state`` / ``load_train_state`` write and read the mid-fit
+checkpoint (``em_state.npz``: step plus named arrays) atomically, with a
+``.sha256`` sidecar checked on load.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+import zipfile
+from typing import Optional, Sequence
+
+import numpy as np
+
+from ..resilience import (
+    CorruptArtifactError,
+    artifact_status,
+    atomic_write_text,
+    file_sha256,
+    finalize_artifact_dir,
+    verify_artifact,
+)
+
+FORMAT_VERSION = 2
+# the class string both packages write for an LDA model
+LDA_CLASS = "spark_text_clustering_tpu.models.LDAModel"
+
+__all__ = [
+    "latest_model_dir",
+    "load_model",
+    "load_train_state",
+    "model_dir_name",
+    "save_model",
+    "save_train_state",
+    "train_state_valid",
+]
+
+
+def model_dir_name(lang: str, base: str = "models") -> str:
+    """``<base>/LdaModel_<lang>_<epochMillis>``."""
+    return os.path.join(base, f"LdaModel_{lang}_{int(time.time() * 1000)}")
+
+
+def latest_model_dir(
+    base: str, lang: str, verify_deep: bool = False
+) -> Optional[str]:
+    """Newest committed (or legacy) model dir for ``lang`` under ``base``,
+    by the timestamp in its name; uncommitted dirs are skipped, and with
+    ``verify_deep`` so are dirs whose manifest hashes fail."""
+    if not os.path.isdir(base):
+        return None
+    prefix = f"LdaModel_{lang}_"
+    cands = []
+    for d in os.listdir(base):
+        if not d.startswith(prefix):
+            continue
+        try:
+            cands.append((int(d.rsplit("_", 1)[-1]), d))
+        except ValueError:
+            continue
+    for _, d in sorted(cands, reverse=True):
+        path = os.path.join(base, d)
+        if artifact_status(path) not in ("committed", "legacy"):
+            continue
+        if verify_deep:
+            try:
+                verify_artifact(path)
+            except CorruptArtifactError:
+                continue
+        return path
+    return None
+
+
+def save_model(model, path: str) -> None:
+    """Write ``model`` (an ``LDAModel``) as a sealed artifact dir."""
+    os.makedirs(path, exist_ok=True)
+    meta = {
+        "format_version": FORMAT_VERSION,
+        "class": LDA_CLASS,
+        "k": model.k,
+        "vocab_size": model.vocab_size,
+        "eta": float(model.eta),
+        "gamma_shape": float(model.gamma_shape),
+        "algorithm": model.algorithm,
+        "step": int(model.step),
+        "iteration_times": [float(t) for t in model.iteration_times],
+        "iteration_times_kind": model.iteration_times_kind,
+    }
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump(meta, f, indent=2, sort_keys=True)
+    np.savez(
+        os.path.join(path, "arrays.npz"),
+        lam=np.asarray(model.lam, np.float32),
+        alpha=np.asarray(model.alpha, np.float32),
+    )
+    with open(os.path.join(path, "vocab.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(model.vocab))
+    finalize_artifact_dir(path, files=("meta.json", "arrays.npz", "vocab.txt"))
+
+
+def load_model(path: str, device="cuda"):
+    """Load an LDA model dir written by either package.  Any integrity
+    failure raises ``CorruptArtifactError`` naming the artifact."""
+    from .base import LDAModel
+
+    verify_artifact(path)
+    try:
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+    except (OSError, json.JSONDecodeError) as exc:
+        raise CorruptArtifactError(path, f"unreadable meta.json: {exc}") from exc
+    if meta.get("format_version", 0) > FORMAT_VERSION:
+        raise ValueError(
+            f"artifact format {meta['format_version']} newer than "
+            f"supported {FORMAT_VERSION}"
+        )
+    if meta.get("class", LDA_CLASS) != LDA_CLASS:
+        raise ValueError(f"{path} holds a {meta['class']}; the port loads "
+                         "LDA models only")
+    try:
+        with np.load(os.path.join(path, "arrays.npz")) as z:
+            lam, alpha = z["lam"], z["alpha"]
+    except KeyError as exc:
+        raise CorruptArtifactError(path, f"missing array {exc}") from exc
+    except (OSError, ValueError, zipfile.BadZipFile, EOFError) as exc:
+        raise CorruptArtifactError(
+            path, f"unreadable/truncated arrays.npz: {exc!r}"
+        ) from exc
+    try:
+        with open(os.path.join(path, "vocab.txt"), encoding="utf-8") as f:
+            vocab = f.read().split("\n")
+    except OSError as exc:
+        raise CorruptArtifactError(path, f"unreadable vocab.txt: {exc}") from exc
+    if lam.shape[1] != len(vocab):
+        raise CorruptArtifactError(
+            path, f"vocab length {len(vocab)} != lam vocab axis {lam.shape[1]}"
+        )
+    try:
+        return LDAModel(
+            lam=lam,
+            vocab=vocab,
+            alpha=alpha,
+            eta=float(meta["eta"]),
+            gamma_shape=float(meta.get("gamma_shape", 100.0)),
+            iteration_times=list(meta.get("iteration_times", [])),
+            iteration_times_kind=meta.get(
+                "iteration_times_kind", "per_iteration"
+            ),
+            algorithm=meta.get("algorithm", "online"),
+            step=int(meta.get("step", 0)),
+            device=device,
+        )
+    except KeyError as exc:
+        raise CorruptArtifactError(
+            path, f"artifact is missing required field {exc}"
+        ) from exc
+
+
+def save_train_state(path: str, step: int, **arrays: np.ndarray) -> None:
+    """Checkpoint (named arrays + step), written via tmp + rename, with a
+    ``<path>.sha256`` sidecar.  Float arrays are stored as float32."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp.npz"
+    np.savez(
+        tmp,
+        step=np.int64(step),
+        **{
+            k: (
+                a if np.issubdtype((a := np.asarray(v)).dtype, np.integer)
+                else a.astype(np.float32)
+            )
+            for k, v in arrays.items()
+        },
+    )
+    digest = file_sha256(tmp)
+    os.replace(tmp, path)
+    atomic_write_text(
+        path + ".sha256",
+        json.dumps({"sha256": digest, "step": int(step)}, sort_keys=True)
+        + "\n",
+    )
+
+
+def train_state_valid(path: str) -> bool:
+    """The checkpoint exists and its sidecar (when present) agrees."""
+    if not os.path.exists(path):
+        return False
+    sidecar = path + ".sha256"
+    if not os.path.exists(sidecar):
+        return True
+    try:
+        with open(sidecar, encoding="utf-8") as f:
+            return json.load(f).get("sha256") == file_sha256(path)
+    except (OSError, json.JSONDecodeError, ValueError):
+        return False
+
+
+def load_train_state(path: str, require: Sequence[str] = ()) -> dict:
+    """{'step': int, <name>: np.ndarray, ...}; every failure mode raises
+    ``CorruptArtifactError`` carrying the path."""
+    if not os.path.exists(path):
+        raise CorruptArtifactError(path, "checkpoint file does not exist")
+    sidecar = path + ".sha256"
+    if os.path.exists(sidecar):
+        try:
+            with open(sidecar, encoding="utf-8") as f:
+                want = json.load(f).get("sha256")
+        except (OSError, json.JSONDecodeError, ValueError) as exc:
+            raise CorruptArtifactError(
+                path, f"unreadable checksum sidecar: {exc}"
+            ) from exc
+        if want != file_sha256(path):
+            raise CorruptArtifactError(path, "checksum mismatch")
+    out = {}
+    try:
+        with np.load(path) as z:
+            for k in z.files:
+                out[k] = int(z[k]) if k == "step" else z[k]
+    except (OSError, ValueError, zipfile.BadZipFile, EOFError) as exc:
+        raise CorruptArtifactError(
+            path, f"unreadable/truncated state file: {exc!r}"
+        ) from exc
+    missing = [k for k in ("step", *require) if k not in out]
+    if missing:
+        raise CorruptArtifactError(
+            path, f"state file is missing required keys {missing}"
+        )
+    return out

@@ -1,0 +1,165 @@
+"""LDA variational math in PyTorch: the E-step gamma fixed point and the
+scoring entry points built on it.
+
+``topic_inference`` scores a padded [B, L] batch through the E-step kernel
+(``estep.gamma_fixed_point``: the CUDA kernel on the card, its plain
+version on the CPU).  ``topic_inference_segments`` scores a token-packed
+batch in plain PyTorch, with whole-batch or per-document (``freeze``)
+convergence.  Pad slots (weight 0) add exactly 0 everywhere.  Gamma
+starts at all ones, or at Gamma(shape, 1/shape) draws from an explicit
+``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .estep import gamma_fixed_point
+from .sparse import DocTermBatch
+
+__all__ = [
+    "dirichlet_expectation",
+    "init_gamma",
+    "gamma_fixed_point_batch",
+    "gamma_fixed_point_segments",
+    "topic_inference",
+    "topic_inference_segments",
+]
+
+# Hoffman's 1e-100 underflows to 0 in float32; 1e-30 is a normal float32.
+_PHI_EPS = 1e-30
+
+
+def dirichlet_expectation(alpha: torch.Tensor) -> torch.Tensor:
+    """E[log X] for X ~ Dir(alpha), rows are distributions."""
+    return torch.digamma(alpha) - torch.digamma(
+        alpha.sum(dim=-1, keepdim=True)
+    )
+
+
+def init_gamma(
+    generator: Optional[torch.Generator],
+    n_docs: int,
+    k: int,
+    gamma_shape: float = 100.0,
+    device="cpu",
+) -> torch.Tensor:
+    """All ones without a generator, else Gamma(shape, 1/shape) draws."""
+    if generator is None:
+        return torch.ones((n_docs, k), dtype=torch.float32, device=device)
+    shape = torch.full((n_docs, k), float(gamma_shape), dtype=torch.float32,
+                       device=generator.device)
+    return (torch._standard_gamma(shape, generator=generator)
+            / gamma_shape).to(device)
+
+
+def gamma_fixed_point_batch(
+    eb: torch.Tensor,        # [B, L, k] gathered exp(E[log beta])
+    cts: torch.Tensor,       # [B, L]
+    alpha: torch.Tensor,
+    gamma0: torch.Tensor,    # [B, k]
+    max_inner: int,
+    tol: float,
+) -> Tuple[torch.Tensor, int]:
+    """The whole-batch gamma iteration (Hoffman eq. 2-4): every doc
+    iterates until the worst per-doc mean|delta gamma| < tol or
+    max_inner.  Returns (gamma, iterations run)."""
+    gamma = gamma0
+    it = 0
+    while it < max_inner:
+        et = torch.exp(dirichlet_expectation(gamma))           # [B, k]
+        phinorm = torch.einsum("blk,bk->bl", eb, et) + _PHI_EPS
+        g_new = alpha + et * torch.einsum("blk,bl->bk", eb, cts / phinorm)
+        worst = (g_new - gamma).abs().mean(dim=-1).max()
+        gamma = g_new
+        it += 1
+        if float(worst) < tol:
+            break
+    return gamma, it
+
+
+def gamma_fixed_point_segments(
+    eb_tok: torch.Tensor,    # [T, k] gathered exp(E[log beta]) per token
+    cts: torch.Tensor,       # [T] token weights (0 = pad slot)
+    seg: torch.Tensor,       # [T] document position in [0, B)
+    alpha: torch.Tensor,
+    gamma0: torch.Tensor,    # [B, k]
+    max_inner: int,
+    tol: float,
+    freeze: bool = False,
+) -> Tuple[torch.Tensor, int]:
+    """The gamma fixed point over a token-packed batch.  ``freeze``
+    switches to per-document convergence: a row stops updating the
+    iteration its own mean|delta gamma| drops below ``tol``, so its result
+    depends on its own tokens only."""
+    b = gamma0.shape[0]
+    seg_l = seg.long()
+
+    def step(gamma):
+        et = torch.exp(dirichlet_expectation(gamma))           # [B, k]
+        phinorm = (eb_tok * et[seg_l]).sum(-1) + _PHI_EPS      # [T]
+        contrib = gamma.new_zeros(b, gamma.shape[1]).index_add_(
+            0, seg_l, eb_tok * (cts / phinorm)[:, None]
+        )
+        return alpha + et * contrib
+
+    gamma = gamma0
+    frozen = torch.zeros(b, dtype=torch.bool, device=gamma0.device)
+    it = 0
+    while it < max_inner:
+        g_new = step(gamma)
+        change = (g_new - gamma).abs().mean(dim=-1)
+        it += 1
+        if freeze:
+            gamma = torch.where(frozen[:, None], gamma, g_new)
+            frozen = frozen | (change < tol)
+            worst = torch.where(frozen, torch.zeros_like(change), change).max()
+        else:
+            gamma = g_new
+            worst = change.max()
+        if float(worst) < tol:
+            break
+    return gamma, it
+
+
+def _normalize(gamma: torch.Tensor, nonempty: torch.Tensor) -> torch.Tensor:
+    k = gamma.shape[-1]
+    dist = gamma / gamma.sum(dim=-1, keepdim=True)
+    return torch.where(nonempty[:, None], dist, torch.full_like(dist, 1.0 / k))
+
+
+def topic_inference(
+    batch: DocTermBatch,
+    exp_elog_beta: torch.Tensor,   # [k, V]
+    alpha: torch.Tensor,
+    gamma0: torch.Tensor,          # [B, k]
+    max_inner: int = 100,
+    tol: float = 1e-3,
+) -> torch.Tensor:
+    """``LocalLDAModel.topicDistribution`` over a padded batch: normalized
+    gamma [B, k]; empty docs get the uniform distribution."""
+    cts = batch.token_weights
+    eb = exp_elog_beta.T[batch.token_ids.long()]              # [B, L, k]
+    gamma = gamma_fixed_point(eb, cts, alpha, gamma0, max_inner, tol)
+    return _normalize(gamma, cts.sum(dim=-1) > 0)
+
+
+def topic_inference_segments(
+    eb_tok: torch.Tensor,    # [T, k]
+    cts: torch.Tensor,       # [T]
+    seg: torch.Tensor,       # [T]
+    alpha: torch.Tensor,
+    gamma0: torch.Tensor,    # [B, k]
+    max_inner: int = 100,
+    tol: float = 1e-3,
+    freeze: bool = False,
+) -> torch.Tensor:
+    """``topic_inference`` over a token-packed batch."""
+    b = gamma0.shape[0]
+    gamma, _ = gamma_fixed_point_segments(
+        eb_tok, cts, seg, alpha, gamma0, max_inner, tol, freeze=freeze
+    )
+    mass = cts.new_zeros(b).index_add_(0, seg.long(), cts)
+    return _normalize(gamma, mass > 0)

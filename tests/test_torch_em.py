@@ -1,0 +1,174 @@
+"""The port's IDF stage and EM fit held against the JAX package.
+
+Both EM fits resume from ONE ``em_state.npz`` written by the JAX
+package's ``save_train_state`` (the two packages draw different random
+inits, so the start is injected).  The JAX fit runs its Pallas kernels in
+interpret mode on a 1x1 CPU mesh (``STC_GAMMA_BACKEND=pallas``); the port
+fits with ``device="cpu"``, which runs its kernels' plain versions.
+"""
+
+from __future__ import annotations
+
+import shutil
+
+import jax
+import numpy as np
+import pytest
+
+from spark_text_clustering_tpu.config import Params as JParams
+from spark_text_clustering_tpu.models.em_lda import EMLDA as JEMLDA
+from spark_text_clustering_tpu.models.persistence import (
+    save_train_state as j_save_train_state,
+)
+from spark_text_clustering_tpu.parallel import make_mesh
+from spark_text_clustering_tpu.pipeline import IDF as JIDF
+from spark_text_clustering_tpu_torch import EMLDA, IDF, Params
+from spark_text_clustering_tpu_torch.interop import em_state_from_numpy
+from spark_text_clustering_tpu_torch.models.persistence import load_train_state
+
+K = 4
+
+
+def _corpus(n_docs, v, lo, hi, seed):
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n_docs):
+        nnz = int(rng.integers(lo, hi))
+        ids = np.sort(rng.choice(v, size=nnz, replace=False)).astype(np.int32)
+        rows.append((ids, (rng.random(nnz) * 3 + 0.2).astype(np.float32)))
+    return rows, [f"t{i}" for i in range(v)]
+
+
+def _init_state(rows, v, k, seed):
+    """A random soft assignment as numpy counts (n_wk [k, V], n_dk [n, k])."""
+    rng = np.random.default_rng(seed)
+    n_wk = np.zeros((k, v), np.float32)
+    n_dk = np.zeros((len(rows), k), np.float32)
+    for d, (ids, w) in enumerate(rows):
+        phi = rng.exponential(size=(len(ids), k)).astype(np.float32)
+        wphi = w[:, None] * phi / phi.sum(1, keepdims=True)
+        n_dk[d] = wphi.sum(0)
+        np.add.at(n_wk.T, ids, wphi)
+    return n_wk, n_dk
+
+
+def _fit_both(tmp_path, monkeypatch, rows, vocab, iters):
+    n_wk, n_dk = _init_state(rows, len(vocab), K, seed=7)
+    base = tmp_path / "base"
+    j_save_train_state(str(base / "em_state.npz"), 0, n_wk=n_wk, n_dk=n_dk)
+    shutil.copytree(base, tmp_path / "jax")
+    shutil.copytree(base, tmp_path / "torch")
+
+    monkeypatch.setenv("STC_GAMMA_BACKEND", "pallas")
+    mesh = make_mesh(data_shards=1, model_shards=1,
+                     devices=jax.devices("cpu")[:1])
+    jopt = JEMLDA(
+        JParams(k=K, max_iterations=iters, token_layout="packed",
+                checkpoint_dir=str(tmp_path / "jax"), checkpoint_interval=100),
+        mesh=mesh,
+    )
+    jmodel = jopt.fit(rows, vocab)
+    topt = EMLDA(
+        Params(k=K, max_iterations=iters,
+               checkpoint_dir=str(tmp_path / "torch"),
+               checkpoint_interval=100),
+        device="cpu",
+    )
+    tmodel = topt.fit(rows, vocab)
+    return jopt, jmodel, topt, tmodel
+
+
+@pytest.mark.parametrize("branch", ["fused", "two_stage"])
+@pytest.mark.parametrize("iters", [5, 50])
+def test_em_fit_matches_jax_from_one_checkpoint(
+    tmp_path, monkeypatch, branch, iters
+):
+    """After 5 sweeps lam within rtol 1e-4 and avg logLik within 1e-5;
+    after 50 sweeps avg logLik within 1e-3 (EM amplifies the summation
+    order).  The two-stage branch is reached with a doc axis > 512."""
+    if branch == "fused":
+        rows, vocab = _corpus(40, 900, 4, 60, seed=3)
+    else:
+        rows, vocab = _corpus(600, 400, 3, 12, seed=5)
+    jopt, jmodel, topt, tmodel = _fit_both(
+        tmp_path, monkeypatch, rows, vocab, iters
+    )
+    assert topt.last_sweep == branch
+    assert jopt.last_scatter_backend == (
+        "pallas_fused" if branch == "fused" else "pallas_vtiles"
+    )
+    assert tmodel.step == jmodel.step == iters
+    n = len(rows)
+    j_avg = jopt.last_log_likelihood / n
+    t_avg = topt.last_log_likelihood / n
+    if iters == 5:
+        np.testing.assert_allclose(tmodel.lam, np.asarray(jmodel.lam),
+                                   rtol=1e-4)
+        assert t_avg == pytest.approx(j_avg, rel=1e-5)
+    else:
+        assert t_avg == pytest.approx(j_avg, rel=1e-3)
+
+
+def test_em_checkpoint_layout_matches_jax(tmp_path):
+    """The port writes the JAX package's em_state.npz (+ .sha256) and a
+    later fit resumes from it at the saved step."""
+    rows, vocab = _corpus(20, 300, 4, 30, seed=9)
+    opt = EMLDA(Params(k=K, max_iterations=4, checkpoint_dir=str(tmp_path),
+                       checkpoint_interval=2), device="cpu")
+    m = opt.fit(rows, vocab)
+    from spark_text_clustering_tpu.models.persistence import (
+        load_train_state as j_load,
+    )
+
+    st = j_load(str(tmp_path / "em_state.npz"), require=("n_wk", "n_dk"))
+    assert st["step"] == 4
+    assert st["n_wk"].shape == (K, 300) and st["n_dk"].shape == (20, K)
+    np.testing.assert_array_equal(st["n_wk"], m.lam)
+    again = EMLDA(Params(k=K, max_iterations=6, checkpoint_dir=str(tmp_path),
+                         checkpoint_interval=2), device="cpu").fit(rows, vocab)
+    assert again.step == 6
+
+
+def test_em_resume_from_numpy_state(tmp_path):
+    rows, vocab = _corpus(10, 200, 4, 20, seed=11)
+    n_wk, n_dk = _init_state(rows, 200, K, seed=1)
+    path = em_state_from_numpy(str(tmp_path), n_wk, n_dk, step=3)
+    assert load_train_state(path)["step"] == 3
+    m = EMLDA(Params(k=K, max_iterations=5, checkpoint_dir=str(tmp_path),
+                     checkpoint_interval=100), device="cpu").fit(rows, vocab)
+    assert m.step == 5 and len(m.iteration_times) == 2
+
+
+def test_idf_matches_jax():
+    rows, vocab = _corpus(30, 500, 5, 120, seed=2)
+    ds = {"rows": rows, "vocab": vocab}
+    jm = JIDF(min_doc_freq=2, idf_floor=1e-4).fit(ds)
+    tm = IDF(min_doc_freq=2, idf_floor=1e-4, device="cpu").fit(ds)
+    np.testing.assert_allclose(tm.idf, np.asarray(jm.idf), rtol=1e-6)
+    jrows = jm.transform(ds)["rows"]
+    trows = tm.transform(ds)["rows"]
+    for (ji, jw), (ti, tw) in zip(jrows, trows):
+        np.testing.assert_array_equal(ti, ji)
+        np.testing.assert_allclose(tw, jw, rtol=1e-6)
+
+
+def test_count_vectorizer_matches_jax():
+    from spark_text_clustering_tpu.pipeline import (
+        CountVectorizer as JCountVectorizer,
+    )
+    from spark_text_clustering_tpu_torch import CountVectorizer
+
+    rng = np.random.default_rng(12)
+    words = [f"w{i}" for i in range(60)]
+    tokens = [list(rng.choice(words, size=int(rng.integers(0, 40))))
+              for _ in range(25)]
+    ds = {"tokens": tokens}
+    jm = JCountVectorizer(vocab_size=40, num_workers=1).fit(ds)
+    tm = CountVectorizer(vocab_size=40).fit(ds)
+    assert tm.vocab == jm.vocab
+    jrows = jm.transform(ds)["rows"]
+    trows = tm.transform(ds)["rows"]
+    assert len(trows) == len(jrows) == len(tokens)
+    for (ji, jw), (ti, tw) in zip(jrows, trows):
+        np.testing.assert_array_equal(ti, ji)
+        np.testing.assert_array_equal(tw, jw)

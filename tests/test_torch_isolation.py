@@ -1,0 +1,112 @@
+"""The port stands alone: it imports neither jax nor the JAX package, and
+its entry points run on the card unless the caller asks for the CPU."""
+
+from __future__ import annotations
+
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "spark_text_clustering_tpu_torch")
+
+
+def _port_modules():
+    mods = []
+    for root, _, files in os.walk(PORT):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(root, f), REPO)[:-3]
+                mod = rel.replace(os.sep, ".")
+                mods.append(mod[: -len(".__init__")] if mod.endswith(
+                    ".__init__") else mod)
+    return mods
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'spark_text_clustering_tpu'\n"
+        "       or m.startswith('spark_text_clustering_tpu.')]\n"
+        "print(len(sys.modules)); assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b"
+    r"|import\s+spark_text_clustering_tpu(\.|\s|$)"
+    r"|from\s+spark_text_clustering_tpu(\.|\s))",
+    re.M,
+)
+
+
+def test_source_scan_finds_no_jax_import():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PORT):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    hits = []
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            for m in _FORBIDDEN.finditer(f.read()):
+                hits.append(f"{os.path.relpath(path, REPO)}: {m.group(0)}")
+    assert not hits, hits
+
+
+def test_entry_points_default_to_the_card():
+    """With no card, the default device raises; device='cpu' runs."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs on it")
+    from spark_text_clustering_tpu_torch import EMLDA, IDF, Params
+    from spark_text_clustering_tpu_torch.interop import lda_model_from_numpy
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EMLDA(Params(k=3))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        IDF().fit({"rows": [], "vocab": ["a"]})
+    model = lda_model_from_numpy(np.ones((3, 4)), 1.0, 1.1, list("abcd"))
+    rows = [(np.array([0, 2], np.int32), np.array([1.0, 2.0], np.float32))]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.topic_distribution(rows)
+    dist = model.topic_distribution(rows, device="cpu")
+    assert dist.shape == (1, 3)
+    rows = [(np.array([0, 1, 3], np.int32), np.ones(3, np.float32))] * 3
+    m = EMLDA(Params(k=3, max_iterations=2), device="cpu").fit(
+        rows, list("abcd"))
+    assert m.lam.shape == (3, 4) and np.isfinite(m.lam).all()
+
+
+def test_resolving_cuda_turns_tf32_off(monkeypatch):
+    from spark_text_clustering_tpu_torch.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    assert resolve_device().type == "cuda"
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_chip_smoke_alone_exits_nonzero(tmp_path):
+    """In a directory that holds chip_smoke.py and nothing else of the
+    repository, the script fails and prints no result."""
+    with open(os.path.join(REPO, "chip_smoke.py"), encoding="utf-8") as f:
+        (tmp_path / "chip_smoke.py").write_text(f.read())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -1,0 +1,274 @@
+"""The port's kernel modules held against the JAX package's Pallas kernels.
+
+Each kernel of the port (``spark_text_clustering_tpu_torch.ops``) has a
+plain PyTorch version that its wrapper runs for CPU tensors; here it runs
+on the same numpy inputs as the Pallas kernel in interpret mode.  The
+CUDA kernels themselves are held against these plain versions on the card
+by ``chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from spark_text_clustering_tpu.ops import lda_math as jlda
+from spark_text_clustering_tpu.ops import pallas_emscatter as jscatter
+from spark_text_clustering_tpu.ops import pallas_emsweep as jsweep
+from spark_text_clustering_tpu.ops import pallas_estep as jestep
+from spark_text_clustering_tpu_torch.ops import _build
+from spark_text_clustering_tpu_torch.ops import emscatter as tscatter
+from spark_text_clustering_tpu_torch.ops import emsweep as tsweep
+from spark_text_clustering_tpu_torch.ops import estep as testep
+from spark_text_clustering_tpu_torch.ops import lda_math as tlda
+
+ALPHA, ETA = 11.0, 1.1
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _norm(g):
+    g = np.asarray(g, np.float64)
+    return g / g.sum(axis=1, keepdims=True)
+
+
+# ---- digamma -----------------------------------------------------------
+def test_digamma_approx_matches_jax():
+    x = np.concatenate([
+        np.geomspace(0.011, 1.3, 200), np.geomspace(1.7, 5e3, 200)
+    ]).astype(np.float32)          # away from psi's root at 1.4616
+    got = testep.digamma_approx(_t(x)).numpy()
+    want = np.asarray(jestep.digamma_approx(jnp.asarray(x)))
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+# ---- gamma fixed point (E-step kernel) ---------------------------------
+def _estep_problem(b, l=64, k=5, v=300, seed=0):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, v, (b, l))
+    cts = rng.integers(1, 6, (b, l)).astype(np.float32)
+    cts[:, -7:] = 0.0
+    cts[b // 2] = 0.0                          # an empty doc
+    lam = rng.gamma(100.0, 0.01, (k, v)).astype(np.float32)
+    eb_full = np.asarray(jnp.exp(jlda.dirichlet_expectation(jnp.asarray(lam))))
+    eb = np.ascontiguousarray(np.moveaxis(eb_full[:, ids], 0, 1))  # [B, k, L]
+    alpha = np.full((k,), 1.0 / k, np.float32)
+    g0 = rng.gamma(100.0, 0.01, (b, k)).astype(np.float32)
+    return eb, cts, alpha, g0
+
+
+@pytest.mark.parametrize("b,tile_b", [(16, 8), (13, 8), (11, 1), (5, 8)])
+def test_gamma_fixed_point_bkl_matches_pallas(b, tile_b):
+    """Normalized gamma within 5e-3 (the Pallas kernel's own bound vs the
+    XLA loop).  Same algorithm and tile stop rule on both sides: the
+    median per-doc difference is at the float32 rounding level (< 1e-5)."""
+    eb, cts, alpha, g0 = _estep_problem(b)
+    want = jestep.gamma_fixed_point_pallas_bkl(
+        jnp.asarray(eb), jnp.asarray(cts), jnp.asarray(alpha),
+        jnp.asarray(g0), tile_b=tile_b, interpret=True,
+    )
+    got = testep.gamma_fixed_point_bkl(
+        _t(eb), _t(cts), _t(alpha), _t(g0), tile_b=tile_b
+    )
+    assert got.shape == (b, eb.shape[1])
+    diff = np.abs(_norm(got.numpy()) - _norm(want)).max(axis=1)
+    assert diff.max() <= 5e-3
+    assert np.median(diff) < 1e-5
+
+
+def test_gamma_fixed_point_blk_contract():
+    """The [B, L, k] wrapper equals the [B, k, L] function."""
+    eb, cts, alpha, g0 = _estep_problem(9, seed=3)
+    blk = np.ascontiguousarray(np.transpose(eb, (0, 2, 1)))
+    a = testep.gamma_fixed_point(_t(blk), _t(cts), _t(alpha), _t(g0))
+    b = testep.gamma_fixed_point_bkl(_t(eb), _t(cts), _t(alpha), _t(g0))
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+    want = jestep.gamma_fixed_point_pallas(
+        jnp.asarray(blk), jnp.asarray(cts), jnp.asarray(alpha),
+        jnp.asarray(g0), interpret=True,
+    )
+    np.testing.assert_allclose(_norm(a.numpy()), _norm(want), atol=5e-3)
+
+
+@pytest.mark.parametrize("freeze", [False, True])
+def test_gamma_fixed_point_segments_matches_jax(freeze):
+    rng = np.random.default_rng(4)
+    k, t, b = 5, 400, 12
+    eb_tok = rng.random((t, k)).astype(np.float32) + 0.01
+    cts = rng.integers(0, 5, t).astype(np.float32)
+    seg = np.sort(rng.integers(0, b, t)).astype(np.int32)
+    alpha = np.full((k,), 0.2, np.float32)
+    g0 = np.ones((b, k), np.float32)
+    want, _ = jlda.gamma_fixed_point_segments(
+        jnp.asarray(eb_tok), jnp.asarray(cts), jnp.asarray(seg),
+        jnp.asarray(alpha), jnp.asarray(g0), 100, 1e-3, freeze=freeze,
+    )
+    got, _ = tlda.gamma_fixed_point_segments(
+        _t(eb_tok), _t(cts), _t(seg), _t(alpha), _t(g0), 100, 1e-3,
+        freeze=freeze,
+    )
+    np.testing.assert_allclose(_norm(got.numpy()), _norm(want), atol=1e-4)
+
+
+def test_gamma_fixed_point_batch_matches_jax():
+    eb, cts, alpha, g0 = _estep_problem(10, seed=5)
+    blk = np.ascontiguousarray(np.transpose(eb, (0, 2, 1)))
+    want, _ = jlda._gamma_fixed_point(
+        jnp.asarray(blk), jnp.asarray(cts), jnp.asarray(alpha),
+        jnp.asarray(g0), 100, 1e-3,
+    )
+    got, _ = tlda.gamma_fixed_point_batch(
+        _t(blk), _t(cts), _t(alpha), _t(g0), 100, 1e-3
+    )
+    np.testing.assert_allclose(_norm(got.numpy()), _norm(want), atol=1e-4)
+
+
+# ---- scatter plan ------------------------------------------------------
+@pytest.mark.parametrize(
+    "s_d,n_model,shard_v,t_local,vt,tb",
+    [(1, 1, 700, 900, 256, 128), (2, 2, 512, 600, 256, 128),
+     (1, 1, 3000, 5000, 256, 1024), (1, 1, 100, 64, 256, 128)],
+)
+def test_plan_matches_jax(s_d, n_model, shard_v, t_local, vt, tb):
+    rng = np.random.default_rng(1)
+    ids = rng.integers(0, shard_v * n_model, (s_d, t_local)).astype(np.int32)
+    cts = rng.random((s_d, t_local)).astype(np.float32)
+    cts[rng.random((s_d, t_local)) < 0.2] = 0.0
+    want = jscatter.plan_em_scatter(ids, cts, n_model, shard_v, vt=vt, tb=tb)
+    got = tscatter.plan_em_scatter(ids, cts, n_model, shard_v, vt=vt, tb=tb)
+    assert got._fields == want._fields
+    for name, g, w in zip(got._fields, got, want):
+        if isinstance(w, np.ndarray):
+            assert g.dtype == w.dtype, name
+            np.testing.assert_array_equal(g, w, err_msg=name)
+        else:
+            assert g == w, name
+
+
+# ---- two-stage scatter --------------------------------------------------
+@pytest.mark.parametrize("k,shard_v,t_local", [(5, 700, 900), (20, 3000, 5000),
+                                               (64, 700, 1200)])
+def test_scatter_add_vtiles_matches_pallas(k, shard_v, t_local):
+    rng = np.random.default_rng(2)
+    ids = rng.integers(0, shard_v, (1, t_local)).astype(np.int32)
+    cts = rng.random((1, t_local)).astype(np.float32) + 0.1
+    cts[0, rng.random(t_local) < 0.2] = 0.0
+    plan = tscatter.plan_em_scatter(ids, cts, 1, shard_v, vt=256, tb=128)
+    wphi = rng.random((t_local, k)).astype(np.float32) * (cts[0] > 0)[:, None]
+    wsorted = np.concatenate([wphi, np.zeros((1, k), np.float32)])[
+        plan.sort_order[0]
+    ]
+    geo = dict(n_vtiles=plan.n_vtiles, nb=plan.nb, vt=plan.vt, tb=plan.tb,
+               shard_v=shard_v)
+    want = jscatter.scatter_add_vtiles(
+        jnp.asarray(wsorted), jnp.asarray(plan.lids[0, 0]),
+        jnp.asarray(plan.block_vtile[0, 0]),
+        jnp.asarray(plan.block_first[0, 0]), interpret=True, **geo,
+    )
+    got = tscatter.scatter_add_vtiles(
+        _t(wsorted), _t(plan.lids[0, 0]), _t(plan.block_vtile[0, 0]), **geo,
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+
+
+# ---- fused sweep --------------------------------------------------------
+@pytest.mark.parametrize("shard_v,t_local,k,d", [(700, 900, 4, 13),
+                                                 (3000, 5000, 5, 40),
+                                                 (100, 64, 7, 8),
+                                                 (700, 1200, 20, 300)])
+def test_em_sweep_fused_matches_pallas(shard_v, t_local, k, d):
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, shard_v, (1, t_local)).astype(np.int32)
+    cts = rng.random((1, t_local)).astype(np.float32) + 0.1
+    cts[0, rng.random(t_local) < 0.2] = 0.0
+    seg = rng.integers(0, d, (1, t_local)).astype(np.int32)
+    plan = tscatter.plan_em_scatter(ids, cts, 1, shard_v, vt=256, tb=128)
+    d_pad = tsweep.fused_d_pad(d)
+    n_wk = rng.random((k, shard_v)).astype(np.float32) + 0.5
+    n_dk = rng.random((d, k)).astype(np.float32) + 0.5
+    inv_denom = (1.0 / (n_wk.sum(1) + ETA * shard_v - shard_v)).astype(
+        np.float32)
+    docf = np.zeros((k, d_pad), np.float32)
+    docf[:, :d] = (n_dk + (ALPHA - 1.0)).T
+    so = plan.sort_order[0]
+    blk = (plan.nb, 1, plan.tb)
+    seg_s = np.concatenate([seg[0], [0]])[so].reshape(blk).astype(np.int32)
+    cts_s = np.concatenate([cts[0], [0.0]])[so].reshape(blk).astype(np.float32)
+    geo = dict(n_vtiles=plan.n_vtiles, nb=plan.nb, vt=plan.vt, tb=plan.tb,
+               d_pad=d_pad, shard_v=shard_v, eta_m1=ETA - 1.0)
+    args = (n_wk, docf, inv_denom, plan.lids[0, 0], seg_s, cts_s,
+            plan.block_vtile[0, 0], plan.block_first[0, 0])
+    w_nwk, w_ndk = jsweep.em_sweep_fused(
+        *map(jnp.asarray, args), interpret=True, **geo
+    )
+    g_nwk, g_ndk = tsweep.em_sweep_fused(*map(_t, args[:7]), **geo)
+    np.testing.assert_allclose(g_nwk.numpy(), np.asarray(w_nwk),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(g_ndk.numpy(), np.asarray(w_ndk),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("d_max,k,want", [
+    (51, 5, True), (512, 5, True), (512, 20, True), (513, 5, False),
+    (8, 500, True), (11_314, 20, False),
+])
+def test_fused_gate(d_max, k, want):
+    """The fused sweep takes d <= 512 docs, the JAX package's bound.  On
+    the CPU that is the whole gate (the plain version has no shared-memory
+    limit); on the card the kernel's own shared-memory query joins it,
+    and ``chip_smoke.py`` holds that half there."""
+    assert tsweep.fused_eligible(d_max, k, torch.device("cpu")) is want
+
+
+def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
+    """Without a CUDA toolkit the kernel library does not build: the
+    wrappers raise on a CUDA tensor rather than fall back."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_LIBS", {})
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.load_library("estep")
+
+
+def test_launch_counters_start_at_zero_and_reset():
+    assert set(_build.LAUNCHES) == {
+        "gamma_fixed_point_bkl", "scatter_add_vtiles", "em_sweep_fused"
+    }
+    _build.LAUNCHES["em_sweep_fused"] += 3
+    _build.reset_launches()
+    assert all(v == 0 for v in _build.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("kernel", ["estep", "scatter", "sweep"])
+def test_wrappers_never_fall_back_off_the_cpu(kernel):
+    """A tensor that is not on the CPU never takes the plain version: the
+    wrapper checks it and raises before any launch (here: 'meta' tensors,
+    which are not on the card)."""
+    m = dict(device="meta")
+    f32 = dict(dtype=torch.float32, **m)
+    i32 = dict(dtype=torch.int32, **m)
+    with pytest.raises(ValueError):
+        if kernel == "estep":
+            testep.gamma_fixed_point_bkl(
+                torch.empty(4, 5, 16, **f32), torch.empty(4, 16, **f32),
+                torch.ones(5, **f32), torch.empty(4, 5, **f32))
+        elif kernel == "scatter":
+            tscatter.scatter_add_vtiles(
+                torch.empty(256, 5, **f32), torch.empty(2, 1, 128, **i32),
+                torch.empty(2, **i32),
+                n_vtiles=1, nb=2, vt=256, tb=128, shard_v=200)
+        else:
+            tsweep.em_sweep_fused(
+                torch.empty(5, 200, **f32), torch.empty(5, 8, **f32),
+                torch.empty(5, **f32), torch.empty(2, 1, 128, **i32),
+                torch.empty(2, 1, 128, **i32), torch.empty(2, 1, 128, **f32),
+                torch.empty(2, **i32),
+                n_vtiles=1, nb=2, vt=256, tb=128, d_pad=8, shard_v=200,
+                eta_m1=0.1)
