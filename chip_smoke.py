@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--profile] [--out DIR] [--kernels-only]
 
-1. builds the three CUDA kernels from ``spark_text_clustering_tpu_torch/
+1. builds the four CUDA kernels from ``spark_text_clustering_tpu_torch/
    csrc`` (one ``nvcc`` per source, in parallel, into build/torch_kernels);
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, and times kernel, plain version, and
@@ -17,8 +17,15 @@
 4. config B, the 20 Newsgroups shape: 11,314 docs, V=2^18 hashed Zipf
    terms, k=20.  IDF -> EM fit (two-stage sweep: 11,314 docs > 512) ->
    save -> load -> scoring of every doc;
-5. a ``kernels`` line: per kernel, the launches of the main-path runs of
-   3 and 4 (each must be > 0), the largest difference from the plain
+5. config C, the online-VB north star on the same corpus as raw counts:
+   k=20, sampling="epoch", 60 iterations (3 epochs of ~567-doc tiled
+   minibatches), tau0=1024, kappa=0.51, alpha=eta=1/k.  One warm-up fit,
+   then a timed fit -> save -> load -> log-perplexity of the first 512
+   docs.  Ten iterations are re-run with device="cpu" (the plain
+   versions) from the same lambda and gamma draws; lambda must agree
+   within 1e-3 relative and the log-perplexity within 1e-4;
+6. a ``kernels`` line: per kernel, the launches of the main-path runs of
+   3, 4 and 5 (each must be > 0), the largest difference from the plain
    version, and the times beside the card's bound.
 
 Every phase prints one JSON line; the first line is ``nvidia-smi``'s name
@@ -47,6 +54,9 @@ FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 EN_DOCS, EN_V, EN_K = 51, 39_380, 5
 NG_DOCS, NG_V, NG_K = 11_314, 1 << 18, 20
 SWEEPS = 50                    # MLlib's maxIterations for both configs
+ONLINE_ITERS = 60              # bench.py's online protocol: 3 epochs
+ONLINE_CHECK_ITERS = 10        # card vs CPU iterations of config C
+EVAL_DOCS = 512                # bench.py's log-perplexity batch
 
 
 def emit(obj) -> None:
@@ -280,6 +290,92 @@ def check_estep(torch, rows, k, v, dev, rng, label, pick):
     }
 
 
+def online_params(seed: int, iters=None):
+    """Config C: bench.py's online protocol (tau0, kappa and the 1/k
+    priors are the Params defaults for algorithm="online")."""
+    from spark_text_clustering_tpu_torch import Params
+
+    return Params(k=NG_K, algorithm="online",
+                  max_iterations=ONLINE_ITERS if iters is None else iters,
+                  sampling="epoch", seed=seed)
+
+
+def check_tiles(torch, rows, dev, rng, seed):
+    """The tile kernel on one iteration's minibatch of config C, with eb
+    from lambda after a few iterations on the card, and the kernel's
+    shared-memory gate asked on the card."""
+    from spark_text_clustering_tpu_torch import OnlineLDA
+    from spark_text_clustering_tpu_torch.ops import _build, packed
+
+    k, v, n = NG_K, NG_V, len(rows)
+    warm = 5
+    opt = OnlineLDA(online_params(seed, warm))
+    lam = opt.fit(rows, [f"h{i}" for i in range(v)]).lam
+    lam = torch.from_numpy(lam).to(dev)
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum([len(i) for i, _ in rows], out=offsets[1:])
+    plan = packed.plan_corpus_tiles(
+        np.concatenate([i for i, _ in rows]),
+        np.concatenate([w for _, w in rows]), offsets, k=k)
+    pick = opt.tile_pick(warm)[0]
+    d, tb = plan.d, len(pick)
+    ids = torch.from_numpy(plan.ids[pick]).to(dev)
+    cts = torch.from_numpy(plan.cts[pick]).to(dev)
+    seg = torch.from_numpy(plan.seg[pick]).to(dev)
+    flat = ids.reshape(-1).long()
+    eb = torch.exp(torch.digamma(lam[:, flat].clamp(min=1e-30))
+                   - torch.digamma(lam.sum(1))[:, None]).contiguous()
+    alpha = torch.full((k,), 1.0 / k, device=dev)
+    g0 = torch.from_numpy(
+        rng.gamma(100.0, 0.01, (k, tb * d)).astype(np.float32)).to(dev)
+    lib = _build.load_library("packed")
+    gate = {f"k{kk}_d{dd}_tt{t}": lib.stc_tiles_smem_bytes(kk, dd, t)
+            for kk, dd, t in ((k, d, plan.tt), (k, 2048, 512),
+                              (200, 128, 512))}
+    if not (gate[f"k{k}_d{d}_tt{plan.tt}"] > 0
+            and gate["k20_d2048_tt512"] == 0 and gate["k200_d128_tt512"] == 0):
+        raise AssertionError(f"tile kernel gate on the card: {gate}")
+    got = packed.gamma_fixed_point_tiles(eb, cts, seg, alpha, g0, d)
+    want, iters = packed.gamma_fixed_point_tiles_plain(
+        eb, cts, seg, alpha, g0, d, with_iters=True)
+    torch.cuda.synchronize()
+    gn = got / got.sum(0, keepdim=True)
+    wn = want / want.sum(0, keepdim=True)
+    err = float((gn - wn).abs().max())
+    rel = float(((got - want).abs() / want.abs()).max())
+    if not err <= 5e-3:
+        raise AssertionError(
+            f"gamma_fixed_point_tiles differs from its plain version by {err}")
+    again = packed.gamma_fixed_point_tiles(eb, cts, seg, alpha, g0, d)
+    # bytes the kernel needs: eb, seg and cts of live tokens, gamma0 read
+    # and gamma written for live slots, alpha; operations: per tile
+    # iteration and live token, phinorm (2k), the ratio, and the k
+    # products and k scan adds
+    tok = (seg < d).sum(1).to(torch.float64)
+    live_tok = int(tok.sum())
+    live_slots = int((plan.doc_ids[pick] < n).sum())
+    flops = float((iters.to(torch.float64) * tok).sum()) * (4 * k + 1)
+    t_bytes, by = bound(live_tok * (4 * k + 8) + 8 * k * live_slots + 4 * k,
+                        flops)
+    return {
+        "name": "gamma_fixed_point_tiles", "route": "cuda",
+        "source": "spark_text_clustering_tpu_torch/csrc/packed.cu",
+        "replaces": "spark_text_clustering_tpu/ops/pallas_packed.py:456",
+        "shape": {"k": k, "tiles": tb, "tt": plan.tt, "d": d,
+                  "live_tokens": live_tok, "live_slots": live_slots},
+        "tile_iterations_max": int(iters.max()),
+        "tile_iterations_mean": float(iters.to(torch.float64).mean()),
+        "max_abs_err": err, "max_rel_err": rel,
+        "tolerance": "normalized gamma atol 5e-3",
+        "bitwise_repeatable": bool(torch.equal(got, again)), "gate": gate,
+        "ms": cuda_ms(torch, lambda: packed.gamma_fixed_point_tiles(
+            eb, cts, seg, alpha, g0, d), 20),
+        "plain_ms": cuda_ms(torch, lambda: packed.gamma_fixed_point_tiles_plain(
+            eb, cts, seg, alpha, g0, d), 3),
+        "bound_ms": t_bytes, "bound_by": by, "library_ms": None,
+    }
+
+
 # ---- phases 3 and 4: the main path ----------------------------------------
 def check_distribution(dist, n, k, label):
     if dist.shape != (n, k) or not np.isfinite(dist).all():
@@ -345,42 +441,128 @@ def run_config(torch, label, rows, vocab, k, seed, workdir,
     return summary, tfidf, ckpt, model
 
 
+def run_config_c(torch, rows, seed, workdir):
+    """Online VB on the card: a warm-up fit, then the timed fit -> save ->
+    load -> log-perplexity of the first EVAL_DOCS docs, through the
+    library's entry points; then ten iterations on the card against the
+    same ten with device="cpu", from the same lambda and gamma draws."""
+    from spark_text_clustering_tpu_torch import OnlineLDA, load_model
+    from spark_text_clustering_tpu_torch.models.persistence import model_dir_name
+    from spark_text_clustering_tpu_torch.ops import _build
+
+    vocab = [f"h{i}" for i in range(NG_V)]
+    eval_rows = rows[:EVAL_DOCS]
+    opt = OnlineLDA(online_params(seed))
+    opt.fit(rows, vocab)                                    # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    model = opt.fit(rows, vocab)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    path = model_dir_name("C", os.path.join(workdir, "models"))
+    model.save(path)
+    loaded = load_model(path)
+    t0 = time.perf_counter()
+    log_perp = loaded.log_perplexity(eval_rows)
+    t_eval = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    if not np.isfinite(log_perp) or model.lam.shape != (NG_K, NG_V) or (
+        not np.isfinite(model.lam).all() or not (model.lam > 0).all()
+    ):
+        raise AssertionError(f"config C: bad model (logPerp {log_perp})")
+    for name in ("gamma_fixed_point_tiles", "gamma_fixed_point_bkl"):
+        if launches[name] == 0:
+            raise AssertionError(f"config C skipped a kernel: {launches}")
+
+    # card vs CPU: the CPU fit draws lambda and gamma on the card's
+    # generators, so both runs start from the same numbers
+    m = ONLINE_CHECK_ITERS
+    card = OnlineLDA(online_params(seed, m)).fit(rows, vocab)
+    t0 = time.perf_counter()
+    cpu = OnlineLDA(online_params(seed, m), device="cpu",
+                    rng_device="cuda").fit(rows, vocab)
+    t_cpu = time.perf_counter() - t0
+    lam_rel = float(np.max(np.abs(card.lam - cpu.lam) / np.abs(cpu.lam)))
+    lp_card = card.log_perplexity(eval_rows)
+    lp_cpu = cpu.log_perplexity(eval_rows, device="cpu")
+    lp_rel = abs(lp_card - lp_cpu) / abs(lp_cpu)
+    summary = {
+        "phase": "config_C", "docs": len(rows), "vocab": NG_V, "k": NG_K,
+        "iterations": ONLINE_ITERS, "sampling": "epoch",
+        "tokens": int(sum(len(i) for i, _ in rows)),
+        "batch_size": opt.last_batch_size, "tiles": opt.last_tiles,
+        "fit_s": t_fit, "ms_per_iteration": 1e3 * t_fit / ONLINE_ITERS,
+        "docs_per_s": ONLINE_ITERS * opt.last_batch_size / t_fit,
+        "log_perplexity": log_perp, "eval_docs": len(eval_rows),
+        "eval_s": t_eval, "launches": launches,
+        "check_iterations": m, "lam_max_rel_diff": lam_rel,
+        "log_perplexity_card": lp_card, "log_perplexity_cpu": lp_cpu,
+        "log_perplexity_rel_diff": lp_rel, "cpu_fit_s": t_cpu,
+        "bounds": {"lam_max_rel_diff": 1e-3, "log_perplexity_rel_diff": 1e-4},
+    }
+    if not lam_rel <= 1e-3 or not lp_rel <= 1e-4:
+        raise AssertionError(
+            f"config C: card vs CPU lambda rel {lam_rel}, logPerp rel {lp_rel}")
+    return summary
+
+
 def profile_configs(torch, rows_a, rows_b, seed, out_dir):
-    """torch.profiler over one fit and the padded scoring of each config
-    (count rows, no IDF): device time by kernel name, and the device's
-    busy share of the window's wall time.  The full tables go to
-    ``<out_dir>/profile_{A,B}.txt`` when ``out_dir`` is given."""
+    """torch.profiler over one fit and the scoring (A, B: padded scoring
+    of every doc) or evaluation (C: log-perplexity of EVAL_DOCS docs) of
+    each config (count rows, no IDF): device time by kernel name, and the
+    device's busy share of the window's wall time.  The full tables go to
+    ``<out_dir>/profile_{A,B,C}.txt`` when ``out_dir`` is given."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from spark_text_clustering_tpu_torch import EMLDA, Params
+    from spark_text_clustering_tpu_torch import EMLDA, OnlineLDA, Params
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(
             e, "self_cuda_time_total", 0.0)
 
-    for label, rows, k, v in (("A", rows_a, EN_K, EN_V),
-                              ("B", rows_b, NG_K, NG_V)):
+    def em_run(rows, k, v):
         vocab = [f"t{i}" for i in range(v)]
         opt = EMLDA(Params(k=k, max_iterations=SWEEPS, seed=seed))
         opt.fit(rows, vocab, max_iterations=1).topic_distribution(
             rows, layout="padded")                          # warm-up
+        return (lambda: opt.fit(rows, vocab),
+                lambda model: model.topic_distribution(rows, layout="padded"))
+
+    def online_run(rows):
+        vocab = [f"h{i}" for i in range(NG_V)]
+        opt = OnlineLDA(online_params(seed))
+        opt.fit(rows, vocab).log_perplexity(rows[:EVAL_DOCS])  # warm-up
+        return (lambda: opt.fit(rows, vocab),
+                lambda model: model.log_perplexity(rows[:EVAL_DOCS]))
+
+    for label, make in (("A", lambda: em_run(rows_a, EN_K, EN_V)),
+                        ("B", lambda: em_run(rows_b, NG_K, NG_V)),
+                        ("C", lambda: online_run(rows_b))):
+        fit, score = make()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            model = opt.fit(rows, vocab)
+            model = fit()
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            model.topic_distribution(rows, layout="padded")
+            score(model)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
         events = prof.key_averages()
-        busy_us = sum(dev_us(e) for e in events)
-        top = sorted(events, key=lambda e: -dev_us(e))[:8]
+        # device-side events only (kernels, copies): an operator's row
+        # repeats the time of the kernels it launched
+        on_device = [e for e in events
+                     if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)]
+        busy_us = sum(dev_us(e) for e in on_device)
+        top = sorted(on_device, key=lambda e: -dev_us(e))[:12]
         if out_dir:
             with open(os.path.join(out_dir, f"profile_{label}.txt"), "w") as f:
                 f.write(events.table(sort_by="self_cuda_time_total",
-                                     row_limit=30))
+                                     row_limit=40))
         emit({
             "phase": f"profile_{label}", "fit_s": t1 - t0,
             "score_s": t2 - t1, "device_busy_s": busy_us / 1e6,
@@ -449,6 +631,11 @@ def main() -> int:
     checks = {
         "em_sweep_fused": check_sweep(torch, rows_a, dev, rng),
         "scatter_add_vtiles": check_scatter(torch, rows_b, dev, rng),
+        # its own generator, so the later checks draw the inputs they
+        # drew before this check existed
+        "gamma_fixed_point_tiles": check_tiles(
+            torch, rows_b, dev, np.random.default_rng(args.seed + 2),
+            args.seed),
     }
     esteps = [
         check_estep(torch, rows, k, v, dev, rng, label, pick)
@@ -456,7 +643,7 @@ def main() -> int:
                                   ("B", rows_b, NG_K, NG_V))
         for pick in ("docs", "width")
     ]
-    for c in (checks["em_sweep_fused"], checks["scatter_add_vtiles"], *esteps):
+    for c in (*checks.values(), *esteps):
         emit({"phase": "kernel_vs_plain", **c})
     if args.kernels_only:
         return 0
@@ -519,17 +706,22 @@ def main() -> int:
         if not np.isfinite(summary_b["avg_log_likelihood"]):
             raise AssertionError("config B: log-likelihood is not finite")
         emit(summary_b)
+
+        # 5. config C
+        summary_c = run_config_c(torch, rows_b, args.seed, workdir)
+        emit(summary_c)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     if args.profile:
         profile_configs(torch, rows_a, rows_b, args.seed, args.out)
 
-    # 5. the kernels line; the gamma row is config B's most populated
+    # 6. the kernels line; the gamma row is config B's most populated
     # bucket, and its error the largest of the four buckets checked
     kernels = [
         checks["em_sweep_fused"],
         checks["scatter_add_vtiles"],
+        checks["gamma_fixed_point_tiles"],
         {**esteps[2], "route": "cuda",
          "source": "spark_text_clustering_tpu_torch/csrc/estep.cu",
          "replaces": "spark_text_clustering_tpu/ops/pallas_estep.py:161",
@@ -541,20 +733,20 @@ def main() -> int:
     line = []
     for kern in kernels:
         name = kern["name"]
-        kern["launches"] = (summary_a["launches"][name]
-                            + summary_b["launches"][name])
+        kern["launches"] = sum(sm["launches"][name]
+                               for sm in (summary_a, summary_b, summary_c))
         if kern["launches"] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
         line.append({k_: kern[k_] for k_ in keys})
     record.update(build=build, kernels=kernels, config_A=summary_a,
-                  config_B=summary_b)
+                  config_B=summary_b, config_C=summary_c)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+                                 "count": 1}})
     return 0
 
 

@@ -8,8 +8,9 @@ to run the plain PyTorch versions of the kernels on the host.
 from .config import Params
 from .models.base import LDAModel
 from .models.em_lda import EMLDA
+from .models.online_lda import OnlineLDA
 from .models.persistence import load_model
 from .pipeline import IDF, LDA, CountVectorizer
 
-__all__ = ["CountVectorizer", "EMLDA", "IDF", "LDA", "LDAModel", "Params",
-           "load_model"]
+__all__ = ["CountVectorizer", "EMLDA", "IDF", "LDA", "LDAModel",
+           "OnlineLDA", "Params", "load_model"]

@@ -1,5 +1,6 @@
-"""Hyperparameters of the port's EM fit: the fields of the reference's
-``Params`` case class that the port reads, with the EM/online auto priors.
+"""Hyperparameters of the port's EM and online-VB fits: the fields of the
+reference's ``Params`` case class and of the JAX package's ``Params`` that
+the port reads, with the same defaults and the EM/online auto priors.
 Kept as its own copy so the port imports nothing of the JAX package."""
 
 from __future__ import annotations
@@ -29,6 +30,17 @@ class Params:
     model_shards: int = 1
     record_iteration_times: bool = False
     keep_doc_topic_counts: bool = False
+    # online VB (MLlib's OnlineLDAOptimizer constants; batch_size None ->
+    # mini_batch_fraction of the corpus per iteration)
+    tau0: float = 1024.0
+    kappa: float = 0.51
+    batch_size: Optional[int] = None
+    sampling: str = "bernoulli"        # "bernoulli" | "fixed" | "epoch"
+    token_layout: str = "auto"         # "padded" | "packed" | "tiles" | "auto"
+    device_resident: object = "auto"   # True | False | "auto"
+    resident_budget_bytes: int = 2 << 30
+    estep_max_inner: int = 100
+    estep_tol: float = 1e-3
 
     def resolved_alpha(self) -> float:
         if self.doc_concentration > 0:
@@ -43,6 +55,10 @@ class Params:
         if self.algorithm == "em":
             return 1.1
         return 1.0 / self.k
+
+    def mini_batch_fraction(self, corpus_size: int) -> float:
+        """MLlib's ``miniBatchFraction = 0.05 + 1/corpusSize``."""
+        return 0.05 + 1.0 / max(1, corpus_size)
 
     def replace(self, **kw) -> "Params":
         return dataclasses.replace(self, **kw)

@@ -29,33 +29,20 @@
 // (tile_b*k*L*4 <= 160 KB) measured no faster on the 20NG buckets, whose
 // slabs are L2-resident anyway (PERF.md).  The stop decision is taken
 // once per iteration by the block.  digamma is the same six-step
-// recurrence and asymptotic series as the TPU kernel.
+// recurrence and asymptotic series as the TPU kernel (digamma.cuh).
 
 #include <cuda_runtime.h>
 
+#include "digamma.cuh"
+
 namespace {
+
+using stc::digamma_approx;
 
 // A block holds one tile; at up to 252 registers a thread (KMAX=64) the
 // SM's 65,536 registers cap the block at 256 threads.
 constexpr int kMaxThreads = 256;
 constexpr int kMaxTileB = kMaxThreads / 32;
-
-__device__ __forceinline__ float digamma_approx(float x) {
-  float res = 0.0f;
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    const bool small = x < 6.0f;
-    res = res - (small ? 1.0f / x : 0.0f);
-    x = small ? x + 1.0f : x;
-  }
-  const float inv = 1.0f / x;
-  const float inv2 = inv * inv;
-  const float series =
-      logf(x) - 0.5f * inv -
-      inv2 * (1.0f / 12.0f -
-              inv2 * (1.0f / 120.0f - inv2 * (1.0f / 252.0f)));
-  return res + series;
-}
 
 // KMAX: registers a thread keeps for one slot's k values (k <= KMAX).
 template <int KMAX>

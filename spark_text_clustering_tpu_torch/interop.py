@@ -2,7 +2,9 @@
 
 ``lda_model_from_numpy`` builds the port's ``LDAModel`` from arrays;
 ``em_state_from_numpy`` writes an ``em_state.npz`` checkpoint that
-``EMLDA.fit`` resumes from.  A model dir the JAX package saved needs
+``EMLDA.fit`` resumes from, ``online_state_from_numpy`` a
+``train_state.npz`` that ``OnlineLDA.fit`` resumes from (the file the JAX
+package's online fit writes, so a JAX lambda carries over either way).  A model dir the JAX package saved needs
 neither: ``models.persistence.load_model`` reads it directly.
 """
 
@@ -16,7 +18,8 @@ import numpy as np
 from .models.base import LDAModel
 from .models.persistence import save_train_state
 
-__all__ = ["em_state_from_numpy", "lda_model_from_numpy"]
+__all__ = ["em_state_from_numpy", "lda_model_from_numpy",
+           "online_state_from_numpy"]
 
 
 def lda_model_from_numpy(
@@ -52,4 +55,14 @@ def em_state_from_numpy(
     corpus order); returns its path."""
     path = os.path.join(checkpoint_dir, "em_state.npz")
     save_train_state(path, step, n_wk=n_wk, n_dk=n_dk)
+    return path
+
+
+def online_state_from_numpy(
+    checkpoint_dir: str, lam: np.ndarray, step: int = 0
+) -> str:
+    """Write ``<checkpoint_dir>/train_state.npz`` (lam [k, V], step);
+    returns its path."""
+    path = os.path.join(checkpoint_dir, "train_state.npz")
+    save_train_state(path, step, lam=lam)
     return path

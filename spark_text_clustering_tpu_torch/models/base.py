@@ -4,7 +4,9 @@
 lambda); rows, normalized, are the topics.  The vocabulary is part of the
 model.  ``topic_distribution`` scores documents on ``device`` ("cuda" by
 default): padded power-of-two length buckets through the E-step kernel,
-or one token-packed batch in plain PyTorch.
+or one token-packed batch in plain PyTorch.  ``log_likelihood`` and
+``log_perplexity`` evaluate the variational bound with gamma from the
+E-step kernel.
 """
 
 from __future__ import annotations
@@ -17,12 +19,14 @@ import torch
 
 from ..device import resolve_device
 from ..ops.lda_math import (
+    approx_bound,
     dirichlet_expectation,
+    infer_gamma,
     init_gamma,
     topic_inference,
     topic_inference_segments,
 )
-from ..ops.sparse import bucket_by_length, next_pow2
+from ..ops.sparse import batch_from_rows, bucket_by_length, next_pow2
 
 __all__ = ["LDAModel"]
 
@@ -162,6 +166,43 @@ class LDAModel:
             max_inner=max_inner, tol=tol, freeze=freeze,
         )
         return dist.cpu().numpy()
+
+    # ---- evaluation ----------------------------------------------------
+    def _lam_for_bound(self) -> np.ndarray:
+        """Lambda the bound is evaluated at: online lambdas as they are
+        (floored at 1e-30); EM counts, which hold exact zeros, at the
+        posterior Dirichlet parameter N_wk + eta."""
+        lam = np.asarray(self.lam, np.float32)
+        if self.algorithm == "em":
+            return lam + np.float32(self.eta)
+        return np.maximum(lam, np.float32(self._LAM_FLOOR))
+
+    def log_likelihood(
+        self,
+        docs: Sequence[Tuple[np.ndarray, np.ndarray]],
+        seed: Optional[int] = None,
+        device=None,
+    ) -> float:
+        """Variational lower bound on log p(docs) (MLlib
+        ``logLikelihood``), over one padded batch of ``docs``."""
+        dev = resolve_device(self.device if device is None else device)
+        rows = list(docs)
+        batch = batch_from_rows(rows, device=dev)
+        n_docs = float((batch.token_weights.sum(-1) > 0).sum())
+        alpha = torch.as_tensor(np.asarray(self.alpha, np.float32), device=dev)
+        lam_b = torch.from_numpy(self._lam_for_bound()).to(dev)
+        gamma = infer_gamma(
+            batch, torch.exp(dirichlet_expectation(lam_b)), alpha,
+            self._gamma0(len(rows), seed, dev),
+        )
+        return float(approx_bound(batch, gamma, lam_b, alpha, float(self.eta),
+                                  corpus_size=n_docs, batch_docs=n_docs))
+
+    def log_perplexity(self, docs, device=None) -> float:
+        """-bound / total token mass (MLlib ``logPerplexity``)."""
+        rows = list(docs)
+        tokens = float(sum(np.asarray(w, np.float32).sum() for _, w in rows))
+        return -self.log_likelihood(rows, device=device) / max(tokens, 1.0)
 
     # ---- persistence ---------------------------------------------------
     def save(self, path: str) -> None:

@@ -1,3 +1,4 @@
-"""Device ops of the port: sparse batches, TF-IDF, LDA math and the three
-hand-written CUDA kernels (E-step gamma fixed point, EM scatter, fused EM
-sweep), each beside its plain PyTorch version."""
+"""Device ops of the port: sparse batches, TF-IDF, LDA math and the four
+hand-written CUDA kernels (padded and token-packed E-step gamma fixed
+points, EM scatter, fused EM sweep), each beside its plain PyTorch
+version."""

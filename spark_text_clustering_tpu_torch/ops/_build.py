@@ -32,7 +32,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "load_library"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("estep", "emscatter", "emsweep")
+SOURCES = ("estep", "emscatter", "emsweep", "packed")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -55,6 +55,11 @@ SIGNATURES = {
     "emsweep": {
         "stc_em_sweep_fused": [_P] * 7 + [_I] * 7 + [_F] + [_P] * 4,
         "stc_em_sweep_warps": [_I] * 3,
+    },
+    "packed": {
+        "stc_gamma_fixed_point_tiles": [_P] * 5 + [_I] * 5 + [_F, _P, _P],
+        "stc_tiles_smem_bytes": [_I] * 3,
+        "stc_tiles_max_k": [],
     },
 }
 
@@ -148,6 +153,7 @@ LAUNCHES: Dict[str, int] = {
     "gamma_fixed_point_bkl": 0,
     "scatter_add_vtiles": 0,
     "em_sweep_fused": 0,
+    "gamma_fixed_point_tiles": 0,
 }
 
 

@@ -1,27 +1,34 @@
-"""LDA variational math in PyTorch: the E-step gamma fixed point and the
-scoring entry points built on it.
+"""LDA variational math in PyTorch: the E-step gamma fixed point, the
+scoring and evaluation entry points built on it, and the random inits.
 
 ``topic_inference`` scores a padded [B, L] batch through the E-step kernel
 (``estep.gamma_fixed_point``: the CUDA kernel on the card, its plain
 version on the CPU).  ``topic_inference_segments`` scores a token-packed
 batch in plain PyTorch, with whole-batch or per-document (``freeze``)
-convergence.  Pad slots (weight 0) add exactly 0 everywhere.  Gamma
-starts at all ones, or at Gamma(shape, 1/shape) draws from an explicit
-``torch.Generator``.
+convergence.  ``infer_gamma`` and ``approx_bound`` are the evaluation
+pair behind ``LDAModel.log_likelihood``.  Pad slots (weight 0) add exactly
+0 everywhere.  Gamma starts at all ones, or at Gamma(shape, 1/shape)
+draws from an explicit ``torch.Generator`` (``seeded_generator``), as
+does lambda (``init_lambda``).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .estep import gamma_fixed_point
 from .sparse import DocTermBatch
 
 __all__ = [
+    "approx_bound",
     "dirichlet_expectation",
+    "infer_gamma",
     "init_gamma",
+    "init_lambda",
+    "seeded_generator",
     "gamma_fixed_point_batch",
     "gamma_fixed_point_segments",
     "topic_inference",
@@ -37,6 +44,28 @@ def dirichlet_expectation(alpha: torch.Tensor) -> torch.Tensor:
     return torch.digamma(alpha) - torch.digamma(
         alpha.sum(dim=-1, keepdim=True)
     )
+
+
+def seeded_generator(device, *key: int) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded from the integer tuple
+    ``key`` (numpy's ``SeedSequence`` mixes it into one 63-bit seed)."""
+    seed = np.random.SeedSequence([int(x) for x in key]).generate_state(
+        1, np.uint64)[0]
+    gen = torch.Generator(device=torch.device(device))
+    gen.manual_seed(int(seed) & ((1 << 63) - 1))
+    return gen
+
+
+def init_lambda(
+    generator: torch.Generator, k: int, vocab_size: int,
+    gamma_shape: float = 100.0, device="cpu",
+) -> torch.Tensor:
+    """lambda ~ Gamma(gammaShape, 1/gammaShape), shape [k, V]: MLlib's
+    init, drawn on the generator's device and moved to ``device``."""
+    shape = torch.full((k, vocab_size), float(gamma_shape),
+                       dtype=torch.float32, device=generator.device)
+    return (torch._standard_gamma(shape, generator=generator)
+            / gamma_shape).to(device)
 
 
 def init_gamma(
@@ -144,6 +173,58 @@ def topic_inference(
     eb = exp_elog_beta.T[batch.token_ids.long()]              # [B, L, k]
     gamma = gamma_fixed_point(eb, cts, alpha, gamma0, max_inner, tol)
     return _normalize(gamma, cts.sum(dim=-1) > 0)
+
+
+def infer_gamma(
+    batch: DocTermBatch,
+    exp_elog_beta: torch.Tensor,   # [k, V]
+    alpha: torch.Tensor,
+    gamma0: torch.Tensor,          # [B, k]
+    max_inner: int = 100,
+    tol: float = 1e-3,
+) -> torch.Tensor:
+    """Gamma only (no sufficient statistics), through the E-step kernel:
+    the evaluation path of ``LDAModel.log_likelihood``."""
+    eb = exp_elog_beta.T[batch.token_ids.long()]              # [B, L, k]
+    return gamma_fixed_point(eb, batch.token_weights, alpha, gamma0,
+                             max_inner, tol)
+
+
+def approx_bound(
+    batch: DocTermBatch,
+    gamma: torch.Tensor,     # [B, k]
+    lam: torch.Tensor,       # [k, V]
+    alpha,                   # [k] or scalar
+    eta: float,
+    corpus_size: float,
+    batch_docs: float,
+) -> torch.Tensor:
+    """Hoffman's variational lower bound on log p(docs), the basis of
+    ``logLikelihood`` / ``logPerplexity``: document terms scaled by
+    corpus_size / batch_docs, the topic term counted once."""
+    ids, cts = batch.token_ids.long(), batch.token_weights
+    k = gamma.shape[-1]
+    elog_theta = dirichlet_expectation(gamma)                 # [B, k]
+    elog_beta = dirichlet_expectation(lam)                    # [k, V]
+    eb = elog_beta.T[ids]                                     # [B, L, k]
+    lse = torch.logsumexp(eb + elog_theta[:, None, :], dim=-1)
+    score = (cts * lse).sum()
+    alpha_v = torch.broadcast_to(
+        torch.as_tensor(alpha, dtype=torch.float32, device=gamma.device), (k,))
+    score = score + ((alpha_v - gamma) * elog_theta).sum()
+    score = score + (torch.lgamma(gamma) - torch.lgamma(alpha_v)).sum()
+    score = score + (
+        torch.lgamma(alpha_v.sum()) - torch.lgamma(gamma.sum(dim=-1))
+    ).sum()
+    score = score * (corpus_size / max(batch_docs, 1.0))
+    v = lam.shape[-1]
+    eta_t = torch.tensor(float(eta), dtype=torch.float32, device=lam.device)
+    score = score + ((eta - lam) * elog_beta).sum()
+    score = score + (torch.lgamma(lam) - torch.lgamma(eta_t)).sum()
+    score = score + (
+        torch.lgamma(eta_t * v) - torch.lgamma(lam.sum(dim=-1))
+    ).sum()
+    return score
 
 
 def topic_inference_segments(

@@ -119,7 +119,8 @@ class LDAModelTransformer:
 
 
 class LDA:
-    """The LDA facade; this slice ports the EM optimizer only."""
+    """The LDA facade: EM, or online VB on the tiles-resident path (NMF is
+    not ported)."""
 
     def __init__(self, params: Params, device="cuda"):
         self.params = params
@@ -127,19 +128,26 @@ class LDA:
 
     def fit(self, ds: Dict) -> LDAModelTransformer:
         from .models.em_lda import EMLDA
+        from .models.online_lda import OnlineLDA
 
-        if self.params.algorithm != "em":
+        optimizers = {"em": EMLDA, "online": OnlineLDA}
+        if self.params.algorithm == "nmf":
+            raise NotImplementedError(
+                "algorithm 'nmf' is not ported yet; the port trains EM "
+                "and online VB"
+            )
+        if self.params.algorithm not in optimizers:
             raise ValueError(
-                f"algorithm {self.params.algorithm!r} is not ported yet; "
-                "the port trains EM"
+                f"unknown algorithm {self.params.algorithm!r}; expected one "
+                f"of {sorted(optimizers)}"
             )
         vocab = ds.get("vocab")
         if vocab is None:
             vocab = [f"h{i}" for i in range(ds["num_features"])]
         nonempty = [(i, w) for i, w in ds["rows"] if len(i) > 0]
-        opt = EMLDA(self.params, device=self.device)
+        opt = optimizers[self.params.algorithm](self.params, device=self.device)
         model = opt.fit(nonempty, vocab)
         return LDAModelTransformer(
-            model, log_likelihood=opt.last_log_likelihood,
+            model, log_likelihood=getattr(opt, "last_log_likelihood", None),
             corpus_size=len(nonempty),
         )

@@ -88,6 +88,34 @@ def test_entry_points_default_to_the_card():
     assert m.lam.shape == (3, 4) and np.isfinite(m.lam).all()
 
 
+def test_online_entry_points_default_to_the_card():
+    """The online slice's entry points take the card by default too: the
+    estimator, the facade, and the model's evaluation raise without one;
+    device='cpu' (and rng_device='cpu') runs."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs on it")
+    from spark_text_clustering_tpu_torch import LDA, OnlineLDA, Params
+    from spark_text_clustering_tpu_torch.interop import lda_model_from_numpy
+
+    params = Params(k=2, algorithm="online", sampling="epoch",
+                    token_layout="tiles", max_iterations=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        OnlineLDA(params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        OnlineLDA(params, device="cpu", rng_device="cuda")
+    rows = [(np.array([0, 1, 3], np.int32), np.ones(3, np.float32))] * 4
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LDA(params).fit({"rows": rows, "vocab": list("abcd")})
+    model = lda_model_from_numpy(np.ones((2, 4)), 0.5, 0.5, list("abcd"),
+                                 algorithm="online")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.log_perplexity(rows)
+    assert np.isfinite(model.log_perplexity(rows, device="cpu"))
+    m = OnlineLDA(params, device="cpu", rng_device="cpu").fit(
+        rows, list("abcd"))
+    assert m.lam.shape == (2, 4) and np.isfinite(m.lam).all()
+
+
 def test_resolving_cuda_turns_tf32_off(monkeypatch):
     from spark_text_clustering_tpu_torch.device import resolve_device
 
