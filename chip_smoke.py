@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--profile] [--out DIR] [--kernels-only]
 
-1. builds the four CUDA kernels from ``spark_text_clustering_tpu_torch/
+1. builds the five CUDA kernels from ``spark_text_clustering_tpu_torch/
    csrc`` (one ``nvcc`` per source, in parallel, into build/torch_kernels);
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, and times kernel, plain version, and
@@ -24,8 +24,14 @@
    docs.  Ten iterations are re-run with device="cpu" (the plain
    versions) from the same lambda and gamma draws; lambda must agree
    within 1e-3 relative and the log-perplexity within 1e-4;
-6. a ``kernels`` line: per kernel, the launches of the main-path runs of
-   3, 4 and 5 (each must be > 0), the largest difference from the plain
+6. config D, NMF (the estimator swap) on the same raw counts: k=20, 40
+   Lee-Seung sweeps, token_layout="auto" (the tile layout on this
+   corpus).  One warm-up fit, then a timed fit -> save -> load ->
+   topic_distribution of the first 512 docs.  Ten sweeps are re-run with
+   device="cpu" from the same W0/H0; H must agree within 1e-3 relative
+   and the loss within 1e-4;
+7. a ``kernels`` line: per kernel, the launches of the main-path runs of
+   3-6 (each must be > 0), the largest difference from the plain
    version, and the times beside the card's bound.
 
 Every phase prints one JSON line; the first line is ``nvidia-smi``'s name
@@ -57,6 +63,8 @@ SWEEPS = 50                    # MLlib's maxIterations for both configs
 ONLINE_ITERS = 60              # bench.py's online protocol: 3 epochs
 ONLINE_CHECK_ITERS = 10        # card vs CPU iterations of config C
 EVAL_DOCS = 512                # bench.py's log-perplexity batch
+NMF_ITERS = 40                 # bench.py's NMF row
+NMF_CHECK_ITERS = 10           # card vs CPU sweeps of config D
 
 
 def emit(obj) -> None:
@@ -88,6 +96,15 @@ def newsgroups_rows(seed: int):
         ids = np.unique(perm[ranks]).astype(np.int32)
         rows.append((ids, rng.integers(1, 6, size=ids.size).astype(np.float32)))
     return rows
+
+
+def flat_rows(rows):
+    """(ids, weights, doc offsets) of ``rows`` as flat arrays, the tile
+    planner's input."""
+    offsets = np.zeros(len(rows) + 1, np.int64)
+    np.cumsum([len(i) for i, _ in rows], out=offsets[1:])
+    return (np.concatenate([i for i, _ in rows]),
+            np.concatenate([w for _, w in rows]), offsets)
 
 
 # ---- timing ----------------------------------------------------------------
@@ -215,7 +232,22 @@ def check_scatter(torch, rows, dev, rng):
     def library():
         return torch.zeros((k, v), device=dev).index_add_(1, ids_l, wphi.T)
 
-    lib_err = float((library() - got).abs().max())
+    def library_rows():
+        # the same sums into a [V, k] table (k contiguous values an id):
+        # NMF's H-side scatter layout
+        return torch.zeros((v, k), device=dev).index_add_(0, ids_l, wphi)
+
+    # and from the live slots alone: every pad slot adds 0 to row 0
+    sel = (cts_s > 0).nonzero().squeeze(1)
+    ids_live, wphi_live = ids_l[sel], wphi[sel].contiguous()
+
+    def library_rows_live():
+        return torch.zeros((v, k), device=dev).index_add_(0, ids_live,
+                                                          wphi_live)
+
+    lib_err = max(float((library() - got).abs().max()),
+                  float((library_rows().T - got).abs().max()),
+                  float((library_rows_live().T - got).abs().max()))
     # bytes the kernel needs: k posteriors of each live slot (it skips pad
     # slots), every slot's lid, the block map, and the table it writes
     live = int((cts_s > 0).sum())
@@ -235,6 +267,9 @@ def check_scatter(torch, rows, dev, rng):
             wphi, lids, bv, **geo), 5),
         "bound_ms": t_bytes, "bound_by": by,
         "library_ms": cuda_ms(torch, library, 20),
+        "library_rows_ms": cuda_ms(torch, library_rows, 20),
+        "library_rows_live_ms": cuda_ms(torch, library_rows_live, 20),
+        "pad_slots": t - live,
     }
 
 
@@ -312,11 +347,7 @@ def check_tiles(torch, rows, dev, rng, seed):
     opt = OnlineLDA(online_params(seed, warm))
     lam = opt.fit(rows, [f"h{i}" for i in range(v)]).lam
     lam = torch.from_numpy(lam).to(dev)
-    offsets = np.zeros(n + 1, np.int64)
-    np.cumsum([len(i) for i, _ in rows], out=offsets[1:])
-    plan = packed.plan_corpus_tiles(
-        np.concatenate([i for i, _ in rows]),
-        np.concatenate([w for _, w in rows]), offsets, k=k)
+    plan = packed.plan_corpus_tiles(*flat_rows(rows), k=k)
     pick = opt.tile_pick(warm)[0]
     d, tb = plan.d, len(pick)
     ids = torch.from_numpy(plan.ids[pick]).to(dev)
@@ -372,6 +403,118 @@ def check_tiles(torch, rows, dev, rng, seed):
             eb, cts, seg, alpha, g0, d), 20),
         "plain_ms": cuda_ms(torch, lambda: packed.gamma_fixed_point_tiles_plain(
             eb, cts, seg, alpha, g0, d), 3),
+        "bound_ms": t_bytes, "bound_by": by, "library_ms": None,
+    }
+
+
+def nmf_params(seed: int, iters=None):
+    """Config D: bench.py's NMF row (k=20, 40 sweeps, auto layout)."""
+    from spark_text_clustering_tpu_torch import Params
+
+    return Params(k=NG_K, algorithm="nmf",
+                  max_iterations=NMF_ITERS if iters is None else iters,
+                  seed=seed)
+
+
+def nmf_kernel_case(torch, rows, k, dev, w_doc, h):
+    """The NMF kernel's inputs for one sweep over ``rows``' tile plan from
+    doc-ordered W ``w_doc`` and H ``h``; runs kernel and plain version
+    and checks that pad tokens and token-less slots come out exactly 0."""
+    from spark_text_clustering_tpu_torch.models.nmf import docs_w_to_tiles
+    from spark_text_clustering_tpu_torch.ops import nmf, packed
+
+    plan = packed.plan_corpus_tiles(*flat_rows(rows), k=k)
+    d, n_tiles = plan.d, plan.ids.shape[0]
+    ids, cts, seg = (torch.from_numpy(a).to(dev)
+                     for a in (plan.ids, plan.cts, plan.seg))
+    args = (h.index_select(1, ids.reshape(-1).long()).contiguous(), cts, seg,
+            docs_w_to_tiles(w_doc, plan.doc_ids), h @ h.T)
+    got = nmf.nmf_mu_update_tiles(*args, d)
+    want = nmf.nmf_mu_update_tiles_plain(*args, d)
+    torch.cuda.synchronize()
+    err = rel = 0.0
+    for g, w in zip(got, want):
+        err = max(err, float((g - w).abs().max()))
+        rel = max(rel, float(((g - w).abs() / w.abs().clamp(min=1e-30)).max()))
+        if not torch.allclose(g, w, rtol=1e-4, atol=1e-8):
+            raise AssertionError(
+                f"nmf_mu_update_tiles differs from its plain version by {err} "
+                f"at k={k}, d={d}, tt={plan.tt}")
+    live = seg < d
+    tile = torch.arange(n_tiles, device=dev)[:, None]
+    reached = torch.zeros(n_tiles * d, dtype=torch.bool, device=dev)
+    reached[(tile * d + seg.long())[live]] = True
+    if got[1][~live.reshape(-1)].any() or got[0][~reached].any():
+        raise AssertionError("nmf_mu_update_tiles: a pad token or a slot no "
+                             "token reaches is not exactly 0")
+    return plan, args, got, err, rel
+
+
+def nmf_geometry_rows(seed: int, n: int = 3000, v: int = 4096):
+    """Docs whose tokens are mostly zero-weight: one in eight has 1-3
+    live tokens, so the planner packs its widest doc axis (2,048 slots at
+    tt=512) and most slots are reached by no token."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for doc in range(n):
+        nnz = int(rng.integers(1, 4))
+        ids = np.sort(rng.choice(v, size=nnz, replace=False)).astype(np.int32)
+        live = doc % 8 == 0
+        rows.append((ids, (rng.integers(1, 5, nnz) * live).astype(np.float32)))
+    return rows
+
+
+def check_nmf(torch, rows, dev, seed):
+    """The NMF kernel on config D's first sweep (the tile plan, and W and H
+    as the fit draws them), and on geometries the planner allows beyond
+    it: d=2048 at k=20, [k, k] H H^T in shared memory above 48 KB (k=200)
+    and past its 227 KB (k=300, read from global memory)."""
+    from spark_text_clustering_tpu_torch import NMF
+    from spark_text_clustering_tpu_torch.ops import nmf
+
+    k, v, n = NG_K, NG_V, len(rows)
+    weight_sum = float(sum(w.sum() for _, w in rows))
+    w_doc, h = NMF(nmf_params(seed))._init(n, k, v, weight_sum)
+    plan, args, got, err, rel = nmf_kernel_case(torch, rows, k, dev, w_doc, h)
+    again = nmf.nmf_mu_update_tiles(*args, plan.d)
+    deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+
+    geo_rows = nmf_geometry_rows(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    geometries = []
+    for kk in (20, 200, 300):
+        gh = torch.rand((kk, 4096), generator=gen, device=dev) + 0.1
+        gw = torch.rand((len(geo_rows), kk), generator=gen, device=dev) + 0.1
+        gplan, _, _, gerr, grel = nmf_kernel_case(torch, geo_rows, kk, dev,
+                                                  gw, gh)
+        geometries.append({"k": kk, "d": gplan.d, "tt": gplan.tt,
+                           "tiles": int(gplan.ids.shape[0]),
+                           "max_abs_err": gerr, "max_rel_err": grel})
+    if geometries[0]["d"] != 2048:
+        raise AssertionError(f"geometry rows planned {geometries[0]}")
+
+    # bytes the kernel needs: hg's k values, cts and seg of live tokens,
+    # their k vals written; W read and written for live slots; H H^T.
+    # Operations: per live token k products and k scan adds, per live
+    # slot the k x k denominator and the update.
+    live_tok = int((plan.seg < plan.d).sum())
+    live_slots = int((plan.doc_ids < n).sum())
+    t_bytes, by = bound(live_tok * (8 * k + 8) + live_slots * 8 * k + 4 * k * k,
+                        2.0 * k * live_tok + live_slots * (2.0 * k * k + 3 * k))
+    return {
+        "name": "nmf_mu_update_tiles", "route": "cuda",
+        "source": "spark_text_clustering_tpu_torch/csrc/nmf.cu",
+        "replaces": "spark_text_clustering_tpu/ops/pallas_nmf.py:118",
+        "shape": {"k": k, "tiles": int(plan.ids.shape[0]), "tt": plan.tt,
+                  "d": plan.d, "live_tokens": live_tok,
+                  "live_slots": live_slots},
+        "max_abs_err": err, "max_rel_err": rel,
+        "tolerance": "rtol 1e-4, atol 1e-8",
+        "bitwise_repeatable": deterministic, "geometries": geometries,
+        "ms": cuda_ms(torch, lambda: nmf.nmf_mu_update_tiles(
+            *args, plan.d), 20),
+        "plain_ms": cuda_ms(torch, lambda: nmf.nmf_mu_update_tiles_plain(
+            *args, plan.d), 5),
         "bound_ms": t_bytes, "bound_by": by, "library_ms": None,
     }
 
@@ -507,16 +650,91 @@ def run_config_c(torch, rows, seed, workdir):
     return summary
 
 
+def run_config_d(torch, rows, seed, workdir):
+    """NMF on the card: a warm-up fit, then the timed fit -> save -> load
+    -> topic_distribution of the first EVAL_DOCS docs, through the
+    library's entry points; then ten sweeps on the card against the same
+    ten with device="cpu", from the same W0/H0."""
+    from spark_text_clustering_tpu_torch import NMF, load_model
+    from spark_text_clustering_tpu_torch.models.persistence import model_dir_name
+    from spark_text_clustering_tpu_torch.ops import _build
+
+    vocab = [f"h{i}" for i in range(NG_V)]
+    eval_rows = rows[:EVAL_DOCS]
+    opt = NMF(nmf_params(seed))
+    opt.fit(rows, vocab)                                    # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    model = opt.fit(rows, vocab)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    path = model_dir_name("D", os.path.join(workdir, "models"))
+    model.save(path)
+    loaded = load_model(path)
+    t0 = time.perf_counter()
+    dist = loaded.topic_distribution(eval_rows)
+    t_eval = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    check_distribution(dist, len(eval_rows), NG_K, "config D")
+    if model.h.shape != (NG_K, NG_V) or not np.isfinite(model.h).all() or (
+        (model.h < 0).any() or not np.isfinite(model.loss)
+    ):
+        raise AssertionError(f"config D: bad model (loss {model.loss})")
+    if opt.last_mu_backend != "cuda_tiles" or (
+        launches["nmf_mu_update_tiles"] != NMF_ITERS
+    ):
+        raise AssertionError(f"config D skipped the kernel: "
+                             f"{opt.last_mu_backend}, {launches}")
+
+    # card vs CPU: the CPU fit draws W0/H0 on the card's generator, so
+    # both runs start from the same numbers.  H is compared relative to
+    # each entry, floored at 1e-6 of the largest (a term seen by no doc
+    # goes to exactly 0 on both)
+    m = NMF_CHECK_ITERS
+    card = NMF(nmf_params(seed, m)).fit(rows, vocab)
+    t0 = time.perf_counter()
+    cpu = NMF(nmf_params(seed, m), device="cpu", rng_device="cuda").fit(
+        rows, vocab)
+    t_cpu = time.perf_counter() - t0
+    floor = 1e-6 * float(np.abs(cpu.h).max())
+    h_rel = float(np.max(np.abs(card.h - cpu.h)
+                         / np.maximum(np.abs(cpu.h), floor)))
+    loss_rel = abs(card.loss - cpu.loss) / abs(cpu.loss)
+    summary = {
+        "phase": "config_D", "docs": len(rows), "vocab": NG_V, "k": NG_K,
+        "sweeps": NMF_ITERS, "tokens": int(sum(len(i) for i, _ in rows)),
+        "layout": opt.last_layout, "mu_backend": opt.last_mu_backend,
+        "cells": opt.last_cells, "tiles": opt.last_tiles,
+        "fit_s": t_fit,
+        "fit_ms_per_sweep": 1e3 * float(np.mean(model.iteration_times)),
+        "docs_per_s": NMF_ITERS * len(rows) / t_fit,
+        "loss": model.loss, "frobenius_err": float(np.sqrt(model.loss)),
+        "eval_docs": len(eval_rows), "eval_s": t_eval,
+        "argmax_histogram": np.bincount(dist.argmax(1), minlength=NG_K).tolist(),
+        "launches": launches,
+        "check_sweeps": m, "h_max_rel_diff": h_rel,
+        "loss_card": card.loss, "loss_cpu": cpu.loss,
+        "loss_rel_diff": loss_rel, "cpu_fit_s": t_cpu,
+        "bounds": {"h_max_rel_diff": 1e-3, "loss_rel_diff": 1e-4},
+    }
+    if not h_rel <= 1e-3 or not loss_rel <= 1e-4:
+        raise AssertionError(
+            f"config D: card vs CPU H rel {h_rel}, loss rel {loss_rel}")
+    return summary
+
+
 def profile_configs(torch, rows_a, rows_b, seed, out_dir):
     """torch.profiler over one fit and the scoring (A, B: padded scoring
-    of every doc) or evaluation (C: log-perplexity of EVAL_DOCS docs) of
-    each config (count rows, no IDF): device time by kernel name, and the
-    device's busy share of the window's wall time.  The full tables go to
-    ``<out_dir>/profile_{A,B,C}.txt`` when ``out_dir`` is given."""
+    of every doc; D: topic_distribution of EVAL_DOCS docs) or evaluation
+    (C: log-perplexity of EVAL_DOCS docs) of each config (count rows, no
+    IDF): device time by kernel name, and the device's busy share of the
+    window's wall time.  The full tables go to
+    ``<out_dir>/profile_{A,B,C,D}.txt`` when ``out_dir`` is given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from spark_text_clustering_tpu_torch import EMLDA, OnlineLDA, Params
+    from spark_text_clustering_tpu_torch import EMLDA, NMF, OnlineLDA, Params
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(
@@ -537,9 +755,17 @@ def profile_configs(torch, rows_a, rows_b, seed, out_dir):
         return (lambda: opt.fit(rows, vocab),
                 lambda model: model.log_perplexity(rows[:EVAL_DOCS]))
 
+    def nmf_run(rows):
+        vocab = [f"h{i}" for i in range(NG_V)]
+        opt = NMF(nmf_params(seed))
+        opt.fit(rows, vocab).topic_distribution(rows[:EVAL_DOCS])  # warm-up
+        return (lambda: opt.fit(rows, vocab),
+                lambda model: model.topic_distribution(rows[:EVAL_DOCS]))
+
     for label, make in (("A", lambda: em_run(rows_a, EN_K, EN_V)),
                         ("B", lambda: em_run(rows_b, NG_K, NG_V)),
-                        ("C", lambda: online_run(rows_b))):
+                        ("C", lambda: online_run(rows_b)),
+                        ("D", lambda: nmf_run(rows_b))):
         fit, score = make()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -636,6 +862,7 @@ def main() -> int:
         "gamma_fixed_point_tiles": check_tiles(
             torch, rows_b, dev, np.random.default_rng(args.seed + 2),
             args.seed),
+        "nmf_mu_update_tiles": check_nmf(torch, rows_b, dev, args.seed),
     }
     esteps = [
         check_estep(torch, rows, k, v, dev, rng, label, pick)
@@ -710,18 +937,23 @@ def main() -> int:
         # 5. config C
         summary_c = run_config_c(torch, rows_b, args.seed, workdir)
         emit(summary_c)
+
+        # 6. config D
+        summary_d = run_config_d(torch, rows_b, args.seed, workdir)
+        emit(summary_d)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     if args.profile:
         profile_configs(torch, rows_a, rows_b, args.seed, args.out)
 
-    # 6. the kernels line; the gamma row is config B's most populated
+    # 7. the kernels line; the gamma row is config B's most populated
     # bucket, and its error the largest of the four buckets checked
     kernels = [
         checks["em_sweep_fused"],
         checks["scatter_add_vtiles"],
         checks["gamma_fixed_point_tiles"],
+        checks["nmf_mu_update_tiles"],
         {**esteps[2], "route": "cuda",
          "source": "spark_text_clustering_tpu_torch/csrc/estep.cu",
          "replaces": "spark_text_clustering_tpu/ops/pallas_estep.py:161",
@@ -733,13 +965,14 @@ def main() -> int:
     line = []
     for kern in kernels:
         name = kern["name"]
-        kern["launches"] = sum(sm["launches"][name]
-                               for sm in (summary_a, summary_b, summary_c))
+        kern["launches"] = sum(
+            sm["launches"][name]
+            for sm in (summary_a, summary_b, summary_c, summary_d))
         if kern["launches"] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
         line.append({k_: kern[k_] for k_ in keys})
     record.update(build=build, kernels=kernels, config_A=summary_a,
-                  config_B=summary_b, config_C=summary_c)
+                  config_B=summary_b, config_C=summary_c, config_D=summary_d)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)

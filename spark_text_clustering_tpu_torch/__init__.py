@@ -8,9 +8,10 @@ to run the plain PyTorch versions of the kernels on the host.
 from .config import Params
 from .models.base import LDAModel
 from .models.em_lda import EMLDA
+from .models.nmf import NMF, NMFModel
 from .models.online_lda import OnlineLDA
 from .models.persistence import load_model
-from .pipeline import IDF, LDA, CountVectorizer
+from .pipeline import IDF, LDA, CountVectorizer, NMFEstimator
 
-__all__ = ["CountVectorizer", "EMLDA", "IDF", "LDA", "LDAModel",
-           "OnlineLDA", "Params", "load_model"]
+__all__ = ["CountVectorizer", "EMLDA", "IDF", "LDA", "LDAModel", "NMF",
+           "NMFEstimator", "NMFModel", "OnlineLDA", "Params", "load_model"]

@@ -4,8 +4,11 @@
 ``em_state_from_numpy`` writes an ``em_state.npz`` checkpoint that
 ``EMLDA.fit`` resumes from, ``online_state_from_numpy`` a
 ``train_state.npz`` that ``OnlineLDA.fit`` resumes from (the file the JAX
-package's online fit writes, so a JAX lambda carries over either way).  A model dir the JAX package saved needs
-neither: ``models.persistence.load_model`` reads it directly.
+package's online fit writes, so a JAX lambda carries over either way).
+``nmf_model_from_numpy`` builds an ``NMFModel`` from H; ``nmf_init_from_numpy``
+carries initial factors (the JAX package's draws, say) into ``NMF.fit(...,
+init=...)``.  A model dir the JAX package saved needs none of these:
+``models.persistence.load_model`` reads it directly.
 """
 
 from __future__ import annotations
@@ -16,9 +19,11 @@ from typing import Sequence
 import numpy as np
 
 from .models.base import LDAModel
+from .models.nmf import NMFInit, NMFModel
 from .models.persistence import save_train_state
 
 __all__ = ["em_state_from_numpy", "lda_model_from_numpy",
+           "nmf_init_from_numpy", "nmf_model_from_numpy",
            "online_state_from_numpy"]
 
 
@@ -66,3 +71,28 @@ def online_state_from_numpy(
     path = os.path.join(checkpoint_dir, "train_state.npz")
     save_train_state(path, step, lam=lam)
     return path
+
+
+def nmf_model_from_numpy(
+    h: np.ndarray,
+    vocab: Sequence[str],
+    loss: float = float("nan"),
+    step: int = 0,
+    device="cuda",
+) -> NMFModel:
+    """An ``NMFModel`` from a [k, V] topic-term factor."""
+    h = np.asarray(h, np.float32)
+    if h.ndim != 2 or h.shape[1] != len(vocab):
+        raise ValueError(f"h {h.shape} does not match {len(vocab)} terms")
+    return NMFModel(h=h, vocab=list(vocab), loss=float(loss), step=step,
+                    device=device)
+
+
+def nmf_init_from_numpy(w0: np.ndarray, h0: np.ndarray) -> NMFInit:
+    """Initial factors for ``NMF.fit(..., init=...)``: w0 [n, k] in the
+    order of the rows the fit gets, h0 [k, V]."""
+    w0 = np.ascontiguousarray(w0, np.float32)
+    h0 = np.ascontiguousarray(h0, np.float32)
+    if w0.ndim != 2 or h0.ndim != 2 or w0.shape[1] != h0.shape[0]:
+        raise ValueError(f"w0 {w0.shape} and h0 {h0.shape} do not agree on k")
+    return NMFInit(w0, h0)

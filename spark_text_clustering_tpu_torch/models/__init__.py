@@ -1,1 +1,2 @@
-"""Models of the port: ``LDAModel``, the EM optimizer, persistence."""
+"""Models of the port: ``LDAModel``, the EM and online optimizers, NMF,
+persistence."""

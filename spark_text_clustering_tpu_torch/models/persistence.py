@@ -2,9 +2,10 @@
 in the JAX package's layout, so a model saved by either package loads in
 the other:
 
-    <path>/meta.json      k, vocab_size, eta, gamma_shape, step, algorithm,
-                          iteration_times, format version, "class"
-    <path>/arrays.npz     lam [k, V] float32, alpha [k]
+    <path>/meta.json      format version, "class", k, vocab_size, step,
+                          iteration_times; LDA: eta, gamma_shape,
+                          algorithm; NMF: loss
+    <path>/arrays.npz     LDA: lam [k, V] float32, alpha [k]; NMF: h [k, V]
     <path>/vocab.txt      one term per line (utf-8)
     <path>/MANIFEST.json  per-file SHA-256
     <path>/COMMIT         written last
@@ -34,8 +35,9 @@ from ..resilience import (
 )
 
 FORMAT_VERSION = 2
-# the class string both packages write for an LDA model
+# the class strings both packages write
 LDA_CLASS = "spark_text_clustering_tpu.models.LDAModel"
+NMF_CLASS = "spark_text_clustering_tpu.models.NMFModel"
 
 __all__ = [
     "latest_model_dir",
@@ -84,36 +86,45 @@ def latest_model_dir(
 
 
 def save_model(model, path: str) -> None:
-    """Write ``model`` (an ``LDAModel``) as a sealed artifact dir."""
-    os.makedirs(path, exist_ok=True)
+    """Write ``model`` (an ``LDAModel`` or ``NMFModel``) as a sealed
+    artifact dir."""
+    from .nmf import NMFModel
+
     meta = {
         "format_version": FORMAT_VERSION,
-        "class": LDA_CLASS,
         "k": model.k,
         "vocab_size": model.vocab_size,
-        "eta": float(model.eta),
-        "gamma_shape": float(model.gamma_shape),
-        "algorithm": model.algorithm,
         "step": int(model.step),
         "iteration_times": [float(t) for t in model.iteration_times],
         "iteration_times_kind": model.iteration_times_kind,
     }
+    if isinstance(model, NMFModel):
+        meta.update({"class": NMF_CLASS, "loss": float(model.loss)})
+        arrays = {"h": np.asarray(model.h, np.float32)}
+    else:
+        meta.update({
+            "class": LDA_CLASS,
+            "eta": float(model.eta),
+            "gamma_shape": float(model.gamma_shape),
+            "algorithm": model.algorithm,
+        })
+        arrays = {"lam": np.asarray(model.lam, np.float32),
+                  "alpha": np.asarray(model.alpha, np.float32)}
+    os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "meta.json"), "w") as f:
         json.dump(meta, f, indent=2, sort_keys=True)
-    np.savez(
-        os.path.join(path, "arrays.npz"),
-        lam=np.asarray(model.lam, np.float32),
-        alpha=np.asarray(model.alpha, np.float32),
-    )
+    np.savez(os.path.join(path, "arrays.npz"), **arrays)
     with open(os.path.join(path, "vocab.txt"), "w", encoding="utf-8") as f:
         f.write("\n".join(model.vocab))
     finalize_artifact_dir(path, files=("meta.json", "arrays.npz", "vocab.txt"))
 
 
 def load_model(path: str, device="cuda"):
-    """Load an LDA model dir written by either package.  Any integrity
-    failure raises ``CorruptArtifactError`` naming the artifact."""
+    """Load an LDA or NMF model dir written by either package, by the
+    class its meta.json names.  Any integrity failure raises
+    ``CorruptArtifactError`` naming the artifact."""
     from .base import LDAModel
+    from .nmf import NMFModel
 
     verify_artifact(path)
     try:
@@ -126,12 +137,14 @@ def load_model(path: str, device="cuda"):
             f"artifact format {meta['format_version']} newer than "
             f"supported {FORMAT_VERSION}"
         )
-    if meta.get("class", LDA_CLASS) != LDA_CLASS:
-        raise ValueError(f"{path} holds a {meta['class']}; the port loads "
-                         "LDA models only")
+    cls = meta.get("class", LDA_CLASS)
+    if cls not in (LDA_CLASS, NMF_CLASS):
+        raise ValueError(f"{path} holds a {cls}; the port loads LDA and NMF "
+                         "models")
+    names = ("h",) if cls == NMF_CLASS else ("lam", "alpha")
     try:
         with np.load(os.path.join(path, "arrays.npz")) as z:
-            lam, alpha = z["lam"], z["alpha"]
+            arrays = {name: z[name] for name in names}
     except KeyError as exc:
         raise CorruptArtifactError(path, f"missing array {exc}") from exc
     except (OSError, ValueError, zipfile.BadZipFile, EOFError) as exc:
@@ -143,24 +156,30 @@ def load_model(path: str, device="cuda"):
             vocab = f.read().split("\n")
     except OSError as exc:
         raise CorruptArtifactError(path, f"unreadable vocab.txt: {exc}") from exc
-    if lam.shape[1] != len(vocab):
+    table = arrays[names[0]]
+    if table.shape[1] != len(vocab):
         raise CorruptArtifactError(
-            path, f"vocab length {len(vocab)} != lam vocab axis {lam.shape[1]}"
+            path, f"vocab length {len(vocab)} != {names[0]} vocab axis "
+                  f"{table.shape[1]}"
         )
+    common = dict(
+        vocab=vocab,
+        iteration_times=list(meta.get("iteration_times", [])),
+        iteration_times_kind=meta.get("iteration_times_kind", "per_iteration"),
+        step=int(meta.get("step", 0)),
+        device=device,
+    )
+    if cls == NMF_CLASS:
+        return NMFModel(h=table, loss=float(meta.get("loss", float("nan"))),
+                        **common)
     try:
         return LDAModel(
-            lam=lam,
-            vocab=vocab,
-            alpha=alpha,
+            lam=table,
+            alpha=arrays["alpha"],
             eta=float(meta["eta"]),
             gamma_shape=float(meta.get("gamma_shape", 100.0)),
-            iteration_times=list(meta.get("iteration_times", [])),
-            iteration_times_kind=meta.get(
-                "iteration_times_kind", "per_iteration"
-            ),
             algorithm=meta.get("algorithm", "online"),
-            step=int(meta.get("step", 0)),
-            device=device,
+            **common,
         )
     except KeyError as exc:
         raise CorruptArtifactError(

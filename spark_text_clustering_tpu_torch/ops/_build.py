@@ -32,7 +32,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "load_library"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("estep", "emscatter", "emsweep", "packed")
+SOURCES = ("estep", "emscatter", "emsweep", "packed", "nmf")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -60,6 +60,9 @@ SIGNATURES = {
         "stc_gamma_fixed_point_tiles": [_P] * 5 + [_I] * 5 + [_F, _P, _P],
         "stc_tiles_smem_bytes": [_I] * 3,
         "stc_tiles_max_k": [],
+    },
+    "nmf": {
+        "stc_nmf_mu_update_tiles": [_P] * 5 + [_I] * 4 + [_F, _P, _P, _P],
     },
 }
 
@@ -154,6 +157,7 @@ LAUNCHES: Dict[str, int] = {
     "scatter_add_vtiles": 0,
     "em_sweep_fused": 0,
     "gamma_fixed_point_tiles": 0,
+    "nmf_mu_update_tiles": 0,
 }
 
 

@@ -4,7 +4,7 @@ LDA, on a plain dict dataset with the JAX package's keys:
     tokens : List[List[str]]        preprocessed token lists
     rows   : List[(ids, weights)]   sparse doc-term rows
     vocab  : List[str]              vocabulary
-    model  : LDAModel               after an LDA stage
+    model  : LDAModel | NMFModel    after an LDA stage
     topic_distribution : np.ndarray [n, k]
 
 ``IDF`` and ``LDA`` run on ``device`` ("cuda" by default).
@@ -30,6 +30,7 @@ __all__ = [
     "IDFModel",
     "LDA",
     "LDAModelTransformer",
+    "NMFEstimator",
 ]
 
 
@@ -119,8 +120,8 @@ class LDAModelTransformer:
 
 
 class LDA:
-    """The LDA facade: EM, or online VB on the tiles-resident path (NMF is
-    not ported)."""
+    """The LDA facade: EM, online VB on the tiles-resident path, or NMF
+    (the estimator swap), by ``params.algorithm``."""
 
     def __init__(self, params: Params, device="cuda"):
         self.params = params
@@ -128,14 +129,10 @@ class LDA:
 
     def fit(self, ds: Dict) -> LDAModelTransformer:
         from .models.em_lda import EMLDA
+        from .models.nmf import NMF
         from .models.online_lda import OnlineLDA
 
-        optimizers = {"em": EMLDA, "online": OnlineLDA}
-        if self.params.algorithm == "nmf":
-            raise NotImplementedError(
-                "algorithm 'nmf' is not ported yet; the port trains EM "
-                "and online VB"
-            )
+        optimizers = {"em": EMLDA, "online": OnlineLDA, "nmf": NMF}
         if self.params.algorithm not in optimizers:
             raise ValueError(
                 f"unknown algorithm {self.params.algorithm!r}; expected one "
@@ -151,3 +148,12 @@ class LDA:
             model, log_likelihood=getattr(opt, "last_log_likelihood", None),
             corpus_size=len(nonempty),
         )
+
+
+class NMFEstimator(LDA):
+    """The estimator swap: the LDA facade pinned to ``algorithm="nmf"``,
+    so scoring and report code downstream need not know which factorizer
+    made the topics."""
+
+    def __init__(self, params: Params, device="cuda"):
+        super().__init__(params.replace(algorithm="nmf"), device=device)

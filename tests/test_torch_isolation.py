@@ -116,6 +116,37 @@ def test_online_entry_points_default_to_the_card():
     assert m.lam.shape == (2, 4) and np.isfinite(m.lam).all()
 
 
+def test_nmf_entry_points_default_to_the_card():
+    """The NMF slice's entry points take the card by default too: the
+    estimator, the model's transform and the "nmf" facade raise without
+    one; device='cpu' runs."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs on it")
+    from spark_text_clustering_tpu_torch import (
+        LDA, NMF, NMFEstimator, Params,
+    )
+    from spark_text_clustering_tpu_torch.interop import nmf_model_from_numpy
+
+    params = Params(k=2, algorithm="nmf", max_iterations=2)
+    rows = [(np.array([0, 1, 3], np.int32), np.ones(3, np.float32))] * 4
+    ds = {"rows": rows, "vocab": list("abcd")}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NMF(params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NMF(params, device="cpu", rng_device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LDA(params).fit(ds)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NMFEstimator(params).fit(ds)
+    model = nmf_model_from_numpy(np.ones((2, 4)), list("abcd"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.transform(rows)
+    assert model.transform(rows, device="cpu").shape == (4, 2)
+    m = NMF(params, device="cpu").fit(rows, list("abcd"))
+    assert m.h.shape == (2, 4) and np.isfinite(m.h).all()
+    assert LDA(params, device="cpu").fit(ds).model.device == "cpu"
+
+
 def test_resolving_cuda_turns_tf32_off(monkeypatch):
     from spark_text_clustering_tpu_torch.device import resolve_device
 

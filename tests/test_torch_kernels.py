@@ -24,6 +24,7 @@ from spark_text_clustering_tpu_torch.ops import emscatter as tscatter
 from spark_text_clustering_tpu_torch.ops import emsweep as tsweep
 from spark_text_clustering_tpu_torch.ops import estep as testep
 from spark_text_clustering_tpu_torch.ops import lda_math as tlda
+from spark_text_clustering_tpu_torch.ops import nmf as tnmf
 from spark_text_clustering_tpu_torch.ops import packed as tpacked
 
 ALPHA, ETA = 11.0, 1.1
@@ -241,14 +242,15 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
 def test_launch_counters_start_at_zero_and_reset():
     assert set(_build.LAUNCHES) == {
         "gamma_fixed_point_bkl", "scatter_add_vtiles", "em_sweep_fused",
-        "gamma_fixed_point_tiles",
+        "gamma_fixed_point_tiles", "nmf_mu_update_tiles",
     }
     _build.LAUNCHES["em_sweep_fused"] += 3
     _build.reset_launches()
     assert all(v == 0 for v in _build.LAUNCHES.values())
 
 
-@pytest.mark.parametrize("kernel", ["estep", "scatter", "sweep", "tiles"])
+@pytest.mark.parametrize("kernel", ["estep", "scatter", "sweep", "tiles",
+                                    "nmf"])
 def test_wrappers_never_fall_back_off_the_cpu(kernel):
     """A tensor that is not on the CPU never takes the plain version: the
     wrapper checks it and raises before any launch (here: 'meta' tensors,
@@ -266,6 +268,11 @@ def test_wrappers_never_fall_back_off_the_cpu(kernel):
                 torch.empty(5, 2 * 512, **f32), torch.empty(2, 512, **f32),
                 torch.empty(2, 512, **i32), torch.ones(5, **f32),
                 torch.empty(5, 2 * 128, **f32), d=128)
+        elif kernel == "nmf":
+            tnmf.nmf_mu_update_tiles(
+                torch.empty(5, 2 * 512, **f32), torch.empty(2, 512, **f32),
+                torch.empty(2, 512, **i32), torch.empty(2 * 128, 5, **f32),
+                torch.empty(5, 5, **f32), d=128)
         elif kernel == "scatter":
             tscatter.scatter_add_vtiles(
                 torch.empty(256, 5, **f32), torch.empty(2, 1, 128, **i32),

@@ -257,8 +257,8 @@ def test_pipeline_lda_online():
     assert fitted.model.algorithm == "online" and fitted.corpus_size == 40
     out = fitted.transform(ds)
     assert out["topic_distribution"].shape == (41, 2)
-    with pytest.raises(NotImplementedError, match="nmf"):
-        LDA(Params(algorithm="nmf"), device="cpu").fit(ds)
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        LDA(Params(algorithm="lsa"), device="cpu").fit(ds)
 
 
 _UNPORTED = [
