@@ -122,6 +122,22 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_graph_ms(torch, fn, reps: int) -> float:
+    """Mean device milliseconds per call: ``fn`` captured once in a CUDA
+    graph and replayed ``reps`` times, so the host's launch overhead
+    drops out."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(torch, graph.replay, reps)
+
+
 def bound(bytes_moved: float, flops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
@@ -207,7 +223,68 @@ def check_sweep(torch, rows, dev, rng):
     }
 
 
-def check_scatter(torch, rows, dev, rng):
+SCATTER_EDGE_V = 1000           # 4 vocab tiles of 256, the last 232 wide
+
+
+def scatter_edge_case(torch, dev, rng, k, spread_pads=False):
+    """The scatter on a plan built for its edges (vt=256, tb=1024): tile 0
+    holds a hot column of 13,000 tokens (a run across >= 3 blocks) and
+    6,000 more, so it spans >= 16 blocks; tile 1 one partial block; tile 2
+    no token (an all-pad block); tile 3 is 232 columns wide (shard_v=1000
+    is no multiple of vt).  With ``spread_pads``, every block that is at
+    most half live has its live slots moved to even slots, so its pieces'
+    live slots are no prefix."""
+    from spark_text_clustering_tpu_torch.ops import emscatter
+
+    v = SCATTER_EDGE_V
+    ids = np.concatenate([
+        np.full(13_000, 7), rng.integers(0, 256, 6_000),
+        rng.integers(256, 512, 300), rng.integers(768, v, 700),
+    ]).astype(np.int32)
+    cts = (rng.random(ids.size) + 0.1).astype(np.float32)
+    cts[rng.random(ids.size) < 0.1] = 0.0
+    plan = emscatter.plan_em_scatter(ids[None], cts[None], 1, v)
+    nb, tb = plan.nb, plan.tb
+    cts_s = np.concatenate([cts, [0.0]])[plan.sort_order[0]]
+    wphi = (cts_s[:, None] * rng.random((nb * tb, k))).astype(np.float32)
+    lids = plan.lids[0, 0].reshape(nb, tb).copy()
+    wphi3 = wphi.reshape(nb, tb, k)
+    if spread_pads:
+        for blk in range(nb):
+            m = int((lids[blk] >= 0).sum())
+            if 0 < m <= tb // 2:
+                live_l, live_w = lids[blk, :m].copy(), wphi3[blk, :m].copy()
+                lids[blk], wphi3[blk] = -1, 0.0
+                lids[blk, 0:2 * m:2], wphi3[blk, 0:2 * m:2] = live_l, live_w
+    bv = plan.block_vtile[0, 0]
+    hot = (lids == 7) & (bv[:, None] == 0)
+    args = (torch.from_numpy(wphi).to(dev),
+            torch.from_numpy(lids.reshape(nb, 1, tb)).to(dev),
+            torch.from_numpy(bv).to(dev))
+    geo = dict(n_vtiles=plan.n_vtiles, vt=plan.vt, tb=tb, shard_v=v)
+    got = emscatter.scatter_add_vtiles(*args, nb=nb, **geo)
+    want = emscatter.scatter_add_vtiles_plain(*args, **geo)
+    again = emscatter.scatter_add_vtiles(*args, nb=nb, **geo)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    case = {"k": k, "shard_v": v, "nb": nb,
+            "tile0_blocks": int((bv == 0).sum()),
+            "hot_run_blocks": int(hot.any(1).sum()),
+            "all_pad_blocks": int((lids < 0).all(1).sum()),
+            "pads_inside_blocks": spread_pads, "max_abs_err": err,
+            "bitwise_repeatable": bool(torch.equal(got, again))}
+    if not torch.allclose(got, want, rtol=1e-5, atol=1e-5) or not (
+        case["bitwise_repeatable"] and case["tile0_blocks"] >= 16
+        and case["hot_run_blocks"] >= 3 and case["all_pad_blocks"] >= 1
+    ):
+        raise AssertionError(f"scatter_add_vtiles edge geometry: {case}")
+    return case
+
+
+def check_scatter(torch, rows, dev, rng, edge_rng, profile=False):
+    """The scatter on config B's inputs and the edge geometries; with
+    ``profile``, also the all-slot ``index_add_`` calls and the live-slot
+    one by CUDA-graph replay."""
     from spark_text_clustering_tpu_torch.ops import emscatter
 
     k, v = NG_K, NG_V
@@ -227,50 +304,94 @@ def check_scatter(torch, rows, dev, rng):
         raise AssertionError(
             f"scatter_add_vtiles differs from its plain version by {err}")
     again = emscatter.scatter_add_vtiles(wphi, lids, bv, nb=plan.nb, **geo)
+    if not torch.equal(got, again):
+        raise AssertionError("scatter_add_vtiles does not repeat bit for bit")
     ids_l = ids_s.long()
 
-    def library():
-        return torch.zeros((k, v), device=dev).index_add_(1, ids_l, wphi.T)
+    def kernel():
+        return emscatter.scatter_add_vtiles(wphi, lids, bv, nb=plan.nb, **geo)
 
-    def library_rows():
-        # the same sums into a [V, k] table (k contiguous values an id):
-        # NMF's H-side scatter layout
-        return torch.zeros((v, k), device=dev).index_add_(0, ids_l, wphi)
-
-    # and from the live slots alone: every pad slot adds 0 to row 0
+    # the same sums by one PyTorch call: index_add_ of the live slots into
+    # a [V, k] table (k contiguous values an id) is the fastest; over all
+    # slots, every pad slot adds 0 to id 0
     sel = (cts_s > 0).nonzero().squeeze(1)
     ids_live, wphi_live = ids_l[sel], wphi[sel].contiguous()
 
-    def library_rows_live():
+    def library():
         return torch.zeros((v, k), device=dev).index_add_(0, ids_live,
                                                           wphi_live)
 
-    lib_err = max(float((library() - got).abs().max()),
-                  float((library_rows().T - got).abs().max()),
-                  float((library_rows_live().T - got).abs().max()))
+    def library_cols():
+        return torch.zeros((k, v), device=dev).index_add_(1, ids_l, wphi.T)
+
+    def library_rows():
+        return torch.zeros((v, k), device=dev).index_add_(0, ids_l, wphi)
+
+    edges = [scatter_edge_case(torch, dev, edge_rng, kk) for kk in (5, 20, 500)]
+    edges.append(scatter_edge_case(torch, dev, edge_rng, NG_K,
+                                   spread_pads=True))
     # bytes the kernel needs: k posteriors of each live slot (it skips pad
     # slots), every slot's lid, the block map, and the table it writes
     live = int((cts_s > 0).sum())
     t_bytes, by = bound(4 * k * live + nbytes(lids, bv, got), float(k * live))
+    extra = {}
+    if profile:
+        extra = {
+            "library_graph_ms": cuda_graph_ms(torch, library, 50),
+            "library_cols_ms": cuda_ms(torch, library_cols, 20),
+            "library_rows_ms": cuda_ms(torch, library_rows, 20),
+            "library_all_slots_max_abs_err": max(
+                float((library_cols() - got).abs().max()),
+                float((library_rows().T - got).abs().max())),
+        }
     return {
         "name": "scatter_add_vtiles", "route": "cuda",
         "source": "spark_text_clustering_tpu_torch/csrc/emscatter.cu",
         "replaces": "spark_text_clustering_tpu/ops/pallas_emscatter.py:236",
-        "shape": {"k": k, "shard_v": v, "tokens": live, "nb": plan.nb},
-        "max_abs_err": err, "max_rel_err": rel,
-        "library_max_abs_err": lib_err,
+        "shape": {"k": k, "shard_v": v, "tokens": live, "nb": plan.nb,
+                  "piece": emscatter.scatter_piece(plan.tb)},
+        "max_abs_err": max([err] + [e["max_abs_err"] for e in edges]),
+        "main_max_abs_err": err, "max_rel_err": rel,
+        "library_max_abs_err": float((library().T - got).abs().max()),
         "tolerance": "rtol 1e-5, atol 1e-5",
-        "bitwise_repeatable": bool(torch.equal(got, again)),
-        "ms": cuda_ms(torch, lambda: emscatter.scatter_add_vtiles(
-            wphi, lids, bv, nb=plan.nb, **geo), 20),
+        "bitwise_repeatable": True,
+        "geometries": edges,
+        "ms": cuda_ms(torch, kernel, 20),
+        "graph_ms": cuda_graph_ms(torch, kernel, 50),
         "plain_ms": cuda_ms(torch, lambda: emscatter.scatter_add_vtiles_plain(
             wphi, lids, bv, **geo), 5),
         "bound_ms": t_bytes, "bound_by": by,
         "library_ms": cuda_ms(torch, library, 20),
-        "library_rows_ms": cuda_ms(torch, library_rows, 20),
-        "library_rows_live_ms": cuda_ms(torch, library_rows_live, 20),
-        "pad_slots": t - live,
+        "pad_slots": t - live, **extra,
     }
+
+
+ESTEP_SMEM_LIMIT = 232448       # 227 KB a block on the H100
+ESTEP_INSTANCES = {"slab_k8", "l2_k8", "phase_k32", "l2_k32", "phase_k64",
+                   "l2_k64"}
+
+
+def estep_instance(k, l, tile_b, cs):
+    """Which of ``csrc/estep.cu``'s six kernel instances a launch takes:
+    a copy of its ``geometry()``, which keeps a CTA's slab share in shared
+    memory wherever it fits (two-phase for k > 8, the register loop for
+    k <= 8) and otherwise streams it from L2 (the register loop of the
+    k <= 8, <= 32 or <= 64 instance)."""
+    tk = tile_b * k
+    ls = (-(-l // cs) + 31) // 32 * 32
+    state = 4 * (k + (2 + (2 if cs > 1 else 1)) * tk + 8)
+    kmax = 8 if k <= 8 else 32 if k <= 32 else 64
+    if k > 8:
+        threads = max(256, (-(-tile_b * ls // 8) + 31) // 32 * 32)
+        chunks = 1 if tk >= threads else min(32, threads // tk)
+        slab = 4 * (tk * ls + tile_b * ls + (tk * chunks if chunks > 1 else 0))
+        if threads <= 1024 and state + slab <= ESTEP_SMEM_LIMIT:
+            return f"phase_k{kmax}"
+    else:
+        wpd = min(1024 // 32 // tile_b, -(-ls // 128))
+        if state + 4 * tk * wpd + 4 * tile_b * ls * (k + 1) <= ESTEP_SMEM_LIMIT:
+            return "slab_k8"
+    return f"l2_k{kmax}"
 
 
 def check_estep(torch, rows, k, v, dev, rng, label, pick):
@@ -295,6 +416,7 @@ def check_estep(torch, rows, k, v, dev, rng, label, pick):
     got = estep.gamma_fixed_point_bkl(eb, cts, alpha, g0)
     want, iters = estep.gamma_fixed_point_bkl_plain(eb, cts, alpha, g0,
                                                    with_iters=True)
+    again = estep.gamma_fixed_point_bkl(eb, cts, alpha, g0)
     torch.cuda.synchronize()
     gn = got / got.sum(1, keepdim=True)
     wn = want / want.sum(1, keepdim=True)
@@ -303,8 +425,13 @@ def check_estep(torch, rows, k, v, dev, rng, label, pick):
     if not err <= 5e-3 or not torch.equal(gn.argmax(1), wn.argmax(1)):
         raise AssertionError(
             f"gamma_fixed_point_bkl differs from its plain version by {err}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"gamma_fixed_point_bkl does not repeat bit for "
+                             f"bit on {label}'s bucket [{len(idxs)}, {k}, {width}]")
     nnz = (cts > 0).sum(1).to(torch.float64)
     tile_b = min(8, len(idxs))
+    n_tiles = -(-len(idxs) // tile_b)
+    cluster = estep.cluster_size(n_tiles, width, estep._sm_count(dev))
     per_doc_iters = iters.repeat_interleave(tile_b)[: len(idxs)].to(torch.float64)
     flops = float((per_doc_iters * nnz * (4 * k + 1)).sum())
     # bytes the kernel needs: eb of live slots only (it skips cts == 0
@@ -313,16 +440,73 @@ def check_estep(torch, rows, k, v, dev, rng, label, pick):
     t_bytes, by = bound(live_eb + nbytes(cts, alpha, g0, got), flops)
     return {
         "name": "gamma_fixed_point_bkl", "config": label, "bucket": pick,
-        "shape": [len(idxs), k, width],
+        "shape": [len(idxs), k, width], "tiles": n_tiles, "cluster": cluster,
+        "instance": estep_instance(k, width, tile_b, cluster),
         "tile_iterations_max": int(iters.max()),
         "max_abs_err": err, "max_rel_err": rel,
-        "tolerance": "normalized gamma atol 5e-3",
+        "tolerance": "normalized gamma atol 5e-3, argmax equal",
+        "bitwise_repeatable": True,
         "ms": cuda_ms(torch, lambda: estep.gamma_fixed_point_bkl(
             eb, cts, alpha, g0), 5),
         "plain_ms": cuda_ms(torch, lambda: estep.gamma_fixed_point_bkl_plain(
             eb, cts, alpha, g0), 2),
         "bound_ms": t_bytes, "bound_by": by, "library_ms": None,
     }
+
+
+# (b, k, L, max_inner): b=21 and 13 are no multiple of tile_b=8 (three
+# and two tiles); L=128-2048 makes cluster_size return 1, 2, 4, 8 and 16;
+# together they reach all six kernel instances (estep_instance)
+ESTEP_EDGES = (
+    [(21, 5, l, 100) for l in (128, 256, 512, 1024, 2048)]
+    + [(21, 5, 8192, 100), (21, 5, 32768, 100), (21, 20, 2048, 100),
+       (13, 20, 16384, 100), (13, 64, 64, 100), (13, 64, 1024, 100),
+       (13, 64, 8192, 100), (13, 20, 1024, 0)]
+)
+
+
+def check_estep_edges(torch, dev, rng):
+    """The gamma kernel against its plain version at the edges of its
+    contract: every cluster size, b no multiple of tile_b, k = 5, 20, 64,
+    max_inner = 0, every kernel instance, and in every case one doc whose
+    cts are all zero and docs whose live slots are a prefix of random
+    length."""
+    from spark_text_clustering_tpu_torch.ops import estep
+
+    cases = []
+    for b, k, l, max_inner in ESTEP_EDGES:
+        eb = torch.from_numpy(rng.gamma(1.0, 1.0, (b, k, l)).astype(np.float32)).to(dev)
+        lens = rng.integers(1, l + 1, b)
+        lens[1] = 0
+        cts_np = rng.integers(1, 6, (b, l)).astype(np.float32)
+        cts_np[np.arange(l)[None, :] >= lens[:, None]] = 0.0
+        cts = torch.from_numpy(cts_np).to(dev)
+        alpha = torch.full((k,), 1.0 / k, device=dev)
+        g0 = torch.from_numpy(rng.gamma(100.0, 0.01, (b, k)).astype(np.float32)).to(dev)
+        got = estep.gamma_fixed_point_bkl(eb, cts, alpha, g0, max_inner)
+        again = estep.gamma_fixed_point_bkl(eb, cts, alpha, g0, max_inner)
+        want = estep.gamma_fixed_point_bkl_plain(eb, cts, alpha, g0, max_inner)
+        torch.cuda.synchronize()
+        gn = got / got.sum(1, keepdim=True)
+        wn = want / want.sum(1, keepdim=True)
+        cs = estep.cluster_size(-(-b // 8), l, estep._sm_count(dev))
+        case = {"shape": [b, k, l], "max_inner": max_inner, "cluster": cs,
+                "instance": estep_instance(k, l, 8, cs),
+                "max_abs_err": float((gn - wn).abs().max()),
+                "bitwise_repeatable": bool(torch.equal(got, again))}
+        ok = (case["max_abs_err"] <= 5e-3 and case["bitwise_repeatable"]
+              and torch.equal(gn.argmax(1), wn.argmax(1)))
+        if max_inner == 0:
+            ok = ok and bool(torch.equal(got, g0))
+        if not ok:
+            raise AssertionError(f"gamma_fixed_point_bkl edge geometry: {case}")
+        cases.append(case)
+    if sorted({c["cluster"] for c in cases}) != [1, 2, 4, 8, 16] or (
+        {c["instance"] for c in cases} != ESTEP_INSTANCES
+    ):
+        raise AssertionError(f"edge geometries missed a cluster size or a "
+                             f"kernel instance: {cases}")
+    return cases
 
 
 def online_params(seed: int, iters=None):
@@ -856,9 +1040,12 @@ def main() -> int:
     rng = np.random.default_rng(args.seed + 1)
     checks = {
         "em_sweep_fused": check_sweep(torch, rows_a, dev, rng),
-        "scatter_add_vtiles": check_scatter(torch, rows_b, dev, rng),
-        # its own generator, so the later checks draw the inputs they
-        # drew before this check existed
+        # the edge geometries and the tile check draw from their own
+        # generators, so the later checks draw the inputs they drew
+        # before those existed
+        "scatter_add_vtiles": check_scatter(
+            torch, rows_b, dev, rng, np.random.default_rng(args.seed + 4),
+            args.profile),
         "gamma_fixed_point_tiles": check_tiles(
             torch, rows_b, dev, np.random.default_rng(args.seed + 2),
             args.seed),
@@ -870,8 +1057,12 @@ def main() -> int:
                                   ("B", rows_b, NG_K, NG_V))
         for pick in ("docs", "width")
     ]
+    estep_edges = check_estep_edges(
+        torch, dev, np.random.default_rng(args.seed + 3))
     for c in (*checks.values(), *esteps):
         emit({"phase": "kernel_vs_plain", **c})
+    emit({"phase": "kernel_vs_plain_edges", "name": "gamma_fixed_point_bkl",
+          "geometries": estep_edges})
     if args.kernels_only:
         return 0
 
@@ -948,7 +1139,8 @@ def main() -> int:
         profile_configs(torch, rows_a, rows_b, args.seed, args.out)
 
     # 7. the kernels line; the gamma row is config B's most populated
-    # bucket, and its error the largest of the four buckets checked
+    # bucket, and its error the largest of the four buckets and the edge
+    # geometries checked
     kernels = [
         checks["em_sweep_fused"],
         checks["scatter_add_vtiles"],
@@ -957,8 +1149,8 @@ def main() -> int:
         {**esteps[2], "route": "cuda",
          "source": "spark_text_clustering_tpu_torch/csrc/estep.cu",
          "replaces": "spark_text_clustering_tpu/ops/pallas_estep.py:161",
-         "max_abs_err": max(e["max_abs_err"] for e in esteps),
-         "buckets": esteps},
+         "max_abs_err": max(e["max_abs_err"] for e in (*esteps, *estep_edges)),
+         "buckets": esteps, "geometries": estep_edges},
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,8 +1,9 @@
 // Block-wide segmented sum over a run-sorted piece of token slots.
 //
-// Shared by the EM scatter and the fused EM sweep.  Inside one vocab
-// tile the plan (plan_em_scatter) stores tokens sorted by their column
-// `lid`, so every column's tokens form ONE contiguous run of the piece.
+// Shared by the fused EM sweep, the tile gamma kernel and the NMF kernel.
+// Inside one vocab tile the plan (plan_em_scatter) stores tokens sorted by
+// their column `lid`, so every column's tokens form ONE contiguous run of
+// the piece.
 // Each thread owns ITEMS consecutive slots.  A segmented inclusive scan
 // (thread-local, then warp shuffles, then across the block's warps in
 // warp order) leaves the run's total in the run's last slot; that slot's

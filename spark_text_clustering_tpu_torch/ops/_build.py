@@ -45,12 +45,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # returns an int (a CUDA error code, or the queried value).
 SIGNATURES = {
     "estep": {
-        "stc_gamma_fixed_point_bkl": [_P] * 4 + [_I] * 5 + [_F, _P, _P],
+        "stc_gamma_fixed_point_bkl": [_P] * 4 + [_I] * 6 + [_F, _P, _P],
         "stc_estep_max_k": [],
         "stc_estep_max_tile_b": [],
     },
     "emscatter": {
-        "stc_scatter_add_vtiles": [_P] * 3 + [_I] * 7 + [_P, _P],
+        "stc_scatter_add_vtiles": [_P] * 3 + [_I] * 7 + [_P] * 4,
     },
     "emsweep": {
         "stc_em_sweep_fused": [_P] * 7 + [_I] * 7 + [_F] + [_P] * 4,

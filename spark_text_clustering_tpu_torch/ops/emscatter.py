@@ -10,10 +10,14 @@ posteriors come out already in kernel order.
 ``scatter_add_vtiles`` is ``zeros[k, shard_v].at[:, ids].add(wphi.T)``
 over posteriors in plan order: the CUDA kernel (``csrc/emscatter.cu``)
 for tensors on the card, ``scatter_add_vtiles_plain`` for CPU tensors.
+The kernel gives each piece of a token block (``scatter_piece`` slots,
+a divisor of ``tb``) its own thread block, so a tile of many blocks
+spreads over many SMs.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -26,15 +30,19 @@ __all__ = [
     "plan_em_scatter",
     "scatter_add_vtiles",
     "scatter_add_vtiles_plain",
+    "scatter_piece",
 ]
 
 # 256-column vocab tiles x 1024-token blocks: the JAX package's geometry,
 # kept so the two packages lay the corpus out identically.
 _VT = 256
 _TB = 1024
-# topics one block of the scatter kernel accumulates ([kc, vt] in shared
-# memory); wider k splits across the grid
+# topics one thread block of the scatter kernel stages and reduces; wider
+# k splits across grid.y
 _KC = 32
+# slots one thread block of the scatter kernel takes at most (32 lanes x
+# 16 slots; csrc/emscatter.cu kMaxPiece)
+_PIECE = 512
 
 
 class EmScatterPlan(NamedTuple):
@@ -125,6 +133,14 @@ def plan_em_scatter(
     )
 
 
+@lru_cache(maxsize=None)
+def scatter_piece(tb: int) -> int:
+    """Slots each thread block of the scatter kernel takes: the largest
+    divisor of ``tb`` that is at most 512, so no piece spans two blocks
+    (and so two vocab tiles)."""
+    return max(p for p in range(1, min(tb, _PIECE) + 1) if tb % p == 0)
+
+
 def scatter_add_vtiles_plain(
     wphi_sorted: torch.Tensor,  # [nb * tb, k]
     lids: torch.Tensor,         # [nb, 1, tb] int32
@@ -176,12 +192,18 @@ def scatter_add_vtiles(
     _build.check_tensors("scatter_add_vtiles", wphi_sorted, lids, block_vtile)
     if vt > 1024:
         raise ValueError("scatter_add_vtiles: vt must be <= 1024")
-    out = torch.empty((k, shard_v), dtype=torch.float32,
-                      device=wphi_sorted.device)
+    dev = wphi_sorted.device
+    piece = scatter_piece(tb)
+    n_pieces = nb * (tb // piece)
+    # columns no token hits stay 0; the kernel writes every other column
+    out = torch.zeros((k, shard_v), dtype=torch.float32, device=dev)
+    meta = torch.empty((n_pieces, 4), dtype=torch.int32, device=dev)
+    part = torch.empty((n_pieces, 2, k), dtype=torch.float32, device=dev)
     err = _build.load_library("emscatter").stc_scatter_add_vtiles(
         wphi_sorted.data_ptr(), lids.data_ptr(), block_vtile.data_ptr(),
-        nb, tb, k, min(k, _KC), vt, n_vtiles, shard_v, out.data_ptr(),
-        torch.cuda.current_stream(wphi_sorted.device).cuda_stream,
+        nb, tb, piece, k, min(k, _KC), vt, shard_v, out.data_ptr(),
+        meta.data_ptr(), part.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "scatter_add_vtiles")
     _build.count_launch("scatter_add_vtiles")

@@ -7,6 +7,9 @@ function in plain PyTorch, for tensors on the CPU.  Both stop a tile of
 at ``max_inner``), pad the batch to a tile multiple with empty docs, and
 use the same ``digamma_approx``.  ``gamma_fixed_point`` is the [B, L, k]
 slab contract of the scoring path.
+
+On the card a tile is one thread-block cluster whose CTAs split L;
+``cluster_size`` picks how many CTAs from the tile count and L.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 from . import _build
 
 __all__ = [
+    "cluster_size",
     "digamma_approx",
     "gamma_fixed_point",
     "gamma_fixed_point_bkl",
@@ -23,6 +27,22 @@ __all__ = [
 ]
 
 _PHI_EPS = 1e-30
+# CTAs a tile's cluster may have (16 needs the card's non-portable
+# cluster size), and the fewest slots of L one CTA of a cluster takes
+_MAX_CLUSTER = 16
+_L_SLICE = 128
+_H100_SMS = 132
+
+
+def cluster_size(n_tiles: int, l: int, sms: int = _H100_SMS) -> int:
+    """CTAs per tile of the E-step kernel: the smallest power of two with
+    ``n_tiles * size >= sms``, at most 16 and at most the number of
+    ``_L_SLICE``-slot slices of L (so no CTA gets less than one slice)."""
+    slices = max(1, -(-l // _L_SLICE))
+    size = 1
+    while size < _MAX_CLUSTER and n_tiles * size < sms and 2 * size <= slices:
+        size *= 2
+    return size
 
 
 def digamma_approx(x: torch.Tensor) -> torch.Tensor:
@@ -119,7 +139,16 @@ def gamma_fixed_point_bkl(
     ):
         raise TypeError("gamma_fixed_point_bkl takes float32 tensors")
     _build.check_tensors("gamma_fixed_point_bkl", eb, cts, alpha, gamma0)
-    tb = min(tile_b, b)
+    return _launch(eb, cts, alpha, gamma0, max_inner, tol, min(tile_b, b))
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch(eb, cts, alpha, gamma0, max_inner, tol, tb):
+    """The kernel on checked card tensors."""
+    b, k, l = eb.shape
     lib = _build.load_library("estep")
     max_k, max_tb = lib.stc_estep_max_k(), lib.stc_estep_max_tile_b()
     if k > max_k or not 1 <= tb <= max_tb:
@@ -128,9 +157,10 @@ def gamma_fixed_point_bkl(
     out = torch.empty((b, k), dtype=torch.float32, device=eb.device)
     if b == 0:
         return out
+    cs = cluster_size(-(-b // tb), l, _sm_count(eb.device))
     err = lib.stc_gamma_fixed_point_bkl(
         eb.data_ptr(), cts.data_ptr(), alpha.data_ptr(), gamma0.data_ptr(),
-        b, k, l, tb, max_inner, tol, out.data_ptr(),
+        b, k, l, tb, cs, max_inner, tol, out.data_ptr(),
         torch.cuda.current_stream(eb.device).cuda_stream,
     )
     _build.check(err, "gamma_fixed_point_bkl")

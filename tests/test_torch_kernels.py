@@ -50,11 +50,11 @@ def test_digamma_approx_matches_jax():
 
 
 # ---- gamma fixed point (E-step kernel) ---------------------------------
-def _estep_problem(b, l=64, k=5, v=300, seed=0):
+def _estep_problem(b, l=64, k=5, v=300, seed=0, pad=7):
     rng = np.random.default_rng(seed)
     ids = rng.integers(0, v, (b, l))
     cts = rng.integers(1, 6, (b, l)).astype(np.float32)
-    cts[:, -7:] = 0.0
+    cts[:, -pad:] = 0.0
     cts[b // 2] = 0.0                          # an empty doc
     lam = rng.gamma(100.0, 0.01, (k, v)).astype(np.float32)
     eb_full = np.asarray(jnp.exp(jlda.dirichlet_expectation(jnp.asarray(lam))))
@@ -64,12 +64,19 @@ def _estep_problem(b, l=64, k=5, v=300, seed=0):
     return eb, cts, alpha, g0
 
 
-@pytest.mark.parametrize("b,tile_b", [(16, 8), (13, 8), (11, 1), (5, 8)])
-def test_gamma_fixed_point_bkl_matches_pallas(b, tile_b):
+@pytest.mark.parametrize(
+    "b,tile_b,l,pad",
+    [(16, 8, 64, 7), (13, 8, 64, 7), (11, 1, 64, 7), (5, 8, 64, 7),
+     (12, 8, 4096, 2048)],
+    ids=["16-8", "13-8", "11-1", "5-8", "en-width-12-5-4096-half-pad"],
+)
+def test_gamma_fixed_point_bkl_matches_pallas(b, tile_b, l, pad):
     """Normalized gamma within 5e-3 (the Pallas kernel's own bound vs the
     XLA loop).  Same algorithm and tile stop rule on both sides: the
-    median per-doc difference is at the float32 rounding level (< 1e-5)."""
-    eb, cts, alpha, g0 = _estep_problem(b)
+    median per-doc difference is at the float32 rounding level (< 1e-5).
+    The last case is an EN-books-like bucket: few docs, k=5, wide L with
+    half of every doc's slots pad."""
+    eb, cts, alpha, g0 = _estep_problem(b, l=l, pad=pad)
     want = jestep.gamma_fixed_point_pallas_bkl(
         jnp.asarray(eb), jnp.asarray(cts), jnp.asarray(alpha),
         jnp.asarray(g0), tile_b=tile_b, interpret=True,
@@ -81,6 +88,34 @@ def test_gamma_fixed_point_bkl_matches_pallas(b, tile_b):
     diff = np.abs(_norm(got.numpy()) - _norm(want)).max(axis=1)
     assert diff.max() <= 5e-3
     assert np.median(diff) < 1e-5
+
+
+@pytest.mark.parametrize("n_tiles,l,want", [
+    (3, 16384, 16),    # EN books, most populated bucket [22, 5, 16384]
+    (2, 32768, 16),    # EN books, widest bucket [12, 5, 32768]
+    (582, 64, 1),      # 20NG, most populated bucket [4652, 20, 64]
+    (2, 512, 4),       # 20NG, widest bucket [9, 20, 512]: 4 slices of L
+    (1, 64, 1),        # one slice of L: never more CTAs than slices
+    (20, 4096, 8),     # 20 x 8 = 160 CTAs fill the 132 SMs
+    (132, 8192, 1),    # the tiles alone fill the SMs
+])
+def test_cluster_size_at_bucket_shapes(n_tiles, l, want):
+    assert testep.cluster_size(n_tiles, l) == want
+
+
+def test_cluster_size_bounds():
+    """A power of two in 1..16, never more CTAs than 128-slot slices of L,
+    and the smallest size that fills 132 SMs unless a bound stops it."""
+    for n_tiles in (1, 2, 3, 5, 8, 17, 33, 66, 131, 132, 500):
+        for l in (1, 31, 64, 128, 129, 256, 300, 1000, 2048, 4096, 32768):
+            cs = testep.cluster_size(n_tiles, l)
+            slices = -(-l // 128)
+            assert cs in (1, 2, 4, 8, 16)
+            assert cs <= slices
+            fills = n_tiles * cs >= 132
+            assert fills or cs == 16 or 2 * cs > slices
+            assert cs == 1 or n_tiles * (cs // 2) < 132
+    assert testep.cluster_size(3, 16384, sms=6) == 2
 
 
 def test_gamma_fixed_point_blk_contract():
@@ -153,14 +188,40 @@ def test_plan_matches_jax(s_d, n_model, shard_v, t_local, vt, tb):
 
 
 # ---- two-stage scatter --------------------------------------------------
-@pytest.mark.parametrize("k,shard_v,t_local", [(5, 700, 900), (20, 3000, 5000),
-                                               (64, 700, 1200)])
-def test_scatter_add_vtiles_matches_pallas(k, shard_v, t_local):
+@pytest.mark.parametrize("tb,want", [(1024, 512), (512, 512), (128, 128),
+                                     (1536, 512), (1000, 500), (7, 7),
+                                     (1031, 1)])
+def test_scatter_piece_divides_the_block(tb, want):
+    """A thread block of the scatter kernel takes the largest divisor of
+    tb up to 512 slots, so no piece spans two token blocks."""
+    piece = tscatter.scatter_piece(tb)
+    assert piece == want and tb % piece == 0 and piece <= 512
+
+
+@pytest.mark.parametrize(
+    "k,shard_v,t_local,hot,tile0",
+    [(5, 700, 900, 0, 0), (20, 3000, 5000, 0, 0), (64, 700, 1200, 0, 0),
+     (20, 700, 1200, 450, 0), (5, 700, 1200, 0, 3000)],
+    ids=["5-700-900", "20-3000-5000", "64-700-1200", "hot-column",
+         "many-block-tile"],
+)
+def test_scatter_add_vtiles_matches_pallas(k, shard_v, t_local, hot, tile0):
+    """``hot`` extra tokens of column 7 make one run across >= 3 blocks of
+    128; ``tile0`` extra tokens in columns 0-255 give tile 0 >= 16 blocks."""
     rng = np.random.default_rng(2)
     ids = rng.integers(0, shard_v, (1, t_local)).astype(np.int32)
+    if hot or tile0:
+        extra = np.concatenate([np.full(hot, 7), rng.integers(0, 256, tile0)])
+        ids = np.concatenate([ids, extra[None].astype(np.int32)], axis=1)
+        t_local = ids.shape[1]
     cts = rng.random((1, t_local)).astype(np.float32) + 0.1
     cts[0, rng.random(t_local) < 0.2] = 0.0
     plan = tscatter.plan_em_scatter(ids, cts, 1, shard_v, vt=256, tb=128)
+    lids, bv = plan.lids[0, 0, :, 0], plan.block_vtile[0, 0]
+    if hot:
+        assert ((lids == 7) & (bv[:, None] == 0)).any(1).sum() >= 3
+    if tile0:
+        assert (bv == 0).sum() >= 16
     wphi = rng.random((t_local, k)).astype(np.float32) * (cts[0] > 0)[:, None]
     wsorted = np.concatenate([wphi, np.zeros((1, k), np.float32)])[
         plan.sort_order[0]
