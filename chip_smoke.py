@@ -6,9 +6,12 @@
 1. builds the five CUDA kernels from ``spark_text_clustering_tpu_torch/
    csrc`` (one ``nvcc`` per source, in parallel, into build/torch_kernels);
 2. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, and times kernel, plain version, and
-   (for the scatter) the one PyTorch call that computes the same function,
-   and asks the fused gate for geometries its shared memory refuses;
+   shapes the main path gives it and at the edges of its contract, and
+   times kernel, plain version, and (for the scatter) the one PyTorch call
+   that computes the same function, and asks the fused gate for geometries
+   its shared memory refuses.  The tile gamma kernel is held against its
+   plain version on every launch of one config C fit, and timed on
+   iteration 5's minibatch and on the fit's heaviest launch;
 3. config A, the EN books shape: 51 docs of 2,000-20,000 distinct terms,
    V=39,380, k=5.  IDF -> EM fit (fused sweep, resumed from one random
    start) -> save -> load -> padded-bucket scoring -> scoring report.  The
@@ -519,10 +522,146 @@ def online_params(seed: int, iters=None):
                   sampling="epoch", seed=seed)
 
 
+def tiles_case(torch, packed, args, d, label, doc_ids=None, b=None,
+               max_inner=100):
+    """The tile kernel against its plain version on ``args`` (eb, cts,
+    seg, alpha, gamma0): normalized gamma within 5e-3, a bit-for-bit
+    repeat, pad slots (``doc_ids == b``) at exactly alpha once an
+    iteration ran, and gamma0 as it is at max_inner=0.  Returns the
+    plain version's iterations per tile and the case's record."""
+    got = packed.gamma_fixed_point_tiles(*args, d, max_inner)
+    again = packed.gamma_fixed_point_tiles(*args, d, max_inner)
+    want, iters = packed.gamma_fixed_point_tiles_plain(
+        *args, d, max_inner, with_iters=True)
+    torch.cuda.synchronize()
+    gn = got / got.sum(0, keepdim=True)
+    wn = want / want.sum(0, keepdim=True)
+    k = args[0].shape[0]
+    n_tiles, tt = args[1].shape
+    warps = packed.tile_warps(tt)
+    scratch = packed._build.load_library("packed").stc_tiles_scratch_floats(
+        k, d, tt, warps)
+    case = {"case": label, "k": k, "d": d, "tt": tt, "tiles": n_tiles,
+            "max_inner": max_inner, "warps": warps,
+            "state": "global" if scratch else "shared",
+            "tile_iterations_max": int(iters.max()) if n_tiles else 0,
+            "tile_iterations_mean": float(iters.to(torch.float64).mean()),
+            "max_abs_err": float((gn - wn).abs().max()),
+            "max_rel_err": float(((got - want).abs() / want.abs()).max()),
+            "bitwise_repeatable": bool(torch.equal(got, again))}
+    if doc_ids is not None:
+        pad = torch.from_numpy(doc_ids.reshape(-1) == b).to(got.device)
+        case["pad_slots"] = int(pad.sum())
+        alpha = args[3][:, None].expand(k, case["pad_slots"])
+        case["pad_slots_exactly_alpha"] = bool(torch.equal(
+            got[:, pad], args[4][:, pad] if max_inner == 0 else alpha))
+    ok = case["max_abs_err"] <= 5e-3 and case["bitwise_repeatable"] and (
+        case.get("pad_slots_exactly_alpha", True))
+    if max_inner == 0:
+        ok = ok and bool(torch.equal(got, args[4]))
+    if not ok:
+        raise AssertionError(f"gamma_fixed_point_tiles, {label}: {case}")
+    return iters, case
+
+
+def tiles_bound(torch, args, d, iters, live_slots):
+    """The least time for one launch on ``args``: bytes of eb, seg and cts
+    of live tokens, gamma0 read and gamma written for live slots, alpha;
+    operations per tile iteration and live token: phinorm (2k), the ratio,
+    and the k products and k adds of the per-slot sums."""
+    k = args[0].shape[0]
+    tok = (args[2] < d).sum(1).to(torch.float64)
+    flops = float((iters.to(torch.float64) * tok).sum()) * (4 * k + 1)
+    return bound(int(tok.sum()) * (4 * k + 8) + 8 * k * live_slots + 4 * k,
+                 flops)
+
+
+# (label, k, doc lengths or a corpus name, n_shards, max_inner, tiles):
+# k past 32 and 64 run the lane loop over topics; "one_doc_512" is a tile
+# holding one 512-token doc; n_shards=4 pads the tile axis with all-pad
+# tiles; "empty_slots" has token-less docs between live ones; one-token
+# docs give d=512 (state in shared memory), the NMF geometry rows d=2048
+# (state in the global scratch, as for k=64 and k=200)
+TILES_EDGES = (
+    ("k5", 5, "ng", 1, 100, 2), ("k20", 20, "ng", 1, 100, 3),
+    ("k33", 33, "ng", 1, 100, 2), ("k64", 64, "ng", 1, 100, 2),
+    ("k200", 200, "ng", 1, 100, 1),
+    ("one_doc_512", 20, [512, 30, 40], 1, 100, 2),
+    ("all_pad_tiles", 20, [30, 40, 50], 4, 100, 4),
+    ("empty_slots", 20, "empty", 1, 100, 1),
+    ("max_inner_0", 20, "ng", 1, 0, 2), ("max_inner_1", 20, "ng", 1, 1, 2),
+    ("d512", 20, [1] * 600, 1, 100, 1), ("d2048", 20, "nmf", 1, 100, 1),
+)
+
+
+def check_tiles_edges(torch, dev, rng, seed):
+    """The tile kernel at the edges of its contract (TILES_EDGES), each
+    on a tile plan of its own corpus, eb from a random lambda."""
+    from spark_text_clustering_tpu_torch.ops import packed
+
+    v = 4096
+    ng = np.minimum(np.maximum(4, rng.lognormal(4.4, 0.8, 300).astype(int)),
+                    400)
+    empty = rng.integers(5, 60, 20)
+    empty[[3, 4, 9]] = 0
+    cases = []
+    for label, k, lens, n_shards, max_inner, n_tiles in TILES_EDGES:
+        if lens == "nmf":
+            rows = nmf_geometry_rows(seed)
+        else:
+            lens = {"ng": ng, "empty": empty}[lens] if isinstance(
+                lens, str) else lens
+            rows = [(np.sort(rng.choice(v, size=int(m), replace=False)).astype(np.int32),
+                     rng.integers(1, 6, int(m)).astype(np.float32)) for m in lens]
+        plan = packed.plan_corpus_tiles(*flat_rows(rows), n_shards=n_shards,
+                                        k=k)
+        sel = np.arange(min(n_tiles, plan.ids.shape[0]))
+        lam = torch.from_numpy(rng.gamma(1.0, 1.0, (k, v)).astype(np.float32)).to(dev)
+        flat = torch.from_numpy(plan.ids[sel]).to(dev).reshape(-1).long()
+        eb = torch.exp(torch.digamma(lam[:, flat])
+                       - torch.digamma(lam.sum(1))[:, None]).contiguous()
+        args = (eb, torch.from_numpy(plan.cts[sel]).to(dev),
+                torch.from_numpy(plan.seg[sel]).to(dev),
+                torch.full((k,), 1.0 / k, device=dev),
+                torch.from_numpy(rng.gamma(100.0, 0.01, (k, len(sel) * plan.d))
+                                 .astype(np.float32)).to(dev))
+        _, case = tiles_case(torch, packed, args, plan.d, label,
+                                plan.doc_ids[sel], plan.b, max_inner)
+        cases.append(case)
+    return cases
+
+
+def fit_launches(torch, rows, seed):
+    """Every tile-kernel launch of one online fit (config C) on the card:
+    its inputs and output, recorded around the fit's call of the kernel
+    (one launch an iteration), and the estimator (its ``tile_pick``)."""
+    from spark_text_clustering_tpu_torch import OnlineLDA
+    from spark_text_clustering_tpu_torch.models import online_lda
+
+    kernel = online_lda.gamma_fixed_point_tiles
+    seen = []
+
+    def record(eb, cts, seg, alpha, g0, d, max_inner, tol):
+        out = kernel(eb, cts, seg, alpha, g0, d, max_inner, tol)
+        seen.append(((eb.clone(), cts.clone(), seg.clone(), alpha.clone(),
+                      g0.clone()), out.clone()))
+        return out
+
+    opt = OnlineLDA(online_params(seed))
+    online_lda.gamma_fixed_point_tiles = record
+    try:
+        opt.fit(rows, [f"h{i}" for i in range(NG_V)])
+    finally:
+        online_lda.gamma_fixed_point_tiles = kernel
+    return seen, opt
+
+
 def check_tiles(torch, rows, dev, rng, seed):
-    """The tile kernel on one iteration's minibatch of config C, with eb
-    from lambda after a few iterations on the card, and the kernel's
-    shared-memory gate asked on the card."""
+    """The tile kernel on two minibatches of config C: iteration 5's, with
+    eb from lambda after five iterations on the card and random gamma
+    inits, and the fit's heaviest launch (most inner iterations in its
+    slowest tile) as the fit ran it.  Every launch of one fit is held
+    against the plain version; the gate is asked on the card."""
     from spark_text_clustering_tpu_torch import OnlineLDA
     from spark_text_clustering_tpu_torch.ops import _build, packed
 
@@ -543,51 +682,92 @@ def check_tiles(torch, rows, dev, rng, seed):
     alpha = torch.full((k,), 1.0 / k, device=dev)
     g0 = torch.from_numpy(
         rng.gamma(100.0, 0.01, (k, tb * d)).astype(np.float32)).to(dev)
+    args = (eb, cts, seg, alpha, g0)
+
+    # the gate: the main path's state fits shared memory; a d or k past
+    # shared memory keeps it in the global scratch instead of refusing
     lib = _build.load_library("packed")
-    gate = {f"k{kk}_d{dd}_tt{t}": lib.stc_tiles_smem_bytes(kk, dd, t)
-            for kk, dd, t in ((k, d, plan.tt), (k, 2048, 512),
-                              (200, 128, 512))}
-    if not (gate[f"k{k}_d{d}_tt{plan.tt}"] > 0
-            and gate["k20_d2048_tt512"] == 0 and gate["k200_d128_tt512"] == 0):
+    gate = {}
+    for kk, dd, t in ((k, d, plan.tt), (k, 2048, 512), (200, 128, 512)):
+        w = packed.tile_warps(t)
+        gate[f"k{kk}_d{dd}_tt{t}"] = {
+            "smem": lib.stc_tiles_smem_bytes(kk, dd, t, w),
+            "scratch_floats": lib.stc_tiles_scratch_floats(kk, dd, t, w)}
+    main_gate = gate[f"k{k}_d{d}_tt{plan.tt}"]
+    if not (main_gate["smem"] > 0 and main_gate["scratch_floats"] == 0
+            and all(g["smem"] > 0 and g["scratch_floats"] > 0
+                    for key, g in gate.items() if g is not main_gate)):
         raise AssertionError(f"tile kernel gate on the card: {gate}")
-    got = packed.gamma_fixed_point_tiles(eb, cts, seg, alpha, g0, d)
-    want, iters = packed.gamma_fixed_point_tiles_plain(
-        eb, cts, seg, alpha, g0, d, with_iters=True)
-    torch.cuda.synchronize()
-    gn = got / got.sum(0, keepdim=True)
-    wn = want / want.sum(0, keepdim=True)
-    err = float((gn - wn).abs().max())
-    rel = float(((got - want).abs() / want.abs()).max())
-    if not err <= 5e-3:
-        raise AssertionError(
-            f"gamma_fixed_point_tiles differs from its plain version by {err}")
-    again = packed.gamma_fixed_point_tiles(eb, cts, seg, alpha, g0, d)
-    # bytes the kernel needs: eb, seg and cts of live tokens, gamma0 read
-    # and gamma written for live slots, alpha; operations: per tile
-    # iteration and live token, phinorm (2k), the ratio, and the k
-    # products and k scan adds
-    tok = (seg < d).sum(1).to(torch.float64)
-    live_tok = int(tok.sum())
+
+    iters, main = tiles_case(torch, packed, args, d, "iteration_5",
+                                  plan.doc_ids[pick], n)
     live_slots = int((plan.doc_ids[pick] < n).sum())
-    flops = float((iters.to(torch.float64) * tok).sum()) * (4 * k + 1)
-    t_bytes, by = bound(live_tok * (4 * k + 8) + 8 * k * live_slots + 4 * k,
-                        flops)
+    t_bytes, by = tiles_bound(torch, args, d, iters, live_slots)
+
+    # every launch of one fit, held against the plain version; the
+    # heaviest becomes the second timed case
+    launches, fit_opt = fit_launches(torch, rows, seed)
+    fit_iters, fit_err = [], 0.0
+    for largs, lout in launches:
+        want, it = packed.gamma_fixed_point_tiles_plain(*largs, d,
+                                                        with_iters=True)
+        wn = want / want.sum(0, keepdim=True)
+        fit_err = max(fit_err, float(
+            (lout / lout.sum(0, keepdim=True) - wn).abs().max()))
+        fit_iters.append((int(it.max()), float(it.to(torch.float64).mean())))
+    heavy_at = max(range(len(fit_iters)), key=lambda i: fit_iters[i])
+    if not fit_err <= 5e-3:
+        raise AssertionError(f"gamma_fixed_point_tiles differs from its plain "
+                             f"version by {fit_err} in the fit's launches")
+    hargs = launches[heavy_at][0]
+    hdocs = plan.doc_ids[fit_opt.tile_pick(heavy_at)[0]]
+    hiters, heavy = tiles_case(torch, packed, hargs, d,
+                                  f"fit_launch_{heavy_at}", hdocs, n)
+    heavy.update(
+        launch=heavy_at,
+        ms=cuda_ms(torch, lambda: packed.gamma_fixed_point_tiles(*hargs, d), 20),
+        graph_ms=cuda_graph_ms(
+            torch, lambda: packed.gamma_fixed_point_tiles(*hargs, d), 20),
+        plain_ms=cuda_ms(torch, lambda: packed.gamma_fixed_point_tiles_plain(
+            *hargs, d), 2),
+        bound_ms=tiles_bound(torch, hargs, d, hiters,
+                             int((hdocs < n).sum()))[0])
+    del launches
+
+    edges = check_tiles_edges(torch, dev, np.random.default_rng(seed + 5), seed)
+    work = [packed.tile_work(row, d, packed.tile_warps(plan.tt))
+            for row in plan.seg[pick]]
     return {
         "name": "gamma_fixed_point_tiles", "route": "cuda",
         "source": "spark_text_clustering_tpu_torch/csrc/packed.cu",
         "replaces": "spark_text_clustering_tpu/ops/pallas_packed.py:456",
         "shape": {"k": k, "tiles": tb, "tt": plan.tt, "d": d,
-                  "live_tokens": live_tok, "live_slots": live_slots},
-        "tile_iterations_max": int(iters.max()),
-        "tile_iterations_mean": float(iters.to(torch.float64).mean()),
-        "max_abs_err": err, "max_rel_err": rel,
-        "tolerance": "normalized gamma atol 5e-3",
-        "bitwise_repeatable": bool(torch.equal(got, again)), "gate": gate,
-        "ms": cuda_ms(torch, lambda: packed.gamma_fixed_point_tiles(
-            eb, cts, seg, alpha, g0, d), 20),
+                  "live_tokens": int((seg < d).sum()),
+                  "live_slots": live_slots,
+                  "warps": packed.tile_warps(plan.tt),
+                  "tokens_per_warp_max": max(w.tokens_per_warp for w in work),
+                  "pieces_max": max(len(w.pieces) for w in work)},
+        "tile_iterations_max": main["tile_iterations_max"],
+        "tile_iterations_mean": main["tile_iterations_mean"],
+        "max_abs_err": max([main["max_abs_err"], heavy["max_abs_err"],
+                            fit_err] + [e["max_abs_err"] for e in edges]),
+        "main_max_abs_err": main["max_abs_err"],
+        "max_rel_err": main["max_rel_err"],
+        "tolerance": "normalized gamma atol 5e-3; pad slots exactly alpha",
+        "bitwise_repeatable": True, "gate": gate,
+        "ms": cuda_ms(torch, lambda: packed.gamma_fixed_point_tiles(*args, d), 20),
+        "graph_ms": cuda_graph_ms(
+            torch, lambda: packed.gamma_fixed_point_tiles(*args, d), 50),
         "plain_ms": cuda_ms(torch, lambda: packed.gamma_fixed_point_tiles_plain(
-            eb, cts, seg, alpha, g0, d), 3),
+            *args, d), 3),
         "bound_ms": t_bytes, "bound_by": by, "library_ms": None,
+        "heavy": heavy,
+        "fit_launches": {
+            "launches": len(fit_iters), "max_abs_err": fit_err,
+            "tile_iterations_max": [m for m, _ in fit_iters],
+            "tile_iterations_mean": [round(a, 2) for _, a in fit_iters],
+            "mean_of_max": float(np.mean([m for m, _ in fit_iters]))},
+        "geometries": edges,
     }
 
 
@@ -912,8 +1092,8 @@ def profile_configs(torch, rows_a, rows_b, seed, out_dir):
     """torch.profiler over one fit and the scoring (A, B: padded scoring
     of every doc; D: topic_distribution of EVAL_DOCS docs) or evaluation
     (C: log-perplexity of EVAL_DOCS docs) of each config (count rows, no
-    IDF): device time by kernel name, and the device's busy share of the
-    window's wall time.  The full tables go to
+    IDF): device time and calls by kernel name, and the device's busy
+    share of the window's wall time.  The full tables go to
     ``<out_dir>/profile_{A,B,C,D}.txt`` when ``out_dir`` is given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -977,7 +1157,8 @@ def profile_configs(torch, rows_a, rows_b, seed, out_dir):
             "phase": f"profile_{label}", "fit_s": t1 - t0,
             "score_s": t2 - t1, "device_busy_s": busy_us / 1e6,
             "device_busy_share": busy_us / 1e6 / (t2 - t0),
-            "top_device_ms": [[e.key[:60], dev_us(e) / 1e3] for e in top],
+            "top_device_ms": [[e.key[:60], dev_us(e) / 1e3, e.count]
+                              for e in top],
         })
 
 
@@ -1064,6 +1245,11 @@ def main() -> int:
     emit({"phase": "kernel_vs_plain_edges", "name": "gamma_fixed_point_bkl",
           "geometries": estep_edges})
     if args.kernels_only:
+        if args.out:
+            record.update(build=build, kernels=list(checks.values()),
+                          estep_buckets=esteps, estep_edges=estep_edges)
+            with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
+                json.dump(record, f, indent=1)
         return 0
 
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")

@@ -30,11 +30,48 @@ from ..config import Params
 from ..device import resolve_device
 from ..ops.emscatter import plan_em_scatter, scatter_add_vtiles
 from ..ops.emsweep import em_sweep_fused, fused_d_pad, fused_eligible
+from ..ops.sparse import bucket_indices_by_length
 from ..utils.timing import IterationTimer
 from .base import LDAModel
 from .persistence import load_train_state, save_train_state, train_state_valid
 
-__all__ = ["EMLDA", "packed_plan", "packed_log_likelihood"]
+__all__ = ["EMLDA", "em_layout", "em_padded_cells", "packed_plan",
+           "packed_log_likelihood"]
+
+# Below this many single-bucket cells one padded sweep beats several
+# bucketed ones (the JAX package's auto bucketing rule)
+_BUCKET_MIN_CELLS = 16_000_000
+
+
+def em_padded_cells(rows: Sequence[Tuple[np.ndarray, np.ndarray]]) -> int:
+    """Token cells of one sweep on the JAX package's padded layout, with
+    its default ``bucket_by_length="auto"`` on one data shard: power-of-two
+    length buckets where bucketing removes most of the padding of one
+    padded batch of at least 16M cells, else that one batch."""
+    buckets = bucket_indices_by_length(rows)
+    cells = sum(len(idxs) * width for width, idxs in buckets.items())
+    if len(buckets) > 1:
+        single = len(rows) * max(buckets)
+        if single < _BUCKET_MIN_CELLS or cells > 0.5 * single:
+            return single
+    return cells
+
+
+def em_layout(rows: Sequence[Tuple[np.ndarray, np.ndarray]],
+              token_layout: str) -> str:
+    """The layout the JAX package's EM fit runs for ``token_layout``:
+    ``"packed"`` or ``"padded"``.  ``"auto"`` packs once the padded
+    layout costs at least twice the corpus's tokens."""
+    if token_layout not in ("padded", "packed", "auto"):
+        raise ValueError(
+            f"unknown token_layout {token_layout!r} "
+            "(use 'padded'|'packed'|'auto')"
+        )
+    if token_layout != "auto":
+        return token_layout
+    total_nnz = sum(len(i) for i, _ in rows)
+    return ("packed" if em_padded_cells(rows) >= 2.0 * max(1, total_nnz)
+            else "padded")
 
 
 def packed_plan(rows: Sequence[Tuple[np.ndarray, np.ndarray]]):
@@ -125,6 +162,12 @@ class EMLDA:
         n_iters = p.max_iterations if max_iterations is None else max_iterations
         k, n, v = p.k, len(rows), len(vocab)
         alpha, eta = p.resolved_alpha(), p.resolved_eta()
+        if em_layout(rows, p.token_layout) == "padded":
+            raise NotImplementedError(
+                f"token_layout={p.token_layout!r} runs the padded EM path "
+                "for this corpus, which is not ported (ROADMAP.md queue 1, "
+                "'The rest of EM'); pass token_layout='packed'"
+            )
 
         ids, cts, seg, slot, d_max = packed_plan(rows)
         plan = plan_em_scatter(ids[None], cts[None], 1, v)

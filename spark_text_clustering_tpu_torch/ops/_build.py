@@ -57,9 +57,9 @@ SIGNATURES = {
         "stc_em_sweep_warps": [_I] * 3,
     },
     "packed": {
-        "stc_gamma_fixed_point_tiles": [_P] * 5 + [_I] * 5 + [_F, _P, _P],
-        "stc_tiles_smem_bytes": [_I] * 3,
-        "stc_tiles_max_k": [],
+        "stc_gamma_fixed_point_tiles": [_P] * 5 + [_I] * 6 + [_F] + [_P] * 3,
+        "stc_tiles_smem_bytes": [_I] * 4,
+        "stc_tiles_scratch_floats": [_I] * 4,
     },
     "nmf": {
         "stc_nmf_mu_update_tiles": [_P] * 5 + [_I] * 4 + [_F, _P, _P, _P],

@@ -17,6 +17,10 @@ same function in plain PyTorch, for tensors on the CPU.  Per tile:
 
 until the tile's worst mean|delta gamma| over its d slots drops below
 ``tol`` (or at ``max_inner``), with the inline ``digamma_approx``.
+
+On the card a tile is one CTA of ``tile_warps(tt)`` warps; ``tile_work``
+is how the kernel splits a tile among them (its live tokens in equal
+warp ranges, its live slots round robin).
 """
 
 from __future__ import annotations
@@ -37,9 +41,14 @@ __all__ = [
     "gamma_fixed_point_tiles_plain",
     "tile_gamma_to_docs",
     "docs_gamma_to_tiles",
+    "TileWork",
+    "tile_warps",
+    "tile_work",
 ]
 
 _PHI_EPS = 1e-30
+# warps of the tile kernel's CTA, at most (csrc/packed.cu kMaxWarps)
+_TILE_MAX_WARPS = 16
 
 # The JAX package's tile budget and doc-slot floor (its VMEM budget and
 # Mosaic's 128-lane gamma block), kept so both packages cut the corpus
@@ -205,6 +214,45 @@ def plan_corpus_tiles(
     return p
 
 
+class TileWork(NamedTuple):
+    """How the tile kernel splits one tile among its warps."""
+
+    n_tok: int           # live tokens (a prefix of the tile)
+    n_act: int           # live doc slots, 0..n_act-1
+    tokens_per_warp: int  # R: warp w takes live tokens [w R, (w+1) R)
+    pieces: np.ndarray   # [n_pieces, 4] (warp, slot, t0, t1) in token order
+
+
+def tile_warps(tt: int) -> int:
+    """Warps of the tile kernel's CTA: one per 32 token slots, 1..16."""
+    return max(1, min(_TILE_MAX_WARPS, -(-int(tt) // 32)))
+
+
+def tile_work(seg_row: np.ndarray, d: int, warps: int) -> TileWork:
+    """The kernel's split of one tile (``seg_row`` [tt], pad == d): the
+    live tokens in ranges of R (a multiple of 32 that covers them with
+    ``warps`` warps), a piece per doc run inside a range, whose k sums the
+    kernel writes to row slot + warp of its piece table; live slot s is
+    updated by warp s % warps."""
+    seg_row = np.asarray(seg_row)
+    pad = np.flatnonzero(seg_row >= d)
+    n_tok = int(pad[0]) if pad.size else len(seg_row)
+    n_act = int(seg_row[n_tok - 1]) + 1 if n_tok else 0
+    per = -(-n_tok // warps)
+    r = 32 if per <= 32 else -(-per // 32) * 32
+    start = np.searchsorted(seg_row[:n_tok], np.arange(n_act + 1))
+    pieces = []
+    for s in range(n_act):
+        t, end = int(start[s]), int(start[s + 1])
+        while t < end:
+            w = t // r
+            t1 = min(end, (w + 1) * r)
+            pieces.append((w, s, t, t1))
+            t = t1
+    return TileWork(n_tok, n_act, r,
+                    np.asarray(pieces, np.int64).reshape(-1, 4))
+
+
 def gamma_fixed_point_tiles_plain(
     eb_kt: torch.Tensor,     # [k, n_tiles * tt] gathered exp(E[log beta])
     cts: torch.Tensor,       # [n_tiles, tt]
@@ -282,20 +330,22 @@ def gamma_fixed_point_tiles(
     _build.check_tensors("gamma_fixed_point_tiles", eb_kt, cts, seg, alpha,
                          gamma0)
     lib = _build.load_library("packed")
-    smem = lib.stc_tiles_smem_bytes(k, d, tt)
-    if smem <= 0:
-        raise ValueError(
-            f"the tile kernel takes k <= {lib.stc_tiles_max_k()} and a "
-            f"[k, d] state that fits shared memory; got k={k}, d={d}, "
-            f"tt={tt}")
+    warps = tile_warps(tt)
+    if lib.stc_tiles_smem_bytes(k, d, tt, warps) <= 0:
+        raise ValueError(f"the tile kernel refuses k={k}, d={d}, tt={tt}")
     out = torch.empty((k, n_tiles * d), dtype=torch.float32,
                       device=eb_kt.device)
     if n_tiles == 0:
         return out
+    # where the tile state does not fit shared memory it lives here
+    per_tile = lib.stc_tiles_scratch_floats(k, d, tt, warps)
+    scratch = (torch.empty(n_tiles * per_tile, dtype=torch.float32,
+                           device=eb_kt.device) if per_tile else None)
     err = lib.stc_gamma_fixed_point_tiles(
         eb_kt.data_ptr(), cts.data_ptr(), seg.data_ptr(), alpha.data_ptr(),
-        gamma0.data_ptr(), n_tiles, k, tt, d, max_inner, tol,
-        out.data_ptr(), torch.cuda.current_stream(eb_kt.device).cuda_stream,
+        gamma0.data_ptr(), n_tiles, k, tt, d, max_inner, warps, tol,
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        torch.cuda.current_stream(eb_kt.device).cuda_stream,
     )
     _build.check(err, "gamma_fixed_point_tiles")
     _build.count_launch("gamma_fixed_point_tiles")

@@ -134,9 +134,79 @@ def test_em_resume_from_numpy_state(tmp_path):
     n_wk, n_dk = _init_state(rows, 200, K, seed=1)
     path = em_state_from_numpy(str(tmp_path), n_wk, n_dk, step=3)
     assert load_train_state(path)["step"] == 3
+    # ten docs of similar length: "auto" would take the padded path
     m = EMLDA(Params(k=K, max_iterations=5, checkpoint_dir=str(tmp_path),
-                     checkpoint_interval=100), device="cpu").fit(rows, vocab)
+                     checkpoint_interval=100, token_layout="packed"),
+              device="cpu").fit(rows, vocab)
     assert m.step == 5 and len(m.iteration_times) == 2
+
+
+def _layout_rows(lens, seed=0):
+    """Rows of the given lengths; only the lengths matter to the layout."""
+    rng = np.random.default_rng(seed)
+    return [(np.arange(n, dtype=np.int32),
+             (rng.random(n) + 0.5).astype(np.float32)) for n in lens]
+
+
+def _layout_lens(case):
+    rng = np.random.default_rng(4)
+    if case == "similar":               # one bucket, little padding
+        return rng.integers(10, 16, 30)
+    if case == "skewed":                # one wide doc among short ones
+        return np.concatenate([rng.integers(3, 9, 200), [900]])
+    if case == "two_buckets":           # padding near 2x, no bucketing
+        return np.concatenate([np.full(40, 8), np.full(40, 16)])
+    if case == "empty_doc":
+        return np.concatenate([[0], rng.integers(1, 40, 50)])
+    # > 16M single-bucket cells, bucketing removes most of them
+    return np.concatenate([rng.integers(4, 16, 8000), [4096]])
+
+
+@pytest.mark.parametrize("case", ["similar", "skewed", "two_buckets",
+                                  "empty_doc", "bucketed_over_16M"])
+def test_em_layout_decision_matches_jax(case):
+    """The padded cells and the "auto" choice equal the JAX fit's
+    (``EMLDA._plan_shape`` on a 1x1 mesh, then its 2x-nnz rule)."""
+    from spark_text_clustering_tpu_torch.models.em_lda import (
+        em_layout, em_padded_cells,
+    )
+
+    rows = _layout_rows(_layout_lens(case))
+    mesh = make_mesh(data_shards=1, model_shards=1,
+                     devices=jax.devices("cpu")[:1])
+    shape = JEMLDA(JParams(k=K, token_layout="auto"), mesh=mesh)._plan_shape(
+        rows, len(rows))
+    cells = sum(len(idxs) * width for width, idxs in shape)
+    nnz = sum(len(i) for i, _ in rows)
+    want = "packed" if cells >= 2.0 * max(1, nnz) else "padded"
+    assert em_padded_cells(rows) == cells
+    assert em_layout(rows, "auto") == want
+    if case == "bucketed_over_16M":
+        assert len(rows) * 4096 > 16_000_000 and len(shape) > 1
+    assert em_layout(rows, "packed") == "packed"
+    assert em_layout(rows, "padded") == "padded"
+
+
+@pytest.mark.parametrize("layout,lens,exc", [
+    ("bogus", None, ValueError),
+    ("padded", None, NotImplementedError),
+    ("auto", "similar", NotImplementedError),
+    ("auto", "skewed", None),
+])
+def test_em_fit_token_layout(layout, lens, exc):
+    """An unknown layout raises ValueError as in JAX; wherever the JAX fit
+    runs the padded path the port raises NotImplementedError; "auto"
+    fits where JAX packs."""
+    rows = _layout_rows(_layout_lens(lens or "skewed"))
+    vocab = [f"t{i}" for i in range(900)]
+    opt = EMLDA(Params(k=K, max_iterations=2, token_layout=layout),
+                device="cpu")
+    if exc is None:
+        m = opt.fit(rows, vocab)
+        assert opt.last_sweep == "fused" and np.isfinite(m.lam).all()
+    else:
+        with pytest.raises(exc, match="token_layout"):
+            opt.fit(rows, vocab)
 
 
 def test_idf_matches_jax():

@@ -5,7 +5,9 @@ JAX package does (so both sample the same docs together).  The plain
 version of the tile gamma kernel, which the wrapper runs for CPU tensors,
 is held against the Pallas kernel in interpret mode on the same numpy
 inputs; the CUDA kernel is held against the plain version on the card by
-``chip_smoke.py``.
+``chip_smoke.py``, and here its own source, compiled by g++ against a
+small CPU stand-in for the CUDA runtime (threads, barriers, warp
+shuffles), is held against the plain version at small sizes.
 """
 
 from __future__ import annotations
@@ -92,12 +94,15 @@ def test_plan_tile_pack_matches_jax(tile_tokens, max_docs):
         np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
 
 
-def _tiles_problem(k, seed=0):
+def _tiles_problem(k, seed=0, long_doc=False):
     """A plan with empty docs and all-pad tiles (n_shards=4 pads the tile
-    axis), eb from a random lambda, random gamma inits."""
+    axis), eb from a random lambda, random gamma inits.  ``long_doc``
+    adds a 512-token doc, which fills a tile of its own."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(0, 90, 70)
     lens[[2, 40, 69]] = 0
+    if long_doc:
+        lens[50] = 512
     v = 800
     ids, cts, offsets = _corpus(len(lens), v, lens, seed=seed + 1)
     plan = tpacked.plan_corpus_tiles(ids, cts, offsets, n_shards=4, k=k)
@@ -110,13 +115,20 @@ def _tiles_problem(k, seed=0):
     return plan, eb_kt, g0.astype(np.float32), alpha
 
 
-@pytest.mark.parametrize("k", [2, 5, 20])
-def test_gamma_fixed_point_tiles_matches_pallas(k):
+@pytest.mark.parametrize("k,long_doc", [
+    pytest.param(2, False, id="2"), pytest.param(5, False, id="5"),
+    pytest.param(20, False, id="20"), pytest.param(33, False, id="33"),
+    pytest.param(20, True, id="long_doc"),
+])
+def test_gamma_fixed_point_tiles_matches_pallas(k, long_doc):
     """Normalized gamma within 5e-3 everywhere (the Pallas kernel's own
     bound against the XLA loop) and a median per-slot difference under
     1e-5: same algorithm and per-tile stop rule, float32 rounding apart.
-    Pad slots end at alpha exactly, as in JAX."""
-    plan, eb_kt, g0, alpha = _tiles_problem(k)
+    Pad slots end at alpha exactly, as in JAX.  k=33 is past one topic a
+    lane of the CUDA kernel; the long doc fills a 512-token tile."""
+    plan, eb_kt, g0, alpha = _tiles_problem(k, long_doc=long_doc)
+    if long_doc:
+        assert ((plan.seg < plan.d).sum(1) == 512).any()
     want = np.asarray(jpacked.gamma_fixed_point_tiles(
         jnp.asarray(eb_kt), jnp.asarray(plan.cts), jnp.asarray(plan.seg),
         jnp.asarray(alpha), jnp.asarray(g0), d=plan.d, interpret=True))
@@ -157,3 +169,246 @@ def test_tile_doc_reorders_match_jax():
         jnp.asarray(docs), jnp.asarray(plan.doc_ids)))
     got = tpacked.docs_gamma_to_tiles(_t(docs), _t(plan.doc_ids)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def _walk(seg_row, d, warps):
+    """The kernel's split of a tile, by a direct numpy walk: live tokens
+    in ranges of R, cut where the range or the doc slot changes."""
+    n_tok = int((seg_row < d).sum())
+    r = max(32, -(-(-(-n_tok // warps)) // 32) * 32)
+    warp = np.arange(n_tok) // r
+    slot = seg_row[:n_tok]
+    cut = np.flatnonzero((np.diff(warp) != 0) | (np.diff(slot) != 0)) + 1
+    t0 = np.r_[0, cut] if n_tok else np.zeros(0, int)
+    t1 = np.r_[cut, n_tok] if n_tok else np.zeros(0, int)
+    return r, np.stack([warp[t0], slot[t0], t0, t1], 1) if n_tok else (
+        np.zeros((0, 4), int))
+
+
+@pytest.mark.parametrize("case", ["c_shape", "one_doc_512"])
+def test_tile_work_matches_a_direct_walk(case):
+    """The tile kernel's launch geometry: 16 warps at tt=512, each taking
+    at most 32 live tokens; the pieces (one per doc run inside a warp's
+    range) equal a direct walk of the plan, and their rows slot + warp in
+    the piece table are unique.  At
+    C's shape (20NG-like lengths, k=20: tt=512, d=128) and on a tile that
+    holds one 512-token doc (16 pieces of 32 tokens, one slot)."""
+    rng = np.random.default_rng(8)
+    lens = np.minimum(np.maximum(4, rng.lognormal(4.4, 0.8, 600)), 400)
+    lens = lens.astype(int)
+    if case == "one_doc_512":
+        lens[5] = 512
+    ids, cts, offsets = _corpus(len(lens), 2000, lens, seed=9)
+    plan = tpacked.plan_corpus_tiles(ids, cts, offsets, k=20)
+    assert (plan.tt, plan.d) == (512, 128)
+    warps = tpacked.tile_warps(plan.tt)
+    assert warps == 16
+    rows = plan.seg
+    if case == "one_doc_512":
+        rows = plan.seg[((plan.seg < plan.d).sum(1) == 512)
+                        & (plan.seg == plan.seg[:, :1]).all(1)]
+        assert len(rows) == 1 and (rows[0] == 0).all()
+    for row in rows:
+        work = tpacked.tile_work(row, plan.d, warps)
+        r, pieces = _walk(row, plan.d, warps)
+        assert work.tokens_per_warp == r == 32
+        assert work.n_tok == int((row < plan.d).sum())
+        assert work.n_act == (int(row[work.n_tok - 1]) + 1 if work.n_tok else 0)
+        np.testing.assert_array_equal(work.pieces, pieces)
+        rows_used = work.pieces[:, 0] + work.pieces[:, 1]
+        assert len(np.unique(rows_used)) == len(rows_used)
+        assert rows_used.max() < plan.d + warps
+        per_warp = np.bincount(work.pieces[:, 0],
+                               weights=work.pieces[:, 3] - work.pieces[:, 2])
+        assert per_warp.max() <= 32
+    if case == "one_doc_512":
+        np.testing.assert_array_equal(work.pieces[:, 0], np.arange(16))
+        assert (work.pieces[:, 1] == 0).all()
+        assert ((work.pieces[:, 3] - work.pieces[:, 2]) == 32).all()
+
+
+@pytest.mark.parametrize("tt,warps", [(8, 1), (64, 2), (512, 16),
+                                      (1024, 16)])
+def test_tile_warps(tt, warps):
+    assert tpacked.tile_warps(tt) == warps
+
+
+# A CPU stand-in for the CUDA runtime, enough for csrc/packed.cu: every
+# block runs as blockDim.x threads with real barriers and warp shuffles,
+# one block after another.
+_CUDA_SHIM = r"""
+#pragma once
+#include <algorithm>
+#include <cmath>
+#include <condition_variable>
+#include <functional>
+#include <mutex>
+#include <thread>
+#include <vector>
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+typedef void* cudaStream_t;
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+#define __shared__
+struct Dim3 { unsigned x, y, z; };
+inline thread_local Dim3 threadIdx, blockIdx, blockDim;
+using std::max;
+using std::min;
+struct Barrier {
+  std::mutex m;
+  std::condition_variable cv;
+  int n = 0, count = 0;
+  long gen = 0;
+  void wait() {
+    std::unique_lock<std::mutex> l(m);
+    const long g = gen;
+    if (++count == n) { count = 0; ++gen; cv.notify_all(); }
+    else cv.wait(l, [&] { return gen != g; });
+  }
+};
+inline Barrier g_block;
+inline std::vector<Barrier> g_warps(32);
+inline float g_xfer[1024];
+inline void __syncthreads() { g_block.wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { g_warps[threadIdx.x >> 5].wait(); }
+inline float __shfl_xor_sync(unsigned, float v, int off) {
+  const int t = threadIdx.x;
+  g_xfer[t] = v;
+  __syncwarp();
+  const float r = g_xfer[(t & ~31) | ((t & 31) ^ off)];
+  __syncwarp();
+  return r;
+}
+inline void emu_launch(int grid, int block, std::function<void()> body) {
+  for (int b = 0; b < grid; ++b) {
+    g_block.n = block;
+    for (auto& w : g_warps) w.n = 32;
+    std::vector<std::thread> th;
+    for (int t = 0; t < block; ++t) {
+      th.emplace_back([=] {
+        threadIdx = {unsigned(t), 0, 0};
+        blockIdx = {unsigned(b), 0, 0};
+        blockDim = {unsigned(block), 0, 0};
+        body();
+      });
+    }
+    for (auto& x : th) x.join();
+  }
+}
+#define EMU_LAUNCH(fn, grid, block, ...) \
+  emu_launch(grid, block, [&]() { fn(__VA_ARGS__); })
+"""
+
+
+@pytest.fixture(scope="module")
+def tile_kernel_on_cpu(tmp_path_factory):
+    """csrc/packed.cu itself, compiled by g++ against ``_CUDA_SHIM`` with
+    each ``<<<grid, block, smem, stream>>>`` launch swapped for the shim's
+    launcher; loaded with ctypes, with the wrapper's C signatures."""
+    import ctypes
+    import re
+    import shutil
+    import subprocess
+
+    from spark_text_clustering_tpu_torch.ops import _build
+
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to compile the kernel source for the CPU")
+    out = tmp_path_factory.mktemp("tile_kernel")
+    src = (_build.CSRC / "packed.cu").read_text()
+    src, n = re.subn(r"(tiles_kernel<\w+>)<<<([^,]+),([^,]+),[^>]*>>>\(",
+                     r"EMU_LAUNCH(\1, \2, \3, ", src)
+    assert n == 2
+    (out / "cuda_runtime.h").write_text(_CUDA_SHIM)
+    (out / "unit.cpp").write_text(
+        '#include "cuda_runtime.h"\nnamespace { float smem[1 << 16]; }\n'
+        + src)
+    lib = out / "libpacked_cpu.so"
+    subprocess.run(
+        ["g++", "-std=c++17", "-O1", "-fPIC", "-shared", "-pthread",
+         "-w", "-I", str(out), "-I", str(_build.CSRC), "-o", str(lib),
+         str(out / "unit.cpp")], check=True, capture_output=True)
+    cdll = ctypes.CDLL(str(lib))
+    for fn, argtypes in _build.SIGNATURES["packed"].items():
+        getattr(cdll, fn).argtypes = argtypes
+        getattr(cdll, fn).restype = ctypes.c_int
+    return cdll
+
+
+# case: (k, max_inner, warps); a CTA of 4 warps gives each warp 128 live
+# tokens (four stripes of 32), 16 warps the 32 of the card's main path
+_CPU_THREAD_CASES = {
+    "k20": (20, 12, 4), "k33": (33, 12, 4), "long_doc": (20, 6, 16),
+    "all_pad": (20, 100, 16), "max_inner_0": (20, 0, 4),
+    "max_inner_1": (20, 1, 4), "global_state": (64, 12, 4),
+}
+
+
+@pytest.mark.parametrize("case", list(_CPU_THREAD_CASES))
+def test_tile_kernel_source_on_cpu_threads(tile_kernel_on_cpu, case):
+    """The CUDA kernel's own source, run on CPU threads, against the plain
+    version: normalized gamma within 5e-3, a bit-for-bit repeat, pad slots
+    exactly alpha (gamma0 as it is at max_inner=0).  Covers the lane loop
+    past 32 topics, a 512-token doc over 16 warps, a live tile beside an
+    all-pad one (each stops on its own), and the state kept in the scratch
+    buffer (k=64 does not fit shared memory).  The threads meet at real
+    barriers, ~0.03 s an iteration at 4 warps, so iterations are capped."""
+    lib = tile_kernel_on_cpu
+    k, max_inner, warps = _CPU_THREAD_CASES[case]
+    tol = 1e-3
+    plan, eb_kt, g0, alpha = _tiles_problem(k, long_doc=case == "long_doc")
+    n_tiles, tt = plan.cts.shape
+    live = (plan.seg < plan.d).sum(1)
+    pad_tiles = np.flatnonzero(plan.doc_ids[:, 0] == plan.b)
+    if case == "long_doc":
+        sel = np.flatnonzero(live == 512)[:1]
+    elif case == "all_pad":
+        sel = pad_tiles[:1]
+    elif case == "k20":
+        sel = np.r_[pad_tiles[0] - 1, pad_tiles[0]]
+    else:
+        sel = np.arange(1)
+    d = plan.d
+    eb = eb_kt.reshape(k, n_tiles, tt)[:, sel].reshape(k, -1).copy()
+    cts, seg = plan.cts[sel].copy(), plan.seg[sel].copy()
+    g = g0.reshape(k, n_tiles, d)[:, sel].reshape(k, -1).copy()
+    per_tile = lib.stc_tiles_scratch_floats(k, d, tt, warps)
+    assert lib.stc_tiles_smem_bytes(k, d, tt, warps) > 0
+    assert (per_tile > 0) == (case == "global_state")
+
+    def run():
+        out = np.full((k, len(sel) * d), np.nan, np.float32)
+        scratch = np.full(max(1, len(sel) * per_tile), np.nan, np.float32)
+        err = lib.stc_gamma_fixed_point_tiles(
+            eb.ctypes.data, cts.ctypes.data, seg.ctypes.data,
+            alpha.ctypes.data, g.ctypes.data, len(sel), k, tt, d, max_inner,
+            warps, tol, out.ctypes.data,
+            scratch.ctypes.data if per_tile else None, None)
+        assert err == 0
+        return out
+
+    got = run()
+    np.testing.assert_array_equal(run(), got)
+    want, iters = tpacked.gamma_fixed_point_tiles_plain(
+        _t(eb), _t(cts), _t(seg), _t(alpha), _t(g), d, max_inner, tol,
+        with_iters=True)
+    if case == "k20":
+        assert iters.tolist() == [max_inner, 2]
+    want = want.numpy()
+    norm = lambda a: a / a.sum(0, keepdims=True)          # noqa: E731
+    assert np.abs(norm(got) - norm(want)).max() <= 5e-3
+    pad = plan.doc_ids[sel].reshape(-1) == plan.b
+    if max_inner == 0:
+        np.testing.assert_array_equal(got, g)
+    else:
+        np.testing.assert_array_equal(got[:, pad], np.broadcast_to(
+            alpha[:, None], (k, int(pad.sum()))))
