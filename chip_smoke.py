@@ -11,7 +11,10 @@
    that computes the same function, and asks the fused gate for geometries
    its shared memory refuses.  The tile gamma kernel is held against its
    plain version on every launch of one config C fit, and timed on
-   iteration 5's minibatch and on the fit's heaviest launch;
+   iteration 5's minibatch and on the fit's heaviest launch.  The NMF
+   kernel is also timed by graph replay and by host enqueue, beside the
+   sweep's H-side ``index_add_``, with its placement, CTAs an SM and
+   ptxas registers and spills recorded;
 3. config A, the EN books shape: 51 docs of 2,000-20,000 distinct terms,
    V=39,380, k=5.  IDF -> EM fit (fused sweep, resumed from one random
    start) -> save -> load -> padded-bucket scoring -> scoring report.  The
@@ -139,6 +142,21 @@ def cuda_graph_ms(torch, fn, reps: int) -> float:
     with torch.cuda.graph(graph):
         fn()
     return cuda_ms(torch, graph.replay, reps)
+
+
+def host_ms(torch, fn, reps: int) -> float:
+    """Mean host milliseconds to enqueue one call of ``fn`` over ``reps``
+    back-to-back calls, after one warm-up: the wrapper's Python and the
+    launch, with the card left to catch up afterwards.  Where it exceeds
+    the device time, ``cuda_ms`` reads the host's rate."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * t / reps
 
 
 def bound(bytes_moved: float, flops: float):
@@ -828,13 +846,65 @@ def nmf_geometry_rows(seed: int, n: int = 3000, v: int = 4096):
     return rows
 
 
+def nmf_placement(lib, k, d, tt):
+    """Where the NMF kernel keeps a tile's piece table, slab and w_new at
+    (k, d, tt): "shared" memory, or the "scratch" buffer in device memory;
+    whether H H^T is cached in shared memory; and how many CTAs an SM
+    holds (the card's occupancy calculator)."""
+    from spark_text_clustering_tpu_torch.ops import packed
+
+    warps = packed.tile_warps(tt)
+    smem = lib.stc_nmf_smem_bytes(k, d, tt, warps)
+    scratch = lib.stc_nmf_scratch_floats(k, d, tt, warps)
+    per_sm = lib.stc_nmf_blocks_per_sm(k, d, tt, warps)
+    if smem <= 0 or per_sm <= 0:
+        raise AssertionError(f"the NMF kernel refuses k={k}, d={d}, tt={tt}: "
+                             f"smem {smem}, CTAs an SM {per_sm}")
+    return {"placement": "scratch" if scratch else "shared",
+            "smem_bytes": smem, "scratch_floats_per_tile": scratch,
+            "hht_in_smem": smem >= 4 * k * k, "ctas_per_sm": per_sm}
+
+
+def ptxas_report(name):
+    """Registers, stack and spills of each kernel instance in
+    ``csrc/<name>.cu``, from the compiler's ``-Xptxas -v`` report kept
+    beside the built library: {mangled name: {...}}."""
+    import re
+
+    from spark_text_clustering_tpu_torch.ops import _build
+
+    log = _build._lib_path(name).with_suffix(".log")
+    out, cur = {}, None
+    for line in log.read_text().splitlines() if log.exists() else ():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    if not out:
+        raise AssertionError(f"no ptxas report for {name}.cu at {log}")
+    return out
+
+
 def check_nmf(torch, rows, dev, seed):
     """The NMF kernel on config D's first sweep (the tile plan, and W and H
     as the fit draws them), and on geometries the planner allows beyond
-    it: d=2048 at k=20, [k, k] H H^T in shared memory above 48 KB (k=200)
-    and past its 227 KB (k=300, read from global memory)."""
+    it: d=2048 at k=20, and k=200 and k=300 (H H^T past shared memory),
+    all three with the piece table in the scratch buffer, and D's tiles
+    at k=33 (vals a word at a time, not as float4).  Times the
+    kernel by CUDA events, by graph replay and by host enqueue, and the
+    sweep's H-side ``index_add_`` of the kernel's vals beside it."""
     from spark_text_clustering_tpu_torch import NMF
-    from spark_text_clustering_tpu_torch.ops import nmf
+    from spark_text_clustering_tpu_torch.models.nmf import _scatter_vocab
+    from spark_text_clustering_tpu_torch.ops import _build, nmf
 
     k, v, n = NG_K, NG_V, len(rows)
     weight_sum = float(sum(w.sum() for _, w in rows))
@@ -842,6 +912,13 @@ def check_nmf(torch, rows, dev, seed):
     plan, args, got, err, rel = nmf_kernel_case(torch, rows, k, dev, w_doc, h)
     again = nmf.nmf_mu_update_tiles(*args, plan.d)
     deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+    if not deterministic:
+        raise AssertionError("nmf_mu_update_tiles does not repeat bit for bit")
+    lib = _build.load_library("nmf")
+    placement = nmf_placement(lib, k, plan.d, plan.tt)
+    if placement["placement"] != "shared":
+        raise AssertionError(f"config D's NMF tiles left shared memory: "
+                             f"{placement}")
 
     geo_rows = nmf_geometry_rows(seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -849,13 +926,37 @@ def check_nmf(torch, rows, dev, seed):
     for kk in (20, 200, 300):
         gh = torch.rand((kk, 4096), generator=gen, device=dev) + 0.1
         gw = torch.rand((len(geo_rows), kk), generator=gen, device=dev) + 0.1
-        gplan, _, _, gerr, grel = nmf_kernel_case(torch, geo_rows, kk, dev,
-                                                  gw, gh)
+        gplan, gargs, gout, gerr, grel = nmf_kernel_case(
+            torch, geo_rows, kk, dev, gw, gh)
+        gagain = nmf.nmf_mu_update_tiles(*gargs, gplan.d)
+        if not all(torch.equal(a, b) for a, b in zip(gout, gagain)):
+            raise AssertionError(f"nmf_mu_update_tiles does not repeat bit "
+                                 f"for bit at k={kk}, d={gplan.d}")
         geometries.append({"k": kk, "d": gplan.d, "tt": gplan.tt,
                            "tiles": int(gplan.ids.shape[0]),
-                           "max_abs_err": gerr, "max_rel_err": grel})
-    if geometries[0]["d"] != 2048:
-        raise AssertionError(f"geometry rows planned {geometries[0]}")
+                           "max_abs_err": gerr, "max_rel_err": grel,
+                           **nmf_placement(lib, kk, gplan.d, gplan.tt)})
+    if geometries[0]["d"] != 2048 or any(
+        g["placement"] != "scratch" for g in geometries
+    ):
+        raise AssertionError(f"geometry rows planned {geometries}")
+    # D's tiles at k=33: the shared layout with k % 4 != 0, where vals go
+    # out a word at a time rather than as float4
+    kk = 33
+    sh = torch.rand((kk, v), generator=gen, device=dev) + 0.1
+    sw = torch.rand((n, kk), generator=gen, device=dev) + 0.1
+    splan, sargs, sout, serr, srel = nmf_kernel_case(torch, rows, kk, dev,
+                                                     sw, sh)
+    sagain = nmf.nmf_mu_update_tiles(*sargs, splan.d)
+    if not all(torch.equal(a, b) for a, b in zip(sout, sagain)):
+        raise AssertionError("nmf_mu_update_tiles does not repeat bit for "
+                             "bit at k=33")
+    geometries.append({"k": kk, "d": splan.d, "tt": splan.tt,
+                       "tiles": int(splan.ids.shape[0]),
+                       "max_abs_err": serr, "max_rel_err": srel,
+                       **nmf_placement(lib, kk, splan.d, splan.tt)})
+    if geometries[-1]["placement"] != "shared":
+        raise AssertionError(f"D's tiles at k=33 planned {geometries[-1]}")
 
     # bytes the kernel needs: hg's k values, cts and seg of live tokens,
     # their k vals written; W read and written for live slots; H H^T.
@@ -863,6 +964,7 @@ def check_nmf(torch, rows, dev, seed):
     # slot the k x k denominator and the update.
     live_tok = int((plan.seg < plan.d).sum())
     live_slots = int((plan.doc_ids < n).sum())
+    flat_ids = args[0].new_tensor(plan.ids.reshape(-1), dtype=torch.long)
     t_bytes, by = bound(live_tok * (8 * k + 8) + live_slots * 8 * k + 4 * k * k,
                         2.0 * k * live_tok + live_slots * (2.0 * k * k + 3 * k))
     return {
@@ -872,14 +974,26 @@ def check_nmf(torch, rows, dev, seed):
         "shape": {"k": k, "tiles": int(plan.ids.shape[0]), "tt": plan.tt,
                   "d": plan.d, "live_tokens": live_tok,
                   "live_slots": live_slots},
-        "max_abs_err": err, "max_rel_err": rel,
-        "tolerance": "rtol 1e-4, atol 1e-8",
-        "bitwise_repeatable": deterministic, "geometries": geometries,
+        "max_abs_err": max([err] + [g["max_abs_err"] for g in geometries]),
+        "main_max_abs_err": err, "max_rel_err": rel,
+        "tolerance": "rtol 1e-4, atol 1e-8; pad tokens and slots no token "
+                     "reaches exactly 0",
+        "bitwise_repeatable": deterministic, **placement,
+        "ptxas": ptxas_report("nmf"), "geometries": geometries,
         "ms": cuda_ms(torch, lambda: nmf.nmf_mu_update_tiles(
-            *args, plan.d), 20),
+            *args, plan.d), 50),
+        "graph_ms": cuda_graph_ms(torch, lambda: nmf.nmf_mu_update_tiles(
+            *args, plan.d), 100),
+        "host_ms": host_ms(torch, lambda: nmf.nmf_mu_update_tiles(
+            *args, plan.d), 50),
         "plain_ms": cuda_ms(torch, lambda: nmf.nmf_mu_update_tiles_plain(
             *args, plan.d), 5),
         "bound_ms": t_bytes, "bound_by": by, "library_ms": None,
+        # the same sweep's H side: the kernel's vals added into [V, k]
+        "h_index_add_ms": cuda_ms(torch, lambda: _scatter_vocab(
+            flat_ids, got[1], v), 50),
+        "h_index_add_graph_ms": cuda_graph_ms(torch, lambda: _scatter_vocab(
+            flat_ids, got[1], v), 100),
     }
 
 

@@ -1,6 +1,6 @@
 // Block-wide segmented sum over a run-sorted piece of token slots.
 //
-// Shared by the fused EM sweep, the tile gamma kernel and the NMF kernel.
+// Used by the fused EM sweep (emsweep.cu).
 // Inside one vocab tile the plan (plan_em_scatter) stores tokens sorted by
 // their column `lid`, so every column's tokens form ONE contiguous run of
 // the piece.

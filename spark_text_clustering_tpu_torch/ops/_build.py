@@ -62,7 +62,10 @@ SIGNATURES = {
         "stc_tiles_scratch_floats": [_I] * 4,
     },
     "nmf": {
-        "stc_nmf_mu_update_tiles": [_P] * 5 + [_I] * 4 + [_F, _P, _P, _P],
+        "stc_nmf_mu_update_tiles": [_P] * 5 + [_I] * 5 + [_F] + [_P] * 4,
+        "stc_nmf_smem_bytes": [_I] * 4,
+        "stc_nmf_scratch_floats": [_I] * 4,
+        "stc_nmf_blocks_per_sm": [_I] * 4,
     },
 }
 

@@ -12,7 +12,9 @@ order, [n_tiles * d, k].  Per tile:
 ``vals`` are the H update's scatter values in token order.
 ``nmf_mu_update_tiles`` launches the CUDA kernel (``csrc/nmf.cu``) for
 tensors on the card and runs ``nmf_mu_update_tiles_plain``, the same
-function in plain PyTorch, for tensors on the CPU.
+function in plain PyTorch, for tensors on the CPU.  On the card a tile is
+one CTA of ``ops.packed.tile_warps(tt)`` warps, split as
+``ops.packed.tile_work`` models it.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Tuple
 import torch
 
 from . import _build
+from .packed import tile_warps
 
 __all__ = ["nmf_mu_update_tiles", "nmf_mu_update_tiles_plain"]
 
@@ -85,16 +88,25 @@ def nmf_mu_update_tiles(
                         "int32 seg")
     _build.check_tensors("nmf_mu_update_tiles", hg_kt, cts, seg, w_slots, hht)
     lib = _build.load_library("nmf")
+    warps = tile_warps(tt)
+    if lib.stc_nmf_smem_bytes(k, d, tt, warps) <= 0:
+        raise ValueError(f"the NMF kernel's indices overflow at k={k}, d={d}, "
+                         f"tt={tt}")
     w_new = torch.empty((n_tiles * d, k), dtype=torch.float32,
                         device=hg_kt.device)
     vals = torch.empty((n_tiles * tt, k), dtype=torch.float32,
                        device=hg_kt.device)
     if n_tiles == 0:
         return w_new, vals
+    # where the piece table does not fit shared memory it lives here
+    per_tile = lib.stc_nmf_scratch_floats(k, d, tt, warps)
+    scratch = (torch.empty(n_tiles * per_tile, dtype=torch.float32,
+                           device=hg_kt.device) if per_tile else None)
     err = lib.stc_nmf_mu_update_tiles(
         hg_kt.data_ptr(), cts.data_ptr(), seg.data_ptr(), w_slots.data_ptr(),
-        hht.data_ptr(), n_tiles, k, tt, d, eps, w_new.data_ptr(),
-        vals.data_ptr(), torch.cuda.current_stream(hg_kt.device).cuda_stream,
+        hht.data_ptr(), n_tiles, k, tt, d, warps, eps, w_new.data_ptr(),
+        vals.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        torch.cuda.current_stream(hg_kt.device).cuda_stream,
     )
     _build.check(err, "nmf_mu_update_tiles")
     _build.count_launch("nmf_mu_update_tiles")

@@ -5,7 +5,9 @@ Torch cannot replay JAX's uniform draws, so the fit parity tests hand the
 port the JAX package's own W0/H0 (``NMF._w_init``) through
 ``nmf_init_from_numpy``.  The JAX side runs its Pallas kernel in interpret
 mode on a 1x1 CPU mesh; the port runs with ``device="cpu"``, which takes
-the kernel's plain version.
+the kernel's plain version.  The CUDA kernel's own source, compiled by g++
+against the CPU stand-in for the CUDA runtime in ``cuda_shim``, is held
+against the plain version on CPU threads.
 """
 
 from __future__ import annotations
@@ -50,6 +52,8 @@ from spark_text_clustering_tpu_torch.models.nmf import (
 from spark_text_clustering_tpu_torch.ops.nmf import nmf_mu_update_tiles_plain
 from spark_text_clustering_tpu_torch.ops.packed import plan_corpus_tiles
 from spark_text_clustering_tpu_torch.ops.sparse import batch_from_rows
+
+from cuda_shim import build_on_cpu
 
 
 def _mesh():
@@ -125,6 +129,121 @@ def test_plain_kernel_matches_pallas(k):
     assert (~reached).sum() > n_tiles * d - n
     assert not got_w.numpy()[~reached].any()
     assert not np.asarray(want_w)[~reached].any()
+
+
+@pytest.fixture(scope="module")
+def nmf_kernel_on_cpu(tmp_path_factory):
+    """csrc/nmf.cu itself, compiled by g++ against the CPU stand-in for the
+    CUDA runtime (``cuda_shim``)."""
+    return build_on_cpu("nmf", "mu_kernel", 2,
+                        tmp_path_factory.mktemp("nmf_kernel"))
+
+
+def _hand_tiles(tiles, tt, d, seed, zero_slots=()):
+    """cts and seg [n_tiles, tt] laid out as the planner lays them: per
+    tile a list of doc lengths (0 for a slot with no token) in slot order,
+    live tokens first, pad tokens (seg == d, cts == 0) after.  Slots in
+    ``zero_slots`` (tile, slot) keep their tokens at cts == 0."""
+    rng = np.random.default_rng(seed)
+    cts = np.zeros((len(tiles), tt), np.float32)
+    seg = np.full((len(tiles), tt), d, np.int32)
+    for i, lens in enumerate(tiles):
+        s = np.repeat(np.arange(len(lens)), lens).astype(np.int32)
+        assert len(s) <= tt and len(lens) <= d
+        seg[i, :len(s)] = s
+        cts[i, :len(s)] = rng.integers(1, 6, len(s))
+        for ti, slot in zero_slots:
+            if ti == i:
+                cts[i, :len(s)][s == slot] = 0.0
+    return cts, seg
+
+
+def _nmf_kernel_case(case):
+    """(k, d, cts, seg, zero-weight slots) of one CPU-thread case."""
+    rng = np.random.default_rng(11)
+    if case in ("k20", "k33", "k300_scratch"):
+        k = {"k20": 20, "k33": 33, "k300_scratch": 300}[case]
+        plan = plan_corpus_tiles(*_flat(_skewed()[0]), k=k)
+        sel = [0, 2] if case == "k20" else [0]
+        return k, plan.d, plan.cts[sel].copy(), plan.seg[sel].copy(), ()
+    if case == "long_doc":
+        return (20, 128) + _hand_tiles([[512]], 512, 128, 1) + ((),)
+    if case == "all_pad":
+        lens = [40, 0, 25, 70, 3, 90]
+        return (20, 128) + _hand_tiles([lens, []], 512, 128, 2) + ((),)
+    if case == "zero_weight":
+        zero = ((0, 1), (0, 4))
+        return (20, 128) + _hand_tiles([[30, 12, 50, 33, 7]], 512, 128, 3,
+                                       zero) + (zero,)
+    if case == "tt1024":
+        lens = rng.integers(1, 90, 20)
+        return (20, 128) + _hand_tiles([lens], 1024, 128, 4) + ((),)
+    # d2048_scratch: 300 docs of 0-2 tokens in 2,048 slots
+    lens = rng.integers(0, 3, 300)
+    return (20, 2048) + _hand_tiles([lens], 512, 2048, 5) + ((),)
+
+
+_NMF_CPU_CASES = ["k20", "k33", "long_doc", "all_pad", "zero_weight",
+                  "tt1024", "d2048_scratch", "k300_scratch"]
+
+
+@pytest.mark.parametrize("case", _NMF_CPU_CASES)
+def test_nmf_kernel_source_on_cpu_threads(nmf_kernel_on_cpu, case):
+    """The CUDA kernel's own source, run on CPU threads, against the plain
+    version: w_new and vals within rtol 1e-4 (the numerator and the
+    denominator sum in another order), a bit-for-bit repeat, and exact
+    zeros for pad tokens' vals and for the w_new of slots no token
+    reaches.  Covers planner tiles at k=20 and at k=33 (lanes loop past 32
+    topics), a 512-token doc over 16 warps, an all-pad tile beside a live
+    one, slots reached only by zero-weight tokens, tt=1024 (two token
+    slots a thread, 64-token warp ranges), and the piece table in the
+    scratch buffer (d=2048; k=300, with H H^T read from global memory)."""
+    from spark_text_clustering_tpu_torch.ops.packed import tile_warps
+
+    lib = nmf_kernel_on_cpu
+    k, d, cts, seg, zero = _nmf_kernel_case(case)
+    n_tiles, tt = cts.shape
+    warps = tile_warps(tt)
+    rng = np.random.default_rng(k + d)
+    hg = rng.uniform(0.1, 1.0, (k, n_tiles * tt)).astype(np.float32)
+    w = rng.uniform(0.1, 1.0, (n_tiles * d, k)).astype(np.float32)
+    hk = rng.uniform(0.1, 1.0, (k, 64)).astype(np.float32)
+    hht = hk @ hk.T
+    per_tile = lib.stc_nmf_scratch_floats(k, d, tt, warps)
+    assert lib.stc_nmf_smem_bytes(k, d, tt, warps) > 0
+    assert (per_tile > 0) == case.endswith("_scratch")
+
+    def run():
+        w_out = np.full((n_tiles * d, k), np.nan, np.float32)
+        vals = np.full((n_tiles * tt, k), np.nan, np.float32)
+        scratch = np.full(max(1, n_tiles * per_tile), np.nan, np.float32)
+        err = lib.stc_nmf_mu_update_tiles(
+            hg.ctypes.data, cts.ctypes.data, seg.ctypes.data, w.ctypes.data,
+            hht.ctypes.data, n_tiles, k, tt, d, warps, 1e-9,
+            w_out.ctypes.data, vals.ctypes.data,
+            scratch.ctypes.data if per_tile else None, None)
+        assert err == 0
+        return w_out, vals
+
+    got_w, got_v = run()
+    again_w, again_v = run()
+    np.testing.assert_array_equal(again_w, got_w)
+    np.testing.assert_array_equal(again_v, got_v)
+    want_w, want_v = nmf_mu_update_tiles_plain(
+        torch.from_numpy(hg), torch.from_numpy(cts), torch.from_numpy(seg),
+        torch.from_numpy(w), torch.from_numpy(hht), d)
+    np.testing.assert_allclose(got_w, want_w.numpy(), rtol=1e-4, atol=1e-8)
+    np.testing.assert_allclose(got_v, want_v.numpy(), rtol=1e-4, atol=1e-8)
+    pad_tok = seg.reshape(-1) == d
+    assert not got_v[pad_tok].any()
+    tile = np.repeat(np.arange(n_tiles), tt)
+    reached = np.zeros(n_tiles * d, bool)
+    reached[(tile * d + seg.reshape(-1))[~pad_tok]] = True
+    assert not got_w[~reached].any()
+    assert got_w[reached].any(axis=1).sum() == reached.sum() - len(zero)
+    for ti, slot in zero:
+        assert reached[ti * d + slot] and not got_w[ti * d + slot].any()
+        assert not got_v[(tile * d + seg.reshape(-1)) == ti * d + slot].any()
 
 
 def test_packed_plan_matches_jax():

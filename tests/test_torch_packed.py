@@ -22,6 +22,8 @@ from spark_text_clustering_tpu.ops import lda_math as jlda
 from spark_text_clustering_tpu.ops import pallas_packed as jpacked
 from spark_text_clustering_tpu_torch.ops import packed as tpacked
 
+from cuda_shim import build_on_cpu
+
 
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
@@ -233,115 +235,12 @@ def test_tile_warps(tt, warps):
     assert tpacked.tile_warps(tt) == warps
 
 
-# A CPU stand-in for the CUDA runtime, enough for csrc/packed.cu: every
-# block runs as blockDim.x threads with real barriers and warp shuffles,
-# one block after another.
-_CUDA_SHIM = r"""
-#pragma once
-#include <algorithm>
-#include <cmath>
-#include <condition_variable>
-#include <functional>
-#include <mutex>
-#include <thread>
-#include <vector>
-typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-typedef void* cudaStream_t;
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
-template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
-  return cudaSuccess;
-}
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-#define __global__
-#define __device__
-#define __host__
-#define __forceinline__ inline
-#define __launch_bounds__(x)
-#define __shared__
-struct Dim3 { unsigned x, y, z; };
-inline thread_local Dim3 threadIdx, blockIdx, blockDim;
-using std::max;
-using std::min;
-struct Barrier {
-  std::mutex m;
-  std::condition_variable cv;
-  int n = 0, count = 0;
-  long gen = 0;
-  void wait() {
-    std::unique_lock<std::mutex> l(m);
-    const long g = gen;
-    if (++count == n) { count = 0; ++gen; cv.notify_all(); }
-    else cv.wait(l, [&] { return gen != g; });
-  }
-};
-inline Barrier g_block;
-inline std::vector<Barrier> g_warps(32);
-inline float g_xfer[1024];
-inline void __syncthreads() { g_block.wait(); }
-inline void __syncwarp(unsigned = 0xffffffffu) { g_warps[threadIdx.x >> 5].wait(); }
-inline float __shfl_xor_sync(unsigned, float v, int off) {
-  const int t = threadIdx.x;
-  g_xfer[t] = v;
-  __syncwarp();
-  const float r = g_xfer[(t & ~31) | ((t & 31) ^ off)];
-  __syncwarp();
-  return r;
-}
-inline void emu_launch(int grid, int block, std::function<void()> body) {
-  for (int b = 0; b < grid; ++b) {
-    g_block.n = block;
-    for (auto& w : g_warps) w.n = 32;
-    std::vector<std::thread> th;
-    for (int t = 0; t < block; ++t) {
-      th.emplace_back([=] {
-        threadIdx = {unsigned(t), 0, 0};
-        blockIdx = {unsigned(b), 0, 0};
-        blockDim = {unsigned(block), 0, 0};
-        body();
-      });
-    }
-    for (auto& x : th) x.join();
-  }
-}
-#define EMU_LAUNCH(fn, grid, block, ...) \
-  emu_launch(grid, block, [&]() { fn(__VA_ARGS__); })
-"""
-
-
 @pytest.fixture(scope="module")
 def tile_kernel_on_cpu(tmp_path_factory):
-    """csrc/packed.cu itself, compiled by g++ against ``_CUDA_SHIM`` with
-    each ``<<<grid, block, smem, stream>>>`` launch swapped for the shim's
-    launcher; loaded with ctypes, with the wrapper's C signatures."""
-    import ctypes
-    import re
-    import shutil
-    import subprocess
-
-    from spark_text_clustering_tpu_torch.ops import _build
-
-    if shutil.which("g++") is None:
-        pytest.skip("no g++ to compile the kernel source for the CPU")
-    out = tmp_path_factory.mktemp("tile_kernel")
-    src = (_build.CSRC / "packed.cu").read_text()
-    src, n = re.subn(r"(tiles_kernel<\w+>)<<<([^,]+),([^,]+),[^>]*>>>\(",
-                     r"EMU_LAUNCH(\1, \2, \3, ", src)
-    assert n == 2
-    (out / "cuda_runtime.h").write_text(_CUDA_SHIM)
-    (out / "unit.cpp").write_text(
-        '#include "cuda_runtime.h"\nnamespace { float smem[1 << 16]; }\n'
-        + src)
-    lib = out / "libpacked_cpu.so"
-    subprocess.run(
-        ["g++", "-std=c++17", "-O1", "-fPIC", "-shared", "-pthread",
-         "-w", "-I", str(out), "-I", str(_build.CSRC), "-o", str(lib),
-         str(out / "unit.cpp")], check=True, capture_output=True)
-    cdll = ctypes.CDLL(str(lib))
-    for fn, argtypes in _build.SIGNATURES["packed"].items():
-        getattr(cdll, fn).argtypes = argtypes
-        getattr(cdll, fn).restype = ctypes.c_int
-    return cdll
+    """csrc/packed.cu itself, compiled by g++ against the CPU stand-in for
+    the CUDA runtime (``cuda_shim``)."""
+    return build_on_cpu("packed", "tiles_kernel", 2,
+                        tmp_path_factory.mktemp("tile_kernel"))
 
 
 # case: (k, max_inner, warps); a CTA of 4 warps gives each warp 128 live
