@@ -8,8 +8,10 @@
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it and at the edges of its contract, and
    times kernel, plain version, and (for the scatter) the one PyTorch call
-   that computes the same function, and asks the fused gate for geometries
-   its shared memory refuses.  The tile gamma kernel is held against its
+   that computes the same function.  The fused sweep is also held against
+   its plain version at 512 docs with k=40 and 8 docs with k=500, which
+   the gate (d <= 512 at every k) lets through, and timed by graph replay
+   and by host enqueue.  The tile gamma kernel is held against its
    plain version on every launch of one config C fit, and timed on
    iteration 5's minibatch and on the fit's heaviest launch.  The NMF
    kernel is also timed by graph replay and by host enqueue, beside the
@@ -185,11 +187,11 @@ def sorted_layout(torch, rows, v, dev):
     return plan, srt(ids), srt(cts), srt(seg), d_max
 
 
-def check_sweep(torch, rows, dev, rng):
+def sweep_args(torch, plan, cts_s, seg_s, d_max, k, v, dev, rng):
+    """The fused sweep's inputs on the sorted layout: random counts, the
+    EM priors' factors, and the doc stream ``doc_stream`` builds."""
     from spark_text_clustering_tpu_torch.ops import emsweep
 
-    k, v = EN_K, EN_V
-    plan, ids_s, cts_s, seg_s, d_max = sorted_layout(torch, rows, v, dev)
     d_pad = emsweep.fused_d_pad(d_max)
     alpha, eta = 50.0 / k + 1.0, 1.1
     n_wk = torch.from_numpy(rng.gamma(1.0, 20.0, (k, v)).astype(np.float32)).to(dev)
@@ -198,19 +200,25 @@ def check_sweep(torch, rows, dev, rng):
     docf = torch.zeros((k, d_pad), device=dev)
     docf[:, :d_max] = (n_dk + (alpha - 1.0)).T
     blk = (plan.nb, 1, plan.tb)
-    args = (n_wk, docf, inv_denom, torch.from_numpy(plan.lids[0, 0]).to(dev),
-            seg_s.reshape(blk), cts_s.reshape(blk),
-            torch.from_numpy(plan.block_vtile[0, 0]).to(dev))
-    geo = dict(n_vtiles=plan.n_vtiles, vt=plan.vt, tb=plan.tb, d_pad=d_pad,
-               shard_v=v, eta_m1=eta - 1.0)
-    # the gate's shared-memory half, asked of the kernel: config A fits;
-    # k=500 and k=40 at 512 docs do not
-    gate = {f"d{d}_k{kk}": emsweep.fused_eligible(d, kk, dev)
-            for d, kk in ((d_max, k), (8, 500), (512, 40))}
-    if gate != {f"d{d_max}_k{k}": True, "d8_k500": False, "d512_k40": False}:
-        raise AssertionError(f"fused gate on the card: {gate}")
-    got = emsweep.em_sweep_fused(*args, nb=plan.nb, **geo)
+    sorted_ = (torch.from_numpy(plan.lids[0, 0]).to(dev), seg_s.reshape(blk),
+               cts_s.reshape(blk),
+               torch.from_numpy(plan.block_vtile[0, 0]).to(dev))
+    args = (n_wk, docf, inv_denom, *sorted_,
+            *emsweep.doc_stream(*sorted_, plan.vt))
+    geo = dict(n_vtiles=plan.n_vtiles, nb=plan.nb, vt=plan.vt, tb=plan.tb,
+               d_pad=d_pad, shard_v=v, eta_m1=eta - 1.0)
+    return args, geo
+
+
+def sweep_against_plain(torch, args, geo):
+    """The kernel against its plain version (rtol 1e-4, atol 1e-5) and
+    against itself (bit for bit): (kernel's outputs, max abs error, max
+    error relative to max(|plain|, 1))."""
+    from spark_text_clustering_tpu_torch.ops import emsweep
+
+    got = emsweep.em_sweep_fused(*args, **geo)
     want = emsweep.em_sweep_fused_plain(*args, **geo)
+    again = emsweep.em_sweep_fused(*args, **geo)
     torch.cuda.synchronize()
     err = rel = 0.0
     for g, w in zip(got, want):
@@ -218,26 +226,74 @@ def check_sweep(torch, rows, dev, rng):
         rel = max(rel, float(((g - w).abs() / w.abs().clamp(min=1.0)).max()))
         if not torch.allclose(g, w, rtol=1e-4, atol=1e-5):
             raise AssertionError(
-                f"em_sweep_fused differs from its plain version by {err}")
-    again = emsweep.em_sweep_fused(*args, nb=plan.nb, **geo)
-    deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+                f"em_sweep_fused differs from its plain version by {err} "
+                f"at k={args[0].shape[0]}, d_pad={geo['d_pad']}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("em_sweep_fused does not repeat bit for bit")
+    return got, err, rel
+
+
+def sweep_edge_rows(seed, n_docs, nnz, v=EN_V):
+    """``n_docs`` docs of ``nnz`` distinct terms of V=39,380, counts 1-49."""
+    rng = np.random.default_rng(seed)
+    return [(np.sort(rng.choice(v, size=nnz, replace=False)).astype(np.int32),
+             rng.integers(1, 50, nnz).astype(np.float32))
+            for _ in range(n_docs)]
+
+
+def check_sweep(torch, rows, dev, rng, seed):
+    """The fused sweep on config A's inputs, and on the geometries the
+    first kernel refused: 512 docs at k=40 (the doc factor read through
+    L1/L2) and 8 docs at k=500 (16 topic slices)."""
+    from spark_text_clustering_tpu_torch.ops import emsweep
+
+    k, v = EN_K, EN_V
+    plan, _, cts_s, seg_s, d_max = sorted_layout(torch, rows, v, dev)
+    args, geo = sweep_args(torch, plan, cts_s, seg_s, d_max, k, v, dev, rng)
+    # the gate: d <= 512 at every k, as on the CPU
+    gate = {f"d{d}_k{kk}": emsweep.fused_eligible(d)
+            for d, kk in ((d_max, k), (8, 500), (512, 40), (513, 5))}
+    if gate != {f"d{d_max}_k{k}": True, "d8_k500": True, "d512_k40": True,
+                "d513_k5": False}:
+        raise AssertionError(f"fused gate: {gate}")
+    got, err, rel = sweep_against_plain(torch, args, geo)
+    edges = []
+    edge_rng = np.random.default_rng(seed + 5)
+    for n_docs, nnz, kk in ((512, 200, 40), (8, 2000, 500)):
+        e_rows = sweep_edge_rows(seed + 6 + kk, n_docs, nnz)
+        e_plan, _, e_cts, e_seg, e_d = sorted_layout(torch, e_rows, v, dev)
+        e_args, e_geo = sweep_args(torch, e_plan, e_cts, e_seg, e_d, kk, v,
+                                   dev, edge_rng)
+        _, e_err, e_rel = sweep_against_plain(torch, e_args, e_geo)
+        edges.append({"docs": e_d, "k": kk, "d_pad": e_geo["d_pad"],
+                      "tokens": int(e_args[8].shape[0]),
+                      "docf_in_smem": kk * e_geo["d_pad"] <= 4096,
+                      "max_abs_err": e_err, "max_rel_err": e_rel,
+                      "bitwise_repeatable": True})
+
+    def kernel():
+        return emsweep.em_sweep_fused(*args, **geo)
+
     # bytes the kernel needs: the table, the doc factor, every slot's lid
     # and block map, seg and cts of live slots only, and the two outputs
+    # (the doc stream's second read of the tokens lies above it)
     live = int((cts_s > 0).sum())
     t_bytes, by = bound(
-        nbytes(n_wk, docf, inv_denom, args[3], args[6]) + 8 * live
+        nbytes(*args[:4], args[6]) + 8 * live
         + nbytes(*got), 8.0 * k * live)
     return {
         "name": "em_sweep_fused", "route": "cuda",
         "source": "spark_text_clustering_tpu_torch/csrc/emsweep.cu",
         "replaces": "spark_text_clustering_tpu/ops/pallas_emsweep.py:203",
         "shape": {"k": k, "shard_v": v, "tokens": live, "nb": plan.nb,
-                  "d_pad": d_pad},
+                  "d_pad": geo["d_pad"]},
         "max_abs_err": err, "max_rel_err": rel,
         "tolerance": "rtol 1e-4, atol 1e-5",
-        "bitwise_repeatable": deterministic, "gate": gate,
-        "ms": cuda_ms(torch, lambda: emsweep.em_sweep_fused(
-            *args, nb=plan.nb, **geo), 20),
+        "bitwise_repeatable": True, "gate": gate, "edges": edges,
+        "registers": ptxas_report("emsweep"),
+        "ms": cuda_ms(torch, kernel, 20),
+        "graph_ms": cuda_graph_ms(torch, kernel, 50),
+        "host_ms": host_ms(torch, kernel, 50),
         "plain_ms": cuda_ms(torch, lambda: emsweep.em_sweep_fused_plain(
             *args, **geo), 5),
         "bound_ms": t_bytes, "bound_by": by, "library_ms": None,
@@ -1057,6 +1113,10 @@ def run_config(torch, label, rows, vocab, k, seed, workdir,
         "avg_log_likelihood": fitted.log_likelihood / n,
         "argmax_histogram": np.bincount(dist.argmax(1), minlength=k).tolist(),
         "score_s": t_score, "report_bytes": len(report.encode()),
+        # the sweep the fit ran, read from its launches
+        "last_sweep": ("fused" if launches["em_sweep_fused"] else
+                       "two_stage" if launches["scatter_add_vtiles"] else
+                       "none"),
         "launches": launches,
     }
     return summary, tfidf, ckpt, model
@@ -1334,7 +1394,7 @@ def main() -> int:
     # 2. each kernel against its plain version, at main-path shapes
     rng = np.random.default_rng(args.seed + 1)
     checks = {
-        "em_sweep_fused": check_sweep(torch, rows_a, dev, rng),
+        "em_sweep_fused": check_sweep(torch, rows_a, dev, rng, args.seed),
         # the edge geometries and the tile check draw from their own
         # generators, so the later checks draw the inputs they drew
         # before those existed
@@ -1402,7 +1462,7 @@ def main() -> int:
                 np.abs(cpu_model.lam - model_a.lam)
                 / np.maximum(np.abs(cpu_model.lam), 1.0))),
         })
-        if summary_a["launches"]["em_sweep_fused"] == 0 or (
+        if summary_a["launches"]["em_sweep_fused"] != SWEEPS or (
             summary_a["launches"]["gamma_fixed_point_bkl"] == 0
         ):
             raise AssertionError(f"config A skipped a kernel: "

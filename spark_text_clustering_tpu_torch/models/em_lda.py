@@ -10,9 +10,10 @@ One EM sweep, per token (an edge of the doc-term graph):
 The corpus is packed flat (docs longest first, each doc's tokens
 contiguous) and then reordered once into the scatter plan's vocab-sorted
 blocks (``ops.emscatter.plan_em_scatter``).  A sweep is the fused kernel
-(``ops.emsweep.em_sweep_fused``) when the doc axis and the kernel's shared
-memory allow it, else two stages: phi by plain gathers, then the vocab-
-tiled scatter kernel (``ops.emscatter.scatter_add_vtiles``).  Counts are
+(``ops.emsweep.em_sweep_fused``) when the doc axis is at most 512 slots,
+reading both layouts (the doc-contiguous one is uploaded once per fit),
+else two stages: phi by plain gathers, then the vocab-tiled scatter
+kernel (``ops.emscatter.scatter_add_vtiles``).  Counts are
 float32 (TF-IDF pseudo-counts).  A fit resumes from
 ``<checkpoint_dir>/em_state.npz`` (n_wk [k, V], n_dk [n, k] in corpus
 order, step) when one is present: the JAX package's checkpoint format.
@@ -173,7 +174,7 @@ class EMLDA:
         plan = plan_em_scatter(ids[None], cts[None], 1, v)
         if plan is None:
             raise ValueError("empty corpus or vocabulary")
-        fused = fused_eligible(d_max, k, dev, plan.vt)
+        fused = fused_eligible(d_max)
         self.last_sweep = "fused" if fused else "two_stage"
 
         ckpt_path = (
@@ -214,6 +215,8 @@ class EMLDA:
         d_pad = fused_d_pad(d_max)
         geometry = dict(n_vtiles=plan.n_vtiles, nb=nb, vt=plan.vt, tb=tb,
                         shard_v=v)
+        if fused:  # the fused kernel's doc stream: the packed tokens
+            doc_toks = [torch.from_numpy(a).to(dev) for a in (ids, cts, seg)]
 
         def sweep(n_wk, n_dk):
             inv_denom = 1.0 / (n_wk.sum(dim=1) + (eta * v - v))
@@ -221,7 +224,7 @@ class EMLDA:
                 docf = torch.zeros((k, d_pad), dtype=torch.float32, device=dev)
                 docf[:, :d_max] = (n_dk + (alpha - 1.0)).T
                 nwk_new, ndk_new = em_sweep_fused(
-                    n_wk, docf, inv_denom, lids, seg_b, cts_b, bv,
+                    n_wk, docf, inv_denom, lids, seg_b, cts_b, bv, *doc_toks,
                     d_pad=d_pad, eta_m1=eta - 1.0, **geometry,
                 )
                 return nwk_new, ndk_new[:d_max]

@@ -53,8 +53,7 @@ SIGNATURES = {
         "stc_scatter_add_vtiles": [_P] * 3 + [_I] * 7 + [_P] * 4,
     },
     "emsweep": {
-        "stc_em_sweep_fused": [_P] * 7 + [_I] * 7 + [_F] + [_P] * 4,
-        "stc_em_sweep_warps": [_I] * 3,
+        "stc_em_sweep_fused": [_P] * 10 + [_I] * 9 + [_F] + [_P] * 6,
     },
     "packed": {
         "stc_gamma_fixed_point_tiles": [_P] * 5 + [_I] * 6 + [_F] + [_P] * 3,

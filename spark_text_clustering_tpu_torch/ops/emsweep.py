@@ -1,6 +1,6 @@
-"""One fused EM sweep over the vocab-sorted packed corpus.
+"""One fused EM sweep over the packed corpus.
 
-Per token of the plan layout (``emscatter.plan_em_scatter``):
+Per live token of the plan layout (``emscatter.plan_em_scatter``):
 
     term = N_wk[:, tile * vt + lid] + eta - 1
     doc  = (N_dk + alpha - 1)[seg]
@@ -11,14 +11,16 @@ and the sweep returns N_wk' [k, shard_v] and N_dk' [d_pad, k].  Pad slots
 kernel (``csrc/emsweep.cu``) for tensors on the card and runs
 ``em_sweep_fused_plain`` for CPU tensors.
 
+The kernel reads the tokens twice: in the plan's vocab-sorted layout for
+N_wk', and doc-contiguous (the doc stream: ``doc_cols``, ``doc_cts``,
+``doc_seg``, docs in nondecreasing order) for N_dk'.  The EM fit passes
+its packed arrays as the doc stream; ``doc_stream`` builds one from the
+sorted layout.  The plain version computes both outputs from the sorted
+layout and ignores the doc stream.
+
 ``fused_eligible`` is the one fused-vs-two-stage predicate: the doc axis
-must be at most ``MAX_FUSED_DOC_SLOTS`` (the JAX package's bound, so both
-packages take the same branch on the same corpus) and, on the card, the
-kernel's shared memory (the N_wk tile, its accumulator, the doc factor and
-one [d_pad, k] N_dk copy per warp) must fit a block's 227 KB with at least
-one warp.  That layout is written down once, in the kernel's source, which
-the gate asks (``stc_em_sweep_warps``); the plain version has no such
-limit.
+must be at most ``MAX_FUSED_DOC_SLOTS``, the JAX package's bound, on
+every device, so both packages take the same branch on the same corpus.
 """
 
 from __future__ import annotations
@@ -28,10 +30,11 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .emscatter import _VT
+from .emscatter import scatter_piece
 
 __all__ = [
     "MAX_FUSED_DOC_SLOTS",
+    "doc_stream",
     "em_sweep_fused",
     "em_sweep_fused_plain",
     "fused_d_pad",
@@ -39,6 +42,9 @@ __all__ = [
 ]
 
 MAX_FUSED_DOC_SLOTS = 512
+# doc-stream slots one thread block of the kernel takes (csrc/emsweep.cu
+# kMaxPiece)
+_DOC_PIECE = 512
 
 
 def fused_d_pad(d_max: int) -> int:
@@ -46,16 +52,30 @@ def fused_d_pad(d_max: int) -> int:
     return max(8, -(-d_max // 8) * 8)
 
 
-def fused_eligible(d_max: int, k: int, device: torch.device,
-                   vt: int = _VT) -> bool:
-    """True when the fused sweep takes this geometry on ``device`` (else
-    two-stage)."""
-    if d_max > MAX_FUSED_DOC_SLOTS:
-        return False
-    if device.type == "cpu":
-        return True
-    lib = _build.load_library("emsweep")
-    return lib.stc_em_sweep_warps(k, vt, fused_d_pad(d_max)) > 0
+def fused_eligible(d_max: int) -> bool:
+    """True when the fused sweep takes a corpus of ``d_max`` doc slots
+    (else two-stage), on every device and at every k."""
+    return d_max <= MAX_FUSED_DOC_SLOTS
+
+
+def doc_stream(
+    lids: torch.Tensor,         # [nb, 1, tb] int32 (pad -1)
+    seg: torch.Tensor,          # [nb, 1, tb] int32
+    cts: torch.Tensor,          # [nb, 1, tb] f32
+    block_vtile: torch.Tensor,  # [nb] int32
+    vt: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The live slots of the sorted layout, stable-sorted by doc: (global
+    columns int32, weights f32, doc slots int32), each [live]."""
+    lid = lids.reshape(-1).long()
+    live = (lid >= 0).nonzero().squeeze(1)
+    cols = (block_vtile.long().repeat_interleave(lids.shape[-1]) * vt
+            + lid)[live]
+    s = seg.reshape(-1)[live]
+    order = torch.sort(s, stable=True).indices
+    return (cols[order].to(torch.int32).contiguous(),
+            cts.reshape(-1)[live][order].contiguous(),
+            s[order].to(torch.int32).contiguous())
 
 
 def em_sweep_fused_plain(
@@ -66,8 +86,12 @@ def em_sweep_fused_plain(
     seg: torch.Tensor,          # [nb, 1, tb] int32
     cts: torch.Tensor,          # [nb, 1, tb] f32 (pad 0)
     block_vtile: torch.Tensor,  # [nb] int32
+    doc_cols: torch.Tensor,     # unused: the sorted layout holds the tokens
+    doc_cts: torch.Tensor,
+    doc_seg: torch.Tensor,
     *,
     n_vtiles: int,
+    nb: int,
     vt: int,
     tb: int,
     d_pad: int,
@@ -103,6 +127,9 @@ def em_sweep_fused(
     seg: torch.Tensor,          # [nb, 1, tb] int32 doc slots
     cts: torch.Tensor,          # [nb, 1, tb] f32 weights (pad 0)
     block_vtile: torch.Tensor,  # [nb] int32
+    doc_cols: torch.Tensor,     # [n] int32 global columns, doc-contiguous
+    doc_cts: torch.Tensor,      # [n] f32 weights
+    doc_seg: torch.Tensor,      # [n] int32 doc slots, nondecreasing
     *,
     n_vtiles: int,
     nb: int,
@@ -112,47 +139,54 @@ def em_sweep_fused(
     shard_v: int,
     eta_m1: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One EM sweep over the sorted token blocks: (N_wk' [k, shard_v],
-    N_dk' [d_pad, k]).  CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise."""
+    """One EM sweep: (N_wk' [k, shard_v], N_dk' [d_pad, k]).  The doc
+    stream must hold the sorted layout's live tokens (tokens of weight 0
+    may be added: they add 0).  CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
     if nwk_shard.device.type == "cpu":
         return em_sweep_fused_plain(
             nwk_shard, docf_kd, inv_denom, lids, seg, cts, block_vtile,
-            n_vtiles=n_vtiles, vt=vt, tb=tb, d_pad=d_pad, shard_v=shard_v,
-            eta_m1=eta_m1,
-        )
+            doc_cols, doc_cts, doc_seg, n_vtiles=n_vtiles, nb=nb, vt=vt,
+            tb=tb, d_pad=d_pad, shard_v=shard_v, eta_m1=eta_m1)
     k = nwk_shard.shape[0]
+    n_doc = doc_cols.shape[0]
     plan_shape = (nb, 1, tb)
-    if (
-        nwk_shard.shape != (k, shard_v) or docf_kd.shape != (k, d_pad)
-        or inv_denom.shape != (k,) or lids.shape != plan_shape
-        or seg.shape != plan_shape or cts.shape != plan_shape
-        or block_vtile.shape != (nb,)
+    f32, i32 = torch.float32, torch.int32
+    for t, shape, dtype in (
+        (nwk_shard, (k, shard_v), f32), (docf_kd, (k, d_pad), f32),
+        (inv_denom, (k,), f32), (lids, plan_shape, i32),
+        (seg, plan_shape, i32), (cts, plan_shape, f32),
+        (block_vtile, (nb,), i32), (doc_cols, (n_doc,), i32),
+        (doc_cts, (n_doc,), f32), (doc_seg, (n_doc,), i32),
     ):
-        raise ValueError("em_sweep_fused: shapes do not match the plan")
-    floats = (nwk_shard, docf_kd, inv_denom, cts)
-    ints = (lids, seg, block_vtile)
-    if any(t.dtype != torch.float32 for t in floats) or any(
-        t.dtype != torch.int32 for t in ints
-    ):
-        raise TypeError("em_sweep_fused takes f32 counts and i32 maps")
-    _build.check_tensors("em_sweep_fused", *floats, *ints)
-    lib = _build.load_library("emsweep")
-    if lib.stc_em_sweep_warps(k, vt, d_pad) == 0:
-        raise ValueError(
-            f"em_sweep_fused: k={k}, d_pad={d_pad} exceed shared memory; "
-            "use the two-stage sweep"
-        )
+        if t.shape != shape:
+            raise ValueError("em_sweep_fused: shapes do not match the plan")
+        if t.dtype != dtype:
+            raise TypeError("em_sweep_fused takes f32 counts and i32 maps")
+    _build.check_tensors("em_sweep_fused", nwk_shard, docf_kd, inv_denom,
+                         lids, seg, cts, block_vtile, doc_cols, doc_cts,
+                         doc_seg)
     dev = nwk_shard.device
-    nwk_out = torch.empty((k, shard_v), dtype=torch.float32, device=dev)
-    ndk_part = torch.empty((n_vtiles, d_pad, k), dtype=torch.float32,
-                           device=dev)
-    ndk_out = torch.empty((d_pad, k), dtype=torch.float32, device=dev)
-    err = lib.stc_em_sweep_fused(
+    vpiece = scatter_piece(tb)
+    n_pieces = nb * (tb // vpiece) + -(-n_doc // _DOC_PIECE)
+    # one allocation: the term table (16-byte aligned at the start; rows of
+    # k rounded up to csrc/emsweep.cu's kChunk, 8), the pieces' metadata
+    # (int4) and partial sums, then the outputs, which the kernel's first
+    # launch zeroes
+    n_term = shard_v * -(-k // 8) * 8
+    n_scratch = n_term + n_pieces * (4 + 2 * k)
+    buf = torch.empty(n_scratch + k * shard_v + d_pad * k, dtype=f32,
+                      device=dev)
+    nwk_out = buf[n_scratch:n_scratch + k * shard_v].view(k, shard_v)
+    ndk_out = buf[n_scratch + k * shard_v:].view(d_pad, k)
+    ptr = buf.data_ptr()
+    err = _build.load_library("emsweep").stc_em_sweep_fused(
         nwk_shard.data_ptr(), docf_kd.data_ptr(), inv_denom.data_ptr(),
         lids.data_ptr(), seg.data_ptr(), cts.data_ptr(),
-        block_vtile.data_ptr(), nb, tb, k, vt, n_vtiles, d_pad, shard_v,
-        eta_m1, nwk_out.data_ptr(), ndk_part.data_ptr(), ndk_out.data_ptr(),
+        block_vtile.data_ptr(), doc_cols.data_ptr(), doc_cts.data_ptr(),
+        doc_seg.data_ptr(), nb, tb, vpiece, n_doc, _DOC_PIECE, k, vt, d_pad,
+        shard_v, eta_m1, nwk_out.data_ptr(), ndk_out.data_ptr(), ptr,
+        ptr + 4 * n_term, ptr + 4 * (n_term + 4 * n_pieces),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "em_sweep_fused")

@@ -1,10 +1,11 @@
 """A CPU stand-in for the CUDA runtime, and a function that compiles one
 of the port's kernel sources against it with g++.
 
-Enough of the runtime for ``csrc/packed.cu`` and ``csrc/nmf.cu``: every
-block runs as blockDim.x threads with real barriers and warp shuffles,
-one block after another, and each ``<<<grid, block, smem, stream>>>``
-launch becomes the stand-in's launcher.  (A kernel's ``cp.async`` copy
+Enough of the runtime for ``csrc/packed.cu``, ``csrc/nmf.cu`` and
+``csrc/emsweep.cu``: every block runs as blockDim.x threads with real
+barriers, warp shuffles and ballots, one block after another (over a
+grid of x and y), and each ``<<<grid, block, smem, stream>>>`` launch
+becomes the stand-in's launcher.  (A kernel's ``cp.async`` copy
 compiles, without ``__CUDA_ARCH__``, to a plain copy.)  The kernel tests load the
 library with ctypes and the wrappers' C signatures and hold it against
 the plain PyTorch versions.
@@ -25,6 +26,7 @@ _CUDA_SHIM = r"""
 #include <algorithm>
 #include <cmath>
 #include <condition_variable>
+#include <cstring>
 #include <functional>
 #include <mutex>
 #include <thread>
@@ -57,7 +59,16 @@ struct float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};
 }
+struct int4 { int x, y, z, w; };
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
+template <class T> inline T __ldg(const T* p) { return *p; }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
 struct Dim3 { unsigned x, y, z; };
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
 inline thread_local Dim3 threadIdx, blockIdx, blockDim;
 using std::max;
 using std::min;
@@ -76,6 +87,7 @@ struct Barrier {
 inline Barrier g_block;
 inline std::vector<Barrier> g_warps(32);
 inline float g_xfer[1024];
+inline unsigned g_bits[1024];
 inline void __syncthreads() { g_block.wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { g_warps[threadIdx.x >> 5].wait(); }
 inline float __shfl_xor_sync(unsigned, float v, int off) {
@@ -86,20 +98,45 @@ inline float __shfl_xor_sync(unsigned, float v, int off) {
   __syncwarp();
   return r;
 }
-inline void emu_launch(int grid, int block, std::function<void()> body) {
-  for (int b = 0; b < grid; ++b) {
-    g_block.n = block;
-    for (auto& w : g_warps) w.n = 32;
-    std::vector<std::thread> th;
-    for (int t = 0; t < block; ++t) {
-      th.emplace_back([=] {
-        threadIdx = {unsigned(t), 0, 0};
-        blockIdx = {unsigned(b), 0, 0};
-        blockDim = {unsigned(block), 0, 0};
-        body();
-      });
+// lane L gets lane L - off's value (its own where L < off); 32-bit types
+template <class T> inline T __shfl_up_sync(unsigned, T v, int off) {
+  static_assert(sizeof(T) == 4, "32-bit shuffles only");
+  const int t = threadIdx.x;
+  std::memcpy(&g_bits[t], &v, 4);
+  __syncwarp();
+  T r = v;
+  if ((t & 31) >= off) std::memcpy(&r, &g_bits[t - off], 4);
+  __syncwarp();
+  return r;
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const int t = threadIdx.x;
+  g_bits[t] = pred != 0;
+  __syncwarp();
+  unsigned m = 0;
+  for (int l = 0; l < 32; ++l) m |= g_bits[(t & ~31) | l] << l;
+  __syncwarp();
+  return m;
+}
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+  return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
+}
+inline void emu_launch(dim3 grid, int block, std::function<void()> body) {
+  for (unsigned by = 0; by < grid.y; ++by) {
+    for (unsigned b = 0; b < grid.x; ++b) {
+      g_block.n = block;
+      for (auto& w : g_warps) w.n = 32;
+      std::vector<std::thread> th;
+      for (int t = 0; t < block; ++t) {
+        th.emplace_back([=] {
+          threadIdx = {unsigned(t), 0, 0};
+          blockIdx = {b, by, 0};
+          blockDim = {unsigned(block), 0, 0};
+          body();
+        });
+      }
+      for (auto& x : th) x.join();
     }
-    for (auto& x : th) x.join();
   }
 }
 #define EMU_LAUNCH(fn, grid, block, ...) \
@@ -110,15 +147,16 @@ inline void emu_launch(int grid, int block, std::function<void()> body) {
 def build_on_cpu(name: str, kernel: str, launches: int,
                  out: Path) -> ctypes.CDLL:
     """``csrc/<name>.cu`` compiled by g++ against ``_CUDA_SHIM`` into
-    ``out``, with each of its ``launches`` launches of the template
-    ``kernel`` swapped for the shim's launcher; loaded with ctypes, with
-    the wrapper's C signatures.  Skips the test where there is no g++."""
+    ``out``, with each of its ``launches`` launches of ``kernel`` (a
+    kernel's name, a template's with any instance, or an alternation of
+    names) swapped for the shim's launcher; loaded with ctypes, with the
+    wrapper's C signatures.  Skips the test where there is no g++."""
     from spark_text_clustering_tpu_torch.ops import _build
 
     if shutil.which("g++") is None:
         pytest.skip("no g++ to compile the kernel source for the CPU")
     src = (_build.CSRC / f"{name}.cu").read_text()
-    src, n = re.subn(rf"({kernel}<\w+>)<<<([^,]+),([^,]+),[^>]*>>>\(",
+    src, n = re.subn(rf"((?:{kernel})(?:<\w+>)?)<<<([^,]+),([^,]+),[^>]*>>>\(",
                      r"EMU_LAUNCH(\1, \2, \3, ", src)
     assert n == launches
     (out / "cuda_runtime.h").write_text(_CUDA_SHIM)

@@ -27,6 +27,8 @@ from spark_text_clustering_tpu_torch.ops import lda_math as tlda
 from spark_text_clustering_tpu_torch.ops import nmf as tnmf
 from spark_text_clustering_tpu_torch.ops import packed as tpacked
 
+from cuda_shim import build_on_cpu
+
 ALPHA, ETA = 11.0, 1.1
 
 
@@ -244,8 +246,11 @@ def test_scatter_add_vtiles_matches_pallas(k, shard_v, t_local, hot, tile0):
 @pytest.mark.parametrize("shard_v,t_local,k,d", [(700, 900, 4, 13),
                                                  (3000, 5000, 5, 40),
                                                  (100, 64, 7, 8),
-                                                 (700, 1200, 20, 300)])
+                                                 (700, 1200, 20, 300),
+                                                 (700, 1200, 40, 512)])
 def test_em_sweep_fused_matches_pallas(shard_v, t_local, k, d):
+    """The port's sweep (the plain version, given the doc stream that
+    ``doc_stream`` builds) against the Pallas kernel in interpret mode."""
     rng = np.random.default_rng(0)
     ids = rng.integers(0, shard_v, (1, t_local)).astype(np.int32)
     cts = rng.random((1, t_local)).astype(np.float32) + 0.1
@@ -270,7 +275,9 @@ def test_em_sweep_fused_matches_pallas(shard_v, t_local, k, d):
     w_nwk, w_ndk = jsweep.em_sweep_fused(
         *map(jnp.asarray, args), interpret=True, **geo
     )
-    g_nwk, g_ndk = tsweep.em_sweep_fused(*map(_t, args[:7]), **geo)
+    targs = tuple(map(_t, args[:7]))
+    stream = tsweep.doc_stream(*targs[3:6], targs[6], plan.vt)
+    g_nwk, g_ndk = tsweep.em_sweep_fused(*targs, *stream, **geo)
     np.testing.assert_allclose(g_nwk.numpy(), np.asarray(w_nwk),
                                rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(g_ndk.numpy(), np.asarray(w_ndk),
@@ -279,14 +286,132 @@ def test_em_sweep_fused_matches_pallas(shard_v, t_local, k, d):
 
 @pytest.mark.parametrize("d_max,k,want", [
     (51, 5, True), (512, 5, True), (512, 20, True), (513, 5, False),
-    (8, 500, True), (11_314, 20, False),
+    (8, 500, True), (11_314, 20, False), (512, 40, True),
 ])
 def test_fused_gate(d_max, k, want):
-    """The fused sweep takes d <= 512 docs, the JAX package's bound.  On
-    the CPU that is the whole gate (the plain version has no shared-memory
-    limit); on the card the kernel's own shared-memory query joins it,
-    and ``chip_smoke.py`` holds that half there."""
-    assert tsweep.fused_eligible(d_max, k, torch.device("cpu")) is want
+    """The fused sweep takes d <= 512 docs, the JAX package's bound, on
+    every device and at every k: the kernel's shared memory does not grow
+    with d * k (k is listed for the geometries the card once refused;
+    ``test_em_sweep_source_on_cpu_threads`` runs the kernel at (512, 40)
+    and (8, 500), ``chip_smoke.py`` on the card).  The JAX package's own
+    gate also prices k=500 out; there the port's fused sweep gives the
+    same sums as JAX's two-stage one."""
+    assert tsweep.fused_eligible(d_max) is want
+    assert tsweep.fused_eligible(d_max) is (d_max <= jsweep.MAX_FUSED_DOC_SLOTS)
+
+
+@pytest.fixture(scope="module")
+def sweep_kernel_on_cpu(tmp_path_factory):
+    """csrc/emsweep.cu itself, compiled by g++ against the CPU stand-in for
+    the CUDA runtime (``cuda_shim``)."""
+    return build_on_cpu(
+        "emsweep", "term_table_kernel|sweep_pieces_kernel|sweep_link_kernel",
+        3, tmp_path_factory.mktemp("sweep_kernel"))
+
+
+def _sweep_source_case(case):
+    """(k, shard_v, d, ids, cts, seg) of a packed corpus (seg
+    nondecreasing, 20% zero weights) for one edge of the kernel."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    k, v, d, t = dict(
+        k5=(5, 700, 13, 900), hot_run=(5, 700, 13, 600),
+        long_doc=(5, 700, 4, 2400), all_pad=(5, 1000, 13, 900),
+        packed_stream=(5, 700, 13, 900), d512_k40=(40, 700, 512, 1200),
+        d8_k500=(500, 300, 8, 200), k33=(33, 700, 13, 900),
+    )[case]
+    ids = rng.integers(0, v, t)
+    if case == "hot_run":      # column 7: one run over >= 3 pieces of 128
+        ids = np.concatenate([ids, np.full(450, 7)])
+    if case == "all_pad":      # no token in tile 2: an all-pad block
+        ids = np.where((ids >= 512) & (ids < 768), ids - 256, ids)
+    seg = np.sort(rng.integers(0, d, ids.size))
+    if case == "long_doc":     # doc 1 holds 2,000 tokens: >= 3 doc pieces
+        seg = np.sort(np.concatenate([seg[:400], np.ones(ids.size - 400, int)]))
+    cts = (rng.random(ids.size) + 0.1).astype(np.float32)
+    cts[rng.random(ids.size) < 0.2] = 0.0
+    return k, v, d, ids.astype(np.int32), cts, seg.astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["k5", "hot_run", "long_doc", "all_pad",
+                                  "packed_stream", "d512_k40", "d8_k500",
+                                  "k33"])
+def test_em_sweep_source_on_cpu_threads(sweep_kernel_on_cpu, case):
+    """The CUDA kernel's own source, run on CPU threads, against the plain
+    version within rtol 1e-4, atol 1e-5 (phi's sum over k and the run
+    sums go in another order), a bit-for-bit repeat, and exact zeros for
+    columns and docs no token hits.  Cases: k=5 with V=700 (no multiple
+    of vt=256); a column's run over >= 3 vocab pieces; a doc over >= 3 doc
+    pieces; an all-pad vocab piece; the doc stream as the fit passes it
+    (the packed tokens, zero weights included); d=512 with k=40 (the doc
+    factor read through L1/L2: d_pad * k > 4,096); d=8 with k=500 (16
+    topic slices, the doc factor in shared memory); k=33 (a slice of one
+    topic)."""
+    lib = sweep_kernel_on_cpu
+    k, v, d, ids, cts, seg = _sweep_source_case(case)
+    vt, tb = 256, 128
+    plan = tscatter.plan_em_scatter(ids[None], cts[None], 1, v, vt=vt, tb=tb)
+    so, blk = plan.sort_order[0], (plan.nb, 1, plan.tb)
+    lids, bv = plan.lids[0, 0], plan.block_vtile[0, 0]
+    seg_s = np.concatenate([seg, [0]])[so].reshape(blk).astype(np.int32)
+    cts_s = np.concatenate([cts, [0.0]])[so].reshape(blk).astype(np.float32)
+    d_pad = tsweep.fused_d_pad(d)
+    rng = np.random.default_rng(k + d)
+    nwk = (rng.random((k, v)) + 0.5).astype(np.float32)
+    docf = np.zeros((k, d_pad), np.float32)
+    docf[:, :d] = rng.random((k, d)) + ALPHA - 1.0
+    inv = (1.0 / (nwk.sum(1) + ETA * v - v)).astype(np.float32)
+    if case == "packed_stream":
+        stream = (ids, cts, seg)
+    else:
+        stream = [x.numpy() for x in tsweep.doc_stream(
+            _t(lids), _t(seg_s), _t(cts_s), _t(bv), vt)]
+    vpiece, dpiece = tscatter.scatter_piece(tb), tsweep._DOC_PIECE
+    n_vpieces = plan.nb * (tb // vpiece)
+    n_pieces = n_vpieces + -(-stream[0].size // dpiece)
+    piece_lids = lids.reshape(n_vpieces, vpiece)
+    if case == "hot_run":
+        assert ((piece_lids == 7) & (np.repeat(bv, tb // vpiece) == 0)[:, None]
+                ).any(1).sum() >= 3
+    if case == "long_doc":
+        assert -(-(stream[2] == 1).sum() // dpiece) >= 3
+    if case == "all_pad":
+        assert (piece_lids < 0).all(1).any()
+
+    def run():
+        out = np.full(k * v + d_pad * k, np.nan, np.float32)
+        term = np.full(v * -(-k // 8) * 8, np.nan, np.float32)
+        meta = np.full((n_pieces, 4), -7, np.int32)
+        part = np.full((n_pieces, 2, k), np.nan, np.float32)
+        err = lib.stc_em_sweep_fused(
+            nwk.ctypes.data, docf.ctypes.data, inv.ctypes.data,
+            lids.ctypes.data, seg_s.ctypes.data, cts_s.ctypes.data,
+            bv.ctypes.data, stream[0].ctypes.data, stream[1].ctypes.data,
+            stream[2].ctypes.data, plan.nb, tb, vpiece, stream[0].size,
+            dpiece, k, vt, d_pad, v, ETA - 1.0, out.ctypes.data,
+            out[k * v:].ctypes.data, term.ctypes.data, meta.ctypes.data,
+            part.ctypes.data, None)
+        assert err == 0
+        return out[:k * v].reshape(k, v), out[k * v:].reshape(d_pad, k)
+
+    got_nwk, got_ndk = run()
+    again_nwk, again_ndk = run()
+    np.testing.assert_array_equal(again_nwk, got_nwk)
+    np.testing.assert_array_equal(again_ndk, got_ndk)
+    want_nwk, want_ndk = tsweep.em_sweep_fused_plain(
+        *map(_t, (nwk, docf, inv, lids, seg_s, cts_s, bv, *stream)),
+        n_vtiles=plan.n_vtiles, nb=plan.nb, vt=vt, tb=tb, d_pad=d_pad,
+        shard_v=v, eta_m1=ETA - 1.0)
+    np.testing.assert_allclose(got_nwk, want_nwk.numpy(), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(got_ndk, want_ndk.numpy(), rtol=1e-4,
+                               atol=1e-5)
+    live = cts > 0
+    hit_cols = np.zeros(v, bool)
+    hit_cols[ids[live]] = True
+    hit_docs = np.zeros(d_pad, bool)
+    hit_docs[seg[live]] = True
+    assert not got_nwk[:, ~hit_cols].any() and got_nwk[:, hit_cols].all()
+    assert not got_ndk[~hit_docs].any() and got_ndk[hit_docs].all()
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
@@ -344,6 +469,7 @@ def test_wrappers_never_fall_back_off_the_cpu(kernel):
                 torch.empty(5, 200, **f32), torch.empty(5, 8, **f32),
                 torch.empty(5, **f32), torch.empty(2, 1, 128, **i32),
                 torch.empty(2, 1, 128, **i32), torch.empty(2, 1, 128, **f32),
-                torch.empty(2, **i32),
+                torch.empty(2, **i32), torch.empty(100, **i32),
+                torch.empty(100, **f32), torch.empty(100, **i32),
                 n_vtiles=1, nb=2, vt=256, tb=128, d_pad=8, shard_v=200,
                 eta_m1=0.1)
