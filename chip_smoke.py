@@ -4,7 +4,9 @@
     python3 chip_smoke.py [--seed 0] [--profile] [--out DIR] [--kernels-only]
 
 1. builds the five CUDA kernels from ``spark_text_clustering_tpu_torch/
-   csrc`` (one ``nvcc`` per source, in parallel, into build/torch_kernels);
+   csrc`` and the native text library from ``.../native`` (one ``nvcc``
+   per source and one ``g++``, in parallel, into build/torch_kernels;
+   ``--kernels-only`` skips the text library);
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it and at the edges of its contract, and
    times kernel, plain version, and (for the scatter) the one PyTorch call
@@ -38,9 +40,20 @@
    topic_distribution of the first 512 docs.  Ten sweeps are re-run with
    device="cpu" from the same W0/H0; H must agree within 1e-3 relative
    and the loss within 1e-4;
-7. a ``kernels`` line: per kernel, the launches of the main-path runs of
-   3-6 (each must be > 0), the largest difference from the plain
-   version, and the times beside the card's bound.
+7. config E, the CLI on the card: a synthetic EN book directory (51
+   books of 8,000-120,000 pseudo-words, ~42k terms after the text front
+   end) -> ``cli.main(["train", ...])`` with the defaults (native text
+   library, TF-IDF, EM k=5, 50 iterations: exactly 50 fused-sweep
+   launches) -> the fused sweep held against its plain version on E's
+   own TF-IDF rows from the fit's kind of start -> ``train --device cpu``
+   from the same seeded start (average log-likelihoods within 1e-4) ->
+   ``cli.main(["score", ...])`` (padded buckets through the E-step
+   kernel) -> ``score --device cpu`` of the card's model; the two
+   reports' distributions must agree within 5e-3;
+8. a ``total`` line with the run's seconds, then a ``kernels`` line: per
+   kernel, the launches of the main-path runs of 3-7 (each must be > 0),
+   the largest difference from the plain version, and the times beside
+   the card's bound.
 
 Every phase prints one JSON line; the first line is ``nvidia-smi``'s name
 and power limit, and the last is ``{"ok": true, "device": {...}}``.  Any
@@ -73,6 +86,7 @@ ONLINE_CHECK_ITERS = 10        # card vs CPU iterations of config C
 EVAL_DOCS = 512                # bench.py's log-perplexity batch
 NMF_ITERS = 40                 # bench.py's NMF row
 NMF_CHECK_ITERS = 10           # card vs CPU sweeps of config D
+EN_LEXICON, EN_ZIPF = 28_000, 1.2  # config E's pseudo-word books
 
 
 def emit(obj) -> None:
@@ -104,6 +118,51 @@ def newsgroups_rows(seed: int):
         ids = np.unique(perm[ranks]).astype(np.int32)
         rows.append((ids, rng.integers(1, 6, size=ids.size).astype(np.float32)))
     return rows
+
+
+def en_books_dir(seed: int, root: str, n_books: int = EN_DOCS,
+                 words=(8_000, 120_000)) -> str:
+    """A directory of ``n_books`` plain-text EN-shaped books, made from the
+    seed: pseudo-words from a lexicon of EN_LEXICON consonant-vowel strings
+    of 2-5 syllables, drawn Zipf(EN_ZIPF) by rank with a shift for each
+    book, in sentences of 8-20 words that start capitalized and end with
+    '.'.  Book lengths are spaced geometrically over ``words`` (shuffled),
+    so the shortest and the longest book are the same on every draw.
+    Writes ``<root>/books/*.txt`` and a one-line stop-word file of 20
+    lexicon words; returns the stop-word file's path."""
+    rng = np.random.default_rng(seed)
+    cons, vows = np.array(list("bcdfghklmnprstvz")), np.array(list("aeiou"))
+    lexicon, seen = [], set()
+    while len(lexicon) < EN_LEXICON:
+        syl = rng.integers(2, 6, EN_LEXICON)
+        c = cons[rng.integers(0, len(cons), (EN_LEXICON, 5))]
+        v = vows[rng.integers(0, len(vows), (EN_LEXICON, 5))]
+        for j in range(EN_LEXICON):
+            w = "".join(c[j, s] + v[j, s] for s in range(syl[j]))
+            if w not in seen and len(lexicon) < EN_LEXICON:
+                seen.add(w)
+                lexicon.append(w)
+    lexicon = np.array(lexicon, dtype=object)
+    capital = np.array([w.capitalize() for w in lexicon], dtype=object)
+    books = os.path.join(root, "books")
+    os.makedirs(books, exist_ok=True)
+    sizes = rng.permutation(
+        np.geomspace(words[0], words[1], n_books).round().astype(int))
+    for b, n in enumerate(sizes):
+        idx = ((rng.zipf(EN_ZIPF, n) - 1) % EN_LEXICON
+               + rng.integers(0, EN_LEXICON)) % EN_LEXICON
+        ends = np.cumsum(rng.integers(8, 21, n // 8 + 1))
+        ends = ends[ends < n]
+        toks = lexicon[idx]
+        starts = np.concatenate([[0], ends])
+        toks[starts] = capital[idx[starts]]
+        toks[np.append(ends - 1, n - 1)] += "."
+        with open(os.path.join(books, f"book_{b:02d}.txt"), "w") as f:
+            f.write(" ".join(toks))
+    stop = os.path.join(root, "stop_words.txt")
+    with open(stop, "w") as f:
+        f.write(",".join(lexicon[:20]))
+    return stop
 
 
 def flat_rows(rows):
@@ -187,15 +246,33 @@ def sorted_layout(torch, rows, v, dev):
     return plan, srt(ids), srt(cts), srt(seg), d_max
 
 
-def sweep_args(torch, plan, cts_s, seg_s, d_max, k, v, dev, rng):
-    """The fused sweep's inputs on the sorted layout: random counts, the
-    EM priors' factors, and the doc stream ``doc_stream`` builds."""
+def soft_start(torch, rows, k, v, seed):
+    """(N_wk [k, V], N_dk [docs, k]) on the CPU: each token's weight
+    spread over the topics by a Dirichlet(1) draw, as the EM fit starts."""
+    gen = torch.Generator().manual_seed(seed)
+    n_wk = torch.zeros((k, v))
+    n_dk = torch.zeros((len(rows), k))
+    for d, (ids, w) in enumerate(rows):
+        e = torch.empty((len(ids), k)).exponential_(generator=gen)
+        wphi = torch.from_numpy(w)[:, None] * e / e.sum(1, keepdim=True)
+        n_dk[d] = wphi.sum(0)
+        n_wk.index_add_(1, torch.from_numpy(ids).long(), wphi.T)
+    return n_wk.numpy(), n_dk.numpy()
+
+
+def sweep_args(torch, plan, cts_s, seg_s, d_max, k, v, dev, rng,
+               start=None):
+    """The fused sweep's inputs on the sorted layout: the counts ``start``
+    gives as (N_wk, N_dk), else random ones, the EM priors' factors, and
+    the doc stream ``doc_stream`` builds."""
     from spark_text_clustering_tpu_torch.ops import emsweep
 
     d_pad = emsweep.fused_d_pad(d_max)
     alpha, eta = 50.0 / k + 1.0, 1.1
-    n_wk = torch.from_numpy(rng.gamma(1.0, 20.0, (k, v)).astype(np.float32)).to(dev)
-    n_dk = torch.from_numpy(rng.gamma(1.0, 2000.0, (d_max, k)).astype(np.float32)).to(dev)
+    if start is None:
+        start = (rng.gamma(1.0, 20.0, (k, v)).astype(np.float32),
+                 rng.gamma(1.0, 2000.0, (d_max, k)).astype(np.float32))
+    n_wk, n_dk = (torch.from_numpy(a).to(dev) for a in start)
     inv_denom = 1.0 / (n_wk.sum(1) + (eta * v - v))
     docf = torch.zeros((k, d_pad), device=dev)
     docf[:, :d_max] = (n_dk + (alpha - 1.0)).T
@@ -239,6 +316,22 @@ def sweep_edge_rows(seed, n_docs, nnz, v=EN_V):
     return [(np.sort(rng.choice(v, size=nnz, replace=False)).astype(np.int32),
              rng.integers(1, 50, nnz).astype(np.float32))
             for _ in range(n_docs)]
+
+
+def check_sweep_start(torch, rows, k, v, dev, seed):
+    """The fused sweep against its plain version on ``rows`` (a main
+    path's own weights) from the fit's kind of start."""
+    plan, _, cts_s, seg_s, d_max = sorted_layout(torch, rows, v, dev)
+    start = soft_start(torch, rows, k, v, seed)
+    args, geo = sweep_args(torch, plan, cts_s, seg_s, d_max, k, v, dev,
+                           None, start=start)
+    _, err, rel = sweep_against_plain(torch, args, geo)
+    return {"docs": d_max, "k": k, "shard_v": v, "d_pad": geo["d_pad"],
+            "tokens": int((cts_s > 0).sum()),
+            "min_weight": float(min(w.min() for _, w in rows)),
+            "max_weight": float(max(w.max() for _, w in rows)),
+            "max_abs_err": err, "max_rel_err": rel,
+            "tolerance": "rtol 1e-4, atol 1e-5", "bitwise_repeatable": True}
 
 
 def check_sweep(torch, rows, dev, rng, seed):
@@ -1262,13 +1355,197 @@ def run_config_d(torch, rows, seed, workdir):
     return summary
 
 
+def report_distributions(text: str, k: int) -> np.ndarray:
+    """[books, k] topic distributions read back from a scoring report."""
+    vals = [float(line.rsplit("|", 1)[1]) for line in text.splitlines()
+            if line.startswith("Nr.: ")]
+    return np.asarray(vals, np.float64).reshape(-1, k)
+
+
+def run_cli(argv, out_path):
+    """``cli.main(argv)`` in this process, its stdout sent to
+    ``out_path``; returns (exit code, stdout text, wall seconds)."""
+    import contextlib
+
+    from spark_text_clustering_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    with open(out_path, "w") as f, contextlib.redirect_stdout(f):
+        rc = cli.main(argv)
+    secs = time.perf_counter() - t0
+    with open(out_path) as f:
+        return rc, f.read(), secs
+
+
+def run_config_e(torch, seed, workdir):
+    """The CLI on the card: a synthetic EN book directory -> ``train``
+    (EM, k=5, 50 iterations, TF-IDF, the defaults) -> ``score``; then
+    ``score --device cpu`` of the same model (the plain versions, packed),
+    whose distributions must agree with the card's within 5e-3 and whose
+    main topics must agree wherever its top two differ by more than
+    1e-2."""
+    from spark_text_clustering_tpu_torch import Params, load_model
+    from spark_text_clustering_tpu_torch.ops import _build
+    from spark_text_clustering_tpu_torch.pipeline import (
+        IDF, CountVectorizer, TextPreprocessor,
+    )
+    from spark_text_clustering_tpu_torch.resilience import artifact_status
+    from spark_text_clustering_tpu_torch.utils.readers import (
+        read_stop_word_file, read_text_dir,
+    )
+    from spark_text_clustering_tpu_torch.utils.textproc import (
+        parse_stop_words,
+    )
+
+    root = os.path.join(workdir, "E")
+    t0 = time.perf_counter()
+    stop = en_books_dir(seed, root)
+    t_corpus = time.perf_counter() - t0
+    books = os.path.join(root, "books")
+    models = os.path.join(root, "models")
+
+    # the corpus's shape and TF-IDF rows, through the stages the CLI's
+    # train runs with its defaults
+    pre = TextPreprocessor(stop_words=parse_stop_words(
+        read_stop_word_file(stop)))
+    texts = [d.text for d in read_text_dir(books)]
+    t0 = time.perf_counter()
+    ds = pre.transform({"texts": texts})
+    t_pre = time.perf_counter() - t0
+    defaults = Params()
+    ds = CountVectorizer(defaults.vocab_size).fit(ds).transform(ds)
+    ds = IDF(min_doc_freq=defaults.min_doc_freq, idf_floor=defaults.idf_floor,
+             device="cuda").fit(ds).transform(ds)
+    tokens, tf_rows = ds["tokens"], ds["rows"]
+    distinct = [len(set(t)) for t in tokens]
+    v = len(ds["vocab"])
+    if pre.last_backend != "native":
+        raise AssertionError(f"config E: text backend {pre.last_backend}")
+    if not 30_000 <= v <= 50_000 or min(distinct) < 2_000:
+        raise AssertionError(f"config E: V={v}, distinct terms a book "
+                             f"{min(distinct)}-{max(distinct)}")
+
+    def train(device, models_dir):
+        """``train`` on ``device``: (its console numbers, saved model)."""
+        rc, out, secs = run_cli(
+            ["train", "--books", books, "--stop-words", stop, "--lang",
+             "EN", "--k", str(EN_K), "--models-dir", models_dir,
+             "--device", device],
+            os.path.join(root, f"train_{device}.out"))
+        nums = {"train_s": secs}
+        for line in out.splitlines():
+            for key, label in (("preprocess_s", "Preprocessing time:"),
+                               ("fit_s", "Training time:"),
+                               ("avg_log_likelihood",
+                                "average log likelihood:"),
+                               ("cli_vocab", "Vocabulary size:")):
+                if label in line:
+                    nums[key] = float(line.split(label)[1].split()[0])
+        saved = [d for d in os.listdir(models_dir)
+                 if d.startswith("LdaModel_EN_")]
+        if rc != 0 or len(saved) != 1 or artifact_status(
+                os.path.join(models_dir, saved[0])) != "committed":
+            raise AssertionError(f"config E train on {device}: rc {rc}, "
+                                 f"models {saved}")
+        if not np.isfinite(nums.get("avg_log_likelihood", np.nan)):
+            raise AssertionError(f"config E train on {device}: average "
+                                 f"logLik {nums.get('avg_log_likelihood')}")
+        if nums["cli_vocab"] != v:
+            raise AssertionError(f"config E: the CLI's V "
+                                 f"{nums['cli_vocab']} != {v}")
+        del nums["cli_vocab"]
+        return nums, load_model(os.path.join(models_dir, saved[0]),
+                                device="cpu")
+
+    _build.reset_launches()
+    summary, card_model = train("cuda", models)
+    train_launches = dict(_build.LAUNCHES)
+    if train_launches["em_sweep_fused"] != SWEEPS:
+        raise AssertionError(f"config E train: {train_launches}")
+
+    # the sweep against its plain version on E's own TF-IDF rows (the
+    # idf floor's 1e-4 weights included), from the fit's kind of start
+    sweep_check = check_sweep_start(torch, tf_rows, EN_K, v,
+                                    torch.device("cuda"), seed)
+    # the whole train again on the CPU (the plain versions) from the same
+    # seeded start: the average log-likelihoods must agree within 1e-4
+    cpu_train, cpu_model = train("cpu", os.path.join(root, "models_cpu"))
+    ll_rel = abs(cpu_train["avg_log_likelihood"]
+                 - summary["avg_log_likelihood"]) / abs(
+                     cpu_train["avg_log_likelihood"])
+    lam_rel = float(np.max(np.abs(cpu_model.lam - card_model.lam)
+                           / np.maximum(np.abs(cpu_model.lam), 1.0)))
+    if not ll_rel <= 1e-4:
+        raise AssertionError(f"config E: card and CPU train avg logLik "
+                             f"differ by {ll_rel}")
+
+    reports = {}
+    score_launches, t_score = None, {}
+    for device in ("cuda", "cpu"):
+        out_dir = os.path.join(root, f"TestOutput_{device}")
+        _build.reset_launches()
+        rc, _, t_score[device] = run_cli(
+            ["score", "--books", books, "--stop-words", stop,
+             "--models-dir", models, "--output-dir", out_dir,
+             "--device", device],
+            os.path.join(root, f"score_{device}.out"))
+        if device == "cuda":
+            score_launches = dict(_build.LAUNCHES)
+        written = os.listdir(out_dir) if os.path.isdir(out_dir) else []
+        if rc != 0 or len(written) != 1:
+            raise AssertionError(f"config E score on {device}: rc {rc}")
+        with open(os.path.join(out_dir, written[0])) as f:
+            reports[device] = f.read()
+    blocks = reports["cuda"].count("Book's number:")
+    if blocks != EN_DOCS or score_launches["gamma_fixed_point_bkl"] == 0:
+        raise AssertionError(f"config E score: {blocks} books, "
+                             f"{score_launches}")
+    card = report_distributions(reports["cuda"], EN_K)
+    cpu = report_distributions(reports["cpu"], EN_K)
+    if card.shape != (EN_DOCS, EN_K) or cpu.shape != card.shape:
+        raise AssertionError(f"config E: reports hold {card.shape}, "
+                             f"{cpu.shape}")
+    diff = float(np.abs(card - cpu).max())
+    top2 = np.sort(cpu, axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 1e-2
+    agree = card.argmax(1) == cpu.argmax(1)
+    summary.update({
+        "phase": "config_E", "docs": EN_DOCS, "vocab": v, "k": EN_K,
+        "sweeps": SWEEPS, "tokens": int(sum(distinct)),
+        "words": int(sum(len(t.split()) for t in texts)),
+        "distinct_per_book": [min(distinct), max(distinct)],
+        "backend": pre.last_backend, "corpus_s": t_corpus,
+        "front_end_s": t_pre,
+        "score_s": t_score["cuda"], "cpu_score_s": t_score["cpu"],
+        "launches": {name: train_launches[name] + score_launches[name]
+                     for name in train_launches},
+        "train_launches": train_launches, "score_launches": score_launches,
+        "sweep_check": sweep_check,
+        "cpu_plain_avg_log_likelihood": cpu_train["avg_log_likelihood"],
+        "cpu_plain_train_s": cpu_train["train_s"],
+        "avg_log_likelihood_rel_diff": ll_rel, "lam_max_rel_diff": lam_rel,
+        "max_dist_diff": diff,
+        "main_topic_agreement": float(agree.mean()),
+        "main_topic_clear_docs": int(clear.sum()),
+        "report_bytes": len(reports["cuda"].encode()),
+        "bounds": {"max_dist_diff": 5e-3,
+                   "avg_log_likelihood_rel_diff": 1e-4},
+    })
+    if not diff <= 5e-3 or not agree[clear].all():
+        raise AssertionError(f"config E: card vs CPU distributions differ "
+                             f"by {diff}, main topics {agree.mean()}")
+    return summary
+
+
 def profile_configs(torch, rows_a, rows_b, seed, out_dir):
     """torch.profiler over one fit and the scoring (A, B: padded scoring
     of every doc; D: topic_distribution of EVAL_DOCS docs) or evaluation
     (C: log-perplexity of EVAL_DOCS docs) of each config (count rows, no
-    IDF): device time and calls by kernel name, and the device's busy
-    share of the window's wall time.  The full tables go to
-    ``<out_dir>/profile_{A,B,C,D}.txt`` when ``out_dir`` is given."""
+    IDF), and over E's CLI ``train`` and ``score`` (the whole commands,
+    text front end included): device time and calls by kernel name, and
+    the device's busy share of the window's wall time.  The full tables
+    go to ``<out_dir>/profile_{A,B,C,D,E}.txt`` when ``out_dir`` is
+    given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1300,10 +1577,26 @@ def profile_configs(torch, rows_a, rows_b, seed, out_dir):
         return (lambda: opt.fit(rows, vocab),
                 lambda model: model.topic_distribution(rows[:EVAL_DOCS]))
 
+    def cli_run(root):
+        stop = en_books_dir(seed, root)
+        books, models = os.path.join(root, "books"), os.path.join(root, "m")
+
+        def train():
+            run_cli(["train", "--books", books, "--stop-words", stop,
+                     "--models-dir", models], os.path.join(root, "train.out"))
+
+        def score(_):
+            run_cli(["score", "--books", books, "--stop-words", stop,
+                     "--models-dir", models, "--output-dir",
+                     os.path.join(root, "o")], os.path.join(root, "s.out"))
+        return train, score
+
+    cli_root = tempfile.mkdtemp(prefix="chip_smoke_E_")
     for label, make in (("A", lambda: em_run(rows_a, EN_K, EN_V)),
                         ("B", lambda: em_run(rows_b, NG_K, NG_V)),
                         ("C", lambda: online_run(rows_b)),
-                        ("D", lambda: nmf_run(rows_b))):
+                        ("D", lambda: nmf_run(rows_b)),
+                        ("E", lambda: cli_run(cli_root))):
         fit, score = make()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1334,6 +1627,7 @@ def profile_configs(torch, rows_a, rows_b, seed, out_dir):
             "top_device_ms": [[e.key[:60], dev_us(e) / 1e3, e.count]
                               for e in top],
         })
+    shutil.rmtree(cli_root, ignore_errors=True)
 
 
 def main() -> int:
@@ -1349,12 +1643,14 @@ def main() -> int:
                          "versions, then stop (no result line)")
     args = ap.parse_args()
 
+    t_start = time.perf_counter()
     import torch
 
     import spark_text_clustering_tpu_torch  # noqa: F401  (the port, or fail)
     from spark_text_clustering_tpu_torch import EMLDA, Params
     from spark_text_clustering_tpu_torch.interop import em_state_from_numpy
     from spark_text_clustering_tpu_torch.ops import _build
+    from spark_text_clustering_tpu_torch.utils import native
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1373,7 +1669,11 @@ def main() -> int:
 
     # 1. build
     t0 = time.perf_counter()
+    text = None if args.kernels_only else native.start()
     secs = _build.build_all()
+    if not args.kernels_only:
+        native.finish(text)
+        secs["textproc"] = time.perf_counter() - t0 if text else 0.0
     build = {"phase": "build", "seconds": time.perf_counter() - t0,
              "per_source_s": secs}
     emit(build)
@@ -1430,15 +1730,7 @@ def main() -> int:
     try:
         # 3. config A, resumed from one random start drawn on the CPU
         def start_a(tf_rows):
-            gen = torch.Generator().manual_seed(args.seed)
-            n_wk = torch.zeros((EN_K, EN_V))
-            n_dk = torch.zeros((len(tf_rows), EN_K))
-            for d, (ids, w) in enumerate(tf_rows):
-                e = torch.empty((len(ids), EN_K)).exponential_(generator=gen)
-                wphi = torch.from_numpy(w)[:, None] * e / e.sum(1, keepdim=True)
-                n_dk[d] = wphi.sum(0)
-                n_wk.index_add_(1, torch.from_numpy(ids).long(), wphi.T)
-            return n_wk.numpy(), n_dk.numpy()
+            return soft_start(torch, tf_rows, EN_K, EN_V, args.seed)
 
         vocab_a = [f"t{i}" for i in range(EN_V)]
         summary_a, tfidf_a, _, model_a = run_config(
@@ -1492,17 +1784,28 @@ def main() -> int:
         # 6. config D
         summary_d = run_config_d(torch, rows_b, args.seed, workdir)
         emit(summary_d)
+
+        # 7. config E, the CLI
+        t0 = time.perf_counter()
+        summary_e = run_config_e(torch, args.seed, workdir)
+        summary_e["seconds"] = time.perf_counter() - t0
+        emit(summary_e)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     if args.profile:
         profile_configs(torch, rows_a, rows_b, args.seed, args.out)
 
-    # 7. the kernels line; the gamma row is config B's most populated
+    # 8. the kernels line; the sweep's error is the larger of config A's
+    # and config E's checks; the gamma row is config B's most populated
     # bucket, and its error the largest of the four buckets and the edge
     # geometries checked
+    sweep = checks["em_sweep_fused"]
+    sweep["config_E"] = summary_e["sweep_check"]
+    sweep["max_abs_err"] = max(sweep["max_abs_err"],
+                               sweep["config_E"]["max_abs_err"])
     kernels = [
-        checks["em_sweep_fused"],
+        sweep,
         checks["scatter_add_vtiles"],
         checks["gamma_fixed_point_tiles"],
         checks["nmf_mu_update_tiles"],
@@ -1519,15 +1822,17 @@ def main() -> int:
         name = kern["name"]
         kern["launches"] = sum(
             sm["launches"][name]
-            for sm in (summary_a, summary_b, summary_c, summary_d))
+            for sm in (summary_a, summary_b, summary_c, summary_d, summary_e))
         if kern["launches"] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
         line.append({k_: kern[k_] for k_ in keys})
     record.update(build=build, kernels=kernels, config_A=summary_a,
-                  config_B=summary_b, config_C=summary_c, config_D=summary_d)
+                  config_B=summary_b, config_C=summary_c, config_D=summary_d,
+                  config_E=summary_e)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

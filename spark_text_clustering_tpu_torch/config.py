@@ -1,11 +1,17 @@
-"""Hyperparameters of the port's EM and online-VB fits: the fields of the
-reference's ``Params`` case class and of the JAX package's ``Params`` that
-the port reads, with the same defaults and the EM/online auto priors.
-Kept as its own copy so the port imports nothing of the JAX package."""
+"""Hyperparameters and run configuration: the fields of the reference's
+``Params`` case class and of the JAX package's ``Params``, every one with
+the same name and default, and the EM/online auto priors.  Kept as its own
+copy so the port imports nothing of the JAX package.
+
+``to_json`` emits every field as the JAX package does, so the resume gate's
+``config_hash`` (``resilience/resume.py``) is the same in both packages for
+the same flags, and a checkpoint dir that either CLI wrote is accepted by
+the other."""
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass
 from typing import Optional
 
@@ -17,17 +23,24 @@ class Params:
     """LDA training hyperparameters.  ``-1`` concentrations mean "auto":
     EM alpha = 50/k + 1, eta = 1.1; online alpha = eta = 1/k."""
 
+    input: str = ""
     k: int = 5
     max_iterations: int = 50
     doc_concentration: float = -1.0
     topic_concentration: float = -1.0
+    vocab_size: int = 2_900_000
+    stop_word_text: Optional[str] = None
     algorithm: str = "em"
     checkpoint_dir: Optional[str] = None
     checkpoint_interval: int = 10
     gamma_shape: float = 100.0
     seed: int = 0
+    # IDF (MLlib minDocFreq, and the reference's floor for a zero idf)
+    min_doc_freq: int = 2
+    idf_floor: float = 0.0001
     data_shards: Optional[int] = None
     model_shards: int = 1
+    bucket_by_length: object = "auto"  # True | False | "auto"
     record_iteration_times: bool = False
     keep_doc_topic_counts: bool = False
     # online VB (MLlib's OnlineLDAOptimizer constants; batch_size None ->
@@ -41,6 +54,7 @@ class Params:
     resident_budget_bytes: int = 2 << 30
     estep_max_inner: int = 100
     estep_tol: float = 1e-3
+    dispatch_budget_bytes: int = 256 << 20
 
     def resolved_alpha(self) -> float:
         if self.doc_concentration > 0:
@@ -59,6 +73,9 @@ class Params:
     def mini_batch_fraction(self, corpus_size: int) -> float:
         """MLlib's ``miniBatchFraction = 0.05 + 1/corpusSize``."""
         return 0.05 + 1.0 / max(1, corpus_size)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
 
     def replace(self, **kw) -> "Params":
         return dataclasses.replace(self, **kw)

@@ -44,25 +44,30 @@ __all__ = ["EMLDA", "em_layout", "em_padded_cells", "packed_plan",
 _BUCKET_MIN_CELLS = 16_000_000
 
 
-def em_padded_cells(rows: Sequence[Tuple[np.ndarray, np.ndarray]]) -> int:
-    """Token cells of one sweep on the JAX package's padded layout, with
-    its default ``bucket_by_length="auto"`` on one data shard: power-of-two
-    length buckets where bucketing removes most of the padding of one
-    padded batch of at least 16M cells, else that one batch."""
+def em_padded_cells(rows: Sequence[Tuple[np.ndarray, np.ndarray]],
+                    bucket_by_length="auto") -> int:
+    """Token cells of one sweep on the JAX package's padded layout on one
+    data shard: power-of-two length buckets, or one padded batch when
+    ``bucket_by_length`` is false; ``"auto"`` (the default) buckets only
+    where bucketing removes most of the padding of one padded batch of at
+    least 16M cells."""
     buckets = bucket_indices_by_length(rows)
     cells = sum(len(idxs) * width for width, idxs in buckets.items())
-    if len(buckets) > 1:
-        single = len(rows) * max(buckets)
+    single = len(rows) * max(buckets, default=0)
+    if not bucket_by_length:
+        return single
+    if bucket_by_length == "auto" and len(buckets) > 1:
         if single < _BUCKET_MIN_CELLS or cells > 0.5 * single:
             return single
     return cells
 
 
 def em_layout(rows: Sequence[Tuple[np.ndarray, np.ndarray]],
-              token_layout: str) -> str:
+              token_layout: str, bucket_by_length="auto") -> str:
     """The layout the JAX package's EM fit runs for ``token_layout``:
     ``"packed"`` or ``"padded"``.  ``"auto"`` packs once the padded
-    layout costs at least twice the corpus's tokens."""
+    layout (``em_padded_cells``) costs at least twice the corpus's
+    tokens."""
     if token_layout not in ("padded", "packed", "auto"):
         raise ValueError(
             f"unknown token_layout {token_layout!r} "
@@ -71,8 +76,8 @@ def em_layout(rows: Sequence[Tuple[np.ndarray, np.ndarray]],
     if token_layout != "auto":
         return token_layout
     total_nnz = sum(len(i) for i, _ in rows)
-    return ("packed" if em_padded_cells(rows) >= 2.0 * max(1, total_nnz)
-            else "padded")
+    cells = em_padded_cells(rows, bucket_by_length)
+    return "packed" if cells >= 2.0 * max(1, total_nnz) else "padded"
 
 
 def packed_plan(rows: Sequence[Tuple[np.ndarray, np.ndarray]]):
@@ -163,7 +168,7 @@ class EMLDA:
         n_iters = p.max_iterations if max_iterations is None else max_iterations
         k, n, v = p.k, len(rows), len(vocab)
         alpha, eta = p.resolved_alpha(), p.resolved_eta()
-        if em_layout(rows, p.token_layout) == "padded":
+        if em_layout(rows, p.token_layout, p.bucket_by_length) == "padded":
             raise NotImplementedError(
                 f"token_layout={p.token_layout!r} runs the padded EM path "
                 "for this corpus, which is not ported (ROADMAP.md queue 1, "

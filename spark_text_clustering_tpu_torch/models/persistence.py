@@ -44,6 +44,7 @@ __all__ = [
     "load_model",
     "load_train_state",
     "model_dir_name",
+    "resolve_latest_model",
     "save_model",
     "save_train_state",
     "train_state_valid",
@@ -83,6 +84,29 @@ def latest_model_dir(
                 continue
         return path
     return None
+
+
+def resolve_latest_model(
+    models_dir: str,
+    lang: str,
+    explicit: Optional[str] = None,
+    verify_deep: bool = False,
+    device="cuda",
+):
+    """Model selection and load for ``score``: an ``explicit`` dir wins;
+    otherwise the newest committed (with ``verify_deep``, re-hashed)
+    artifact for ``lang`` under ``models_dir``.  Returns ``(path, model)``.
+    No model at all, or a dir that fails to load, raises
+    ``CorruptArtifactError``."""
+    path = explicit or latest_model_dir(
+        models_dir, lang, verify_deep=verify_deep
+    )
+    if path is None:
+        raise CorruptArtifactError(
+            models_dir or "<models-dir>",
+            f"no committed model for lang {lang}",
+        )
+    return path, load_model(path, device=device)
 
 
 def save_model(model, path: str) -> None:

@@ -1,18 +1,20 @@
-"""Estimator/Transformer stages of the port: tokens -> rows -> TF-IDF ->
-LDA, on a plain dict dataset with the JAX package's keys:
+"""Estimator/Transformer stages of the port: texts -> tokens -> rows ->
+TF-IDF -> LDA, on a plain dict dataset with the JAX package's keys:
 
+    texts  : List[str]              raw documents
     tokens : List[List[str]]        preprocessed token lists
     rows   : List[(ids, weights)]   sparse doc-term rows
-    vocab  : List[str]              vocabulary
+    vocab  : List[str]              vocabulary (None after HashingTF)
     model  : LDAModel | NMFModel    after an LDA stage
     topic_distribution : np.ndarray [n, k]
 
+Text stages run on the host (the native C++ library, or Python);
 ``IDF`` and ``LDA`` run on ``device`` ("cuda" by default).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -20,21 +22,145 @@ import torch
 from .config import Params
 from .device import resolve_device
 from .ops.sparse import batch_from_rows, bucket_by_length
-from .ops.tfidf import doc_freq, idf_from_df, idf_transform
+from .ops.tfidf import doc_freq, hashing_tf_rows, idf_from_df, idf_transform
 from .utils.vocab import build_vocab, count_terms, count_vectors
 
 __all__ = [
     "CountVectorizer",
     "CountVectorizerModel",
+    "Estimator",
+    "HashingTF",
     "IDF",
     "IDFModel",
     "LDA",
     "LDAModelTransformer",
     "NMFEstimator",
+    "Pipeline",
+    "PipelineModel",
+    "TextPreprocessor",
+    "Transformer",
+    "is_hashed_vocab",
+    "make_vectorizer",
 ]
 
 
-class CountVectorizerModel:
+def is_hashed_vocab(vocab: Sequence[str]) -> bool:
+    """True when a model's vocabulary is the synthetic ``h0..hN`` of the
+    HashingTF path: scoring such a model hashes tokens instead of looking
+    them up."""
+    n = len(vocab)
+    if n == 0:
+        return False
+    return all(vocab[i] == f"h{i}" for i in (0, n // 2, n - 1))
+
+
+def make_vectorizer(vocab: Sequence[str]):
+    """tokens -> sparse rows for scoring: count vectors over an exact
+    vocabulary (the reference's BuildCountVector), murmur3 buckets over a
+    hashed ``h0..hN`` one."""
+    if is_hashed_vocab(vocab):
+        n = len(vocab)
+        return lambda tokens_lists: hashing_tf_rows(tokens_lists, n)
+    cvm = CountVectorizerModel(list(vocab))
+    return lambda tokens_lists: cvm.transform({"tokens": tokens_lists})["rows"]
+
+
+class Transformer:
+    def transform(self, ds: Dict) -> Dict:
+        raise NotImplementedError
+
+
+class Estimator:
+    def fit(self, ds: Dict) -> Transformer:
+        raise NotImplementedError
+
+
+class TextPreprocessor(Transformer):
+    """texts -> tokens: lemmatize, clean, tokenize, stop-filter, stem (the
+    map side of the reference's BuildTFIDFVector).
+
+    ``backend="native"`` runs the C++ library (``utils/native.py``, built
+    with g++ on first use; documents in parallel over host cores) and
+    raises when it does not build; ``"python"`` runs ``utils/textproc.py``,
+    which needs nltk for its stemmer; ``"auto"`` takes the native library
+    where it builds, else Python where nltk imports, else raises naming
+    both.  Both give the same tokens.  ``last_backend`` names the one the
+    last ``transform`` ran."""
+
+    def __init__(
+        self,
+        stop_words: frozenset = frozenset(),
+        lemmatize: bool = True,
+        dedup_within_sentence: bool = True,
+        fold_case: bool = True,
+        backend: str = "auto",
+    ) -> None:
+        if backend not in ("auto", "native", "python"):
+            raise ValueError(f"unknown backend {backend!r}")
+        self.stop_words = stop_words
+        self.lemmatize = lemmatize
+        self.dedup = dedup_within_sentence
+        self.fold_case = fold_case
+        self.backend = backend
+        self.last_backend: Optional[str] = None
+
+    def _resolve_backend(self) -> str:
+        if self.backend == "python":
+            return "python"
+        from .utils import native
+
+        try:
+            native.load()
+            return "native"
+        except RuntimeError as exc:
+            if self.backend == "native":
+                raise
+            why = exc
+        try:
+            import nltk.stem  # noqa: F401
+        except ImportError:
+            raise RuntimeError(
+                f"no text backend: {why}; and the Python path needs nltk, "
+                "which is not installed"
+            ) from None
+        return "python"
+
+    def transform(self, ds: Dict) -> Dict:
+        from .utils import native, textproc
+
+        out = dict(ds)
+        self.last_backend = self._resolve_backend()
+        opts = dict(
+            stop_words=self.stop_words,
+            lemmatize=self.lemmatize,
+            dedup_within_sentence=self.dedup,
+            fold_case=self.fold_case,
+        )
+        if self.last_backend == "native":
+            out["tokens"] = native.preprocess_documents(ds["texts"], **opts)
+        else:
+            out["tokens"] = [
+                textproc.preprocess_document(t, **opts) for t in ds["texts"]
+            ]
+        return out
+
+
+class HashingTF(Transformer):
+    """Vocabulary-free featurization: murmur3 (seed 42) mod
+    ``num_features``, Spark's HashingTF."""
+
+    def __init__(self, num_features: int = 1 << 18):
+        self.num_features = num_features
+
+    def transform(self, ds: Dict) -> Dict:
+        out = dict(ds)
+        out["rows"] = hashing_tf_rows(ds["tokens"], self.num_features)
+        out["vocab"] = None
+        out["num_features"] = self.num_features
+        return out
+
+
+class CountVectorizerModel(Transformer):
     def __init__(self, vocab: List[str]):
         self.vocab = vocab
         self._t2i = {t: i for i, t in enumerate(vocab)}
@@ -46,7 +172,7 @@ class CountVectorizerModel:
         return out
 
 
-class CountVectorizer:
+class CountVectorizer(Estimator):
     """Frequency-ranked exact vocabulary from ``ds["tokens"]``."""
 
     def __init__(self, vocab_size: int = 2_900_000):
@@ -57,7 +183,7 @@ class CountVectorizer:
         return CountVectorizerModel(vocab)
 
 
-class IDFModel:
+class IDFModel(Transformer):
     def __init__(self, idf: np.ndarray, idf_floor: float, device="cuda"):
         self.idf = idf
         self.idf_floor = idf_floor
@@ -82,7 +208,7 @@ class IDFModel:
         return out
 
 
-class IDF:
+class IDF(Estimator):
     """MLlib IDF(minDocFreq=2) with the reference's 0.0001 floor.  The df
     pass runs per power-of-two length bucket, so its memory is bounded by
     the largest bucket."""
@@ -105,7 +231,7 @@ class IDF:
         return IDFModel(idf.cpu().numpy(), self.idf_floor, self.device)
 
 
-class LDAModelTransformer:
+class LDAModelTransformer(Transformer):
     def __init__(self, model, log_likelihood: Optional[float] = None,
                  corpus_size: Optional[int] = None):
         self.model = model
@@ -119,7 +245,7 @@ class LDAModelTransformer:
         return out
 
 
-class LDA:
+class LDA(Estimator):
     """The LDA facade: EM, online VB on the tiles-resident path, or NMF
     (the estimator swap), by ``params.algorithm``."""
 
@@ -157,3 +283,31 @@ class NMFEstimator(LDA):
 
     def __init__(self, params: Params, device="cuda"):
         super().__init__(params.replace(algorithm="nmf"), device=device)
+
+
+class PipelineModel(Transformer):
+    def __init__(self, stages: Sequence[Transformer]):
+        self.stages = list(stages)
+
+    def transform(self, ds: Dict) -> Dict:
+        for s in self.stages:
+            ds = s.transform(ds)
+        return ds
+
+
+class Pipeline(Estimator):
+    """Fit estimators in sequence, passing transformed data downstream."""
+
+    def __init__(self, stages: Sequence[object]):
+        self.stages = list(stages)
+
+    def fit(self, ds: Dict) -> PipelineModel:
+        fitted: List[Transformer] = []
+        last = len(self.stages) - 1
+        for i, s in enumerate(self.stages):
+            t = s.fit(ds) if isinstance(s, Estimator) else s
+            if i != last:
+                # the final model's transform output is unused here
+                ds = t.transform(ds)
+            fitted.append(t)
+        return PipelineModel(fitted)

@@ -18,6 +18,8 @@ import json
 import os
 from typing import Dict, Iterable, Optional
 
+from .errors import CorruptArtifactError
+
 __all__ = [
     "COMMIT_NAME",
     "CorruptArtifactError",
@@ -32,16 +34,6 @@ __all__ = [
 MANIFEST_NAME = "MANIFEST.json"
 COMMIT_NAME = "COMMIT"
 LEGACY_PAYLOAD = ("meta.json", "arrays.npz", "vocab.txt")
-
-
-class CorruptArtifactError(Exception):
-    """A model or checkpoint artifact is unreadable, truncated,
-    uncommitted, or fails checksum verification; ``path`` names it."""
-
-    def __init__(self, path: str, reason: str) -> None:
-        self.path = path
-        self.reason = reason
-        super().__init__(f"corrupt artifact {path!r}: {reason}")
 
 
 def file_sha256(path: str, chunk: int = 1 << 20) -> str:

@@ -1,1 +1,3 @@
-"""Host utilities of the port: vocabulary, scoring report, timers."""
+"""Host utilities of the port: the text front end (readers, the Python
+text path and the native library's bindings), vocabulary, scoring report,
+timers and metrics."""

@@ -1,0 +1,627 @@
+"""The port's CLI and text front end held against the JAX package's.
+
+Both CLIs run in this process on the CPU: the JAX CLI on a one-device
+mesh (``--data-shards 1``), the port's with ``--device cpu`` (its kernels'
+plain versions).  The JAX package's text preprocessing runs its Python
+path (nltk), the reference the port's native library is held to; the
+JAX package's own native build is never touched.  The corpus is
+``chip_smoke.en_books_dir``'s recipe, cut to a few small books.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+import contextlib
+import io
+import os
+import re
+import shutil
+
+import jax
+import numpy as np
+import pytest
+
+import chip_smoke
+from spark_text_clustering_tpu import cli as jcli
+from spark_text_clustering_tpu import pipeline as jpipeline
+from spark_text_clustering_tpu.config import Params as JParams
+from spark_text_clustering_tpu.models.persistence import (
+    save_train_state as j_save_train_state,
+)
+from spark_text_clustering_tpu.ops import tfidf as jtfidf
+from spark_text_clustering_tpu.resilience import resume as jresume
+from spark_text_clustering_tpu.utils import textproc as jtextproc
+from spark_text_clustering_tpu_torch import cli as tcli
+from spark_text_clustering_tpu_torch import pipeline as tpipeline
+from spark_text_clustering_tpu_torch.config import Params as TParams
+from spark_text_clustering_tpu_torch.interop import lda_model_from_numpy
+from spark_text_clustering_tpu_torch.ops import tfidf as ttfidf
+from spark_text_clustering_tpu_torch.resilience import resume as tresume
+from spark_text_clustering_tpu_torch.utils import native as tnative
+from spark_text_clustering_tpu_torch.utils import textproc as ttextproc
+from spark_text_clustering_tpu_torch.utils.readers import read_text_dir
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+K = 3
+ITERS = 5
+
+
+@pytest.fixture(scope="module")
+def native_lib():
+    """The port's text library, built once for this file (g++, ~1 min)."""
+    tnative.build()
+    tnative.load()
+    return tnative
+
+
+@contextlib.contextmanager
+def jax_python_text():
+    """The JAX package's TextPreprocessor on its Python (nltk) path, and
+    its meshes on as many of the 8 virtual CPU devices as they ask for
+    (the CLI's ``make_mesh`` takes every device by default)."""
+    from spark_text_clustering_tpu.parallel import mesh as jmesh
+
+    make_mesh = jmesh.make_mesh
+
+    def small_mesh(data_shards=None, model_shards=1, devices=None):
+        if devices is None and data_shards is not None:
+            devices = jax.devices("cpu")[: data_shards * model_shards]
+        return make_mesh(data_shards, model_shards, devices=devices)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jpipeline.TextPreprocessor, "_use_native",
+                   lambda self: False)
+        mp.setattr(jmesh, "make_mesh", small_mesh)
+        yield
+
+
+def run(main, argv):
+    """(exit code, stdout, stderr) of ``main(argv)`` in this process."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def jax_main(argv):
+    """The JAX CLI's command without its process-wide compile cache."""
+    args = jcli.build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+def port_main(argv):
+    return tcli.main([*argv, "--device", "cpu"])
+
+
+_FLOAT = re.compile(r"-?\d+\.\d+(?:[eE][-+]?\d+)?")
+_MILLIS = re.compile(r"\d{10,}")
+
+
+def mask(text: str, paths=()) -> str:
+    for path, name in paths:
+        text = text.replace(path, name)
+    return _MILLIS.sub("<ms>", _FLOAT.sub("<f>", text))
+
+
+def report_of(out_dir):
+    (name,) = os.listdir(out_dir)
+    with open(os.path.join(out_dir, name), encoding="utf-8") as f:
+        return f.read()
+
+
+# ---- text front end ----------------------------------------------------
+def _test_file_texts():
+    """Every sentence-like string literal of the JAX package's text tests
+    (``tests/test_textproc.py``, ``tests/test_native_textproc.py``)."""
+    texts = []
+    for name in ("test_textproc.py", "test_native_textproc.py"):
+        with open(os.path.join(REPO, "tests", name), encoding="utf-8") as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and " " in node.value.strip()):
+                texts.append(node.value)
+    return sorted(set(texts))
+
+
+@pytest.fixture(scope="module")
+def synthetic_book(tmp_path_factory):
+    root = tmp_path_factory.mktemp("book")
+    chip_smoke.en_books_dir(11, str(root), n_books=1, words=(4000, 4000))
+    (doc,) = read_text_dir(str(root / "books"))
+    return doc.text
+
+
+STOP = frozenset({"the", "and", "The", "was", "nipuhono", "gupida"})
+
+
+@pytest.mark.parametrize("stop", [frozenset(), STOP], ids=["no_stop", "stop"])
+@pytest.mark.parametrize("lemmatize", [True, False],
+                         ids=["lemma", "no_lemma"])
+@pytest.mark.parametrize("source", ["test_texts", "synthetic_book"])
+def test_front_end_tokens_match_jax_python_path(
+    native_lib, synthetic_book, source, lemmatize, stop
+):
+    """The port's native tokens, and its Python path's, equal the JAX
+    package's ``preprocess_document`` token for token (exact)."""
+    texts = (_test_file_texts() if source == "test_texts"
+             else [synthetic_book])
+    assert texts
+    opts = dict(stop_words=stop, lemmatize=lemmatize)
+    want = [jtextproc.preprocess_document(t, **opts) for t in texts]
+    assert native_lib.preprocess_documents(texts, **opts) == want
+    assert [ttextproc.preprocess_document(t, **opts) for t in texts] == want
+    pre = tpipeline.TextPreprocessor(stop_words=stop, lemmatize=lemmatize)
+    assert pre.transform({"texts": texts})["tokens"] == want
+    assert pre.last_backend == "native"
+
+
+def test_native_stem_and_lemma_match_jax(native_lib):
+    words = ["caresses", "ponies", "Holmes", "littl", "possibly", "was",
+             "children", "running", "дома", "élégant", "s", "ing"]
+    for w in words:
+        assert native_lib.stem_native(w) == jtextproc.stem(w), w
+        assert native_lib.lemma_native(w) == jtextproc.lemma(w), w
+
+
+def test_python_backend_without_nltk_names_the_native_path(monkeypatch):
+    """Where nltk is missing, the Python path's stemmer raises and names
+    the native path; 'auto' with neither backend raises naming both."""
+    import builtins
+
+    real_import = builtins.__import__
+
+    def no_nltk(name, *a, **k):
+        if name == "nltk" or name.startswith("nltk."):
+            raise ImportError("No module named 'nltk'")
+        return real_import(name, *a, **k)
+
+    monkeypatch.setattr(builtins, "__import__", no_nltk)
+    ttextproc._stemmer.cache_clear()
+    ttextproc.stem.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="native"):
+            ttextproc.stem("running")
+        monkeypatch.setattr(tnative, "_error", "g++ not found")
+        monkeypatch.setattr(tnative, "_tried", True)
+        monkeypatch.setattr(tnative, "_lib", None)
+        with pytest.raises(RuntimeError, match="g\\+\\+ not found.*nltk"):
+            tpipeline.TextPreprocessor().transform({"texts": ["a b"]})
+        with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+            tpipeline.TextPreprocessor(backend="native").transform(
+                {"texts": ["a b"]})
+    finally:
+        ttextproc._stemmer.cache_clear()
+        ttextproc.stem.cache_clear()
+
+
+def test_native_build_is_keyed_and_lands_in_build_dir(native_lib):
+    path = native_lib.lib_path()
+    assert path.exists() and path.parent.name == "torch_kernels"
+    assert path.name.startswith("textproc_") and path.suffix == ".so"
+    assert native_lib.build() == 0.0        # built: nothing to do
+
+
+# ---- hashing -------------------------------------------------------------
+def _token_lists(seed):
+    rng = np.random.default_rng(seed)
+    alphabet = list("abcdefghijklmnopqrstuvwxyz") + list("éüßжфя日本語ö")
+    vocab = ["".join(rng.choice(alphabet, int(rng.integers(0, 12))))
+             for _ in range(400)]
+    return [list(rng.choice(vocab, int(rng.integers(0, 80))))
+            for _ in range(30)]
+
+
+@pytest.mark.parametrize("num_features", [1 << 18, 1000, 7])
+def test_hashing_matches_jax(num_features):
+    """murmur3 (scalar and batch), bucket ids and HashingTF rows equal the
+    JAX package's exactly, non-ASCII and empty tokens included."""
+    docs = _token_lists(num_features)
+    flat = sorted({t for d in docs for t in d})
+    for t in flat[:100]:
+        b = t.encode("utf-8")
+        assert ttfidf.murmur3_32(b) == jtfidf.murmur3_32(b)
+    np.testing.assert_array_equal(ttfidf.murmur3_32_batch(flat),
+                                  jtfidf.murmur3_32_batch(flat))
+    np.testing.assert_array_equal(ttfidf.hash_buckets(flat, num_features),
+                                  jtfidf.hash_buckets(flat, num_features))
+    got = ttfidf.hashing_tf_rows(docs, num_features)
+    want = jtfidf.hashing_tf_rows(docs, num_features)
+    assert len(got) == len(want)
+    for (gi, gw), (wi, ww), doc in zip(got, want, docs):
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gw, ww)
+        gi1, gw1 = ttfidf.hashing_tf_ids(doc, num_features)
+        np.testing.assert_array_equal(gi1, wi)
+        np.testing.assert_array_equal(gw1, ww)
+    ht = tpipeline.HashingTF(num_features).transform({"tokens": docs})
+    assert ht["vocab"] is None and ht["num_features"] == num_features
+
+
+@pytest.mark.parametrize("vocab", [
+    [], ["h0"], [f"h{i}" for i in range(50)], ["a", "b", "c"],
+    [f"h{i}" for i in range(49)] + ["x"], ["h0", "zz", "h2"],
+])
+def test_is_hashed_vocab_matches_jax(vocab):
+    assert tpipeline.is_hashed_vocab(vocab) == jpipeline.is_hashed_vocab(vocab)
+
+
+@pytest.mark.parametrize("vocab", [["b", "a", "c"], ["h0", "h1", "h2", "h3"]])
+def test_make_vectorizer_matches_jax(vocab):
+    docs = [["a", "c", "a", "zz"], [], ["b"], ["h1", "q"]]
+    got = tpipeline.make_vectorizer(vocab)(docs)
+    want = jpipeline.make_vectorizer(vocab)(docs)
+    for (gi, gw), (wi, ww) in zip(got, want, strict=True):
+        np.testing.assert_array_equal(gi, np.asarray(wi))
+        np.testing.assert_array_equal(gw, np.asarray(ww))
+
+
+def test_pipeline_stages_match_jax(native_lib, corpus):
+    """Pipeline(TextPreprocessor, CountVectorizer, IDF) gives the JAX
+    pipeline's vocabulary exactly and its TF-IDF rows within rtol 1e-6;
+    with an LDA stage appended the port's PipelineModel scores every doc
+    (distributions sum to 1 within 1e-5)."""
+    books, stop = corpus
+    sw = tcli._load_stop_words(stop)
+    texts = {"texts": [d.text for d in read_text_dir(books)]}
+    with jax_python_text():
+        jfit = jpipeline.Pipeline([
+            jpipeline.TextPreprocessor(stop_words=sw),
+            jpipeline.CountVectorizer(), jpipeline.IDF()]).fit(texts)
+        want = jfit.transform(texts)
+    tstages = [tpipeline.TextPreprocessor(stop_words=sw),
+               tpipeline.CountVectorizer(), tpipeline.IDF(device="cpu")]
+    got = tpipeline.Pipeline(tstages).fit(texts).transform(texts)
+    assert got["vocab"] == want["vocab"]
+    for (gi, gw), (wi, ww) in zip(got["rows"], want["rows"], strict=True):
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_allclose(gw, ww, rtol=1e-6)
+    lda = tpipeline.LDA(TParams(k=2, max_iterations=3,
+                                token_layout="packed"), device="cpu")
+    out = tpipeline.Pipeline([*tstages, lda]).fit(texts).transform(texts)
+    dist = out["topic_distribution"]
+    assert dist.shape == (10, 2)
+    np.testing.assert_allclose(dist.sum(1), 1.0, atol=1e-5)
+
+
+# ---- config and resume gate ------------------------------------------------
+PARAM_CASES = {
+    "default": {},
+    "k7_seed3": dict(k=7, seed=3),
+    "online_epoch": dict(algorithm="online", sampling="epoch"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PARAM_CASES))
+def test_params_json_and_config_hash_match_jax(case):
+    kw = PARAM_CASES[case]
+    t, j = TParams(**kw), JParams(**kw)
+    assert t.to_json() == j.to_json()
+    assert tresume.config_hash(t) == jresume.config_hash(j)
+    # run length is not structural; k is
+    assert tresume.config_hash(t.replace(max_iterations=999)) == \
+        tresume.config_hash(t)
+    assert tresume.config_hash(t.replace(k=t.k + 1)) != tresume.config_hash(t)
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_resume_meta_accepted_across_packages(tmp_path, writer):
+    vocab = ["a", "b", "c"]
+    kw = dict(k=4, seed=2, token_layout="packed", data_shards=1)
+    t, j = TParams(**kw), JParams(**kw)
+    fp = tresume.vocab_fingerprint(vocab)
+    assert fp == jresume.vocab_fingerprint(vocab)
+    if writer == "jax":
+        jresume.write_resume_meta(str(tmp_path), j, fp)
+        meta = tresume.validate_resume_meta(str(tmp_path), t, fp)
+        with pytest.raises(tresume.ResumeMismatchError):
+            tresume.validate_resume_meta(str(tmp_path), t.replace(k=5), fp)
+    else:
+        tresume.write_resume_meta(str(tmp_path), t, fp)
+        meta = jresume.validate_resume_meta(str(tmp_path), j, fp)
+        with pytest.raises(jresume.ResumeMismatchError):
+            jresume.validate_resume_meta(str(tmp_path), j, fp + 1)
+    assert meta["config_hash"] == tresume.config_hash(t)
+
+
+# ---- the CLIs end to end ---------------------------------------------------
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    """Ten small books of chip_smoke's recipe and a stop-word file."""
+    root = tmp_path_factory.mktemp("corpus")
+    stop = chip_smoke.en_books_dir(5, str(root), n_books=10,
+                                   words=(300, 1500))
+    return str(root / "books"), stop
+
+
+def _start_state(books, stop, base):
+    """One random EM start (n_wk, n_dk) over the CLI's TF-IDF rows,
+    written by the JAX package's checkpoint writer."""
+    sw = tcli._load_stop_words(stop)
+    ds = {"texts": [d.text for d in read_text_dir(books)]}
+    ds = tpipeline.TextPreprocessor(stop_words=sw).transform(ds)
+    ds = tpipeline.CountVectorizer().fit(ds).transform(ds)
+    ds = tpipeline.IDF(device="cpu").fit(ds).transform(ds)
+    rows = [(i, w) for i, w in ds["rows"] if len(i)]
+    rng = np.random.default_rng(17)
+    n_wk = np.zeros((K, len(ds["vocab"])), np.float32)
+    n_dk = np.zeros((len(rows), K), np.float32)
+    for d, (ids, w) in enumerate(rows):
+        phi = rng.exponential(size=(len(ids), K)).astype(np.float32)
+        wphi = w[:, None] * phi / phi.sum(1, keepdims=True)
+        n_dk[d] = wphi.sum(0)
+        np.add.at(n_wk.T, ids, wphi)
+    j_save_train_state(os.path.join(base, "em_state.npz"), 0,
+                       n_wk=n_wk, n_dk=n_dk)
+
+
+@pytest.fixture(scope="module")
+def trained(native_lib, corpus, tmp_path_factory):
+    """Both CLIs' ``train`` from one em_state.npz, copied into two
+    checkpoint dirs: {"jax"|"port": (rc, stdout, stderr, model dir,
+    checkpoint dir)}."""
+    books, stop = corpus
+    root = tmp_path_factory.mktemp("train")
+    base = str(root / "start")
+    _start_state(books, stop, base)
+    out = {}
+    for name, main in (("jax", jax_main), ("port", port_main)):
+        ckpt, models = str(root / f"ckpt_{name}"), str(root / f"m_{name}")
+        shutil.copytree(base, ckpt)
+        argv = ["train", "--books", books, "--stop-words", stop,
+                "--k", str(K), "--models-dir", models,
+                "--checkpoint-dir", ckpt, "--resume",
+                "--token-layout", "packed", "--data-shards", "1",
+                "--max-iterations", str(ITERS)]
+        with jax_python_text():
+            rc, so, se = run(main, argv)
+        saved = os.listdir(models) if os.path.isdir(models) else []
+        model = os.path.join(models, saved[0]) if len(saved) == 1 else None
+        out[name] = (rc, so, se, model, ckpt)
+    return out
+
+
+def _avg_loglik(stdout):
+    (line,) = [x for x in stdout.splitlines() if "average log likelihood" in x]
+    return float(line.split(":")[1])
+
+
+def test_train_matches_jax_cli(trained):
+    """lam within rtol 1e-4 after 5 sweeps (the EM test's tolerance), the
+    printed average log-likelihood within 1e-4 relative, and stdout equal
+    line for line with numbers, times and paths masked."""
+    (jrc, jout, jerr, jdir, jck), (trc, tout, terr, tdir, tck) = (
+        trained["jax"], trained["port"])
+    assert jrc == 0 and trc == 0, (jerr, terr)
+    assert jdir and tdir
+    with np.load(os.path.join(jdir, "arrays.npz")) as j, \
+            np.load(os.path.join(tdir, "arrays.npz")) as t:
+        np.testing.assert_allclose(t["lam"], j["lam"], rtol=1e-4)
+        np.testing.assert_allclose(t["alpha"], j["alpha"], rtol=1e-6)
+    for name in ("vocab.txt", "meta.json"):
+        assert os.path.exists(os.path.join(tdir, name))
+    with open(os.path.join(jdir, "vocab.txt"), encoding="utf-8") as f1, \
+            open(os.path.join(tdir, "vocab.txt"), encoding="utf-8") as f2:
+        assert f1.read() == f2.read()
+    assert _avg_loglik(tout) == pytest.approx(_avg_loglik(jout), rel=1e-4)
+    jm = mask(jout, [(jck, "<ckpt>"), (os.path.dirname(jdir), "<models>")])
+    tm = mask(tout, [(tck, "<ckpt>"), (os.path.dirname(tdir), "<models>")])
+    assert "resuming from checkpoint <ckpt>/em_state.npz" in tm
+    assert tm.splitlines() == jm.splitlines()
+
+
+def test_train_resume_meta_is_shared(trained, corpus):
+    """Each CLI's resume_meta.json carries the same config hash and vocab
+    fingerprint, and passes the other package's gate."""
+    jck, tck = trained["jax"][4], trained["port"][4]
+    with open(os.path.join(trained["port"][3], "vocab.txt"),
+              encoding="utf-8") as f:
+        vocab = f.read().split("\n")
+    # argparse leaves the -1 defaults of the float flags as ints, in both
+    # CLIs, and the hash sees the JSON
+    kw = dict(input=corpus[0], k=K, token_layout="packed", data_shards=1,
+              checkpoint_dir=tck, max_iterations=ITERS,
+              doc_concentration=-1, topic_concentration=-1)
+    fp = tresume.vocab_fingerprint(vocab)
+    assert tresume.validate_resume_meta(jck, TParams(**kw), fp) is not None
+    assert jresume.validate_resume_meta(tck, JParams(**kw), fp) is not None
+
+
+SCORE_CASES = [("jax", False), ("jax", True), ("port", False), ("port", True)]
+
+
+@pytest.mark.parametrize("saved_by,per_doc", SCORE_CASES,
+                         ids=[f"{m}_{'per_doc' if p else 'batch'}"
+                              for m, p in SCORE_CASES])
+def test_score_matches_jax_cli(trained, corpus, tmp_path, saved_by, per_doc):
+    """One saved model scored by both CLIs with --model: the reports are
+    byte-identical with every float masked, and every distribution agrees
+    within atol 1e-4 (the packed tolerance of test_torch_scoring)."""
+    books, stop = corpus
+    model = trained[saved_by][3]
+    reports = {}
+    for name, main in (("jax", jax_main), ("port", port_main)):
+        out_dir = str(tmp_path / name)
+        argv = ["score", "--books", books, "--stop-words", stop,
+                "--model", model, "--output-dir", out_dir]
+        if per_doc:
+            argv.append("--per-doc-convergence")
+        with jax_python_text():
+            rc, so, se = run(main, argv)
+        assert rc == 0, se
+        reports[name] = (report_of(out_dir), so)
+    (jrep, jout), (trep, tout) = reports["jax"], reports["port"]
+    assert mask(trep) == mask(jrep)
+    assert mask(tout, [(str(tmp_path / "port"), "<o>")]) == \
+        mask(jout, [(str(tmp_path / "jax"), "<o>")])
+    dj = chip_smoke.report_distributions(jrep, K)
+    dt = chip_smoke.report_distributions(trep, K)
+    assert dj.shape == (10, K)
+    np.testing.assert_allclose(dt, dj, atol=1e-4)
+
+
+def test_score_hashed_vocab_model_matches_jax(native_lib, corpus, tmp_path):
+    """A model over the synthetic h0..hN vocabulary is scored through
+    make_vectorizer's HashingTF branch by both CLIs, with equal reports
+    (floats masked) and distributions within atol 1e-4."""
+    books, stop = corpus
+    v = 512
+    rng = np.random.default_rng(3)
+    model = lda_model_from_numpy(rng.gamma(1.0, 1.0, (K, v)) + 0.05,
+                                 np.full(K, 0.5), 0.3,
+                                 [f"h{i}" for i in range(v)], device="cpu")
+    path = str(tmp_path / "LdaModel_EN_1")
+    model.save(path)
+    reports = {}
+    for name, main in (("jax", jax_main), ("port", port_main)):
+        out_dir = str(tmp_path / name)
+        with jax_python_text():
+            rc, _, se = run(main, ["score", "--books", books, "--stop-words",
+                                   stop, "--model", path,
+                                   "--output-dir", out_dir])
+        assert rc == 0, se
+        reports[name] = report_of(out_dir)
+    assert mask(reports["port"]) == mask(reports["jax"])
+    np.testing.assert_allclose(
+        chip_smoke.report_distributions(reports["port"], K),
+        chip_smoke.report_distributions(reports["jax"], K), atol=1e-4)
+
+
+def test_books_root_routes_through_lang_dirs(native_lib, corpus, tmp_path):
+    """score --books-root <root> --lang FR reads <root>/French, as the
+    JAX CLI (and LDALoader.scala) route it."""
+    assert tcli.LANG_DIRS == jcli.LANG_DIRS
+    books, stop = corpus
+    root = tmp_path / "root"
+    shutil.copytree(books, root / "French")
+    models = str(tmp_path / "m")
+    rc, _, se = run(port_main, [
+        "train", "--books", books, "--stop-words", stop, "--lang", "FR",
+        "--k", "2", "--max-iterations", "2", "--models-dir", models,
+        "--token-layout", "packed"])
+    assert rc == 0, se
+    assert os.listdir(models)[0].startswith("LdaModel_FR_")
+    out_dir = str(tmp_path / "o")
+    rc, so, se = run(port_main, [
+        "score", "--books-root", str(root), "--lang", "FR",
+        "--stop-words", stop, "--models-dir", models, "--output-dir", out_dir])
+    assert rc == 0, se
+    report = report_of(out_dir)
+    assert os.listdir(out_dir)[0].startswith("Result_FR_")
+    assert report.count("Book's number:") == 10
+    assert "Book's name: book_00.txt" in report
+    rc, _, se = run(port_main, ["score", "--models-dir", models,
+                                "--lang", "FR"])
+    assert rc == 2 and "--books or --books-root" in se
+
+
+@pytest.mark.parametrize("cmd", ["train", "score"])
+def test_cli_flags_and_defaults_match_jax(cmd):
+    """Every flag of the JAX CLI's train and score, with its default, and
+    one more: --device (default cuda)."""
+    def flags(parser):
+        (sub,) = [a for a in parser._actions
+                  if isinstance(a, argparse._SubParsersAction)]
+        return {(o, a.default) for a in sub.choices[cmd]._actions
+                for o in a.option_strings}
+
+    got, want = flags(tcli.build_parser()), flags(jcli.build_parser())
+    assert got - want == {("--device", "cuda")}
+    assert want <= got
+
+
+# ---- exit codes --------------------------------------------------------
+def test_score_without_model_exits_2(tmp_path):
+    argv = ["score", "--books", str(tmp_path), "--lang", "FR",
+            "--models-dir", str(tmp_path), "--output-dir", str(tmp_path)]
+    rc, _, se = run(port_main, argv)
+    assert rc == 2 and "no committed model for lang FR" in se
+    assert run(jax_main, argv)[0] == 2
+
+
+def test_resume_mismatch_exits_2(native_lib, corpus, tmp_path):
+    books, stop = corpus
+    ckpt = str(tmp_path / "ckpt")
+    jresume.write_resume_meta(ckpt, JParams(k=9), 12345)
+    rc, _, se = run(port_main, [
+        "train", "--books", books, "--stop-words", stop, "--k", "2",
+        "--max-iterations", "1", "--models-dir", str(tmp_path / "m"),
+        "--checkpoint-dir", ckpt, "--resume", "--token-layout", "packed"])
+    assert rc == 2 and "cannot resume" in se
+    assert not os.path.exists(tmp_path / "m")
+    rc, _, se = run(port_main, ["train", "--books", books, "--resume"])
+    assert rc == 2 and "--resume requires --checkpoint-dir" in se
+
+
+REFUSED = [
+    (["train", "--export-mllib"], "--export-mllib", "item 2"),
+    (["train", "--telemetry-file", "t.jsonl"], "--telemetry-file", "item 9"),
+    (["train", "--compile-cache", "cc"], "--compile-cache", "item 10"),
+    (["train", "--coordinator", "localhost:1"], "--coordinator", "item 6"),
+    (["train", "--num-processes", "2"], "--num-processes", "item 6"),
+    (["train", "--process-id", "0"], "--process-id", "item 6"),
+    (["train", "--data-shards", "2"], "--data-shards 2", "item 6"),
+    (["train", "--model-shards", "2"], "--model-shards 2", "item 6"),
+    (["score", "--data-shards", "4"], "--data-shards 4", "item 6"),
+    (["score", "--model-shards", "2"], "--model-shards 2", "item 6"),
+    (["score", "--telemetry-file", "t.jsonl"], "--telemetry-file", "item 9"),
+    (["score", "--compile-cache", "cc"], "--compile-cache", "item 10"),
+]
+
+
+@pytest.mark.parametrize("argv,flag,item", REFUSED,
+                         ids=[" ".join(a) for a, _, _ in REFUSED])
+def test_unported_flags_exit_2_and_name_their_item(tmp_path, argv, flag,
+                                                   item):
+    """Each flag whose machinery is not ported exits 2 before any work,
+    naming its ROADMAP.md queue 1 item; none is accepted and ignored."""
+    books = ["--books", str(tmp_path / "none")]
+    rc, so, se = run(port_main, [*argv[:1], *books, *argv[1:]])
+    assert rc == 2 and so == ""
+    assert f"error: {flag} is not ported yet (ROADMAP.md queue 1 {item}" in se
+
+
+@pytest.mark.parametrize("algo_argv,words", [
+    (["--algorithm", "online"], (300, 1500)),
+    (["--token-layout", "auto"], (800, 800)),
+], ids=["online_bernoulli", "em_auto_padded"])
+def test_estimator_not_implemented_exits_2(native_lib, tmp_path, algo_argv,
+                                           words):
+    """Online with the default bernoulli sampling, and EM where "auto"
+    picks the padded layout (books of one length), exit 2 with the
+    estimator's message."""
+    stop = chip_smoke.en_books_dir(9, str(tmp_path), n_books=6, words=words)
+    rc, _, se = run(port_main, [
+        "train", "--books", str(tmp_path / "books"), "--stop-words", stop,
+        "--k", "2", "--max-iterations", "2",
+        "--models-dir", str(tmp_path / "m"), *algo_argv])
+    assert rc == 2 and se.startswith("error: ") and "not ported" in se
+    assert not os.path.exists(tmp_path / "m")
+
+
+def test_metrics_file_and_profile_dir(native_lib, corpus, tmp_path):
+    """--metrics-file writes the JAX package's record schema (corpus,
+    phase, train_iteration, model_saved); --profile-dir writes a Chrome
+    trace of training."""
+    import json
+
+    books, stop = corpus
+    metrics, prof = str(tmp_path / "m.jsonl"), str(tmp_path / "prof")
+    rc, _, se = run(port_main, [
+        "train", "--books", books, "--stop-words", stop, "--k", "2",
+        "--max-iterations", "3", "--models-dir", str(tmp_path / "m"),
+        "--token-layout", "packed", "--metrics-file", metrics,
+        "--profile-dir", prof])
+    assert rc == 0, se
+    with open(metrics, encoding="utf-8") as f:
+        recs = [json.loads(line) for line in f]
+    events = [r["event"] for r in recs]
+    assert events[0] == "corpus" and events[-1] == "model_saved"
+    assert {r["name"] for r in recs if r["event"] == "phase"} == {
+        "read", "preprocess", "train"}
+    assert events.count("train_iteration") == 3
+    assert all("ts" in r for r in recs)
+    (trace,) = os.listdir(prof)
+    with open(os.path.join(prof, trace), encoding="utf-8") as f:
+        assert "traceEvents" in json.load(f)

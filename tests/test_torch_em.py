@@ -187,6 +187,28 @@ def test_em_layout_decision_matches_jax(case):
     assert em_layout(rows, "padded") == "padded"
 
 
+@pytest.mark.parametrize("mode", [True, False])
+@pytest.mark.parametrize("case", ["skewed", "two_buckets",
+                                  "bucketed_over_16M"])
+def test_em_layout_decision_follows_bucket_by_length(case, mode):
+    """With ``Params.bucket_by_length`` forced on or off, the padded cells
+    and the "auto" choice still equal the JAX fit's."""
+    from spark_text_clustering_tpu_torch.models.em_lda import (
+        em_layout, em_padded_cells,
+    )
+
+    rows = _layout_rows(_layout_lens(case))
+    mesh = make_mesh(data_shards=1, model_shards=1,
+                     devices=jax.devices("cpu")[:1])
+    shape = JEMLDA(JParams(k=K, token_layout="auto", bucket_by_length=mode),
+                   mesh=mesh)._plan_shape(rows, len(rows))
+    cells = sum(len(idxs) * width for width, idxs in shape)
+    nnz = sum(len(i) for i, _ in rows)
+    want = "packed" if cells >= 2.0 * max(1, nnz) else "padded"
+    assert em_padded_cells(rows, mode) == cells
+    assert em_layout(rows, "auto", mode) == want
+
+
 @pytest.mark.parametrize("layout,lens,exc", [
     ("bogus", None, ValueError),
     ("padded", None, NotImplementedError),

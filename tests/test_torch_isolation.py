@@ -29,13 +29,22 @@ def _port_modules():
 
 
 def test_importing_the_port_loads_no_jax():
+    """Importing every module of the port and chip_smoke.py loads neither
+    jax, the JAX package nor nltk, and starts no process: the native text
+    library and the CUDA kernels build on first use only."""
     code = (
-        "import importlib, sys\n"
+        "import importlib, subprocess, sys\n"
+        "def no_build(*a, **k):\n"
+        "    raise AssertionError(f'a process was started: {a}')\n"
+        "subprocess.Popen = subprocess.run = no_build\n"
         f"for m in {_port_modules()!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'spark_text_clustering_tpu'\n"
-        "       or m.startswith('spark_text_clustering_tpu.')]\n"
+        "       or m.startswith('spark_text_clustering_tpu.')\n"
+        "       or m == 'nltk' or m.startswith('nltk.')]\n"
+        "from spark_text_clustering_tpu_torch.utils import native\n"
+        "assert native._lib is None and not native._tried\n"
         "print(len(sys.modules)); assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -145,6 +154,22 @@ def test_nmf_entry_points_default_to_the_card():
     m = NMF(params, device="cpu").fit(rows, list("abcd"))
     assert m.h.shape == (2, 4) and np.isfinite(m.h).all()
     assert LDA(params, device="cpu").fit(ds).model.device == "cpu"
+
+
+def test_cli_defaults_to_the_card(tmp_path):
+    """Without a card and without --device cpu, the CLI's train and score
+    raise as every entry point of the port does, before reading a book."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs on it")
+    from spark_text_clustering_tpu_torch import cli
+
+    for argv in (["score", "--books", str(tmp_path / "none"),
+                  "--models-dir", str(tmp_path)],
+                 ["train", "--books", str(tmp_path / "none")]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(argv)
+    assert cli.main(["score", "--books", str(tmp_path), "--models-dir",
+                     str(tmp_path), "--device", "cpu"]) == 2
 
 
 def test_resolving_cuda_turns_tf32_off(monkeypatch):
