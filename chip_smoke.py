@@ -50,8 +50,19 @@
    ``cli.main(["score", ...])`` (padded buckets through the E-step
    kernel) -> ``score --device cpu`` of the card's model; the two
    reports' distributions must agree within 5e-3;
-8. a ``total`` line with the run's seconds, then a ``kernels`` line: per
-   kernel, the launches of the main-path runs of 3-7 (each must be > 0),
+8. config F, the padded EM layout and the MLlib artifacts through the
+   CLI: 51 synthetic EN books of one length (60,000 pseudo-words, ~10,500
+   distinct terms each, so EM's "auto" layout is one padded bucket of
+   16,384 slots a book) -> ``train --export-mllib`` on the card (the
+   padded sweep, plain PyTorch: no sweep-kernel launch) -> ``train
+   --device cpu`` and ``train --token-layout packed`` on the card (50
+   fused-sweep launches) from the same seed (avg logLik within 1e-4,
+   lambda within 1e-3) -> ``score`` on the card (E-step kernel) against
+   ``score --device cpu`` (5e-3) -> ``score --model <dir>_mllib`` on the
+   card: the same report byte for byte (where pyarrow is installed; else
+   a line says it is not);
+9. a ``total`` line with the run's seconds, then a ``kernels`` line: per
+   kernel, the launches of the main-path runs of 3-8 (each must be > 0),
    the largest difference from the plain version, and the times beside
    the card's bound.
 
@@ -65,6 +76,7 @@ result.  Imports only the port, torch, numpy and the standard library.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -87,6 +99,7 @@ EVAL_DOCS = 512                # bench.py's log-perplexity batch
 NMF_ITERS = 40                 # bench.py's NMF row
 NMF_CHECK_ITERS = 10           # card vs CPU sweeps of config D
 EN_LEXICON, EN_ZIPF = 28_000, 1.2  # config E's pseudo-word books
+F_WORDS = 60_000               # config F's books: one length, ~10.5k terms
 
 
 def emit(obj) -> None:
@@ -1365,8 +1378,6 @@ def report_distributions(text: str, k: int) -> np.ndarray:
 def run_cli(argv, out_path):
     """``cli.main(argv)`` in this process, its stdout sent to
     ``out_path``; returns (exit code, stdout text, wall seconds)."""
-    import contextlib
-
     from spark_text_clustering_tpu_torch import cli
 
     t0 = time.perf_counter()
@@ -1375,6 +1386,99 @@ def run_cli(argv, out_path):
     secs = time.perf_counter() - t0
     with open(out_path) as f:
         return rc, f.read(), secs
+
+
+def cli_train(label, books, stop, device, models_dir, v, out_path,
+              extra=()):
+    """``train`` (EM, k=EN_K, the defaults, plus ``extra``) on ``device``
+    through ``cli.main``: (its console numbers and wall seconds, the one
+    committed model dir it saved).  Fails unless it exits 0, saves one
+    committed model, prints a finite average log-likelihood and the
+    vocabulary size ``v`` (any, where ``v`` is None)."""
+    from spark_text_clustering_tpu_torch.resilience import artifact_status
+
+    rc, out, secs = run_cli(
+        ["train", "--books", books, "--stop-words", stop, "--lang", "EN",
+         "--k", str(EN_K), "--models-dir", models_dir, "--device", device,
+         *extra], out_path)
+    nums = {"train_s": secs}
+    for line in out.splitlines():
+        for key, text in (("preprocess_s", "Preprocessing time:"),
+                          ("fit_s", "Training time:"),
+                          ("avg_log_likelihood", "average log likelihood:"),
+                          ("cli_vocab", "Vocabulary size:")):
+            if text in line:
+                nums[key] = float(line.split(text)[1].split()[0])
+    saved = [d for d in os.listdir(models_dir) if d.startswith("LdaModel_EN_")
+             and not d.endswith("_mllib")]
+    if rc != 0 or len(saved) != 1 or artifact_status(
+            os.path.join(models_dir, saved[0])) != "committed":
+        raise AssertionError(f"config {label} train on {device}: rc {rc}, "
+                             f"models {saved}")
+    if not np.isfinite(nums.get("avg_log_likelihood", np.nan)):
+        raise AssertionError(f"config {label} train on {device}: average "
+                             f"logLik {nums.get('avg_log_likelihood')}")
+    if v is not None and nums["cli_vocab"] != v:
+        raise AssertionError(f"config {label}: the CLI's V "
+                             f"{nums['cli_vocab']} != {v}")
+    del nums["cli_vocab"]
+    return nums, os.path.join(models_dir, saved[0])
+
+
+@contextlib.contextmanager
+def em_fits():
+    """Inside the block, each EM fit is recorded as (estimator, distinct
+    terms of each doc it fit, V, padded cells): where the CLI's fit ran,
+    and on what."""
+    from spark_text_clustering_tpu_torch.models import em_lda
+
+    fits, fit = [], em_lda.EMLDA.fit
+
+    def spy(self, rows, vocab, *args, **kwargs):
+        fits.append((self, [len(i) for i, _ in rows], len(vocab),
+                     em_lda.em_padded_cells(rows,
+                                            self.params.bucket_by_length)))
+        return fit(self, rows, vocab, *args, **kwargs)
+
+    em_lda.EMLDA.fit = spy
+    try:
+        yield fits
+    finally:
+        em_lda.EMLDA.fit = fit
+
+
+def cli_score(label, books, stop, device, out_dir, out_path, model_args):
+    """``score`` on ``device`` through ``cli.main`` with ``model_args``
+    (``--models-dir DIR`` or ``--model DIR``): (the report's text, wall
+    seconds).  Fails unless it exits 0 and writes one report."""
+    rc, _, secs = run_cli(
+        ["score", "--books", books, "--stop-words", stop, *model_args,
+         "--output-dir", out_dir, "--device", device], out_path)
+    written = os.listdir(out_dir) if os.path.isdir(out_dir) else []
+    if rc != 0 or len(written) != 1:
+        raise AssertionError(f"config {label} score on {device}: rc {rc}")
+    with open(os.path.join(out_dir, written[0])) as f:
+        return f.read(), secs
+
+
+def distributions_agree(label, card_report, cpu_report):
+    """The card's report against the CPU's: (largest difference of the
+    distributions, main-topic agreement, books whose CPU top two differ by
+    more than 1e-2).  Fails beyond 5e-3, or where such a book's main topic
+    differs."""
+    card = report_distributions(card_report, EN_K)
+    cpu = report_distributions(cpu_report, EN_K)
+    if card.shape != (EN_DOCS, EN_K) or cpu.shape != card.shape:
+        raise AssertionError(f"config {label}: reports hold {card.shape}, "
+                             f"{cpu.shape}")
+    diff = float(np.abs(card - cpu).max())
+    top2 = np.sort(cpu, axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 1e-2
+    agree = card.argmax(1) == cpu.argmax(1)
+    if not diff <= 5e-3 or not agree[clear].all():
+        raise AssertionError(f"config {label}: card vs CPU distributions "
+                             f"differ by {diff}, main topics {agree.mean()}")
+    return diff, float(agree.mean()), int(clear.sum())
 
 
 def run_config_e(torch, seed, workdir):
@@ -1389,7 +1493,6 @@ def run_config_e(torch, seed, workdir):
     from spark_text_clustering_tpu_torch.pipeline import (
         IDF, CountVectorizer, TextPreprocessor,
     )
-    from spark_text_clustering_tpu_torch.resilience import artifact_status
     from spark_text_clustering_tpu_torch.utils.readers import (
         read_stop_word_file, read_text_dir,
     )
@@ -1427,35 +1530,9 @@ def run_config_e(torch, seed, workdir):
 
     def train(device, models_dir):
         """``train`` on ``device``: (its console numbers, saved model)."""
-        rc, out, secs = run_cli(
-            ["train", "--books", books, "--stop-words", stop, "--lang",
-             "EN", "--k", str(EN_K), "--models-dir", models_dir,
-             "--device", device],
-            os.path.join(root, f"train_{device}.out"))
-        nums = {"train_s": secs}
-        for line in out.splitlines():
-            for key, label in (("preprocess_s", "Preprocessing time:"),
-                               ("fit_s", "Training time:"),
-                               ("avg_log_likelihood",
-                                "average log likelihood:"),
-                               ("cli_vocab", "Vocabulary size:")):
-                if label in line:
-                    nums[key] = float(line.split(label)[1].split()[0])
-        saved = [d for d in os.listdir(models_dir)
-                 if d.startswith("LdaModel_EN_")]
-        if rc != 0 or len(saved) != 1 or artifact_status(
-                os.path.join(models_dir, saved[0])) != "committed":
-            raise AssertionError(f"config E train on {device}: rc {rc}, "
-                                 f"models {saved}")
-        if not np.isfinite(nums.get("avg_log_likelihood", np.nan)):
-            raise AssertionError(f"config E train on {device}: average "
-                                 f"logLik {nums.get('avg_log_likelihood')}")
-        if nums["cli_vocab"] != v:
-            raise AssertionError(f"config E: the CLI's V "
-                                 f"{nums['cli_vocab']} != {v}")
-        del nums["cli_vocab"]
-        return nums, load_model(os.path.join(models_dir, saved[0]),
-                                device="cpu")
+        nums, path = cli_train("E", books, stop, device, models_dir, v,
+                               os.path.join(root, f"train_{device}.out"))
+        return nums, load_model(path, device="cpu")
 
     _build.reset_launches()
     summary, card_model = train("cuda", models)
@@ -1482,33 +1559,20 @@ def run_config_e(torch, seed, workdir):
     reports = {}
     score_launches, t_score = None, {}
     for device in ("cuda", "cpu"):
-        out_dir = os.path.join(root, f"TestOutput_{device}")
         _build.reset_launches()
-        rc, _, t_score[device] = run_cli(
-            ["score", "--books", books, "--stop-words", stop,
-             "--models-dir", models, "--output-dir", out_dir,
-             "--device", device],
-            os.path.join(root, f"score_{device}.out"))
+        reports[device], t_score[device] = cli_score(
+            "E", books, stop, device,
+            os.path.join(root, f"TestOutput_{device}"),
+            os.path.join(root, f"score_{device}.out"),
+            ["--models-dir", models])
         if device == "cuda":
             score_launches = dict(_build.LAUNCHES)
-        written = os.listdir(out_dir) if os.path.isdir(out_dir) else []
-        if rc != 0 or len(written) != 1:
-            raise AssertionError(f"config E score on {device}: rc {rc}")
-        with open(os.path.join(out_dir, written[0])) as f:
-            reports[device] = f.read()
     blocks = reports["cuda"].count("Book's number:")
     if blocks != EN_DOCS or score_launches["gamma_fixed_point_bkl"] == 0:
         raise AssertionError(f"config E score: {blocks} books, "
                              f"{score_launches}")
-    card = report_distributions(reports["cuda"], EN_K)
-    cpu = report_distributions(reports["cpu"], EN_K)
-    if card.shape != (EN_DOCS, EN_K) or cpu.shape != card.shape:
-        raise AssertionError(f"config E: reports hold {card.shape}, "
-                             f"{cpu.shape}")
-    diff = float(np.abs(card - cpu).max())
-    top2 = np.sort(cpu, axis=1)[:, -2:]
-    clear = top2[:, 1] - top2[:, 0] > 1e-2
-    agree = card.argmax(1) == cpu.argmax(1)
+    diff, agreement, clear = distributions_agree("E", reports["cuda"],
+                                                 reports["cpu"])
     summary.update({
         "phase": "config_E", "docs": EN_DOCS, "vocab": v, "k": EN_K,
         "sweeps": SWEEPS, "tokens": int(sum(distinct)),
@@ -1525,27 +1589,196 @@ def run_config_e(torch, seed, workdir):
         "cpu_plain_train_s": cpu_train["train_s"],
         "avg_log_likelihood_rel_diff": ll_rel, "lam_max_rel_diff": lam_rel,
         "max_dist_diff": diff,
-        "main_topic_agreement": float(agree.mean()),
-        "main_topic_clear_docs": int(clear.sum()),
+        "main_topic_agreement": agreement,
+        "main_topic_clear_docs": clear,
         "report_bytes": len(reports["cuda"].encode()),
         "bounds": {"max_dist_diff": 5e-3,
                    "avg_log_likelihood_rel_diff": 1e-4},
     })
-    if not diff <= 5e-3 or not agree[clear].all():
-        raise AssertionError(f"config E: card vs CPU distributions differ "
-                             f"by {diff}, main topics {agree.mean()}")
     return summary
+
+
+def run_config_f(torch, seed, workdir, smi):
+    """The padded EM layout and the MLlib artifacts through the CLI on the
+    card: 51 synthetic EN books of F_WORDS words each, so every book holds
+    ~10,000 distinct terms and EM's "auto" layout is one padded bucket of
+    16,384 slots a book.
+
+    1. ``train --export-mllib`` on the card (the padded sweep: no sweep
+       kernel launches);
+    2. ``train --device cpu`` from the same seed (avg logLik within 1e-4
+       relative, lambda within 1e-3, floored at 1);
+    3. ``train --token-layout packed`` on the card from the same seed (50
+       fused-sweep launches; the same limits against step 1);
+    4. ``score`` on the card (the E-step kernel) against ``score --device
+       cpu`` (5e-3, main topics where the CPU's top two differ by 1e-2);
+    5. ``score --model <step 1's dir>_mllib`` on the card: the same report
+       byte for byte, from the same lam, alpha and eta.
+    Where pyarrow is not installed, steps 1 and 5 run without the MLlib
+    export and a line says so."""
+    import importlib.util
+
+    from spark_text_clustering_tpu_torch import load_model
+    from spark_text_clustering_tpu_torch.ops import _build
+
+    root = os.path.join(workdir, "F")
+    t0 = time.perf_counter()
+    stop = en_books_dir(seed, root, words=(F_WORDS, F_WORDS))
+    t_corpus = time.perf_counter() - t0
+    books = os.path.join(root, "books")
+    mllib = importlib.util.find_spec("pyarrow") is not None
+    if not mllib:
+        emit({"config_F_mllib": "not run: pyarrow is not installed"})
+
+    def train(tag, device, extra=()):
+        """One ``train``: (console numbers, model dir, layout, launches,
+        fit record)."""
+        models = os.path.join(root, f"models_{tag}")
+        _build.reset_launches()
+        with em_fits() as fits:
+            nums, path = cli_train("F", books, stop, device, models, None,
+                                   os.path.join(root, f"train_{tag}.out"),
+                                   extra)
+        launches = dict(_build.LAUNCHES)
+        (fit,) = fits
+        model = load_model(path, device="cpu")
+        nums["fit_ms_per_sweep"] = 1e3 * float(np.mean(model.iteration_times))
+        return nums, path, model, fit, launches
+
+    # 1. the padded fit on the card
+    card, card_path, card_model, (opt, distinct, v, cells), train_launches = (
+        train("card", "cuda", ["--export-mllib"] if mllib else []))
+    tokens = int(sum(distinct))
+    if opt.last_layout != "padded" or opt.last_sweep != "padded":
+        raise AssertionError(f"config F: the card's fit ran "
+                             f"{opt.last_layout}/{opt.last_sweep}")
+    if train_launches["em_sweep_fused"] or train_launches[
+            "scatter_add_vtiles"]:
+        raise AssertionError(f"config F padded train: {train_launches}")
+    if not 30_000 <= v <= 50_000 or len(distinct) != EN_DOCS or not (
+            8_192 < min(distinct) and max(distinct) <= 16_384) or (
+            cells != EN_DOCS * 16_384):
+        raise AssertionError(f"config F: V={v}, {len(distinct)} books of "
+                             f"{min(distinct)}-{max(distinct)} terms, "
+                             f"{cells} padded cells")
+    mllib_dir = card_path + "_mllib"
+    if mllib and not os.path.isdir(mllib_dir):
+        raise AssertionError(f"config F: no MLlib export at {mllib_dir}")
+
+    def close(label, other, other_model, ll_limit=1e-4, lam_limit=1e-3):
+        """Avg logLik relative and lambda (floored at 1) differences of
+        ``other`` from the card's padded fit."""
+        ll = abs(other["avg_log_likelihood"] - card["avg_log_likelihood"]) / \
+            abs(card["avg_log_likelihood"])
+        lam = float(np.max(np.abs(other_model.lam - card_model.lam)
+                           / np.maximum(np.abs(card_model.lam), 1.0)))
+        if not ll <= ll_limit or not lam <= lam_limit:
+            raise AssertionError(f"config F: {label} avg logLik rel {ll}, "
+                                 f"lambda rel {lam}")
+        return ll, lam
+
+    # 2. the same fit on the CPU, the padded sweep in plain PyTorch there too
+    cpu, _, cpu_model, (cpu_opt, *_), _ = train("cpu", "cpu")
+    if cpu_opt.last_layout != "padded":
+        raise AssertionError(f"config F: CPU layout {cpu_opt.last_layout}")
+    cpu_ll, cpu_lam = close("card vs CPU", cpu, cpu_model)
+    # 3. the same fit packed on the card: the fused sweep kernel
+    packed, _, packed_model, (pk_opt, *_), packed_launches = train(
+        "packed", "cuda", ["--token-layout", "packed"])
+    if pk_opt.last_sweep != "fused" or packed_launches[
+            "em_sweep_fused"] != SWEEPS:
+        raise AssertionError(f"config F packed train: {pk_opt.last_sweep}, "
+                             f"{packed_launches}")
+    pk_ll, pk_lam = close("padded vs packed", packed, packed_model)
+
+    # 4. score the padded-trained model on the card and on the CPU
+    models = os.path.dirname(card_path)
+    reports, secs, score_launches = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        _build.reset_launches()
+        reports[device], secs[device] = cli_score(
+            "F", books, stop, device, os.path.join(root, f"out_{device}"),
+            os.path.join(root, f"score_{device}.out"),
+            ["--models-dir", models])
+        score_launches[device] = dict(_build.LAUNCHES)
+    blocks = reports["cuda"].count("Book's number:")
+    if blocks != EN_DOCS or score_launches["cuda"][
+            "gamma_fixed_point_bkl"] == 0:
+        raise AssertionError(f"config F score: {blocks} books, "
+                             f"{score_launches['cuda']}")
+    diff, agreement, clear = distributions_agree("F", reports["cuda"],
+                                                 reports["cpu"])
+
+    # 5. the MLlib export scored on the card: the same report
+    mllib_launches = {name: 0 for name in _build.LAUNCHES}
+    summary_mllib = None
+    if mllib:
+        imported = load_model(mllib_dir, device="cpu")
+        for field in ("lam", "alpha", "vocab"):
+            if not np.array_equal(np.asarray(getattr(imported, field)),
+                                  np.asarray(getattr(card_model, field))):
+                raise AssertionError(f"config F: the MLlib model's {field} "
+                                     "differs from the saved model's")
+        if imported.eta != card_model.eta:
+            raise AssertionError(f"config F: the MLlib model's eta "
+                                 f"{imported.eta} != {card_model.eta}")
+        _build.reset_launches()
+        report, secs["mllib"] = cli_score(
+            "F", books, stop, "cuda", os.path.join(root, "out_mllib"),
+            os.path.join(root, "score_mllib.out"), ["--model", mllib_dir])
+        mllib_launches = dict(_build.LAUNCHES)
+        if report != reports["cuda"] or not np.array_equal(
+                report_distributions(report, EN_K),
+                report_distributions(reports["cuda"], EN_K)):
+            raise AssertionError("config F: the MLlib model's report "
+                                 "differs from the saved model's")
+        if mllib_launches["gamma_fixed_point_bkl"] == 0:
+            raise AssertionError(f"config F MLlib score: {mllib_launches}")
+        summary_mllib = {"score_s": secs["mllib"],
+                         "report_equal": True, "launches": mllib_launches}
+
+    main_path = (train_launches, packed_launches, score_launches["cuda"],
+                 mllib_launches)
+    return {
+        "phase": "config_F", "card": smi, "docs": EN_DOCS, "vocab": v,
+        "k": EN_K, "sweeps": SWEEPS, "words_per_book": F_WORDS,
+        "tokens": tokens, "distinct_per_book": [min(distinct), max(distinct)],
+        "padded_cells": cells, "padded_cells_per_token": cells / tokens,
+        "corpus_s": t_corpus,
+        "train_s": card["train_s"], "preprocess_s": card["preprocess_s"],
+        "fit_s": card["fit_s"], "score_s": secs["cuda"],
+        "padded_ms_per_sweep": card["fit_ms_per_sweep"],
+        "packed_ms_per_sweep": packed["fit_ms_per_sweep"],
+        "packed_train_s": packed["train_s"], "packed_fit_s": packed["fit_s"],
+        "avg_log_likelihood": card["avg_log_likelihood"],
+        "cpu_avg_log_likelihood": cpu["avg_log_likelihood"],
+        "packed_avg_log_likelihood": packed["avg_log_likelihood"],
+        "cpu_vs_card": {"avg_log_likelihood_rel_diff": cpu_ll,
+                        "lam_max_rel_diff": cpu_lam},
+        "packed_vs_padded": {"avg_log_likelihood_rel_diff": pk_ll,
+                             "lam_max_rel_diff": pk_lam},
+        "cpu_train_s": cpu["train_s"], "cpu_fit_s": cpu["fit_s"],
+        "cpu_score_s": secs["cpu"], "max_dist_diff": diff,
+        "main_topic_agreement": agreement, "main_topic_clear_docs": clear,
+        "mllib": summary_mllib or "not run: pyarrow is not installed",
+        "launches": {name: sum(run[name] for run in main_path)
+                     for name in train_launches},
+        "train_launches": train_launches, "packed_launches": packed_launches,
+        "score_launches": score_launches["cuda"],
+        "bounds": {"avg_log_likelihood_rel_diff": 1e-4,
+                   "lam_max_rel_diff": 1e-3, "max_dist_diff": 5e-3},
+    }
 
 
 def profile_configs(torch, rows_a, rows_b, seed, out_dir):
     """torch.profiler over one fit and the scoring (A, B: padded scoring
     of every doc; D: topic_distribution of EVAL_DOCS docs) or evaluation
     (C: log-perplexity of EVAL_DOCS docs) of each config (count rows, no
-    IDF), and over E's CLI ``train`` and ``score`` (the whole commands,
-    text front end included): device time and calls by kernel name, and
-    the device's busy share of the window's wall time.  The full tables
-    go to ``<out_dir>/profile_{A,B,C,D,E}.txt`` when ``out_dir`` is
-    given."""
+    IDF), and over E's and F's CLI ``train`` and ``score`` (the whole
+    commands, text front end included; F's fit is the padded sweep):
+    device time and calls by kernel name, and the device's busy share of
+    the window's wall time.  The full tables go to
+    ``<out_dir>/profile_{A,B,C,D,E,F}.txt`` when ``out_dir`` is given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1577,8 +1810,8 @@ def profile_configs(torch, rows_a, rows_b, seed, out_dir):
         return (lambda: opt.fit(rows, vocab),
                 lambda model: model.topic_distribution(rows[:EVAL_DOCS]))
 
-    def cli_run(root):
-        stop = en_books_dir(seed, root)
+    def cli_run(root, words=(8_000, 120_000)):
+        stop = en_books_dir(seed, root, words=words)
         books, models = os.path.join(root, "books"), os.path.join(root, "m")
 
         def train():
@@ -1596,7 +1829,9 @@ def profile_configs(torch, rows_a, rows_b, seed, out_dir):
                         ("B", lambda: em_run(rows_b, NG_K, NG_V)),
                         ("C", lambda: online_run(rows_b)),
                         ("D", lambda: nmf_run(rows_b)),
-                        ("E", lambda: cli_run(cli_root))):
+                        ("E", lambda: cli_run(os.path.join(cli_root, "E"))),
+                        ("F", lambda: cli_run(os.path.join(cli_root, "F"),
+                                              (F_WORDS, F_WORDS)))):
         fit, score = make()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1790,13 +2025,19 @@ def main() -> int:
         summary_e = run_config_e(torch, args.seed, workdir)
         summary_e["seconds"] = time.perf_counter() - t0
         emit(summary_e)
+
+        # 8. config F, the padded EM layout and the MLlib artifacts
+        t0 = time.perf_counter()
+        summary_f = run_config_f(torch, args.seed, workdir, smi)
+        summary_f["seconds"] = time.perf_counter() - t0
+        emit(summary_f)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     if args.profile:
         profile_configs(torch, rows_a, rows_b, args.seed, args.out)
 
-    # 8. the kernels line; the sweep's error is the larger of config A's
+    # 9. the kernels line; the sweep's error is the larger of config A's
     # and config E's checks; the gamma row is config B's most populated
     # bucket, and its error the largest of the four buckets and the edge
     # geometries checked
@@ -1822,13 +2063,14 @@ def main() -> int:
         name = kern["name"]
         kern["launches"] = sum(
             sm["launches"][name]
-            for sm in (summary_a, summary_b, summary_c, summary_d, summary_e))
+            for sm in (summary_a, summary_b, summary_c, summary_d, summary_e,
+                       summary_f))
         if kern["launches"] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
         line.append({k_: kern[k_] for k_ in keys})
     record.update(build=build, kernels=kernels, config_A=summary_a,
                   config_B=summary_b, config_C=summary_c, config_D=summary_d,
-                  config_E=summary_e)
+                  config_E=summary_e, config_F=summary_f)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)

@@ -73,7 +73,6 @@ LANG_DIRS = {
 # the port refuses for now.
 _SHARDING = "queue 1 item 6, sharding"
 _NOT_PORTED = {
-    "export_mllib": ("--export-mllib", "queue 1 item 2, MLlib artifacts"),
     "telemetry_file": ("--telemetry-file", "queue 1 item 9, telemetry"),
     "compile_cache": ("--compile-cache",
                       "queue 1 item 10, a compile cache"),
@@ -175,6 +174,7 @@ def cmd_train(args: argparse.Namespace) -> int:
         seed=args.seed,
         data_shards=args.data_shards,
         model_shards=args.model_shards,
+        keep_doc_topic_counts=args.export_mllib,
         record_iteration_times=args.record_iteration_times,
     )
 
@@ -250,6 +250,27 @@ def cmd_train(args: argparse.Namespace) -> int:
     out_dir = model_dir_name(args.lang, base=args.models_dir)
     model.save(out_dir)
     print(f"model saved to {out_dir}")
+
+    if args.export_mllib:
+        if lda_stage.doc_topic_counts is None:
+            # DistributedLDAModel is MLlib's EM artifact: without doc
+            # vertices (N_dk) Spark would load doc nodes without counts
+            print(
+                "--export-mllib requires --algorithm em "
+                "(DistributedLDAModel is MLlib's EM artifact class); "
+                "skipping export"
+            )
+        else:
+            from .models.reference_export import save_reference_model
+
+            mllib_dir = out_dir + "_mllib"
+            save_reference_model(
+                model,
+                mllib_dir,
+                doc_topic_counts=lda_stage.doc_topic_counts,
+                doc_rows=[(i, w) for i, w in rows if len(i) > 0],
+            )
+            print(f"MLlib-format model exported to {mllib_dir}")
 
     metrics.log_phases(timer.phases)
     metrics.log_iteration_times(
@@ -380,7 +401,9 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--no-tfidf", action="store_true",
                     help="train on raw counts instead of TF-IDF pseudo-counts")
     tr.add_argument("--export-mllib", action="store_true",
-                    help="not ported yet (exits 2)")
+                    help="also write the model in Spark MLlib's "
+                         "DistributedLDAModel layout to <model dir>_mllib "
+                         "(EM only; needs pyarrow)")
     tr.add_argument("--no-lemmatize", action="store_true")
     tr.add_argument("--include-all", action="store_true",
                     help="ingest non-.txt files too (reference behavior)")

@@ -1,6 +1,7 @@
 """Model persistence: one self-contained, integrity-checked artifact dir,
 in the JAX package's layout, so a model saved by either package loads in
-the other:
+the other (``load_model`` also reads the reference's MLlib layout, see
+``reference_import``):
 
     <path>/meta.json      format version, "class", k, vocab_size, step,
                           iteration_times; LDA: eta, gamma_shape,
@@ -59,9 +60,11 @@ def model_dir_name(lang: str, base: str = "models") -> str:
 def latest_model_dir(
     base: str, lang: str, verify_deep: bool = False
 ) -> Optional[str]:
-    """Newest committed (or legacy) model dir for ``lang`` under ``base``,
-    by the timestamp in its name; uncommitted dirs are skipped, and with
-    ``verify_deep`` so are dirs whose manifest hashes fail."""
+    """Newest committed (or legacy, MLlib dirs included) model dir for
+    ``lang`` under ``base``, by the timestamp in its name; a name whose
+    suffix is no timestamp (``..._mllib``) is ignored, uncommitted dirs
+    are skipped, and with ``verify_deep`` so are dirs whose manifest
+    hashes fail."""
     if not os.path.isdir(base):
         return None
     prefix = f"LdaModel_{lang}_"
@@ -145,12 +148,21 @@ def save_model(model, path: str) -> None:
 
 def load_model(path: str, device="cuda"):
     """Load an LDA or NMF model dir written by either package, by the
-    class its meta.json names.  Any integrity failure raises
+    class its meta.json names, or a reference-format MLlib
+    DistributedLDAModel dir (``metadata/part-00000`` and no meta.json;
+    its vocabulary sidecar is required).  Any integrity failure raises
     ``CorruptArtifactError`` naming the artifact."""
     from .base import LDAModel
     from .nmf import NMFModel
 
     verify_artifact(path)
+    if not os.path.exists(os.path.join(path, "meta.json")) and os.path.exists(
+        os.path.join(path, "metadata", "part-00000")
+    ):
+        from .reference_import import load_reference_model
+
+        return load_reference_model(path, placeholder_vocab_ok=False,
+                                    device=device)
     try:
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)

@@ -233,10 +233,13 @@ class IDF(Estimator):
 
 class LDAModelTransformer(Transformer):
     def __init__(self, model, log_likelihood: Optional[float] = None,
-                 corpus_size: Optional[int] = None):
+                 corpus_size: Optional[int] = None,
+                 doc_topic_counts: Optional[np.ndarray] = None):
         self.model = model
         self.log_likelihood = log_likelihood
-        self.corpus_size = corpus_size
+        self.corpus_size = corpus_size        # nonempty docs trained on
+        # EM's N_dk [corpus_size, k] in corpus order (MLlib export), or None
+        self.doc_topic_counts = doc_topic_counts
 
     def transform(self, ds: Dict) -> Dict:
         out = dict(ds)
@@ -273,6 +276,7 @@ class LDA(Estimator):
         return LDAModelTransformer(
             model, log_likelihood=getattr(opt, "last_log_likelihood", None),
             corpus_size=len(nonempty),
+            doc_topic_counts=getattr(opt, "last_doc_topic_counts", None),
         )
 
 

@@ -7,8 +7,9 @@ writes, so a model saved by either package loads in the other.
     <dir>/COMMIT                             written last, via tmp+rename
 
 A reader sees one of four states: committed (COMMIT present, hashes
-verify), legacy (no MANIFEST, complete payload), uncommitted (a crash
-mid-save; never loaded), missing.
+verify), legacy (no MANIFEST, complete payload, or an MLlib-format dir
+holding ``metadata/part-00000``), uncommitted (a crash mid-save; never
+loaded), missing.
 """
 
 from __future__ import annotations
@@ -88,6 +89,10 @@ def artifact_status(path: str) -> str:
         return "committed"
     if has_manifest or has_commit:
         return "uncommitted"
+    # an MLlib-format dir (metadata/part-00000) counts as legacy too: its
+    # reader validates it
+    if os.path.exists(os.path.join(path, "metadata", "part-00000")):
+        return "legacy"
     missing = [
         n for n in LEGACY_PAYLOAD if not os.path.exists(os.path.join(path, n))
     ]

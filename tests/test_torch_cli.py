@@ -555,7 +555,6 @@ def test_resume_mismatch_exits_2(native_lib, corpus, tmp_path):
 
 
 REFUSED = [
-    (["train", "--export-mllib"], "--export-mllib", "item 2"),
     (["train", "--telemetry-file", "t.jsonl"], "--telemetry-file", "item 9"),
     (["train", "--compile-cache", "cc"], "--compile-cache", "item 10"),
     (["train", "--coordinator", "localhost:1"], "--coordinator", "item 6"),
@@ -584,13 +583,13 @@ def test_unported_flags_exit_2_and_name_their_item(tmp_path, argv, flag,
 
 @pytest.mark.parametrize("algo_argv,words", [
     (["--algorithm", "online"], (300, 1500)),
-    (["--token-layout", "auto"], (800, 800)),
-], ids=["online_bernoulli", "em_auto_padded"])
+    (["--algorithm", "online", "--sampling", "epoch", "--token-layout",
+      "padded"], (800, 800)),
+], ids=["online_bernoulli", "online_padded"])
 def test_estimator_not_implemented_exits_2(native_lib, tmp_path, algo_argv,
                                            words):
-    """Online with the default bernoulli sampling, and EM where "auto"
-    picks the padded layout (books of one length), exit 2 with the
-    estimator's message."""
+    """Online with the default bernoulli sampling, and online on the padded
+    layout, exit 2 with the estimator's message."""
     stop = chip_smoke.en_books_dir(9, str(tmp_path), n_books=6, words=words)
     rc, _, se = run(port_main, [
         "train", "--books", str(tmp_path / "books"), "--stop-words", stop,

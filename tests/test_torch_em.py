@@ -211,24 +211,150 @@ def test_em_layout_decision_follows_bucket_by_length(case, mode):
 
 @pytest.mark.parametrize("layout,lens,exc", [
     ("bogus", None, ValueError),
-    ("padded", None, NotImplementedError),
-    ("auto", "similar", NotImplementedError),
+    ("padded", None, None),
+    ("auto", "similar", None),
     ("auto", "skewed", None),
 ])
 def test_em_fit_token_layout(layout, lens, exc):
-    """An unknown layout raises ValueError as in JAX; wherever the JAX fit
-    runs the padded path the port raises NotImplementedError; "auto"
-    fits where JAX packs."""
+    """An unknown layout raises ValueError as in JAX; "padded", and "auto"
+    where the JAX fit pads, fit on the padded layout; "auto" packs where
+    JAX packs."""
     rows = _layout_rows(_layout_lens(lens or "skewed"))
     vocab = [f"t{i}" for i in range(900)]
     opt = EMLDA(Params(k=K, max_iterations=2, token_layout=layout),
                 device="cpu")
     if exc is None:
         m = opt.fit(rows, vocab)
-        assert opt.last_sweep == "fused" and np.isfinite(m.lam).all()
+        want = "padded" if layout == "padded" or lens == "similar" else "fused"
+        assert opt.last_sweep == want and np.isfinite(m.lam).all()
+        assert opt.last_layout == ("packed" if want == "fused" else "padded")
+        assert np.isfinite(opt.last_log_likelihood)
     else:
         with pytest.raises(exc, match="token_layout"):
             opt.fit(rows, vocab)
+
+
+@pytest.mark.parametrize("mode", ["auto", True, False])
+@pytest.mark.parametrize("case", ["similar", "skewed", "two_buckets",
+                                  "empty_doc"])
+def test_em_padded_shape_matches_jax(case, mode):
+    """The padded plan's buckets (width, doc indices) equal the JAX fit's
+    ``_plan_shape`` on a 1x1 mesh."""
+    from spark_text_clustering_tpu_torch.models.em_lda import em_padded_shape
+
+    rows = _layout_rows(_layout_lens(case))
+    mesh = make_mesh(data_shards=1, model_shards=1,
+                     devices=jax.devices("cpu")[:1])
+    want = JEMLDA(JParams(k=K, bucket_by_length=mode),
+                  mesh=mesh)._plan_shape(rows, len(rows))
+    assert em_padded_shape(rows, mode) == [(w, list(i)) for w, i in want]
+
+
+def _padded_rows(bucketed):
+    """Docs of similar length (one bucket), or of 5-100 terms over five
+    power-of-two buckets."""
+    if bucketed:
+        return _corpus(40, 300, 5, 100, seed=21)
+    return _corpus(30, 500, 40, 60, seed=3)
+
+
+def _padded_fits(tmp_path, monkeypatch, rows, vocab, m, bucketed):
+    """The JAX padded fit and the port's, m sweeps each from one
+    JAX-written em_state.npz, checkpointing every sweep."""
+    n_wk, n_dk = _init_state(rows, len(vocab), K, seed=7)
+    for name in ("jax", "torch"):
+        j_save_train_state(str(tmp_path / name / "em_state.npz"), 0,
+                           n_wk=n_wk, n_dk=n_dk)
+    monkeypatch.setenv("STC_GAMMA_BACKEND", "pallas")
+    mesh = make_mesh(data_shards=1, model_shards=1,
+                     devices=jax.devices("cpu")[:1])
+    common = dict(k=K, max_iterations=m, token_layout="padded",
+                  bucket_by_length=bucketed, checkpoint_interval=1,
+                  keep_doc_topic_counts=True)
+    jopt = JEMLDA(JParams(checkpoint_dir=str(tmp_path / "jax"), **common),
+                  mesh=mesh)
+    jopt.fit(rows, vocab)
+    topt = EMLDA(Params(checkpoint_dir=str(tmp_path / "torch"), **common),
+                 device="cpu")
+    topt.fit(rows, vocab)
+    return jopt, topt
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("bucketed", [False, True],
+                         ids=["one_bucket", "buckets"])
+def test_em_padded_fit_matches_jax_each_sweep(tmp_path, monkeypatch,
+                                              bucketed, m):
+    """After each of m = 1..5 sweeps from one JAX checkpoint, the padded
+    fits' checkpointed n_wk and n_dk (corpus order) agree within rtol
+    1e-4, the kept doc-topic counts are n_dk in corpus order, and the
+    average log-likelihoods agree within 1e-5 relative."""
+    from spark_text_clustering_tpu.models.persistence import (
+        load_train_state as j_load,
+    )
+    from spark_text_clustering_tpu_torch.models.em_lda import em_padded_shape
+
+    rows, vocab = _padded_rows(bucketed)
+    assert len(em_padded_shape(rows, bucketed)) == (5 if bucketed else 1)
+    jopt, topt = _padded_fits(tmp_path, monkeypatch, rows, vocab, m,
+                              bucketed)
+    assert jopt.last_layout == topt.last_layout == "padded"
+    assert topt.last_sweep == "padded"
+    js = j_load(str(tmp_path / "jax" / "em_state.npz"))
+    ts = load_train_state(str(tmp_path / "torch" / "em_state.npz"))
+    assert js["step"] == ts["step"] == m
+    np.testing.assert_allclose(ts["n_wk"], js["n_wk"], rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(ts["n_dk"], js["n_dk"], rtol=1e-4, atol=1e-6)
+    np.testing.assert_array_equal(topt.last_doc_topic_counts, ts["n_dk"])
+    np.testing.assert_allclose(topt.last_doc_topic_counts,
+                               jopt.last_doc_topic_counts, rtol=1e-4,
+                               atol=1e-6)
+    n = len(rows)
+    assert topt.last_log_likelihood / n == pytest.approx(
+        jopt.last_log_likelihood / n, rel=1e-5)
+
+
+@pytest.mark.parametrize("first,then", [("padded", "packed"),
+                                        ("packed", "padded")])
+def test_em_checkpoint_resumes_across_layouts(tmp_path, first, then):
+    """A checkpoint one layout wrote after 3 sweeps resumes a fit on the
+    other layout; after 6 sweeps in all it agrees with 6 uninterrupted
+    sweeps on the first layout within rtol 1e-4."""
+    rows, vocab = _padded_rows(False)
+    ckpt = str(tmp_path / "ckpt")
+    common = dict(k=K, seed=4, checkpoint_interval=3)
+    EMLDA(Params(max_iterations=3, token_layout=first, checkpoint_dir=ckpt,
+                 **common), device="cpu").fit(rows, vocab)
+    resumed = EMLDA(Params(max_iterations=6, token_layout=then,
+                           checkpoint_dir=ckpt, **common), device="cpu")
+    m = resumed.fit(rows, vocab)
+    assert resumed.last_layout == then and m.step == 6
+    assert len(m.iteration_times) == 3
+    whole = EMLDA(Params(max_iterations=6, token_layout=first, **common),
+                  device="cpu").fit(rows, vocab)
+    np.testing.assert_allclose(m.lam, whole.lam, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("bucketed", [False, True],
+                         ids=["one_bucket", "buckets"])
+def test_em_padded_and_packed_share_the_init(bucketed):
+    """From one Params.seed the padded and the packed fit start from the
+    same counts and agree within rtol 1e-4 after 5 sweeps, the kept
+    doc-topic counts and the log-likelihood too."""
+    rows, vocab = _padded_rows(bucketed)
+    fits = {}
+    for layout in ("padded", "packed"):
+        opt = EMLDA(Params(k=K, max_iterations=5, seed=11,
+                           token_layout=layout, bucket_by_length=bucketed,
+                           keep_doc_topic_counts=True), device="cpu")
+        fits[layout] = (opt, opt.fit(rows, vocab))
+    (pad, mpad), (pk, mpk) = fits["padded"], fits["packed"]
+    assert pad.last_sweep == "padded" and pk.last_sweep == "fused"
+    np.testing.assert_allclose(mpad.lam, mpk.lam, rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(pad.last_doc_topic_counts,
+                               pk.last_doc_topic_counts, rtol=1e-4, atol=1e-6)
+    assert pad.last_log_likelihood == pytest.approx(pk.last_log_likelihood,
+                                                    rel=1e-5)
 
 
 def test_idf_matches_jax():

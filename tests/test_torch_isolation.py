@@ -30,8 +30,10 @@ def _port_modules():
 
 def test_importing_the_port_loads_no_jax():
     """Importing every module of the port and chip_smoke.py loads neither
-    jax, the JAX package nor nltk, and starts no process: the native text
-    library and the CUDA kernels build on first use only."""
+    jax, the JAX package, nltk nor pyarrow (the card machine may lack
+    it: the MLlib readers and writers import it on first use), and starts
+    no process: the native text library and the CUDA kernels build on
+    first use only."""
     code = (
         "import importlib, subprocess, sys\n"
         "def no_build(*a, **k):\n"
@@ -42,7 +44,8 @@ def test_importing_the_port_loads_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'spark_text_clustering_tpu'\n"
         "       or m.startswith('spark_text_clustering_tpu.')\n"
-        "       or m == 'nltk' or m.startswith('nltk.')]\n"
+        "       or m == 'nltk' or m.startswith('nltk.')\n"
+        "       or m == 'pyarrow' or m.startswith('pyarrow.')]\n"
         "from spark_text_clustering_tpu_torch.utils import native\n"
         "assert native._lib is None and not native._tried\n"
         "print(len(sys.modules)); assert not bad, bad\n"
