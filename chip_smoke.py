@@ -61,8 +61,26 @@
    ``score --device cpu`` (5e-3) -> ``score --model <dir>_mllib`` on the
    card: the same report byte for byte (where pyarrow is installed; else
    a line says it is not);
-9. a ``total`` line with the run's seconds, then a ``kernels`` line: per
-   kernel, the launches of the main-path runs of 3-8 (each must be > 0),
+9. config G, online VB with the defaults on C's rows (MLlib's Bernoulli
+   minibatches of ~567 docs padded to 661, ``token_layout="auto"``): the
+   host-streaming packed path, each chunk's minibatches cut into tiles
+   (``plan_tile_pack_uniform``) for the tile kernel, one launch an
+   iteration.  Every launch of one fit is held against the plain version,
+   iteration 5's and the heaviest timed; one warm-up fit, then the timed
+   fit -> save -> load -> log-perplexity of 512 docs; ten iterations
+   against the same ten through the same tiles iteration with CPU
+   tensors (``rule="card"``), from the same draws: lambda within 1e-3
+   relative, log-perplexity within 1e-4;
+10. config H, online VB through the CLI on E's books: ``train
+   --algorithm online`` with the defaults takes the padded layout with
+   the corpus resident on the card, one [12, 5, 16384] E-step launch an
+   iteration that draws a book -> ``score`` on the card against
+   ``score --device cpu`` (5e-3) -> ten iterations of the library fit on
+   E's TF-IDF rows on the card (every E-step launch held against the
+   plain version) against the same ten on the CPU from the same draws:
+   lambda within 1e-3 relative;
+11. a ``total`` line with the run's seconds, then a ``kernels`` line: per
+   kernel, the launches of the main-path runs of 3-10 (each must be > 0),
    the largest difference from the plain version, and the times beside
    the card's bound.
 
@@ -577,10 +595,57 @@ def estep_instance(k, l, tile_b, cs):
     return f"l2_k{kmax}"
 
 
+def estep_case(torch, eb, cts, alpha, g0, label):
+    """The gamma kernel against its plain version on (eb [B, k, L], cts,
+    alpha, gamma0): normalized gamma within 5e-3 with equal argmax, a
+    bit-for-bit repeat; its cluster size and instance, times and bound."""
+    from spark_text_clustering_tpu_torch.ops import estep
+
+    b, k, width = eb.shape
+    got = estep.gamma_fixed_point_bkl(eb, cts, alpha, g0)
+    want, iters = estep.gamma_fixed_point_bkl_plain(eb, cts, alpha, g0,
+                                                   with_iters=True)
+    again = estep.gamma_fixed_point_bkl(eb, cts, alpha, g0)
+    torch.cuda.synchronize()
+    gn = got / got.sum(1, keepdim=True)
+    wn = want / want.sum(1, keepdim=True)
+    err = float((gn - wn).abs().max())
+    rel = float(((got - want).abs() / want.abs()).max())
+    if not err <= 5e-3 or not torch.equal(gn.argmax(1), wn.argmax(1)):
+        raise AssertionError(
+            f"gamma_fixed_point_bkl differs from its plain version by {err}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"gamma_fixed_point_bkl does not repeat bit for "
+                             f"bit on {label}'s batch [{b}, {k}, {width}]")
+    nnz = (cts > 0).sum(1).to(torch.float64)
+    tile_b = min(8, b)
+    n_tiles = -(-b // tile_b)
+    cluster = estep.cluster_size(n_tiles, width, estep._sm_count(eb.device))
+    per_doc_iters = iters.repeat_interleave(tile_b)[:b].to(torch.float64)
+    flops = float((per_doc_iters * nnz * (4 * k + 1)).sum())
+    # bytes the kernel needs: eb of live slots only (it skips cts == 0
+    # before reading eb), every slot's cts, alpha, gamma0 and the output
+    live_eb = 4 * k * int(nnz.sum())
+    t_bytes, by = bound(live_eb + nbytes(cts, alpha, g0, got), flops)
+    return {
+        "shape": [b, k, width], "tiles": n_tiles, "cluster": cluster,
+        "instance": estep_instance(k, width, tile_b, cluster),
+        "live_slots": int(nnz.sum()),
+        "tile_iterations_max": int(iters.max()),
+        "max_abs_err": err, "max_rel_err": rel,
+        "tolerance": "normalized gamma atol 5e-3, argmax equal",
+        "bitwise_repeatable": True,
+        "ms": cuda_ms(torch, lambda: estep.gamma_fixed_point_bkl(
+            eb, cts, alpha, g0), 5),
+        "plain_ms": cuda_ms(torch, lambda: estep.gamma_fixed_point_bkl_plain(
+            eb, cts, alpha, g0), 2),
+        "bound_ms": t_bytes, "bound_by": by, "library_ms": None,
+    }
+
+
 def check_estep(torch, rows, k, v, dev, rng, label, pick):
     """The gamma kernel on one scoring bucket of ``rows``: the most
     populated (``pick="docs"``) or the widest (``pick="width"``)."""
-    from spark_text_clustering_tpu_torch.ops import estep
     from spark_text_clustering_tpu_torch.ops.lda_math import dirichlet_expectation
     from spark_text_clustering_tpu_torch.ops.sparse import bucket_by_length
 
@@ -596,45 +661,8 @@ def check_estep(torch, rows, k, v, dev, rng, label, pick):
     cts = batch.token_weights.contiguous()
     alpha = torch.full((k,), 50.0 / k + 1.0, device=dev)
     g0 = torch.ones((len(idxs), k), device=dev)
-    got = estep.gamma_fixed_point_bkl(eb, cts, alpha, g0)
-    want, iters = estep.gamma_fixed_point_bkl_plain(eb, cts, alpha, g0,
-                                                   with_iters=True)
-    again = estep.gamma_fixed_point_bkl(eb, cts, alpha, g0)
-    torch.cuda.synchronize()
-    gn = got / got.sum(1, keepdim=True)
-    wn = want / want.sum(1, keepdim=True)
-    err = float((gn - wn).abs().max())
-    rel = float(((got - want).abs() / want.abs()).max())
-    if not err <= 5e-3 or not torch.equal(gn.argmax(1), wn.argmax(1)):
-        raise AssertionError(
-            f"gamma_fixed_point_bkl differs from its plain version by {err}")
-    if not torch.equal(got, again):
-        raise AssertionError(f"gamma_fixed_point_bkl does not repeat bit for "
-                             f"bit on {label}'s bucket [{len(idxs)}, {k}, {width}]")
-    nnz = (cts > 0).sum(1).to(torch.float64)
-    tile_b = min(8, len(idxs))
-    n_tiles = -(-len(idxs) // tile_b)
-    cluster = estep.cluster_size(n_tiles, width, estep._sm_count(dev))
-    per_doc_iters = iters.repeat_interleave(tile_b)[: len(idxs)].to(torch.float64)
-    flops = float((per_doc_iters * nnz * (4 * k + 1)).sum())
-    # bytes the kernel needs: eb of live slots only (it skips cts == 0
-    # before reading eb), every slot's cts, alpha, gamma0 and the output
-    live_eb = 4 * k * int(nnz.sum())
-    t_bytes, by = bound(live_eb + nbytes(cts, alpha, g0, got), flops)
-    return {
-        "name": "gamma_fixed_point_bkl", "config": label, "bucket": pick,
-        "shape": [len(idxs), k, width], "tiles": n_tiles, "cluster": cluster,
-        "instance": estep_instance(k, width, tile_b, cluster),
-        "tile_iterations_max": int(iters.max()),
-        "max_abs_err": err, "max_rel_err": rel,
-        "tolerance": "normalized gamma atol 5e-3, argmax equal",
-        "bitwise_repeatable": True,
-        "ms": cuda_ms(torch, lambda: estep.gamma_fixed_point_bkl(
-            eb, cts, alpha, g0), 5),
-        "plain_ms": cuda_ms(torch, lambda: estep.gamma_fixed_point_bkl_plain(
-            eb, cts, alpha, g0), 2),
-        "bound_ms": t_bytes, "bound_by": by, "library_ms": None,
-    }
+    return {"name": "gamma_fixed_point_bkl", "config": label, "bucket": pick,
+            **estep_case(torch, eb, cts, alpha, g0, label)}
 
 
 # (b, k, L, max_inner): b=21 and 13 are no multiple of tile_b=8 (three
@@ -761,7 +789,10 @@ def tiles_bound(torch, args, d, iters, live_slots):
 # holding one 512-token doc; n_shards=4 pads the tile axis with all-pad
 # tiles; "empty_slots" has token-less docs between live ones; one-token
 # docs give d=512 (state in shared memory), the NMF geometry rows d=2048
-# (state in the global scratch, as for k=64 and k=200)
+# (state in the global scratch, as for k=64 and k=200); "uniform" is a
+# minibatch of the host-streaming path as its planner cuts it: 20NG-shaped
+# docs and 200 pad picks in the last tiles, d=256, and the tile count
+# rounded up to a power of two with all-pad tiles
 TILES_EDGES = (
     ("k5", 5, "ng", 1, 100, 2), ("k20", 20, "ng", 1, 100, 3),
     ("k33", 33, "ng", 1, 100, 2), ("k64", 64, "ng", 1, 100, 2),
@@ -771,7 +802,23 @@ TILES_EDGES = (
     ("empty_slots", 20, "empty", 1, 100, 1),
     ("max_inner_0", 20, "ng", 1, 0, 2), ("max_inner_1", 20, "ng", 1, 1, 2),
     ("d512", 20, [1] * 600, 1, 100, 1), ("d2048", 20, "nmf", 1, 100, 1),
+    ("uniform", 20, "uniform", 1, 100, None),
 )
+
+
+def uniform_minibatch(packed, rng, lens, v, k, pads=200):
+    """One minibatch of ``len(lens)`` docs and ``pads`` pad picks, packed
+    and planned as the host-streaming online fit plans a chunk
+    (``plan_tile_pack_uniform``): its (ids, cts, seg, doc_ids) [n_tiles,
+    ...] and its doc count b."""
+    b = len(lens) + pads
+    ids = np.concatenate([np.sort(rng.choice(v, size=int(m), replace=False))
+                          for m in lens]).astype(np.int32)
+    seg = np.repeat(np.arange(len(lens), dtype=np.int32), lens)
+    cts = rng.integers(1, 6, ids.size).astype(np.float32)
+    plan = packed.plan_tile_pack_uniform([(ids, cts, seg)], b=b,
+                                         tile_tokens=512, k=k)
+    return plan.ids[0], plan.cts[0], plan.seg[0], plan.doc_ids[0], plan.d, b
 
 
 def check_tiles_edges(torch, dev, rng, seed):
@@ -786,54 +833,62 @@ def check_tiles_edges(torch, dev, rng, seed):
     empty[[3, 4, 9]] = 0
     cases = []
     for label, k, lens, n_shards, max_inner, n_tiles in TILES_EDGES:
-        if lens == "nmf":
-            rows = nmf_geometry_rows(seed)
+        uniform = isinstance(lens, str) and lens == "uniform"
+        if uniform:
+            t_ids, t_cts, t_seg, t_doc, d, b = uniform_minibatch(
+                packed, rng, ng[:200], v, k)
         else:
-            lens = {"ng": ng, "empty": empty}[lens] if isinstance(
-                lens, str) else lens
-            rows = [(np.sort(rng.choice(v, size=int(m), replace=False)).astype(np.int32),
-                     rng.integers(1, 6, int(m)).astype(np.float32)) for m in lens]
-        plan = packed.plan_corpus_tiles(*flat_rows(rows), n_shards=n_shards,
-                                        k=k)
-        sel = np.arange(min(n_tiles, plan.ids.shape[0]))
+            if lens == "nmf":
+                rows = nmf_geometry_rows(seed)
+            else:
+                lens = {"ng": ng, "empty": empty}[lens] if isinstance(
+                    lens, str) else lens
+                rows = [(np.sort(rng.choice(v, size=int(m), replace=False)).astype(np.int32),
+                         rng.integers(1, 6, int(m)).astype(np.float32)) for m in lens]
+            plan = packed.plan_corpus_tiles(*flat_rows(rows),
+                                            n_shards=n_shards, k=k)
+            sel = np.arange(min(n_tiles, plan.ids.shape[0]))
+            t_ids, t_cts, t_seg, t_doc = (
+                a[sel] for a in (plan.ids, plan.cts, plan.seg, plan.doc_ids))
+            d, b = plan.d, plan.b
         lam = torch.from_numpy(rng.gamma(1.0, 1.0, (k, v)).astype(np.float32)).to(dev)
-        flat = torch.from_numpy(plan.ids[sel]).to(dev).reshape(-1).long()
+        flat = torch.from_numpy(t_ids).to(dev).reshape(-1).long()
         eb = torch.exp(torch.digamma(lam[:, flat])
                        - torch.digamma(lam.sum(1))[:, None]).contiguous()
-        args = (eb, torch.from_numpy(plan.cts[sel]).to(dev),
-                torch.from_numpy(plan.seg[sel]).to(dev),
+        args = (eb, torch.from_numpy(t_cts).to(dev),
+                torch.from_numpy(t_seg).to(dev),
                 torch.full((k,), 1.0 / k, device=dev),
-                torch.from_numpy(rng.gamma(100.0, 0.01, (k, len(sel) * plan.d))
+                torch.from_numpy(rng.gamma(100.0, 0.01, (k, len(t_ids) * d))
                                  .astype(np.float32)).to(dev))
-        _, case = tiles_case(torch, packed, args, plan.d, label,
-                                plan.doc_ids[sel], plan.b, max_inner)
+        iters, case = tiles_case(torch, packed, args, d, label, t_doc, b,
+                                 max_inner)
+        if uniform:
+            # all-pad tiles: the first iteration sets their slots to
+            # alpha, the second sees no change
+            all_pad = torch.from_numpy(t_doc[:, 0] == b)
+            case["all_pad_tiles"] = int(all_pad.sum())
+            case["all_pad_tile_iterations"] = sorted(
+                set(iters[all_pad.to(iters.device)].tolist()))
+            if not (case["all_pad_tiles"] and d > 128 and
+                    case["all_pad_tile_iterations"] == [2]):
+                raise AssertionError(f"gamma_fixed_point_tiles, uniform "
+                                     f"plan: {case}")
         cases.append(case)
     return cases
 
 
 def fit_launches(torch, rows, seed):
     """Every tile-kernel launch of one online fit (config C) on the card:
-    its inputs and output, recorded around the fit's call of the kernel
-    (one launch an iteration), and the estimator (its ``tile_pick``)."""
+    its inputs (eb, cts, seg, alpha, gamma0) and output, recorded around
+    the fit's call of the kernel (one launch an iteration), and the
+    estimator (its ``tile_pick``)."""
     from spark_text_clustering_tpu_torch import OnlineLDA
     from spark_text_clustering_tpu_torch.models import online_lda
 
-    kernel = online_lda.gamma_fixed_point_tiles
-    seen = []
-
-    def record(eb, cts, seg, alpha, g0, d, max_inner, tol):
-        out = kernel(eb, cts, seg, alpha, g0, d, max_inner, tol)
-        seen.append(((eb.clone(), cts.clone(), seg.clone(), alpha.clone(),
-                      g0.clone()), out.clone()))
-        return out
-
     opt = OnlineLDA(online_params(seed))
-    online_lda.gamma_fixed_point_tiles = record
-    try:
+    with recorded(online_lda, "gamma_fixed_point_tiles") as seen:
         opt.fit(rows, [f"h{i}" for i in range(NG_V)])
-    finally:
-        online_lda.gamma_fixed_point_tiles = kernel
-    return seen, opt
+    return [(args[:5], out) for args, out in seen], opt
 
 
 def check_tiles(torch, rows, dev, rng, seed):
@@ -1232,7 +1287,8 @@ def run_config_c(torch, rows, seed, workdir):
     """Online VB on the card: a warm-up fit, then the timed fit -> save ->
     load -> log-perplexity of the first EVAL_DOCS docs, through the
     library's entry points; then ten iterations on the card against the
-    same ten with device="cpu", from the same lambda and gamma draws."""
+    same ten with device="cpu" and the card's rule, from the same lambda
+    and gamma draws."""
     from spark_text_clustering_tpu_torch import OnlineLDA, load_model
     from spark_text_clustering_tpu_torch.models.persistence import model_dir_name
     from spark_text_clustering_tpu_torch.ops import _build
@@ -1263,13 +1319,20 @@ def run_config_c(torch, rows, seed, workdir):
             raise AssertionError(f"config C skipped a kernel: {launches}")
 
     # card vs CPU: the CPU fit draws lambda and gamma on the card's
-    # generators, so both runs start from the same numbers
+    # generators, so both runs start from the same numbers, and takes the
+    # card's decisions (rule="card": the same tiles path, the plain
+    # version of the kernel)
     m = ONLINE_CHECK_ITERS
-    card = OnlineLDA(online_params(seed, m)).fit(rows, vocab)
+    card_opt = OnlineLDA(online_params(seed, m))
+    card = card_opt.fit(rows, vocab)
+    cpu_opt = OnlineLDA(online_params(seed, m), device="cpu",
+                        rng_device="cuda", rule="card")
     t0 = time.perf_counter()
-    cpu = OnlineLDA(online_params(seed, m), device="cpu",
-                    rng_device="cuda").fit(rows, vocab)
+    cpu = cpu_opt.fit(rows, vocab)
     t_cpu = time.perf_counter() - t0
+    if not card_opt.last_layout == cpu_opt.last_layout == "tiles_resident":
+        raise AssertionError(f"config C: card {card_opt.last_layout}, CPU "
+                             f"{cpu_opt.last_layout}")
     lam_rel = float(np.max(np.abs(card.lam - cpu.lam) / np.abs(cpu.lam)))
     lp_card = card.log_perplexity(eval_rows)
     lp_cpu = cpu.log_perplexity(eval_rows, device="cpu")
@@ -1393,7 +1456,7 @@ def cli_train(label, books, stop, device, models_dir, v, out_path,
     """``train`` (EM, k=EN_K, the defaults, plus ``extra``) on ``device``
     through ``cli.main``: (its console numbers and wall seconds, the one
     committed model dir it saved).  Fails unless it exits 0, saves one
-    committed model, prints a finite average log-likelihood and the
+    committed model, prints a finite average log-likelihood (EM) and the
     vocabulary size ``v`` (any, where ``v`` is None)."""
     from spark_text_clustering_tpu_torch.resilience import artifact_status
 
@@ -1415,7 +1478,9 @@ def cli_train(label, books, stop, device, models_dir, v, out_path,
             os.path.join(models_dir, saved[0])) != "committed":
         raise AssertionError(f"config {label} train on {device}: rc {rc}, "
                              f"models {saved}")
-    if not np.isfinite(nums.get("avg_log_likelihood", np.nan)):
+    # online VB prints no average log-likelihood (MLlib's EM metric)
+    if "online" not in extra and not np.isfinite(
+            nums.get("avg_log_likelihood", np.nan)):
         raise AssertionError(f"config {label} train on {device}: average "
                              f"logLik {nums.get('avg_log_likelihood')}")
     if v is not None and nums["cli_vocab"] != v:
@@ -1445,6 +1510,44 @@ def em_fits():
         yield fits
     finally:
         em_lda.EMLDA.fit = fit
+
+
+@contextlib.contextmanager
+def online_fits():
+    """Inside the block, each online fit is recorded as (estimator, its
+    rows): which path the CLI's fit took, and on what."""
+    from spark_text_clustering_tpu_torch.models import online_lda
+
+    fits, fit = [], online_lda.OnlineLDA.fit
+
+    def spy(self, rows, vocab, *args, **kwargs):
+        fits.append((self, rows))
+        return fit(self, rows, vocab, *args, **kwargs)
+
+    online_lda.OnlineLDA.fit = spy
+    try:
+        yield fits
+    finally:
+        online_lda.OnlineLDA.fit = fit
+
+
+@contextlib.contextmanager
+def recorded(module, name):
+    """Inside the block, every call of ``module.name`` (a kernel wrapper as
+    a fit's module sees it) is recorded as (args, output), cloned."""
+    kernel, seen = getattr(module, name), []
+
+    def record(*args):
+        out = kernel(*args)
+        seen.append((tuple(a.clone() if hasattr(a, "clone") else a
+                           for a in args), out.clone()))
+        return out
+
+    setattr(module, name, record)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, kernel)
 
 
 def cli_score(label, books, stop, device, out_dir, out_path, model_args):
@@ -1595,7 +1698,8 @@ def run_config_e(torch, seed, workdir):
         "bounds": {"max_dist_diff": 5e-3,
                    "avg_log_likelihood_rel_diff": 1e-4},
     })
-    return summary
+    return summary, {"root": root, "books": books, "stop": stop,
+                     "rows": tf_rows, "vocab": ds["vocab"]}
 
 
 def run_config_f(torch, seed, workdir, smi):
@@ -1770,15 +1874,263 @@ def run_config_f(torch, seed, workdir, smi):
     }
 
 
+def online_defaults(k, seed, iters=None):
+    """Configs G and H: online VB with the defaults the CLI's ``train
+    --algorithm online`` runs (MLlib's Bernoulli minibatches of
+    0.05 + 1/n of the corpus, ``token_layout="auto"``), 60 iterations as
+    C; H's CLI keeps its own default of 50."""
+    from spark_text_clustering_tpu_torch import Params
+
+    return Params(k=k, algorithm="online", seed=seed,
+                  max_iterations=ONLINE_ITERS if iters is None else iters)
+
+
+def live_slots(torch, seg, d):
+    """Doc slots holding tokens in the tile slabs ``seg`` [n_tiles, tt]."""
+    tile = torch.arange(seg.shape[0], device=seg.device)[:, None]
+    return int((tile * d + seg.long())[seg < d].unique().numel())
+
+
+def check_tiles_launches(torch, packed, seen, label):
+    """Every recorded tile-kernel launch of a fit against the plain
+    version (normalized gamma within 5e-3), with the plain version's
+    inner iterations; the launch of iteration 5 and the heaviest timed
+    and bounded."""
+    errs, its = [], []
+    for args, out in seen:
+        want, it = packed.gamma_fixed_point_tiles_plain(*args,
+                                                        with_iters=True)
+        wn = want / want.sum(0, keepdim=True)
+        errs.append(float((out / out.sum(0, keepdim=True) - wn).abs().max()))
+        its.append(it)
+    if not max(errs) <= 5e-3:
+        raise AssertionError(f"gamma_fixed_point_tiles differs from its plain "
+                             f"version by {max(errs)} in {label}'s launches")
+    heavy_at = max(range(len(its)), key=lambda i: (int(its[i].max()),
+                                                   float(its[i].float().mean())))
+
+    def timed(i):
+        args = seen[i][0][:5]
+        d = seen[i][0][5]
+        _, case = tiles_case(torch, packed, args, d, f"{label}_launch_{i}")
+        t_bytes, by = tiles_bound(torch, args, d, its[i],
+                                  live_slots(torch, args[2], d))
+        case.update(
+            launch=i, ms=cuda_ms(
+                torch, lambda: packed.gamma_fixed_point_tiles(*args, d), 20),
+            graph_ms=cuda_graph_ms(
+                torch, lambda: packed.gamma_fixed_point_tiles(*args, d), 20),
+            plain_ms=cuda_ms(torch, lambda: packed.gamma_fixed_point_tiles_plain(
+                *args, d), 2),
+            bound_ms=t_bytes, bound_by=by, library_ms=None)
+        return case
+
+    return {
+        "launches": len(seen), "max_abs_err": max(errs),
+        "tile_iterations_max": [int(i.max()) for i in its],
+        "iteration_5": timed(min(5, len(seen) - 1)),
+        "heavy": timed(heavy_at),
+    }
+
+
+def run_config_g(torch, rows, seed, workdir):
+    """Online VB with the defaults on config C's rows (raw counts, k=20):
+    MLlib's Bernoulli minibatches, so "auto" takes the host-streaming
+    packed path, each chunk's minibatches cut into tiles for the tile
+    kernel.  Every kernel launch of one fit is held against the plain
+    version; then a warm-up fit and the timed fit -> save -> load ->
+    log-perplexity of the first EVAL_DOCS docs, through the library's
+    entry points; then ten iterations on the card against the same ten
+    through the same tiles iteration with CPU tensors (``rule="card"``:
+    the plain versions), from the same lambda and gamma draws: lambda
+    within 1e-3 relative, the log-perplexity within 1e-4."""
+    from spark_text_clustering_tpu_torch import OnlineLDA, load_model
+    from spark_text_clustering_tpu_torch.models import online_lda
+    from spark_text_clustering_tpu_torch.models.persistence import model_dir_name
+    from spark_text_clustering_tpu_torch.ops import _build, packed
+
+    vocab = [f"h{i}" for i in range(NG_V)]
+    eval_rows = rows[:EVAL_DOCS]
+    with recorded(online_lda, "gamma_fixed_point_tiles") as seen:
+        OnlineLDA(online_defaults(NG_K, seed)).fit(rows, vocab)
+    kernel = check_tiles_launches(torch, packed, seen, "G")
+    del seen
+
+    opt = OnlineLDA(online_defaults(NG_K, seed))
+    opt.fit(rows, vocab)                                    # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    model = opt.fit(rows, vocab)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    path = model_dir_name("G", os.path.join(workdir, "models"))
+    model.save(path)
+    loaded = load_model(path)
+    t0 = time.perf_counter()
+    log_perp = loaded.log_perplexity(eval_rows)
+    t_eval = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    docs = [opt.sample_pick(i).size for i in range(ONLINE_ITERS)]
+    updates = sum(1 for d in docs if d)
+    if (opt.last_layout, opt.last_gamma_backend) != ("packed",
+                                                     "pallas_tiles"):
+        raise AssertionError(f"config G ran {opt.last_layout}/"
+                             f"{opt.last_gamma_backend}")
+    if launches["gamma_fixed_point_tiles"] != updates or kernel[
+            "launches"] != updates:
+        raise AssertionError(f"config G: {updates} updates, {launches}")
+    if not np.isfinite(log_perp) or not np.isfinite(model.lam).all() or (
+            not (model.lam > 0).all()):
+        raise AssertionError(f"config G: bad model (logPerp {log_perp})")
+
+    m = ONLINE_CHECK_ITERS
+    card = OnlineLDA(online_defaults(NG_K, seed, m)).fit(rows, vocab)
+    cpu_opt = OnlineLDA(online_defaults(NG_K, seed, m), device="cpu",
+                        rng_device="cuda", rule="card")
+    t0 = time.perf_counter()
+    cpu = cpu_opt.fit(rows, vocab)
+    t_cpu = time.perf_counter() - t0
+    if cpu_opt.last_gamma_backend != "pallas_tiles":
+        raise AssertionError(f"config G CPU: {cpu_opt.last_gamma_backend}")
+    lam_rel = float(np.max(np.abs(card.lam - cpu.lam) / np.abs(cpu.lam)))
+    lp_card = card.log_perplexity(eval_rows)
+    lp_cpu = cpu.log_perplexity(eval_rows, device="cpu")
+    lp_rel = abs(lp_card - lp_cpu) / abs(lp_cpu)
+    summary = {
+        "phase": "config_G", "docs": len(rows), "vocab": NG_V, "k": NG_K,
+        "iterations": ONLINE_ITERS, "sampling": "bernoulli",
+        "token_layout": "auto", "layout": opt.last_layout,
+        "gamma_backend": opt.last_gamma_backend,
+        "tokens": int(sum(len(i) for i, _ in rows)),
+        "batch_size": opt.last_batch_size,
+        "docs_per_iteration_mean": float(np.mean(docs)),
+        "batch_cells": opt.last_batch_cells,
+        "tile_chunks": opt.last_tile_chunks,
+        "fit_s": t_fit, "ms_per_iteration": 1e3 * t_fit / ONLINE_ITERS,
+        "docs_per_s": sum(docs) / t_fit,
+        "log_perplexity": log_perp, "eval_docs": len(eval_rows),
+        "eval_s": t_eval, "launches": launches, "kernel": kernel,
+        "check_iterations": m, "lam_max_rel_diff": lam_rel,
+        "log_perplexity_card": lp_card, "log_perplexity_cpu": lp_cpu,
+        "log_perplexity_rel_diff": lp_rel, "cpu_fit_s": t_cpu,
+        "bounds": {"lam_max_rel_diff": 1e-3, "log_perplexity_rel_diff": 1e-4},
+    }
+    if not lam_rel <= 1e-3 or not lp_rel <= 1e-4:
+        raise AssertionError(
+            f"config G: card vs CPU lambda rel {lam_rel}, logPerp rel {lp_rel}")
+    return summary
+
+
+def run_config_h(torch, seed, e):
+    """Online VB through the CLI with its defaults on config E's book
+    directory: ``train --algorithm online`` on the card (Bernoulli
+    minibatches of ~3.6 of the 51 books padded to 12; "auto" pads them,
+    and the padded corpus stays on the card: one [12, 5, 16384] E-step
+    kernel launch an iteration that draws a book) -> ``score`` on the
+    card against ``score --device cpu`` of the same model (5e-3, main
+    topics where the CPU's top two differ by 1e-2) -> ten iterations of
+    the library fit on E's TF-IDF rows on the card, every E-step launch
+    held against the plain version, against the same ten with CPU
+    tensors from the same lambda and gamma draws (lambda within 1e-3
+    relative)."""
+    from spark_text_clustering_tpu_torch import OnlineLDA, load_model
+    from spark_text_clustering_tpu_torch.models import online_lda
+    from spark_text_clustering_tpu_torch.ops import _build
+
+    root, books, stop = e["root"], e["books"], e["stop"]
+    rows, vocab = e["rows"], e["vocab"]
+    models = os.path.join(root, "models_online")
+    _build.reset_launches()
+    with online_fits() as fits:
+        nums, path = cli_train("H", books, stop, "cuda", models, len(vocab),
+                               os.path.join(root, "train_online.out"),
+                               ["--algorithm", "online"])
+    train_launches = dict(_build.LAUNCHES)
+    ((opt, fit_rows),) = fits
+    p = opt.params
+    iters = p.max_iterations
+    updates = sum(1 for i in range(iters) if opt.sample_pick(i).size)
+    resident = len(fit_rows) * opt.last_row_len * 8 <= p.resident_budget_bytes
+    if (opt.last_layout, opt.last_gamma_backend, p.sampling,
+            p.token_layout, resident) != ("padded", "pallas", "bernoulli",
+                                          "auto", True):
+        raise AssertionError(f"config H ran {opt.last_layout}/"
+                             f"{opt.last_gamma_backend} ({p.sampling}, "
+                             f"{p.token_layout}, resident {resident})")
+    if train_launches["gamma_fixed_point_bkl"] != updates:
+        raise AssertionError(f"config H train: {updates} updates, "
+                             f"{train_launches}")
+
+    reports, secs, score_launches = {}, {}, None
+    for device in ("cuda", "cpu"):
+        _build.reset_launches()
+        reports[device], secs[device] = cli_score(
+            "H", books, stop, device, os.path.join(root, f"out_online_{device}"),
+            os.path.join(root, f"score_online_{device}.out"),
+            ["--models-dir", models])
+        if device == "cuda":
+            score_launches = dict(_build.LAUNCHES)
+    diff, agreement, clear = distributions_agree("H", reports["cuda"],
+                                                 reports["cpu"])
+
+    m = ONLINE_CHECK_ITERS
+    card_opt = OnlineLDA(online_defaults(EN_K, seed, m))
+    with recorded(online_lda, "gamma_fixed_point_bkl") as seen:
+        card = card_opt.fit(rows, vocab)
+    check_updates = sum(1 for i in range(m) if card_opt.sample_pick(i).size)
+    cases = [estep_case(torch, *args[:4], f"H_launch_{i}")
+             for i, (args, _) in enumerate(seen)]
+    del seen
+    cpu_opt = OnlineLDA(online_defaults(EN_K, seed, m), device="cpu",
+                        rng_device="cuda", rule="card")
+    t0 = time.perf_counter()
+    cpu = cpu_opt.fit(rows, vocab)
+    t_cpu = time.perf_counter() - t0
+    if cpu_opt.last_layout != "padded" or len(cases) != check_updates:
+        raise AssertionError(f"config H: CPU {cpu_opt.last_layout}, "
+                             f"{len(cases)} card launches")
+    lam_rel = float(np.max(np.abs(card.lam - cpu.lam) / np.abs(cpu.lam)))
+    if not lam_rel <= 1e-3:
+        raise AssertionError(f"config H: card vs CPU lambda rel {lam_rel}")
+    model = load_model(path, device="cpu")
+    if model.algorithm != "online" or not np.isfinite(model.lam).all():
+        raise AssertionError("config H: bad model")
+    return {
+        "phase": "config_H", "docs": len(fit_rows), "vocab": len(vocab),
+        "k": EN_K, "iterations": iters, "updates": updates,
+        "sampling": p.sampling, "token_layout": p.token_layout,
+        "layout": opt.last_layout, "resident": resident,
+        "row_len": opt.last_row_len, "batch_size": opt.last_batch_size,
+        "batch_cells": opt.last_batch_cells,
+        "train_s": nums["train_s"], "preprocess_s": nums["preprocess_s"],
+        "fit_s": nums["fit_s"],
+        "ms_per_iteration": 1e3 * float(np.mean(model.iteration_times)),
+        "score_s": secs["cuda"], "cpu_score_s": secs["cpu"],
+        "max_dist_diff": diff, "main_topic_agreement": agreement,
+        "main_topic_clear_docs": clear,
+        "launches": {name: train_launches[name] + score_launches[name]
+                     for name in train_launches},
+        "train_launches": train_launches, "score_launches": score_launches,
+        "kernel": {"launches": len(cases),
+                   "max_abs_err": max(c["max_abs_err"] for c in cases),
+                   "first": cases[0],
+                   "ms": [c["ms"] for c in cases]},
+        "check_iterations": m, "lam_max_rel_diff": lam_rel,
+        "cpu_fit_s": t_cpu,
+        "bounds": {"max_dist_diff": 5e-3, "lam_max_rel_diff": 1e-3},
+    }
+
+
 def profile_configs(torch, rows_a, rows_b, seed, out_dir):
     """torch.profiler over one fit and the scoring (A, B: padded scoring
     of every doc; D: topic_distribution of EVAL_DOCS docs) or evaluation
-    (C: log-perplexity of EVAL_DOCS docs) of each config (count rows, no
-    IDF), and over E's and F's CLI ``train`` and ``score`` (the whole
-    commands, text front end included; F's fit is the padded sweep):
-    device time and calls by kernel name, and the device's busy share of
-    the window's wall time.  The full tables go to
-    ``<out_dir>/profile_{A,B,C,D,E,F}.txt`` when ``out_dir`` is given."""
+    (C, G: log-perplexity of EVAL_DOCS docs) of each config (count rows,
+    no IDF), and over E's, F's and H's CLI ``train`` and ``score`` (the
+    whole commands, text front end included; F's fit is the padded sweep,
+    H's online VB): device time and calls by kernel name, and the
+    device's busy share of the window's wall time.  The full tables go to
+    ``<out_dir>/profile_{A,...,H}.txt`` when ``out_dir`` is given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1796,9 +2148,9 @@ def profile_configs(torch, rows_a, rows_b, seed, out_dir):
         return (lambda: opt.fit(rows, vocab),
                 lambda model: model.topic_distribution(rows, layout="padded"))
 
-    def online_run(rows):
+    def online_run(rows, params):
         vocab = [f"h{i}" for i in range(NG_V)]
-        opt = OnlineLDA(online_params(seed))
+        opt = OnlineLDA(params)
         opt.fit(rows, vocab).log_perplexity(rows[:EVAL_DOCS])  # warm-up
         return (lambda: opt.fit(rows, vocab),
                 lambda model: model.log_perplexity(rows[:EVAL_DOCS]))
@@ -1810,13 +2162,14 @@ def profile_configs(torch, rows_a, rows_b, seed, out_dir):
         return (lambda: opt.fit(rows, vocab),
                 lambda model: model.topic_distribution(rows[:EVAL_DOCS]))
 
-    def cli_run(root, words=(8_000, 120_000)):
+    def cli_run(root, words=(8_000, 120_000), extra=()):
         stop = en_books_dir(seed, root, words=words)
         books, models = os.path.join(root, "books"), os.path.join(root, "m")
 
         def train():
             run_cli(["train", "--books", books, "--stop-words", stop,
-                     "--models-dir", models], os.path.join(root, "train.out"))
+                     "--models-dir", models, *extra],
+                    os.path.join(root, "train.out"))
 
         def score(_):
             run_cli(["score", "--books", books, "--stop-words", stop,
@@ -1827,11 +2180,17 @@ def profile_configs(torch, rows_a, rows_b, seed, out_dir):
     cli_root = tempfile.mkdtemp(prefix="chip_smoke_E_")
     for label, make in (("A", lambda: em_run(rows_a, EN_K, EN_V)),
                         ("B", lambda: em_run(rows_b, NG_K, NG_V)),
-                        ("C", lambda: online_run(rows_b)),
+                        ("C", lambda: online_run(rows_b,
+                                                 online_params(seed))),
                         ("D", lambda: nmf_run(rows_b)),
                         ("E", lambda: cli_run(os.path.join(cli_root, "E"))),
                         ("F", lambda: cli_run(os.path.join(cli_root, "F"),
-                                              (F_WORDS, F_WORDS)))):
+                                              (F_WORDS, F_WORDS))),
+                        ("G", lambda: online_run(
+                            rows_b, online_defaults(NG_K, seed))),
+                        ("H", lambda: cli_run(
+                            os.path.join(cli_root, "H"),
+                            extra=("--algorithm", "online")))):
         fit, score = make()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -2022,7 +2381,7 @@ def main() -> int:
 
         # 7. config E, the CLI
         t0 = time.perf_counter()
-        summary_e = run_config_e(torch, args.seed, workdir)
+        summary_e, books_e = run_config_e(torch, args.seed, workdir)
         summary_e["seconds"] = time.perf_counter() - t0
         emit(summary_e)
 
@@ -2031,30 +2390,49 @@ def main() -> int:
         summary_f = run_config_f(torch, args.seed, workdir, smi)
         summary_f["seconds"] = time.perf_counter() - t0
         emit(summary_f)
+
+        # 9. config G, online VB with the defaults on C's rows
+        t0 = time.perf_counter()
+        summary_g = run_config_g(torch, rows_b, args.seed, workdir)
+        summary_g["seconds"] = time.perf_counter() - t0
+        emit(summary_g)
+
+        # 10. config H, online VB through the CLI on E's books
+        t0 = time.perf_counter()
+        summary_h = run_config_h(torch, args.seed, books_e)
+        summary_h["seconds"] = time.perf_counter() - t0
+        emit(summary_h)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     if args.profile:
         profile_configs(torch, rows_a, rows_b, args.seed, args.out)
 
-    # 9. the kernels line; the sweep's error is the larger of config A's
+    # 11. the kernels line; the sweep's error is the larger of config A's
     # and config E's checks; the gamma row is config B's most populated
-    # bucket, and its error the largest of the four buckets and the edge
-    # geometries checked
+    # bucket, and its error the largest of the four buckets, the edge
+    # geometries and config H's launches checked; the tile row's error
+    # includes config G's launches
     sweep = checks["em_sweep_fused"]
     sweep["config_E"] = summary_e["sweep_check"]
     sweep["max_abs_err"] = max(sweep["max_abs_err"],
                                sweep["config_E"]["max_abs_err"])
+    tiles = checks["gamma_fixed_point_tiles"]
+    tiles["config_G"] = summary_g["kernel"]
+    tiles["max_abs_err"] = max(tiles["max_abs_err"],
+                               tiles["config_G"]["max_abs_err"])
     kernels = [
         sweep,
         checks["scatter_add_vtiles"],
-        checks["gamma_fixed_point_tiles"],
+        tiles,
         checks["nmf_mu_update_tiles"],
         {**esteps[2], "route": "cuda",
          "source": "spark_text_clustering_tpu_torch/csrc/estep.cu",
          "replaces": "spark_text_clustering_tpu/ops/pallas_estep.py:161",
-         "max_abs_err": max(e["max_abs_err"] for e in (*esteps, *estep_edges)),
-         "buckets": esteps, "geometries": estep_edges},
+         "max_abs_err": max([e["max_abs_err"] for e in (*esteps, *estep_edges)]
+                            + [summary_h["kernel"]["max_abs_err"]]),
+         "buckets": esteps, "geometries": estep_edges,
+         "config_H": summary_h["kernel"]},
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2064,13 +2442,14 @@ def main() -> int:
         kern["launches"] = sum(
             sm["launches"][name]
             for sm in (summary_a, summary_b, summary_c, summary_d, summary_e,
-                       summary_f))
+                       summary_f, summary_g, summary_h))
         if kern["launches"] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
         line.append({k_: kern[k_] for k_ in keys})
     record.update(build=build, kernels=kernels, config_A=summary_a,
                   config_B=summary_b, config_C=summary_c, config_D=summary_d,
-                  config_E=summary_e, config_F=summary_f)
+                  config_E=summary_e, config_F=summary_f, config_G=summary_g,
+                  config_H=summary_h)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)

@@ -1,15 +1,43 @@
 """Online variational-Bayes LDA on one device: MLlib's
-``OnlineLDAOptimizer`` over the device-resident tiled corpus (the JAX
-package's ``token_layout="tiles"`` path).
+``OnlineLDAOptimizer`` on every single-device path of the JAX package's
+online fit, chosen by the same rules.
 
-The corpus is tiled once, in doc order (``ops.packed.plan_corpus_tiles``),
-and stays on the device.  Each iteration draws a block-stratified epoch
-minibatch of whole tiles (every doc once per epoch; docs packed into one
-tile are drawn together), then:
+The minibatch: ``sampling="bernoulli"`` (MLlib's per-doc Bernoulli(f),
+the batch padded to its 4-sigma bound), ``"fixed"`` (round(f n) docs
+without replacement) or ``"epoch"`` (shuffled passes over the corpus).
+``sample_pick(it)`` is that numpy stream, pure in (seed, it) and equal to
+the JAX package's; picks are padded with the ids n, n+1, ... which read
+nothing.
 
-    eb     = exp(E[log beta]) at the minibatch's tokens           [k, T]
-    gamma  = the tile gamma fixed point (``gamma_fixed_point_tiles``:
-             the CUDA kernel on the card, its plain version on the CPU)
+The paths, in the order ``fit`` tries them:
+
+* tiles-resident (``sampling="epoch"`` with ``token_layout="tiles"``, or
+  "auto" where the padded row is at least 4x the mean doc): the corpus is
+  tiled once (``ops.packed.plan_corpus_tiles``) and kept on the device,
+  and an iteration draws a block-stratified epoch minibatch of whole
+  tiles; ``tiles_iteration``;
+* packed, host-streaming (``"packed"``, or "auto" with that padding
+  waste): each minibatch is gathered on the host into flat token arrays,
+  then on the card cut into tiles (``plan_tile_pack_uniform``) for
+  ``tiles_iteration``, on the CPU run by the flat segment loop
+  ``packed_iteration``;
+* padded (otherwise): the corpus [n+1, row_len] uploaded once
+  (``device_resident``), or each minibatch grouped into power-of-two
+  length buckets on the host; ``padded_estep`` and ``padded_mstep``.
+
+Two rules decide among them, as in the JAX package: the card follows
+its TPU rule (where its kernels run: tiles planned with a 128-doc floor,
+the tile kernel on both tiled paths); the CPU its non-TPU rule (tiles
+planned with a 1-doc floor, "auto" leaving the tiles path when the doc
+slots exceed 3n or the batch maps to fewer than 2 tiles, and the
+whole-batch segment loop in place of the tile kernel).  ``rule=``
+chooses either on any device.  One iteration:
+
+    eb     = exp(E[log beta]) at the minibatch's tokens
+    gamma  = the gamma fixed point: the tile kernel
+             (``gamma_fixed_point_tiles``) or the padded E-step kernel
+             (``gamma_fixed_point_bkl``), each the CUDA kernel on the card
+             and its plain version on the CPU, or the segment loop
     sstats = sum over tokens of exp(E[log theta]) * cts / phinorm * eb,
              scattered into [k, V]
     lambda <- (1 - rho) lambda + rho (eta + D / |B| sstats),
@@ -18,50 +46,98 @@ tile are drawn together), then:
 Random draws come from explicit ``torch.Generator``s on ``rng_device``
 (the fit's device unless asked otherwise): lambda from one seeded by
 (seed, 0xFFFF), and each iteration's gamma inits from one Gamma table
-[n+1, k] seeded by (seed, 0x6A33, step) and indexed by each slot's
-global doc id (pad slots read row n), so a doc's init depends on (seed,
-step, doc) only.
-A fit resumes from ``<checkpoint_dir>/train_state.npz`` (lam [k, V],
-step): the JAX package's checkpoint.
-
-Only this path is ported: other sampling modes, the padded and
-host-streaming packed layouts, and sharding raise ``NotImplementedError``.
+[n+1, k] seeded by (seed, 0x6A33, step) and indexed by each doc's global
+id (pad ids read row n), so a doc's init depends on (seed, step, doc)
+only, on every path.  A fit resumes from
+``<checkpoint_dir>/train_state.npz`` (lam [k, V], step): the JAX
+package's checkpoint.  Sharding raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
-from typing import List, Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..config import Params
 from ..device import resolve_device
-from ..ops.lda_math import init_gamma, init_lambda, seeded_generator
-from ..ops.packed import gamma_fixed_point_tiles, plan_corpus_tiles
-from ..ops.sparse import next_pow2
+from ..ops.estep import gamma_fixed_point_bkl
+from ..ops.lda_math import (
+    dirichlet_expectation,
+    gamma_fixed_point_segments,
+    init_gamma,
+    init_lambda,
+    seeded_generator,
+    token_sstats_factors_bkl,
+    token_sstats_factors_segments,
+)
+from ..ops.packed import (
+    docs_gamma_to_tiles,
+    gamma_fixed_point_tiles,
+    plan_corpus_tiles,
+    plan_tile_pack_uniform,
+)
+from ..ops.sparse import batch_from_rows, next_pow2
 from ..utils.timing import IterationTimer
 from .base import LDAModel
 from .persistence import load_train_state, save_train_state, train_state_valid
 
-__all__ = ["OnlineLDA", "tiles_iteration"]
+__all__ = [
+    "OnlineLDA",
+    "packed_iteration",
+    "padded_estep",
+    "padded_iteration",
+    "padded_mstep",
+    "tiles_iteration",
+]
 
 _PHI_EPS = 1e-30
 _LAMBDA_KEY = 0xFFFF     # lambda's generator: (seed, 0xFFFF)
 _GAMMA_KEY = 0x6A33      # step t's gamma inits: (seed, 0x6A33, t)
 _TILE_EPOCH_KEY = 0x71E5  # the tile sampler's numpy stream, as in JAX
+_DOC_EPOCH_KEY = 0xE90C   # the doc-level epoch stream, as in JAX
+_RULES = ("card", "cpu")
+
+
+def _rho_scale(step: int, tau0: float, kappa: float, corpus_size: float,
+               batch_docs: int) -> Tuple[np.float32, np.float32]:
+    """rho_t = (tau0 + t + 1)^-kappa and D / |B|, in float32 as in JAX."""
+    rho = np.float32(
+        (np.float32(tau0) + np.float32(step) + np.float32(1.0))
+        ** np.float32(-kappa))
+    return rho, np.float32(corpus_size) / np.float32(max(batch_docs, 1))
+
+
+def _blend_touched(lam, touched, step, batch_docs, *, eta, tau0, kappa,
+                   corpus_size):
+    """The packed paths' M-step, affine in lambda: (1 - rho) lambda +
+    rho eta + rho (D/|B|) touched, where ``touched`` is sstats * eb."""
+    rho, scale = _rho_scale(step, tau0, kappa, corpus_size, batch_docs)
+    lam_new = lam * float(np.float32(1.0) - rho) + float(rho * np.float32(eta))
+    return lam_new.add_(touched, alpha=float(rho * scale))
+
+
+def _eb_at(lam: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+    """exp(E[log beta]) at the token ids ``flat``: [k, T], from lambda's
+    columns there and its row sums (the full [k, V] never forms)."""
+    return torch.exp(
+        torch.digamma(lam[:, flat].clamp(min=1e-30))
+        - torch.digamma(lam.sum(dim=1))[:, None]
+    )
 
 
 def tiles_iteration(
     lam: torch.Tensor,           # [k, V]
     step: int,
-    ids_t: torch.Tensor,         # [tb, tt] int32 token ids of the picked tiles
+    ids_t: torch.Tensor,         # [tb, tt] int32 token ids of the tiles
     cts_t: torch.Tensor,         # [tb, tt] float32
     seg_t: torch.Tensor,         # [tb, tt] int32 tile-local doc slots
     gamma0: torch.Tensor,        # [k, tb * d] gamma inits in slot order
-    batch_docs: int,             # real docs in the picked tiles
+    batch_docs: int,             # docs the minibatch counts
     *,
     alpha: torch.Tensor,
     eta: float,
@@ -71,123 +147,348 @@ def tiles_iteration(
     corpus_size: float,
     max_inner: int = 100,
     tol: float = 1e-3,
+    per_tile_stop: bool = True,
 ) -> torch.Tensor:
     """One online-VB update from a minibatch of tiles; returns the new
-    lambda (the input is not modified).  The steps follow the JAX
-    package's tiles-resident iteration; only the gamma fixed point is a
-    kernel, the rest is plain torch, as JAX leaves it to XLA."""
+    lambda (the input is not modified).  The JAX package's tiles
+    iterations (resident and host-streaming): the gamma fixed point is the
+    tile kernel, or with ``per_tile_stop=False`` its whole-batch segment
+    twin over the tile slots (the JAX package's non-TPU loop); the rest is
+    plain torch, as JAX leaves it to XLA."""
     if batch_docs <= 0:
         return lam                     # MLlib skips an empty minibatch
     tb = ids_t.shape[0]
     flat = ids_t.reshape(-1).long()
-    row_sum = lam.sum(dim=1)                                   # [k]
-    lam_tok = lam[:, flat]                                     # [k, T]
-    eb_kt = torch.exp(
-        torch.digamma(lam_tok.clamp(min=1e-30))
-        - torch.digamma(row_sum)[:, None]
-    )
-    gamma_tiles = gamma_fixed_point_tiles(
-        eb_kt, cts_t, seg_t, alpha, gamma0, d, max_inner, tol
-    )                                                          # [k, tb*d]
+    eb_kt = _eb_at(lam, flat)                                  # [k, T]
+    tile = torch.arange(tb, device=seg_t.device)[:, None]
+    slot = (tile * d + seg_t.clamp(max=d - 1)).reshape(-1)     # [T]
+    if per_tile_stop:
+        gamma_tiles = gamma_fixed_point_tiles(
+            eb_kt, cts_t, seg_t, alpha, gamma0, d, max_inner, tol
+        )                                                      # [k, tb*d]
+    else:
+        # pad tokens (cts == 0) add nothing on the slot they clamp to
+        gamma_s, _ = gamma_fixed_point_segments(
+            eb_kt.T, cts_t.reshape(-1), slot, alpha, gamma0.T, max_inner,
+            tol)
+        gamma_tiles = gamma_s.T
     exp_et = torch.exp(
         torch.digamma(gamma_tiles)
         - torch.digamma(gamma_tiles.sum(dim=0, keepdim=True))
     )
-    tile = torch.arange(tb, device=seg_t.device)[:, None]
-    slot = (tile * d + seg_t.clamp(max=d - 1)).reshape(-1)     # [T]
     et_tok = exp_et[:, slot]
     # pad token slots carry cts == 0 and contribute nothing
     phinorm = (eb_kt * et_tok).sum(dim=0) + _PHI_EPS
     vals = et_tok * (cts_t.reshape(-1) / phinorm)[None, :] * eb_kt
     touched = torch.zeros_like(lam).index_add_(1, flat, vals)
-    # rho_t = (tau0 + t + 1)^-kappa and the blend, in float32 as in JAX
-    rho = np.float32(
-        (np.float32(tau0) + np.float32(step) + np.float32(1.0))
-        ** np.float32(-kappa))
-    scale = np.float32(corpus_size) / np.float32(max(batch_docs, 1))
-    lam_new = lam * float(np.float32(1.0) - rho) + float(rho * np.float32(eta))
-    return lam_new.add_(touched, alpha=float(rho * scale))
+    return _blend_touched(lam, touched, step, batch_docs, eta=eta,
+                          tau0=tau0, kappa=kappa, corpus_size=corpus_size)
+
+
+def packed_iteration(
+    lam: torch.Tensor,           # [k, V]
+    step: int,
+    ids: torch.Tensor,           # [T] token ids of the minibatch
+    cts: torch.Tensor,           # [T] float32
+    seg: torch.Tensor,           # [T] minibatch position of each token
+    gamma0: torch.Tensor,        # [B, k] gamma inits by position
+    batch_docs: int,             # nonempty docs of the minibatch
+    *,
+    alpha: torch.Tensor,
+    eta: float,
+    tau0: float,
+    kappa: float,
+    corpus_size: float,
+    max_inner: int = 100,
+    tol: float = 1e-3,
+) -> torch.Tensor:
+    """One online-VB update from a flat token-packed minibatch (the JAX
+    package's ``make_online_packed_chunk``): the whole-batch segment gamma
+    loop, then the affine M-step."""
+    if batch_docs <= 0:
+        return lam
+    flat = ids.long()
+    eb_tok = _eb_at(lam, flat).T                               # [T, k]
+    gamma, _ = gamma_fixed_point_segments(eb_tok, cts, seg, alpha, gamma0,
+                                          max_inner, tol)
+    vals = token_sstats_factors_segments(eb_tok, cts, seg, gamma)
+    touched = torch.zeros_like(lam).index_add_(1, flat, (vals * eb_tok).T)
+    return _blend_touched(lam, touched, step, batch_docs, eta=eta,
+                          tau0=tau0, kappa=kappa, corpus_size=corpus_size)
+
+
+def padded_estep(
+    eb: torch.Tensor,            # [k, V] exp(E[log beta])
+    ids: torch.Tensor,           # [B, L] int32
+    wts: torch.Tensor,           # [B, L] float32
+    gamma0: torch.Tensor,        # [B, k]
+    *,
+    alpha: torch.Tensor,
+    max_inner: int = 100,
+    tol: float = 1e-3,
+) -> torch.Tensor:
+    """The raw sufficient statistics [k, V] of one padded batch: eb
+    gathered as [B, k, L], the padded E-step kernel (per-tile stop), the
+    final responsibilities, one ``index_add_``."""
+    b, l = ids.shape
+    k = eb.shape[0]
+    flat = ids.reshape(-1).long()
+    eb_tok = eb[:, flat].reshape(k, b, l).transpose(0, 1).contiguous()
+    gamma = gamma_fixed_point_bkl(eb_tok, wts.contiguous(), alpha,
+                                  gamma0.contiguous(), max_inner, tol)
+    vals = token_sstats_factors_bkl(eb_tok, wts, gamma)        # [B, k, L]
+    return torch.zeros_like(eb).index_add_(
+        1, flat, vals.transpose(0, 1).reshape(k, -1))
+
+
+def padded_mstep(
+    lam: torch.Tensor,           # [k, V]
+    eb: torch.Tensor,            # [k, V]
+    sstats: torch.Tensor,        # [k, V]
+    step: int,
+    batch_docs: int,
+    *,
+    eta: float,
+    tau0: float,
+    kappa: float,
+    corpus_size: float,
+) -> torch.Tensor:
+    """Hoffman's M-step: lambda_hat = eta + (D/|B|) sstats * eb, then
+    (1 - rho) lambda + rho lambda_hat; lambda as it is for an empty
+    minibatch."""
+    if batch_docs <= 0:
+        return lam
+    rho, scale = _rho_scale(step, tau0, kappa, corpus_size, batch_docs)
+    lam_hat = (sstats * eb).mul_(float(scale)).add_(float(np.float32(eta)))
+    return lam * float(np.float32(1.0) - rho) + lam_hat.mul_(float(rho))
+
+
+def padded_iteration(
+    lam: torch.Tensor,           # [k, V]
+    step: int,
+    ids: torch.Tensor,           # [B, L] int32
+    wts: torch.Tensor,           # [B, L] float32
+    gamma0: torch.Tensor,        # [B, k]
+    batch_docs: int,             # docs with weight, (wts.sum(-1) > 0).sum()
+    *,
+    alpha: torch.Tensor,
+    eta: float,
+    tau0: float,
+    kappa: float,
+    corpus_size: float,
+    max_inner: int = 100,
+    tol: float = 1e-3,
+) -> torch.Tensor:
+    """One online-VB update from a padded minibatch (the JAX package's
+    resident step, ``_online_step_core``)."""
+    if batch_docs <= 0:
+        return lam
+    eb = torch.exp(dirichlet_expectation(lam))
+    sstats = padded_estep(eb, ids, wts, gamma0, alpha=alpha,
+                          max_inner=max_inner, tol=tol)
+    return padded_mstep(lam, eb, sstats, step, batch_docs, eta=eta,
+                        tau0=tau0, kappa=kappa, corpus_size=corpus_size)
+
+
+def _online_batch_size(p: Params, n: int) -> Tuple[int, float]:
+    """(docs a minibatch holds, the sampling fraction f): ``batch_size``
+    docs or MLlib's fraction of the corpus (clamped to 1); under
+    ``"bernoulli"`` the batch is padded to ceil(f n + 4 sqrt(f n (1 - f))
+    + 1), which a draw overflows with probability ~3e-5."""
+    fraction = min(
+        1.0,
+        p.batch_size / max(1, n) if p.batch_size is not None
+        else p.mini_batch_fraction(n),
+    )
+    if p.sampling == "bernoulli":
+        mean = fraction * n
+        bsz = int(np.ceil(mean + 4.0 * np.sqrt(mean * (1 - fraction)) + 1))
+        return min(bsz, n), fraction
+    if p.batch_size is not None:
+        return min(p.batch_size, n), fraction
+    return max(1, min(n, round(fraction * n))), fraction
+
+
+def _sample_stream(p: Params, n: int, bsz: int,
+                   fraction: float) -> Callable[[int], np.ndarray]:
+    """``sample_pick(it)``: the unpadded doc ids of iteration ``it``."""
+    perms: dict = {}
+
+    def epoch_perm(epoch: int) -> np.ndarray:
+        if epoch not in perms:
+            perms.clear()
+            perms[epoch] = np.random.default_rng(
+                (p.seed, _DOC_EPOCH_KEY, epoch)).permutation(n).astype(
+                    np.int32)
+        return perms[epoch]
+
+    def sample_pick(it: int) -> np.ndarray:
+        if p.sampling == "epoch":
+            size = min(bsz, n)
+            out = np.empty(size, np.int32)
+            filled, start = 0, it * size
+            while filled < size:
+                epoch, off = divmod(start + filled, n)
+                take = min(size - filled, n - off)
+                out[filled:filled + take] = epoch_perm(epoch)[off:off + take]
+                filled += take
+            return out
+        rng = np.random.default_rng((p.seed, it))
+        if p.sampling == "bernoulli":
+            return np.flatnonzero(rng.random(n) < fraction)[:bsz].astype(
+                np.int32)
+        return rng.choice(n, size=min(bsz, n), replace=False).astype(np.int32)
+
+    return sample_pick
+
+
+def _dispatch_interval(p: Params, ckpt_path, verbose: bool, n_iters: int,
+                       bytes_per_iter: int = 0) -> int:
+    """Iterations a chunk covers: 1 when each is timed, the checkpoint
+    interval when checkpointing, else the whole run; capped so a chunk
+    stages at most ``dispatch_budget_bytes`` (the JAX package's rule)."""
+    if verbose or p.record_iteration_times:
+        return 1
+    cap = max(1, p.checkpoint_interval) if ckpt_path else max(1, n_iters)
+    if bytes_per_iter > 0:
+        cap = min(cap, max(1, p.dispatch_budget_bytes // bytes_per_iter))
+    return cap
+
+
+def _save_cadence(p: Params, interval: int) -> int:
+    """Iterations between checkpoints for ``interval``-iteration chunks:
+    ``checkpoint_interval``, or the chunk where the budget cut it
+    shorter."""
+    ck = max(1, p.checkpoint_interval)
+    return ck if interval <= 1 or interval >= ck else interval
+
+
+def _flatten(rows) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The corpus as flat (ids, cts) token arrays and [n+1] doc fences."""
+    offsets = np.zeros(len(rows) + 1, np.int64)
+    np.cumsum([len(i) for i, _ in rows], out=offsets[1:])
+    if not rows:
+        return np.zeros(0, np.int32), np.zeros(0, np.float32), offsets
+    return (np.concatenate([np.asarray(i, np.int32) for i, _ in rows]),
+            np.concatenate([np.asarray(w, np.float32) for _, w in rows]),
+            offsets)
+
+
+@dataclass
+class _Run:
+    """What one fit's paths share."""
+
+    n: int
+    k: int
+    bsz: int
+    n_iters: int
+    start_it: int
+    alpha: np.ndarray
+    alpha_t: torch.Tensor
+    eta: float
+    lam: torch.Tensor
+    ckpt_path: Optional[str]
+    verbose: bool
+    timer: IterationTimer
+    make_pick: Callable[[int], np.ndarray]
 
 
 class OnlineLDA:
-    """Estimator for the online path: ``fit(rows, vocab) -> LDAModel``
-    with the online auto priors alpha = eta = 1/k."""
+    """Estimator: ``fit(rows, vocab) -> LDAModel`` with the online auto
+    priors alpha = eta = 1/k.  ``rule`` is "card" (the JAX package's TPU
+    rule) or "cpu" (its non-TPU rule); by default the device's."""
 
-    def __init__(self, params: Params, device="cuda", rng_device=None) -> None:
+    def __init__(self, params: Params, device="cuda", rng_device=None,
+                 rule: Optional[str] = None) -> None:
         if params.algorithm != "online":
             params = params.replace(algorithm="online")
         if params.model_shards != 1 or params.data_shards not in (None, 1):
             raise NotImplementedError(
-                "data_shards/model_shards > 1 are not ported: the port's "
-                "online fit runs on one device"
+                "data_shards/model_shards > 1 are not ported yet (ROADMAP.md "
+                "queue 1 item 6, sharding): the port's online fit runs on "
+                "one device"
             )
         self.params = params
         self.device = resolve_device(device)
         self.rng_device = (
             self.device if rng_device is None else resolve_device(rng_device)
         )
+        self.rule = rule or ("card" if self.device.type == "cuda" else "cpu")
+        if self.rule not in _RULES:
+            raise ValueError(f"unknown rule {rule!r} (use 'card'|'cpu')")
         self.last_batch_size: Optional[int] = None
-        self.last_layout = "none"
+        self.last_row_len: Optional[int] = None
+        self.last_layout = "padded"
+        self.last_batch_cells: Optional[int] = None
+        # the gamma loop the last tiled or packed fit ran: "pallas_tiles"
+        # (the tile kernel), "xla_tiles" (the segment loop over tile
+        # slots), "xla" (the flat segment loop; the JAX package's names),
+        # or "pallas" (the padded E-step kernel)
+        self.last_gamma_backend = "xla"
         self.last_tiles: Optional[dict] = None
+        # per chunk of the packed path on tiles: its geometry
+        self.last_tile_chunks: List[dict] = []
         self._corpus_cache = None
 
     # ------------------------------------------------------------------
-    def _batch_size(self, n: int) -> int:
-        """Docs an iteration: ``batch_size``, else MLlib's fraction of
-        the corpus (clamped to 1 for a tiny corpus)."""
+    def _gamma_rows(self, run: _Run, step: int,
+                    ids: torch.Tensor) -> torch.Tensor:
+        """Step ``step``'s gamma inits [len(ids), k] on the fit's device,
+        read from the step's Gamma table at ``ids`` (on ``rng_device``;
+        ids past n read row n)."""
         p = self.params
-        if p.batch_size is not None:
-            return min(p.batch_size, n)
-        fraction = min(1.0, p.mini_batch_fraction(n))
-        return max(1, min(n, round(fraction * n)))
+        gen = seeded_generator(self.rng_device, p.seed, _GAMMA_KEY, step)
+        table = init_gamma(gen, run.n + 1, run.k, p.gamma_shape,
+                           device=self.rng_device)
+        return table[ids.clamp(max=run.n).long()].to(self.device)
 
-    def _check_path(self, rows) -> None:
-        """Raise for every configuration whose path is not ported."""
-        p = self.params
-        if p.sampling not in ("fixed", "bernoulli", "epoch"):
-            raise ValueError(f"unknown sampling {p.sampling!r} "
-                             "(use 'fixed'|'bernoulli'|'epoch')")
-        if p.token_layout not in ("padded", "packed", "tiles", "auto"):
-            raise ValueError(f"unknown token_layout {p.token_layout!r} "
-                             "(use 'padded'|'packed'|'tiles'|'auto')")
-        if p.token_layout == "tiles" and p.sampling != "epoch":
-            raise ValueError(
-                "token_layout='tiles' requires sampling='epoch' (the "
-                "tiled-resident path walks a block-stratified epoch "
-                "stream over resident corpus tiles)"
-            )
-        if p.sampling != "epoch":
-            raise NotImplementedError(
-                f"sampling={p.sampling!r} is not ported: the port trains "
-                "sampling='epoch' on the tiles-resident path"
-            )
-        if p.token_layout in ("padded", "packed"):
-            raise NotImplementedError(
-                f"token_layout={p.token_layout!r} (the padded and "
-                "host-streaming packed online paths) is not ported; use "
-                "'tiles' or 'auto'"
-            )
-        if p.device_resident is False:
-            raise NotImplementedError(
-                "device_resident=False selects the host-streaming online "
-                "path, which is not ported"
-            )
-        if p.token_layout == "auto":
-            n = len(rows)
-            max_nnz = max((len(i) for i, _ in rows), default=1)
-            mean_nnz = max(1.0, sum(len(i) for i, _ in rows) / max(1, n))
-            if max(8, next_pow2(max_nnz)) < 4.0 * mean_nnz:
-                raise NotImplementedError(
-                    "token_layout='auto' takes the padded online path for "
-                    "this corpus (padding waste < 4x), which is not "
-                    "ported; pass token_layout='tiles'"
-                )
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
-    def _plan(self, rows, n: int, k: int):
-        """The corpus plan, its real tiles and the resident tensors,
-        cached across fits of the same corpus (keyed by content: doc
-        count, token total, and three sample rows)."""
-        p = self.params
+    def _save(self, run: _Run, it: int, lam: torch.Tensor) -> None:
+        save_train_state(run.ckpt_path, it, lam=lam.cpu().numpy())
+
+    def _model(self, run: _Run, lam: torch.Tensor, vocab) -> LDAModel:
+        return LDAModel(
+            lam=lam.cpu().numpy(),
+            vocab=list(vocab),
+            alpha=run.alpha,
+            eta=float(run.eta),
+            gamma_shape=self.params.gamma_shape,
+            iteration_times=list(run.timer.times),
+            iteration_times_kind=run.timer.kind,
+            algorithm="online",
+            step=run.start_it + len(run.timer.times),
+            device=str(self.device),
+        )
+
+    def _chunked(self, run: _Run, interval: int, chunk, label: str):
+        """Iterations start..n_iters in chunks of up to ``interval``
+        (``chunk(lam, it, m) -> lam``), each timed as one span and split;
+        checkpoints on the JAX package's cadence.  Returns lambda."""
+        lam, it = run.lam, run.start_it
+        cadence = _save_cadence(self.params, interval)
+        while it < run.n_iters:
+            m = min(interval - (it % interval), run.n_iters - it)
+            run.timer.start()
+            lam = chunk(lam, it, m)
+            self._sync()
+            run.timer.stop()
+            run.timer.split_last(m)
+            if run.verbose:
+                print(f"iter {it}: {run.timer.times[-1]:.4f}s ({label})")
+            it += m
+            if run.ckpt_path and it % cadence == 0:
+                self._save(run, it, lam)
+        return lam
+
+    # ---- the tiles-resident path -------------------------------------
+    def _tile_corpus(self, rows, n: int, k: int, kernel: bool):
+        """The corpus tile plan and its real tile count, cached across
+        fits of the same corpus (keyed by content: doc count, token total
+        and three sample rows) and planning rule; the resident tensors
+        join the entry on first use.  None when no geometry fits."""
         offsets = np.zeros(n + 1, np.int64)
         np.cumsum([len(i) for i, _ in rows], out=offsets[1:])
         fp = hashlib.blake2b(digest_size=16)
@@ -196,85 +497,53 @@ class OnlineLDA:
         for i in ((0, n // 2, n - 1) if n else ()):
             fp.update(np.asarray(rows[i][0], np.int32).tobytes())
             fp.update(np.asarray(rows[i][1], np.float32).tobytes())
-        key = (fp.hexdigest(), n, int(offsets[-1]), k, str(self.device),
-               str(self.rng_device))
+        key = (fp.hexdigest(), n, int(offsets[-1]), k, kernel,
+               str(self.device), str(self.rng_device))
         if self._corpus_cache is not None and self._corpus_cache[0] == key:
             return self._corpus_cache[1]
-        flat_ids = (np.concatenate([np.asarray(i, np.int32) for i, _ in rows])
-                    if rows else np.zeros(0, np.int32))
-        flat_cts = (np.concatenate([np.asarray(w, np.float32) for _, w in rows])
-                    if rows else np.zeros(0, np.float32))
-        plan = plan_corpus_tiles(flat_ids, flat_cts, offsets, n_shards=1, k=k)
-        if plan is None:
-            raise NotImplementedError(
-                "no tile geometry fits this corpus (a document wider than "
-                "the tile budget); the host-streaming packed path it needs "
-                "is not ported"
-            )
+        flat_ids, flat_cts, _ = _flatten(rows)
+        # the kernel's plan keeps the JAX package's 128-doc-slot floor; its
+        # segment twin has no such floor
+        plan = plan_corpus_tiles(flat_ids, flat_cts, offsets, n_shards=1,
+                                 k=k, min_tile_docs=128 if kernel else 1)
+        entry = None if plan is None else {
+            "plan": plan, "n_real": int((plan.doc_ids[:, 0] < n).sum()),
+            "resident": None}
+        self._corpus_cache = (key, entry)
+        return entry
+
+    def _fit_tiles_resident(self, rows, vocab, run: _Run, forced: bool):
+        """Device-resident tiled epoch training, or None where the JAX
+        package's rule declines it (no geometry, over budget, and for
+        "auto" under the CPU rule: doc slots past 3n, or fewer than 2
+        tiles a minibatch)."""
+        p = self.params
+        n, k = run.n, run.k
+        kernel = self.rule == "card" or forced
+        entry = self._tile_corpus(rows, n, k, kernel)
+        if entry is None:
+            return None
+        plan, n_real = entry["plan"], entry["n_real"]
         resident_bytes = (plan.ids.nbytes + plan.cts.nbytes
                           + plan.seg.nbytes + plan.doc_ids.nbytes)
         if resident_bytes > p.resident_budget_bytes:
-            raise NotImplementedError(
-                f"the tiled corpus ({resident_bytes} bytes) exceeds "
-                f"resident_budget_bytes={p.resident_budget_bytes}; the "
-                "host-streaming packed path it needs is not ported"
-            )
-        n_real = int((plan.doc_ids[:, 0] < n).sum())
+            return None
+        n_tiles = plan.ids.shape[0]
+        if not kernel and n_tiles * plan.d > 3.0 * max(1, n):
+            return None              # the segment twin pays for pad slots
         if n_real == 0:
-            raise ValueError("the corpus has no documents")
-        dev = self.device
-        resident = tuple(
-            torch.from_numpy(a).to(dev)
-            for a in (plan.ids, plan.cts, plan.seg, plan.doc_ids)
-        )
-        doc_rng = resident[3].to(self.rng_device)
-        out = (plan, n_real, resident, doc_rng, resident_bytes)
-        self._corpus_cache = (key, out)
-        return out
-
-    # ------------------------------------------------------------------
-    def fit(
-        self,
-        rows: Sequence[Tuple[np.ndarray, np.ndarray]],
-        vocab: List[str],
-        verbose: bool = False,
-        max_iterations: Optional[int] = None,
-    ) -> LDAModel:
-        p = self.params
-        dev, rng_dev = self.device, self.rng_device
-        n_iters = p.max_iterations if max_iterations is None else max_iterations
-        n, k, v = len(rows), p.k, len(vocab)
-        alpha = np.full((k,), p.resolved_alpha(), np.float32)
-        eta = p.resolved_eta()
-        self._check_path(rows)
-        bsz = self._batch_size(n)
-
-        ckpt_path = (os.path.join(p.checkpoint_dir, "train_state.npz")
-                     if p.checkpoint_dir else None)
-        start_it = 0
-        if ckpt_path and train_state_valid(ckpt_path):
-            st = load_train_state(ckpt_path, require=("lam",))
-            if st["lam"].shape != (k, v):
-                raise ValueError(
-                    f"checkpoint lam {st['lam'].shape} != expected {(k, v)}")
-            start_it = st["step"]
-            lam = torch.as_tensor(st["lam"], dtype=torch.float32).to(dev)
-        else:
-            lam = init_lambda(seeded_generator(rng_dev, p.seed, _LAMBDA_KEY),
-                              k, v, p.gamma_shape, device=dev)
-
-        plan, n_real, resident, doc_rng, resident_bytes = self._plan(rows, n, k)
-        ids_res, cts_res, seg_res, _ = resident
+            return None
         # tiles per iteration: the doc-level batch fraction in tiles
-        tb_target = round(bsz / max(1, n) * n_real)
-        if p.token_layout == "auto" and tb_target < 2:
-            raise NotImplementedError(
-                "token_layout='auto' leaves the tiles path when the batch "
-                f"fraction maps to {tb_target} tile(s) an iteration (< 2); "
-                "the host-streaming packed path it takes is not ported; "
-                "pass token_layout='tiles'"
-            )
+        tb_target = round(run.bsz / max(1, n) * n_real)
+        if not forced and tb_target < 2:
+            return None
         tb_l = max(1, tb_target)
+        if entry["resident"] is None:
+            resident = tuple(
+                torch.from_numpy(a).to(self.device)
+                for a in (plan.ids, plan.cts, plan.seg, plan.doc_ids))
+            entry["resident"] = (resident, resident[3].to(self.rng_device))
+        (ids_res, cts_res, seg_res, _), doc_rng = entry["resident"]
 
         # block-stratified epoch stream over the real tiles, pure in
         # (seed, it): the JAX package's stream for its one data shard
@@ -303,64 +572,332 @@ class OnlineLDA:
         self.tile_pick = tile_pick
         self.last_batch_size = int(round(n * tb_l / n_real))
         self.last_layout = "tiles_resident"
+        self.last_gamma_backend = "pallas_tiles" if kernel else "xla_tiles"
+        self.last_batch_cells = tb_l * plan.tt
         self.last_tiles = {
-            "n_tiles": int(plan.ids.shape[0]), "tt": plan.tt, "d": plan.d,
+            "n_tiles": int(n_tiles), "tt": plan.tt, "d": plan.d,
             "tiles_per_iter": tb_l, "reals_per_shard": [n_real],
             "resident_bytes": resident_bytes,
         }
-        alpha_t = torch.from_numpy(alpha).to(dev)
+        dev, rng_dev = self.device, self.rng_device
 
-        def iteration(lam, it: int, pick_np, pick, pick_rng):
-            batch_docs = int((plan.doc_ids[pick_np] < n).sum())
-            # this step's Gamma table [n+1, k], read at each slot's doc id
-            gen = seeded_generator(rng_dev, p.seed, _GAMMA_KEY, it)
-            table = init_gamma(gen, n + 1, k, p.gamma_shape, device=rng_dev)
-            gamma0 = table[doc_rng[pick_rng].reshape(-1).long()].T
-            return tiles_iteration(
-                lam, it, ids_res[pick], cts_res[pick], seg_res[pick],
-                gamma0.contiguous().to(dev), batch_docs, alpha=alpha_t,
-                eta=eta, tau0=p.tau0, kappa=p.kappa, d=plan.d,
-                corpus_size=float(n), max_inner=p.estep_max_inner,
-                tol=p.estep_tol,
-            )
-
-        def sync():
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-
-        per_iter = verbose or p.record_iteration_times
-        interval = 1 if per_iter else (
-            max(1, p.checkpoint_interval) if ckpt_path else max(1, n_iters))
-        timer = IterationTimer()
-        it = start_it
-        while it < n_iters:
-            m = min(interval - (it % interval), n_iters - it)
-            timer.start()
+        def chunk(lam, it, m):
             # the chunk's picks go to the device in one copy: a copy per
             # iteration would wait for the card every iteration
             picks = np.stack([tile_pick(i)[0] for i in range(it, it + m)])
             picks_dev = torch.from_numpy(picks).to(dev)
             picks_rng = picks_dev.to(rng_dev)
             for j in range(m):
-                lam = iteration(lam, it + j, picks[j], picks_dev[j],
-                                picks_rng[j])
-            sync()
+                pick = picks_dev[j]
+                gamma0 = self._gamma_rows(
+                    run, it + j, doc_rng[picks_rng[j]].reshape(-1)).T
+                lam = tiles_iteration(
+                    lam, it + j, ids_res[pick], cts_res[pick], seg_res[pick],
+                    gamma0.contiguous(),
+                    int((plan.doc_ids[picks[j]] < n).sum()),
+                    alpha=run.alpha_t, eta=run.eta, tau0=p.tau0,
+                    kappa=p.kappa, d=plan.d, corpus_size=float(n),
+                    max_inner=p.estep_max_inner, tol=p.estep_tol,
+                    per_tile_stop=kernel)
+            return lam
+
+        interval = _dispatch_interval(p, run.ckpt_path, run.verbose,
+                                      run.n_iters, 4 * tb_l)
+        lam = self._chunked(run, interval, chunk, "tiles-resident")
+        return self._model(run, lam, vocab)
+
+    # ---- the host-streaming packed path ------------------------------
+    def _fit_packed(self, rows, vocab, run: _Run):
+        """Each chunk's minibatches gathered on the host as flat token
+        arrays, then cut into tiles for the tile kernel (the card's rule;
+        the flat loop where no tile geometry fits) or run by the flat
+        segment loop (the CPU's)."""
+        p = self.params
+        n, k = run.n, run.k
+        dev, rng_dev = self.device, self.rng_device
+        flat_ids, flat_cts, offsets = _flatten(rows)
+        doc_lens = np.diff(offsets)
+        # one corpus-wide token width, so every chunk tiles alike
+        tile_tt = max(512, next_pow2(int(doc_lens.max()) if n else 0))
+        use_tiles = self.rule == "card"
+        kw = dict(alpha=run.alpha_t, eta=run.eta, tau0=p.tau0,
+                  kappa=p.kappa, corpus_size=float(n),
+                  max_inner=p.estep_max_inner, tol=p.estep_tol)
+
+        def pack(pick):
+            """One minibatch -> (ids [t], cts [t], seg [t], nonempty docs):
+            one ragged gather of every picked doc's tokens."""
+            real_pos = np.flatnonzero(pick < n)
+            real = pick[real_pos]
+            lens = offsets[real + 1] - offsets[real]
+            total = int(lens.sum())
+            if not total:
+                return (np.zeros(0, np.int32), np.zeros(0, np.float32),
+                        np.zeros(0, np.int32), int((lens > 0).sum()))
+            shift = np.repeat(
+                offsets[real] - np.concatenate(([0], np.cumsum(lens)[:-1])),
+                lens)
+            idx = np.arange(total, dtype=np.int64) + shift
+            seg = np.repeat(real_pos.astype(np.int32), lens)
+            return (flat_ids[idx], flat_cts[idx], seg,
+                    int((lens > 0).sum()))
+
+        cells = [0, 0]          # cells over the iterations run, iterations
+        self.last_tile_chunks = []
+
+        def tiles_chunk(lam, it, picks, packs, plan):
+            m = len(packs)
+            self.last_gamma_backend = "pallas_tiles"
+            real_tiles = [int((plan.doc_ids[j, :, 0] < plan.b).sum())
+                          for j in range(m)]
+            self.last_tile_chunks.append({
+                "iterations": m, "d": plan.d, "n_tiles": plan.n_tiles,
+                "tt": plan.tt,
+                "all_pad_share": 1.0 - sum(real_tiles) / (m * plan.n_tiles)})
+            cells[0] += plan.n_tiles * plan.tt * m
+            ids_c, cts_c, seg_c, doc_c = (
+                torch.from_numpy(a).to(dev)
+                for a in (plan.ids, plan.cts, plan.seg, plan.doc_ids))
+            picks_rng = torch.from_numpy(picks).to(rng_dev)
+            for j, pk in enumerate(packs):
+                gamma0 = docs_gamma_to_tiles(
+                    self._gamma_rows(run, it + j, picks_rng[j]), doc_c[j])
+                lam = tiles_iteration(lam, it + j, ids_c[j], cts_c[j],
+                                      seg_c[j], gamma0, pk[3], d=plan.d,
+                                      **kw)
+            return lam
+
+        def flat_chunk(lam, it, picks, packs):
+            self.last_gamma_backend = "xla"
+            sizes = [pk[0].size for pk in packs]
+            # the batch's cells as the JAX package pads them
+            cells[0] += next_pow2(max(8, max(sizes))) * len(packs)
+            fence = np.concatenate(([0], np.cumsum(sizes)))
+            ids_c, cts_c, seg_c = (
+                torch.from_numpy(np.concatenate([pk[i] for pk in packs])).to(dev)
+                for i in range(3))
+            picks_rng = torch.from_numpy(picks).to(rng_dev)
+            for j, pk in enumerate(packs):
+                sl = slice(int(fence[j]), int(fence[j + 1]))
+                lam = packed_iteration(
+                    lam, it + j, ids_c[sl], cts_c[sl], seg_c[sl],
+                    self._gamma_rows(run, it + j, picks_rng[j]), pk[3], **kw)
+            return lam
+
+        def chunk(lam, it, m):
+            nonlocal use_tiles
+            picks = np.stack([run.make_pick(i) for i in range(it, it + m)])
+            packs = [pack(pk) for pk in picks]
+            self.last_layout = "packed"
+            cells[1] += m
+            plan = None
+            if use_tiles:
+                plan = plan_tile_pack_uniform(
+                    [pk[:3] for pk in packs], b=picks.shape[1],
+                    tile_tokens=tile_tt, k=k)
+                # no tile geometry fits: the whole fit takes the flat loop
+                use_tiles = plan is not None
+            if plan is not None:
+                lam = tiles_chunk(lam, it, picks, packs, plan)
+            else:
+                lam = flat_chunk(lam, it, picks, packs)
+            self.last_batch_cells = cells[0] // cells[1]
+            return lam
+
+        est_cells = next_pow2(
+            max(8, int(doc_lens.mean() * run.bsz)) if n else 8)
+        interval = _dispatch_interval(p, run.ckpt_path, run.verbose,
+                                      run.n_iters, 32 * est_cells)
+        lam = self._chunked(run, interval, chunk, "packed")
+        return self._model(run, lam, vocab)
+
+    # ---- the padded paths --------------------------------------------
+    def _resident_arrays(self, rows, n: int, row_len: int):
+        """The padded corpus [n+1, row_len] on the device (its last row
+        all zero, for pad picks), or None where ``device_resident`` is
+        False, or "auto" and over ``resident_budget_bytes``."""
+        p = self.params
+        nbytes = n * row_len * 8  # int32 ids + float32 weights
+        if p.device_resident is not True and not (
+            p.device_resident == "auto" and nbytes <= p.resident_budget_bytes
+        ):
+            return None
+        empty = (np.zeros(0, np.int32), np.zeros(0, np.float32))
+        batch = batch_from_rows(list(rows) + [empty], row_len=row_len,
+                                device=self.device)
+        return batch.token_ids, batch.token_weights
+
+    def _fit_padded_resident(self, rows, vocab, run: _Run, resident,
+                             nonempty: np.ndarray):
+        """The padded corpus resident on the device; each iteration
+        gathers its picked rows there and runs the padded E-step kernel."""
+        p = self.params
+        n = run.n
+        ids_res, wts_res = resident
+        dev, rng_dev = self.device, self.rng_device
+        kw = dict(alpha=run.alpha_t, eta=run.eta, tau0=p.tau0,
+                  kappa=p.kappa, corpus_size=float(n),
+                  max_inner=p.estep_max_inner, tol=p.estep_tol)
+        self.last_gamma_backend = "pallas"
+
+        def chunk(lam, it, m):
+            picks = np.stack([run.make_pick(i) for i in range(it, it + m)])
+            picks_rng = torch.from_numpy(picks).to(rng_dev)
+            picks = np.minimum(picks, n)          # pad picks read row n
+            picks_dev = torch.from_numpy(picks).to(dev)
+            for j in range(m):
+                docs = int(nonempty[picks[j]].sum())
+                if docs:
+                    pick = picks_dev[j]
+                    lam = padded_iteration(
+                        lam, it + j, ids_res[pick], wts_res[pick],
+                        self._gamma_rows(run, it + j, picks_rng[j]), docs,
+                        **kw)
+            return lam
+
+        interval = _dispatch_interval(p, run.ckpt_path, run.verbose,
+                                      run.n_iters)
+        lam = self._chunked(run, interval, chunk, "padded-resident")
+        return self._model(run, lam, vocab)
+
+    def _fit_padded_host(self, rows, vocab, run: _Run, row_len: int,
+                         nonempty: np.ndarray):
+        """Each minibatch grouped into power-of-two length buckets on the
+        host (one bucket of ``row_len`` where ``bucket_by_length`` is
+        off), each bucket's doc axis padded to a power of two; the
+        buckets' statistics add up before one M-step."""
+        p = self.params
+        n, dev = run.n, self.device
+        self.last_gamma_backend = "pallas"
+        empty = (np.zeros(0, np.int32), np.zeros(0, np.float32))
+        lam, timer = run.lam, run.timer
+        for it in range(run.start_it, run.n_iters):
+            timer.start()
+            pick = self.sample_pick(it)
+            if pick.size:
+                if p.bucket_by_length:
+                    groups: dict = {}
+                    for i in pick:
+                        width = max(8, next_pow2(len(rows[i][0])))
+                        groups.setdefault(width, []).append(int(i))
+                else:
+                    groups = {row_len: [int(i) for i in pick]}
+                eb = torch.exp(dirichlet_expectation(lam))
+                sstats = torch.zeros_like(lam)
+                docs = 0
+                for width, idxs in sorted(groups.items()):
+                    b_pad = next_pow2(len(idxs))
+                    batch = batch_from_rows(
+                        [rows[i] for i in idxs]
+                        + [empty] * (b_pad - len(idxs)),
+                        row_len=width, device=dev)
+                    doc_ids = torch.from_numpy(np.asarray(
+                        idxs + list(range(n, n + b_pad - len(idxs))),
+                        np.int64)).to(self.rng_device)
+                    sstats += padded_estep(
+                        eb, batch.token_ids, batch.token_weights,
+                        self._gamma_rows(run, it, doc_ids), alpha=run.alpha_t,
+                        max_inner=p.estep_max_inner, tol=p.estep_tol)
+                    docs += int(nonempty[idxs].sum())
+                lam = padded_mstep(lam, eb, sstats, it, docs, eta=run.eta,
+                                   tau0=p.tau0, kappa=p.kappa,
+                                   corpus_size=float(n))
+                self._sync()
+            # an empty Bernoulli draw skips the update, not the checkpoint
             timer.stop()
-            timer.split_last(m)
-            if verbose:
-                print(f"iter {it}: {timer.times[-1]:.4f}s (tiles-resident)")
-            it += m
-            if ckpt_path and it % max(1, p.checkpoint_interval) == 0:
-                save_train_state(ckpt_path, it, lam=lam.cpu().numpy())
-        return LDAModel(
-            lam=lam.cpu().numpy(),
-            vocab=list(vocab),
-            alpha=alpha,
-            eta=float(eta),
-            gamma_shape=p.gamma_shape,
-            iteration_times=list(timer.times),
-            iteration_times_kind=timer.kind,
-            algorithm="online",
-            step=start_it + len(timer.times),
-            device=str(dev),
-        )
+            if run.verbose:
+                print(f"iter {it}: {timer.times[-1]:.4f}s (padded-host)")
+            if run.ckpt_path and (it + 1) % p.checkpoint_interval == 0:
+                self._save(run, it + 1, lam)
+        return self._model(run, lam, vocab)
+
+    # ------------------------------------------------------------------
+    def fit(
+        self,
+        rows: Sequence[Tuple[np.ndarray, np.ndarray]],
+        vocab: List[str],
+        verbose: bool = False,
+        max_iterations: Optional[int] = None,
+    ) -> LDAModel:
+        p = self.params
+        if p.sampling not in ("fixed", "bernoulli", "epoch"):
+            raise ValueError(f"unknown sampling {p.sampling!r} "
+                             "(use 'fixed'|'bernoulli'|'epoch')")
+        if p.token_layout not in ("padded", "packed", "tiles", "auto"):
+            raise ValueError(f"unknown token_layout {p.token_layout!r} "
+                             "(use 'padded'|'packed'|'tiles'|'auto')")
+        if p.token_layout == "tiles" and p.sampling != "epoch":
+            raise ValueError(
+                "token_layout='tiles' requires sampling='epoch' (the "
+                "tiled-resident path walks a block-stratified epoch "
+                "stream over resident corpus tiles)"
+            )
+        dev = self.device
+        n_iters = p.max_iterations if max_iterations is None else max_iterations
+        n, k, v = len(rows), p.k, len(vocab)
+        alpha = np.full((k,), p.resolved_alpha(), np.float32)
+        eta = p.resolved_eta()
+
+        bsz, fraction = _online_batch_size(p, n)
+        self.last_batch_size = min(bsz, n)
+        self.sample_pick = _sample_stream(p, n, bsz, fraction)
+        lens = np.array([len(i) for i, _ in rows], np.int64)
+        max_nnz = int(lens.max()) if n else 1
+        row_len = max(8, next_pow2(max_nnz))
+        mean_nnz = max(1.0, float(lens.sum()) / max(1, n))
+        self.last_row_len = row_len
+        self.last_layout = "padded"
+        self.last_batch_cells = bsz * row_len
+
+        ckpt_path = (os.path.join(p.checkpoint_dir, "train_state.npz")
+                     if p.checkpoint_dir else None)
+        start_it = 0
+        if ckpt_path and train_state_valid(ckpt_path):
+            st = load_train_state(ckpt_path, require=("lam",))
+            if st["lam"].shape != (k, v):
+                raise ValueError(
+                    f"checkpoint lam {st['lam'].shape} != expected {(k, v)}")
+            start_it = st["step"]
+            lam = torch.as_tensor(st["lam"], dtype=torch.float32).to(dev)
+        else:
+            lam = init_lambda(
+                seeded_generator(self.rng_device, p.seed, _LAMBDA_KEY),
+                k, v, p.gamma_shape, device=dev)
+
+        def make_pick(it: int) -> np.ndarray:
+            """``sample_pick`` padded to bsz with the inert ids n, n+1..."""
+            pick = self.sample_pick(it)
+            return np.concatenate(
+                [pick, np.arange(n, n + bsz - pick.size, dtype=np.int32)])
+
+        run = _Run(n=n, k=k, bsz=bsz, n_iters=n_iters, start_it=start_it,
+                   alpha=alpha, alpha_t=torch.from_numpy(alpha).to(dev),
+                   eta=eta, lam=lam, ckpt_path=ckpt_path,
+                   verbose=verbose, timer=IterationTimer(),
+                   make_pick=make_pick)
+
+        waste = row_len >= 4.0 * mean_nnz
+        if p.sampling == "epoch" and p.device_resident is not False and (
+            p.token_layout == "tiles"
+            or (p.token_layout == "auto" and waste)
+        ):
+            model = self._fit_tiles_resident(
+                rows, vocab, run, forced=p.token_layout == "tiles")
+            if model is not None:
+                return model
+        # an explicit device_resident=True wins over the auto layout, an
+        # explicit "packed" over everything
+        if p.token_layout in ("packed", "tiles") or (
+            p.token_layout == "auto" and p.device_resident is not True
+            and waste
+        ):
+            return self._fit_packed(rows, vocab, run)
+        # docs the M-step counts: (wts.sum(-1) > 0), and pad picks none
+        nonempty = np.zeros(n + 1, bool)
+        nonempty[:n] = [float(np.sum(w, dtype=np.float32)) > 0
+                        for _, w in rows]
+        resident = self._resident_arrays(rows, n, row_len)
+        if resident is not None:
+            return self._fit_padded_resident(rows, vocab, run, resident,
+                                             nonempty)
+        return self._fit_padded_host(rows, vocab, run, row_len, nonempty)

@@ -31,6 +31,8 @@ __all__ = [
     "seeded_generator",
     "gamma_fixed_point_batch",
     "gamma_fixed_point_segments",
+    "token_sstats_factors_bkl",
+    "token_sstats_factors_segments",
     "topic_inference",
     "topic_inference_segments",
 ]
@@ -151,6 +153,33 @@ def gamma_fixed_point_segments(
         if float(worst) < tol:
             break
     return gamma, it
+
+
+def token_sstats_factors_segments(
+    eb_tok: torch.Tensor,    # [T, k]
+    cts: torch.Tensor,       # [T]
+    seg: torch.Tensor,       # [T]
+    gamma: torch.Tensor,     # [B, k]
+) -> torch.Tensor:
+    """Final per-token responsibility factors of a token-packed batch,
+    vals [T, k]: scatter-added over token ids (after ``* eb_tok``) they
+    are the sufficient statistics times exp(E[log beta])."""
+    et_tok = torch.exp(dirichlet_expectation(gamma))[seg.long()]   # [T, k]
+    phinorm = (eb_tok * et_tok).sum(-1) + _PHI_EPS                # [T]
+    return et_tok * (cts / phinorm)[:, None]
+
+
+def token_sstats_factors_bkl(
+    eb_tok: torch.Tensor,    # [B, k, L] gathered exp(E[log beta])
+    cts: torch.Tensor,       # [B, L]
+    gamma: torch.Tensor,     # [B, k]
+) -> torch.Tensor:
+    """The same factors in the padded [B, k, L] layout of the E-step
+    kernel: vals [B, k, L], scatter-added over token ids they are the raw
+    sufficient statistics."""
+    et_k = torch.exp(dirichlet_expectation(gamma))[:, :, None]     # [B, k, 1]
+    phinorm = (eb_tok * et_k).sum(dim=1) + _PHI_EPS               # [B, L]
+    return et_k * (cts / phinorm)[:, None]                        # [B, k, L]
 
 
 def _normalize(gamma: torch.Tensor, nonempty: torch.Tensor) -> torch.Tensor:

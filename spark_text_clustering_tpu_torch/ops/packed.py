@@ -4,7 +4,8 @@ The corpus is packed once, in doc order, into tiles of ``tt`` token slots
 and ``d`` doc slots with no document straddling a tile
 (``plan_corpus_tiles``; numpy, the JAX package's planner copied so the
 plan, and with it which docs are sampled together, is the same on every
-device).  A tile's live tokens come first, doc-contiguous with ``seg``
+device).  The host-streaming online fit plans each chunk of minibatches
+with one shared geometry instead (``plan_tile_pack_uniform``).  A tile's live tokens come first, doc-contiguous with ``seg``
 nondecreasing; pad tokens (``seg == d``, ``cts == 0``) sit at its end; its
 live doc slots are ``0..n_live-1`` and pad slots follow.
 
@@ -35,7 +36,9 @@ from .estep import _prep_alpha, digamma_approx
 
 __all__ = [
     "TilePlan",
+    "UniformTilePlan",
     "plan_tile_pack",
+    "plan_tile_pack_uniform",
     "plan_corpus_tiles",
     "gamma_fixed_point_tiles",
     "gamma_fixed_point_tiles_plain",
@@ -167,6 +170,85 @@ def plan_tile_pack(
         )
         out_doc.reshape(-1)[doc_tile * d + doc_pos] = np.arange(b)
     return TilePlan(out_ids, out_cts, out_seg, out_doc, tt, d, b)
+
+
+class UniformTilePlan(NamedTuple):
+    """``m`` minibatch tile plans sharing one geometry (tt, d, n_tiles).
+    Arrays are [m, n_tiles, tt] / [m, n_tiles, d]; the tiles past a
+    batch's own count are all pad (``seg == d``, ``doc_ids == b``) and
+    contribute nothing."""
+
+    ids: np.ndarray      # [m, n_tiles, tt] int32
+    cts: np.ndarray      # [m, n_tiles, tt] float32
+    seg: np.ndarray      # [m, n_tiles, tt] int32 (== d for pad slots)
+    doc_ids: np.ndarray  # [m, n_tiles, d] int32 (== b for pad slots)
+    tt: int
+    d: int
+    n_tiles: int
+    b: int
+
+
+def plan_tile_pack_uniform(
+    batches,
+    b: int,
+    tile_tokens: Optional[int] = None,
+    n_tiles_multiple: int = 1,
+    k: int = 0,
+) -> Optional[UniformTilePlan]:
+    """Plan a chunk of packed minibatches, each (ids, cts, seg) over the
+    same ``b`` doc positions, with one geometry: ``tt`` from the chunk's
+    widest doc (or ``tile_tokens``), ``d`` from its fullest tile, and
+    ``n_tiles`` from its largest batch rounded up to a power of two and
+    then to ``n_tiles_multiple``.  The JAX package's planner, budget and
+    rounding included, so both packages cut a minibatch into the same
+    tiles.  None when no geometry fits the budget."""
+    batches = list(batches)
+    if not batches:
+        return None
+    max_nnz = 0
+    for _, cts, seg in batches:
+        cts_a, seg_a = np.asarray(cts), np.asarray(seg)
+        if cts_a.size:
+            counts = np.bincount(seg_a[cts_a > 0].astype(np.int64),
+                                 minlength=b)
+            if counts.size:
+                max_nnz = max(max_nnz, int(counts.max()))
+    tt = tile_tokens or max(512, _pow2(max_nnz))
+    if max_nnz > tt:
+        return None
+    cap = _VMEM_TILE_BUDGET // (4 * tt) - 2 - 2 * k
+    if cap < _MIN_TILE_DOCS:
+        return None
+    cap = 1 << (cap.bit_length() - 1)  # pow2 floor: pow2-up(d) <= cap
+
+    plans = []
+    for ids, cts, seg in batches:
+        p = plan_tile_pack(ids, cts, seg, b, tile_tokens=tt, max_docs=cap,
+                           k=k)
+        if p is None:
+            return None
+        plans.append(p)
+    d = max(p.d for p in plans)
+    n_tiles = _pow2(max(p.ids.shape[0] for p in plans))
+    n_tiles = -(-n_tiles // n_tiles_multiple) * n_tiles_multiple
+    if (d + 2 + 2 * k) * tt * 4 > _VMEM_TILE_BUDGET:
+        return None
+
+    m = len(plans)
+    out_ids = np.zeros((m, n_tiles, tt), np.int32)
+    out_cts = np.zeros((m, n_tiles, tt), np.float32)
+    out_seg = np.full((m, n_tiles, tt), d, np.int32)
+    out_doc = np.full((m, n_tiles, d), b, np.int32)
+    for j, p in enumerate(plans):
+        nt = p.ids.shape[0]
+        out_ids[j, :nt] = p.ids
+        out_cts[j, :nt] = p.cts
+        s = p.seg.copy()
+        s[s == p.d] = d  # the pad sentinel at the shared d
+        out_seg[j, :nt] = s
+        out_doc[j, :nt, : p.doc_ids.shape[1]] = p.doc_ids
+    return UniformTilePlan(out_ids, out_cts, out_seg, out_doc,
+                           tt, d, n_tiles, b)
 
 
 def plan_corpus_tiles(

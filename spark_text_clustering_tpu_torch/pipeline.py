@@ -249,7 +249,7 @@ class LDAModelTransformer(Transformer):
 
 
 class LDA(Estimator):
-    """The LDA facade: EM, online VB on the tiles-resident path, or NMF
+    """The LDA facade: EM, online VB (every single-device path), or NMF
     (the estimator swap), by ``params.algorithm``."""
 
     def __init__(self, params: Params, device="cuda"):

@@ -21,11 +21,13 @@ import shutil
 import jax
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke
 from spark_text_clustering_tpu import cli as jcli
 from spark_text_clustering_tpu import pipeline as jpipeline
 from spark_text_clustering_tpu.config import Params as JParams
+from spark_text_clustering_tpu.models import online_lda as jonline
 from spark_text_clustering_tpu.models.persistence import (
     save_train_state as j_save_train_state,
 )
@@ -36,6 +38,7 @@ from spark_text_clustering_tpu_torch import cli as tcli
 from spark_text_clustering_tpu_torch import pipeline as tpipeline
 from spark_text_clustering_tpu_torch.config import Params as TParams
 from spark_text_clustering_tpu_torch.interop import lda_model_from_numpy
+from spark_text_clustering_tpu_torch.models import online_lda as tonline
 from spark_text_clustering_tpu_torch.ops import tfidf as ttfidf
 from spark_text_clustering_tpu_torch.resilience import resume as tresume
 from spark_text_clustering_tpu_torch.utils import native as tnative
@@ -581,22 +584,82 @@ def test_unported_flags_exit_2_and_name_their_item(tmp_path, argv, flag,
     assert f"error: {flag} is not ported yet (ROADMAP.md queue 1 {item}" in se
 
 
-@pytest.mark.parametrize("algo_argv,words", [
-    (["--algorithm", "online"], (300, 1500)),
-    (["--algorithm", "online", "--sampling", "epoch", "--token-layout",
-      "padded"], (800, 800)),
-], ids=["online_bernoulli", "online_padded"])
-def test_estimator_not_implemented_exits_2(native_lib, tmp_path, algo_argv,
-                                           words):
-    """Online with the default bernoulli sampling, and online on the padded
-    layout, exit 2 with the estimator's message."""
-    stop = chip_smoke.en_books_dir(9, str(tmp_path), n_books=6, words=words)
+def _online_start(books, stop, path, seed=23):
+    """One random lambda [K, V] over the CLI's vocabulary, written as a
+    step-0 train_state.npz by the JAX package's checkpoint writer."""
+    ds = {"texts": [d.text for d in read_text_dir(books)]}
+    ds = tpipeline.TextPreprocessor(
+        stop_words=tcli._load_stop_words(stop)).transform(ds)
+    ds = tpipeline.CountVectorizer().fit(ds).transform(ds)
+    lam = np.random.default_rng(seed).gamma(100.0, 0.01,
+                                            (K, len(ds["vocab"])))
+    j_save_train_state(os.path.join(path, "train_state.npz"), 0,
+                       lam=lam.astype(np.float32))
+
+
+ONLINE_ARGV = {
+    "defaults": [],
+    "epoch_padded": ["--sampling", "epoch", "--token-layout", "padded"],
+}
+
+
+def jax_gamma_rows(self, run, step, ids):
+    """The port's online gamma inits replaced by the JAX package's draws
+    for the same (seed, step, doc ids)."""
+    key = jax.random.fold_in(jax.random.PRNGKey(self.params.seed), step)
+    return torch.from_numpy(np.array(jonline.init_gamma_rows(
+        key, jax.numpy.asarray(ids.numpy()), run.k,
+        self.params.gamma_shape)))
+
+
+@pytest.mark.parametrize("case", sorted(ONLINE_ARGV))
+def test_train_online_matches_jax_cli(native_lib, corpus, tmp_path, case,
+                                      monkeypatch):
+    """``train --algorithm online`` (with the defaults: bernoulli
+    sampling, "auto", which pads these books; and on the padded layout
+    with epoch sampling) exits 0 in both CLIs from one lambda in
+    train_state.npz, the port fed the JAX package's gamma inits: stdout
+    equal line for line with numbers, times and paths masked (the top
+    terms included), lam within rtol 1e-4 after 2 iterations (measured
+    2.2e-5; later, a tile that stops one inner iteration apart at the
+    tol boundary moves lam by ~3e-4, by 1.6% at 12 iterations, and by
+    4e-5 over 50 with estep_tol=1e-6); then the port's ``score`` of its
+    model writes a report of distributions summing to 1.  The JAX side
+    runs its padded E-step kernel (interpret mode), whose per-tile stop
+    and inline digamma the port's E-step has on every device."""
+    monkeypatch.setattr(tonline.OnlineLDA, "_gamma_rows", jax_gamma_rows)
+    monkeypatch.setenv("STC_GAMMA_BACKEND", "pallas")
+    books, stop = corpus
+    base = str(tmp_path / "start")
+    _online_start(books, stop, base)
+    out = {}
+    for name, main in (("jax", jax_main), ("port", port_main)):
+        ckpt, models = str(tmp_path / f"ck_{name}"), str(tmp_path / f"m_{name}")
+        shutil.copytree(base, ckpt)
+        with jax_python_text():
+            rc, so, se = run(main, [
+                "train", "--books", books, "--stop-words", stop,
+                "--algorithm", "online", "--k", str(K), "--models-dir",
+                models, "--checkpoint-dir", ckpt, "--resume",
+                "--max-iterations", "2", "--data-shards", "1",
+                *ONLINE_ARGV[case]])
+        assert rc == 0, se
+        (saved,) = os.listdir(models)
+        out[name] = (so, os.path.join(models, saved), ckpt)
+    (jout, jdir, jck), (tout, tdir, tck) = out["jax"], out["port"]
+    with np.load(os.path.join(jdir, "arrays.npz")) as j, \
+            np.load(os.path.join(tdir, "arrays.npz")) as t:
+        np.testing.assert_allclose(t["lam"], j["lam"], rtol=1e-4)
+    jm = mask(jout, [(jck, "<ckpt>"), (os.path.dirname(jdir), "<models>")])
+    tm = mask(tout, [(tck, "<ckpt>"), (os.path.dirname(tdir), "<models>")])
+    assert "resuming from checkpoint <ckpt>/train_state.npz" in tm
+    assert tm.splitlines() == jm.splitlines()
     rc, _, se = run(port_main, [
-        "train", "--books", str(tmp_path / "books"), "--stop-words", stop,
-        "--k", "2", "--max-iterations", "2",
-        "--models-dir", str(tmp_path / "m"), *algo_argv])
-    assert rc == 2 and se.startswith("error: ") and "not ported" in se
-    assert not os.path.exists(tmp_path / "m")
+        "score", "--books", books, "--stop-words", stop, "--model", tdir,
+        "--output-dir", str(tmp_path / "o")])
+    assert rc == 0, se
+    dist = chip_smoke.report_distributions(report_of(str(tmp_path / "o")), K)
+    assert dist.shape == (10, K) and np.allclose(dist.sum(1), 1.0, atol=1e-4)
 
 
 def test_metrics_file_and_profile_dir(native_lib, corpus, tmp_path):

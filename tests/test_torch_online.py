@@ -262,22 +262,6 @@ def test_pipeline_lda_online():
 
 
 _UNPORTED = [
-    ("sampling_fixed", dict(sampling="fixed", token_layout="auto"),
-     NotImplementedError, "sampling"),
-    ("sampling_bernoulli", dict(sampling="bernoulli", token_layout="auto"),
-     NotImplementedError, "sampling"),
-    ("layout_padded", dict(token_layout="padded"), NotImplementedError,
-     "padded"),
-    ("layout_packed", dict(token_layout="packed"), NotImplementedError,
-     "packed"),
-    ("host_streaming", dict(device_resident=False), NotImplementedError,
-     "host-streaming"),
-    ("over_budget", dict(resident_budget_bytes=16), NotImplementedError,
-     "resident_budget_bytes"),
-    ("auto_low_waste", dict(token_layout="auto"), NotImplementedError,
-     "padded online path"),
-    ("auto_coarse_tiles", dict(token_layout="auto"), NotImplementedError,
-     "tile"),
     ("sharded", dict(data_shards=2), NotImplementedError, "one device"),
     ("tiles_needs_epoch", dict(sampling="fixed"), ValueError, "epoch"),
 ]
@@ -286,13 +270,8 @@ _UNPORTED = [
 @pytest.mark.parametrize("name,kw,exc,match", _UNPORTED,
                          ids=[c[0] for c in _UNPORTED])
 def test_unported_paths_raise(name, kw, exc, match):
-    """Every online path outside this slice raises, naming what is
-    missing, instead of falling back."""
+    """Sharding raises, naming what is missing, and the tiles layout
+    without epoch sampling is refused, instead of falling back."""
     rows, vocab = _planted(n_docs=40)
-    if name == "auto_coarse_tiles":
-        # one 300-term doc makes the padded row 8x the mean: auto picks
-        # tiles, but 41 docs fill one tile, under 2 tiles an iteration
-        rows = rows + [(np.arange(300, dtype=np.int32) % len(vocab),
-                        np.ones(300, np.float32))]
     with pytest.raises(exc, match=match):
         OnlineLDA(Params(**_params(**kw)), device="cpu").fit(rows, vocab)
