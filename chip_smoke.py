@@ -79,8 +79,26 @@
    E's TF-IDF rows on the card (every E-step launch held against the
    plain version) against the same ten on the CPU from the same draws:
    lambda within 1e-3 relative;
-11. a ``total`` line with the run's seconds, then a ``kernels`` line: per
-   kernel, the launches of the main-path runs of 3-10 (each must be > 0),
+11. config I, EM and scoring on a 2x2 grid of 4 ranks on the one card
+   (``parallel.run_grid``, gloo with CUDA tensors: NCCL takes one rank a
+   card).  Each rank first holds the fused sweep (its (data, model) pair
+   of A's TF-IDF rows: shard_v = V/2, its pair's doc stream in
+   shard-local columns), the scatter (its pair of B's, shard_v = 2^17)
+   and the E-step (its block of B's most populated scoring bucket,
+   gathered from the vocabulary shards) against their plain versions;
+   then with the counts at 0: I-A (A's corpus: grid IDF -> EM fit, the
+   fused sweep on every rank) and I-B (B's: grid IDF -> EM fit, the
+   two-stage sweep -> grid scoring of 512 docs), each against the 1x1
+   card fit from the same seed (avg logLik 1e-4, lambda 1e-3 relative
+   or twice the 1x1 fit's spread against itself, B's atomics;
+   scoring 5e-3, the grid's EM log-likelihood of the 512 docs 1e-4),
+   with ms a sweep and the share of it spent in the collectives; I-CLI:
+   ``train --data-shards 2 --model-shards 2 --dist-backend gloo`` and
+   ``score --model-shards 2`` on E's books against config E's 1x1 card
+   CLI (distributions 5e-3, main topics where the top two differ by
+   1e-2); a 1x1 NCCL grid initializes and reduces;
+12. a ``total`` line with the run's seconds, then a ``kernels`` line: per
+   kernel, the launches of the main-path runs of 3-11 (each must be > 0),
    the largest difference from the plain version, and the times beside
    the card's bound.
 
@@ -1699,7 +1717,9 @@ def run_config_e(torch, seed, workdir):
                    "avg_log_likelihood_rel_diff": 1e-4},
     })
     return summary, {"root": root, "books": books, "stop": stop,
-                     "rows": tf_rows, "vocab": ds["vocab"]}
+                     "rows": tf_rows, "vocab": ds["vocab"],
+                     "card_report": reports["cuda"],
+                     "avg_log_likelihood": summary["avg_log_likelihood"]}
 
 
 def run_config_f(torch, seed, workdir, smi):
@@ -2122,6 +2142,406 @@ def run_config_h(torch, seed, e):
     }
 
 
+GRID_I = (2, 2)                # config I: data x model shards, gloo
+
+
+def grid_pair(torch, grid, rows, v):
+    """This rank's (data, model) pair of ``rows``'s scatter plan, as the
+    grid fit lays it out (shard_v = V_pad / model shards): (plan, the
+    pair's lids, block map, seg and cts on the card, d_max, shard_v)."""
+    from spark_text_clustering_tpu_torch.models.em_lda import packed_shard_plan
+    from spark_text_clustering_tpu_torch.ops.emscatter import plan_em_scatter
+
+    dev, d, m = grid.device, grid.d, grid.m
+    ids, cts, seg, _, d_max = packed_shard_plan(rows, grid.data_shards)
+    shard_v = -(-v // grid.model_shards)
+    plan = plan_em_scatter(ids, cts, grid.model_shards, shard_v)
+    seg_len = plan.nb * plan.tb
+    so = plan.sort_order[d][m * seg_len:(m + 1) * seg_len]
+    blk = (plan.nb, 1, plan.tb)
+
+    def srt(a):
+        return torch.from_numpy(np.concatenate(
+            [a[d], a[d, :1] * 0])[so].reshape(blk)).to(dev)
+
+    return (plan, torch.from_numpy(plan.lids[d, m]).to(dev),
+            torch.from_numpy(plan.block_vtile[d, m]).to(dev), srt(seg),
+            srt(cts), d_max, shard_v)
+
+
+def grid_sweep_check(torch, grid, rows, k, v):
+    """The fused sweep against its plain version on this rank's pair
+    (``grid_pair``), with the data shard's doc slots and the pair's doc
+    stream in shard-local columns, from a random start."""
+    from spark_text_clustering_tpu_torch.ops import emsweep
+    from spark_text_clustering_tpu_torch.parallel import model_row_sum
+
+    dev = grid.device
+    plan, lids, bv, seg, cts, d_max, shard_v = grid_pair(torch, grid, rows, v)
+    rng = np.random.default_rng(100 + grid.rank)
+    d_pad = emsweep.fused_d_pad(d_max)
+    alpha, eta = 50.0 / k + 1.0, 1.1
+    n_wk = torch.from_numpy(
+        rng.gamma(1.0, 20.0, (k, shard_v)).astype(np.float32)).to(dev)
+    n_dk = torch.from_numpy(
+        rng.gamma(1.0, 2000.0, (d_max, k)).astype(np.float32)).to(dev)
+    inv_denom = 1.0 / (model_row_sum(grid, n_wk) + (eta * v - v))
+    docf = torch.zeros((k, d_pad), device=dev)
+    docf[:, :d_max] = (n_dk + (alpha - 1.0)).T
+    stream = emsweep.doc_stream(lids, seg, cts, bv, plan.vt)
+    if int(stream[0].max()) >= shard_v:
+        raise AssertionError("config I: the doc stream holds global columns")
+    args = (n_wk, docf, inv_denom, lids, seg, cts, bv, *stream)
+    geo = dict(n_vtiles=plan.n_vtiles, nb=plan.nb, vt=plan.vt, tb=plan.tb,
+               d_pad=d_pad, shard_v=shard_v, eta_m1=eta - 1.0)
+    got, err, rel = sweep_against_plain(torch, args, geo)
+    # bytes as check_sweep counts them: the table, the doc factor, every
+    # slot's lid and block map, seg and cts of live slots, the outputs
+    live = int((cts > 0).sum())
+    t_bytes, by = bound(nbytes(*args[:4], bv) + 8 * live + nbytes(*got),
+                        8.0 * k * live)
+    return {"pair": [grid.d, grid.m], "docs": d_max, "k": k,
+            "shard_v": shard_v, "nb": plan.nb, "tokens": live,
+            "doc_stream": int(stream[0].shape[0]),
+            "max_abs_err": err, "max_rel_err": rel,
+            "tolerance": "rtol 1e-4, atol 1e-5",
+            "ms": cuda_ms(torch, lambda: emsweep.em_sweep_fused(*args, **geo),
+                          20),
+            "plain_ms": cuda_ms(torch, lambda: emsweep.em_sweep_fused_plain(
+                *args, **geo), 5),
+            "bound_ms": t_bytes, "bound_by": by}
+
+
+def grid_scatter_check(torch, grid, rows, k, v):
+    """The scatter against its plain version on this rank's pair
+    (``grid_pair``), random posteriors on the pair's live slots."""
+    from spark_text_clustering_tpu_torch.ops import emscatter
+
+    plan, lids, bv, _, cts, _, shard_v = grid_pair(torch, grid, rows, v)
+    cts = cts.reshape(-1)
+    rng = np.random.default_rng(200 + grid.rank)
+    phi = torch.from_numpy(rng.exponential(
+        size=(cts.shape[0], k)).astype(np.float32)).to(grid.device)
+    wphi = (cts[:, None] * phi / phi.sum(1, keepdim=True)).contiguous()
+    geo = dict(n_vtiles=plan.n_vtiles, vt=plan.vt, tb=plan.tb,
+               shard_v=shard_v)
+    got = emscatter.scatter_add_vtiles(wphi, lids, bv, nb=plan.nb, **geo)
+    want = emscatter.scatter_add_vtiles_plain(wphi, lids, bv, **geo)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"config I: scatter_add_vtiles differs from its "
+                             f"plain version by {err} on pair "
+                             f"{(grid.d, grid.m)}")
+    # bytes as check_scatter counts them: k posteriors of each live slot,
+    # every slot's lid, the block map, and the table it writes
+    live = int((cts > 0).sum())
+    t_bytes, by = bound(4 * k * live + nbytes(lids, bv, got), float(k * live))
+    return {"pair": [grid.d, grid.m], "k": k, "shard_v": shard_v,
+            "nb": plan.nb, "tokens": live, "max_abs_err": err,
+            "tolerance": "rtol 1e-5, atol 1e-5",
+            "ms": cuda_ms(torch, lambda: emscatter.scatter_add_vtiles(
+                wphi, lids, bv, nb=plan.nb, **geo), 20),
+            "plain_ms": cuda_ms(torch, lambda:
+                                emscatter.scatter_add_vtiles_plain(
+                                    wphi, lids, bv, **geo), 5),
+            "bound_ms": t_bytes, "bound_by": by}
+
+
+def grid_estep_check(torch, grid, rows, k, v):
+    """The E-step kernel against its plain version on this rank's block of
+    the most populated scoring bucket of ``rows``, its [B, k, L] rows of
+    exp(E[log beta]) gathered from the vocabulary shards as sharded
+    scoring gathers them (a random lambda)."""
+    from spark_text_clustering_tpu_torch.ops.lda_math import (
+        dirichlet_expectation_sharded,
+    )
+    from spark_text_clustering_tpu_torch.ops.sparse import (
+        bucket_indices_by_length,
+    )
+    from spark_text_clustering_tpu_torch.parallel import (
+        data_shard_rows, gather_model_rows_bkl, model_row_sum,
+    )
+
+    dev = grid.device
+    buckets = bucket_indices_by_length(rows)
+    width = max(buckets, key=lambda w: len(buckets[w]))
+    batch, _, _ = data_shard_rows(grid, [rows[i] for i in buckets[width]],
+                                  width, dev)
+    shard_v = -(-v // grid.model_shards)
+    rng = np.random.default_rng(300 + grid.m)
+    lam = torch.from_numpy(
+        rng.gamma(1.0, 20.0, (k, shard_v)).astype(np.float32)).to(dev)
+    eb_shard = torch.exp(dirichlet_expectation_sharded(
+        lam, model_row_sum(grid, lam)))
+    eb = gather_model_rows_bkl(grid, eb_shard, batch.token_ids)
+    cts = batch.token_weights.contiguous()
+    alpha = torch.full((k,), 50.0 / k + 1.0, device=dev)
+    g0 = torch.ones((cts.shape[0], k), device=dev)
+    return {"name": "gamma_fixed_point_bkl", "config": "I-B",
+            "rank": grid.rank,
+            **estep_case(torch, eb, cts, alpha, g0, "I-B")}
+
+
+def config_i_rank(grid, seed):
+    """One rank of config I (2x2 grid, gloo, CUDA tensors).  First each
+    kernel against its plain version at this rank's shard shapes (those
+    launches are not counted), then the main path with the counts at 0:
+    I-A (A's corpus: grid IDF -> EM fit, the fused sweep) and I-B (B's
+    corpus: grid IDF -> EM fit, the two-stage sweep -> grid scoring of
+    512 docs and the grid's EM log-likelihood of them).  Rank 0 returns
+    the arrays the parent compares; every rank returns its numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from spark_text_clustering_tpu_torch import IDF, LDA, Params
+    from spark_text_clustering_tpu_torch.models.sharded_eval import (
+        make_sharded_em_log_likelihood,
+    )
+    from spark_text_clustering_tpu_torch.ops import _build
+    from spark_text_clustering_tpu_torch.ops.sparse import next_pow2
+    from spark_text_clustering_tpu_torch.parallel import data_shard_rows
+
+    dev = grid.device
+    # gloo's broadcast of a CUDA tensor (agree_checkpoint_exists uses it)
+    flag = torch.full((1,), float(grid.rank), device=dev)
+    dist.broadcast(flag, src=0)
+    if float(flag.item()) != 0.0:
+        raise AssertionError("config I: broadcast over gloo failed")
+    corpora = {"A": (en_books_rows(seed), EN_V, EN_K),
+               "B": (newsgroups_rows(seed), NG_V, NG_K)}
+    tfidf = {label: IDF(device=dev).fit(
+        {"rows": rows, "vocab": [f"t{i}" for i in range(v)]}).transform(
+            {"rows": rows})["rows"] for label, (rows, v, _) in corpora.items()}
+    checks = {
+        "em_sweep_fused": grid_sweep_check(torch, grid, tfidf["A"], EN_K,
+                                           EN_V),
+        "scatter_add_vtiles": grid_scatter_check(torch, grid, tfidf["B"],
+                                                 NG_K, NG_V),
+        "gamma_fixed_point_bkl": grid_estep_check(
+            torch, grid, tfidf["B"][:EVAL_DOCS], NG_K, NG_V),
+    }
+
+    out = {"rank": grid.rank, "pair": [grid.d, grid.m], "checks": checks}
+    _build.reset_launches()
+    before = dict(_build.LAUNCHES)
+    for label, (rows, v, k) in corpora.items():
+        ds = {"rows": rows, "vocab": [f"t{i}" for i in range(v)]}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tf = IDF(min_doc_freq=2, idf_floor=1e-4, grid=grid).fit(ds)
+        tf_rows = tf.transform(ds)
+        torch.cuda.synchronize()
+        t_idf = time.perf_counter() - t0
+        grid.timed = True
+        grid.stats.update(calls=0, seconds=0.0, bytes=0)
+        params = Params(k=k, max_iterations=SWEEPS, seed=seed,
+                        keep_doc_topic_counts=label == "B")
+        t0 = time.perf_counter()
+        fitted = LDA(params, grid=grid).fit(tf_rows)
+        t_fit = time.perf_counter() - t0
+        grid.timed = False
+        model = fitted.model
+        sweep_ms = 1e3 * float(np.mean(model.iteration_times))
+        res = {
+            "idf_s": t_idf, "fit_s": t_fit, "ms_per_sweep": sweep_ms,
+            "collective_calls_per_sweep": grid.stats["calls"] / SWEEPS,
+            "collective_ms_per_sweep": 1e3 * grid.stats["seconds"] / SWEEPS,
+            "collective_mb_per_sweep": grid.stats["bytes"] / SWEEPS / 1e6,
+            "collective_share": grid.stats["seconds"] / (
+                SWEEPS * sweep_ms / 1e3),
+            "avg_log_likelihood": fitted.log_likelihood / fitted.corpus_size,
+            "lam_sum": float(model.lam.astype(np.float64).sum()),
+            "idf_equal": bool(np.array_equal(
+                tf.idf, IDF(min_doc_freq=2, idf_floor=1e-4, device=dev).fit(
+                    ds).idf)),
+        }
+        if label == "B":
+            docs = tf_rows["rows"][:EVAL_DOCS]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist_b = model.topic_distribution(docs, grid=grid)
+            res["score_s"] = time.perf_counter() - t0
+            width = max(8, next_pow2(max(len(i) for i, _ in docs)))
+            block, lo, hi = data_shard_rows(grid, docs, width, dev)
+            n_dk = torch.zeros((block.token_ids.shape[0], k), device=dev)
+            n_dk[:hi - lo] = torch.from_numpy(
+                fitted.doc_topic_counts[lo:hi]).to(dev)
+            ll_fn = make_sharded_em_log_likelihood(
+                grid, alpha=params.resolved_alpha(),
+                eta=params.resolved_eta(), vocab_size=v)
+            res["em_log_likelihood"] = float(ll_fn(
+                model._lam_on_grid(grid), n_dk, block.token_ids,
+                block.token_weights))
+            if grid.rank == 0:
+                res.update(dist=dist_b,
+                           n_dk=fitted.doc_topic_counts[:EVAL_DOCS])
+        if grid.rank == 0:
+            res["lam"] = model.lam
+        res["launches"] = {n: _build.LAUNCHES[n] - before[n]
+                           for n in _build.LAUNCHES}
+        before = dict(_build.LAUNCHES)
+        out[label] = res
+    return out
+
+
+def nccl_rank(grid):
+    """A 1x1 grid over NCCL: it initializes and reduces."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.arange(4.0, device=grid.device)
+    dist.all_reduce(x)
+    return {"backend": dist.get_backend(), "sum": float(x.sum())}
+
+
+def run_config_i(torch, seed, e):
+    """EM and scoring on a 2x2 grid of 4 ranks on the one card, gloo with
+    CUDA tensors: I-A and I-B (``config_i_rank``) against the 1x1 card
+    fits from the same seed (avg logLik within 1e-4, lambda within 1e-3
+    relative, or within twice the 1x1 fit's own spread over two more
+    1x1 fits where that spread is larger: B's two-stage sweep adds with
+    float atomics, and 50 EM sweeps amplify the order), B's 512-doc grid scoring against 1x1 card scoring of the
+    same model (5e-3) and the grid's EM log-likelihood against the 1x1
+    one (1e-4); then I-CLI: ``train --data-shards 2 --model-shards 2
+    --dist-backend gloo`` and ``score --model-shards 2`` on E's books
+    against config E's 1x1 card CLI (distributions 5e-3, main topics where
+    the top two differ by 1e-2); then a 1x1 NCCL grid."""
+    from spark_text_clustering_tpu_torch import IDF, LDA, Params, load_model
+    from spark_text_clustering_tpu_torch.models.sharded_eval import (
+        make_sharded_em_log_likelihood,
+    )
+    from spark_text_clustering_tpu_torch.ops import _build
+    from spark_text_clustering_tpu_torch.ops.sparse import batch_from_rows
+    from spark_text_clustering_tpu_torch.parallel import make_grid, run_grid
+
+    summary = {"phase": "config_I", "grid": list(GRID_I),
+               "backend": "gloo", "ranks": GRID_I[0] * GRID_I[1]}
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    ranks = run_grid(config_i_rank, *GRID_I, (seed,), backend="gloo",
+                     device="cuda", timeout=600)
+    summary["grid_s"] = time.perf_counter() - t0
+    grid_launches = dict(_build.LAUNCHES)
+    rank0 = ranks[0]
+    corpora = {"A": (en_books_rows(seed), EN_V, EN_K),
+               "B": (newsgroups_rows(seed), NG_V, NG_K)}
+    def lam_rel(a, b):
+        return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1.0)))
+
+    for label, (rows, v, k) in corpora.items():
+        ds = {"rows": rows, "vocab": [f"t{i}" for i in range(v)]}
+        tf_rows = IDF(min_doc_freq=2, idf_floor=1e-4).fit(ds).transform(ds)
+        params = Params(k=k, max_iterations=SWEEPS, seed=seed,
+                        keep_doc_topic_counts=label == "B")
+        one = LDA(params).fit(tf_rows)
+        avg1 = one.log_likelihood / one.corpus_size
+        # the 1x1 card fit against itself, twice more from the same seed:
+        # B's two-stage sweep adds N_dk with float atomics, so its 50
+        # sweeps are not repeatable to the grid's limit (the fused sweep
+        # is, bit for bit)
+        repeat = max(lam_rel(LDA(params).fit(tf_rows).model.lam,
+                             one.model.lam) for _ in range(2))
+        res = {key: val for key, val in rank0[label].items()
+               if key not in ("lam", "dist", "n_dk")}
+        res["ranks"] = [{key: r[label][key] for key in (
+            "ms_per_sweep", "collective_share", "avg_log_likelihood",
+            "lam_sum", "launches")} for r in ranks]
+        ll_rel = abs(res["avg_log_likelihood"] - avg1) / abs(avg1)
+        lam_diff = lam_rel(rank0[label]["lam"], one.model.lam)
+        lam_bound = max(1e-3, 2.0 * repeat)
+        res.update(one_device_avg_log_likelihood=avg1,
+                   avg_log_likelihood_rel_diff=ll_rel,
+                   lam_max_rel_diff=lam_diff,
+                   one_device_repeat_lam_max_rel_diff=repeat,
+                   lam_bound=lam_bound)
+        if not ll_rel <= 1e-4 or not lam_diff <= lam_bound:
+            raise AssertionError(f"config I-{label}: grid vs 1x1 avg logLik "
+                                 f"{ll_rel}, lambda {lam_diff} (bound "
+                                 f"{lam_bound}; 1x1 against itself {repeat})")
+        if len({r[label]["lam_sum"] for r in ranks}) != 1 or not all(
+                r[label]["idf_equal"] for r in ranks):
+            raise AssertionError(f"config I-{label}: ranks disagree")
+        kern = "em_sweep_fused" if label == "A" else "scatter_add_vtiles"
+        if any(r[label]["launches"][kern] != SWEEPS for r in ranks):
+            raise AssertionError(f"config I-{label}: launches "
+                                 f"{[r[label]['launches'] for r in ranks]}")
+        if label == "B":
+            docs = tf_rows["rows"][:EVAL_DOCS]
+            grid_model = one.model
+            grid_model.lam = rank0["B"]["lam"]
+            want = grid_model.topic_distribution(docs, layout="padded")
+            diff = float(np.abs(rank0["B"]["dist"] - want).max())
+            grid1 = make_grid(1, 1, device="cuda")
+            batch = batch_from_rows(docs, device=grid1.device)
+            ll1 = float(make_sharded_em_log_likelihood(
+                grid1, alpha=params.resolved_alpha(),
+                eta=params.resolved_eta(), vocab_size=v)(
+                    torch.from_numpy(rank0["B"]["lam"]).to(grid1.device),
+                    torch.from_numpy(rank0["B"]["n_dk"]).to(grid1.device),
+                    batch.token_ids, batch.token_weights))
+            em_rel = abs(res["em_log_likelihood"] - ll1) / abs(ll1)
+            res.update(score_max_dist_diff=diff,
+                       one_device_em_log_likelihood=ll1,
+                       em_log_likelihood_rel_diff=em_rel)
+            if not diff <= 5e-3 or not em_rel <= 1e-4:
+                raise AssertionError(f"config I-B: scoring {diff}, EM "
+                                     f"logLik {em_rel}")
+            if any(r["B"]["launches"]["gamma_fixed_point_bkl"] == 0
+                   for r in ranks):
+                raise AssertionError("config I-B: no E-step launch")
+        summary[f"I_{label}"] = res
+
+    # I-CLI on E's books, against config E's 1x1 card CLI
+    root, books, stop = e["root"], e["books"], e["stop"]
+    grid_flags = ["--data-shards", "2", "--model-shards", "2",
+                  "--dist-backend", "gloo"]
+    _build.reset_launches()
+    nums, path = cli_train("I-CLI", books, stop, "cuda",
+                           os.path.join(root, "models_grid"), len(e["vocab"]),
+                           os.path.join(root, "train_grid.out"), grid_flags)
+    train_launches = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    report, t_score = cli_score(
+        "I-CLI", books, stop, "cuda", os.path.join(root, "out_grid"),
+        os.path.join(root, "score_grid.out"),
+        ["--model", path, "--model-shards", "2", "--dist-backend", "gloo"])
+    score_launches = dict(_build.LAUNCHES)
+    diff, agreement, clear = distributions_agree("I-CLI", report,
+                                                 e["card_report"])
+    ll_rel = abs(nums["avg_log_likelihood"] - e["avg_log_likelihood"]) / abs(
+        e["avg_log_likelihood"])
+    if not ll_rel <= 1e-4 or train_launches["em_sweep_fused"] != 4 * SWEEPS \
+            or score_launches["gamma_fixed_point_bkl"] == 0:
+        raise AssertionError(f"config I-CLI: avg logLik {ll_rel}, "
+                             f"{train_launches}, {score_launches}")
+    load_model(path, device="cpu")
+    summary["I_CLI"] = {
+        **nums, "score_s": t_score, "max_dist_diff": diff,
+        "main_topic_agreement": agreement, "main_topic_clear_docs": clear,
+        "avg_log_likelihood_rel_diff": ll_rel,
+        "train_launches": train_launches, "score_launches": score_launches,
+        "bounds": {"max_dist_diff": 5e-3,
+                   "avg_log_likelihood_rel_diff": 1e-4}}
+
+    (nccl,) = run_grid(nccl_rank, 1, 1, backend="nccl", device="cuda",
+                       timeout=300)
+    if nccl != {"backend": "nccl", "sum": 6.0}:
+        raise AssertionError(f"config I: NCCL 1x1 grid gave {nccl}")
+    summary["nccl_1x1"] = nccl
+    summary["checks"] = {name: [r["checks"][name] for r in ranks]
+                         for name in ranks[0]["checks"]}
+    summary["launches"] = {
+        name: grid_launches[name] + train_launches[name]
+        + score_launches[name] for name in grid_launches}
+    summary["bounds"] = {"avg_log_likelihood_rel_diff": 1e-4,
+                         "lam_max_rel_diff": "1e-3, or twice the 1x1 "
+                                             "fit's spread against itself",
+                         "score_max_dist_diff": 5e-3,
+                         "em_log_likelihood_rel_diff": 1e-4}
+    return summary
+
+
 def profile_configs(torch, rows_a, rows_b, seed, out_dir):
     """torch.profiler over one fit and the scoring (A, B: padded scoring
     of every doc; D: topic_distribution of EVAL_DOCS docs) or evaluation
@@ -2402,21 +2822,41 @@ def main() -> int:
         summary_h = run_config_h(torch, args.seed, books_e)
         summary_h["seconds"] = time.perf_counter() - t0
         emit(summary_h)
+
+        # 11. config I, EM and scoring on a 2x2 grid of ranks on the card
+        t0 = time.perf_counter()
+        summary_i = run_config_i(torch, args.seed, books_e)
+        summary_i["seconds"] = time.perf_counter() - t0
+        emit({key: val for key, val in summary_i.items() if key != "checks"})
+        emit({"phase": "config_I_kernel_vs_plain", **{
+            name: {"max_abs_err": max(c["max_abs_err"] for c in cases),
+                   "ms": [c["ms"] for c in cases],
+                   "plain_ms": [c["plain_ms"] for c in cases]}
+            for name, cases in summary_i["checks"].items()}})
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     if args.profile:
         profile_configs(torch, rows_a, rows_b, args.seed, args.out)
 
-    # 11. the kernels line; the sweep's error is the larger of config A's
-    # and config E's checks; the gamma row is config B's most populated
-    # bucket, and its error the largest of the four buckets, the edge
-    # geometries and config H's launches checked; the tile row's error
-    # includes config G's launches
+    # 12. the kernels line; the sweep's error is the largest of config A's
+    # and config E's checks and config I's ranks'; the gamma row is config
+    # B's most populated bucket, and its error the largest of the four
+    # buckets, the edge geometries, config H's launches checked and config
+    # I's ranks'; the scatter's includes config I's ranks'; the tile
+    # row's error includes config G's launches
+    grid_err = {name: max(c["max_abs_err"] for c in cases)
+                for name, cases in summary_i["checks"].items()}
     sweep = checks["em_sweep_fused"]
     sweep["config_E"] = summary_e["sweep_check"]
+    sweep["config_I"] = summary_i["checks"]["em_sweep_fused"]
     sweep["max_abs_err"] = max(sweep["max_abs_err"],
-                               sweep["config_E"]["max_abs_err"])
+                               sweep["config_E"]["max_abs_err"],
+                               grid_err["em_sweep_fused"])
+    scatter = checks["scatter_add_vtiles"]
+    scatter["config_I"] = summary_i["checks"]["scatter_add_vtiles"]
+    scatter["max_abs_err"] = max(scatter["max_abs_err"],
+                                 grid_err["scatter_add_vtiles"])
     tiles = checks["gamma_fixed_point_tiles"]
     tiles["config_G"] = summary_g["kernel"]
     tiles["max_abs_err"] = max(tiles["max_abs_err"],
@@ -2430,9 +2870,11 @@ def main() -> int:
          "source": "spark_text_clustering_tpu_torch/csrc/estep.cu",
          "replaces": "spark_text_clustering_tpu/ops/pallas_estep.py:161",
          "max_abs_err": max([e["max_abs_err"] for e in (*esteps, *estep_edges)]
-                            + [summary_h["kernel"]["max_abs_err"]]),
+                            + [summary_h["kernel"]["max_abs_err"],
+                               grid_err["gamma_fixed_point_bkl"]]),
          "buckets": esteps, "geometries": estep_edges,
-         "config_H": summary_h["kernel"]},
+         "config_H": summary_h["kernel"],
+         "config_I": summary_i["checks"]["gamma_fixed_point_bkl"]},
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2442,14 +2884,14 @@ def main() -> int:
         kern["launches"] = sum(
             sm["launches"][name]
             for sm in (summary_a, summary_b, summary_c, summary_d, summary_e,
-                       summary_f, summary_g, summary_h))
+                       summary_f, summary_g, summary_h, summary_i))
         if kern["launches"] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
         line.append({k_: kern[k_] for k_ in keys})
     record.update(build=build, kernels=kernels, config_A=summary_a,
                   config_B=summary_b, config_C=summary_c, config_D=summary_d,
                   config_E=summary_e, config_F=summary_f, config_G=summary_g,
-                  config_H=summary_h)
+                  config_H=summary_h, config_I=summary_i)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)

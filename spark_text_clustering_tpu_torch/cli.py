@@ -9,11 +9,23 @@ exit codes:
     python -m spark_text_clustering_tpu_torch.cli score --books <dir> \
         --lang EN --models-dir <dir> --output-dir <dir>
 
-One flag is the port's own: ``--device`` (default ``cuda``) names the
-device that IDF, training and scoring run on; without a card, pass
-``--device cpu``.  Flags whose machinery the port has not ported yet exit
-with code 2 and name the ROADMAP item that brings it; none is accepted and
-then ignored.
+Two flags are the port's own: ``--device`` (default ``cuda``) names the
+device that IDF, training and scoring run on (without a card, pass
+``--device cpu``), and ``--dist-backend`` the ``torch.distributed``
+backend of a grid (default ``nccl`` on CUDA, ``gloo`` on the CPU).  Flags
+whose machinery the port has not ported yet exit with code 2 and name the
+ROADMAP item that brings it; none is accepted and then ignored.
+
+``--data-shards D --model-shards M`` run EM training (IDF included) and
+scoring on a grid of D x M ranks (``parallel``).  Unlike the JAX package,
+where one process drives every local device, each rank is one process on
+one device (rank r on ``cuda:(r mod cards)``).  Without ``--coordinator``
+the command spawns the D x M ranks on this host itself; with
+``--coordinator host:port --num-processes N --process-id i`` it is rank i
+of N = D x M processes started by the caller.  Every rank reads and
+preprocesses the whole book directory, as every JAX process does; only
+rank 0 prints, saves the model and writes the report, and the exit code
+is the worst of the ranks'.
 
 Exit codes: 0 on success; 2 for a usage error, a missing or corrupt model,
 a resume mismatch, a flag not ported yet, and a ``NotImplementedError``
@@ -34,6 +46,15 @@ from .models.persistence import (
     resolve_latest_model,
     train_state_valid,
 )
+from .ops import _build
+from .parallel.mesh import (
+    check_backend,
+    default_backend,
+    initialize_distributed,
+    is_coordinator,
+    make_grid,
+    run_grid,
+)
 from .pipeline import (
     IDF,
     LDA,
@@ -49,6 +70,7 @@ from .resilience import (
     vocab_fingerprint,
     write_resume_meta,
 )
+from .utils import native
 from .utils.profiling import MetricsLogger, trace
 from .utils.readers import read_stop_word_file, read_text_dir
 from .utils.report import format_scoring_report, write_scoring_report
@@ -71,15 +93,12 @@ LANG_DIRS = {
 
 # The ROADMAP.md queue 1 item that ports the machinery behind each flag
 # the port refuses for now.
-_SHARDING = "queue 1 item 6, sharding"
 _NOT_PORTED = {
     "telemetry_file": ("--telemetry-file", "queue 1 item 9, telemetry"),
     "compile_cache": ("--compile-cache",
                       "queue 1 item 10, a compile cache"),
-    "coordinator": ("--coordinator", _SHARDING),
-    "num_processes": ("--num-processes", _SHARDING),
-    "process_id": ("--process-id", _SHARDING),
 }
+_SHARDING_6B = "queue 1 item 6b, sharding of online VB and NMF"
 
 
 def _refuse_unported(args: argparse.Namespace) -> Optional[int]:
@@ -87,20 +106,94 @@ def _refuse_unported(args: argparse.Namespace) -> Optional[int]:
     hits = [
         (flag, item) for dest, (flag, item) in _NOT_PORTED.items()
         if getattr(args, dest, None) is not None
-        and getattr(args, dest) is not False
     ]
-    default_data = None if args.cmd == "train" else 1
-    for dest in ("data_shards", "model_shards"):
-        value = getattr(args, dest)
-        if value not in (1, default_data):
-            flag = "--" + dest.replace("_", "-")
-            hits.append((f"{flag} {value}", _SHARDING))
-    if not hits:
-        return None
     for flag, item in hits:
         print(f"error: {flag} is not ported yet (ROADMAP.md {item})",
               file=sys.stderr)
-    return 2
+    return 2 if hits else None
+
+
+def _grid_shape(args: argparse.Namespace):
+    """(data_shards, model_shards, backend) of the command's grid, or an
+    error message for a combination of flags that cannot run."""
+    coord, procs, pid = args.coordinator, args.num_processes, args.process_id
+    if coord is None and (procs is not None or pid is not None):
+        return ("--num-processes/--process-id require --coordinator "
+                "(pass --coordinator host:port on every process)")
+    if coord is not None and (procs is None or pid is None):
+        return "--coordinator requires --num-processes and --process-id"
+    m = args.model_shards
+    d = args.data_shards
+    if d is None:
+        d = procs // m if coord is not None and procs % m == 0 else 1
+    if d < 1 or m < 1:
+        return f"--data-shards {d} --model-shards {m}: shards must be >= 1"
+    if coord is not None and procs != d * m:
+        return (f"--num-processes {procs} != --data-shards {d} x "
+                f"--model-shards {m}: every rank of the grid is a process")
+    if d * m > 1:
+        algo = getattr(args, "algorithm", "em")
+        if algo != "em":
+            return (f"--algorithm {algo} with --data-shards/--model-shards "
+                    f"is not ported yet (ROADMAP.md {_SHARDING_6B})")
+        if getattr(args, "per_doc_convergence", False):
+            return ("--per-doc-convergence does not support sharded "
+                    "scoring (--data-shards/--model-shards)")
+    backend = args.dist_backend or default_backend(args.device)
+    if d * m > 1 or coord is not None:
+        try:
+            check_backend(backend, args.device, d * m)
+        except ValueError as exc:
+            return str(exc)
+    return d, m, backend
+
+
+def _on_grid(args: argparse.Namespace, body) -> int:
+    """Run ``body(args, grid)``: on one device (grid None), as rank
+    ``--process-id`` of a ``--coordinator`` world, or on ranks spawned
+    here for a grid larger than 1x1."""
+    shape = _grid_shape(args)
+    if isinstance(shape, str):
+        print(f"error: {shape}", file=sys.stderr)
+        return 2
+    d, m, backend = shape
+    resolve_device(args.device)  # no card and no --device cpu: raise now
+    if args.coordinator is not None:
+        import torch.distributed as dist
+
+        initialize_distributed(args.coordinator, args.num_processes,
+                               args.process_id, backend=backend,
+                               device=args.device)
+        try:
+            return body(args, make_grid(d, m, backend, args.device))
+        finally:
+            dist.destroy_process_group()
+    if d * m == 1:
+        return body(args, None)
+    # the ranks load the kernels and the text library: build them here,
+    # once, before they start
+    if args.device != "cpu":
+        _build.build_all()
+    try:
+        native.build()
+    except RuntimeError:
+        pass  # the ranks take the Python text path, as "auto" does
+    try:
+        codes = run_grid(_grid_rank, d, m, (body.__name__, args),
+                         backend=backend, device=args.device)
+    except RuntimeError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    return max(codes)
+
+
+def _grid_rank(grid, body_name: str, args: argparse.Namespace) -> int:
+    """One spawned rank of ``_on_grid``."""
+    return globals()[body_name](args, grid)
+
+
+def _quiet(*args, **kwargs) -> None:
+    """``print`` on a rank other than the coordinator."""
 
 
 def _load_stop_words(path: Optional[str]) -> frozenset:
@@ -117,13 +210,15 @@ def _resume_gate(
     fingerprint (a mismatch is fatal whether or not --resume was passed),
     announces the resume point when --resume asked for one, and records
     this run's envelope for the next resume.  Returns an exit code to
-    abort with, or None to proceed.  One process: no epoch ledger."""
+    abort with, or None to proceed.  On a grid every rank validates and
+    the coordinator speaks and writes.  No epoch ledger."""
     if not params.checkpoint_dir:
         if resume_requested:
             print("--resume requires --checkpoint-dir", file=sys.stderr)
             return 2
         return None
     vocab_fp = vocab_fingerprint(vocab)
+    say = print if is_coordinator() else _quiet
     try:
         validate_resume_meta(params.checkpoint_dir, params, vocab_fp)
     except ResumeMismatchError as exc:
@@ -138,13 +233,14 @@ def _resume_gate(
             if state_name else None
         )
         if state and train_state_valid(state):
-            print(f"resuming from checkpoint {state}")
+            say(f"resuming from checkpoint {state}")
         else:
-            print(
+            say(
                 f"--resume: no valid checkpoint under "
                 f"{params.checkpoint_dir}; starting fresh"
             )
-    write_resume_meta(params.checkpoint_dir, params, vocab_fp)
+    if is_coordinator():
+        write_resume_meta(params.checkpoint_dir, params, vocab_fp)
     return None
 
 
@@ -152,7 +248,13 @@ def cmd_train(args: argparse.Namespace) -> int:
     rc = _refuse_unported(args)
     if rc is not None:
         return rc
-    resolve_device(args.device)  # no card and no --device cpu: raise now
+    return _on_grid(args, _train)
+
+
+def _train(args: argparse.Namespace, grid) -> int:
+    coordinator = is_coordinator()
+    say = print if coordinator else _quiet
+    device = args.device if grid is None else grid.device
     timer = PhaseTimer()
     sw = _load_stop_words(args.stop_words)
     with timer.phase("read"):
@@ -187,9 +289,10 @@ def cmd_train(args: argparse.Namespace) -> int:
         # (LDAClustering.scala:180-192)
         feat_stages.append(IDF(min_doc_freq=params.min_doc_freq,
                                idf_floor=params.idf_floor,
-                               device=args.device))
+                               device=device, grid=grid))
 
-    metrics = MetricsLogger(args.metrics_file)
+    # one writer: a second rank opening --metrics-file would truncate it
+    metrics = MetricsLogger(args.metrics_file if coordinator else None)
     metrics.log("corpus", documents=len(texts), books_dir=args.books)
 
     with timer.phase("preprocess"):
@@ -211,23 +314,25 @@ def cmd_train(args: argparse.Namespace) -> int:
 
     # corpus summary, reference format (LDAClustering.scala:28-34);
     # timings print full precision like Scala's Double.toString
-    print()
-    print("Corpus summary:")
-    print(f"\t Training set size: {n_docs} documents")
-    print(f"\t Vocabulary size: {len(ds['vocab'])} terms")
-    print(f"\t Training set size: {n_tokens} tokens")
-    print(f"\t Preprocessing time: {timer.phases['preprocess']} sec")
-    print()
-    print("LDA model training started")
+    say()
+    say("Corpus summary:")
+    say(f"\t Training set size: {n_docs} documents")
+    say(f"\t Vocabulary size: {len(ds['vocab'])} terms")
+    say(f"\t Training set size: {n_tokens} tokens")
+    say(f"\t Preprocessing time: {timer.phases['preprocess']} sec")
+    say()
+    say("LDA model training started")
 
     try:
-        with trace(args.profile_dir):
+        with trace(args.profile_dir if coordinator else None):
             with timer.phase("train"):
-                lda_stage = LDA(params, device=args.device).fit(ds)
+                lda_stage = LDA(params, device=device, grid=grid).fit(ds)
     except NotImplementedError as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2
     model = lda_stage.model
+    if not coordinator:
+        return 0
 
     # LDAClustering.scala:63-78 prints
     print("Finished training LDA model.  Summary:")
@@ -290,7 +395,11 @@ def cmd_score(args: argparse.Namespace) -> int:
     rc = _refuse_unported(args)
     if rc is not None:
         return rc
-    resolve_device(args.device)
+    return _on_grid(args, _score)
+
+
+def _score(args: argparse.Namespace, grid) -> int:
+    say = print if is_coordinator() else _quiet
     # a missing or truncated/uncommitted artifact fails here with a typed
     # error and exit code 2, never a partial report
     try:
@@ -301,7 +410,7 @@ def cmd_score(args: argparse.Namespace) -> int:
     except CorruptArtifactError as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2
-    print(f"loaded model {model_path}: k={model.k}, V={model.vocab_size}")
+    say(f"loaded model {model_path}: k={model.k}, V={model.vocab_size}")
 
     books_dir = args.books
     if books_dir is None and args.books_root:
@@ -320,7 +429,10 @@ def cmd_score(args: argparse.Namespace) -> int:
     dist = model.topic_distribution(
         rows,
         convergence="per_doc" if args.per_doc_convergence else "batch",
+        grid=grid,
     )
+    if not is_coordinator():
+        return 0
 
     text = format_scoring_report(model, [d.path for d in docs], dist, rows)
     # the reference prints every report block to the console as it goes;
@@ -336,6 +448,24 @@ def _add_device_arg(p: argparse.ArgumentParser) -> None:
                    help="torch device for IDF, training and scoring "
                         "(default cuda; cpu runs the kernels' plain "
                         "PyTorch versions on the host)")
+
+
+def _add_grid_args(p: argparse.ArgumentParser, data_default) -> None:
+    p.add_argument("--data-shards", type=int, default=data_default,
+                   help="document shards of the grid")
+    p.add_argument("--model-shards", type=int, default=1,
+                   help="vocabulary shards of the grid")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of rank 0: join a grid started by the "
+                        "caller instead of spawning its ranks here")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="ranks of the grid (data x model shards)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="torch.distributed backend of a grid (default "
+                        "nccl on cuda, gloo on cpu; nccl takes one rank a "
+                        "card)")
 
 
 def _add_compile_cache_arg(p: argparse.ArgumentParser) -> None:
@@ -385,10 +515,6 @@ def build_parser() -> argparse.ArgumentParser:
                          "--checkpoint-dir (config-hash + vocab-fingerprint "
                          "validated; starts fresh when none is found)")
     tr.add_argument("--seed", type=int, default=0)
-    tr.add_argument("--data-shards", type=int, default=None,
-                    help="only 1 (or unset) until sharding is ported")
-    tr.add_argument("--model-shards", type=int, default=1,
-                    help="only 1 until sharding is ported")
     tr.add_argument("--models-dir", default="models")
     tr.add_argument("--profile-dir", default=None,
                     help="capture a torch.profiler trace of training here "
@@ -408,12 +534,7 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--include-all", action="store_true",
                     help="ingest non-.txt files too (reference behavior)")
     _add_compile_cache_arg(tr)
-    tr.add_argument("--coordinator", default=None,
-                    help="not ported yet (exits 2)")
-    tr.add_argument("--num-processes", type=int, default=None,
-                    help="not ported yet (exits 2)")
-    tr.add_argument("--process-id", type=int, default=None,
-                    help="not ported yet (exits 2)")
+    _add_grid_args(tr, None)
     _add_device_arg(tr)
     tr.set_defaults(fn=cmd_train)
 
@@ -428,10 +549,7 @@ def build_parser() -> argparse.ArgumentParser:
     sc.add_argument("--output-dir", default="TestOutput")
     sc.add_argument("--no-lemmatize", action="store_true")
     sc.add_argument("--include-all", action="store_true")
-    sc.add_argument("--data-shards", type=int, default=1,
-                    help="only 1 until sharding is ported")
-    sc.add_argument("--model-shards", type=int, default=1,
-                    help="only 1 until sharding is ported")
+    _add_grid_args(sc, 1)
     sc.add_argument("--verify-deep", action="store_true",
                     help="re-verify each candidate model's SHA256 "
                          "manifest at selection time instead of trusting "

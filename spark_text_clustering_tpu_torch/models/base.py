@@ -6,7 +6,10 @@ model.  ``topic_distribution`` scores documents on ``device`` ("cuda" by
 default): padded power-of-two length buckets through the E-step kernel,
 or one token-packed batch in plain PyTorch.  ``log_likelihood`` and
 ``log_perplexity`` evaluate the variational bound with gamma from the
-E-step kernel.
+E-step kernel.  With ``grid=`` (a ``parallel.ProcessGrid``), scoring,
+evaluation and ``describe_topics`` run vocabulary-sharded on the grid's
+ranks (``sharded_eval``): lambda [k, V_pad/s] a rank, docs split over
+the data shards, every rank getting the whole result.
 """
 
 from __future__ import annotations
@@ -26,7 +29,12 @@ from ..ops.lda_math import (
     topic_inference,
     topic_inference_segments,
 )
-from ..ops.sparse import batch_from_rows, bucket_by_length, next_pow2
+from ..ops.sparse import (
+    batch_from_rows,
+    bucket_by_length,
+    bucket_indices_by_length,
+    next_pow2,
+)
 
 __all__ = ["LDAModel"]
 
@@ -45,6 +53,10 @@ class LDAModel:
     algorithm: str = "online"
     step: int = 0
     device: str = "cuda"
+    # lambda's shard and the sharded functions, per grid (models are not
+    # changed after a fit)
+    _grid_cache: dict = field(default_factory=dict, init=False, repr=False,
+                              compare=False)
 
     # EM counts can be exact 0; flooring them at 1e-30 keeps digamma
     # finite and gives exp(E[log beta]) == 0 there, as the JAX package does.
@@ -64,11 +76,32 @@ class LDAModel:
         lam = np.asarray(self.lam, np.float64)
         return lam / lam.sum(axis=1, keepdims=True)
 
+    # Above this vocabulary width ``describe_topics(grid=...)`` ranks each
+    # shard's columns on its rank; below it the host float64 argsort is
+    # kept (the JAX package's rule for a host-resident lambda)
+    _DEVICE_TOPK_MIN_V = 1_000_000
+
     def describe_topics(
-        self, max_terms_per_topic: int = 10
+        self, max_terms_per_topic: int = 10, grid=None
     ) -> List[List[Tuple[int, float]]]:
         """Per topic, the top-n (term_id, weight), weights normalized by the
-        topic total (host float64, stable order on ties)."""
+        topic total (host float64, stable order on ties).  With ``grid`` and
+        V >= ``_DEVICE_TOPK_MIN_V``, each vocabulary shard proposes its own
+        top n in float32 (``make_sharded_top_terms``) and the host merges
+        k x (shards * n) candidates."""
+        n = min(max_terms_per_topic, self.vocab_size)
+        if grid is not None and self.vocab_size >= self._DEVICE_TOPK_MIN_V:
+            fn = self._grid_fn("top_terms", grid, n=n)
+            ids, vals, totals = fn(self._lam_on_grid(grid))
+            vals, totals = vals.astype(np.float64), totals.astype(np.float64)
+            out = []
+            for t in range(ids.shape[0]):
+                # pad-column candidates of narrow shards carry -inf
+                live = np.nonzero(np.isfinite(vals[t]))[0]
+                order = live[np.argsort(-vals[t][live], kind="stable")][:n]
+                out.append([(int(ids[t][j]), float(vals[t][j] / totals[t]))
+                            for j in order])
+            return out
         out = []
         for row in self.topics_matrix():
             top = np.argsort(-row, kind="stable")[:max_terms_per_topic]
@@ -76,12 +109,78 @@ class LDAModel:
         return out
 
     def describe_topics_terms(
-        self, max_terms_per_topic: int = 10
+        self, max_terms_per_topic: int = 10, grid=None
     ) -> List[List[Tuple[str, float]]]:
         return [
             [(self.vocab[i], w) for i, w in topic]
-            for topic in self.describe_topics(max_terms_per_topic)
+            for topic in self.describe_topics(max_terms_per_topic, grid=grid)
         ]
+
+    # ---- the grid --------------------------------------------------------
+    def _lam_on_grid(self, grid, smoothed: bool = False) -> torch.Tensor:
+        """This rank's shard [k, V_pad/s] of lambda (of ``_lam_for_bound``
+        when ``smoothed``), zero-padded to a model-shard multiple, on the
+        grid's device; made once per grid."""
+        key = ("lam", id(grid), smoothed)
+        hit = self._grid_cache.get(key)
+        if hit is None or hit[0] is not grid:
+            lam = self._lam_for_bound() if smoothed else np.asarray(
+                self.lam, np.float32)
+            s, v = grid.model_shards, self.vocab_size
+            shard_v = -(-v // s)
+            cols = np.zeros((self.k, shard_v), np.float32)
+            part = lam[:, grid.m * shard_v:(grid.m + 1) * shard_v]
+            cols[:, :part.shape[1]] = part
+            hit = (grid, torch.from_numpy(cols).to(grid.device))
+            self._grid_cache[key] = hit
+        return hit[1]
+
+    def _grid_fn(self, kind: str, grid, **kw):
+        """``sharded_eval.make_sharded_<kind>`` for this model, made once
+        per grid and arguments."""
+        key = (kind, id(grid), tuple(sorted(kw.items())))
+        hit = self._grid_cache.get(key)
+        if hit is None or hit[0] is not grid:
+            from . import sharded_eval
+
+            factory = getattr(sharded_eval, f"make_sharded_{kind}")
+            if kind == "top_terms":
+                fn = factory(grid, self.vocab_size, **kw)
+            else:
+                alpha = np.broadcast_to(
+                    np.asarray(self.alpha, np.float32), (self.k,)).copy()
+                fn = factory(grid, alpha=alpha, vocab_size=self.vocab_size,
+                             **kw)
+            hit = (grid, fn)
+            self._grid_cache[key] = hit
+        return hit[1]
+
+    def _run_on_grid(self, grid, fn, rows, gamma0, *extra):
+        """``fn(lam shard, ids, weights, gamma0, *extra)`` on this rank's
+        block of ``rows`` (one padded batch; pad docs start at gamma 1)."""
+        from ..parallel.collectives import data_shard_rows
+
+        max_nnz = max((len(i) for i, _ in rows), default=0)
+        width = max(8, next_pow2(max_nnz))
+        batch, lo, hi = data_shard_rows(grid, rows, width, grid.device)
+        g0 = gamma0.new_ones(batch.token_ids.shape[0], self.k)
+        g0[:hi - lo] = gamma0[lo:hi]
+        return fn(batch.token_ids, batch.token_weights, g0, *extra)
+
+    def _topic_distribution_grid(self, rows, max_inner, tol, seed, grid):
+        from ..parallel.collectives import fetch_global
+
+        infer = self._grid_fn("topic_inference", grid, max_inner=max_inner,
+                              tol=tol)
+        lam = self._lam_on_grid(grid)
+        gamma0 = self._gamma0(len(rows), seed, grid.device)
+        out = np.zeros((len(rows), self.k), np.float32)
+        for _, idxs in sorted(bucket_indices_by_length(rows).items()):
+            local = self._run_on_grid(
+                grid, lambda *a: infer(lam, *a), [rows[i] for i in idxs],
+                gamma0[torch.as_tensor(idxs, device=grid.device)])
+            out[idxs] = fetch_global(grid, local, "data")[:len(idxs)]
+        return out
 
     # ---- inference -----------------------------------------------------
     def _exp_elog_beta(self, dev: torch.device) -> torch.Tensor:
@@ -104,6 +203,7 @@ class LDAModel:
         layout: str = "auto",
         convergence: str = "batch",
         device=None,
+        grid=None,
     ) -> np.ndarray:
         """Per-doc posterior topic mixture [n, k].
 
@@ -113,13 +213,27 @@ class LDAModel:
         CPU.  ``convergence``: "batch" iterates until the worst doc of the
         dispatch (a tile of the kernel, or the packed batch) converges;
         "per_doc" freezes each doc at its own convergence, so its result
-        depends on its own tokens only (packed layout)."""
+        depends on its own tokens only (packed layout).  ``grid`` scores on
+        the grid's ranks: per length bucket, each rank's block of docs
+        through the E-step kernel against its vocabulary shard (layout
+        and ``device`` do not apply; "per_doc" is refused, as in the JAX
+        package)."""
         if convergence not in ("batch", "per_doc"):
             raise ValueError(
                 f"convergence must be 'batch' or 'per_doc', got {convergence!r}"
             )
         if layout not in ("auto", "padded", "packed"):
             raise ValueError(f"unknown layout {layout!r}")
+        if grid is not None:
+            if convergence == "per_doc":
+                raise ValueError(
+                    "convergence='per_doc' does not support grid scoring "
+                    "(the sharded path has no frozen fixed point)")
+            rows = list(docs)
+            if not rows:
+                return np.zeros((0, self.k), np.float32)
+            return self._topic_distribution_grid(rows, max_inner, tol, seed,
+                                                 grid)
         dev = resolve_device(self.device if device is None else device)
         rows = list(docs)
         if not rows:
@@ -182,11 +296,21 @@ class LDAModel:
         docs: Sequence[Tuple[np.ndarray, np.ndarray]],
         seed: Optional[int] = None,
         device=None,
+        grid=None,
     ) -> float:
         """Variational lower bound on log p(docs) (MLlib
-        ``logLikelihood``), over one padded batch of ``docs``."""
-        dev = resolve_device(self.device if device is None else device)
+        ``logLikelihood``), over one padded batch of ``docs``; with
+        ``grid``, vocabulary-sharded on the grid's ranks."""
         rows = list(docs)
+        if grid is not None:
+            n_docs = float(sum(1 for _, w in rows if np.sum(w) > 0))
+            fn = self._grid_fn("log_likelihood", grid, eta=float(self.eta))
+            lam = self._lam_on_grid(grid, smoothed=self.algorithm == "em")
+            bound = self._run_on_grid(
+                grid, lambda *a: fn(lam, *a), rows,
+                self._gamma0(len(rows), seed, grid.device), n_docs, n_docs)
+            return float(bound)
+        dev = resolve_device(self.device if device is None else device)
         batch = batch_from_rows(rows, device=dev)
         n_docs = float((batch.token_weights.sum(-1) > 0).sum())
         alpha = torch.as_tensor(np.asarray(self.alpha, np.float32), device=dev)
@@ -198,11 +322,12 @@ class LDAModel:
         return float(approx_bound(batch, gamma, lam_b, alpha, float(self.eta),
                                   corpus_size=n_docs, batch_docs=n_docs))
 
-    def log_perplexity(self, docs, device=None) -> float:
+    def log_perplexity(self, docs, device=None, grid=None) -> float:
         """-bound / total token mass (MLlib ``logPerplexity``)."""
         rows = list(docs)
         tokens = float(sum(np.asarray(w, np.float32).sum() for _, w in rows))
-        return -self.log_likelihood(rows, device=device) / max(tokens, 1.0)
+        return -self.log_likelihood(rows, device=device, grid=grid) / max(
+            tokens, 1.0)
 
     # ---- persistence ---------------------------------------------------
     def save(self, path: str) -> None:

@@ -289,8 +289,9 @@ class NMF:
     def __init__(self, params: Params, device="cuda", rng_device=None) -> None:
         if params.model_shards != 1 or params.data_shards not in (None, 1):
             raise NotImplementedError(
-                "data_shards/model_shards > 1 are not ported: the port's "
-                "NMF fit runs on one device"
+                "data_shards/model_shards > 1 are not ported yet (ROADMAP.md "
+                "queue 1 item 6b, sharding of online VB and NMF): the "
+                "port's NMF fit runs on one device"
             )
         self.params = params
         self.device = resolve_device(device)

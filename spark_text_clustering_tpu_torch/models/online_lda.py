@@ -405,8 +405,8 @@ class OnlineLDA:
         if params.model_shards != 1 or params.data_shards not in (None, 1):
             raise NotImplementedError(
                 "data_shards/model_shards > 1 are not ported yet (ROADMAP.md "
-                "queue 1 item 6, sharding): the port's online fit runs on "
-                "one device"
+                "queue 1 item 6b, sharding of online VB and NMF): the "
+                "port's online fit runs on one device"
             )
         self.params = params
         self.device = resolve_device(device)

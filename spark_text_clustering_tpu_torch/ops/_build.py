@@ -5,7 +5,10 @@ own shared library with a plain C interface (no PyTorch headers, so a
 build takes seconds).  Libraries land in ``build/torch_kernels/`` at the
 repository root, named by a hash of every source under ``csrc/`` and of
 the compiler flags: an edited source rebuilds, an unchanged one loads.
-``build_all`` starts one ``nvcc`` per source, all at once.
+``build_all`` starts one ``nvcc`` per source, all at once.  Builds hold
+an exclusive lock on ``BUILD_DIR/.build.lock`` (``build_lock``), so ranks
+of a grid that load the kernels at once build each library once, and
+the others wait for it.
 
 Every C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()``.  Wrappers allocate outputs
@@ -18,7 +21,9 @@ without a compiler.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -28,7 +33,8 @@ import time
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "load_library"]
+__all__ = ["SOURCES", "BUILD_DIR", "build_all", "build_lock",
+           "load_library"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -92,6 +98,18 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}_{_digest()}.so"
 
 
+@contextlib.contextmanager
+def build_lock():
+    """Hold the build directory's lock (across processes) in the block."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def _start(name: str):
     """Start ``nvcc`` for one source; returns (process, tmp .so, log)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -120,14 +138,15 @@ def build_all() -> Dict[str, float]:
     for a library already built) and keeps the compiler's register and
     shared-memory report in ``<lib>.log``."""
     t0 = time.perf_counter()
-    started = {
-        n: _start(n) for n in SOURCES if not _lib_path(n).exists()
-    }
     secs = {n: 0.0 for n in SOURCES}
-    for n, (proc, tmp) in started.items():
-        log = _finish(n, proc, tmp)
-        _lib_path(n).with_suffix(".log").write_text(log)
-        secs[n] = time.perf_counter() - t0
+    with build_lock():
+        started = {
+            n: _start(n) for n in SOURCES if not _lib_path(n).exists()
+        }
+        for n, (proc, tmp) in started.items():
+            log = _finish(n, proc, tmp)
+            _lib_path(n).with_suffix(".log").write_text(log)
+            secs[n] = time.perf_counter() - t0
     return secs
 
 
@@ -136,8 +155,10 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         if not _lib_path(name).exists():
-            proc, tmp = _start(name)
-            _finish(name, proc, tmp)
+            with build_lock():
+                if not _lib_path(name).exists():
+                    proc, tmp = _start(name)
+                    _finish(name, proc, tmp)
         lib = ctypes.CDLL(str(_lib_path(name)))
         for fn, argtypes in SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes

@@ -25,6 +25,7 @@ from .sparse import DocTermBatch
 __all__ = [
     "approx_bound",
     "dirichlet_expectation",
+    "dirichlet_expectation_sharded",
     "infer_gamma",
     "init_gamma",
     "init_lambda",
@@ -46,6 +47,15 @@ def dirichlet_expectation(alpha: torch.Tensor) -> torch.Tensor:
     return torch.digamma(alpha) - torch.digamma(
         alpha.sum(dim=-1, keepdim=True)
     )
+
+
+def dirichlet_expectation_sharded(
+    shard: torch.Tensor, row_sum: torch.Tensor
+) -> torch.Tensor:
+    """``dirichlet_expectation`` of a vocabulary-sharded table [k, V/s]
+    whose true row sums [k] were reduced across the shards
+    (``parallel.model_row_sum``): the full [k, V] table never exists."""
+    return torch.digamma(shard) - torch.digamma(row_sum)[..., None]
 
 
 def seeded_generator(device, *key: int) -> torch.Generator:

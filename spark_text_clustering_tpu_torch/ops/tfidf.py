@@ -27,6 +27,7 @@ __all__ = [
     "hashing_tf_rows",
     "idf_from_df",
     "idf_transform",
+    "make_doc_freq_sharded",
     "murmur3_32",
     "murmur3_32_batch",
 ]
@@ -38,6 +39,20 @@ def doc_freq(batch: DocTermBatch, vocab_size: int) -> torch.Tensor:
     present = (batch.token_weights > 0).to(torch.float32).reshape(-1)
     df = torch.zeros(vocab_size, dtype=torch.float32, device=present.device)
     return df.index_add_(0, batch.token_ids.reshape(-1).long(), present)
+
+
+def make_doc_freq_sharded(grid, vocab_size: int):
+    """Document-sharded ``doc_freq``: the returned fn takes this rank's
+    block of a batch's docs, adds their term presence, and one
+    ``psum_data`` combines the shards into the whole [vocab_size] df on
+    every rank.  The df values are exact integers, so the result is the
+    same bit for bit at every grid."""
+    from ..parallel.collectives import psum_data
+
+    def df_fn(batch: DocTermBatch) -> torch.Tensor:
+        return psum_data(grid, doc_freq(batch, vocab_size))
+
+    return df_fn
 
 
 def idf_from_df(

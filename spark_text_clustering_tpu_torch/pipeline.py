@@ -9,7 +9,8 @@ TF-IDF -> LDA, on a plain dict dataset with the JAX package's keys:
     topic_distribution : np.ndarray [n, k]
 
 Text stages run on the host (the native C++ library, or Python);
-``IDF`` and ``LDA`` run on ``device`` ("cuda" by default).
+``IDF`` and ``LDA`` run on ``device`` ("cuda" by default), or on a
+``grid`` of ranks that the caller shares between them.
 """
 
 from __future__ import annotations
@@ -21,8 +22,18 @@ import torch
 
 from .config import Params
 from .device import resolve_device
-from .ops.sparse import batch_from_rows, bucket_by_length
-from .ops.tfidf import doc_freq, hashing_tf_rows, idf_from_df, idf_transform
+from .ops.sparse import (
+    batch_from_rows,
+    bucket_by_length,
+    bucket_indices_by_length,
+)
+from .ops.tfidf import (
+    doc_freq,
+    hashing_tf_rows,
+    idf_from_df,
+    idf_transform,
+    make_doc_freq_sharded,
+)
 from .utils.vocab import build_vocab, count_terms, count_vectors
 
 __all__ = [
@@ -211,21 +222,34 @@ class IDFModel(Transformer):
 class IDF(Estimator):
     """MLlib IDF(minDocFreq=2) with the reference's 0.0001 floor.  The df
     pass runs per power-of-two length bucket, so its memory is bounded by
-    the largest bucket."""
+    the largest bucket.  With a ``grid`` (a ``parallel.ProcessGrid``) each
+    rank counts its data shard's block of every bucket and the df sums
+    over the data shards (``make_doc_freq_sharded``): the same df, bit for
+    bit, on every rank and at every grid."""
 
     def __init__(self, min_doc_freq: int = 2, idf_floor: float = 0.0001,
-                 device="cuda"):
+                 device="cuda", grid=None):
         self.min_doc_freq = min_doc_freq
         self.idf_floor = idf_floor
-        self.device = device
+        self.grid = grid
+        self.device = device if grid is None else grid.device
 
     def fit(self, ds: Dict) -> IDFModel:
         dev = resolve_device(self.device)
         rows = ds["rows"]
         v = len(ds["vocab"]) if ds.get("vocab") is not None else ds["num_features"]
         df = torch.zeros(v, dtype=torch.float32, device=dev)
-        for _, (batch, _) in bucket_by_length(rows, device=dev).items():
-            df += doc_freq(batch, v)
+        if self.grid is not None:
+            from .parallel.collectives import data_shard_rows
+
+            df_fn = make_doc_freq_sharded(self.grid, v)
+            for width, idxs in sorted(bucket_indices_by_length(rows).items()):
+                block, _, _ = data_shard_rows(
+                    self.grid, [rows[i] for i in idxs], width, dev)
+                df += df_fn(block)
+        else:
+            for _, (batch, _) in bucket_by_length(rows, device=dev).items():
+                df += doc_freq(batch, v)
         # MLlib: m = number of vectors, empties included
         idf = idf_from_df(df, len(rows), self.min_doc_freq)
         return IDFModel(idf.cpu().numpy(), self.idf_floor, self.device)
@@ -250,11 +274,14 @@ class LDAModelTransformer(Transformer):
 
 class LDA(Estimator):
     """The LDA facade: EM, online VB (every single-device path), or NMF
-    (the estimator swap), by ``params.algorithm``."""
+    (the estimator swap), by ``params.algorithm``.  With a ``grid``, EM
+    fits on it; online VB and NMF refuse a grid larger than 1x1 (their
+    sharding is ROADMAP.md queue 1 item 6b)."""
 
-    def __init__(self, params: Params, device="cuda"):
+    def __init__(self, params: Params, device="cuda", grid=None):
         self.params = params
-        self.device = device
+        self.grid = grid
+        self.device = device if grid is None else grid.device
 
     def fit(self, ds: Dict) -> LDAModelTransformer:
         from .models.em_lda import EMLDA
@@ -271,7 +298,15 @@ class LDA(Estimator):
         if vocab is None:
             vocab = [f"h{i}" for i in range(ds["num_features"])]
         nonempty = [(i, w) for i, w in ds["rows"] if len(i) > 0]
-        opt = optimizers[self.params.algorithm](self.params, device=self.device)
+        if self.params.algorithm == "em":
+            opt = EMLDA(self.params, device=self.device, grid=self.grid)
+        elif self.grid is not None and self.grid.size > 1:
+            raise NotImplementedError(
+                f"the {self.params.algorithm} fit on a grid is not ported "
+                "yet (ROADMAP.md queue 1 item 6b): it runs on one device")
+        else:
+            opt = optimizers[self.params.algorithm](self.params,
+                                                    device=self.device)
         model = opt.fit(nonempty, vocab)
         return LDAModelTransformer(
             model, log_likelihood=getattr(opt, "last_log_likelihood", None),

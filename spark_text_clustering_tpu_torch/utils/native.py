@@ -108,9 +108,14 @@ def finish(started, timeout: float = 600.0) -> None:
 def build() -> float:
     """Build the library unless it is built; returns the seconds it took
     (0.0 when it was already there).  Raises ``RuntimeError`` on failure."""
+    from ..ops import _build
+
     t0 = time.perf_counter()
-    started = start()
-    finish(started)
+    if lib_path().exists():
+        return 0.0
+    with _build.build_lock():
+        started = start()
+        finish(started)
     return time.perf_counter() - t0 if started else 0.0
 
 

@@ -522,7 +522,8 @@ def test_books_root_routes_through_lang_dirs(native_lib, corpus, tmp_path):
 @pytest.mark.parametrize("cmd", ["train", "score"])
 def test_cli_flags_and_defaults_match_jax(cmd):
     """Every flag of the JAX CLI's train and score, with its default, and
-    one more: --device (default cuda)."""
+    the port's own: --device (default cuda) and --dist-backend (default
+    by device); score also takes the grid bring-up flags train has."""
     def flags(parser):
         (sub,) = [a for a in parser._actions
                   if isinstance(a, argparse._SubParsersAction)]
@@ -530,7 +531,11 @@ def test_cli_flags_and_defaults_match_jax(cmd):
                 for o in a.option_strings}
 
     got, want = flags(tcli.build_parser()), flags(jcli.build_parser())
-    assert got - want == {("--device", "cuda")}
+    extra = {("--device", "cuda"), ("--dist-backend", None)}
+    if cmd == "score":
+        extra |= {("--coordinator", None), ("--num-processes", None),
+                  ("--process-id", None)}
+    assert got - want == extra
     assert want <= got
 
 
@@ -560,13 +565,6 @@ def test_resume_mismatch_exits_2(native_lib, corpus, tmp_path):
 REFUSED = [
     (["train", "--telemetry-file", "t.jsonl"], "--telemetry-file", "item 9"),
     (["train", "--compile-cache", "cc"], "--compile-cache", "item 10"),
-    (["train", "--coordinator", "localhost:1"], "--coordinator", "item 6"),
-    (["train", "--num-processes", "2"], "--num-processes", "item 6"),
-    (["train", "--process-id", "0"], "--process-id", "item 6"),
-    (["train", "--data-shards", "2"], "--data-shards 2", "item 6"),
-    (["train", "--model-shards", "2"], "--model-shards 2", "item 6"),
-    (["score", "--data-shards", "4"], "--data-shards 4", "item 6"),
-    (["score", "--model-shards", "2"], "--model-shards 2", "item 6"),
     (["score", "--telemetry-file", "t.jsonl"], "--telemetry-file", "item 9"),
     (["score", "--compile-cache", "cc"], "--compile-cache", "item 10"),
 ]
@@ -582,6 +580,52 @@ def test_unported_flags_exit_2_and_name_their_item(tmp_path, argv, flag,
     rc, so, se = run(port_main, [*argv[:1], *books, *argv[1:]])
     assert rc == 2 and so == ""
     assert f"error: {flag} is not ported yet (ROADMAP.md queue 1 {item}" in se
+
+
+GRID_REFUSED = [
+    (["train", "--algorithm", "online", "--data-shards", "2"],
+     "--algorithm online with --data-shards/--model-shards is not ported "
+     "yet (ROADMAP.md queue 1 item 6b"),
+    (["train", "--algorithm", "nmf", "--model-shards", "2"],
+     "--algorithm nmf with --data-shards/--model-shards is not ported "
+     "yet (ROADMAP.md queue 1 item 6b"),
+    (["train", "--num-processes", "2"],
+     "--num-processes/--process-id require --coordinator"),
+    (["train", "--process-id", "0"],
+     "--num-processes/--process-id require --coordinator"),
+    (["score", "--num-processes", "2", "--process-id", "1"],
+     "--num-processes/--process-id require --coordinator"),
+    (["train", "--coordinator", "localhost:1"],
+     "--coordinator requires --num-processes and --process-id"),
+    (["train", "--coordinator", "localhost:1", "--num-processes", "3",
+      "--process-id", "0", "--data-shards", "2"],
+     "--num-processes 3 != --data-shards 2 x --model-shards 1"),
+    (["score", "--model-shards", "2", "--per-doc-convergence"],
+     "--per-doc-convergence does not support sharded scoring"),
+    (["train", "--data-shards", "2", "--model-shards", "2",
+      "--dist-backend", "nccl"],
+     "backend='nccl' takes one rank a card, and 4 ranks share 0 visible "
+     "card(s); use backend='gloo'"),
+    (["score", "--data-shards", "2", "--dist-backend", "nccl", "--device",
+      "cpu"], "backend='nccl' reduces CUDA tensors only; use backend='gloo'"),
+]
+
+
+@pytest.mark.parametrize("argv,message", GRID_REFUSED,
+                         ids=[" ".join(a) for a, _ in GRID_REFUSED])
+def test_grid_flags_that_cannot_run_exit_2(tmp_path, argv, message):
+    """A grid the port cannot run exits 2 before any work, saying why:
+    online VB and NMF on a grid (queue 1 item 6b), bring-up flags without
+    --coordinator or short of it, a process count that is not the grid's,
+    per-doc convergence on a grid, and nccl with more ranks than cards (or
+    on the CPU).  The default device is kept, so the nccl case counts this
+    host's cards: none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the card count differs")
+    books = ["--books", str(tmp_path / "none")]
+    rc, so, se = run(tcli.main, [*argv[:1], *books, *argv[1:]])
+    assert rc == 2 and so == ""
+    assert f"error: {message}" in se
 
 
 def _online_start(books, stop, path, seed=23):
@@ -687,3 +731,117 @@ def test_metrics_file_and_profile_dir(native_lib, corpus, tmp_path):
     (trace,) = os.listdir(prof)
     with open(os.path.join(prof, trace), encoding="utf-8") as f:
         assert "traceEvents" in json.load(f)
+
+
+# ---- the CLI on a grid ---------------------------------------------------
+GRID_FLAGS = ["--data-shards", "2", "--model-shards", "2",
+              "--dist-backend", "gloo"]
+
+
+def _grid_argv(books, stop, models):
+    return ["train", "--books", books, "--stop-words", stop, "--k", str(K),
+            "--models-dir", models, "--token-layout", "packed",
+            "--max-iterations", str(ITERS)]
+
+
+def _masked(stdout, models):
+    return mask(stdout, [(models, "<models>")]).splitlines()
+
+
+@pytest.fixture(scope="module")
+def grid_trained(native_lib, corpus, tmp_path_factory):
+    """The port's ``train`` from the default seed on one device and on a
+    2x2 grid of gloo CPU ranks it spawns itself (V is odd here, so the
+    grid pads N_wk to V + 1 columns): {"1x1"|"2x2": (rc, stdout, stderr,
+    models dir)}."""
+    books, stop = corpus
+    root = tmp_path_factory.mktemp("grid_train")
+    out = {}
+    for name, extra in (("1x1", []), ("2x2", GRID_FLAGS)):
+        models = str(root / f"m_{name}")
+        rc, so, se = run(port_main, [*_grid_argv(books, stop, models),
+                                     *extra])
+        out[name] = (rc, so, se, models)
+    return out
+
+
+def _lam(models):
+    (saved,) = os.listdir(models)
+    with np.load(os.path.join(models, saved, "arrays.npz")) as z:
+        return z["lam"]
+
+
+def test_train_on_a_grid_matches_one_device(grid_trained):
+    """``train --data-shards 2 --model-shards 2 --dist-backend gloo``
+    spawns four ranks, which start from the one-device fit's counts;
+    rank 0 alone prints and saves: stdout equal to the one-device run's
+    line for line with numbers and paths masked, one model saved, lam
+    within rtol 1e-4 and the average log-likelihood within 1e-4
+    relative."""
+    (rc1, out1, err1, m1), (rc4, out4, err4, m4) = (
+        grid_trained["1x1"], grid_trained["2x2"])
+    assert rc1 == 0 and rc4 == 0, (err1, err4)
+    assert _masked(out4, m4) == _masked(out1, m1)
+    np.testing.assert_allclose(_lam(m4), _lam(m1), rtol=1e-4, atol=1e-4)
+    assert _avg_loglik(out4) == pytest.approx(_avg_loglik(out1), rel=1e-4)
+
+
+@pytest.mark.parametrize("shards", [["--model-shards", "2"], GRID_FLAGS],
+                         ids=["1x2", "2x2"])
+def test_score_on_a_grid_matches_one_device(grid_trained, corpus, tmp_path,
+                                            shards):
+    """``score`` of the grid's model on a grid: the report equal to the
+    one-device report with floats masked, the distributions within 1e-4
+    (the grid scores padded buckets through the E-step's plain version,
+    one device the packed batch)."""
+    books, stop = corpus
+    (saved,) = os.listdir(grid_trained["2x2"][3])
+    model = os.path.join(grid_trained["2x2"][3], saved)
+    reports = {}
+    for name, extra in (("1x1", []), ("grid", shards)):
+        out_dir = str(tmp_path / name)
+        rc, so, se = run(port_main, [
+            "score", "--books", books, "--stop-words", stop, "--model",
+            model, "--output-dir", out_dir, *extra])
+        assert rc == 0, se
+        reports[name] = (report_of(out_dir), so.replace(out_dir, "<o>"))
+    assert mask(reports["grid"][0]) == mask(reports["1x1"][0])
+    assert mask(reports["grid"][1]) == mask(reports["1x1"][1])
+    np.testing.assert_allclose(
+        chip_smoke.report_distributions(reports["grid"][0], K),
+        chip_smoke.report_distributions(reports["1x1"][0], K), atol=1e-4)
+
+
+def test_coordinator_run_of_two_processes(grid_trained, corpus, tmp_path):
+    """Two processes started by hand, ``--coordinator localhost:<port>
+    --num-processes 2 --process-id i --data-shards 2``, meet at a port
+    bound to 0: both exit 0, rank 1 prints nothing, rank 0 prints what
+    the one-device run prints and saves the one model, lam within rtol
+    1e-4 of it."""
+    import socket
+    import subprocess
+    import sys
+
+    books, stop = corpus
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    models = str(tmp_path / "m")
+    env = {**os.environ, "PYTHONPATH": REPO}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "spark_text_clustering_tpu_torch.cli",
+         *_grid_argv(books, stop, models), "--device", "cpu",
+         "--coordinator", f"localhost:{port}", "--num-processes", "2",
+         "--process-id", str(i), "--data-shards", "2"],
+        cwd=str(tmp_path), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0, 0], [e for _, e in outs]
+    assert outs[1][0] == ""
+    _, out1, _, m1 = grid_trained["1x1"]
+    assert _masked(outs[0][0], models) == _masked(out1, m1)
+    np.testing.assert_allclose(_lam(models), _lam(m1), rtol=1e-4, atol=1e-4)

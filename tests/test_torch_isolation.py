@@ -57,6 +57,16 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
 
 
+def test_the_grid_modules_are_scanned():
+    """The import and source scans cover the grid's modules: the
+    ``parallel`` package and sharded evaluation."""
+    mods = set(_port_modules())
+    assert {"spark_text_clustering_tpu_torch.parallel",
+            "spark_text_clustering_tpu_torch.parallel.mesh",
+            "spark_text_clustering_tpu_torch.parallel.collectives",
+            "spark_text_clustering_tpu_torch.models.sharded_eval"} <= mods
+
+
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b"
     r"|import\s+spark_text_clustering_tpu(\.|\s|$)"
