@@ -97,8 +97,24 @@
    ``score --model-shards 2`` on E's books against config E's 1x1 card
    CLI (distributions 5e-3, main topics where the top two differ by
    1e-2); a 1x1 NCCL grid initializes and reduces;
-12. a ``total`` line with the run's seconds, then a ``kernels`` line: per
-   kernel, the launches of the main-path runs of 3-11 (each must be > 0),
+12. config J, online VB and NMF on a 2x2 grid of 4 ranks on the one card
+   (gloo).  Each rank first holds the tile kernel (its data shard's tiles
+   of J-C's iteration 5, eb gathered from the vocabulary shards), the NMF
+   kernel (its block of D's tiles) and the E-step (its 6 rows of a J-CLI
+   minibatch, [6, 5, L]) against their plain versions; then with the
+   counts at 0: J-C (C's corpus tiles-resident on the grid, 60
+   iterations; its first 10 replayed at 1x1 on the grid's tiles from the
+   same draws, lambda 1e-3; log-perplexity of 512 docs within 3% of C's),
+   J-G (G's defaults on the grid, bsz 661 -> 662; lambda against the 1x1
+   card fit 1e-3, or twice that fit's own spread) and J-D (D's NMF on the
+   grid; against the 1x1 card fits, after D's ten check sweeps H 1e-3
+   and the loss 1e-4, after the 40 the loss 1e-4), each with ms an
+   iteration or sweep and its collectives' share; J-CLI: ``train
+   --algorithm online`` at 2x2 and ``score`` on the grid against config
+   H's card report (5e-3), ``train --algorithm nmf`` at 1x1 and 2x2, the
+   grid model's report equal to the 1x1 report with floats masked;
+13. a ``total`` line with the run's seconds, then a ``kernels`` line: per
+   kernel, the launches of the main-path runs of 3-12 (each must be > 0),
    the largest difference from the plain version, and the times beside
    the card's bound.
 
@@ -1471,7 +1487,7 @@ def run_cli(argv, out_path):
 
 def cli_train(label, books, stop, device, models_dir, v, out_path,
               extra=()):
-    """``train`` (EM, k=EN_K, the defaults, plus ``extra``) on ``device``
+    """``train`` (k=EN_K, the defaults, plus ``extra``) on ``device``
     through ``cli.main``: (its console numbers and wall seconds, the one
     committed model dir it saved).  Fails unless it exits 0, saves one
     committed model, prints a finite average log-likelihood (EM) and the
@@ -1496,8 +1512,9 @@ def cli_train(label, books, stop, device, models_dir, v, out_path,
             os.path.join(models_dir, saved[0])) != "committed":
         raise AssertionError(f"config {label} train on {device}: rc {rc}, "
                              f"models {saved}")
-    # online VB prints no average log-likelihood (MLlib's EM metric)
-    if "online" not in extra and not np.isfinite(
+    # online VB and NMF print no average log-likelihood (MLlib's EM
+    # metric)
+    if not {"online", "nmf"} & set(extra) and not np.isfinite(
             nums.get("avg_log_likelihood", np.nan)):
         raise AssertionError(f"config {label} train on {device}: average "
                              f"logLik {nums.get('avg_log_likelihood')}")
@@ -2093,6 +2110,7 @@ def run_config_h(torch, seed, e):
             score_launches = dict(_build.LAUNCHES)
     diff, agreement, clear = distributions_agree("H", reports["cuda"],
                                                  reports["cpu"])
+    e["online_card_report"] = reports["cuda"]
 
     m = ONLINE_CHECK_ITERS
     card_opt = OnlineLDA(online_defaults(EN_K, seed, m))
@@ -2542,6 +2560,529 @@ def run_config_i(torch, seed, e):
     return summary
 
 
+GRID_J = (2, 2)                # config J: data x model shards, gloo
+J_REPLAY_ITERS = 10            # J-C's grid iterations replayed at 1x1
+
+
+def mask_floats(text: str) -> str:
+    """``text`` with every float written as ``<f>``."""
+    import re
+
+    return re.sub(r"-?\d+\.\d+(?:[eE][-+]?\d+)?", "<f>", text)
+
+
+def grid_tiles_check(torch, grid, rows, seed):
+    """The tile kernel against its plain version on this rank's share of
+    J-C's iteration 5: its data shard's tiles of ``plan_corpus_tiles
+    (n_shards=D)`` as the grid fit picks them (``tile_pick``), eb of a
+    random lambda gathered from the vocabulary shards
+    (``gather_model_rows_kbl``), random gamma inits."""
+    from spark_text_clustering_tpu_torch import OnlineLDA
+    from spark_text_clustering_tpu_torch.ops import packed
+    from spark_text_clustering_tpu_torch.parallel import (
+        gather_model_rows_kbl, model_row_sum,
+    )
+
+    dev, k, n = grid.device, NG_K, len(rows)
+    opt = OnlineLDA(online_params(seed, 0), grid=grid)
+    opt.fit(rows, [f"h{i}" for i in range(NG_V)])     # no iteration
+    plan = packed.plan_corpus_tiles(*flat_rows(rows),
+                                    n_shards=grid.data_shards, k=k)
+    per = plan.ids.shape[0] // grid.data_shards
+    pick = grid.d * per + opt.tile_pick(5)[grid.d]
+    d, tb = plan.d, len(pick)
+    ids, cts, seg = (torch.from_numpy(a[pick]).to(dev)
+                     for a in (plan.ids, plan.cts, plan.seg))
+    shard_v = NG_V // grid.model_shards
+    rng = np.random.default_rng(400 + grid.m)
+    lam = torch.from_numpy(
+        rng.gamma(1.0, 1.0, (k, shard_v)).astype(np.float32)).to(dev)
+    lam_tok = gather_model_rows_kbl(grid, lam, ids.reshape(-1).long())
+    eb = torch.exp(torch.digamma(lam_tok.clamp(min=1e-30)) - torch.digamma(
+        model_row_sum(grid, lam))[:, None]).contiguous()
+    g0 = torch.from_numpy(np.random.default_rng(500 + grid.rank).gamma(
+        100.0, 0.01, (k, tb * d)).astype(np.float32)).to(dev)
+    args = (eb, cts, seg, torch.full((k,), 1.0 / k, device=dev), g0)
+    iters, case = tiles_case(torch, packed, args, d, f"J-C_rank_{grid.rank}",
+                             plan.doc_ids[pick], n)
+    t_bytes, by = tiles_bound(torch, args, d, iters,
+                              int((plan.doc_ids[pick] < n).sum()))
+    case.update(
+        rank=grid.rank, pair=[grid.d, grid.m],
+        live_tokens=int((seg < d).sum()),
+        ms=cuda_ms(torch, lambda: packed.gamma_fixed_point_tiles(*args, d),
+                   20),
+        plain_ms=cuda_ms(torch, lambda: packed.gamma_fixed_point_tiles_plain(
+            *args, d), 3),
+        bound_ms=t_bytes, bound_by=by)
+    return case
+
+
+def grid_nmf_check(torch, grid, rows, seed):
+    """The NMF kernel against its plain version on this rank's block of
+    config D's tiles (``plan_corpus_tiles(n_shards=D)``): W in tile-slot
+    order from the fit's W0, H at the tokens gathered from the vocabulary
+    shards of the fit's H0, H Hᵀ summed over "model"."""
+    from spark_text_clustering_tpu_torch import NMF
+    from spark_text_clustering_tpu_torch.models.nmf import docs_w_to_tiles
+    from spark_text_clustering_tpu_torch.ops import nmf, packed
+    from spark_text_clustering_tpu_torch.parallel import (
+        gather_model_rows_kbl, psum_model,
+    )
+
+    dev, k, n = grid.device, NG_K, len(rows)
+    plan = packed.plan_corpus_tiles(*flat_rows(rows),
+                                    n_shards=grid.data_shards, k=k)
+    per = plan.ids.shape[0] // grid.data_shards
+    blk = slice(grid.d * per, (grid.d + 1) * per)
+    w_doc, h = NMF(nmf_params(seed), device=dev)._init(
+        n, k, NG_V, float(sum(w.sum() for _, w in rows)))
+    shard_v = NG_V // grid.model_shards
+    h = h[:, grid.m * shard_v:(grid.m + 1) * shard_v].contiguous()
+    ids, cts, seg = (torch.from_numpy(np.ascontiguousarray(a[blk])).to(dev)
+                     for a in (plan.ids, plan.cts, plan.seg))
+    d = plan.d
+    args = (gather_model_rows_kbl(grid, h, ids.reshape(-1).long()), cts, seg,
+            docs_w_to_tiles(w_doc, plan.doc_ids[blk]),
+            psum_model(grid, h @ h.T))
+    got = nmf.nmf_mu_update_tiles(*args, d)
+    want = nmf.nmf_mu_update_tiles_plain(*args, d)
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    if not all(torch.allclose(g, w, rtol=1e-4, atol=1e-8)
+               for g, w in zip(got, want)):
+        raise AssertionError(f"config J-D: nmf_mu_update_tiles differs from "
+                             f"its plain version by {err} on rank "
+                             f"{grid.rank}")
+    live_tok = int((plan.seg[blk] < d).sum())
+    live_slots = int((plan.doc_ids[blk] < n).sum())
+    t_bytes, by = bound(live_tok * (8 * k + 8) + live_slots * 8 * k + 4 * k * k,
+                        2.0 * k * live_tok + live_slots * (2.0 * k * k + 3 * k))
+    return {"rank": grid.rank, "pair": [grid.d, grid.m], "k": k,
+            "tiles": per, "tt": plan.tt, "d": d, "live_tokens": live_tok,
+            "live_slots": live_slots, "max_abs_err": err,
+            "tolerance": "rtol 1e-4, atol 1e-8",
+            "ms": cuda_ms(torch, lambda: nmf.nmf_mu_update_tiles(*args, d),
+                          20),
+            "plain_ms": cuda_ms(torch, lambda: nmf.nmf_mu_update_tiles_plain(
+                *args, d), 3),
+            "bound_ms": t_bytes, "bound_by": by}
+
+
+def grid_online_estep_check(torch, grid, rows, v, seed):
+    """The padded E-step kernel against its plain version on this rank's
+    rows of a J-CLI minibatch (E's TF-IDF rows, the online CLI's defaults:
+    12 picks, 6 a data shard, of the corpus row length; a draw that
+    reaches every data shard), its [B/D, k, L]
+    rows of exp(E[log beta]) gathered from the vocabulary shards of a
+    random lambda (``gather_model_rows_bkl``)."""
+    from spark_text_clustering_tpu_torch import OnlineLDA
+    from spark_text_clustering_tpu_torch.ops.lda_math import (
+        dirichlet_expectation_sharded,
+    )
+    from spark_text_clustering_tpu_torch.ops.sparse import batch_from_rows
+    from spark_text_clustering_tpu_torch.parallel import (
+        gather_model_rows_bkl, model_row_sum,
+    )
+
+    dev, k, n = grid.device, EN_K, len(rows)
+    opt = OnlineLDA(online_defaults(EN_K, seed, 0), grid=grid)
+    opt.fit(rows, [f"t{i}" for i in range(v)])        # no iteration
+    bsz = -(-opt.last_batch_size // grid.data_shards) * grid.data_shards
+    per = bsz // grid.data_shards
+    # the first draw that gives every data shard a book (a draw of ~3.6
+    # books leaves the last shard's rows all pads), else the first that
+    # draws one
+    sizes = [opt.sample_pick(i).size for i in range(2000)]
+    it = next((i for i, m in enumerate(sizes)
+               if m > (grid.data_shards - 1) * per),
+              next(i for i, m in enumerate(sizes) if m))
+    pick = opt.sample_pick(it)
+    pick = np.concatenate([pick, np.arange(n, n + bsz - pick.size)])
+    empty = (np.zeros(0, np.int32), np.zeros(0, np.float32))
+    mine = [rows[i] if i < n else empty
+            for i in pick[grid.d * per:(grid.d + 1) * per]]
+    batch = batch_from_rows(mine, row_len=opt.last_row_len, device=dev)
+    shard_v = -(-v // grid.model_shards)
+    lam = torch.from_numpy(np.random.default_rng(600 + grid.m).gamma(
+        100.0, 0.01, (k, shard_v)).astype(np.float32)).to(dev)
+    eb_shard = torch.exp(dirichlet_expectation_sharded(
+        lam, model_row_sum(grid, lam)))
+    eb = gather_model_rows_bkl(grid, eb_shard, batch.token_ids)
+    g0 = torch.from_numpy(np.random.default_rng(700 + grid.rank).gamma(
+        100.0, 0.01, (per, k)).astype(np.float32)).to(dev)
+    return {"name": "gamma_fixed_point_bkl", "config": "J-CLI",
+            "rank": grid.rank, "iteration": it,
+            **estep_case(torch, eb, batch.token_weights.contiguous(),
+                         torch.full((k,), 1.0 / k, device=dev), g0,
+                         "J-CLI")}
+
+
+@contextlib.contextmanager
+def shard_row_sums(torch, module, shards: int):
+    """Inside the block, ``module._eb_at`` (the online fit's exp(E[log
+    beta]) at the tokens) on one device sums lambda's rows as a grid of
+    ``shards`` vocabulary shards does: each shard's columns, then the
+    shards in order.  A last-bit change in a row sum can move a tile at
+    the tol boundary by one inner iteration, and that moves lambda by
+    ~1e-4 an iteration."""
+    eb_at = module._eb_at
+
+    def grid_order(lam, flat, grid=None):
+        w = lam.shape[1] // shards
+        row_sum = sum(lam[:, i * w:(i + 1) * w].contiguous().sum(dim=1)
+                      for i in range(shards))
+        return torch.exp(torch.digamma(lam[:, flat].clamp(min=1e-30))
+                         - torch.digamma(row_sum)[:, None])
+
+    module._eb_at = grid_order
+    try:
+        yield
+    finally:
+        module._eb_at = eb_at
+
+
+def _timed_fit(torch, grid, fit, units: int) -> dict:
+    """``fit()`` with the grid's collectives timed: (the fit's result, its
+    seconds, ms a unit (an iteration or a sweep) from the fit's iteration
+    times, and the collectives' ms, MB and share a unit)."""
+    torch.cuda.synchronize()
+    grid.timed = True
+    grid.stats.update(calls=0, seconds=0.0, bytes=0)
+    t0 = time.perf_counter()
+    model = fit()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    grid.timed = False
+    unit_ms = 1e3 * float(np.mean(model.iteration_times))
+    return model, {
+        "fit_s": secs, "ms_per_unit": unit_ms,
+        "collective_calls_per_unit": grid.stats["calls"] / units,
+        "collective_ms_per_unit": 1e3 * grid.stats["seconds"] / units,
+        "collective_mb_per_unit": grid.stats["bytes"] / units / 1e6,
+        "collective_share": grid.stats["seconds"] / (units * unit_ms / 1e3)}
+
+
+def config_j_rank(grid, seed, e_rows, e_v):
+    """One rank of config J (2x2 grid, gloo, CUDA tensors).  First the
+    tile, NMF and E-step kernels against their plain versions at this
+    rank's shard shapes (those launches are not counted), then the main
+    path with the counts at 0: J-C (C's corpus, online VB tiles-resident
+    on the grid, 60 iterations; then the first 10 again, for the 1x1
+    replay), J-G (G's defaults: the host-streaming packed path on tiles)
+    and J-D (D's NMF on tiles).  Rank 0 returns the arrays the parent
+    compares; every rank returns its numbers."""
+    import torch
+
+    from spark_text_clustering_tpu_torch import NMF, OnlineLDA
+    from spark_text_clustering_tpu_torch.ops import _build
+
+    rows = newsgroups_rows(seed)
+    vocab = [f"h{i}" for i in range(NG_V)]
+    checks = {
+        "gamma_fixed_point_tiles": grid_tiles_check(torch, grid, rows, seed),
+        "nmf_mu_update_tiles": grid_nmf_check(torch, grid, rows, seed),
+        "gamma_fixed_point_bkl": grid_online_estep_check(torch, grid, e_rows,
+                                                         e_v, seed),
+    }
+    out = {"rank": grid.rank, "pair": [grid.d, grid.m], "checks": checks}
+    _build.reset_launches()
+
+    def launches_since(before):
+        return {n_: _build.LAUNCHES[n_] - before[n_] for n_ in _build.LAUNCHES}
+
+    before = dict(_build.LAUNCHES)
+    opt = OnlineLDA(online_params(seed), grid=grid)
+    model, res = _timed_fit(torch, grid, lambda: opt.fit(rows, vocab),
+                            ONLINE_ITERS)
+    res.update(layout=opt.last_layout, gamma_backend=opt.last_gamma_backend,
+               batch_size=opt.last_batch_size, tiles=opt.last_tiles,
+               log_perplexity=model.log_perplexity(rows[:EVAL_DOCS]),
+               lam_sum=float(model.lam.astype(np.float64).sum()))
+    replay = OnlineLDA(online_params(seed, J_REPLAY_ITERS), grid=grid)
+    lam10 = replay.fit(rows, vocab).lam
+    res["launches"] = launches_since(before)
+    if grid.rank == 0:
+        res.update(lam=model.lam, replay_lam=lam10, replay_picks=[
+            replay.tile_pick(i) for i in range(J_REPLAY_ITERS)])
+    out["C"] = res
+
+    before = dict(_build.LAUNCHES)
+    opt = OnlineLDA(online_defaults(NG_K, seed), grid=grid)
+    model, res = _timed_fit(torch, grid, lambda: opt.fit(rows, vocab),
+                            ONLINE_ITERS)
+    res.update(layout=opt.last_layout, gamma_backend=opt.last_gamma_backend,
+               bsz=opt.last_batch_size, tile_chunks=opt.last_tile_chunks,
+               draws=[int(opt.sample_pick(i).size)
+                      for i in range(ONLINE_ITERS)],
+               lam_sum=float(model.lam.astype(np.float64).sum()),
+               launches=launches_since(before))
+    if grid.rank == 0:
+        res["lam"] = model.lam
+    out["G"] = res
+
+    before = dict(_build.LAUNCHES)
+    opt = NMF(nmf_params(seed), grid=grid)
+    model, res = _timed_fit(torch, grid, lambda: opt.fit(rows, vocab),
+                            NMF_ITERS)
+    check = NMF(nmf_params(seed, NMF_CHECK_ITERS), grid=grid).fit(rows, vocab)
+    res.update(layout=opt.last_layout, mu_backend=opt.last_mu_backend,
+               tiles=opt.last_tiles, loss=model.loss,
+               check_loss=check.loss, launches=launches_since(before))
+    if grid.rank == 0:
+        res.update(h=model.h, check_h=check.h)
+    out["D"] = res
+    return out
+
+
+def _unit(res: dict, unit: str) -> dict:
+    """A rank's J numbers with "unit" named: iteration or sweep."""
+    return {key.replace("unit", unit): val for key, val in res.items()}
+
+
+def run_config_j(torch, seed, e, log_perplexity_c):
+    """Online VB and NMF on a 2x2 grid of 4 ranks on the one card, gloo
+    with CUDA tensors (``config_j_rank``): J-C against a replay of its
+    first 10 iterations at 1x1 on the card (the grid's tiles mapped to
+    global indices, the same lambda and gamma draws: lambda within 1e-3
+    relative) and against config C's log-perplexity (3%, the JAX
+    package's whole-fit band: the grid walks another tile stream); J-G
+    against the 1x1 card fit from the seed (lambda within 1e-3 relative,
+    or twice the 1x1 fit's own spread over two more fits where that is
+    larger: ``index_add_`` adds with float atomics); J-D against the 1x1
+    card fits (after D's ten check sweeps H 1e-3 relative, floored at
+    1e-6 of the largest, and the loss 1e-4; after the 40 the loss 1e-4);
+    then J-CLI on E's books: ``train --algorithm online`` at 2x2
+    and ``score`` of its model on the grid against config H's 1x1 card
+    report (5e-3), and ``train --algorithm nmf`` at 1x1 and at 2x2, each
+    model scored, the grid's report equal to the 1x1 report with floats
+    masked."""
+    from types import SimpleNamespace
+
+    from spark_text_clustering_tpu_torch import NMF, OnlineLDA
+    from spark_text_clustering_tpu_torch.device import resolve_device
+    from spark_text_clustering_tpu_torch.models import online_lda
+    from spark_text_clustering_tpu_torch.ops import _build, packed
+    from spark_text_clustering_tpu_torch.ops.lda_math import (
+        init_lambda, seeded_generator,
+    )
+    from spark_text_clustering_tpu_torch.parallel import run_grid
+
+    dev = resolve_device("cuda")
+    n_data = GRID_J[0]
+    summary = {"phase": "config_J", "grid": list(GRID_J),
+               "backend": "gloo", "ranks": GRID_J[0] * GRID_J[1]}
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    ranks = run_grid(config_j_rank, *GRID_J,
+                     (seed, e["rows"], len(e["vocab"])), backend="gloo",
+                     device="cuda", timeout=900)
+    summary["grid_s"] = time.perf_counter() - t0
+    grid_launches = dict(_build.LAUNCHES)
+    rank0 = ranks[0]
+    rows = newsgroups_rows(seed)
+    n, vocab = len(rows), [f"h{i}" for i in range(NG_V)]
+
+    def lam_rel(a, b):
+        return float(np.max(np.abs(a - b) / np.abs(b)))
+
+    def ranks_of(label, unit, *keys):
+        return [{key: _unit(r[label], unit)[key] for key in (
+            f"ms_per_{unit}", "collective_share", "launches", *keys)}
+            for r in ranks]
+
+    def public(label, unit):
+        return {key: val for key, val in _unit(rank0[label], unit).items()
+                if key not in ("lam", "h", "check_h", "replay_lam", "replay_picks")}
+
+    # J-C: replay the grid's first 10 iterations at 1x1 on the card, from
+    # the seeded lambda (V even: the grid draws the same table)
+    p = online_params(seed, J_REPLAY_ITERS)
+    plan = packed.plan_corpus_tiles(*flat_rows(rows), n_shards=n_data,
+                                    k=NG_K, min_tile_docs=128)
+    per = plan.ids.shape[0] // n_data
+    ids, cts, seg, doc = (torch.from_numpy(a).to(dev) for a in (
+        plan.ids, plan.cts, plan.seg, plan.doc_ids))
+    lam = init_lambda(seeded_generator(dev, seed, online_lda._LAMBDA_KEY),
+                      NG_K, NG_V, p.gamma_shape, device=dev)
+
+    def replay_iteration(it, pick, lam):
+        """Iteration ``it`` at 1x1 on the grid's tiles ``pick`` [data
+        shards, tiles], as global tile indices."""
+        glob = (pick + per * np.arange(n_data)[:, None]).reshape(-1)
+        g = torch.from_numpy(glob).to(dev)
+        return online_lda.tiles_iteration(
+            lam, it, ids[g], cts[g], seg[g],
+            draws._gamma_rows(run, it, doc[g].reshape(-1)).T.contiguous(),
+            int((plan.doc_ids[glob] < n).sum()),
+            alpha=torch.full((NG_K,), 1.0 / NG_K, device=dev),
+            eta=p.resolved_eta(), tau0=p.tau0, kappa=p.kappa, d=plan.d,
+            corpus_size=float(n), max_inner=p.estep_max_inner,
+            tol=p.estep_tol)
+
+    draws = OnlineLDA(p)
+    run = SimpleNamespace(n=n, k=NG_K)
+    with shard_row_sums(torch, online_lda, GRID_J[1]):
+        for it, pick in enumerate(rank0["C"]["replay_picks"]):
+            lam = replay_iteration(it, pick, lam)
+    replay_rel = lam_rel(rank0["C"]["replay_lam"], lam.cpu().numpy())
+    lp_rel = abs(rank0["C"]["log_perplexity"] - log_perplexity_c) / abs(
+        log_perplexity_c)
+    res_c = public("C", "iteration")
+    res_c.update(replay_iterations=J_REPLAY_ITERS,
+                 replay_lam_max_rel_diff=replay_rel,
+                 one_device_log_perplexity=log_perplexity_c,
+                 log_perplexity_rel_diff=lp_rel,
+                 ranks=ranks_of("C", "iteration", "lam_sum"))
+    if not replay_rel <= 1e-3 or not lp_rel <= 0.03 or (
+            res_c["layout"], res_c["gamma_backend"]) != ("tiles_resident",
+                                                          "pallas_tiles"):
+        raise AssertionError(f"config J-C: replay lambda {replay_rel}, "
+                             f"logPerp {lp_rel}, {res_c['layout']}")
+    summary["J_C"] = res_c
+
+    # J-G against the 1x1 card fit from the seed, and that fit's spread,
+    # each summing lambda's rows in the grid's order
+    with shard_row_sums(torch, online_lda, GRID_J[1]):
+        one = OnlineLDA(online_defaults(NG_K, seed)).fit(rows, vocab).lam
+        repeat = max(lam_rel(OnlineLDA(online_defaults(NG_K, seed)).fit(
+            rows, vocab).lam, one) for _ in range(2))
+    g_rel = lam_rel(rank0["G"]["lam"], one)
+    g_bound = max(1e-3, 2.0 * repeat)
+    res_g = public("G", "iteration")
+    draws = res_g.pop("draws")
+    one_bsz = OnlineLDA(online_defaults(NG_K, seed, 0))
+    one_bsz.fit(rows, vocab)
+    res_g.update(lam_max_rel_diff=g_rel,
+                 one_device_repeat_lam_max_rel_diff=repeat, lam_bound=g_bound,
+                 one_device_bsz=one_bsz.last_batch_size, max_draw=max(draws),
+                 docs_per_s=sum(draws) / res_g["fit_s"],
+                 ranks=ranks_of("G", "iteration", "lam_sum"))
+    # the grid rounds bsz up to the data shards; the draws stay under the
+    # 1x1 bsz, so both fits see the same docs
+    if not g_rel <= g_bound or res_g["bsz"] != -(
+            -one_bsz.last_batch_size // n_data) * n_data or (
+            max(draws) > one_bsz.last_batch_size) or (
+            res_g["layout"], res_g["gamma_backend"]) != ("packed",
+                                                         "pallas_tiles"):
+        raise AssertionError(f"config J-G: lambda {g_rel} (bound {g_bound}),"
+                             f" bsz {res_g['bsz']}, {res_g['layout']}")
+    summary["J_G"] = res_g
+
+    # J-D against the 1x1 card fits from the seed: after D's ten check
+    # sweeps H and the loss (D's limits), after the 40 the loss.  H's
+    # smallest entries keep shrinking under the multiplicative update, so
+    # a summation-order difference grows relative to them: on the CPU,
+    # where every fit repeats bit for bit, the grid's H after 40 sweeps is
+    # 2.9e-3 from 1x1 (1.7e-4 after 10), in entries ~1e-5 of the largest
+    def h_rel(got, want):
+        floor = 1e-6 * float(np.abs(want).max())
+        return float(np.max(np.abs(got - want)
+                            / np.maximum(np.abs(want), floor)))
+
+    one_d = NMF(nmf_params(seed)).fit(rows, vocab)
+    one_check = NMF(nmf_params(seed, NMF_CHECK_ITERS)).fit(rows, vocab)
+    check_rel = h_rel(rank0["D"]["check_h"], one_check.h)
+    check_loss_rel = abs(rank0["D"]["check_loss"] - one_check.loss) / abs(
+        one_check.loss)
+    loss_rel = abs(rank0["D"]["loss"] - one_d.loss) / abs(one_d.loss)
+    res_d = public("D", "sweep")
+    res_d.update(check_sweeps=NMF_CHECK_ITERS, check_h_max_rel_diff=check_rel,
+                 check_loss_rel_diff=check_loss_rel,
+                 h_max_rel_diff=h_rel(rank0["D"]["h"], one_d.h),
+                 one_device_loss=one_d.loss, loss_rel_diff=loss_rel,
+                 ranks=ranks_of("D", "sweep", "loss"))
+    if not check_rel <= 1e-3 or not check_loss_rel <= 1e-4 or not (
+            loss_rel <= 1e-4) or res_d["mu_backend"] != "cuda_tiles":
+        raise AssertionError(f"config J-D: H {check_rel} and loss "
+                             f"{check_loss_rel} after {NMF_CHECK_ITERS} "
+                             f"sweeps, loss {loss_rel} after {NMF_ITERS}, "
+                             f"{res_d['mu_backend']}")
+    summary["J_D"] = res_d
+    for label, kern in (("C", "gamma_fixed_point_tiles"),
+                        ("G", "gamma_fixed_point_tiles"),
+                        ("D", "nmf_mu_update_tiles")):
+        if any(r[label]["launches"][kern] == 0 for r in ranks):
+            raise AssertionError(f"config J-{label}: a rank launched no "
+                                 f"{kern}")
+
+    # J-CLI on E's books; with V a multiple of the model shards the grid
+    # draws config H's lambda
+    root, books, stop = e["root"], e["books"], e["stop"]
+    if len(e["vocab"]) % GRID_J[1]:
+        raise AssertionError(f"config J-CLI: E's V={len(e['vocab'])} pads on "
+                             f"{GRID_J[1]} model shards: another draw than H")
+    flags = ["--data-shards", "2", "--model-shards", "2",
+             "--dist-backend", "gloo"]
+    cli_launches = {name: 0 for name in grid_launches}
+
+    def counted(fn, *args):
+        _build.reset_launches()
+        out = fn(*args)
+        for name, count in _build.LAUNCHES.items():
+            cli_launches[name] += count
+        return out
+
+    nums_o, path_o = counted(
+        cli_train, "J-CLI", books, stop, "cuda",
+        os.path.join(root, "models_online_grid"), len(e["vocab"]),
+        os.path.join(root, "train_online_grid.out"),
+        ["--algorithm", "online", *flags])
+    online_train_launches = dict(cli_launches)
+    report_o, t_score_o = counted(
+        cli_score, "J-CLI", books, stop, "cuda",
+        os.path.join(root, "out_online_grid"),
+        os.path.join(root, "score_online_grid.out"),
+        ["--model", path_o, *flags])
+    diff, agreement, clear = distributions_agree("J-CLI", report_o,
+                                                 e["online_card_report"])
+    reports, secs = {}, {}
+    for name, extra in (("1x1", []), ("2x2", flags)):
+        fn = counted if extra else (lambda f, *a: f(*a))
+        nums_n, path_n = fn(cli_train, "J-CLI", books, stop, "cuda",
+                            os.path.join(root, f"models_nmf_{name}"),
+                            len(e["vocab"]),
+                            os.path.join(root, f"train_nmf_{name}.out"),
+                            ["--algorithm", "nmf", *extra])
+        secs[f"nmf_train_{name}_s"] = nums_n["train_s"]
+        reports[name], secs[f"nmf_score_{name}_s"] = fn(
+            cli_score, "J-CLI", books, stop, "cuda",
+            os.path.join(root, f"out_nmf_{name}"),
+            os.path.join(root, f"score_nmf_{name}.out"),
+            ["--model", path_n, *extra])
+    nmf_equal = mask_floats(reports["2x2"]) == mask_floats(reports["1x1"])
+    nmf_diff = float(np.abs(report_distributions(reports["2x2"], EN_K)
+                            - report_distributions(reports["1x1"], EN_K)).max())
+    if not nmf_equal or online_train_launches["gamma_fixed_point_bkl"] == 0:
+        raise AssertionError(f"config J-CLI: NMF reports equal {nmf_equal} "
+                             f"(distributions {nmf_diff}), online train "
+                             f"{online_train_launches}")
+    summary["J_CLI"] = {
+        "online_train_s": nums_o["train_s"],
+        "online_preprocess_s": nums_o["preprocess_s"],
+        "online_fit_s": nums_o["fit_s"], "online_score_s": t_score_o,
+        "online_max_dist_diff": diff, "main_topic_agreement": agreement,
+        "main_topic_clear_docs": clear, **secs,
+        "nmf_report_equal_masked": nmf_equal, "nmf_max_dist_diff": nmf_diff,
+        "online_train_launches": online_train_launches,
+        "launches": cli_launches,
+        "bounds": {"online_max_dist_diff": 5e-3,
+                   "nmf_report": "equal with floats masked"}}
+
+    summary["checks"] = {name: [r["checks"][name] for r in ranks]
+                         for name in ranks[0]["checks"]}
+    summary["launches"] = {name: grid_launches[name] + cli_launches[name]
+                           for name in grid_launches}
+    summary["bounds"] = {
+        "J_C_replay_lam_max_rel_diff": 1e-3,
+        "J_C_log_perplexity_rel_diff": 0.03,
+        "J_G_lam_max_rel_diff": "1e-3, or twice the 1x1 fit's spread "
+                                "against itself",
+        "J_D_check_h_max_rel_diff": 1e-3, "J_D_check_loss_rel_diff": 1e-4,
+        "J_D_loss_rel_diff": 1e-4}
+    return summary
+
+
 def profile_configs(torch, rows_a, rows_b, seed, out_dir):
     """torch.profiler over one fit and the scoring (A, B: padded scoring
     of every doc; D: topic_distribution of EVAL_DOCS docs) or evaluation
@@ -2833,20 +3374,36 @@ def main() -> int:
                    "ms": [c["ms"] for c in cases],
                    "plain_ms": [c["plain_ms"] for c in cases]}
             for name, cases in summary_i["checks"].items()}})
+
+        # 12. config J, online VB and NMF on a 2x2 grid of ranks on the card
+        t0 = time.perf_counter()
+        summary_j = run_config_j(torch, args.seed, books_e,
+                                 summary_c["log_perplexity"])
+        summary_j["seconds"] = time.perf_counter() - t0
+        emit({key: val for key, val in summary_j.items() if key != "checks"})
+        emit({"phase": "config_J_kernel_vs_plain", **{
+            name: {"max_abs_err": max(c["max_abs_err"] for c in cases),
+                   "ms": [c["ms"] for c in cases],
+                   "plain_ms": [c["plain_ms"] for c in cases],
+                   "bound_ms": [c["bound_ms"] for c in cases]}
+            for name, cases in summary_j["checks"].items()}})
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     if args.profile:
         profile_configs(torch, rows_a, rows_b, args.seed, args.out)
 
-    # 12. the kernels line; the sweep's error is the largest of config A's
+    # 13. the kernels line; the sweep's error is the largest of config A's
     # and config E's checks and config I's ranks'; the gamma row is config
     # B's most populated bucket, and its error the largest of the four
     # buckets, the edge geometries, config H's launches checked and config
-    # I's ranks'; the scatter's includes config I's ranks'; the tile
-    # row's error includes config G's launches
+    # I's and J's ranks'; the scatter's includes config I's ranks'; the
+    # tile row's error includes config G's launches and J's ranks', the
+    # NMF row's J's ranks'
     grid_err = {name: max(c["max_abs_err"] for c in cases)
                 for name, cases in summary_i["checks"].items()}
+    j_err = {name: max(c["max_abs_err"] for c in cases)
+             for name, cases in summary_j["checks"].items()}
     sweep = checks["em_sweep_fused"]
     sweep["config_E"] = summary_e["sweep_check"]
     sweep["config_I"] = summary_i["checks"]["em_sweep_fused"]
@@ -2859,22 +3416,30 @@ def main() -> int:
                                  grid_err["scatter_add_vtiles"])
     tiles = checks["gamma_fixed_point_tiles"]
     tiles["config_G"] = summary_g["kernel"]
+    tiles["config_J"] = summary_j["checks"]["gamma_fixed_point_tiles"]
     tiles["max_abs_err"] = max(tiles["max_abs_err"],
-                               tiles["config_G"]["max_abs_err"])
+                               tiles["config_G"]["max_abs_err"],
+                               j_err["gamma_fixed_point_tiles"])
+    nmf_row = checks["nmf_mu_update_tiles"]
+    nmf_row["config_J"] = summary_j["checks"]["nmf_mu_update_tiles"]
+    nmf_row["max_abs_err"] = max(nmf_row["max_abs_err"],
+                                 j_err["nmf_mu_update_tiles"])
     kernels = [
         sweep,
         checks["scatter_add_vtiles"],
         tiles,
-        checks["nmf_mu_update_tiles"],
+        nmf_row,
         {**esteps[2], "route": "cuda",
          "source": "spark_text_clustering_tpu_torch/csrc/estep.cu",
          "replaces": "spark_text_clustering_tpu/ops/pallas_estep.py:161",
          "max_abs_err": max([e["max_abs_err"] for e in (*esteps, *estep_edges)]
                             + [summary_h["kernel"]["max_abs_err"],
-                               grid_err["gamma_fixed_point_bkl"]]),
+                               grid_err["gamma_fixed_point_bkl"],
+                               j_err["gamma_fixed_point_bkl"]]),
          "buckets": esteps, "geometries": estep_edges,
          "config_H": summary_h["kernel"],
-         "config_I": summary_i["checks"]["gamma_fixed_point_bkl"]},
+         "config_I": summary_i["checks"]["gamma_fixed_point_bkl"],
+         "config_J": summary_j["checks"]["gamma_fixed_point_bkl"]},
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2884,14 +3449,15 @@ def main() -> int:
         kern["launches"] = sum(
             sm["launches"][name]
             for sm in (summary_a, summary_b, summary_c, summary_d, summary_e,
-                       summary_f, summary_g, summary_h, summary_i))
+                       summary_f, summary_g, summary_h, summary_i,
+                       summary_j))
         if kern["launches"] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
         line.append({k_: kern[k_] for k_ in keys})
     record.update(build=build, kernels=kernels, config_A=summary_a,
                   config_B=summary_b, config_C=summary_c, config_D=summary_d,
                   config_E=summary_e, config_F=summary_f, config_G=summary_g,
-                  config_H=summary_h, config_I=summary_i)
+                  config_H=summary_h, config_I=summary_i, config_J=summary_j)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)

@@ -16,8 +16,8 @@ backend of a grid (default ``nccl`` on CUDA, ``gloo`` on the CPU).  Flags
 whose machinery the port has not ported yet exit with code 2 and name the
 ROADMAP item that brings it; none is accepted and then ignored.
 
-``--data-shards D --model-shards M`` run EM training (IDF included) and
-scoring on a grid of D x M ranks (``parallel``).  Unlike the JAX package,
+``--data-shards D --model-shards M`` run training (IDF included; EM,
+online VB or NMF) and scoring on a grid of D x M ranks (``parallel``).  Unlike the JAX package,
 where one process drives every local device, each rank is one process on
 one device (rank r on ``cuda:(r mod cards)``).  Without ``--coordinator``
 the command spawns the D x M ranks on this host itself; with
@@ -28,8 +28,7 @@ rank 0 prints, saves the model and writes the report, and the exit code
 is the worst of the ranks'.
 
 Exit codes: 0 on success; 2 for a usage error, a missing or corrupt model,
-a resume mismatch, a flag not ported yet, and a ``NotImplementedError``
-from an estimator (a path the port does not run yet).
+a resume mismatch and a flag not ported yet.
 """
 
 from __future__ import annotations
@@ -98,7 +97,6 @@ _NOT_PORTED = {
     "compile_cache": ("--compile-cache",
                       "queue 1 item 10, a compile cache"),
 }
-_SHARDING_6B = "queue 1 item 6b, sharding of online VB and NMF"
 
 
 def _refuse_unported(args: argparse.Namespace) -> Optional[int]:
@@ -132,10 +130,6 @@ def _grid_shape(args: argparse.Namespace):
         return (f"--num-processes {procs} != --data-shards {d} x "
                 f"--model-shards {m}: every rank of the grid is a process")
     if d * m > 1:
-        algo = getattr(args, "algorithm", "em")
-        if algo != "em":
-            return (f"--algorithm {algo} with --data-shards/--model-shards "
-                    f"is not ported yet (ROADMAP.md {_SHARDING_6B})")
         if getattr(args, "per_doc_convergence", False):
             return ("--per-doc-convergence does not support sharded "
                     "scoring (--data-shards/--model-shards)")
@@ -323,13 +317,9 @@ def _train(args: argparse.Namespace, grid) -> int:
     say()
     say("LDA model training started")
 
-    try:
-        with trace(args.profile_dir if coordinator else None):
-            with timer.phase("train"):
-                lda_stage = LDA(params, device=device, grid=grid).fit(ds)
-    except NotImplementedError as exc:
-        print(f"error: {exc}", file=sys.stderr)
-        return 2
+    with trace(args.profile_dir if coordinator else None):
+        with timer.phase("train"):
+            lda_stage = LDA(params, device=device, grid=grid).fit(ds)
     model = lda_stage.model
     if not coordinator:
         return 0

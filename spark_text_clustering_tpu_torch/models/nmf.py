@@ -23,7 +23,18 @@ The H-side scatter is ``index_add_``.  W0 and H0 are the scaled-uniform
 draws of the JAX package (``E[(W H)_ij] == mean(X)``) from a
 ``torch.Generator`` seeded by (seed, 0x4E4D) on ``rng_device``; torch
 cannot replay JAX's draws, so ``fit`` also takes them from the caller
-(``init=``, see ``interop.nmf_init_from_numpy``).  Sharding is not ported.
+(``init=``, see ``interop.nmf_init_from_numpy``).
+
+On a ``parallel.ProcessGrid`` of ``data x model`` ranks, as in the JAX
+package, W is cut over "data" (padded: blocks of rows, ``b_pad`` a
+multiple of the data shards; flat packed: the JAX package's greedy
+doc-to-shard packing with shard-local doc rows; tiles: each data rank's
+block of ``plan_corpus_tiles(n_shards=D)``, W in tile-slot order) and H
+over the vocabulary on "model" (zero columns pad V to V_pad).  A sweep
+gathers H at the rank's tokens from the vocabulary shards, sums H Hᵀ over
+"model", Wᵀ W and the scattered Wᵀ X over "data".  W0 and H0 are the
+1x1 draws whatever the grid and layout, so a grid fit from a seed is the
+1x1 fit up to summation order.
 """
 
 from __future__ import annotations
@@ -40,6 +51,15 @@ from ..ops.lda_math import seeded_generator
 from ..ops.nmf import nmf_mu_update_tiles
 from ..ops.packed import plan_corpus_tiles
 from ..ops.sparse import DocTermBatch, batch_from_rows, next_pow2
+from ..parallel.collectives import (
+    data_shard_rows,
+    gather_model_rows_kbl,
+    model_handoff,
+    psum_data,
+    psum_model,
+    scatter_add_model_shard,
+)
+from ..parallel.mesh import make_grid
 from ..utils.timing import IterationTimer
 
 __all__ = [
@@ -64,8 +84,26 @@ class NMFInit(NamedTuple):
 
 
 # ---- one sweep, each layout -------------------------------------------------
-def _h_update(h, wtx, w, eps):
-    wtw = w.T @ w                                              # [k, k]
+# On a grid (``grid`` given) W is this rank's rows and H its vocabulary
+# shard; each helper is the one-device operation where ``grid`` is None.
+def _sum_data(x, grid):
+    return x if grid is None else psum_data(grid, x)
+
+
+def _hht(h, grid):
+    """H Hᵀ [k, k], summed over the vocabulary shards."""
+    return h @ h.T if grid is None else psum_model(grid, h @ h.T)
+
+
+def _h_at(h, flat_ids, grid):
+    """H at the token ids, [k, T]."""
+    if grid is None:
+        return h.index_select(1, flat_ids)
+    return gather_model_rows_kbl(grid, h, flat_ids)
+
+
+def _h_update(h, wtx, w, eps, grid=None):
+    wtw = _sum_data(w.T @ w, grid)                             # [k, k]
     return h * wtx / (wtw @ h + eps)
 
 
@@ -74,6 +112,15 @@ def _scatter_vocab(flat_ids, vals, v):
     out = torch.zeros((v, vals.shape[1]), dtype=torch.float32,
                       device=vals.device)
     return out.index_add_(0, flat_ids, vals).T
+
+
+def _wtx(flat_ids, vals, h, grid):
+    """W^T X over H's columns: on a grid this shard's, summed over the
+    data shards."""
+    if grid is None:
+        return _scatter_vocab(flat_ids, vals, h.shape[1])
+    return psum_data(grid, scatter_add_model_shard(grid, flat_ids, vals,
+                                                   h.shape[1]))
 
 
 def _slot_ids(seg_t: torch.Tensor, d: int) -> torch.Tensor:
@@ -102,59 +149,65 @@ def packed_sweeps(
     d: Optional[int] = None,
     eps: float = _EPS,
     on_sweep=None,
+    grid=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``m`` Lee-Seung sweeps over the packed layout, then the Frobenius
     loss: ``(w, h, loss)``.  ``d`` given: the tile layout, whose W side is
     ``nmf_mu_update_tiles``; ``d=None``: the flat layout's segment sums.
-    ``on_sweep`` is called after each sweep."""
-    k, v = h.shape
+    ``on_sweep`` is called after each sweep.  On a ``grid``: this rank's
+    tokens and W rows, H its vocabulary shard; the loss is the whole
+    corpus's on every rank."""
     tiles = d is not None
     flat_ids = ids_t.reshape(-1).long()
     flat_cts = cts_t.reshape(-1)
     seg_l = seg_t.long()
     for _ in range(m):
-        hht = h @ h.T                                          # [k, k]
+        hht = _hht(h, grid)                                    # [k, k]
         if tiles:
-            hg_kt = h.index_select(1, flat_ids)                # [k, T]
+            hg_kt = _h_at(h, flat_ids, grid)                   # [k, T]
             w, vals = nmf_mu_update_tiles(hg_kt, cts_t, seg_t, w, hht, d, eps)
         else:
-            hg = h.index_select(1, flat_ids).T                 # [T, k]
+            hg = _h_at(h, flat_ids, grid).T                    # [T, k]
             xht = torch.zeros_like(w).index_add_(
                 0, seg_l, flat_cts[:, None] * hg)
             w = w * xht / (w @ hht + eps)
             vals = flat_cts[:, None] * w[seg_l]                # [T, k]
-        h = _h_update(h, _scatter_vocab(flat_ids, vals, v), w, eps)
+        h = _h_update(h, _wtx(flat_ids, vals, h, grid), w, eps, grid)
         if on_sweep is not None:
             on_sweep()
     # ||X - W H||^2 = ||X||^2 - 2 sum_nz x (W H) + tr((W^T W)(H H^T))
     w_tok = w[_slot_ids(seg_t, d)] if tiles else w[seg_l]     # [T, k]
-    hg = h.index_select(1, flat_ids).T
-    cross = ((hg * w_tok).sum(-1) * flat_cts).sum()
+    hg = _h_at(h, flat_ids, grid).T
+    cross = _sum_data(((hg * w_tok).sum(-1) * flat_cts).sum().reshape(1),
+                      grid)[0]
     loss = (torch.tensor(x2, dtype=torch.float32, device=h.device)
-            - 2.0 * cross + ((w.T @ w) * (h @ h.T)).sum())
+            - 2.0 * cross + (_sum_data(w.T @ w, grid) * _hht(h, grid)).sum())
     return w, h, loss
 
 
-def padded_step(w, h, ids, wts, eps: float = _EPS):
+def padded_step(w, h, ids, wts, eps: float = _EPS, grid=None):
     """One sweep over the padded [B, L] grid: ``(w, h)``.  Pad docs and pad
-    slots carry weight 0 and stay inert."""
-    v = h.shape[1]
+    slots carry weight 0 and stay inert.  On a ``grid``: this rank's rows
+    and W rows, H its vocabulary shard."""
     flat = ids.reshape(-1).long()
-    hg = h.index_select(1, flat).T.reshape(*ids.shape, -1)     # [B, L, k]
+    hg = _h_at(h, flat, grid).T.reshape(*ids.shape, -1)        # [B, L, k]
     xht = torch.einsum("blk,bl->bk", hg, wts)
-    w = w * xht / (w @ (h @ h.T) + eps)
+    w = w * xht / (w @ _hht(h, grid) + eps)
     vals = wts[..., None] * w[:, None, :]                      # [B, L, k]
-    h = _h_update(h, _scatter_vocab(flat, vals.reshape(-1, vals.shape[-1]),
-                                    v), w, eps)
+    h = _h_update(h, _wtx(flat, vals.reshape(-1, vals.shape[-1]), h, grid),
+                  w, eps, grid)
     return w, h
 
 
-def frobenius_loss(batch: DocTermBatch, w, h) -> torch.Tensor:
-    """||X - W H||_F^2 over a padded batch, without densifying X."""
+def frobenius_loss(batch: DocTermBatch, w, h, grid=None) -> torch.Tensor:
+    """||X - W H||_F^2 over a padded batch, without densifying X; on a
+    ``grid`` over every rank's rows."""
     ids, wts = batch.token_ids, batch.token_weights
-    hg = h.index_select(1, ids.reshape(-1).long()).T.reshape(*ids.shape, -1)
+    hg = _h_at(h, ids.reshape(-1).long(), grid).T.reshape(*ids.shape, -1)
     cross = (wts * torch.einsum("blk,bk->bl", hg, w)).sum()
-    return (wts ** 2).sum() - 2.0 * cross + ((w.T @ w) * (h @ h.T)).sum()
+    sums = _sum_data(torch.stack([(wts ** 2).sum(), cross]), grid)
+    return sums[0] - 2.0 * sums[1] + (
+        _sum_data(w.T @ w, grid) * _hht(h, grid)).sum()
 
 
 # ---- the model ---------------------------------------------------------------
@@ -209,11 +262,15 @@ class NMFModel:
         n_iter: int = 100,
         mesh=None,
         device=None,
+        grid=None,
     ) -> np.ndarray:
         """Doc factors W [n, k] for ``docs`` with H fixed: ``n_iter`` W
-        updates from 1/k.  ``mesh`` is accepted for the estimator-agnostic
-        scoring surface; the solve runs on one device."""
-        dev = resolve_device(self.device if device is None else device)
+        updates from 1/k.  ``mesh`` and ``grid`` are accepted for the
+        estimator-agnostic scoring surface: as in the JAX package the
+        solve runs unsharded, on the rank's device on a grid."""
+        if device is None:
+            device = self.device if grid is None else grid.device
+        dev = resolve_device(device)
         if isinstance(docs, DocTermBatch):
             n, width = docs.token_ids.shape
             ids = docs.token_ids.reshape(-1).to(dev).long()
@@ -246,7 +303,7 @@ class NMFModel:
 
     def topic_distribution(
         self, docs, n_iter: int = 100, mesh=None, convergence: str = "batch",
-        device=None,
+        device=None, grid=None,
     ) -> np.ndarray:
         """Row-normalized W, the ``LDAModel.topic_distribution`` analogue;
         empty docs get the uniform row.  ``convergence`` is accepted for
@@ -256,7 +313,8 @@ class NMFModel:
             raise ValueError(
                 f"convergence must be 'batch' or 'per_doc', got {convergence!r}"
             )
-        w = self.transform(docs, n_iter=n_iter, mesh=mesh, device=device)
+        w = self.transform(docs, n_iter=n_iter, mesh=mesh, device=device,
+                           grid=grid)
         totals = w.sum(axis=1, keepdims=True)
         uniform = np.full_like(w, 1.0 / self.k)
         return np.where(totals > 0, w / np.maximum(totals, _EPS), uniform)
@@ -276,24 +334,35 @@ class NMFModel:
         return model
 
 
+
+
 # ---- the estimator -------------------------------------------------------------
 class NMF:
     """Estimator: ``fit(rows, vocab) -> NMFModel``, reading ``k``,
     ``max_iterations``, ``seed`` and ``token_layout`` from ``Params``.
+
+    ``grid`` (a ``parallel.ProcessGrid``) fits on a grid of ranks, each
+    rank calling ``fit`` with the same rows; without one, a ``params``
+    that asks for shards takes the grid of the started world
+    (``parallel.make_grid``).  Every rank returns the same model.
 
     After a fit: ``last_layout`` ("padded" | "packed"),
     ``last_mu_backend`` ("cuda_tiles" | "plain_tiles" | "flat" | "none"
     for padded), ``last_loss``, ``last_cells`` (token cells a sweep
     covers) and ``last_tiles`` (the tile geometry, or None)."""
 
-    def __init__(self, params: Params, device="cuda", rng_device=None) -> None:
-        if params.model_shards != 1 or params.data_shards not in (None, 1):
-            raise NotImplementedError(
-                "data_shards/model_shards > 1 are not ported yet (ROADMAP.md "
-                "queue 1 item 6b, sharding of online VB and NMF): the "
-                "port's NMF fit runs on one device"
-            )
+    def __init__(self, params: Params, device="cuda", rng_device=None,
+                 grid=None) -> None:
+        if grid is None and (params.model_shards != 1
+                             or params.data_shards not in (None, 1)):
+            grid = make_grid(params.data_shards, params.model_shards,
+                             device=device)
+        if grid is not None:
+            params = params.replace(data_shards=grid.data_shards,
+                                    model_shards=grid.model_shards)
+            device = grid.device
         self.params = params
+        self.grid = grid if grid is not None and grid.size > 1 else None
         self.device = resolve_device(device)
         self.rng_device = (
             self.device if rng_device is None else resolve_device(rng_device)
@@ -303,6 +372,12 @@ class NMF:
         self.last_mu_backend = "none"
         self.last_cells: Optional[int] = None
         self.last_tiles: Optional[dict] = None
+
+    @property
+    def _data(self) -> Tuple[int, int]:
+        """(this rank's data shard, the data shards)."""
+        g = self.grid
+        return (0, 1) if g is None else (g.d, g.data_shards)
 
     def _init(self, n: int, k: int, v: int, weight_sum: float):
         """Scaled-uniform W0 [n, k], H0 [k, v]: E[(W H)_ij] == mean(X) at
@@ -316,30 +391,42 @@ class NMF:
         return w.to(self.device), h.to(self.device)
 
     def _packed_plan(self, rows, n: int):
-        """Doc-contiguous token packing, docs longest first (the JAX
-        package's packing on its one data shard).  Returns (ids_t, cts_t,
-        seg_t flat [t_max] with seg the doc's packed position, slot [n]
-        doc -> packed W row, d_max, cells)."""
+        """Doc-contiguous token packing, docs longest first (stable), each
+        to the data shard with the fewest tokens so far (the JAX package's
+        greedy packing).  Returns (ids_t, cts_t, seg_t flat [n_data *
+        t_max], shard after shard, with seg the doc's row on its shard,
+        slot [n] doc -> packed W row ``shard * d_max + row``, d_max docs a
+        shard, cells)."""
+        n_data = self._data[1]
         order = sorted(range(n), key=lambda doc: -len(rows[doc][0]))
+        shard_docs: List[List[int]] = [[] for _ in range(n_data)]
+        loads = [0] * n_data
+        for doc in order:
+            s = loads.index(min(loads))
+            shard_docs[s].append(doc)
+            loads[s] += max(1, len(rows[doc][0]))
+        d_max = max(1, max(len(sd) for sd in shard_docs))
         # token axis: pow2 while small, 8192-multiples beyond
-        t_need = max(8, sum(max(1, len(rows[doc][0])) for doc in order))
+        t_need = max(8, max(loads))
         t_max = (
             next_pow2(t_need) if t_need <= 8192
             else ((t_need + 8191) // 8192) * 8192
         )
-        ids_t = np.zeros(t_max, np.int32)
-        cts_t = np.zeros(t_max, np.float32)
-        seg_t = np.zeros(t_max, np.int32)
+        ids_t = np.zeros((n_data, t_max), np.int32)
+        cts_t = np.zeros((n_data, t_max), np.float32)
+        seg_t = np.zeros((n_data, t_max), np.int32)
         slot = np.zeros(n, np.int64)
-        o = 0
-        for j, doc in enumerate(order):
-            i, w = rows[doc]
-            ids_t[o:o + len(i)] = i
-            cts_t[o:o + len(i)] = w
-            seg_t[o:o + len(i)] = j
-            o += len(i)
-            slot[doc] = j
-        return ids_t, cts_t, seg_t, slot, max(1, n), t_max
+        for s, sdocs in enumerate(shard_docs):
+            o = 0
+            for j, doc in enumerate(sdocs):
+                i, w = rows[doc]
+                ids_t[s, o:o + len(i)] = i
+                cts_t[s, o:o + len(i)] = w
+                seg_t[s, o:o + len(i)] = j
+                o += len(i)
+                slot[doc] = s * d_max + j
+        return (ids_t.reshape(-1), cts_t.reshape(-1), seg_t.reshape(-1), slot,
+                d_max, n_data * t_max)
 
     def _run(self, sweep, m: int, verbose: bool, label: str):
         """Run ``sweep(m, on_sweep)``: ``m`` sweeps and the loss.  Times
@@ -354,12 +441,13 @@ class NMF:
                 torch.cuda.synchronize(dev)
 
         per_sweep = verbose or self.params.record_iteration_times
+        say = verbose and (self.grid is None or self.grid.rank == 0)
 
         def on_sweep():
             if per_sweep:
                 sync()
                 timer.stop()
-                if verbose:
+                if say:
                     print(f"nmf iter {len(timer.times) - 1}: "
                           f"{timer.times[-1]:.3f}s{label}")
                 if len(timer.times) < m:
@@ -381,8 +469,9 @@ class NMF:
         init: Optional[NMFInit] = None,
     ) -> NMFModel:
         p = self.params
-        dev = self.device
+        dev, g = self.device, self.grid
         k, v, n = p.k, len(vocab), len(rows)
+        _, n_data = self._data
         if p.token_layout not in ("padded", "packed", "auto"):
             raise ValueError(
                 f"unknown token_layout {p.token_layout!r} "
@@ -393,42 +482,64 @@ class NMF:
             raise ValueError(
                 f"init w{init.w.shape} h{init.h.shape} does not match "
                 f"n={n}, k={k}, V={v}")
+        shards = 1 if g is None else g.model_shards
+        v_pad = -(-v // shards) * shards
+        shard_v = v_pad // shards
+        cols = slice(0, v) if g is None else slice(g.m * shard_v,
+                                                   (g.m + 1) * shard_v)
         max_nnz = max((len(i) for i, _ in rows), default=1)
         total_nnz = sum(len(i) for i, _ in rows)
-        padded_cells = n * max(8, next_pow2(max_nnz))
+        b_pad = -(-n // n_data) * n_data
+        padded_cells = b_pad * max(8, next_pow2(max_nnz))
         self.last_layout, self.last_mu_backend = "padded", "none"
         self.last_cells, self.last_tiles = padded_cells, None
         # the JAX package's threshold: packed once padding costs >= 2x
         use_packed = p.token_layout == "packed" or (
             p.token_layout == "auto" and padded_cells >= 2.0 * max(1, total_nnz)
         )
+        flat_cts = (np.concatenate([np.asarray(c, np.float32) for _, c in rows])
+                    if rows else np.zeros(0, np.float32))
 
-        def start(weight_sum: float):
+        def start():
+            """The doc-ordered W0 [n, k] and this rank's columns of H0
+            (zero past V)."""
             if init is not None:
-                return (torch.from_numpy(np.asarray(init.w, np.float32)).to(dev),
-                        torch.from_numpy(np.asarray(init.h, np.float32)).to(dev))
-            return self._init(n, k, v, weight_sum)
+                w0 = torch.from_numpy(np.asarray(init.w, np.float32)).to(dev)
+                h0 = torch.from_numpy(np.asarray(init.h, np.float32)).to(dev)
+            else:
+                w0, h0 = self._init(n, k, v, float(flat_cts.sum()))
+            h0 = torch.nn.functional.pad(h0, (0, v_pad - v))
+            return w0, h0[:, cols].contiguous()
 
         if use_packed and n:
             self.last_layout = "packed"
-            w, h, loss, timer = self._fit_packed(rows, start, verbose)
+            w, h, loss, timer = self._fit_packed(rows, start, flat_cts,
+                                                 verbose)
         else:
-            batch = batch_from_rows(list(rows), device=dev)
-            w, h = start(float(batch.token_weights.sum()))
+            w_doc, h = start()
+            if g is None:
+                batch = batch_from_rows(list(rows), device=dev)
+                w = w_doc
+            else:
+                batch, lo, hi = data_shard_rows(
+                    g, list(rows), max(8, next_pow2(max_nnz)), dev)
+                # this rank's rows of W; pad docs' rows stay 0
+                w = w_doc.new_zeros(batch.token_ids.shape[0], k)
+                w[:hi - lo] = w_doc[lo:hi]
 
             def sweep(m, on_sweep):
                 w_, h_ = w, h
                 for _ in range(m):
                     w_, h_ = padded_step(w_, h_, batch.token_ids,
-                                         batch.token_weights)
+                                         batch.token_weights, grid=g)
                     on_sweep()
-                return w_, h_, frobenius_loss(batch, w_, h_)
+                return w_, h_, frobenius_loss(batch, w_, h_, grid=g)
 
             (w, h, loss), timer = self._run(sweep, p.max_iterations, verbose,
                                             "")
         self.last_loss = float(loss)
         return NMFModel(
-            h=h.cpu().numpy(),
+            h=h.cpu().numpy() if g is None else model_handoff(g, h, v),
             vocab=list(vocab),
             loss=self.last_loss,
             iteration_times=list(timer.times),
@@ -437,19 +548,21 @@ class NMF:
             device=str(dev),
         )
 
-    def _fit_packed(self, rows, start, verbose):
+    def _fit_packed(self, rows, start, flat_cts, verbose):
         """The packed fit: tiles through the W-update kernel when a tile
-        geometry fits the plan's budget, else the flat segment layout.
-        ``start(weight_sum)`` gives the doc-ordered W0 and H0."""
-        p, dev = self.params, self.device
+        geometry fits the plan's budget, else the flat segment layout; on
+        a grid each data rank takes its block of tiles or its shard of the
+        greedy packing.  ``start()`` gives the doc-ordered W0 and H0."""
+        p, dev, g = self.params, self.device, self.grid
         n, k = len(rows), p.k
+        d_idx, n_data = self._data
         flat_ids = np.concatenate([np.asarray(i, np.int32) for i, _ in rows])
-        flat_cts = np.concatenate([np.asarray(c, np.float32) for _, c in rows])
         x2 = float((flat_cts.astype(np.float64) ** 2).sum())
-        w_doc, h = start(float(flat_cts.sum()))
+        w_doc, h = start()
         offsets = np.zeros(n + 1, np.int64)
         np.cumsum([len(i) for i, _ in rows], out=offsets[1:])
-        plan = plan_corpus_tiles(flat_ids, flat_cts, offsets, n_shards=1, k=k)
+        plan = plan_corpus_tiles(flat_ids, flat_cts, offsets, n_shards=n_data,
+                                 k=k)
         if plan is not None:
             self.last_mu_backend = (
                 "cuda_tiles" if dev.type == "cuda" else "plain_tiles")
@@ -460,23 +573,30 @@ class NMF:
                 "live_tokens": int((plan.seg < plan.d).sum()),
                 "live_slots": int((plan.doc_ids < n).sum()),
             }
-            w = docs_w_to_tiles(w_doc, plan.doc_ids)
-            ids, cts, seg = (torch.from_numpy(a).to(dev)
-                             for a in (plan.ids, plan.cts, plan.seg))
+            per = n_tiles // n_data
+            blk = slice(d_idx * per, (d_idx + 1) * per)
+            w = docs_w_to_tiles(w_doc, plan.doc_ids[blk])
+            ids, cts, seg = (torch.from_numpy(np.ascontiguousarray(a[blk])).to(
+                dev) for a in (plan.ids, plan.cts, plan.seg))
             d, label = plan.d, " (tiles)"
         else:
             self.last_mu_backend = "flat"
-            ids_f, cts_f, seg_f, slot, d_max, cells = self._packed_plan(rows, n)
+            ids_f, cts_f, seg_f, slot, d_max, cells = self._packed_plan(
+                rows, n)
             self.last_cells = cells
-            w = torch.zeros((d_max, k), dtype=torch.float32, device=dev)
+            w = torch.zeros((n_data * d_max, k), dtype=torch.float32,
+                            device=dev)
             w[torch.from_numpy(slot).to(dev)] = w_doc
-            ids, cts, seg = (torch.from_numpy(a).to(dev)
-                             for a in (ids_f, cts_f, seg_f))
+            w = w[d_idx * d_max:(d_idx + 1) * d_max].contiguous()
+            t_max = cells // n_data
+            ids, cts, seg = (
+                torch.from_numpy(a[d_idx * t_max:(d_idx + 1) * t_max]).to(dev)
+                for a in (ids_f, cts_f, seg_f))
             d, label = None, " (packed)"
 
         def sweep(m, on_sweep):
             return packed_sweeps(w, h, ids, cts, seg, x2, m, d=d,
-                                 on_sweep=on_sweep)
+                                 on_sweep=on_sweep, grid=g)
 
         (w, h, loss), timer = self._run(sweep, p.max_iterations, verbose, label)
         return w, h, loss, timer

@@ -48,9 +48,25 @@ Random draws come from explicit ``torch.Generator``s on ``rng_device``
 (seed, 0xFFFF), and each iteration's gamma inits from one Gamma table
 [n+1, k] seeded by (seed, 0x6A33, step) and indexed by each doc's global
 id (pad ids read row n), so a doc's init depends on (seed, step, doc)
-only, on every path.  A fit resumes from
-``<checkpoint_dir>/train_state.npz`` (lam [k, V], step): the JAX
-package's checkpoint.  Sharding raises ``NotImplementedError``.
+only, on every path and grid.  A fit resumes from
+``<checkpoint_dir>/train_state.npz`` (lam [k, V_pad], step): the JAX
+package's checkpoint.
+
+On a ``parallel.ProcessGrid`` of ``data x model`` ranks, as in the JAX
+package, lambda is cut over the vocabulary on "model" (zero columns pad V
+to V_pad, a multiple of the model shards, and lambda is drawn and
+checkpointed at that width) and the minibatch over "data" (``bsz`` rounded
+up to a multiple of the data shards).  Each rank gathers lambda at its
+tokens from the vocabulary shards (``gather_model_rows_kbl`` /
+``gather_model_rows_bkl``), runs its kernel on its own tiles or rows,
+scatters the statistics into its vocabulary shard, and one ``psum_data``
+an iteration sums them; the flat packed path also sums each inner
+iteration's per-doc sums over "data".  The tiles-resident path keeps each
+data rank's block of tiles on its device and walks a block-stratified
+epoch stream over that shard's real tiles; the padded-resident path
+keeps each data rank's rows and assembles a minibatch with one
+``psum_data`` of the picked rows each rank owns.  Rank 0 alone writes
+checkpoints; every rank returns the same model.
 """
 
 from __future__ import annotations
@@ -68,6 +84,7 @@ from ..device import resolve_device
 from ..ops.estep import gamma_fixed_point_bkl
 from ..ops.lda_math import (
     dirichlet_expectation,
+    dirichlet_expectation_sharded,
     gamma_fixed_point_segments,
     init_gamma,
     init_lambda,
@@ -82,9 +99,20 @@ from ..ops.packed import (
     plan_tile_pack_uniform,
 )
 from ..ops.sparse import batch_from_rows, next_pow2
+from ..parallel.collectives import (
+    fetch_global,
+    gather_model_rows_bkl,
+    gather_model_rows_kbl,
+    model_handoff,
+    model_row_sum,
+    psum_data,
+    scatter_add_model_shard,
+    scatter_add_model_shard_bkl,
+)
+from ..parallel.mesh import agree_checkpoint_exists, is_coordinator, make_grid
 from ..utils.timing import IterationTimer
 from .base import LDAModel
-from .persistence import load_train_state, save_train_state, train_state_valid
+from .persistence import load_train_state, save_train_state
 
 __all__ = [
     "OnlineLDA",
@@ -121,13 +149,35 @@ def _blend_touched(lam, touched, step, batch_docs, *, eta, tau0, kappa,
     return lam_new.add_(touched, alpha=float(rho * scale))
 
 
-def _eb_at(lam: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+def _eb_at(lam: torch.Tensor, flat: torch.Tensor, grid=None) -> torch.Tensor:
     """exp(E[log beta]) at the token ids ``flat``: [k, T], from lambda's
-    columns there and its row sums (the full [k, V] never forms)."""
-    return torch.exp(
-        torch.digamma(lam[:, flat].clamp(min=1e-30))
-        - torch.digamma(lam.sum(dim=1))[:, None]
-    )
+    columns there and its row sums (the full [k, V] never forms; on a
+    grid both come from the vocabulary shards)."""
+    if grid is None:
+        lam_tok, row_sum = lam[:, flat], lam.sum(dim=1)
+    else:
+        lam_tok = gather_model_rows_kbl(grid, lam, flat)
+        row_sum = model_row_sum(grid, lam)
+    return torch.exp(torch.digamma(lam_tok.clamp(min=1e-30))
+                     - torch.digamma(row_sum)[:, None])
+
+
+def _eb_table(lam: torch.Tensor, grid=None) -> torch.Tensor:
+    """exp(E[log beta]) over lambda's columns (this rank's shard)."""
+    if grid is None:
+        return torch.exp(dirichlet_expectation(lam))
+    return torch.exp(dirichlet_expectation_sharded(lam,
+                                                   model_row_sum(grid, lam)))
+
+
+def _touched(lam: torch.Tensor, flat: torch.Tensor, vals_kt: torch.Tensor,
+             grid=None) -> torch.Tensor:
+    """Token values [k, T] added into lambda's columns: on a grid into
+    this rank's vocabulary shard, then summed over the data shards."""
+    if grid is None:
+        return torch.zeros_like(lam).index_add_(1, flat, vals_kt)
+    return psum_data(grid, scatter_add_model_shard(grid, flat, vals_kt.T,
+                                                   lam.shape[1]))
 
 
 def tiles_iteration(
@@ -148,18 +198,22 @@ def tiles_iteration(
     max_inner: int = 100,
     tol: float = 1e-3,
     per_tile_stop: bool = True,
+    grid=None,
 ) -> torch.Tensor:
     """One online-VB update from a minibatch of tiles; returns the new
     lambda (the input is not modified).  The JAX package's tiles
     iterations (resident and host-streaming): the gamma fixed point is the
     tile kernel, or with ``per_tile_stop=False`` its whole-batch segment
     twin over the tile slots (the JAX package's non-TPU loop); the rest is
-    plain torch, as JAX leaves it to XLA."""
+    plain torch, as JAX leaves it to XLA.  On a ``grid`` the tiles are
+    this rank's, ``lam`` its vocabulary shard and ``batch_docs`` the
+    whole minibatch's: no doc straddles a tile, so gamma needs no
+    collective, and the statistics one ``psum_data``."""
     if batch_docs <= 0:
         return lam                     # MLlib skips an empty minibatch
     tb = ids_t.shape[0]
     flat = ids_t.reshape(-1).long()
-    eb_kt = _eb_at(lam, flat)                                  # [k, T]
+    eb_kt = _eb_at(lam, flat, grid)                            # [k, T]
     tile = torch.arange(tb, device=seg_t.device)[:, None]
     slot = (tile * d + seg_t.clamp(max=d - 1)).reshape(-1)     # [T]
     if per_tile_stop:
@@ -180,9 +234,9 @@ def tiles_iteration(
     # pad token slots carry cts == 0 and contribute nothing
     phinorm = (eb_kt * et_tok).sum(dim=0) + _PHI_EPS
     vals = et_tok * (cts_t.reshape(-1) / phinorm)[None, :] * eb_kt
-    touched = torch.zeros_like(lam).index_add_(1, flat, vals)
-    return _blend_touched(lam, touched, step, batch_docs, eta=eta,
-                          tau0=tau0, kappa=kappa, corpus_size=corpus_size)
+    return _blend_touched(lam, _touched(lam, flat, vals, grid), step,
+                          batch_docs, eta=eta, tau0=tau0, kappa=kappa,
+                          corpus_size=corpus_size)
 
 
 def packed_iteration(
@@ -201,20 +255,25 @@ def packed_iteration(
     corpus_size: float,
     max_inner: int = 100,
     tol: float = 1e-3,
+    grid=None,
 ) -> torch.Tensor:
     """One online-VB update from a flat token-packed minibatch (the JAX
     package's ``make_online_packed_chunk``): the whole-batch segment gamma
-    loop, then the affine M-step."""
+    loop, then the affine M-step.  On a ``grid`` the tokens are this
+    rank's slice of the minibatch's token slots and gamma [B, k] is the
+    whole minibatch's on every rank: each inner iteration sums its per-doc
+    sums over "data"."""
     if batch_docs <= 0:
         return lam
     flat = ids.long()
-    eb_tok = _eb_at(lam, flat).T                               # [T, k]
+    eb_tok = _eb_at(lam, flat, grid).T                         # [T, k]
+    reduce_fn = None if grid is None else (lambda x: psum_data(grid, x))
     gamma, _ = gamma_fixed_point_segments(eb_tok, cts, seg, alpha, gamma0,
-                                          max_inner, tol)
+                                          max_inner, tol, reduce_fn=reduce_fn)
     vals = token_sstats_factors_segments(eb_tok, cts, seg, gamma)
-    touched = torch.zeros_like(lam).index_add_(1, flat, (vals * eb_tok).T)
-    return _blend_touched(lam, touched, step, batch_docs, eta=eta,
-                          tau0=tau0, kappa=kappa, corpus_size=corpus_size)
+    return _blend_touched(lam, _touched(lam, flat, (vals * eb_tok).T, grid),
+                          step, batch_docs, eta=eta, tau0=tau0, kappa=kappa,
+                          corpus_size=corpus_size)
 
 
 def padded_estep(
@@ -226,17 +285,26 @@ def padded_estep(
     alpha: torch.Tensor,
     max_inner: int = 100,
     tol: float = 1e-3,
+    grid=None,
 ) -> torch.Tensor:
     """The raw sufficient statistics [k, V] of one padded batch: eb
     gathered as [B, k, L], the padded E-step kernel (per-tile stop), the
-    final responsibilities, one ``index_add_``."""
+    final responsibilities, one ``index_add_``.  On a ``grid``: this
+    rank's rows, eb its vocabulary shard, the gather from every shard
+    (``gather_model_rows_bkl``), and the statistics of this shard's
+    columns, still to be summed over "data"."""
     b, l = ids.shape
     k = eb.shape[0]
     flat = ids.reshape(-1).long()
-    eb_tok = eb[:, flat].reshape(k, b, l).transpose(0, 1).contiguous()
+    if grid is None:
+        eb_tok = eb[:, flat].reshape(k, b, l).transpose(0, 1).contiguous()
+    else:
+        eb_tok = gather_model_rows_bkl(grid, eb, ids)
     gamma = gamma_fixed_point_bkl(eb_tok, wts.contiguous(), alpha,
                                   gamma0.contiguous(), max_inner, tol)
     vals = token_sstats_factors_bkl(eb_tok, wts, gamma)        # [B, k, L]
+    if grid is not None:
+        return scatter_add_model_shard_bkl(grid, ids, vals, eb.shape[1])
     return torch.zeros_like(eb).index_add_(
         1, flat, vals.transpose(0, 1).reshape(k, -1))
 
@@ -278,14 +346,18 @@ def padded_iteration(
     corpus_size: float,
     max_inner: int = 100,
     tol: float = 1e-3,
+    grid=None,
 ) -> torch.Tensor:
     """One online-VB update from a padded minibatch (the JAX package's
-    resident step, ``_online_step_core``)."""
+    resident step, ``_online_step_core``); on a ``grid``, from this
+    rank's rows, ``batch_docs`` the whole minibatch's."""
     if batch_docs <= 0:
         return lam
-    eb = torch.exp(dirichlet_expectation(lam))
+    eb = _eb_table(lam, grid)
     sstats = padded_estep(eb, ids, wts, gamma0, alpha=alpha,
-                          max_inner=max_inner, tol=tol)
+                          max_inner=max_inner, tol=tol, grid=grid)
+    if grid is not None:
+        sstats = psum_data(grid, sstats)
     return padded_mstep(lam, eb, sstats, step, batch_docs, eta=eta,
                         tau0=tau0, kappa=kappa, corpus_size=corpus_size)
 
@@ -374,12 +446,15 @@ def _flatten(rows) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
             offsets)
 
 
+
+
 @dataclass
 class _Run:
     """What one fit's paths share."""
 
     n: int
     k: int
+    v: int
     bsz: int
     n_iters: int
     start_it: int
@@ -396,19 +471,27 @@ class _Run:
 class OnlineLDA:
     """Estimator: ``fit(rows, vocab) -> LDAModel`` with the online auto
     priors alpha = eta = 1/k.  ``rule`` is "card" (the JAX package's TPU
-    rule) or "cpu" (its non-TPU rule); by default the device's."""
+    rule) or "cpu" (its non-TPU rule); by default the device's.
+
+    ``grid`` (a ``parallel.ProcessGrid``) fits on a grid of ranks, each
+    rank calling ``fit`` with the same rows; without one, a ``params``
+    that asks for shards takes the grid of the started world
+    (``parallel.make_grid``).  Every rank returns the same model."""
 
     def __init__(self, params: Params, device="cuda", rng_device=None,
-                 rule: Optional[str] = None) -> None:
+                 rule: Optional[str] = None, grid=None) -> None:
         if params.algorithm != "online":
             params = params.replace(algorithm="online")
-        if params.model_shards != 1 or params.data_shards not in (None, 1):
-            raise NotImplementedError(
-                "data_shards/model_shards > 1 are not ported yet (ROADMAP.md "
-                "queue 1 item 6b, sharding of online VB and NMF): the "
-                "port's online fit runs on one device"
-            )
+        if grid is None and (params.model_shards != 1
+                             or params.data_shards not in (None, 1)):
+            grid = make_grid(params.data_shards, params.model_shards,
+                             device=device)
+        if grid is not None:
+            params = params.replace(data_shards=grid.data_shards,
+                                    model_shards=grid.model_shards)
+            device = grid.device
         self.params = params
+        self.grid = grid if grid is not None and grid.size > 1 else None
         self.device = resolve_device(device)
         self.rng_device = (
             self.device if rng_device is None else resolve_device(rng_device)
@@ -430,6 +513,12 @@ class OnlineLDA:
         self.last_tile_chunks: List[dict] = []
         self._corpus_cache = None
 
+    @property
+    def _data(self) -> Tuple[int, int]:
+        """(this rank's data shard, the data shards)."""
+        g = self.grid
+        return (0, 1) if g is None else (g.d, g.data_shards)
+
     # ------------------------------------------------------------------
     def _gamma_rows(self, run: _Run, step: int,
                     ids: torch.Tensor) -> torch.Tensor:
@@ -447,11 +536,20 @@ class OnlineLDA:
             torch.cuda.synchronize(self.device)
 
     def _save(self, run: _Run, it: int, lam: torch.Tensor) -> None:
-        save_train_state(run.ckpt_path, it, lam=lam.cpu().numpy())
+        # a collective fetch on every rank; one writer
+        lam_host = (lam.cpu().numpy() if self.grid is None
+                    else fetch_global(self.grid, lam, "model"))
+        if is_coordinator():
+            save_train_state(run.ckpt_path, it, lam=lam_host)
+
+    def _say(self, run: _Run, text: str) -> None:
+        if run.verbose and is_coordinator():
+            print(text)
 
     def _model(self, run: _Run, lam: torch.Tensor, vocab) -> LDAModel:
         return LDAModel(
-            lam=lam.cpu().numpy(),
+            lam=(lam.cpu().numpy() if self.grid is None
+                 else model_handoff(self.grid, lam, run.v)),
             vocab=list(vocab),
             alpha=run.alpha,
             eta=float(run.eta),
@@ -476,8 +574,7 @@ class OnlineLDA:
             self._sync()
             run.timer.stop()
             run.timer.split_last(m)
-            if run.verbose:
-                print(f"iter {it}: {run.timer.times[-1]:.4f}s ({label})")
+            self._say(run, f"iter {it}: {run.timer.times[-1]:.4f}s ({label})")
             it += m
             if run.ckpt_path and it % cadence == 0:
                 self._save(run, it, lam)
@@ -485,10 +582,12 @@ class OnlineLDA:
 
     # ---- the tiles-resident path -------------------------------------
     def _tile_corpus(self, rows, n: int, k: int, kernel: bool):
-        """The corpus tile plan and its real tile count, cached across
-        fits of the same corpus (keyed by content: doc count, token total
-        and three sample rows) and planning rule; the resident tensors
-        join the entry on first use.  None when no geometry fits."""
+        """The corpus tile plan over the data shards and each shard's real
+        tile count, cached across fits of the same corpus (keyed by
+        content: doc count, token total and three sample rows), planning
+        rule and grid; the resident tensors join the entry on first use.
+        None when no geometry fits."""
+        d_idx, n_data = self._data
         offsets = np.zeros(n + 1, np.int64)
         np.cumsum([len(i) for i, _ in rows], out=offsets[1:])
         fp = hashlib.blake2b(digest_size=16)
@@ -497,18 +596,23 @@ class OnlineLDA:
         for i in ((0, n // 2, n - 1) if n else ()):
             fp.update(np.asarray(rows[i][0], np.int32).tobytes())
             fp.update(np.asarray(rows[i][1], np.float32).tobytes())
-        key = (fp.hexdigest(), n, int(offsets[-1]), k, kernel,
+        key = (fp.hexdigest(), n, int(offsets[-1]), k, kernel, n_data, d_idx,
                str(self.device), str(self.rng_device))
         if self._corpus_cache is not None and self._corpus_cache[0] == key:
             return self._corpus_cache[1]
         flat_ids, flat_cts, _ = _flatten(rows)
         # the kernel's plan keeps the JAX package's 128-doc-slot floor; its
         # segment twin has no such floor
-        plan = plan_corpus_tiles(flat_ids, flat_cts, offsets, n_shards=1,
+        plan = plan_corpus_tiles(flat_ids, flat_cts, offsets, n_shards=n_data,
                                  k=k, min_tile_docs=128 if kernel else 1)
-        entry = None if plan is None else {
-            "plan": plan, "n_real": int((plan.doc_ids[:, 0] < n).sum()),
-            "resident": None}
+        entry = None
+        if plan is not None:
+            # real tiles a shard: the doc-order plan puts its pad tiles at
+            # the end, so only the last shards hold them
+            per = plan.ids.shape[0] // n_data
+            reals = np.array([int((plan.doc_ids[s * per:(s + 1) * per, 0]
+                                   < n).sum()) for s in range(n_data)])
+            entry = {"plan": plan, "reals": reals, "resident": None}
         self._corpus_cache = (key, entry)
         return entry
 
@@ -516,14 +620,16 @@ class OnlineLDA:
         """Device-resident tiled epoch training, or None where the JAX
         package's rule declines it (no geometry, over budget, and for
         "auto" under the CPU rule: doc slots past 3n, or fewer than 2
-        tiles a minibatch)."""
+        tiles a minibatch a data shard)."""
         p = self.params
         n, k = run.n, run.k
+        d_idx, n_data = self._data
         kernel = self.rule == "card" or forced
         entry = self._tile_corpus(rows, n, k, kernel)
         if entry is None:
             return None
-        plan, n_real = entry["plan"], entry["n_real"]
+        plan, reals = entry["plan"], entry["reals"]
+        n_real = int(reals.sum())
         resident_bytes = (plan.ids.nbytes + plan.cts.nbytes
                           + plan.seg.nbytes + plan.doc_ids.nbytes)
         if resident_bytes > p.resident_budget_bytes:
@@ -533,76 +639,86 @@ class OnlineLDA:
             return None              # the segment twin pays for pad slots
         if n_real == 0:
             return None
-        # tiles per iteration: the doc-level batch fraction in tiles
+        # tiles per iteration: the doc-level batch fraction in tiles,
+        # spread evenly over the data shards
         tb_target = round(run.bsz / max(1, n) * n_real)
-        if not forced and tb_target < 2:
+        if not forced and tb_target < 2 * n_data:
             return None
-        tb_l = max(1, tb_target)
+        tb_l = max(1, -(-max(n_data, tb_target) // n_data))
+        per = n_tiles // n_data
         if entry["resident"] is None:
+            blk = slice(d_idx * per, (d_idx + 1) * per)
             resident = tuple(
-                torch.from_numpy(a).to(self.device)
+                torch.from_numpy(np.ascontiguousarray(a[blk])).to(self.device)
                 for a in (plan.ids, plan.cts, plan.seg, plan.doc_ids))
             entry["resident"] = (resident, resident[3].to(self.rng_device))
         (ids_res, cts_res, seg_res, _), doc_rng = entry["resident"]
 
-        # block-stratified epoch stream over the real tiles, pure in
-        # (seed, it): the JAX package's stream for its one data shard
+        # each data shard's block-stratified epoch stream over its own
+        # real tiles, pure in (seed, shard, it): the JAX package's stream
         perms: dict = {}
 
-        def _perm(epoch: int) -> np.ndarray:
-            if epoch not in perms:
-                if len(perms) > 2:
+        def _perm(s: int, epoch: int) -> np.ndarray:
+            if (s, epoch) not in perms:
+                if len(perms) > 2 * n_data:
                     perms.clear()
-                perms[epoch] = np.random.default_rng(
-                    (p.seed, _TILE_EPOCH_KEY, 0, epoch)
-                ).permutation(n_real).astype(np.int32)
-            return perms[epoch]
+                perms[s, epoch] = np.random.default_rng(
+                    (p.seed, _TILE_EPOCH_KEY, s, epoch)
+                ).permutation(int(reals[s])).astype(np.int32)
+            return perms[s, epoch]
 
         def tile_pick(it: int) -> np.ndarray:
-            out = np.empty((1, tb_l), np.int32)
-            filled = 0
-            start = it * tb_l
-            while filled < tb_l:
-                epoch, off = divmod(start + filled, n_real)
-                take = min(tb_l - filled, n_real - off)
-                out[0, filled:filled + take] = _perm(epoch)[off:off + take]
-                filled += take
+            """[data shards, tb_l] tile indices local to each shard."""
+            out = np.zeros((n_data, tb_l), np.int32)
+            for s, r in enumerate(reals):
+                # a shard of pad tiles only picks tile 0: it adds nothing
+                filled, start = 0, it * tb_l
+                while r and filled < tb_l:
+                    epoch, off = divmod(start + filled, int(r))
+                    take = min(tb_l - filled, int(r) - off)
+                    out[s, filled:filled + take] = _perm(s, epoch)[
+                        off:off + take]
+                    filled += take
             return out
 
         self.tile_pick = tile_pick
-        self.last_batch_size = int(round(n * tb_l / n_real))
+        self.last_batch_size = int(round(n * n_data * tb_l / n_real))
         self.last_layout = "tiles_resident"
         self.last_gamma_backend = "pallas_tiles" if kernel else "xla_tiles"
-        self.last_batch_cells = tb_l * plan.tt
+        self.last_batch_cells = n_data * tb_l * plan.tt
         self.last_tiles = {
             "n_tiles": int(n_tiles), "tt": plan.tt, "d": plan.d,
-            "tiles_per_iter": tb_l, "reals_per_shard": [n_real],
+            "tiles_per_iter": n_data * tb_l, "reals_per_shard": reals.tolist(),
             "resident_bytes": resident_bytes,
         }
         dev, rng_dev = self.device, self.rng_device
+        shard_base = (np.arange(n_data) * per)[:, None]
 
         def chunk(lam, it, m):
             # the chunk's picks go to the device in one copy: a copy per
             # iteration would wait for the card every iteration
-            picks = np.stack([tile_pick(i)[0] for i in range(it, it + m)])
-            picks_dev = torch.from_numpy(picks).to(dev)
+            picks = np.stack([tile_pick(i) for i in range(it, it + m)])
+            picks_dev = torch.from_numpy(
+                np.ascontiguousarray(picks[:, d_idx])).to(dev)
             picks_rng = picks_dev.to(rng_dev)
             for j in range(m):
                 pick = picks_dev[j]
+                # the minibatch's docs, every shard's tiles counted
+                docs = int((plan.doc_ids[(picks[j] + shard_base).reshape(-1)]
+                            < n).sum())
                 gamma0 = self._gamma_rows(
                     run, it + j, doc_rng[picks_rng[j]].reshape(-1)).T
                 lam = tiles_iteration(
                     lam, it + j, ids_res[pick], cts_res[pick], seg_res[pick],
-                    gamma0.contiguous(),
-                    int((plan.doc_ids[picks[j]] < n).sum()),
+                    gamma0.contiguous(), docs,
                     alpha=run.alpha_t, eta=run.eta, tau0=p.tau0,
                     kappa=p.kappa, d=plan.d, corpus_size=float(n),
                     max_inner=p.estep_max_inner, tol=p.estep_tol,
-                    per_tile_stop=kernel)
+                    per_tile_stop=kernel, grid=self.grid)
             return lam
 
         interval = _dispatch_interval(p, run.ckpt_path, run.verbose,
-                                      run.n_iters, 4 * tb_l)
+                                      run.n_iters, 4 * n_data * tb_l)
         lam = self._chunked(run, interval, chunk, "tiles-resident")
         return self._model(run, lam, vocab)
 
@@ -611,9 +727,11 @@ class OnlineLDA:
         """Each chunk's minibatches gathered on the host as flat token
         arrays, then cut into tiles for the tile kernel (the card's rule;
         the flat loop where no tile geometry fits) or run by the flat
-        segment loop (the CPU's)."""
+        segment loop (the CPU's).  On a grid each data rank takes its
+        block of the chunk's tiles, or its slice of the token slots."""
         p = self.params
         n, k = run.n, run.k
+        d_idx, n_data = self._data
         dev, rng_dev = self.device, self.rng_device
         flat_ids, flat_cts, offsets = _flatten(rows)
         doc_lens = np.diff(offsets)
@@ -622,7 +740,8 @@ class OnlineLDA:
         use_tiles = self.rule == "card"
         kw = dict(alpha=run.alpha_t, eta=run.eta, tau0=p.tau0,
                   kappa=p.kappa, corpus_size=float(n),
-                  max_inner=p.estep_max_inner, tol=p.estep_tol)
+                  max_inner=p.estep_max_inner, tol=p.estep_tol,
+                  grid=self.grid)
 
         def pack(pick):
             """One minibatch -> (ids [t], cts [t], seg [t], nonempty docs):
@@ -655,8 +774,10 @@ class OnlineLDA:
                 "tt": plan.tt,
                 "all_pad_share": 1.0 - sum(real_tiles) / (m * plan.n_tiles)})
             cells[0] += plan.n_tiles * plan.tt * m
+            per = plan.n_tiles // n_data
+            blk = slice(d_idx * per, (d_idx + 1) * per)
             ids_c, cts_c, seg_c, doc_c = (
-                torch.from_numpy(a).to(dev)
+                torch.from_numpy(np.ascontiguousarray(a[:, blk])).to(dev)
                 for a in (plan.ids, plan.cts, plan.seg, plan.doc_ids))
             picks_rng = torch.from_numpy(picks).to(rng_dev)
             for j, pk in enumerate(packs):
@@ -668,19 +789,28 @@ class OnlineLDA:
             return lam
 
         def flat_chunk(lam, it, picks, packs):
+            """The token slots of each minibatch padded to a power of two,
+            then to a multiple of the data shards (the JAX package's
+            widths); pad slots carry weight 0."""
+            m = len(packs)
             self.last_gamma_backend = "xla"
-            sizes = [pk[0].size for pk in packs]
-            # the batch's cells as the JAX package pads them
-            cells[0] += next_pow2(max(8, max(sizes))) * len(packs)
-            fence = np.concatenate(([0], np.cumsum(sizes)))
+            t_pad = next_pow2(max(8, max(pk[0].size for pk in packs)))
+            t_pad = -(-t_pad // n_data) * n_data
+            cells[0] += t_pad * m
+            tok = [np.zeros((m, t_pad), dt)
+                   for dt in (np.int32, np.float32, np.int32)]
+            for j, pk in enumerate(packs):
+                for a, x in zip(tok, pk[:3]):
+                    a[j, :x.size] = x
+            t_l = t_pad // n_data
             ids_c, cts_c, seg_c = (
-                torch.from_numpy(np.concatenate([pk[i] for pk in packs])).to(dev)
-                for i in range(3))
+                torch.from_numpy(np.ascontiguousarray(
+                    a[:, d_idx * t_l:(d_idx + 1) * t_l])).to(dev)
+                for a in tok)
             picks_rng = torch.from_numpy(picks).to(rng_dev)
             for j, pk in enumerate(packs):
-                sl = slice(int(fence[j]), int(fence[j + 1]))
                 lam = packed_iteration(
-                    lam, it + j, ids_c[sl], cts_c[sl], seg_c[sl],
+                    lam, it + j, ids_c[j], cts_c[j], seg_c[j],
                     self._gamma_rows(run, it + j, picks_rng[j]), pk[3], **kw)
             return lam
 
@@ -694,7 +824,7 @@ class OnlineLDA:
             if use_tiles:
                 plan = plan_tile_pack_uniform(
                     [pk[:3] for pk in packs], b=picks.shape[1],
-                    tile_tokens=tile_tt, k=k)
+                    tile_tokens=tile_tt, n_tiles_multiple=n_data, k=k)
                 # no tile geometry fits: the whole fit takes the flat loop
                 use_tiles = plan is not None
             if plan is not None:
@@ -713,44 +843,66 @@ class OnlineLDA:
 
     # ---- the padded paths --------------------------------------------
     def _resident_arrays(self, rows, n: int, row_len: int):
-        """The padded corpus [n+1, row_len] on the device (its last row
-        all zero, for pad picks), or None where ``device_resident`` is
-        False, or "auto" and over ``resident_budget_bytes``."""
+        """This data rank's rows of the padded corpus [N_pad, row_len]
+        (N_pad: n rounded up to a multiple of the data shards, the rows
+        past n empty) on the device, or None where ``device_resident`` is
+        False, or "auto" and N_pad over ``resident_budget_bytes``."""
         p = self.params
-        nbytes = n * row_len * 8  # int32 ids + float32 weights
+        d_idx, n_data = self._data
+        n_pad = -(-n // n_data) * n_data
+        nbytes = n_pad * row_len * 8  # int32 ids + float32 weights
         if p.device_resident is not True and not (
             p.device_resident == "auto" and nbytes <= p.resident_budget_bytes
         ):
             return None
+        per = n_pad // n_data
         empty = (np.zeros(0, np.int32), np.zeros(0, np.float32))
-        batch = batch_from_rows(list(rows) + [empty], row_len=row_len,
-                                device=self.device)
+        block = list(rows[d_idx * per:(d_idx + 1) * per])
+        batch = batch_from_rows(block + [empty] * (per - len(block)),
+                                row_len=row_len, device=self.device)
         return batch.token_ids, batch.token_weights
 
     def _fit_padded_resident(self, rows, vocab, run: _Run, resident,
                              nonempty: np.ndarray):
-        """The padded corpus resident on the device; each iteration
-        gathers its picked rows there and runs the padded E-step kernel."""
+        """The padded corpus resident on the device, each data rank its
+        rows; each iteration assembles its picked rows (JAX's ownership
+        gather: the rows a rank owns, zeros elsewhere, one ``psum_data``),
+        and each rank runs the padded E-step kernel on its slice of them."""
         p = self.params
         n = run.n
+        g = self.grid
+        d_idx, n_data = self._data
         ids_res, wts_res = resident
+        shard_n = ids_res.shape[0]
+        b_s = run.bsz // n_data
+        mine = slice(d_idx * b_s, (d_idx + 1) * b_s)
         dev, rng_dev = self.device, self.rng_device
         kw = dict(alpha=run.alpha_t, eta=run.eta, tau0=p.tau0,
                   kappa=p.kappa, corpus_size=float(n),
-                  max_inner=p.estep_max_inner, tol=p.estep_tol)
+                  max_inner=p.estep_max_inner, tol=p.estep_tol, grid=g)
         self.last_gamma_backend = "pallas"
+
+        def assemble(pick):
+            local = pick.long() - d_idx * shard_n
+            own = ((local >= 0) & (local < shard_n))[:, None]
+            local = local.clamp(0, max(0, shard_n - 1))
+            ids_b = torch.where(own, ids_res[local], 0)
+            wts_b = torch.where(own, wts_res[local], 0.0)
+            if g is not None:
+                ids_b, wts_b = psum_data(g, ids_b), psum_data(g, wts_b)
+            return ids_b[mine], wts_b[mine]
 
         def chunk(lam, it, m):
             picks = np.stack([run.make_pick(i) for i in range(it, it + m)])
-            picks_rng = torch.from_numpy(picks).to(rng_dev)
-            picks = np.minimum(picks, n)          # pad picks read row n
+            picks_rng = torch.from_numpy(picks[:, mine].copy()).to(rng_dev)
             picks_dev = torch.from_numpy(picks).to(dev)
             for j in range(m):
-                docs = int(nonempty[picks[j]].sum())
+                # docs the M-step counts, the whole minibatch's
+                docs = int(nonempty[np.minimum(picks[j], n)].sum())
                 if docs:
-                    pick = picks_dev[j]
+                    ids_s, wts_s = assemble(picks_dev[j])
                     lam = padded_iteration(
-                        lam, it + j, ids_res[pick], wts_res[pick],
+                        lam, it + j, ids_s, wts_s,
                         self._gamma_rows(run, it + j, picks_rng[j]), docs,
                         **kw)
             return lam
@@ -764,10 +916,12 @@ class OnlineLDA:
                          nonempty: np.ndarray):
         """Each minibatch grouped into power-of-two length buckets on the
         host (one bucket of ``row_len`` where ``bucket_by_length`` is
-        off), each bucket's doc axis padded to a power of two; the
-        buckets' statistics add up before one M-step."""
+        off), each bucket's doc axis padded to a power of two of at least
+        the data shards and cut into one block a data rank; the buckets'
+        statistics add up, then one ``psum_data`` and one M-step."""
         p = self.params
-        n, dev = run.n, self.device
+        n, dev, g = run.n, self.device, self.grid
+        d_idx, n_data = self._data
         self.last_gamma_backend = "pallas"
         empty = (np.zeros(0, np.int32), np.zeros(0, np.float32))
         lam, timer = run.lam, run.timer
@@ -782,31 +936,36 @@ class OnlineLDA:
                         groups.setdefault(width, []).append(int(i))
                 else:
                     groups = {row_len: [int(i) for i in pick]}
-                eb = torch.exp(dirichlet_expectation(lam))
+                eb = _eb_table(lam, g)
                 sstats = torch.zeros_like(lam)
                 docs = 0
                 for width, idxs in sorted(groups.items()):
-                    b_pad = next_pow2(len(idxs))
-                    batch = batch_from_rows(
-                        [rows[i] for i in idxs]
-                        + [empty] * (b_pad - len(idxs)),
-                        row_len=width, device=dev)
-                    doc_ids = torch.from_numpy(np.asarray(
-                        idxs + list(range(n, n + b_pad - len(idxs))),
-                        np.int64)).to(self.rng_device)
+                    b_pad = max(next_pow2(len(idxs)), n_data)
+                    b_pad = -(-b_pad // n_data) * n_data
+                    b_s = b_pad // n_data
+                    mine = slice(d_idx * b_s, (d_idx + 1) * b_s)
+                    padded = [rows[i] for i in idxs] + [empty] * (
+                        b_pad - len(idxs))
+                    doc_ids = idxs + list(range(n, n + b_pad - len(idxs)))
+                    batch = batch_from_rows(padded[mine], row_len=width,
+                                            device=dev)
                     sstats += padded_estep(
                         eb, batch.token_ids, batch.token_weights,
-                        self._gamma_rows(run, it, doc_ids), alpha=run.alpha_t,
-                        max_inner=p.estep_max_inner, tol=p.estep_tol)
+                        self._gamma_rows(run, it, torch.from_numpy(
+                            np.asarray(doc_ids[mine], np.int64)).to(
+                                self.rng_device)),
+                        alpha=run.alpha_t, max_inner=p.estep_max_inner,
+                        tol=p.estep_tol, grid=g)
                     docs += int(nonempty[idxs].sum())
+                if g is not None:
+                    sstats = psum_data(g, sstats)
                 lam = padded_mstep(lam, eb, sstats, it, docs, eta=run.eta,
                                    tau0=p.tau0, kappa=p.kappa,
                                    corpus_size=float(n))
                 self._sync()
             # an empty Bernoulli draw skips the update, not the checkpoint
             timer.stop()
-            if run.verbose:
-                print(f"iter {it}: {timer.times[-1]:.4f}s (padded-host)")
+            self._say(run, f"iter {it}: {timer.times[-1]:.4f}s (padded-host)")
             if run.ckpt_path and (it + 1) % p.checkpoint_interval == 0:
                 self._save(run, it + 1, lam)
         return self._model(run, lam, vocab)
@@ -832,13 +991,20 @@ class OnlineLDA:
                 "tiled-resident path walks a block-stratified epoch "
                 "stream over resident corpus tiles)"
             )
-        dev = self.device
+        dev, g = self.device, self.grid
         n_iters = p.max_iterations if max_iterations is None else max_iterations
         n, k, v = len(rows), p.k, len(vocab)
         alpha = np.full((k,), p.resolved_alpha(), np.float32)
         eta = p.resolved_eta()
+        _, n_data = self._data
+        shards = 1 if g is None else g.model_shards
+        v_pad = -(-v // shards) * shards
+        cols = slice(0, v_pad) if g is None else slice(
+            g.m * (v_pad // shards), (g.m + 1) * (v_pad // shards))
 
         bsz, fraction = _online_batch_size(p, n)
+        # the minibatch divides evenly over the data shards
+        bsz = -(-bsz // n_data) * n_data
         self.last_batch_size = min(bsz, n)
         self.sample_pick = _sample_stream(p, n, bsz, fraction)
         lens = np.array([len(i) for i, _ in rows], np.int64)
@@ -852,17 +1018,19 @@ class OnlineLDA:
         ckpt_path = (os.path.join(p.checkpoint_dir, "train_state.npz")
                      if p.checkpoint_dir else None)
         start_it = 0
-        if ckpt_path and train_state_valid(ckpt_path):
+        if agree_checkpoint_exists(ckpt_path):
             st = load_train_state(ckpt_path, require=("lam",))
-            if st["lam"].shape != (k, v):
-                raise ValueError(
-                    f"checkpoint lam {st['lam'].shape} != expected {(k, v)}")
+            if st["lam"].shape != (k, v_pad):
+                raise ValueError(f"checkpoint lam {st['lam'].shape} != "
+                                 f"expected {(k, v_pad)}")
             start_it = st["step"]
-            lam = torch.as_tensor(st["lam"], dtype=torch.float32).to(dev)
+            lam = torch.as_tensor(np.ascontiguousarray(st["lam"][:, cols]),
+                                  dtype=torch.float32).to(dev)
         else:
+            # one draw of the whole [k, V_pad] table on every rank
             lam = init_lambda(
                 seeded_generator(self.rng_device, p.seed, _LAMBDA_KEY),
-                k, v, p.gamma_shape, device=dev)
+                k, v_pad, p.gamma_shape, device=dev)[:, cols].contiguous()
 
         def make_pick(it: int) -> np.ndarray:
             """``sample_pick`` padded to bsz with the inert ids n, n+1..."""
@@ -870,10 +1038,10 @@ class OnlineLDA:
             return np.concatenate(
                 [pick, np.arange(n, n + bsz - pick.size, dtype=np.int32)])
 
-        run = _Run(n=n, k=k, bsz=bsz, n_iters=n_iters, start_it=start_it,
-                   alpha=alpha, alpha_t=torch.from_numpy(alpha).to(dev),
-                   eta=eta, lam=lam, ckpt_path=ckpt_path,
-                   verbose=verbose, timer=IterationTimer(),
+        run = _Run(n=n, k=k, v=v, bsz=bsz, n_iters=n_iters,
+                   start_it=start_it, alpha=alpha,
+                   alpha_t=torch.from_numpy(alpha).to(dev), eta=eta, lam=lam,
+                   ckpt_path=ckpt_path, verbose=verbose, timer=IterationTimer(),
                    make_pick=make_pick)
 
         waste = row_len >= 4.0 * mean_nnz

@@ -130,11 +130,14 @@ def gamma_fixed_point_segments(
     max_inner: int,
     tol: float,
     freeze: bool = False,
+    reduce_fn=None,
 ) -> Tuple[torch.Tensor, int]:
     """The gamma fixed point over a token-packed batch.  ``freeze``
     switches to per-document convergence: a row stops updating the
     iteration its own mean|delta gamma| drops below ``tol``, so its result
-    depends on its own tokens only."""
+    depends on its own tokens only.  ``reduce_fn`` combines the per-doc
+    sums of a token axis split over ranks (``psum_data``) each iteration,
+    so gamma stays the same on every rank."""
     b = gamma0.shape[0]
     seg_l = seg.long()
 
@@ -144,6 +147,8 @@ def gamma_fixed_point_segments(
         contrib = gamma.new_zeros(b, gamma.shape[1]).index_add_(
             0, seg_l, eb_tok * (cts / phinorm)[:, None]
         )
+        if reduce_fn is not None:
+            contrib = reduce_fn(contrib)
         return alpha + et * contrib
 
     gamma = gamma0

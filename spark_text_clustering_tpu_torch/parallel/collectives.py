@@ -35,6 +35,7 @@ __all__ = [
     "fetch_global",
     "gather_model_rows",
     "gather_model_rows_bkl",
+    "gather_model_rows_kbl",
     "model_handoff",
     "model_row_sum",
     "psum_data",
@@ -97,6 +98,17 @@ def gather_model_rows(grid: ProcessGrid, table_shard: torch.Tensor,
     vals = table_shard.T[local.clamp(0, shard_v - 1)]          # [..., k]
     vals = torch.where(own[..., None], vals, vals.new_zeros(()))
     return psum_model(grid, vals)
+
+
+def gather_model_rows_kbl(grid: ProcessGrid, table_shard: torch.Tensor,
+                          ids: torch.Tensor) -> torch.Tensor:
+    """``gather_model_rows`` in the [k, ...] layout, the token axis last:
+    ``full_table[:, ids]`` as the tile kernels take it."""
+    shard_v = table_shard.shape[-1]
+    local, own = _local_ids(grid, ids, shard_v)
+    vals = table_shard[:, local.clamp(0, shard_v - 1)]         # [k, ...]
+    vals = torch.where(own[None], vals, vals.new_zeros(()))
+    return psum_model(grid, vals.contiguous())
 
 
 def gather_model_rows_bkl(grid: ProcessGrid, table_shard: torch.Tensor,

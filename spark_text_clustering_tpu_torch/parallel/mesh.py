@@ -239,20 +239,24 @@ def agree_checkpoint_exists(path: Optional[str]) -> bool:
         return False
     from ..models.persistence import train_state_valid
 
-    exists = train_state_valid(path)
     if _distributed() and dist.get_world_size() > 1:
         dev = (torch.device("cuda", torch.cuda.current_device())
                if dist.get_backend() == "nccl" else torch.device("cpu"))
-        flag = torch.tensor([int(exists)], dtype=torch.int32, device=dev)
+        coordinator = dist.get_rank() == 0
+        flag = torch.tensor([int(coordinator and train_state_valid(path))],
+                            dtype=torch.int32, device=dev)
         dist.broadcast(flag, src=0)
         coord = bool(int(flag.item()))
+        # the other ranks look after the broadcast: a checkpoint the
+        # coordinator wrote before it got here is then in place for them
+        exists = coord if coordinator else train_state_valid(path)
         if coord != exists:
             raise RuntimeError(
                 f"checkpoint {path}: exists={exists} on rank "
                 f"{dist.get_rank()} but {coord} on the coordinator; "
                 "checkpoint_dir must be a filesystem every rank sees")
         return coord
-    return exists
+    return train_state_valid(path)
 
 
 # ---- spawning a grid on this host -----------------------------------------

@@ -273,10 +273,9 @@ class LDAModelTransformer(Transformer):
 
 
 class LDA(Estimator):
-    """The LDA facade: EM, online VB (every single-device path), or NMF
-    (the estimator swap), by ``params.algorithm``.  With a ``grid``, EM
-    fits on it; online VB and NMF refuse a grid larger than 1x1 (their
-    sharding is ROADMAP.md queue 1 item 6b)."""
+    """The LDA facade: EM, online VB, or NMF (the estimator swap), by
+    ``params.algorithm``.  With a ``grid``, each of the three fits on
+    it."""
 
     def __init__(self, params: Params, device="cuda", grid=None):
         self.params = params
@@ -298,15 +297,9 @@ class LDA(Estimator):
         if vocab is None:
             vocab = [f"h{i}" for i in range(ds["num_features"])]
         nonempty = [(i, w) for i, w in ds["rows"] if len(i) > 0]
-        if self.params.algorithm == "em":
-            opt = EMLDA(self.params, device=self.device, grid=self.grid)
-        elif self.grid is not None and self.grid.size > 1:
-            raise NotImplementedError(
-                f"the {self.params.algorithm} fit on a grid is not ported "
-                "yet (ROADMAP.md queue 1 item 6b): it runs on one device")
-        else:
-            opt = optimizers[self.params.algorithm](self.params,
-                                                    device=self.device)
+        opt = optimizers[self.params.algorithm](self.params,
+                                                device=self.device,
+                                                grid=self.grid)
         model = opt.fit(nonempty, vocab)
         return LDAModelTransformer(
             model, log_likelihood=getattr(opt, "last_log_likelihood", None),
@@ -320,8 +313,9 @@ class NMFEstimator(LDA):
     so scoring and report code downstream need not know which factorizer
     made the topics."""
 
-    def __init__(self, params: Params, device="cuda"):
-        super().__init__(params.replace(algorithm="nmf"), device=device)
+    def __init__(self, params: Params, device="cuda", grid=None):
+        super().__init__(params.replace(algorithm="nmf"), device=device,
+                         grid=grid)
 
 
 class PipelineModel(Transformer):

@@ -583,12 +583,6 @@ def test_unported_flags_exit_2_and_name_their_item(tmp_path, argv, flag,
 
 
 GRID_REFUSED = [
-    (["train", "--algorithm", "online", "--data-shards", "2"],
-     "--algorithm online with --data-shards/--model-shards is not ported "
-     "yet (ROADMAP.md queue 1 item 6b"),
-    (["train", "--algorithm", "nmf", "--model-shards", "2"],
-     "--algorithm nmf with --data-shards/--model-shards is not ported "
-     "yet (ROADMAP.md queue 1 item 6b"),
     (["train", "--num-processes", "2"],
      "--num-processes/--process-id require --coordinator"),
     (["train", "--process-id", "0"],
@@ -615,8 +609,8 @@ GRID_REFUSED = [
                          ids=[" ".join(a) for a, _ in GRID_REFUSED])
 def test_grid_flags_that_cannot_run_exit_2(tmp_path, argv, message):
     """A grid the port cannot run exits 2 before any work, saying why:
-    online VB and NMF on a grid (queue 1 item 6b), bring-up flags without
-    --coordinator or short of it, a process count that is not the grid's,
+    bring-up flags without --coordinator or short of it, a process count
+    that is not the grid's,
     per-doc convergence on a grid, and nccl with more ranks than cards (or
     on the CPU).  The default device is kept, so the nccl case counts this
     host's cards: none."""
@@ -845,3 +839,101 @@ def test_coordinator_run_of_two_processes(grid_trained, corpus, tmp_path):
     _, out1, _, m1 = grid_trained["1x1"]
     assert _masked(outs[0][0], models) == _masked(out1, m1)
     np.testing.assert_allclose(_lam(models), _lam(m1), rtol=1e-4, atol=1e-4)
+
+
+# ---- online VB and NMF on a grid; NMF scoring (fault N1) -----------------
+# --vocab-size keeps V even: the grid draws lambda at V_pad columns, as
+# the JAX package does, so an odd V starts from another draw than 1x1
+ALGO_ARGV = {
+    "online": ["--algorithm", "online", "--sampling", "fixed",
+               "--token-layout", "padded", "--vocab-size", "3000"],
+    "nmf": ["--algorithm", "nmf"],
+}
+
+
+@pytest.fixture(scope="module")
+def algo_trained(native_lib, corpus, tmp_path_factory):
+    """The port's ``train --algorithm online|nmf`` from the default seed
+    on one device and on a 2x2 grid of gloo CPU ranks:
+    {(algorithm, "1x1"|"2x2"): (rc, stdout, stderr, models dir)}."""
+    books, stop = corpus
+    root = tmp_path_factory.mktemp("algo_train")
+    out = {}
+    for algo, argv in ALGO_ARGV.items():
+        for name, extra in (("1x1", []), ("2x2", GRID_FLAGS)):
+            models = str(root / f"m_{algo}_{name}")
+            rc, so, se = run(port_main, [
+                "train", "--books", books, "--stop-words", stop, "--k",
+                str(K), "--models-dir", models, "--max-iterations",
+                str(ITERS), *argv, *extra])
+            out[algo, name] = (rc, so, se, models)
+    return out
+
+
+@pytest.mark.parametrize("algo,array", [("online", "lam"), ("nmf", "h")])
+def test_train_online_and_nmf_on_a_grid_match_one_device(algo_trained, algo,
+                                                         array):
+    """``train --algorithm online`` (fixed sampling, the padded layout)
+    and ``--algorithm nmf`` with ``--data-shards 2 --model-shards 2
+    --dist-backend gloo`` start from the one-device fit's draws: rank 0
+    alone prints and saves, stdout equal to the one-device run's line for
+    line with numbers and paths masked, lambda or H within rtol 1e-4."""
+    (rc1, out1, err1, m1), (rc4, out4, err4, m4) = (
+        algo_trained[algo, "1x1"], algo_trained[algo, "2x2"])
+    assert rc1 == 0 and rc4 == 0, (err1, err4)
+    assert _masked(out4, m4) == _masked(out1, m1)
+    arrays = []
+    for models in (m1, m4):
+        (saved,) = os.listdir(models)
+        with np.load(os.path.join(models, saved, "arrays.npz")) as z:
+            arrays.append(z[array])
+    np.testing.assert_allclose(arrays[1], arrays[0], rtol=1e-4, atol=1e-7)
+
+
+def test_score_nmf_model_matches_jax_cli(algo_trained, corpus, tmp_path):
+    """Fault N1: the port's ``score`` of a saved NMF model exits 0 (it
+    raised ``TypeError`` on the ``grid`` argument) as the JAX package's
+    ``score`` of the same model does; the reports are equal with floats
+    masked and the distributions agree within atol 1e-4."""
+    books, stop = corpus
+    (saved,) = os.listdir(algo_trained["nmf", "1x1"][3])
+    model = os.path.join(algo_trained["nmf", "1x1"][3], saved)
+    reports = {}
+    for name, main in (("jax", jax_main), ("port", port_main)):
+        out_dir = str(tmp_path / name)
+        with jax_python_text():
+            rc, so, se = run(main, ["score", "--books", books, "--stop-words",
+                                    stop, "--model", model, "--output-dir",
+                                    out_dir])
+        assert rc == 0, se
+        reports[name] = (report_of(out_dir), so.replace(out_dir, "<o>"))
+    assert mask(reports["port"][0]) == mask(reports["jax"][0])
+    assert mask(reports["port"][1]) == mask(reports["jax"][1])
+    np.testing.assert_allclose(
+        chip_smoke.report_distributions(reports["port"][0], K),
+        chip_smoke.report_distributions(reports["jax"][0], K), atol=1e-4)
+
+
+def test_score_grid_trained_nmf_model(algo_trained, corpus, tmp_path):
+    """``score`` of the 2x2 grid's NMF model, on one device and on a 2x2
+    grid (the W solve runs on each rank's device, rank 0 reports): both
+    exit 0 with reports equal, floats masked, to the one-device model's
+    report, and distributions within atol 1e-4 of it."""
+    books, stop = corpus
+    reports = {}
+    for name, trained, extra in (("1x1", "1x1", []), ("model_2x2", "2x2", []),
+                                 ("grid", "2x2", GRID_FLAGS)):
+        models = algo_trained["nmf", trained][3]
+        (saved,) = os.listdir(models)
+        out_dir = str(tmp_path / name)
+        rc, so, se = run(port_main, [
+            "score", "--books", books, "--stop-words", stop, "--model",
+            os.path.join(models, saved), "--output-dir", out_dir, *extra])
+        assert rc == 0, se
+        reports[name] = report_of(out_dir)
+    want = chip_smoke.report_distributions(reports["1x1"], K)
+    for name in ("model_2x2", "grid"):
+        assert mask(reports[name]) == mask(reports["1x1"])
+        np.testing.assert_allclose(
+            chip_smoke.report_distributions(reports[name], K), want,
+            atol=1e-4)

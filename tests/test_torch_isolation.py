@@ -59,12 +59,18 @@ def test_importing_the_port_loads_no_jax():
 
 def test_the_grid_modules_are_scanned():
     """The import and source scans cover the grid's modules: the
-    ``parallel`` package and sharded evaluation."""
+    ``parallel`` package, sharded evaluation, and the estimators and
+    entry points that run on the grid."""
     mods = set(_port_modules())
     assert {"spark_text_clustering_tpu_torch.parallel",
             "spark_text_clustering_tpu_torch.parallel.mesh",
             "spark_text_clustering_tpu_torch.parallel.collectives",
-            "spark_text_clustering_tpu_torch.models.sharded_eval"} <= mods
+            "spark_text_clustering_tpu_torch.models.sharded_eval",
+            "spark_text_clustering_tpu_torch.models.em_lda",
+            "spark_text_clustering_tpu_torch.models.online_lda",
+            "spark_text_clustering_tpu_torch.models.nmf",
+            "spark_text_clustering_tpu_torch.pipeline",
+            "spark_text_clustering_tpu_torch.cli"} <= mods
 
 
 _FORBIDDEN = re.compile(

@@ -476,14 +476,17 @@ def test_pipeline_nmf(tiny_corpus_rows):
 
 _BAD = [
     ("tiles_layout", dict(token_layout="tiles"), ValueError, "token_layout"),
-    ("sharded", dict(data_shards=2), NotImplementedError, "one device"),
-    ("model_sharded", dict(model_shards=2), NotImplementedError, "one device"),
+    ("sharded", dict(data_shards=2), ValueError, "needs 2 ranks"),
+    ("model_sharded", dict(model_shards=2), ValueError,
+     "not divisible by model_shards=2"),
 ]
 
 
 @pytest.mark.parametrize("name,kw,exc,match", _BAD, ids=[c[0] for c in _BAD])
 def test_unported_or_bad_settings_raise(name, kw, exc, match,
                                         tiny_corpus_rows):
+    """A layout NMF has not and shards without the ranks of a started
+    grid raise, instead of running on one device."""
     rows, vocab = tiny_corpus_rows
     with pytest.raises(exc, match=match):
         NMF(Params(k=2, **kw), device="cpu").fit(rows, vocab)

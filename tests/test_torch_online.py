@@ -262,7 +262,7 @@ def test_pipeline_lda_online():
 
 
 _UNPORTED = [
-    ("sharded", dict(data_shards=2), NotImplementedError, "one device"),
+    ("sharded", dict(data_shards=2), ValueError, "needs 2 ranks"),
     ("tiles_needs_epoch", dict(sampling="fixed"), ValueError, "epoch"),
 ]
 
@@ -270,8 +270,9 @@ _UNPORTED = [
 @pytest.mark.parametrize("name,kw,exc,match", _UNPORTED,
                          ids=[c[0] for c in _UNPORTED])
 def test_unported_paths_raise(name, kw, exc, match):
-    """Sharding raises, naming what is missing, and the tiles layout
-    without epoch sampling is refused, instead of falling back."""
+    """Shards without the ranks of a started grid raise, naming the ranks
+    the grid needs, and the tiles layout without epoch sampling is
+    refused, instead of falling back."""
     rows, vocab = _planted(n_docs=40)
     with pytest.raises(exc, match=match):
         OnlineLDA(Params(**_params(**kw)), device="cpu").fit(rows, vocab)

@@ -167,7 +167,7 @@ def jax_fit(spec, shape, name, ckpt=None, iters=ITERS, rows=None, v=V):
 @pytest.mark.parametrize("shape", SHAPES, ids=IDS)
 def test_collectives_match_full_table(spec, shape):
     """Each collective on every rank against the full-table reference:
-    sums over the axes, gathers of term rows in both layouts, the
+    sums over the axes, gathers of term rows in the three layouts, the
     sharded scatter after psum_data, fetches along both axes, the
     handoff, and the data shards' row blocks."""
     c = spec["coll"]
@@ -186,6 +186,7 @@ def test_collectives_match_full_table(spec, shape):
         np.testing.assert_array_equal(got["gather"], table.T[ids])
         np.testing.assert_array_equal(got["gather_bkl"],
                                       table.T[ids].transpose(0, 2, 1))
+        np.testing.assert_array_equal(got["gather_kbl"], table[:, ids])
         for key in ("scatter", "scatter_bkl"):
             np.testing.assert_allclose(got[key], want_scatter, rtol=1e-6,
                                        atol=1e-6)

@@ -25,6 +25,7 @@ from spark_text_clustering_tpu_torch.parallel import (
     fetch_global,
     gather_model_rows,
     gather_model_rows_bkl,
+    gather_model_rows_kbl,
     model_handoff,
     model_row_sum,
     psum_data,
@@ -55,6 +56,7 @@ def collectives(grid, spec) -> dict:
         "row_sum": model_row_sum(grid, table).numpy(),
         "gather": gather_model_rows(grid, table, ids).numpy(),
         "gather_bkl": gather_model_rows_bkl(grid, table, ids).numpy(),
+        "gather_kbl": gather_model_rows_kbl(grid, table, ids).numpy(),
         "scatter": fetch_global(grid, psum_data(
             grid, scatter_add_model_shard(grid, ids, vals, shard_v)),
             "model"),
