@@ -113,8 +113,20 @@
    --algorithm online`` at 2x2 and ``score`` on the grid against config
    H's card report (5e-3), ``train --algorithm nmf`` at 1x1 and 2x2, the
    grid model's report equal to the 1x1 report with floats masked;
-13. a ``total`` line with the run's seconds, then a ``kernels`` line: per
-   kernel, the launches of the main-path runs of 3-12 (each must be > 0),
+13. config K, one-process streaming through the CLI on config E's 51
+   books with the stream verbs' defaults (batch capacity 8, 2^18 hash
+   features, k=5) and 8 files a trigger (7 triggers): ``stream-score`` of
+   E's card model with a ledger (7 committed epochs, every E-step launch
+   held against its plain version) against ``stream-score --device cpu``
+   and E's ``score`` (5e-3), then again (nothing new is committed);
+   ``stream-train`` on the card against ``--device cpu`` from the same
+   seed (lambda 1e-3), an interrupted run (24 books, idle, 27 more,
+   ``--resume``: the same micro-batches, lambda 1e-3, every book
+   committed once), ``stream compact`` and a resume that loads the same
+   lambda bit for bit, and ``score`` of the published model on the card;
+   ms a trigger, docs/s and the text front end's share;
+14. a ``total`` line with the run's seconds, then a ``kernels`` line: per
+   kernel, the launches of the main-path runs of 3-13 (each must be > 0),
    the largest difference from the plain version, and the times beside
    the card's bound.
 
@@ -629,10 +641,11 @@ def estep_instance(k, l, tile_b, cs):
     return f"l2_k{kmax}"
 
 
-def estep_case(torch, eb, cts, alpha, g0, label):
+def estep_case(torch, eb, cts, alpha, g0, label, timed=True):
     """The gamma kernel against its plain version on (eb [B, k, L], cts,
     alpha, gamma0): normalized gamma within 5e-3 with equal argmax, a
-    bit-for-bit repeat; its cluster size and instance, times and bound."""
+    bit-for-bit repeat; its cluster size and instance, bound, and (where
+    ``timed``) times."""
     from spark_text_clustering_tpu_torch.ops import estep
 
     b, k, width = eb.shape
@@ -670,9 +683,9 @@ def estep_case(torch, eb, cts, alpha, g0, label):
         "tolerance": "normalized gamma atol 5e-3, argmax equal",
         "bitwise_repeatable": True,
         "ms": cuda_ms(torch, lambda: estep.gamma_fixed_point_bkl(
-            eb, cts, alpha, g0), 5),
+            eb, cts, alpha, g0), 5) if timed else None,
         "plain_ms": cuda_ms(torch, lambda: estep.gamma_fixed_point_bkl_plain(
-            eb, cts, alpha, g0), 2),
+            eb, cts, alpha, g0), 2) if timed else None,
         "bound_ms": t_bytes, "bound_by": by, "library_ms": None,
     }
 
@@ -3083,6 +3096,329 @@ def run_config_j(torch, seed, e, log_perplexity_c):
     return summary
 
 
+# ---- config K: one-process streaming through the CLI -----------------------
+K_TRIGGER_FILES = 8            # --max-files-per-trigger: 51 books, 7 triggers
+K_WAVE = 24                    # the interrupted run's first wave: 3 triggers
+K_STREAM = ["--max-files-per-trigger", str(K_TRIGGER_FILES),
+            "--poll-interval", "0.05", "--idle-timeout", "0.5"]
+
+
+def book_distributions(text: str, k: int) -> dict:
+    """{book name: its distribution} read back from a scoring report."""
+    names = [line.split(": ", 1)[1] for line in text.splitlines()
+             if line.startswith("Book's name: ")]
+    return dict(zip(names, report_distributions(text, k)))
+
+
+def watch_dir(books, root, names):
+    """``names`` of ``books`` copied into the watch dir ``root``, each
+    file's mtime its index in the sorted book list (one second apart):
+    every run polls them in the same order."""
+    os.makedirs(root, exist_ok=True)
+    order = sorted(os.listdir(books))
+    for name in names:
+        dst = os.path.join(root, name)
+        shutil.copyfile(os.path.join(books, name), dst)
+        t = 1.6e9 + order.index(name)
+        os.utime(dst, (t, t))
+    return root
+
+
+@contextlib.contextmanager
+def stream_triggers(torch):
+    """Inside the block, every micro-batch a streaming scorer or trainer
+    processes is recorded as (class name, device, its file names, host
+    seconds to the end of its device work, seconds in the text front
+    end)."""
+    from spark_text_clustering_tpu_torch import streaming
+
+    seen, front = [], []
+    vectorize = streaming._vectorize_quarantined
+
+    def timed_vectorize(*args):
+        t0 = time.perf_counter()
+        out = vectorize(*args)
+        front.append(time.perf_counter() - t0)
+        return out
+
+    def spy(cls):
+        process = cls.process
+
+        def timed(self, mb):
+            del front[:]
+            t0 = time.perf_counter()
+            out = process(self, mb)
+            dev = getattr(self, "device", None) or self.model.device
+            if torch.device(dev).type == "cuda":
+                torch.cuda.synchronize()
+            seen.append((cls.__name__, str(dev), list(mb.names),
+                         time.perf_counter() - t0, sum(front)))
+            return out
+
+        return process, timed
+
+    patched = [(cls, *spy(cls)) for cls in (streaming.StreamingScorer,
+                                            streaming.StreamingOnlineLDA)]
+    streaming._vectorize_quarantined = timed_vectorize
+    for cls, _, timed in patched:
+        cls.process = timed
+    try:
+        yield seen
+    finally:
+        streaming._vectorize_quarantined = vectorize
+        for cls, process, _ in patched:
+            cls.process = process
+
+
+def trigger_stats(triggers):
+    """ms a trigger (mean, range), docs/s over the triggers' seconds and
+    the text front end's share of them."""
+    secs = np.array([t[3] for t in triggers])
+    docs = sum(len(t[2]) for t in triggers)
+    return {"triggers": len(triggers),
+            "ms_per_trigger": 1e3 * float(secs.mean()),
+            "ms_per_trigger_range": [1e3 * float(secs.min()),
+                                     1e3 * float(secs.max())],
+            "docs_per_s": docs / float(secs.sum()),
+            "front_end_share": float(sum(t[4] for t in triggers)
+                                     / secs.sum())}
+
+
+def stream_cli(label, argv, out_path):
+    """A stream verb through ``cli.main``: (stdout, wall seconds).  Fails
+    unless it exits 0."""
+    rc, out, secs = run_cli(argv, out_path)
+    if rc != 0:
+        raise AssertionError(f"config {label}: {argv[0]} exited {rc}")
+    return out, secs
+
+
+def epoch_reports(out_dir, k):
+    """{book: distribution} over every epoch report of a ledgered
+    stream-score, and the reports' names."""
+    names = sorted(os.listdir(out_dir))
+    dists = {}
+    for name in names:
+        with open(os.path.join(out_dir, name)) as f:
+            dists.update(book_distributions(f.read(), k))
+    return dists, names
+
+
+def dists_agree(label, got, want, limit):
+    """Largest difference of two {book: distribution} maps over the same
+    books, and the main topics wherever ``want``'s top two differ by more
+    than 1e-2; fails beyond ``limit`` or on a differing main topic."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"config {label}: books {len(got)} against "
+                             f"{len(want)}")
+    g = np.stack([got[n] for n in sorted(want)])
+    w = np.stack([want[n] for n in sorted(want)])
+    diff = float(np.abs(g - w).max())
+    top2 = np.sort(w, axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 1e-2
+    agree = g.argmax(1) == w.argmax(1)
+    if not diff <= limit or not agree[clear].all():
+        raise AssertionError(f"config {label}: distributions differ by "
+                             f"{diff}, main topics {agree.mean()}")
+    return diff
+
+
+def run_config_k(torch, seed, e):
+    """One-process streaming through the CLI on config E's 51 books, with
+    the verbs' defaults (batch capacity 8, 2^18 hash features, k=5) and 8
+    files a trigger: 7 triggers.
+
+    K-score: ``stream-score`` of E's card model with a ledger (7 epochs,
+    every book in one committed record; each E-step launch held against
+    its plain version) against ``stream-score --device cpu`` (5e-3) and
+    against E's ``score`` on the card (5e-3, main topics where the top two
+    differ by more than 1e-2); the same command again commits nothing.
+    K-train: ``stream-train`` on the card against ``--device cpu`` from
+    the same seed (lambda 1e-3 relative: ``index_add_`` adds with atomics
+    on the card); an interrupted run (24 books, the stream ends idle, 27
+    more, ``--resume``) against the uninterrupted one (the same
+    micro-batches, lambda 1e-3, docs_seen 51, step 7, every book committed
+    once); ``stream compact``, then ``--resume`` loads the same lambda bit
+    for bit; the published model carries ``ledger_ref`` and scores on the
+    card."""
+    from spark_text_clustering_tpu_torch.models import online_lda
+    from spark_text_clustering_tpu_torch.models.persistence import (
+        latest_model_dir,
+    )
+    from spark_text_clustering_tpu_torch.ops import _build, estep
+    from spark_text_clustering_tpu_torch.resilience import EpochLedger
+
+    root = os.path.join(e["root"], "K")
+    books, stop = e["books"], e["stop"]
+    names = sorted(os.listdir(books))
+    watch = watch_dir(books, os.path.join(root, "watch"), names)
+    card_model = latest_model_dir(os.path.join(e["root"], "models"), "EN")
+    n_triggers = -(-len(names) // K_TRIGGER_FILES)
+
+    # K-score on the card, every E-step launch recorded
+    def stream_score(device, tag):
+        out, secs = stream_cli("K", [
+            "stream-score", "--watch-dir", watch, "--stop-words", stop,
+            "--model", card_model, "--checkpoint-dir",
+            os.path.join(root, f"sck_{tag}"), "--output-dir",
+            os.path.join(root, f"so_{tag}"), "--device", device, *K_STREAM],
+            os.path.join(root, f"score_{tag}.out"))
+        return out, secs
+
+    _build.reset_launches()
+    with stream_triggers(torch) as triggers, \
+            recorded(estep, "gamma_fixed_point_bkl") as score_seen:
+        _, score_s = stream_score("cuda", "cuda")
+    score_launches = dict(_build.LAUNCHES)
+    score_triggers = list(triggers)
+    ledger = EpochLedger(os.path.join(root, "sck_cuda"))
+    records = ledger.records()
+    sources = [s for r in records for s in r["sources"]]
+    if (len(records) != n_triggers or sorted(sources) != sorted(
+            os.path.join(watch, n) for n in names)
+            or score_launches["gamma_fixed_point_bkl"] != n_triggers
+            or len(score_seen) != n_triggers):
+        raise AssertionError(f"config K-score: {len(records)} epochs, "
+                             f"{len(sources)} sources, {score_launches}")
+    card, report_names = epoch_reports(os.path.join(root, "so_cuda"), EN_K)
+    _, cpu_score_s = stream_score("cpu", "cpu")
+    cpu, _ = epoch_reports(os.path.join(root, "so_cpu"), EN_K)
+    vs_cpu = dists_agree("K-score card vs CPU", card, cpu, 5e-3)
+    vs_score = dists_agree("K-score vs score", card, book_distributions(
+        e["card_report"], EN_K), 5e-3)
+    again, _ = stream_score("cuda", "cuda")
+    if len(ledger.records()) != n_triggers or "[batch" in again or len(
+            ledger.committed_sources()) != len(names):
+        raise AssertionError("config K-score: the rerun scored or committed")
+
+    # K-train: the uninterrupted run on the card, the same on the CPU
+    def stream_train(device, tag, watch_dir_, *extra):
+        models = os.path.join(root, f"m_{tag}")
+        out, secs = stream_cli("K", [
+            "stream-train", "--watch-dir", watch_dir_, "--stop-words", stop,
+            "--checkpoint-dir", os.path.join(root, f"ck_{tag}"),
+            "--checkpoint-interval", "2", "--models-dir", models,
+            "--seed", str(seed), "--device", device, *K_STREAM, *extra],
+            os.path.join(root, f"train_{tag}.out"))
+        return out, secs, latest_model_dir(models, "EN")
+
+    _build.reset_launches()
+    with stream_triggers(torch) as triggers, \
+            recorded(online_lda, "gamma_fixed_point_bkl") as train_seen:
+        _, train_s, whole_dir = stream_train("cuda", "whole", watch)
+        whole_batches = [t[2] for t in triggers]
+        train_triggers = list(triggers)
+        wave = watch_dir(books, os.path.join(root, "watch_wave"),
+                         names[:K_WAVE])
+        first_out, _, _ = stream_train("cuda", "wave", wave)
+        watch_dir(books, wave, names[K_WAVE:])
+        resumed_out, _, resumed_dir = stream_train("cuda", "wave", wave,
+                                                   "--resume")
+        wave_batches = [t[2] for t in triggers[len(whole_batches):]]
+    train_launches = dict(_build.LAUNCHES)
+    rel = [os.path.basename(p) for b in whole_batches for p in b]
+    if ([[os.path.basename(p) for p in b] for b in wave_batches]
+            != [[os.path.basename(p) for p in b] for b in whole_batches]
+            or rel != names
+            or train_launches["gamma_fixed_point_bkl"] != 2 * n_triggers
+            or len(train_seen) != 2 * n_triggers):
+        raise AssertionError(f"config K-train: micro-batches "
+                             f"{wave_batches} against {whole_batches}, "
+                             f"{train_launches}")
+    if f"stream ended: {K_WAVE} docs / 3 micro-batches" not in first_out or (
+            "committed epoch" not in resumed_out):
+        raise AssertionError("config K-train: the interrupted run")
+    _, cpu_train_s, cpu_dir = stream_train("cpu", "cpu", watch)
+
+    def lam_of(path):
+        with np.load(os.path.join(path, "arrays.npz")) as z:
+            return z["lam"]
+
+    def rel_diff(a, b):
+        return float(np.max(np.abs(a - b) / np.abs(b)))
+
+    lam = lam_of(whole_dir)
+    cpu_rel = rel_diff(lam, lam_of(cpu_dir))
+    resume_rel = rel_diff(lam_of(resumed_dir), lam)
+    wave_led = EpochLedger(os.path.join(root, "ck_wave"))
+    train_recs = [r for r in wave_led.records() if r.get("shards")]
+    wave_sources = sorted(os.path.basename(s) for r in train_recs
+                          for s in r["sources"])
+    last = train_recs[-1]
+    with open(os.path.join(resumed_dir, "meta.json")) as f:
+        ledger_ref = json.load(f).get("ledger_ref")
+    if not cpu_rel <= 1e-3 or not resume_rel <= 1e-3 or (
+            wave_sources != names or last["docs_seen"] != len(names)
+            or last["step"] != n_triggers
+            or ledger_ref != {"dir": os.path.join(root, "ck_wave"),
+                              "epoch": wave_led.last_committed()}):
+        raise AssertionError(f"config K-train: card vs CPU {cpu_rel}, "
+                             f"resumed {resume_rel}, {last}, {ledger_ref}")
+
+    # compaction: the resumed stream loads the same lambda bit for bit
+    # (no new file: it trains nothing and publishes what it loaded)
+    compact_out, _ = stream_cli("K", ["stream", "compact", "--checkpoint-dir",
+                                      os.path.join(root, "ck_wave")],
+                                os.path.join(root, "compact.out"))
+    _, _, compacted_dir = stream_train("cuda", "wave", wave, "--resume")
+    if not np.array_equal(lam_of(compacted_dir), lam_of(resumed_dir)) or (
+            len(wave_led.records()) != 2):
+        raise AssertionError("config K: the compacted ledger resumed "
+                             "another lambda")
+    _build.reset_launches()
+    published, _ = cli_score("K", books, stop, "cuda",
+                             os.path.join(root, "published_out"),
+                             os.path.join(root, "published.out"),
+                             ["--model", resumed_dir])
+    published_launches = dict(_build.LAUNCHES)
+    check_distribution(np.stack(list(book_distributions(
+        published, EN_K).values())), len(names), EN_K, "K-published")
+
+    # every E-step launch of the streams against its plain version; the
+    # widest scoring and training launches timed
+    cases = []
+    for label, seen in (("score", score_seen), ("train", train_seen)):
+        widest = max(range(len(seen)), key=lambda i: seen[i][0][0].shape[2])
+        for i, (args, _) in enumerate(seen):
+            cases.append({"run": label, "launch": i, **estep_case(
+                torch, *args[:4], f"K_{label}_{i}", timed=i == widest)})
+    del score_seen, train_seen
+    launches = {name: score_launches[name] + train_launches[name]
+                + published_launches[name] for name in score_launches}
+    return {
+        "phase": "config_K", "books": len(names),
+        "files_per_trigger": K_TRIGGER_FILES, "k": EN_K,
+        "hash_features": 1 << 18, "batch_capacity": 8,
+        "score": {**trigger_stats(score_triggers), "seconds": score_s,
+                  "cpu_seconds": cpu_score_s,
+                  "epochs_committed": len(records),
+                  "reports": len(report_names),
+                  "row_len": [c["shape"][2] for c in cases
+                              if c["run"] == "score"],
+                  "max_dist_diff_vs_cpu": vs_cpu,
+                  "max_dist_diff_vs_score": vs_score},
+        "train": {**trigger_stats(train_triggers), "seconds": train_s,
+                  "cpu_seconds": cpu_train_s,
+                  "row_len": [c["shape"][2] for c in cases
+                              if c["run"] == "train"][:n_triggers],
+                  "epochs_committed": len(EpochLedger(
+                      os.path.join(root, "ck_whole")).records()),
+                  "lam_max_rel_diff_vs_cpu": cpu_rel,
+                  "lam_max_rel_diff_resumed": resume_rel,
+                  "resumed_docs_seen": last["docs_seen"],
+                  "resumed_step": last["step"],
+                  "compact": compact_out.strip(),
+                  "compacted_resume_bit_equal": True},
+        "launches": launches, "score_launches": score_launches,
+        "train_launches": train_launches,
+        "published_score_launches": published_launches,
+        "kernel": {"launches": len(cases),
+                   "max_abs_err": max(c["max_abs_err"] for c in cases),
+                   "widest": [c for c in cases if c["ms"] is not None]},
+        "bounds": {"max_dist_diff": 5e-3, "lam_max_rel_diff": 1e-3},
+    }
+
+
 def profile_configs(torch, rows_a, rows_b, seed, out_dir):
     """torch.profiler over one fit and the scoring (A, B: padded scoring
     of every doc; D: topic_distribution of EVAL_DOCS docs) or evaluation
@@ -3387,17 +3723,23 @@ def main() -> int:
                    "plain_ms": [c["plain_ms"] for c in cases],
                    "bound_ms": [c["bound_ms"] for c in cases]}
             for name, cases in summary_j["checks"].items()}})
+
+        # 13. config K, one-process streaming through the CLI on E's books
+        t0 = time.perf_counter()
+        summary_k = run_config_k(torch, args.seed, books_e)
+        summary_k["seconds"] = time.perf_counter() - t0
+        emit(summary_k)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     if args.profile:
         profile_configs(torch, rows_a, rows_b, args.seed, args.out)
 
-    # 13. the kernels line; the sweep's error is the largest of config A's
+    # 14. the kernels line; the sweep's error is the largest of config A's
     # and config E's checks and config I's ranks'; the gamma row is config
     # B's most populated bucket, and its error the largest of the four
-    # buckets, the edge geometries, config H's launches checked and config
-    # I's and J's ranks'; the scatter's includes config I's ranks'; the
+    # buckets, the edge geometries, config H's and K's launches checked and
+    # config I's and J's ranks'; the scatter's includes config I's ranks'; the
     # tile row's error includes config G's launches and J's ranks', the
     # NMF row's J's ranks'
     grid_err = {name: max(c["max_abs_err"] for c in cases)
@@ -3434,10 +3776,11 @@ def main() -> int:
          "replaces": "spark_text_clustering_tpu/ops/pallas_estep.py:161",
          "max_abs_err": max([e["max_abs_err"] for e in (*esteps, *estep_edges)]
                             + [summary_h["kernel"]["max_abs_err"],
+                               summary_k["kernel"]["max_abs_err"],
                                grid_err["gamma_fixed_point_bkl"],
                                j_err["gamma_fixed_point_bkl"]]),
          "buckets": esteps, "geometries": estep_edges,
-         "config_H": summary_h["kernel"],
+         "config_H": summary_h["kernel"], "config_K": summary_k["kernel"],
          "config_I": summary_i["checks"]["gamma_fixed_point_bkl"],
          "config_J": summary_j["checks"]["gamma_fixed_point_bkl"]},
     ]
@@ -3450,14 +3793,15 @@ def main() -> int:
             sm["launches"][name]
             for sm in (summary_a, summary_b, summary_c, summary_d, summary_e,
                        summary_f, summary_g, summary_h, summary_i,
-                       summary_j))
+                       summary_j, summary_k))
         if kern["launches"] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
         line.append({k_: kern[k_] for k_ in keys})
     record.update(build=build, kernels=kernels, config_A=summary_a,
                   config_B=summary_b, config_C=summary_c, config_D=summary_d,
                   config_E=summary_e, config_F=summary_f, config_G=summary_g,
-                  config_H=summary_h, config_I=summary_i, config_J=summary_j)
+                  config_H=summary_h, config_I=summary_i, config_J=summary_j,
+                  config_K=summary_k)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)

@@ -1,4 +1,6 @@
-"""Command-line entry points of the port: ``train`` and ``score``.
+"""Command-line entry points of the port: ``train`` and ``score``, and
+the one-process streaming verbs ``stream-score``, ``stream-train``,
+``stream requeue`` and ``stream compact``.
 
 The reference's two entry points (LDATraining.scala, LDALoader.scala) as
 subcommands, with the JAX package's flags, defaults, console output and
@@ -8,6 +10,8 @@ exit codes:
         --stop-words <file> --lang EN --algorithm em --k 5
     python -m spark_text_clustering_tpu_torch.cli score --books <dir> \
         --lang EN --models-dir <dir> --output-dir <dir>
+    python -m spark_text_clustering_tpu_torch.cli stream-train \
+        --watch-dir <dir> --checkpoint-dir <dir> --idle-timeout 5
 
 Two flags are the port's own: ``--device`` (default ``cuda``) names the
 device that IDF, training and scoring run on (without a card, pass
@@ -27,8 +31,17 @@ preprocesses the whole book directory, as every JAX process does; only
 rank 0 prints, saves the model and writes the report, and the exit code
 is the worst of the ranks'.
 
+The stream verbs watch a directory and score or train on the files that
+arrive, one trigger at a time, on ``--device``; with ``--checkpoint-dir``
+each trigger commits through the epoch ledger (``resilience.ledger``), so
+a restarted stream emits each report and trains each file exactly once.
+A SIGTERM ends a stream after its in-flight trigger.  They run in one
+process: the supervised fleet's flags (ROADMAP.md queue 1 item 7b) and
+``stream-train`` shards (item 7c) exit 2.
+
 Exit codes: 0 on success; 2 for a usage error, a missing or corrupt model,
-a resume mismatch and a flag not ported yet.
+a resume mismatch and a flag not ported yet; 3 for a stream whose ledger
+write was fenced.
 """
 
 from __future__ import annotations
@@ -36,17 +49,23 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 from typing import List, Optional
+
+import numpy as np
 
 from .config import Params
 from .device import resolve_device
 from .models.persistence import (
+    load_model,
     model_dir_name,
     resolve_latest_model,
+    save_model,
     train_state_valid,
 )
 from .ops import _build
 from .parallel.mesh import (
+    agree_ledger_epoch,
     check_backend,
     default_backend,
     initialize_distributed,
@@ -64,10 +83,21 @@ from .pipeline import (
 )
 from .resilience import (
     CorruptArtifactError,
+    EpochLedger,
+    FencedEpochError,
+    PreemptionNotice,
     ResumeMismatchError,
+    artifact_ref,
+    requeue,
     validate_resume_meta,
     vocab_fingerprint,
     write_resume_meta,
+)
+from .streaming import (
+    AIMDTriggerController,
+    FileStreamSource,
+    StreamingOnlineLDA,
+    StreamingScorer,
 )
 from .utils import native
 from .utils.profiling import MetricsLogger, trace
@@ -76,7 +106,17 @@ from .utils.report import format_scoring_report, write_scoring_report
 from .utils.textproc import parse_stop_words
 from .utils.timing import PhaseTimer
 
-__all__ = ["LANG_DIRS", "build_parser", "cmd_score", "cmd_train", "main"]
+__all__ = [
+    "LANG_DIRS",
+    "build_parser",
+    "cmd_score",
+    "cmd_stream_compact",
+    "cmd_stream_requeue",
+    "cmd_stream_score",
+    "cmd_stream_train",
+    "cmd_train",
+    "main",
+]
 
 # LDALoader.scala:46-56 routing
 LANG_DIRS = {
@@ -99,12 +139,33 @@ _NOT_PORTED = {
 }
 
 
-def _refuse_unported(args: argparse.Namespace) -> Optional[int]:
-    """Exit code 2, with a message, for a flag the port cannot honour."""
+# A supervised stream worker's flags (as the JAX package's supervisor
+# passes them), their defaults and types: a stream verb refuses any of them
+# set to another value.
+_FLEET_FLAGS = {
+    "fleet_dir": ("--fleet-dir", None, str),
+    "worker_index": ("--worker-index", 0, int),
+    "worker_count": ("--worker-count", 1, int),
+    "fleet_generation": ("--fleet-generation", 0, int),
+    "fleet_spawn_id": ("--fleet-spawn-id", 0, int),
+    "heartbeat_interval": ("--heartbeat-interval", 0.5, float),
+    "lease_timeout": ("--lease-timeout", None, float),
+}
+_FLEET_ITEM = "queue 1 item 7b, the supervised fleet"
+_STREAM_GRID_ITEM = "queue 1 item 7c, streaming on the grid"
+
+
+def _refuse_unported(args: argparse.Namespace, extra=()) -> Optional[int]:
+    """Exit code 2, with a message, for a flag the port cannot honour;
+    ``extra`` adds (flag, item) pairs the caller found."""
     hits = [
         (flag, item) for dest, (flag, item) in _NOT_PORTED.items()
         if getattr(args, dest, None) is not None
-    ]
+    ] + [
+        (flag, _FLEET_ITEM)
+        for dest, (flag, default, _) in _FLEET_FLAGS.items()
+        if getattr(args, dest, default) != default
+    ] + list(extra)
     for flag, item in hits:
         print(f"error: {flag} is not ported yet (ROADMAP.md {item})",
               file=sys.stderr)
@@ -197,7 +258,11 @@ def _load_stop_words(path: Optional[str]) -> frozenset:
 
 
 def _resume_gate(
-    params: Params, vocab, resume_requested: bool
+    params: Params,
+    vocab,
+    resume_requested: bool,
+    state_name: Optional[str] = None,
+    ledgered: bool = False,
 ) -> Optional[int]:
     """Checkpoint-dir compatibility gate: validates any recorded
     ``resume_meta.json`` against this run's config hash and vocabulary
@@ -205,7 +270,14 @@ def _resume_gate(
     announces the resume point when --resume asked for one, and records
     this run's envelope for the next resume.  Returns an exit code to
     abort with, or None to proceed.  On a grid every rank validates and
-    the coordinator speaks and writes.  No epoch ledger."""
+    the coordinator speaks and writes.
+
+    ``ledgered`` marks a stream dir with an epoch commit ledger: the
+    envelope records the process count and the ledger flag (a restart
+    with another process count is then an elastic resume through the
+    ledger's shards), and --resume announces the last committed epoch,
+    agreed across ranks, rather than a state file.  The stream verbs run
+    one process (ROADMAP.md queue 1 item 7c)."""
     if not params.checkpoint_dir:
         if resume_requested:
             print("--resume requires --checkpoint-dir", file=sys.stderr)
@@ -214,19 +286,28 @@ def _resume_gate(
     vocab_fp = vocab_fingerprint(vocab)
     say = print if is_coordinator() else _quiet
     try:
-        validate_resume_meta(params.checkpoint_dir, params, vocab_fp)
+        validate_resume_meta(params.checkpoint_dir, params, vocab_fp,
+                             process_count=1 if ledgered else None)
     except ResumeMismatchError as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2
     if resume_requested:
-        state_name = {
-            "em": "em_state.npz", "online": "train_state.npz"
-        }.get(params.algorithm)
+        epoch = agree_ledger_epoch(
+            params.checkpoint_dir if ledgered else None)
+        if state_name is None:
+            state_name = {
+                "em": "em_state.npz", "online": "train_state.npz"
+            }.get(params.algorithm)
         state = (
             os.path.join(params.checkpoint_dir, state_name)
             if state_name else None
         )
-        if state and train_state_valid(state):
+        if epoch >= 0:
+            say(
+                f"resuming from checkpoint {params.checkpoint_dir} "
+                f"(epoch ledger, committed epoch {epoch})"
+            )
+        elif state and train_state_valid(state):
             say(f"resuming from checkpoint {state}")
         else:
             say(
@@ -234,7 +315,10 @@ def _resume_gate(
                 f"{params.checkpoint_dir}; starting fresh"
             )
     if is_coordinator():
-        write_resume_meta(params.checkpoint_dir, params, vocab_fp)
+        write_resume_meta(
+            params.checkpoint_dir, params, vocab_fp,
+            **({"process_count": 1, "ledger": True} if ledgered else {}),
+        )
     return None
 
 
@@ -433,6 +517,276 @@ def _score(args: argparse.Namespace, grid) -> int:
     return 0
 
 
+# ---- streaming -----------------------------------------------------------
+def _make_trigger_controller(args: argparse.Namespace):
+    """The AIMD controller of ``max_files_per_trigger`` behind
+    ``--adaptive-trigger`` (None when the flag is off)."""
+    if not args.adaptive_trigger:
+        return None
+    return AIMDTriggerController(
+        target_batch_seconds=args.target_batch_seconds,
+        initial_cap=args.max_files_per_trigger or 8,
+    )
+
+
+def _stream(args: argparse.Namespace, body, extra=()) -> int:
+    """A stream verb's frame: refusals, the device (no card and no
+    --device cpu raises before any file is read), the SIGTERM drain
+    notice for the stream's lifetime, and a fenced ledger write as exit
+    code 3."""
+    rc = _refuse_unported(args, extra)
+    if rc is not None:
+        return rc
+    resolve_device(args.device)
+    preempt = PreemptionNotice().install()
+    try:
+        return body(args, preempt)
+    except FencedEpochError as exc:
+        # the staged epoch stays uncommitted; the next recover() rolls
+        # it back
+        print(f"error: {exc}", file=sys.stderr)
+        return 3
+    finally:
+        preempt.uninstall()
+
+
+def cmd_stream_score(args: argparse.Namespace) -> int:
+    """Watch a directory and score arriving books incrementally (the
+    LDALoader flow as a micro-batch stream)."""
+    return _stream(args, _stream_score)
+
+
+def _stream_score(args: argparse.Namespace, preempt) -> int:
+    try:
+        model_path, model = resolve_latest_model(
+            args.models_dir, args.lang, explicit=args.model,
+            verify_deep=args.verify_deep, device=args.device,
+        )
+    except CorruptArtifactError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    print(f"loaded model {model_path}: k={model.k}, V={model.vocab_size}")
+
+    # with --checkpoint-dir every trigger is one committed epoch: its
+    # report and its consumed files commit in one ledger append, so a
+    # restarted stream emits each report exactly once
+    ledger = None
+    preseen: list = []
+    if args.checkpoint_dir:
+        ledger = EpochLedger(args.checkpoint_dir)
+        ledger.recover()
+        # committed files are never scored again
+        preseen = sorted(ledger.committed_sources())
+    src = FileStreamSource(
+        args.watch_dir,
+        include_all=args.include_all,
+        max_files_per_trigger=args.max_files_per_trigger,
+        min_file_age_s=args.min_file_age,
+        preseen=preseen,
+    )
+    controller = _make_trigger_controller(args)
+    scorer = StreamingScorer(
+        model,
+        stop_words=_load_stop_words(args.stop_words),
+        lemmatize=not args.no_lemmatize,
+        batch_capacity=args.batch_capacity,
+        # ledgered streams write a report an epoch and keep nothing
+        keep_results=not args.no_report and ledger is None,
+        quarantine_dir=args.quarantine_dir,
+    )
+    for mb in src.stream(poll_interval=args.poll_interval,
+                         idle_timeout=args.idle_timeout, stop=preempt):
+        t0 = time.perf_counter()
+        out = scorer.process(mb)
+        for sd in out:
+            print(f"[batch {mb.batch_id}] "
+                  f"{os.path.basename(sd.name)} -> topic {sd.topic}")
+        if ledger is not None:
+            epoch = ledger.next_epoch()
+            fname = f"Result_{args.lang}_epoch-{epoch:06d}"
+            path = os.path.join(args.output_dir, fname)
+            ledger.begin(epoch, kind="stream-score", sources=mb.names,
+                         payloads=[path])
+            text = format_scoring_report(
+                model,
+                [sd.name for sd in out],
+                np.stack([sd.distribution for sd in out])
+                if out else np.zeros((0, model.k)),
+                [sd.row for sd in out],
+            )
+            write_scoring_report(text, args.output_dir, args.lang,
+                                 filename=fname)
+            ledger.commit(epoch, kind="stream-score", sources=mb.names,
+                          payloads={fname: path}, model_ref=model_path)
+            print(f"[epoch {epoch}] report committed: {path}")
+        if controller is not None:
+            controller.update(src.last_queue_depth, time.perf_counter() - t0)
+            controller.apply(src)
+    for t, c in enumerate(scorer.tallies):
+        print(f"topic {t}: {c} books")
+    if scorer.results and not args.no_report and ledger is None:
+        path = scorer.write_report(args.output_dir, args.lang)
+        print(f"report written to {path}")
+    if preempt:
+        print("preemption notice honored: in-flight trigger drained, "
+              "stream stopped cleanly")
+    return 0
+
+
+def cmd_stream_train(args: argparse.Namespace) -> int:
+    """Continuous online-VB training over a watched directory, in one
+    process; saves the final model as ``train`` does."""
+    extra = [(f"{flag} {val}", _STREAM_GRID_ITEM)
+             for flag, val, ok in (("--data-shards", args.data_shards,
+                                    (None, 1)),
+                                   ("--model-shards", args.model_shards,
+                                    (1,)))
+             if val not in ok]
+    return _stream(args, _stream_train, extra)
+
+
+def _stream_train(args: argparse.Namespace, preempt) -> int:
+    params = Params(
+        input=args.watch_dir,
+        k=args.k,
+        algorithm="online",
+        checkpoint_dir=args.checkpoint_dir,
+        seed=args.seed,
+        data_shards=args.data_shards,
+        model_shards=args.model_shards,
+    )
+    vocab = None
+    num_features = args.hash_features
+    if args.vocab_from_model:
+        try:
+            vocab = load_model(args.vocab_from_model, device=args.device).vocab
+        except CorruptArtifactError as exc:
+            print(f"error: {exc}", file=sys.stderr)
+            return 2
+        num_features = None
+    # the gate runs before the trainer restores from the ledger (or a
+    # pre-ledger stream_state.npz)
+    rc = _resume_gate(
+        params,
+        vocab if vocab is not None else [f"h{i}" for i in range(num_features)],
+        args.resume,
+        state_name="stream_state.npz",
+        ledgered=bool(params.checkpoint_dir),
+    )
+    if rc is not None:
+        return rc
+    trainer = StreamingOnlineLDA(
+        params,
+        vocab=vocab,
+        num_features=num_features,
+        stop_words=_load_stop_words(args.stop_words),
+        lemmatize=not args.no_lemmatize,
+        batch_capacity=args.batch_capacity,
+        corpus_size_hint=args.corpus_size_hint,
+        checkpoint_every=args.checkpoint_interval,
+        quarantine_dir=args.quarantine_dir,
+        device=args.device,
+    )
+    # source progress is exactly-once through the trainer's ledger: its
+    # committed paths are never ingested again; the pre-ledger
+    # seen_files.txt is still read and written
+    preseen = ([] if trainer.ledger is None
+               else sorted(trainer.ledger.committed_sources()))
+    src = FileStreamSource(
+        args.watch_dir,
+        include_all=args.include_all,
+        max_files_per_trigger=args.max_files_per_trigger,
+        min_file_age_s=args.min_file_age,
+        preseen=preseen,
+        state_path=(os.path.join(args.checkpoint_dir, "seen_files.txt")
+                    if args.checkpoint_dir else None),
+    )
+    trainer.run(src, controller=_make_trigger_controller(args),
+                poll_interval=args.poll_interval,
+                idle_timeout=args.idle_timeout, stop=preempt)
+    print(f"stream ended: {trainer.docs_seen} docs / "
+          f"{trainer.batches_seen} micro-batches")
+    if preempt:
+        # the in-flight epoch is committed (or rolls back); the resumed
+        # run publishes the model
+        print("preemption notice honored: epoch committed, model "
+              "publish deferred to the resumed worker")
+        return 0
+    model = trainer.model()
+    for i, topic in enumerate(model.describe_topics_terms(10)):
+        print(f"TOPIC {i}: " + ", ".join(t for t, _ in topic))
+    out_dir = model_dir_name(args.lang, base=args.models_dir)
+    if trainer.ledger is not None:
+        # the model dir names its publishing epoch in meta.json, and a
+        # model-publish record pins the sealed dir (its manifest digest)
+        publish_epoch = trainer.ledger.next_epoch()
+        save_model(model, out_dir, ledger_ref={
+            "dir": params.checkpoint_dir, "epoch": publish_epoch})
+        trainer.ledger.begin(publish_epoch, kind="model-publish",
+                             sources=[], payloads=[])
+        trainer.ledger.commit(publish_epoch, kind="model-publish",
+                              sources=[], model_ref=artifact_ref(out_dir))
+    else:
+        model.save(out_dir)
+    print(f"model saved to {out_dir}")
+    return 0
+
+
+def cmd_stream_requeue(args: argparse.Namespace) -> int:
+    """Replay a quarantine dir into a watch directory: payloads move into
+    the watch dir, error sidecars to ``<quarantine-dir>/.archive/``;
+    ``--dry-run`` lists without moving."""
+    res = requeue(args.quarantine_dir, args.watch_dir, dry_run=args.dry_run)
+    verb = "would replay" if args.dry_run else "replayed"
+    for p in res["replayed"]:
+        print(f"{verb}: {os.path.basename(p)} -> {args.watch_dir}")
+    averb = "would archive" if args.dry_run else "archived"
+    for p in res["archived"]:
+        print(f"{averb}: {os.path.basename(p)}")
+    for p in res["skipped"]:
+        print(f"skipped (move failed, still quarantined): {p}",
+              file=sys.stderr)
+    print(
+        f"{len(res['replayed'])} {verb}, "
+        f"{len(res['archived'])} {averb}, {len(res['skipped'])} skipped"
+    )
+    return 1 if res["skipped"] else 0
+
+
+def cmd_stream_compact(args: argparse.Namespace) -> int:
+    """Fold a stream checkpoint dir's committed ``epochs.jsonl`` history
+    into one checksummed snapshot record (resume then reads one line):
+    the seen-set, the newest shard plan and the training counters
+    survive; per-epoch report digests go."""
+    led = EpochLedger(args.checkpoint_dir)
+    rep = led.recover()
+    if rep.rolled_back or rep.truncated_lines:
+        print(
+            f"recover: rolled back {len(rep.rolled_back)} uncommitted "
+            f"epoch(s), truncated {rep.truncated_lines} torn append(s)"
+        )
+    try:
+        snap = led.compact()
+    except CorruptArtifactError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    if snap is None:
+        print(
+            f"nothing to compact in {args.checkpoint_dir} "
+            f"(fewer than two committed records)"
+        )
+        return 0
+    print(
+        f"compacted {snap['compacted_epochs']} committed records into "
+        f"one snapshot (epoch {snap['epoch']}, "
+        f"{len(snap['sources'])} sources"
+        + (f", {len(snap['shards'])} shard(s)" if snap.get("shards")
+           else "")
+        + ")"
+    )
+    return 0
+
+
 def _add_device_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device for IDF, training and scoring "
@@ -461,6 +815,44 @@ def _add_grid_args(p: argparse.ArgumentParser, data_default) -> None:
 def _add_compile_cache_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument("--compile-cache", default=None, metavar="DIR",
                    help="not ported yet (exits 2)")
+
+
+def _add_stream_args(p: argparse.ArgumentParser) -> None:
+    """The JAX package's stream flags, with their defaults; the fleet
+    flags are refused (ROADMAP.md queue 1 item 7b)."""
+    _add_compile_cache_arg(p)
+    p.add_argument("--watch-dir", required=True,
+                   help="directory to watch for arriving .txt files")
+    p.add_argument("--poll-interval", type=float, default=1.0)
+    p.add_argument("--idle-timeout", type=float, default=30.0,
+                   help="stop after this many idle seconds")
+    p.add_argument("--max-files-per-trigger", type=int, default=None)
+    p.add_argument("--adaptive-trigger", action="store_true",
+                   help="AIMD-adapt max_files_per_trigger from queue "
+                        "depth and per-batch seconds")
+    p.add_argument("--target-batch-seconds", type=float, default=2.0,
+                   help="per-trigger latency budget the adaptive "
+                        "controller steers toward")
+    p.add_argument("--min-file-age", type=float, default=0.0,
+                   help="seconds a file's mtime must settle before pickup "
+                        "(use when producers don't rename atomically)")
+    p.add_argument("--batch-capacity", type=int, default=8,
+                   help="device batch rows per trigger (pinned shape)")
+    p.add_argument("--stop-words", default=None)
+    p.add_argument("--lang", default="EN", choices=sorted(LANG_DIRS))
+    p.add_argument("--no-lemmatize", action="store_true")
+    p.add_argument("--include-all", action="store_true")
+    p.add_argument("--telemetry-file", default=None,
+                   help="not ported yet (exits 2)")
+    p.add_argument("--quarantine-dir", default=None,
+                   help="dead-letter dir for per-document failures: the "
+                        "offending doc and a structured .error.json "
+                        "sidecar land here instead of killing the stream")
+    for flag, default, kind in _FLEET_FLAGS.values():
+        p.add_argument(flag, type=kind, default=default,
+                       help="a supervised fleet's flag: not ported yet "
+                            "(exits 2 unless left at its default)")
+    _add_device_arg(p)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -554,6 +946,77 @@ def build_parser() -> argparse.ArgumentParser:
     _add_compile_cache_arg(sc)
     _add_device_arg(sc)
     sc.set_defaults(fn=cmd_score)
+
+    ss = sub.add_parser(
+        "stream-score",
+        help="watch a directory, score arriving books incrementally",
+    )
+    _add_stream_args(ss)
+    ss.add_argument("--models-dir", default="models")
+    ss.add_argument("--model", default=None, help="explicit model dir")
+    ss.add_argument("--output-dir", default="TestOutput")
+    ss.add_argument("--no-report", action="store_true",
+                    help="per-doc output only; no accumulated report "
+                         "(constant memory for endless streams)")
+    ss.add_argument("--checkpoint-dir", default=None,
+                    help="epoch commit ledger dir: every trigger commits "
+                         "its report and consumed files transactionally, "
+                         "so a restarted stream emits each report exactly "
+                         "once")
+    ss.add_argument("--verify-deep", action="store_true",
+                    help="re-verify the selected model's SHA256 manifest "
+                         "at selection time")
+    ss.set_defaults(fn=cmd_stream_score)
+
+    st = sub.add_parser(
+        "stream-train",
+        help="continuous online-VB LDA over a watched directory",
+    )
+    _add_stream_args(st)
+    st.add_argument("--k", type=int, default=5)
+    st.add_argument("--hash-features", type=int, default=1 << 18,
+                    help="HashingTF buckets (streams have no vocab pass)")
+    st.add_argument("--vocab-from-model", default=None,
+                    help="reuse a saved model's vocabulary instead of hashing")
+    st.add_argument("--corpus-size-hint", type=int, default=None)
+    st.add_argument("--checkpoint-dir", default=None)
+    st.add_argument("--checkpoint-interval", type=int, default=10)
+    st.add_argument("--resume", action="store_true",
+                    help="continue from the newest committed epoch in "
+                         "--checkpoint-dir (config-hash and "
+                         "vocab-fingerprint validated)")
+    st.add_argument("--seed", type=int, default=0)
+    st.add_argument("--data-shards", type=int, default=None,
+                    help="not ported yet above 1 (exits 2)")
+    st.add_argument("--model-shards", type=int, default=1,
+                    help="not ported yet above 1 (exits 2)")
+    st.add_argument("--models-dir", default="models")
+    st.set_defaults(fn=cmd_stream_train)
+
+    stream = sub.add_parser(
+        "stream",
+        help="stream maintenance verbs (requeue quarantined documents, "
+             "compact a long-lived epoch ledger)",
+    )
+    stream_sub = stream.add_subparsers(dest="stream_cmd", required=True)
+    rq = stream_sub.add_parser(
+        "requeue",
+        help="replay a quarantine dir into a watch directory, archiving "
+             "the error sidecars under .archive/",
+    )
+    rq.add_argument("--quarantine-dir", required=True)
+    rq.add_argument("--watch-dir", required=True)
+    rq.add_argument("--dry-run", action="store_true",
+                    help="list what would move without touching anything")
+    rq.set_defaults(fn=cmd_stream_requeue)
+    cp = stream_sub.add_parser(
+        "compact",
+        help="fold a stream checkpoint dir's committed epochs.jsonl "
+             "history into one checksummed snapshot record",
+    )
+    cp.add_argument("--checkpoint-dir", required=True,
+                    help="epoch-ledger checkpoint dir to compact")
+    cp.set_defaults(fn=cmd_stream_compact)
     return ap
 
 

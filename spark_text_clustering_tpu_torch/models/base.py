@@ -15,7 +15,7 @@ the data shards, every rank getting the whole result.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,6 +30,7 @@ from ..ops.lda_math import (
     topic_inference_segments,
 )
 from ..ops.sparse import (
+    DocTermBatch,
     batch_from_rows,
     bucket_by_length,
     bucket_indices_by_length,
@@ -173,6 +174,16 @@ class LDAModel:
         infer = self._grid_fn("topic_inference", grid, max_inner=max_inner,
                               tol=tol)
         lam = self._lam_on_grid(grid)
+        if isinstance(rows, DocTermBatch):
+            # one padded batch as it is, its pad rows and slots included:
+            # each rank scores its block of rows at the batch's width
+            n = rows.num_docs
+            local = self._run_on_grid(
+                grid, lambda *a: infer(lam, *a),
+                list(zip(rows.token_ids.cpu().numpy(),
+                         rows.token_weights.cpu().numpy())),
+                self._gamma0(n, seed, grid.device))
+            return fetch_global(grid, local, "data")[:n]
         gamma0 = self._gamma0(len(rows), seed, grid.device)
         out = np.zeros((len(rows), self.k), np.float32)
         for _, idxs in sorted(bucket_indices_by_length(rows).items()):
@@ -196,7 +207,7 @@ class LDAModel:
 
     def topic_distribution(
         self,
-        docs: Sequence[Tuple[np.ndarray, np.ndarray]],
+        docs: Union[DocTermBatch, Sequence[Tuple[np.ndarray, np.ndarray]]],
         max_inner: int = 100,
         tol: float = 1e-3,
         seed: Optional[int] = None,
@@ -207,7 +218,11 @@ class LDAModel:
     ) -> np.ndarray:
         """Per-doc posterior topic mixture [n, k].
 
-        ``layout``: "padded" scores per power-of-two length bucket through
+        ``docs`` is a row list, or one padded ``DocTermBatch`` (the pinned
+        batch of a streaming trigger), which is scored as it is: one
+        E-step over all its rows, pad rows included, every row returned
+        (its gamma inits drawn for ``num_docs`` rows; "per_doc" refuses
+        a batch, as in the JAX package).  ``layout``: "padded" scores per power-of-two length bucket through
         the E-step kernel; "packed" scores the whole corpus as one flat
         token batch; "auto" takes padded on the card and packed on the
         CPU.  ``convergence``: "batch" iterates until the worst doc of the
@@ -224,21 +239,35 @@ class LDAModel:
             )
         if layout not in ("auto", "padded", "packed"):
             raise ValueError(f"unknown layout {layout!r}")
-        if grid is not None:
-            if convergence == "per_doc":
+        is_batch = isinstance(docs, DocTermBatch)
+        if convergence == "per_doc":
+            if grid is not None:
                 raise ValueError(
                     "convergence='per_doc' does not support grid scoring "
                     "(the sharded path has no frozen fixed point)")
-            rows = list(docs)
-            if not rows:
+            if is_batch:
+                raise ValueError(
+                    "convergence='per_doc' scores row lists (it owns the "
+                    "packed layout); pass the (ids, weights) rows")
+        if grid is not None:
+            docs = docs if is_batch else list(docs)
+            if not is_batch and not docs:
                 return np.zeros((0, self.k), np.float32)
-            return self._topic_distribution_grid(rows, max_inner, tol, seed,
+            return self._topic_distribution_grid(docs, max_inner, tol, seed,
                                                  grid)
         dev = resolve_device(self.device if device is None else device)
+        alpha = torch.as_tensor(np.asarray(self.alpha, np.float32), device=dev)
+        if is_batch:
+            batch = DocTermBatch(docs.token_ids.to(dev),
+                                 docs.token_weights.to(dev))
+            dist = topic_inference(
+                batch, self._exp_elog_beta(dev), alpha,
+                self._gamma0(batch.num_docs, seed, dev),
+                max_inner=max_inner, tol=tol)
+            return dist.cpu().numpy()
         rows = list(docs)
         if not rows:
             return np.zeros((0, self.k), np.float32)
-        alpha = torch.as_tensor(np.asarray(self.alpha, np.float32), device=dev)
         eb = self._exp_elog_beta(dev)
         gamma0 = self._gamma0(len(rows), seed, dev)
         use_packed = convergence == "per_doc" or layout == "packed" or (

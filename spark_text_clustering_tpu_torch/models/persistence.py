@@ -13,7 +13,11 @@ the other (``load_model`` also reads the reference's MLlib layout, see
 
 ``save_train_state`` / ``load_train_state`` write and read the mid-fit
 checkpoint (``em_state.npz``: step plus named arrays) atomically, with a
-``.sha256`` sidecar checked on load.
+``.sha256`` sidecar checked on load.  Both writers sit at the JAX
+package's fault-injection sites (``artifact.file`` between the files of a
+model dir, ``ckpt.write`` in the checkpoint write, which is retried under
+the I/O policy), so one ``faultinject`` spec has the same outcome in both
+packages.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ import numpy as np
 
 from ..resilience import (
     CorruptArtifactError,
+    faultinject,
+    retry_call,
     artifact_status,
     atomic_write_text,
     file_sha256,
@@ -112,12 +118,16 @@ def resolve_latest_model(
     return path, load_model(path, device=device)
 
 
-def save_model(model, path: str) -> None:
+def save_model(model, path: str, ledger_ref: Optional[dict] = None) -> None:
     """Write ``model`` (an ``LDAModel`` or ``NMFModel``) as a sealed
-    artifact dir."""
+    artifact dir.  ``ledger_ref`` (``{"dir": ..., "epoch": n}``) records
+    in meta.json the stream epoch ledger that published the model; the
+    ledger's ``model-publish`` record holds the other direction
+    (``resilience.artifact_ref``)."""
     from .nmf import NMFModel
 
     meta = {
+        **({"ledger_ref": ledger_ref} if ledger_ref else {}),
         "format_version": FORMAT_VERSION,
         "k": model.k,
         "vocab_size": model.vocab_size,
@@ -140,9 +150,12 @@ def save_model(model, path: str) -> None:
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "meta.json"), "w") as f:
         json.dump(meta, f, indent=2, sort_keys=True)
+    faultinject.check("artifact.file")
     np.savez(os.path.join(path, "arrays.npz"), **arrays)
+    faultinject.check("artifact.file")
     with open(os.path.join(path, "vocab.txt"), "w", encoding="utf-8") as f:
         f.write("\n".join(model.vocab))
+    faultinject.corrupt("artifact.file", os.path.join(path, "arrays.npz"))
     finalize_artifact_dir(path, files=("meta.json", "arrays.npz", "vocab.txt"))
 
 
@@ -225,27 +238,33 @@ def load_model(path: str, device="cuda"):
 
 def save_train_state(path: str, step: int, **arrays: np.ndarray) -> None:
     """Checkpoint (named arrays + step), written via tmp + rename, with a
-    ``<path>.sha256`` sidecar.  Float arrays are stored as float32."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = path + ".tmp.npz"
-    np.savez(
-        tmp,
-        step=np.int64(step),
-        **{
-            k: (
-                a if np.issubdtype((a := np.asarray(v)).dtype, np.integer)
-                else a.astype(np.float32)
-            )
-            for k, v in arrays.items()
-        },
-    )
-    digest = file_sha256(tmp)
-    os.replace(tmp, path)
-    atomic_write_text(
-        path + ".sha256",
-        json.dumps({"sha256": digest, "step": int(step)}, sort_keys=True)
-        + "\n",
-    )
+    ``<path>.sha256`` sidecar, retried under the I/O policy.  Float arrays
+    are stored as float32, integer ones (counters) as they are."""
+
+    def _write() -> None:
+        faultinject.check("ckpt.write")
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tmp = path + ".tmp.npz"
+        np.savez(
+            tmp,
+            step=np.int64(step),
+            **{
+                k: (
+                    a if np.issubdtype((a := np.asarray(v)).dtype, np.integer)
+                    else a.astype(np.float32)
+                )
+                for k, v in arrays.items()
+            },
+        )
+        digest = file_sha256(tmp)
+        os.replace(tmp, path)
+        atomic_write_text(
+            path + ".sha256",
+            json.dumps({"sha256": digest, "step": int(step)}, sort_keys=True)
+            + "\n",
+        )
+
+    retry_call(_write, site="ckpt.write")
 
 
 def train_state_valid(path: str) -> bool:

@@ -21,6 +21,7 @@ __all__ = [
     "bucket_by_length",
     "bucket_indices_by_length",
     "next_pow2",
+    "pad_rows",
 ]
 
 
@@ -31,9 +32,26 @@ class DocTermBatch:
     token_ids: torch.Tensor      # int32 [B, L]
     token_weights: torch.Tensor  # float32 [B, L]
 
+    @property
+    def num_docs(self) -> int:
+        return int(self.token_ids.shape[0])
+
 
 def next_pow2(n: int) -> int:
     return 1 if n <= 1 else 1 << (int(n - 1).bit_length())
+
+
+_EMPTY_ROW = (np.zeros(0, np.int32), np.zeros(0, np.float32))
+
+
+def pad_rows(
+    rows: Sequence[Tuple[np.ndarray, np.ndarray]], capacity: int
+) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """``rows`` padded to ``capacity`` docs with empty rows (weight-0 docs
+    add nothing anywhere): the pinned batch axis of a streaming trigger."""
+    if len(rows) > capacity:
+        raise ValueError(f"{len(rows)} rows > capacity {capacity}")
+    return list(rows) + [_EMPTY_ROW] * (capacity - len(rows))
 
 
 def batch_from_rows(

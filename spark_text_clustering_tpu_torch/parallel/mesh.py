@@ -259,6 +259,35 @@ def agree_checkpoint_exists(path: Optional[str]) -> bool:
     return train_state_valid(path)
 
 
+def agree_ledger_epoch(ledger_dir: Optional[str]) -> int:
+    """Last committed epoch of a stream checkpoint dir's commit ledger,
+    agreed across ranks (-1 without a ledger dir).  The coordinator owns
+    the ledger append, so its view is broadcast, and a rank that reads
+    another epoch from its own filesystem raises instead of resuming from
+    another transaction point (``agree_checkpoint_exists``, one level up
+    the protocol).  Outside a started grid it is the local
+    ``last_committed()``."""
+    if not ledger_dir:
+        return -1
+    from ..resilience.ledger import EpochLedger
+
+    local = EpochLedger(ledger_dir).last_committed()
+    if _distributed() and dist.get_world_size() > 1:
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if dist.get_backend() == "nccl" else torch.device("cpu"))
+        epoch = torch.tensor([local], dtype=torch.int64, device=dev)
+        dist.broadcast(epoch, src=0)
+        coord = int(epoch.item())
+        if coord != local:
+            raise RuntimeError(
+                f"epoch ledger {ledger_dir}: rank {dist.get_rank()} reads "
+                f"last committed epoch {local} but the coordinator reads "
+                f"{coord}; checkpoint_dir must be one filesystem every "
+                "rank sees")
+        return coord
+    return local
+
+
 # ---- spawning a grid on this host -----------------------------------------
 def _rank_main(fn, args, data_shards, model_shards, rank, init, backend,
                device, tmp) -> None:

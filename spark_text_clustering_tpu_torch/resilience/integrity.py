@@ -19,12 +19,14 @@ import json
 import os
 from typing import Dict, Iterable, Optional
 
+from . import faultinject
 from .errors import CorruptArtifactError
 
 __all__ = [
     "COMMIT_NAME",
     "CorruptArtifactError",
     "MANIFEST_NAME",
+    "artifact_ref",
     "artifact_status",
     "atomic_write_text",
     "file_sha256",
@@ -75,8 +77,20 @@ def finalize_artifact_dir(
         os.path.join(path, MANIFEST_NAME),
         json.dumps({"version": 2, "files": hashes}, indent=2, sort_keys=True),
     )
+    faultinject.check("artifact.commit")
     atomic_write_text(os.path.join(path, COMMIT_NAME), "committed\n")
     return hashes
+
+
+def artifact_ref(path: str) -> Dict[str, str]:
+    """The epoch ledger's reference to a sealed artifact dir: the dir and
+    the SHA-256 of its manifest (which pins every payload hash); a legacy
+    dir gets no digest."""
+    ref = {"path": path}
+    manifest = os.path.join(path, MANIFEST_NAME)
+    if os.path.exists(manifest):
+        ref["manifest_sha256"] = file_sha256(manifest)
+    return ref
 
 
 def artifact_status(path: str) -> str:

@@ -1,6 +1,7 @@
-"""Auto-resume compatibility gate (``train --resume``), copied from the
-JAX package: the same meta file, hash and fingerprint, so a checkpoint
-dir that either package's CLI wrote passes the other's gate.
+"""Auto-resume compatibility gate (``train --resume``, ``stream-train
+--resume``), copied from the JAX package: the same meta file, hash and
+fingerprint, so a checkpoint dir that either package's CLI wrote passes
+the other's gate.
 
 A checkpoint is only a valid resume point for a run that is training the
 SAME model: same structural hyperparameters and the same vocabulary.
@@ -76,6 +77,7 @@ def write_resume_meta(
     checkpoint_dir: str,
     params,
     vocab_fp: Optional[int] = None,
+    **extra,
 ) -> str:
     """Record this run's compatibility envelope next to its checkpoints
     (atomic; overwrites any previous meta — the latest run owns the
@@ -90,6 +92,7 @@ def write_resume_meta(
                 "vocab_fp": vocab_fp,
                 "algorithm": params.algorithm,
                 "k": params.k,
+                **extra,
             },
             indent=2,
             sort_keys=True,
@@ -102,6 +105,7 @@ def validate_resume_meta(
     checkpoint_dir: str,
     params,
     vocab_fp: Optional[int] = None,
+    process_count: Optional[int] = None,
 ) -> Optional[dict]:
     """Check a checkpoint dir's recorded envelope against this run.
 
@@ -109,6 +113,11 @@ def validate_resume_meta(
     to validate against, e.g. pre-resilience checkpoints).  Raises
     ``ResumeMismatchError`` on a config-hash or vocab-fingerprint
     mismatch.
+
+    ``process_count`` (where the caller passes one) gates elastic
+    resume: a restart with another process count than the one recorded
+    is valid only where the dir carries an epoch commit ledger, whose
+    records pin each process's state shard to its vocabulary columns.
     """
     path = os.path.join(checkpoint_dir, RESUME_META_NAME)
     if not os.path.exists(path):
@@ -138,5 +147,19 @@ def validate_resume_meta(
             checkpoint_dir,
             "checkpoint was trained with a different vocabulary "
             "(fingerprint mismatch) — term columns would misalign",
+        )
+    if (
+        process_count is not None
+        and meta.get("process_count") is not None
+        and int(meta["process_count"]) != int(process_count)
+        and not meta.get("ledger")
+    ):
+        raise ResumeMismatchError(
+            checkpoint_dir,
+            f"checkpoint was written by {meta['process_count']} "
+            f"process(es) but this run has {process_count}, and the dir "
+            f"has no epoch commit ledger — elastic resume needs "
+            f"ledger-pinned state shards (re-run the original topology "
+            f"or start fresh)",
         )
     return meta

@@ -180,9 +180,11 @@ def write_scoring_report(
     filename: Optional[str] = None,
 ) -> str:
     """Write to ``<output_dir>/Result_<lang>_<millis>`` atomically (tmp +
-    rename): a report exists complete or not at all.  ``filename``
-    overrides the timestamped name."""
-    from ..resilience import atomic_write_text
+    rename) and retried under the I/O policy (fault site
+    ``report.write``): a report exists complete or not at all.
+    ``filename`` overrides the timestamped name (a ledgered stream's
+    ``Result_<lang>_epoch-<n>``, the same file again on a resumed run)."""
+    from ..resilience import atomic_write_text, faultinject, retry_call
 
     if filename is None:
         ts = (
@@ -190,7 +192,12 @@ def write_scoring_report(
             else int(time.time() * 1000)
         )
         filename = f"Result_{lang}_{ts}"
-    os.makedirs(output_dir, exist_ok=True)
     path = os.path.join(output_dir, filename)
-    atomic_write_text(path, text)
+
+    def _write() -> None:
+        faultinject.check("report.write")
+        os.makedirs(output_dir, exist_ok=True)
+        atomic_write_text(path, text)
+
+    retry_call(_write, site="report.write")
     return path

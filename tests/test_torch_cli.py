@@ -14,6 +14,7 @@ import argparse
 import ast
 import contextlib
 import io
+import json
 import os
 import re
 import shutil
@@ -519,19 +520,35 @@ def test_books_root_routes_through_lang_dirs(native_lib, corpus, tmp_path):
     assert rc == 2 and "--books or --books-root" in se
 
 
-@pytest.mark.parametrize("cmd", ["train", "score"])
+@pytest.mark.parametrize("cmd", ["train", "score", "stream-score",
+                                 "stream-train", "stream"])
 def test_cli_flags_and_defaults_match_jax(cmd):
-    """Every flag of the JAX CLI's train and score, with its default, and
-    the port's own: --device (default cuda) and --dist-backend (default
-    by device); score also takes the grid bring-up flags train has."""
-    def flags(parser):
+    """Every flag of the JAX CLI's train, score and stream verbs, with its
+    default, and the port's own: --device (default cuda) and, on train and
+    score, --dist-backend (default by device); score also takes the grid
+    bring-up flags train has.  ``stream`` has the JAX package's two
+    maintenance verbs, with their flags."""
+    def subparsers(parser):
         (sub,) = [a for a in parser._actions
                   if isinstance(a, argparse._SubParsersAction)]
-        return {(o, a.default) for a in sub.choices[cmd]._actions
+        return sub.choices
+
+    def flags(parser):
+        return {(o, a.default) for a in parser._actions
                 for o in a.option_strings}
 
-    got, want = flags(tcli.build_parser()), flags(jcli.build_parser())
-    extra = {("--device", "cuda"), ("--dist-backend", None)}
+    if cmd == "stream":
+        def verbs(parser):
+            return {name: flags(p) for name, p in subparsers(
+                subparsers(parser)["stream"]).items()}
+
+        assert verbs(tcli.build_parser()) == verbs(jcli.build_parser())
+        return
+    got = flags(subparsers(tcli.build_parser())[cmd])
+    want = flags(subparsers(jcli.build_parser())[cmd])
+    extra = {("--device", "cuda")}
+    if cmd in ("train", "score"):
+        extra.add(("--dist-backend", None))
     if cmd == "score":
         extra |= {("--coordinator", None), ("--num-processes", None),
                   ("--process-id", None)}
@@ -562,11 +579,31 @@ def test_resume_mismatch_exits_2(native_lib, corpus, tmp_path):
     assert rc == 2 and "--resume requires --checkpoint-dir" in se
 
 
+_FLEET = "item 7b, the supervised fleet"
+_STREAM_GRID = "item 7c, streaming on the grid"
 REFUSED = [
     (["train", "--telemetry-file", "t.jsonl"], "--telemetry-file", "item 9"),
     (["train", "--compile-cache", "cc"], "--compile-cache", "item 10"),
     (["score", "--telemetry-file", "t.jsonl"], "--telemetry-file", "item 9"),
     (["score", "--compile-cache", "cc"], "--compile-cache", "item 10"),
+    (["stream-score", "--telemetry-file", "t.jsonl"], "--telemetry-file",
+     "item 9"),
+    (["stream-train", "--compile-cache", "cc"], "--compile-cache",
+     "item 10"),
+    (["stream-score", "--fleet-dir", "f"], "--fleet-dir", _FLEET),
+    (["stream-train", "--fleet-dir", "f"], "--fleet-dir", _FLEET),
+    (["stream-train", "--worker-index", "1"], "--worker-index", _FLEET),
+    (["stream-score", "--worker-count", "3"], "--worker-count", _FLEET),
+    (["stream-train", "--fleet-generation", "2"], "--fleet-generation",
+     _FLEET),
+    (["stream-score", "--fleet-spawn-id", "5"], "--fleet-spawn-id", _FLEET),
+    (["stream-train", "--heartbeat-interval", "2"], "--heartbeat-interval",
+     _FLEET),
+    (["stream-score", "--lease-timeout", "9"], "--lease-timeout", _FLEET),
+    (["stream-train", "--data-shards", "2"], "--data-shards 2",
+     _STREAM_GRID),
+    (["stream-train", "--model-shards", "2"], "--model-shards 2",
+     _STREAM_GRID),
 ]
 
 
@@ -575,8 +612,11 @@ REFUSED = [
 def test_unported_flags_exit_2_and_name_their_item(tmp_path, argv, flag,
                                                    item):
     """Each flag whose machinery is not ported exits 2 before any work,
-    naming its ROADMAP.md queue 1 item; none is accepted and ignored."""
-    books = ["--books", str(tmp_path / "none")]
+    naming its ROADMAP.md queue 1 item; none is accepted and ignored (a
+    fleet flag left at the JAX package's default is the JAX CLI's
+    unsupervised stream)."""
+    source = "--watch-dir" if argv[0].startswith("stream") else "--books"
+    books = [source, str(tmp_path / "none")]
     rc, so, se = run(port_main, [*argv[:1], *books, *argv[1:]])
     assert rc == 2 and so == ""
     assert f"error: {flag} is not ported yet (ROADMAP.md queue 1 {item}" in se
@@ -937,3 +977,296 @@ def test_score_grid_trained_nmf_model(algo_trained, corpus, tmp_path):
         np.testing.assert_allclose(
             chip_smoke.report_distributions(reports[name], K), want,
             atol=1e-4)
+
+
+# ---- the stream verbs ------------------------------------------------------
+STREAM_FLAGS = ["--poll-interval", "0.01", "--idle-timeout", "0.2"]
+
+
+@pytest.fixture()
+def sigterm_restored():
+    """The JAX CLI's stream verbs install a SIGTERM drain handler for good
+    (a stream is its process): put the test process's back."""
+    import signal
+
+    old = signal.getsignal(signal.SIGTERM)
+    yield old
+    signal.signal(signal.SIGTERM, old)
+
+
+@pytest.fixture(scope="module")
+def stream_books(tmp_path_factory):
+    """Six small books of chip_smoke's recipe, their mtimes one second
+    apart in name order, and a stop-word file."""
+    root = tmp_path_factory.mktemp("stream_books")
+    stop = chip_smoke.en_books_dir(7, str(root), n_books=6,
+                                   words=(300, 1500))
+    books = str(root / "books")
+    for i, name in enumerate(sorted(os.listdir(books))):
+        os.utime(os.path.join(books, name), (1e9 + i, 1e9 + i))
+    return books, stop
+
+
+def jax_stream_draws(monkeypatch, k=K, hash_features=1024, seed=0):
+    """The port's stream trainer fed the JAX package's lambda0 and gamma
+    inits for the same seed."""
+    from spark_text_clustering_tpu.ops.lda_math import (
+        init_gamma as j_init_gamma, init_lambda as j_init_lambda,
+    )
+    key = jax.random.PRNGKey(seed)
+    lam0 = np.asarray(j_init_lambda(jax.random.fold_in(key, 0xFFFF), k,
+                                    hash_features, 100.0))
+
+    def gamma0(step, n):
+        return np.asarray(j_init_gamma(jax.random.fold_in(key, step), n, k,
+                                       100.0))
+
+    trainer = tcli.StreamingOnlineLDA
+
+    def with_jax_draws(params, **kw):
+        return trainer(params, init_lam=lam0, gamma0_fn=gamma0, **kw)
+
+    monkeypatch.setattr(tcli, "StreamingOnlineLDA", with_jax_draws)
+
+
+def _stream_train(main, books, stop, root, *extra):
+    models = os.path.join(root, "m")
+    rc, so, se = run(main, [
+        "stream-train", "--watch-dir", books, "--stop-words", stop,
+        "--k", str(K), "--hash-features", "1024", "--checkpoint-dir",
+        os.path.join(root, "ck"), "--checkpoint-interval", "2",
+        "--max-files-per-trigger", "2", "--models-dir", models,
+        *STREAM_FLAGS, *extra])
+    saved = sorted(os.listdir(models)) if os.path.isdir(models) else []
+    return rc, so, se, os.path.join(models, saved[-1]) if saved else None
+
+
+def _ledger_records(ck):
+    """A ledger's records with the timestamps, checksums and digests
+    dropped."""
+    with open(os.path.join(ck, "epochs.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    for rec in recs:
+        rec.pop("ts"), rec.pop("checksum")
+        for s in rec.get("shards", ()):
+            s.pop("sha256")
+        for s in rec["payloads"].values():
+            s.pop("sha256")           # the reports' floats are masked
+        if isinstance(rec.get("model_ref"), dict):
+            # a published model: its dir and manifest digest are the run's
+            rec["model_ref"] = sorted(rec["model_ref"])
+    return recs
+
+
+@pytest.fixture(scope="module")
+def streamed(native_lib, stream_books, tmp_path_factory):
+    """Both CLIs' ``stream-train`` over the six books (three triggers of
+    two, a checkpoint after the second and one at the end), the port fed
+    the JAX package's draws, then both CLIs' ``stream-score`` of the JAX
+    model with a ledger, and a second ``stream-score`` run over the same
+    dir: {package: (train (rc, stdout, stderr, model dir), score runs,
+    root)}."""
+    import signal
+
+    books, stop = stream_books
+    handler = signal.getsignal(signal.SIGTERM)
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        jax_stream_draws(mp)
+        mp.setenv("STC_GAMMA_BACKEND", "pallas")
+        for name, main in (("jax", jax_main), ("port", port_main)):
+            root = str(tmp_path_factory.mktemp(f"stream_{name}"))
+            with jax_python_text():
+                train = _stream_train(main, books, stop, root)
+            out[name] = (train, root)
+        model = out["jax"][0][3]
+        for name, main in (("jax", jax_main), ("port", port_main)):
+            root = out[name][1]
+            scores = []
+            for _ in range(2):
+                with jax_python_text():
+                    scores.append(run(main, [
+                        "stream-score", "--watch-dir", books, "--stop-words",
+                        stop, "--model", model, "--checkpoint-dir",
+                        os.path.join(root, "sck"), "--output-dir",
+                        os.path.join(root, "o"), "--max-files-per-trigger",
+                        "4", *STREAM_FLAGS]))
+            out[name] = (*out[name], scores)
+        signal.signal(signal.SIGTERM, handler)
+    return out
+
+
+def test_stream_train_matches_jax_cli(streamed):
+    """``stream-train`` exits 0 in both CLIs with stdout equal line for
+    line (the top terms included; paths masked), lambda within rtol 1e-4
+    of the JAX package's (the online tolerance), the same ledger records
+    (timestamps and digests masked) and a meta.json ledger_ref of the
+    same epoch."""
+    (jtrain, jroot, _), (ttrain, troot, _) = streamed["jax"], streamed["port"]
+    assert jtrain[0] == ttrain[0] == 0, (jtrain[2], ttrain[2])
+    with np.load(os.path.join(jtrain[3], "arrays.npz")) as j, \
+            np.load(os.path.join(ttrain[3], "arrays.npz")) as t:
+        np.testing.assert_allclose(t["lam"], j["lam"], rtol=1e-4)
+    assert mask(ttrain[1], [(troot, "<r>")]) == mask(jtrain[1],
+                                                     [(jroot, "<r>")])
+    assert "stream ended: 6 docs / 3 micro-batches" in ttrain[1]
+    jrecs = _ledger_records(os.path.join(jroot, "ck"))
+    trecs = _ledger_records(os.path.join(troot, "ck"))
+    assert [r["kind"] for r in trecs] == ["stream-train"] * 2 + [
+        "model-publish"]
+    assert trecs == jrecs
+    for path, root in ((jtrain[3], jroot), (ttrain[3], troot)):
+        with open(os.path.join(path, "meta.json")) as f:
+            assert json.load(f)["ledger_ref"] == {
+                "dir": os.path.join(root, "ck"), "epoch": 2}
+
+
+def test_stream_score_matches_jax_cli(streamed, sigterm_restored):
+    """``stream-score`` of one model with a ledger: exit codes and stdout
+    equal (paths and floats masked), each epoch's report equal with floats
+    masked and its distributions within atol 1e-4 of the JAX package's;
+    a second run over the same dir commits nothing and scores nothing in
+    either; the port's verb puts the SIGTERM handler back."""
+    import signal
+
+    (_, jroot, jscores), (_, troot, tscores) = (streamed["jax"],
+                                                streamed["port"])
+    model = (os.path.join(jroot, "m"), "<m>")
+    for (jrc, jout, jerr), (trc, tout, terr) in zip(jscores, tscores):
+        assert jrc == trc == 0, (jerr, terr)
+        assert mask(tout, [model, (troot, "<r>")]) == mask(
+            jout, [model, (jroot, "<r>")])
+    assert "[epoch 1] report committed" in tscores[0][1]
+    assert "report committed" not in tscores[1][1]
+    reports = sorted(os.listdir(os.path.join(troot, "o")))
+    assert reports == sorted(os.listdir(os.path.join(jroot, "o"))) == [
+        "Result_EN_epoch-000000", "Result_EN_epoch-000001"]
+    for name in reports:
+        with open(os.path.join(jroot, "o", name)) as f1, \
+                open(os.path.join(troot, "o", name)) as f2:
+            jrep, trep = f1.read(), f2.read()
+        assert mask(trep) == mask(jrep)
+        np.testing.assert_allclose(chip_smoke.report_distributions(trep, K),
+                                   chip_smoke.report_distributions(jrep, K),
+                                   atol=1e-4)
+    assert mask(json.dumps(_ledger_records(os.path.join(troot, "sck"))),
+                [model, (troot, "<r>")]) == mask(
+        json.dumps(_ledger_records(os.path.join(jroot, "sck"))),
+        [model, (jroot, "<r>")])
+    assert signal.getsignal(signal.SIGTERM) is sigterm_restored
+    rc, _, _ = run(port_main, ["stream-score", "--watch-dir", jroot,
+                               "--model", os.path.join(jroot, "none")])
+    assert rc == 2
+    assert signal.getsignal(signal.SIGTERM) is sigterm_restored
+
+
+def test_stream_compact_and_requeue_match_jax_cli(streamed, tmp_path):
+    """``stream compact`` of each package's scoring ledger, and ``stream
+    requeue`` (a dry run, then for real) of one quarantine dir copied for
+    each: exit codes and stdout equal with paths masked, the compacted
+    ledgers equal; each package reads the other's snapshot."""
+    from spark_text_clustering_tpu.resilience import EpochLedger as JLedger
+    from spark_text_clustering_tpu_torch.resilience import (
+        EpochLedger, Quarantine,
+    )
+
+    outs = {}
+    # the maintenance verbs run on no device: no --device flag
+    for name, main in (("jax", jax_main), ("port", tcli.main)):
+        root = streamed[name][1]
+        ck = str(tmp_path / name / "sck")
+        shutil.copytree(os.path.join(root, "sck"), ck)
+        q = Quarantine(str(tmp_path / name / "q"))
+        for i in range(3):
+            q.put(f"/in/doc {i}.txt", f"text {i}", ValueError("bad"),
+                  stage="vectorize", batch_id=i)
+        runs = [run(main, ["stream", "compact", "--checkpoint-dir", ck]),
+                run(main, ["stream", "compact", "--checkpoint-dir", ck]),
+                run(main, ["stream", "requeue", "--quarantine-dir",
+                           q.directory, "--watch-dir",
+                           str(tmp_path / name / "w"), "--dry-run"]),
+                run(main, ["stream", "requeue", "--quarantine-dir",
+                           q.directory, "--watch-dir",
+                           str(tmp_path / name / "w")])]
+        outs[name] = [(rc, mask(so, [(str(tmp_path / name), "<t>"),
+                                     (root, "<r>")]), se)
+                      for rc, so, se in runs]
+    assert outs["port"] == outs["jax"]
+    assert outs["port"][0][1].startswith("compacted 2 committed records")
+    assert outs["port"][3][1].endswith("3 replayed, 3 archived, 0 skipped\n")
+    (jsnap,) = JLedger(str(tmp_path / "port" / "sck")).records()
+    (tsnap,) = EpochLedger(str(tmp_path / "jax" / "sck")).records()
+    assert jsnap["kind"] == tsnap["kind"] == "snapshot"
+
+
+@pytest.mark.parametrize("first", ["jax", "port"])
+def test_stream_train_resume_across_packages(native_lib, stream_books,
+                                             tmp_path, monkeypatch, first,
+                                             sigterm_restored):
+    """Four books arrive, one CLI's ``stream-train`` trains them (two
+    micro-batches, a checkpoint) and the stream ends idle; two more
+    arrive and the other CLI's ``stream-train --resume`` continues from
+    the ledger: it announces the committed epoch, never reads the first
+    four again, and ends with lambda within rtol 1e-4 of the JAX
+    package's uninterrupted run over the six, with the same counters."""
+    jax_stream_draws(monkeypatch)
+    monkeypatch.setenv("STC_GAMMA_BACKEND", "pallas")
+    books, stop = stream_books
+    watch = str(tmp_path / "watch")
+    os.makedirs(watch)
+    names = sorted(os.listdir(books))
+    mains = {"jax": jax_main, "port": port_main}
+    second = "port" if first == "jax" else "jax"
+
+    def arrive(batch):
+        for n in batch:
+            shutil.copy2(os.path.join(books, n), os.path.join(watch, n))
+
+    with jax_python_text():
+        whole = _stream_train(jax_main, books, stop, str(tmp_path / "whole"))
+        arrive(names[:4])
+        part = _stream_train(mains[first], watch, stop, str(tmp_path / "r"))
+        arrive(names[4:])
+        resumed = _stream_train(mains[second], watch, stop,
+                                str(tmp_path / "r"), "--resume")
+    for rc, so, se, _ in (whole, part, resumed):
+        assert rc == 0, se
+    assert "stream ended: 4 docs / 2 micro-batches" in part[1]
+    assert "(epoch ledger, committed epoch 1)" in resumed[1]
+    assert "stream ended: 6 docs / 3 micro-batches" in resumed[1]
+    with np.load(os.path.join(whole[3], "arrays.npz")) as w, \
+            np.load(os.path.join(resumed[3], "arrays.npz")) as r:
+        np.testing.assert_allclose(r["lam"], w["lam"], rtol=1e-4)
+    recs = _ledger_records(str(tmp_path / "r" / "ck"))
+    train = [r for r in recs if r["kind"] == "stream-train"]
+    assert sorted(s for r in train for s in r["sources"]) == [
+        os.path.join(watch, n) for n in names]
+    assert train[-1]["step"] == 3 and train[-1]["docs_seen"] == 6
+
+
+def test_fenced_ledger_write_exits_3_in_both(native_lib, stream_books,
+                                             tmp_path, monkeypatch,
+                                             sigterm_restored):
+    """A ledger append refused with FencedEpochError (a superseded fleet
+    token) ends both CLIs' stream-train with exit code 3 and the error on
+    stderr, the epoch left uncommitted."""
+    from spark_text_clustering_tpu.resilience import (
+        FencedEpochError as JFenced, ledger as jledger,
+    )
+    from spark_text_clustering_tpu_torch.resilience import (
+        FencedEpochError, ledger as tledger,
+    )
+
+    for mod, err in ((jledger, JFenced), (tledger, FencedEpochError)):
+        def fenced(self, *a, err=err, **k):
+            raise err("/fleet", "generation 1 superseded by 2")
+
+        monkeypatch.setattr(mod.EpochLedger, "commit", fenced)
+    books, stop = stream_books
+    for name, main in (("jax", jax_main), ("port", port_main)):
+        with jax_python_text():
+            rc, so, se, model = _stream_train(main, books, stop,
+                                              str(tmp_path / name))
+        assert rc == 3 and model is None
+        assert "error: fenced ledger write (fleet '/fleet')" in se
+        assert not os.path.exists(tmp_path / name / "ck" / "epochs.jsonl")

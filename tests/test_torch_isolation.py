@@ -73,6 +73,19 @@ def test_the_grid_modules_are_scanned():
             "spark_text_clustering_tpu_torch.cli"} <= mods
 
 
+def test_the_streaming_modules_are_scanned():
+    """The import and source scans cover streaming and the resilience
+    modules it brought: the ledger, retry, fault injection, the
+    quarantine and the drain notice."""
+    mods = set(_port_modules())
+    assert {"spark_text_clustering_tpu_torch.streaming",
+            "spark_text_clustering_tpu_torch.resilience.ledger",
+            "spark_text_clustering_tpu_torch.resilience.retry",
+            "spark_text_clustering_tpu_torch.resilience.faultinject",
+            "spark_text_clustering_tpu_torch.resilience.quarantine",
+            "spark_text_clustering_tpu_torch.resilience.supervisor"} <= mods
+
+
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b"
     r"|import\s+spark_text_clustering_tpu(\.|\s|$)"
@@ -188,6 +201,29 @@ def test_cli_defaults_to_the_card(tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main(argv)
     assert cli.main(["score", "--books", str(tmp_path), "--models-dir",
+                     str(tmp_path), "--device", "cpu"]) == 2
+
+
+def test_stream_verbs_default_to_the_card(tmp_path):
+    """Without a card and without --device cpu, stream-score and
+    stream-train raise before reading a file or touching the watch dir;
+    the streaming trainer does too."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs on it")
+    from spark_text_clustering_tpu_torch import Params, cli
+    from spark_text_clustering_tpu_torch.streaming import StreamingOnlineLDA
+
+    watch = str(tmp_path / "watch")
+    for argv in (["stream-score", "--watch-dir", watch, "--models-dir",
+                  str(tmp_path)],
+                 ["stream-train", "--watch-dir", watch, "--checkpoint-dir",
+                  str(tmp_path / "ck")]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(argv)
+    assert os.listdir(tmp_path) == []
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamingOnlineLDA(Params(k=2), num_features=8)
+    assert cli.main(["stream-score", "--watch-dir", watch, "--models-dir",
                      str(tmp_path), "--device", "cpu"]) == 2
 
 

@@ -174,3 +174,49 @@ def test_describe_topics_matches_jax(jax_model_dir):
     assert tm.describe_topics(12) == jm.describe_topics(12)
     assert tm.describe_topics_terms(7) == jm.describe_topics_terms(7)
     np.testing.assert_array_equal(tm.topics_matrix(), jm.topics_matrix())
+
+
+def _one_bucket_rows(n, seed):
+    """Rows of 33-64 distinct terms (one padded bucket of 64 slots), the
+    last one empty."""
+    return _rows(n - 1, seed, lo=33, hi=65) + [
+        (np.zeros(0, np.int32), np.zeros(0, np.float32))]
+
+
+@pytest.mark.parametrize("seed", [None, 5])
+def test_topic_distribution_doc_term_batch(jax_model_dir, seed):
+    """Fault S1: one pinned [8, 128] DocTermBatch of 6 rows and 2 pad rows
+    (a streaming trigger's chunk) scores in the port as in the JAX
+    package: every row back, pad rows uniform, within atol 5e-3 (the
+    padded scoring tolerance); the real rows equal the port's row-list
+    scoring of the same rows on the padded layout; per_doc refuses a
+    batch in both packages, and a 1x1 grid scores it alike."""
+    from spark_text_clustering_tpu.ops.sparse import (
+        batch_from_rows as j_batch, pad_rows as j_pad,
+    )
+    from spark_text_clustering_tpu_torch.ops.sparse import (
+        batch_from_rows, pad_rows,
+    )
+    from spark_text_clustering_tpu_torch.parallel import make_grid
+
+    rows = _one_bucket_rows(6, seed=8)
+    jm = j_load(jax_model_dir)
+    tm = lda_model_from_numpy(np.asarray(jm.lam), jm.alpha, jm.eta,
+                              jm.vocab, algorithm=jm.algorithm, device="cpu")
+    want = np.asarray(jm.topic_distribution(
+        j_batch(j_pad(rows, 8), row_len=128)))
+    batch = batch_from_rows(pad_rows(rows, 8), row_len=128)
+    got = tm.topic_distribution(batch, seed=seed)
+    assert got.shape == want.shape == (8, K)
+    np.testing.assert_allclose(got[5:], np.full((3, K), 1.0 / K), rtol=1e-6)
+    _compare(got, want, atol=5e-3)
+    if seed is None:
+        np.testing.assert_array_equal(
+            got[:6], tm.topic_distribution(rows, layout="padded"))
+    np.testing.assert_array_equal(
+        tm.topic_distribution(batch, seed=seed,
+                              grid=make_grid(1, 1, device="cpu")), got)
+    for model, b in ((jm, j_batch(j_pad(rows, 8), row_len=128)),
+                     (tm, batch)):
+        with pytest.raises(ValueError, match="scores row lists"):
+            model.topic_distribution(b, convergence="per_doc")
