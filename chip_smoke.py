@@ -125,8 +125,23 @@
    committed once), ``stream compact`` and a resume that loads the same
    lambda bit for bit, and ``score`` of the published model on the card;
    ms a trigger, docs/s and the text front end's share;
-14. a ``total`` line with the run's seconds, then a ``kernels`` line: per
-   kernel, the launches of the main-path runs of 3-13 (each must be > 0),
+14. config L, the supervised stream fleet on config E's books (the same
+   widths, one file a trigger): ``python -m spark_text_clustering_tpu_torch
+   .cli supervise`` as a subprocess, its workers on the card.  L-score (2
+   workers: every book committed once, distributions within 5e-3 of K's
+   and E's), L-kill (a kill at a commit) and L-hang (a hung heartbeat: the
+   SIGKILL escalation), both in one fleet, with a report tree byte equal
+   to L-score's, L-resize
+   (2 -> 3 workers, a hung worker: the same reports, exactly once) and
+   L-train (2 ``stream-train`` workers under a kill: each worker's lambda
+   within 1e-3 relative of one process training its partition, each
+   published model scoring on the card); then worker 0's own command in
+   this process with the counts at 0, every E-step launch held against its
+   plain version and its reports byte equal to the fleet's worker 0; each
+   fleet's seconds, books/s, seconds from spawn to first lease beat and
+   time to recover;
+15. a ``total`` line with the run's seconds, then a ``kernels`` line: per
+   kernel, the launches of the main-path runs of 3-14 (each must be > 0),
    the largest difference from the plain version, and the times beside
    the card's bound.
 
@@ -143,10 +158,13 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -3419,6 +3437,346 @@ def run_config_k(torch, seed, e):
     }
 
 
+L_FLEET = ["--heartbeat-interval", "0.2", "--lease-timeout", "5.0",
+           "--grace-seconds", "1.0", "--sweep-interval", "0.15",
+           "--poll-interval", "0.05", "--idle-timeout", "0.8",
+           "--max-files-per-trigger", "1"]
+_FLEET_SUMMARY = re.compile(
+    r"fleet converged: (\d+) committed epoch\(s\) across (\d+) worker\(s\) "
+    r"— (\d+) spawn\(s\), (\d+) respawn\(s\), (\d+) resize\(s\), (\d+) "
+    r"lease expiry\(ies\), (\d+) preemption\(s\) survived, (\d+) crash")
+
+
+@contextlib.contextmanager
+def lease_watch(fleet):
+    """Inside the block, a thread reads the fleet's lease files every 10
+    ms: {(worker, spawn id): [first lease ts, last ts of a live renewal]}."""
+    seen, stop = {}, threading.Event()
+    leases = os.path.join(fleet, "leases")
+
+    def poll():
+        while not stop.is_set():
+            try:
+                names = os.listdir(leases)
+            except FileNotFoundError:
+                names = []
+            for name in names:
+                try:
+                    with open(os.path.join(leases, name)) as f:
+                        lease = json.load(f)
+                except (OSError, ValueError):
+                    continue            # mid-rename
+                key = (int(lease["worker"]), int(lease["spawn_id"]))
+                ts = float(lease["ts"])
+                first, last = seen.setdefault(key, [ts, ts])
+                seen[key] = [min(first, ts),
+                             last if lease.get("done") else max(last, ts)]
+            stop.wait(0.01)
+
+    thread = threading.Thread(target=poll, daemon=True)
+    thread.start()
+    try:
+        yield seen
+    finally:
+        stop.set()
+        thread.join()
+
+
+def fleet_tree(out_dir):
+    """{path under the report root: bytes} of a fleet's reports."""
+    tree = {}
+    for d, _, files in os.walk(out_dir):
+        for name in files:
+            path = os.path.join(d, name)
+            with open(path, "rb") as f:
+                tree[os.path.relpath(path, out_dir)] = f.read()
+    return tree
+
+
+def fleet_exactly_once(label, fleet, watch):
+    """Every file of ``watch`` committed once across the worker ledgers
+    of ``fleet``: fails on a file committed twice, lost or foreign."""
+    from spark_text_clustering_tpu_torch.resilience import EpochLedger
+    from spark_text_clustering_tpu_torch.resilience.supervisor import (
+        fleet_committed_sources,
+    )
+
+    per = [s for n in sorted(os.listdir(fleet))
+           if n.startswith("w") and os.path.isdir(os.path.join(fleet, n))
+           for r in EpochLedger(os.path.join(fleet, n)).records()
+           for s in r.get("sources", ())]
+    want = {os.path.join(watch, n) for n in os.listdir(watch)}
+    if len(per) != len(set(per)) or fleet_committed_sources(fleet) != want:
+        raise AssertionError(f"config {label}: {len(per)} commits of "
+                             f"{len(set(per))} files, {len(want)} watched")
+    return len(per)
+
+
+def run_fleet(label, argv, root):
+    """``supervise`` with ``argv`` as a subprocess of the port's CLI (its
+    workers on the card: no --device) in a session of its own, killed
+    whole if it outlives 600 s.  Returns the fleet's wall seconds, its
+    report counts, and per incarnation the seconds from its spawn record
+    to its first lease beat, with the lease times seen."""
+    from spark_text_clustering_tpu_torch.resilience.supervisor import (
+        FleetLedger,
+    )
+
+    fleet = argv[argv.index("--fleet-dir") + 1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("STC_FAULTS", "STC_FAULT_SEED")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [here] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    t0 = time.perf_counter()
+    with lease_watch(fleet) as beats, \
+            open(os.path.join(root, f"{label}.out"), "w+") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "spark_text_clustering_tpu_torch.cli",
+             "supervise", *argv], cwd=here, env=env, stdout=out,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        rc = None
+        try:
+            rc = proc.wait(timeout=600)
+        finally:
+            if rc != 0:
+                # a worker left behind (a hung one) dies with its session
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        secs = time.perf_counter() - t0
+        out.seek(0)
+        text = out.read()
+    if rc != 0:
+        raise AssertionError(f"config {label}: supervise exited {rc}: "
+                             f"{text[-2000:]}")
+    m = _FLEET_SUMMARY.search(text)
+    if m is None:
+        raise AssertionError(f"config {label}: no fleet summary: "
+                             f"{text[-2000:]}")
+    keys = ("committed_epochs", "final_workers", "spawns", "respawns",
+            "resizes", "lease_expiries", "preemptions", "crashes")
+    counts = dict(zip(keys, map(int, m.groups())))
+    records = FleetLedger(fleet).records()
+    spawned = {}
+    for rec in records:
+        for w, sid in rec["spawn_ids"].items():
+            spawned.setdefault((int(w), int(sid)), rec["ts"])
+    return {
+        "seconds": secs, "counts": counts,
+        "records": [r["kind"] for r in records],
+        "first_beat_s": {f"w{w}/s{sid}": beats[(w, sid)][0] - ts
+                         for (w, sid), ts in sorted(spawned.items())
+                         if (w, sid) in beats},
+        "beats": beats, "spawned": spawned, "fleet_records": records,
+    }
+
+
+def time_to_recover(run, fleet, worker=0):
+    """Seconds from the faulted incarnation's last live lease renewal (its
+    last sign of life before the fault) to the first epoch its respawned
+    incarnation committed."""
+    from spark_text_clustering_tpu_torch.resilience import EpochLedger
+
+    (respawn,) = [r for r in run["fleet_records"]
+                  if r["kind"] == "respawn" and r["worker"] == worker]
+    new_id = int(respawn["spawn_ids"][str(worker)])
+    faulted = min(sid for w, sid in run["spawned"] if w == worker)
+    first_commit = min(r["ts"] for r in EpochLedger(
+        os.path.join(fleet, f"w{worker:03d}")).records()
+        if r.get("spawn_id") == new_id)
+    return first_commit - run["beats"][(worker, faulted)][1]
+
+
+def run_config_l(torch, seed, e, smi):
+    """The supervised stream fleet on the card, on config E's 51 books
+    with the stream verbs' widths (batch capacity 8, 2^18 hash features,
+    k=5) and one file a trigger, so that a report's bytes are a function
+    of its book: ``python -m spark_text_clustering_tpu_torch.cli
+    supervise`` as a subprocess, no --device, so every worker runs on the
+    card.
+
+    L-score (2 workers): every book committed once across w000/ and w001/,
+    each distribution within 5e-3 of K's card ``stream-score`` and of E's
+    ``score``.  L-kill and L-hang, in one fleet to save a fleet's start-up:
+    worker 0 killed at its first commit, worker 1 hung at its third lease
+    beat (lease expiry, SIGTERM, SIGKILL of a process that holds a CUDA
+    context): the report tree byte equal to L-score's, exactly once, two
+    respawns, one crash, one lease expiry.
+    L-resize (2 -> 3 workers after 2 committed epochs, worker 0 hung at
+    its fourth beat): the multiset of reports equal to L-score's, exactly
+    once, a resize record.  L-train (2 ``stream-train`` workers, a kill at
+    worker 0's first commit): exactly once; each worker's published model
+    loads and scores on the card, and its lambda is within 1e-3 relative
+    of one process training the same partition on the card.  The kernel:
+    worker 0's own command, in this process, under a fleet dir holding one
+    spawn record, with the counts at 0: every E-step launch held against
+    its plain version and its reports byte equal to L-score's w000."""
+    from spark_text_clustering_tpu_torch import Params, cli, load_model
+    from spark_text_clustering_tpu_torch.models.persistence import (
+        latest_model_dir,
+    )
+    from spark_text_clustering_tpu_torch.ops import _build, estep
+    from spark_text_clustering_tpu_torch.resilience.supervisor import (
+        FleetLedger,
+    )
+    from spark_text_clustering_tpu_torch.streaming import (
+        FileStreamSource, MicroBatch, StreamingOnlineLDA, StreamingScorer,
+    )
+
+    root = os.path.join(e["root"], "L")
+    os.makedirs(root)
+    books, stop = e["books"], e["stop"]
+    names = sorted(os.listdir(books))
+    watch = watch_dir(books, os.path.join(root, "watch"), names)
+    card_model = latest_model_dir(os.path.join(e["root"], "models"), "EN")
+
+    def score_argv(tag, workers=2, *extra, fleet=None):
+        return ["--role", "stream-score", "--watch-dir", watch,
+                "--fleet-dir", fleet or os.path.join(root, f"fleet_{tag}"),
+                "--workers", str(workers), *L_FLEET, "--stop-words", stop,
+                "--model", card_model, "--output-dir",
+                os.path.join(root, f"out_{tag}"), *extra]
+
+    runs = {}
+
+    def fleet(tag, argv):
+        runs[tag] = run_fleet(f"L-{tag}", argv, root)
+        return runs[tag]["counts"], fleet_tree(os.path.join(root,
+                                                            f"out_{tag}"))
+
+    # L-score, uninterrupted
+    counts, ref = fleet("score", score_argv("score"))
+    fleet_exactly_once("L-score", os.path.join(root, "fleet_score"), watch)
+    dists = {}
+    for text in ref.values():
+        dists.update(book_distributions(text.decode(), EN_K))
+    k_card, _ = epoch_reports(os.path.join(e["root"], "K", "so_cuda"), EN_K)
+    vs_k = dists_agree("L-score vs K", dists, k_card, 5e-3)
+    vs_score = dists_agree("L-score vs score", dists, book_distributions(
+        e["card_report"], EN_K), 5e-3)
+    if len(ref) != len(names) or {p.split(os.sep)[0] for p in ref} != {
+            "w000", "w001"} or counts["respawns"] or counts["spawns"] != 2:
+        raise AssertionError(f"config L-score: {len(ref)} reports, {counts}")
+
+    # L-kill and L-hang in one fleet: worker 0 killed at its first
+    # commit, worker 1 hung at its third lease beat; byte equal
+    counts, tree = fleet("faults", score_argv(
+        "faults", 2, "--chaos-worker", "0:ledger.commit:kill@1",
+        "--chaos-worker", "1:worker.heartbeat:hang@3"))
+    fleet_exactly_once("L-faults", os.path.join(root, "fleet_faults"), watch)
+    if tree != ref or (counts["respawns"], counts["crashes"],
+                       counts["lease_expiries"]) != (2, 1, 1):
+        raise AssertionError(f"config L-faults: reports equal {tree == ref}"
+                             f", {counts}")
+    recover = {tag: time_to_recover(runs["faults"], os.path.join(
+        root, "fleet_faults"), worker) for tag, worker in (("kill", 0),
+                                                           ("hang", 1))}
+
+    # L-resize: 2 -> 3 workers with a hung worker
+    counts, tree = fleet("resize", score_argv(
+        "resize", 2, "--resize-at", "2:3", "--chaos-worker",
+        "0:worker.heartbeat:hang@4"))
+    fleet_exactly_once("L-resize", os.path.join(root, "fleet_resize"), watch)
+    if sorted(tree.values()) != sorted(ref.values()) or (
+            counts["resizes"] != 1 or "resize" not in runs["resize"]["records"]
+            or counts["final_workers"] != 3):
+        raise AssertionError(f"config L-resize: {counts}, "
+                             f"{runs['resize']['records']}")
+
+    # L-train: 2 stream-train workers, a kill at worker 0's first commit
+    models = os.path.join(root, "models_train")
+    counts, _ = fleet("train", [
+        "--role", "stream-train", "--watch-dir", watch, "--fleet-dir",
+        os.path.join(root, "fleet_train"), "--workers", "2", *L_FLEET,
+        "--stop-words", stop, "--seed", str(seed), "--models-dir", models,
+        "--chaos-worker", "0:ledger.commit:kill@1"])
+    fleet_exactly_once("L-train", os.path.join(root, "fleet_train"), watch)
+    if counts["respawns"] != 1:
+        raise AssertionError(f"config L-train: {counts}")
+    stop_words = cli._load_stop_words(stop)
+    texts = []
+    for name in names[:2]:
+        with open(os.path.join(watch, name)) as f:
+            texts.append(f.read())
+    train_rel = []
+    for w in range(2):
+        published = latest_model_dir(os.path.join(models, f"w{w:03d}"), "EN")
+        model = load_model(published, device="cuda")
+        out = StreamingScorer(model, stop_words=stop_words,
+                              keep_results=False).process(
+            MicroBatch(0, names[:2], texts))
+        check_distribution(np.stack([sd.distribution for sd in out]), 2,
+                           EN_K, f"L-train w{w:03d} model")
+        one = StreamingOnlineLDA(
+            Params(k=EN_K, algorithm="online", seed=seed),
+            num_features=1 << 18, stop_words=stop_words, device="cuda")
+        one.run(FileStreamSource(watch, max_files_per_trigger=1,
+                                 partition=(w, 2)),
+                poll_interval=0.05, idle_timeout=0.5)
+        want = one.model().lam
+        want = np.asarray(want, np.float64)
+        train_rel.append(float(np.max(np.abs(np.asarray(model.lam) - want)
+                                      / np.abs(want))))
+    if not max(train_rel) <= 1e-3:
+        raise AssertionError(f"config L-train: lambda {train_rel}")
+
+    # the kernel on L's path: worker 0's own command in this process
+    own = os.path.join(root, "inproc")
+    FleetLedger(os.path.join(own, "fleet")).append(
+        kind="spawn", generation=0, worker_count=2, spawn_ids={0: 0, 1: 1})
+    sv = cli.build_parser().parse_args(["supervise", *score_argv(
+        "inproc", fleet=os.path.join(own, "fleet"))])
+    argv = cli._worker_argv(sv, 0, 2, 0, 0)
+    if argv[2:4] != ["spark_text_clustering_tpu_torch.cli", "stream-score"]:
+        raise AssertionError(f"config L: worker argv {argv}")
+    _build.reset_launches()
+    with stream_triggers(torch) as triggers, \
+            recorded(estep, "gamma_fixed_point_bkl") as seen:
+        _, inproc_s = stream_cli("L", argv[3:],
+                                 os.path.join(root, "inproc.out"))
+    launches = dict(_build.LAUNCHES)
+    mine = {p: b for p, b in ref.items() if p.startswith("w000")}
+    inproc = fleet_tree(os.path.join(root, "out_inproc"))
+    if inproc != mine or launches["gamma_fixed_point_bkl"] != len(mine) or (
+            len(seen) != len(mine) or len(triggers) != len(mine)):
+        raise AssertionError(f"config L: in-process worker 0 reports equal "
+                             f"{inproc == mine}, {len(mine)} files, "
+                             f"{launches}")
+    widest = max(range(len(seen)), key=lambda i: seen[i][0][0].shape[2])
+    cases = [{"launch": i, **estep_case(torch, *args[:4], f"L_{i}",
+                                        timed=i == widest)}
+             for i, (args, _) in enumerate(seen)]
+    del seen
+    fleets = {}
+    for tag, run in runs.items():
+        fleets[tag] = {
+            "seconds": run["seconds"],
+            "books_per_s": len(names) / run["seconds"],
+            **run["counts"], "fleet_records": run["records"],
+            "first_beat_s": run["first_beat_s"]}
+        emit({"phase": f"config_L_{tag}", "card": smi, **fleets[tag],
+              **({"time_to_recover_s": recover} if tag == "faults"
+                 else {})})
+    return {
+        "phase": "config_L", "card": smi, "books": len(names),
+        "files_per_trigger": 1, "k": EN_K, "hash_features": 1 << 18,
+        "batch_capacity": 8, "fleets": fleets,
+        "time_to_recover_s": recover,
+        "max_dist_diff_vs_k": vs_k, "max_dist_diff_vs_score": vs_score,
+        "train_lam_max_rel_diff": train_rel,
+        "inproc_worker": {**trigger_stats(triggers), "seconds": inproc_s,
+                          "reports_byte_equal": True},
+        "launches": launches,
+        "kernel": {"launches": len(cases),
+                   "max_abs_err": max(c["max_abs_err"] for c in cases),
+                   "widest": [c for c in cases if c["ms"] is not None],
+                   "shapes": sorted({tuple(c["shape"]) for c in cases})},
+        "bounds": {"max_dist_diff": 5e-3, "lam_max_rel_diff": 1e-3},
+    }
+
+
 def profile_configs(torch, rows_a, rows_b, seed, out_dir):
     """torch.profiler over one fit and the scoring (A, B: padded scoring
     of every doc; D: topic_distribution of EVAL_DOCS docs) or evaluation
@@ -3729,19 +4087,25 @@ def main() -> int:
         summary_k = run_config_k(torch, args.seed, books_e)
         summary_k["seconds"] = time.perf_counter() - t0
         emit(summary_k)
+
+        # 14. config L, the supervised stream fleet on E's books
+        t0 = time.perf_counter()
+        summary_l = run_config_l(torch, args.seed, books_e, smi)
+        summary_l["seconds"] = time.perf_counter() - t0
+        emit(summary_l)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     if args.profile:
         profile_configs(torch, rows_a, rows_b, args.seed, args.out)
 
-    # 14. the kernels line; the sweep's error is the largest of config A's
+    # 15. the kernels line; the sweep's error is the largest of config A's
     # and config E's checks and config I's ranks'; the gamma row is config
     # B's most populated bucket, and its error the largest of the four
-    # buckets, the edge geometries, config H's and K's launches checked and
-    # config I's and J's ranks'; the scatter's includes config I's ranks'; the
-    # tile row's error includes config G's launches and J's ranks', the
-    # NMF row's J's ranks'
+    # buckets, the edge geometries, config H's, K's and L's launches
+    # checked and config I's and J's ranks'; the scatter's includes config
+    # I's ranks'; the tile row's error includes config G's launches and
+    # J's ranks', the NMF row's J's ranks'
     grid_err = {name: max(c["max_abs_err"] for c in cases)
                 for name, cases in summary_i["checks"].items()}
     j_err = {name: max(c["max_abs_err"] for c in cases)
@@ -3777,10 +4141,12 @@ def main() -> int:
          "max_abs_err": max([e["max_abs_err"] for e in (*esteps, *estep_edges)]
                             + [summary_h["kernel"]["max_abs_err"],
                                summary_k["kernel"]["max_abs_err"],
+                               summary_l["kernel"]["max_abs_err"],
                                grid_err["gamma_fixed_point_bkl"],
                                j_err["gamma_fixed_point_bkl"]]),
          "buckets": esteps, "geometries": estep_edges,
          "config_H": summary_h["kernel"], "config_K": summary_k["kernel"],
+         "config_L": summary_l["kernel"],
          "config_I": summary_i["checks"]["gamma_fixed_point_bkl"],
          "config_J": summary_j["checks"]["gamma_fixed_point_bkl"]},
     ]
@@ -3793,7 +4159,7 @@ def main() -> int:
             sm["launches"][name]
             for sm in (summary_a, summary_b, summary_c, summary_d, summary_e,
                        summary_f, summary_g, summary_h, summary_i,
-                       summary_j, summary_k))
+                       summary_j, summary_k, summary_l))
         if kern["launches"] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
         line.append({k_: kern[k_] for k_ in keys})
@@ -3801,7 +4167,7 @@ def main() -> int:
                   config_B=summary_b, config_C=summary_c, config_D=summary_d,
                   config_E=summary_e, config_F=summary_f, config_G=summary_g,
                   config_H=summary_h, config_I=summary_i, config_J=summary_j,
-                  config_K=summary_k)
+                  config_K=summary_k, config_L=summary_l)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)

@@ -1,6 +1,6 @@
-"""Command-line entry points of the port: ``train`` and ``score``, and
-the one-process streaming verbs ``stream-score``, ``stream-train``,
-``stream requeue`` and ``stream compact``.
+"""Command-line entry points of the port: ``train`` and ``score``, the
+streaming verbs ``stream-score``, ``stream-train``, ``stream requeue`` and
+``stream compact``, and ``supervise``, a fleet of stream workers.
 
 The reference's two entry points (LDATraining.scala, LDALoader.scala) as
 subcommands, with the JAX package's flags, defaults, console output and
@@ -12,6 +12,8 @@ exit codes:
         --lang EN --models-dir <dir> --output-dir <dir>
     python -m spark_text_clustering_tpu_torch.cli stream-train \
         --watch-dir <dir> --checkpoint-dir <dir> --idle-timeout 5
+    python -m spark_text_clustering_tpu_torch.cli supervise \
+        --role stream-score --watch-dir <dir> --fleet-dir <dir> --workers 2
 
 Two flags are the port's own: ``--device`` (default ``cuda``) names the
 device that IDF, training and scoring run on (without a card, pass
@@ -35,13 +37,21 @@ The stream verbs watch a directory and score or train on the files that
 arrive, one trigger at a time, on ``--device``; with ``--checkpoint-dir``
 each trigger commits through the epoch ledger (``resilience.ledger``), so
 a restarted stream emits each report and trains each file exactly once.
-A SIGTERM ends a stream after its in-flight trigger.  They run in one
-process: the supervised fleet's flags (ROADMAP.md queue 1 item 7b) and
-``stream-train`` shards (item 7c) exit 2.
+A SIGTERM ends a stream after its in-flight trigger.  A stream runs in
+one process: ``stream-train`` shards (ROADMAP.md queue 1 item 7c) exit 2.
 
-Exit codes: 0 on success; 2 for a usage error, a missing or corrupt model,
-a resume mismatch and a flag not ported yet; 3 for a stream whose ledger
-write was fenced.
+``supervise --role stream-score|stream-train`` runs N stream workers of
+this CLI as subprocesses (``resilience.supervisor``): each takes its
+partition of the watch dir, heartbeats a lease and writes through a
+fenced epoch ledger, and the supervisor respawns, escalates and resizes
+between committed epochs.  Its ``--device`` is passed on to every worker
+when given; without it the workers run on the card, as the stream verbs
+do.  ``--role serve`` (item 8b) and the telemetry and actions flags (item
+9) exit 2.
+
+Exit codes: 0 on success; 1 for a fleet that spent its respawn budget; 2
+for a usage error, a missing or corrupt model, a resume mismatch and a
+flag not ported yet; 3 for a stream whose ledger write was fenced.
 """
 
 from __future__ import annotations
@@ -85,12 +95,20 @@ from .resilience import (
     CorruptArtifactError,
     EpochLedger,
     FencedEpochError,
+    FleetFence,
+    FleetSupervisor,
     PreemptionNotice,
+    ResilienceError,
     ResumeMismatchError,
+    WorkerLease,
     artifact_ref,
+    configure_lease_deadline,
+    fleet_committed_sources,
+    lease_path,
     requeue,
     validate_resume_meta,
     vocab_fingerprint,
+    worker_dir,
     write_resume_meta,
 )
 from .streaming import (
@@ -114,6 +132,7 @@ __all__ = [
     "cmd_stream_requeue",
     "cmd_stream_score",
     "cmd_stream_train",
+    "cmd_supervise",
     "cmd_train",
     "main",
 ]
@@ -132,27 +151,35 @@ LANG_DIRS = {
 
 # The ROADMAP.md queue 1 item that ports the machinery behind each flag
 # the port refuses for now.
+_TELEMETRY_ITEM = "queue 1 item 9, telemetry"
 _NOT_PORTED = {
-    "telemetry_file": ("--telemetry-file", "queue 1 item 9, telemetry"),
+    "telemetry_file": ("--telemetry-file", _TELEMETRY_ITEM),
+    "worker_telemetry_dir": ("--worker-telemetry-dir", _TELEMETRY_ITEM),
+    "ship_to": ("--ship-to", _TELEMETRY_ITEM),
+    "actions_file": ("--actions-file", _TELEMETRY_ITEM),
     "compile_cache": ("--compile-cache",
                       "queue 1 item 10, a compile cache"),
 }
-
-
-# A supervised stream worker's flags (as the JAX package's supervisor
-# passes them), their defaults and types: a stream verb refuses any of them
-# set to another value.
-_FLEET_FLAGS = {
-    "fleet_dir": ("--fleet-dir", None, str),
-    "worker_index": ("--worker-index", 0, int),
-    "worker_count": ("--worker-count", 1, int),
-    "fleet_generation": ("--fleet-generation", 0, int),
-    "fleet_spawn_id": ("--fleet-spawn-id", 0, int),
-    "heartbeat_interval": ("--heartbeat-interval", 0.5, float),
-    "lease_timeout": ("--lease-timeout", None, float),
-}
-_FLEET_ITEM = "queue 1 item 7b, the supervised fleet"
 _STREAM_GRID_ITEM = "queue 1 item 7c, streaming on the grid"
+_SERVE_ITEM = "queue 1 item 8b, the serve fleet"
+
+# ``supervise``'s serve-role flags, their JAX defaults and types (None:
+# a switch): refused unless left at the default.
+_SERVE_FLAGS = {
+    "front_port": ("--front-port", None, int),
+    "max_seconds": ("--max-seconds", None, float),
+    "swap_timeout": ("--swap-timeout", 60.0, float),
+    "serve_max_batch": ("--serve-max-batch", 64, int),
+    "serve_linger_ms": ("--serve-linger-ms", 5.0, float),
+    "serve_emulate_doc_ms": ("--serve-emulate-doc-ms", None, float),
+    "serve_max_queue": ("--serve-max-queue", None, int),
+    "serve_batch_weight": ("--serve-batch-weight", None, float),
+    "autoscale": ("--autoscale", False, None),
+    "autoscale_high_rho": ("--autoscale-high-rho", 0.8, float),
+    "autoscale_low_rho": ("--autoscale-low-rho", 0.3, float),
+    "autoscale_confirm": ("--autoscale-confirm", 2, int),
+    "autoscale_cooldown": ("--autoscale-cooldown", 30.0, float),
+}
 
 
 def _refuse_unported(args: argparse.Namespace, extra=()) -> Optional[int]:
@@ -161,10 +188,6 @@ def _refuse_unported(args: argparse.Namespace, extra=()) -> Optional[int]:
     hits = [
         (flag, item) for dest, (flag, item) in _NOT_PORTED.items()
         if getattr(args, dest, None) is not None
-    ] + [
-        (flag, _FLEET_ITEM)
-        for dest, (flag, default, _) in _FLEET_FLAGS.items()
-        if getattr(args, dest, default) != default
     ] + list(extra)
     for flag, item in hits:
         print(f"error: {flag} is not ported yet (ROADMAP.md {item})",
@@ -529,25 +552,91 @@ def _make_trigger_controller(args: argparse.Namespace):
     )
 
 
+def _fleet_worker_context(args: argparse.Namespace):
+    """A stream's worker wiring: the SIGTERM drain notice (every stream
+    ends after its in-flight trigger on SIGTERM), and with ``--fleet-dir``
+    the heartbeat lease, the fence token every ledger write verifies, the
+    worker's file partition and the lease-bounded retry deadline.
+
+    A supervised worker on the card also makes its CUDA context and loads
+    the E-step kernel (building it if missing) and the text library here,
+    before its first lease beat, so that they fall under the supervisor's
+    startup grace and not between two beats.
+
+    Returns ``(preempt, lease, fence, partition)``; the last three are
+    None for an unsupervised stream."""
+    preempt = PreemptionNotice().install()
+    if not args.fleet_dir:
+        return preempt, None, None, None
+    idx, count = args.worker_index, max(1, args.worker_count)
+    lease = WorkerLease(
+        lease_path(args.fleet_dir, idx),
+        interval=args.heartbeat_interval,
+        worker_index=idx,
+        generation=args.fleet_generation,
+        spawn_id=args.fleet_spawn_id,
+    )
+    fence = FleetFence(
+        fleet_dir=args.fleet_dir,
+        generation=args.fleet_generation,
+        worker_index=idx,
+        spawn_id=args.fleet_spawn_id,
+    )
+    partition = (idx, count) if count > 1 else None
+    if args.lease_timeout:
+        configure_lease_deadline(args.lease_timeout)
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        import torch
+
+        torch.zeros(1, device=dev)
+        _build.load_library("estep")
+    try:
+        native.load()
+    except RuntimeError:
+        pass  # the Python text path, as "auto" takes it
+    lease.beat(force=True)
+    return preempt, lease, fence, partition
+
+
 def _stream(args: argparse.Namespace, body, extra=()) -> int:
     """A stream verb's frame: refusals, the device (no card and no
-    --device cpu raises before any file is read), the SIGTERM drain
-    notice for the stream's lifetime, and a fenced ledger write as exit
-    code 3."""
+    --device cpu raises before any file is read), the worker wiring for
+    the stream's lifetime, and a fenced ledger write as exit code 3.  The
+    lease ends marked ``fenced``, ``preempted`` or ``idle``; the SIGTERM
+    handler and the retry deadline are put back at the end.  A worker
+    that ends with another code writes no done lease, so its supervisor
+    counts a crash."""
     rc = _refuse_unported(args, extra)
     if rc is not None:
         return rc
     resolve_device(args.device)
-    preempt = PreemptionNotice().install()
+    preempt, lease, fence, partition = _fleet_worker_context(args)
     try:
-        return body(args, preempt)
+        rc = body(args, preempt, lease, fence, partition)
+        if lease is not None and rc == 0:
+            lease.mark_done("preempted" if preempt else "idle")
+        return rc
     except FencedEpochError as exc:
         # the staged epoch stays uncommitted; the next recover() rolls
         # it back
         print(f"error: {exc}", file=sys.stderr)
+        if lease is not None:
+            lease.mark_done("fenced")
         return 3
     finally:
         preempt.uninstall()
+        if lease is not None and args.lease_timeout:
+            configure_lease_deadline(None)
+
+
+def _preseen(args: argparse.Namespace, ledger) -> list:
+    """The files a stream never reads again: its ledger's committed
+    sources, or in a fleet every worker's (a file committed by a worker
+    a resize retired must not replay)."""
+    if args.fleet_dir:
+        return sorted(fleet_committed_sources(args.fleet_dir))
+    return sorted(ledger.committed_sources())
 
 
 def cmd_stream_score(args: argparse.Namespace) -> int:
@@ -556,7 +645,8 @@ def cmd_stream_score(args: argparse.Namespace) -> int:
     return _stream(args, _stream_score)
 
 
-def _stream_score(args: argparse.Namespace, preempt) -> int:
+def _stream_score(args: argparse.Namespace, preempt, lease, fence,
+                  partition) -> int:
     try:
         model_path, model = resolve_latest_model(
             args.models_dir, args.lang, explicit=args.model,
@@ -573,16 +663,16 @@ def _stream_score(args: argparse.Namespace, preempt) -> int:
     ledger = None
     preseen: list = []
     if args.checkpoint_dir:
-        ledger = EpochLedger(args.checkpoint_dir)
+        ledger = EpochLedger(args.checkpoint_dir, fence=fence)
         ledger.recover()
-        # committed files are never scored again
-        preseen = sorted(ledger.committed_sources())
+        preseen = _preseen(args, ledger)
     src = FileStreamSource(
         args.watch_dir,
         include_all=args.include_all,
         max_files_per_trigger=args.max_files_per_trigger,
         min_file_age_s=args.min_file_age,
         preseen=preseen,
+        partition=partition,
     )
     controller = _make_trigger_controller(args)
     scorer = StreamingScorer(
@@ -594,8 +684,10 @@ def _stream_score(args: argparse.Namespace, preempt) -> int:
         keep_results=not args.no_report and ledger is None,
         quarantine_dir=args.quarantine_dir,
     )
-    for mb in src.stream(poll_interval=args.poll_interval,
-                         idle_timeout=args.idle_timeout, stop=preempt):
+    for mb in src.stream(
+            poll_interval=args.poll_interval, idle_timeout=args.idle_timeout,
+            heartbeat=lease.heartbeat_callback() if lease else None,
+            stop=preempt):
         t0 = time.perf_counter()
         out = scorer.process(mb)
         for sd in out:
@@ -619,6 +711,8 @@ def _stream_score(args: argparse.Namespace, preempt) -> int:
             ledger.commit(epoch, kind="stream-score", sources=mb.names,
                           payloads={fname: path}, model_ref=model_path)
             print(f"[epoch {epoch}] report committed: {path}")
+            if lease is not None:
+                lease.beat(queue_depth=src.last_queue_depth, epoch=epoch)
         if controller is not None:
             controller.update(src.last_queue_depth, time.perf_counter() - t0)
             controller.apply(src)
@@ -645,7 +739,8 @@ def cmd_stream_train(args: argparse.Namespace) -> int:
     return _stream(args, _stream_train, extra)
 
 
-def _stream_train(args: argparse.Namespace, preempt) -> int:
+def _stream_train(args: argparse.Namespace, preempt, lease, fence,
+                  partition) -> int:
     params = Params(
         input=args.watch_dir,
         k=args.k,
@@ -686,24 +781,27 @@ def _stream_train(args: argparse.Namespace, preempt) -> int:
         checkpoint_every=args.checkpoint_interval,
         quarantine_dir=args.quarantine_dir,
         device=args.device,
+        fence=fence,
     )
     # source progress is exactly-once through the trainer's ledger: its
     # committed paths are never ingested again; the pre-ledger
     # seen_files.txt is still read and written
-    preseen = ([] if trainer.ledger is None
-               else sorted(trainer.ledger.committed_sources()))
+    preseen = [] if trainer.ledger is None else _preseen(args, trainer.ledger)
     src = FileStreamSource(
         args.watch_dir,
         include_all=args.include_all,
         max_files_per_trigger=args.max_files_per_trigger,
         min_file_age_s=args.min_file_age,
         preseen=preseen,
+        partition=partition,
         state_path=(os.path.join(args.checkpoint_dir, "seen_files.txt")
                     if args.checkpoint_dir else None),
     )
     trainer.run(src, controller=_make_trigger_controller(args),
                 poll_interval=args.poll_interval,
-                idle_timeout=args.idle_timeout, stop=preempt)
+                idle_timeout=args.idle_timeout,
+                heartbeat=lease.heartbeat_callback() if lease else None,
+                stop=preempt)
     print(f"stream ended: {trainer.docs_seen} docs / "
           f"{trainer.batches_seen} micro-batches")
     if preempt:
@@ -787,6 +885,131 @@ def cmd_stream_compact(args: argparse.Namespace) -> int:
     return 0
 
 
+# ---- the supervised fleet -------------------------------------------------
+def _worker_argv(args: argparse.Namespace, index: int, count: int,
+                 generation: int, spawn_id: int) -> List[str]:
+    """One ``supervise`` worker's command line: a stream verb of this CLI
+    with the fleet flags, its partition's checkpoint dir, and
+    ``--device`` where the supervisor was given one."""
+    argv = [
+        sys.executable, "-m", "spark_text_clustering_tpu_torch.cli",
+        args.role,
+        "--watch-dir", args.watch_dir,
+        "--checkpoint-dir", worker_dir(args.fleet_dir, index),
+        "--fleet-dir", args.fleet_dir,
+        "--worker-index", str(index),
+        "--worker-count", str(count),
+        "--fleet-generation", str(generation),
+        "--fleet-spawn-id", str(spawn_id),
+        "--heartbeat-interval", str(args.heartbeat_interval),
+        "--lease-timeout", str(args.lease_timeout),
+        "--poll-interval", str(args.poll_interval),
+        "--idle-timeout", str(args.idle_timeout),
+        "--lang", args.lang,
+    ]
+    if args.max_files_per_trigger is not None:
+        argv += ["--max-files-per-trigger", str(args.max_files_per_trigger)]
+    if args.no_lemmatize:
+        argv.append("--no-lemmatize")
+    if args.include_all:
+        argv.append("--include-all")
+    if args.stop_words:
+        argv += ["--stop-words", args.stop_words]
+    if args.quarantine_dir:
+        argv += ["--quarantine-dir", args.quarantine_dir]
+    if args.role == "stream-score":
+        argv += ["--output-dir",
+                 os.path.join(args.output_dir, f"w{index:03d}")]
+        if args.model:
+            argv += ["--model", args.model]
+        else:
+            argv += ["--models-dir", args.models_dir]
+    else:
+        argv += [
+            "--k", str(args.k),
+            "--hash-features", str(args.hash_features),
+            "--seed", str(args.seed),
+            "--checkpoint-interval", str(args.checkpoint_interval),
+            "--models-dir", os.path.join(args.models_dir, f"w{index:03d}"),
+        ]
+    if args.device is not None:
+        argv += ["--device", args.device]
+    return argv + args.worker_arg
+
+
+def cmd_supervise(args: argparse.Namespace) -> int:
+    """Run an elastic, preemption-tolerant fleet of ``stream-score`` or
+    ``stream-train`` workers over a watch directory: partitioned over the
+    arriving files, heartbeat-leased, SIGTERM then SIGKILL on lease
+    expiry, resized between committed epochs with fence tokens so that a
+    zombie's writes are refused."""
+    extra = [("--role serve", _SERVE_ITEM)] if args.role == "serve" else []
+    extra += [(flag, _SERVE_ITEM)
+              for dest, (flag, default, _) in _SERVE_FLAGS.items()
+              if getattr(args, dest) != default]
+    rc = _refuse_unported(args, extra)
+    if rc is not None:
+        return rc
+    if not args.watch_dir:
+        print("--watch-dir is required for stream roles", file=sys.stderr)
+        return 2
+    worker_faults = {}
+    for spec in args.chaos_worker:
+        idx_s, _, fault = spec.partition(":")
+        if not fault:
+            print(f"bad --chaos-worker {spec!r} "
+                  f"(want <index>:<site>:<kind>[@arg])", file=sys.stderr)
+            return 2
+        worker_faults[int(idx_s)] = fault
+    resize_plan = []
+    for spec in args.resize_at:
+        at_s, _, n_s = spec.partition(":")
+        try:
+            resize_plan.append({"at_epochs": int(at_s), "workers": int(n_s)})
+        except ValueError:
+            print(f"bad --resize-at {spec!r} (want <epochs>:<workers>)",
+                  file=sys.stderr)
+            return 2
+    # no card and no --device cpu: raise before any worker starts; the
+    # workers load the text library, so build it here, once
+    resolve_device(args.device)
+    try:
+        native.build()
+    except RuntimeError:
+        pass  # the workers take the Python text path, as "auto" does
+    sup = FleetSupervisor(
+        args.fleet_dir,
+        lambda *ids: _worker_argv(args, *ids),
+        workers=args.workers,
+        min_workers=args.min_workers,
+        max_workers=args.max_workers,
+        lease_timeout=args.lease_timeout,
+        grace_seconds=args.grace_seconds,
+        startup_grace_seconds=args.startup_grace,
+        sweep_interval=args.sweep_interval,
+        scale_out_depth=args.scale_out_depth,
+        scale_out_sweeps=args.scale_out_sweeps,
+        scale_in_sweeps=args.scale_in_sweeps,
+        max_respawns=args.max_respawns,
+        resize_plan=resize_plan,
+        worker_faults=worker_faults,
+    )
+    try:
+        rep = sup.run()
+    except ResilienceError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    print(
+        f"fleet converged: {rep.committed_epochs} committed epoch(s) "
+        f"across {rep.final_workers} worker(s) — "
+        f"{rep.spawns} spawn(s), {rep.respawns} respawn(s), "
+        f"{rep.resizes} resize(s), {rep.lease_expiries} lease "
+        f"expiry(ies), {rep.preemptions} preemption(s) survived, "
+        f"{rep.crashes} crash(es)"
+    )
+    return 0
+
+
 def _add_device_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device for IDF, training and scoring "
@@ -818,8 +1041,7 @@ def _add_compile_cache_arg(p: argparse.ArgumentParser) -> None:
 
 
 def _add_stream_args(p: argparse.ArgumentParser) -> None:
-    """The JAX package's stream flags, with their defaults; the fleet
-    flags are refused (ROADMAP.md queue 1 item 7b)."""
+    """The JAX package's stream flags, with their defaults."""
     _add_compile_cache_arg(p)
     p.add_argument("--watch-dir", required=True,
                    help="directory to watch for arriving .txt files")
@@ -848,10 +1070,28 @@ def _add_stream_args(p: argparse.ArgumentParser) -> None:
                    help="dead-letter dir for per-document failures: the "
                         "offending doc and a structured .error.json "
                         "sidecar land here instead of killing the stream")
-    for flag, default, kind in _FLEET_FLAGS.values():
-        p.add_argument(flag, type=kind, default=default,
-                       help="a supervised fleet's flag: not ported yet "
-                            "(exits 2 unless left at its default)")
+    # a fleet worker's flags (passed by ``supervise``): identity, fence
+    # token and lease cadence
+    p.add_argument("--fleet-dir", default=None,
+                   help="fleet dir of a supervising `supervise` process: "
+                        "enables the heartbeat lease, the fence-token "
+                        "check on every ledger write, and the file "
+                        "partition")
+    p.add_argument("--worker-index", type=int, default=0,
+                   help="this worker's index in the fleet")
+    p.add_argument("--worker-count", type=int, default=1,
+                   help="fleet width (files partition by "
+                        "sha256(basename) %% count)")
+    p.add_argument("--fleet-generation", type=int, default=0,
+                   help="fence token: topology generation at spawn")
+    p.add_argument("--fleet-spawn-id", type=int, default=0,
+                   help="fence token: this incarnation's spawn id")
+    p.add_argument("--heartbeat-interval", type=float, default=0.5,
+                   help="seconds between lease renewals")
+    p.add_argument("--lease-timeout", type=float, default=None,
+                   help="the supervisor's lease timeout, installed as the "
+                        "process-wide retry deadline so no retry loop "
+                        "outlives the lease")
     _add_device_arg(p)
 
 
@@ -1017,6 +1257,103 @@ def build_parser() -> argparse.ArgumentParser:
     cp.add_argument("--checkpoint-dir", required=True,
                     help="epoch-ledger checkpoint dir to compact")
     cp.set_defaults(fn=cmd_stream_compact)
+
+    sv = sub.add_parser(
+        "supervise",
+        help="run an elastic, preemption-tolerant stream worker fleet "
+             "(heartbeat leases, SIGTERM/SIGKILL escalation, ledger-gated "
+             "resize with zombie fencing)",
+    )
+    sv.add_argument("--role", default="stream-score",
+                    choices=["stream-score", "stream-train", "serve"],
+                    help="worker verb the fleet runs (serve: not ported "
+                         "yet, exits 2)")
+    sv.add_argument("--watch-dir", default=None,
+                    help="directory the stream workers watch (required)")
+    sv.add_argument("--fleet-dir", required=True,
+                    help="fleet state dir: fleet.jsonl (fence records), "
+                         "leases/, and per-worker checkpoint dirs w000/, "
+                         "w001/, ...")
+    sv.add_argument("--workers", type=int, default=2,
+                    help="initial worker count")
+    sv.add_argument("--min-workers", type=int, default=1)
+    sv.add_argument("--max-workers", type=int, default=8)
+    sv.add_argument("--heartbeat-interval", type=float, default=0.5)
+    sv.add_argument("--lease-timeout", type=float, default=5.0,
+                    help="seconds without a lease renewal before a worker "
+                         "counts as stuck or dead (escalation starts)")
+    sv.add_argument("--grace-seconds", type=float, default=3.0,
+                    help="drain window between SIGTERM and SIGKILL")
+    sv.add_argument("--startup-grace", type=float, default=60.0,
+                    help="lease budget before the first heartbeat (covers "
+                         "the torch import, the CUDA context and the "
+                         "kernel load)")
+    sv.add_argument("--sweep-interval", type=float, default=0.25)
+    sv.add_argument("--scale-out-depth", type=int, default=None,
+                    help="scale out when the fleet's total queue depth "
+                         "stays at or above this for --scale-out-sweeps "
+                         "sweeps")
+    sv.add_argument("--scale-out-sweeps", type=int, default=3)
+    sv.add_argument("--scale-in-sweeps", type=int, default=None,
+                    help="scale in after this many consecutive all-idle "
+                         "sweeps (default: never)")
+    sv.add_argument("--max-respawns", type=int, default=5,
+                    help="fleet-wide respawn budget before supervision "
+                         "aborts (a crash loop fails loudly)")
+    sv.add_argument("--actions-file", default=None,
+                    help="not ported yet (exits 2)")
+    sv.add_argument("--resize-at", action="append", default=[],
+                    metavar="EPOCHS:WORKERS",
+                    help="scripted resize: once the fleet's total committed "
+                         "epochs reach EPOCHS, resize to WORKERS "
+                         "(repeatable)")
+    sv.add_argument("--chaos-worker", action="append", default=[],
+                    metavar="INDEX:SITE:KIND[@ARG]",
+                    help="arm an STC_FAULTS spec on one generation-0 worker "
+                         "(respawns always run clean)")
+    sv.add_argument("--poll-interval", type=float, default=1.0)
+    sv.add_argument("--idle-timeout", type=float, default=30.0,
+                    help="workers exit cleanly after this many idle "
+                         "seconds; the fleet converges when every worker "
+                         "has finished")
+    sv.add_argument("--max-files-per-trigger", type=int, default=None)
+    sv.add_argument("--lang", default="EN", choices=sorted(LANG_DIRS))
+    sv.add_argument("--stop-words", default=None)
+    sv.add_argument("--no-lemmatize", action="store_true")
+    sv.add_argument("--include-all", action="store_true")
+    sv.add_argument("--quarantine-dir", default=None)
+    sv.add_argument("--models-dir", default="models")
+    sv.add_argument("--model", default=None,
+                    help="explicit model dir for stream-score workers")
+    sv.add_argument("--output-dir", default="TestOutput",
+                    help="stream-score report root (per-worker subdirs "
+                         "w000/, w001/, ...)")
+    sv.add_argument("--k", type=int, default=5)
+    sv.add_argument("--hash-features", type=int, default=1 << 18)
+    sv.add_argument("--seed", type=int, default=0)
+    sv.add_argument("--checkpoint-interval", type=int, default=1)
+    sv.add_argument("--telemetry-file", default=None,
+                    help="not ported yet (exits 2)")
+    sv.add_argument("--worker-telemetry-dir", default=None,
+                    help="not ported yet (exits 2)")
+    sv.add_argument("--ship-to", default=None, metavar="HOST:PORT",
+                    help="not ported yet (exits 2)")
+    sv.add_argument("--worker-arg", action="append", default=[],
+                    help="extra argv appended to every worker command "
+                         "(repeatable)")
+    for flag, default, kind in _SERVE_FLAGS.values():
+        if kind is None:
+            sv.add_argument(flag, action="store_true",
+                            help="--role serve: not ported yet (exits 2)")
+        else:
+            sv.add_argument(flag, type=kind, default=default,
+                            help="--role serve: not ported yet (exits 2 "
+                                 "unless left at its default)")
+    _add_compile_cache_arg(sv)
+    sv.add_argument("--device", default=None,
+                    help="torch device passed to every worker (default: "
+                         "none passed, so the workers run on cuda)")
+    sv.set_defaults(fn=cmd_supervise)
     return ap
 
 

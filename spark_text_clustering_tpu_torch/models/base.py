@@ -322,16 +322,23 @@ class LDAModel:
 
     def log_likelihood(
         self,
-        docs: Sequence[Tuple[np.ndarray, np.ndarray]],
+        docs: Union[DocTermBatch, Sequence[Tuple[np.ndarray, np.ndarray]]],
         seed: Optional[int] = None,
         device=None,
         grid=None,
     ) -> float:
         """Variational lower bound on log p(docs) (MLlib
-        ``logLikelihood``), over one padded batch of ``docs``; with
-        ``grid``, vocabulary-sharded on the grid's ranks."""
-        rows = list(docs)
+        ``logLikelihood``), over one padded batch: ``docs`` as it is when
+        it is a ``DocTermBatch`` (pad rows included, gamma inits drawn for
+        ``num_docs`` rows), else the batch of its rows; the corpus size is
+        the count of rows with weight.  With ``grid``, vocabulary-sharded
+        on the grid's ranks, each rank taking its block of the rows at
+        the batch's width."""
+        is_batch = isinstance(docs, DocTermBatch)
         if grid is not None:
+            rows = (list(zip(docs.token_ids.cpu().numpy(),
+                             docs.token_weights.cpu().numpy()))
+                    if is_batch else list(docs))
             n_docs = float(sum(1 for _, w in rows if np.sum(w) > 0))
             fn = self._grid_fn("log_likelihood", grid, eta=float(self.eta))
             lam = self._lam_on_grid(grid, smoothed=self.algorithm == "em")
@@ -340,22 +347,30 @@ class LDAModel:
                 self._gamma0(len(rows), seed, grid.device), n_docs, n_docs)
             return float(bound)
         dev = resolve_device(self.device if device is None else device)
-        batch = batch_from_rows(rows, device=dev)
+        if is_batch:
+            batch = DocTermBatch(docs.token_ids.to(dev),
+                                 docs.token_weights.to(dev))
+        else:
+            batch = batch_from_rows(list(docs), device=dev)
         n_docs = float((batch.token_weights.sum(-1) > 0).sum())
         alpha = torch.as_tensor(np.asarray(self.alpha, np.float32), device=dev)
         lam_b = torch.from_numpy(self._lam_for_bound()).to(dev)
         gamma = infer_gamma(
             batch, torch.exp(dirichlet_expectation(lam_b)), alpha,
-            self._gamma0(len(rows), seed, dev),
+            self._gamma0(batch.num_docs, seed, dev),
         )
         return float(approx_bound(batch, gamma, lam_b, alpha, float(self.eta),
                                   corpus_size=n_docs, batch_docs=n_docs))
 
     def log_perplexity(self, docs, device=None, grid=None) -> float:
         """-bound / total token mass (MLlib ``logPerplexity``)."""
-        rows = list(docs)
-        tokens = float(sum(np.asarray(w, np.float32).sum() for _, w in rows))
-        return -self.log_likelihood(rows, device=device, grid=grid) / max(
+        if isinstance(docs, DocTermBatch):
+            tokens = float(docs.token_weights.sum())
+        else:
+            docs = list(docs)
+            tokens = float(sum(np.asarray(w, np.float32).sum()
+                               for _, w in docs))
+        return -self.log_likelihood(docs, device=device, grid=grid) / max(
             tokens, 1.0)
 
     # ---- persistence ---------------------------------------------------

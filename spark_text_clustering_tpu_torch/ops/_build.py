@@ -33,7 +33,7 @@ import time
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "build_lock",
+__all__ = ["SOURCES", "BUILD_DIR", "KernelError", "build_all", "build_lock",
            "load_library"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -75,6 +75,12 @@ SIGNATURES = {
 }
 
 
+class KernelError(RuntimeError):
+    """A CUDA kernel of the port failed to build or to launch: a fault of
+    the card or the toolchain, never of the data (a streaming scorer lets
+    it through instead of quarantining the documents)."""
+
+
 def _nvcc() -> str:
     for cand in (
         shutil.which("nvcc"),
@@ -82,7 +88,7 @@ def _nvcc() -> str:
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+    raise KernelError("nvcc not found: the CUDA kernels build only where "
                        "the CUDA toolkit is installed")
 
 
@@ -127,7 +133,7 @@ def _finish(name: str, proc, tmp: str) -> str:
     out, _ = proc.communicate()
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+        raise KernelError(f"nvcc failed for {name}.cu:\n{out}")
     os.replace(tmp, _lib_path(name))
     return out
 
@@ -170,7 +176,7 @@ def load_library(name: str) -> ctypes.CDLL:
 def check(err: int, what: str) -> None:
     """Raise when a C entry point returned a CUDA error code."""
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err}")
+        raise KernelError(f"{what}: CUDA error {err}")
 
 
 # Kernel launches per wrapper: each wrapper adds one where it launches

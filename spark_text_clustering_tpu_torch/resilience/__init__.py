@@ -1,8 +1,9 @@
 """Resilience layer of the port: artifact integrity (manifest + COMMIT,
 format v2), typed failures, the resume gate, retry with backoff, seeded
 fault injection, the dead-letter quarantine, the epoch commit ledger of
-exactly-once streaming resume, and the SIGTERM drain notice (the JAX
-package's names, for what the port has)."""
+exactly-once streaming resume, and the supervised worker fleet (fence
+tokens, heartbeat leases, the SIGTERM drain notice, the supervisor): the
+JAX package's names, for what the port has."""
 
 from . import faultinject  # noqa: F401
 from .errors import (  # noqa: F401
@@ -46,4 +47,15 @@ from .retry import (  # noqa: F401
     retry_call,
     sleep,
 )
-from .supervisor import PreemptionNotice  # noqa: F401
+from .supervisor import (  # noqa: F401
+    FleetFence,
+    FleetLedger,
+    FleetReport,
+    FleetSupervisor,
+    PreemptionNotice,
+    WorkerLease,
+    fleet_committed_sources,
+    lease_path,
+    partition_of,
+    worker_dir,
+)

@@ -62,6 +62,9 @@ SITES = frozenset({
     "report.write",       # scoring report write
     "ledger.stage",       # before an epoch intent record is staged
     "ledger.commit",      # before the epoch ledger append (commit point)
+    "supervisor.spawn",   # before the supervisor spawns a worker process
+    "worker.heartbeat",   # before a worker's lease heartbeat write
+    "worker.kill",        # before the supervisor's SIGKILL escalation
 })
 
 

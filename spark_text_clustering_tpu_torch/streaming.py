@@ -2,10 +2,10 @@
 the streaming trainer (the JAX package's ``streaming.py``).
 
 A stream is a host-side source yielding micro-batches of documents.  Each
-trigger packs its documents into pinned ``[batch_capacity, row_len]``
-``DocTermBatch`` chunks, pad rows included, so the scorer's convergence
-test sees the same batch-mates as the JAX package's and every chunk is one
-launch of the padded E-step kernel on the card.
+trigger packs its documents into ``[batch_capacity, row_len]``
+``DocTermBatch`` chunks of pinned rows, pad rows included, so the scorer's
+convergence test sees the same batch-mates as the JAX package's and every
+chunk is one launch of the padded E-step kernel on the card.
 
 * Sources: ``FileStreamSource`` (each ``poll()`` returns the files of a
   watched directory not yet seen, up to ``max_files_per_trigger``, oldest
@@ -14,7 +14,7 @@ launch of the padded E-step kernel on the card.
   queue depth and seconds.
 * ``StreamingScorer``: each micro-batch vectorized over the model's
   vocabulary (counts, or murmur3 buckets for a hashed model) and scored
-  by ``LDAModel.topic_distribution`` on pinned batches; per-topic tallies
+  by ``LDAModel.topic_distribution`` on those chunks; per-topic tallies
   and report rows accumulate.
 * ``StreamingOnlineLDA``: continuous online VB, one ``padded_iteration``
   a chunk, the corpus size the running count of documents seen; state
@@ -24,7 +24,9 @@ launch of the padded E-step kernel on the card.
 
 The JAX package also records telemetry (spans, gauges, micro-batch
 events); the port's telemetry is ROADMAP queue 1 item 9.  Streaming on a
-(data, model) grid is item 7c, a supervised fleet of stream workers 7b.
+(data, model) grid is item 7c.  A supervised fleet of stream workers
+(``resilience.supervisor``) gives each worker a ``FileStreamSource``
+partition and a fenced ledger.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from .device import resolve_device
 from .models.base import LDAModel
 from .models.online_lda import _GAMMA_KEY, _LAMBDA_KEY, padded_iteration
 from .models.persistence import load_train_state
+from .ops import _build
 from .ops.lda_math import init_gamma, init_lambda, seeded_generator
 from .ops.sparse import batch_from_rows, next_pow2, pad_rows
 from .pipeline import TextPreprocessor, is_hashed_vocab, make_vectorizer
@@ -58,6 +61,7 @@ from .resilience import (
     validate_shard_plan,
 )
 from .resilience.resume import vocab_fingerprint as _vocab_fingerprint
+from .resilience.supervisor import partition_of
 from .resilience.retry import sleep as _sleep
 from .utils.report import format_scoring_report, write_scoring_report
 
@@ -146,8 +150,7 @@ class FileStreamSource:
     ledgered stream passes its committed sources as ``preseen`` instead.
 
     ``partition=(index, count)`` restricts the source to a fleet worker's
-    files in the JAX package; the fleet is ROADMAP queue 1 item 7b, and
-    until then the port takes None only.
+    files: those whose basename ``partition_of`` assigns to ``index``.
     """
 
     def __init__(
@@ -163,11 +166,6 @@ class FileStreamSource:
         preseen: Optional[Sequence[str]] = None,
         partition: Optional[Tuple[int, int]] = None,
     ) -> None:
-        if partition is not None:
-            raise NotImplementedError(
-                "partition= splits a watch dir over a supervised fleet, "
-                "which is not ported yet (ROADMAP.md queue 1 item 7b, the "
-                "supervised fleet)")
         self.directory = directory
         self.suffix = suffix
         self.include_all = include_all
@@ -175,6 +173,7 @@ class FileStreamSource:
         self.encoding = encoding
         self.min_file_age_s = min_file_age_s
         self.state_path = state_path
+        self.partition = partition
         self._seen: set = set(preseen or ())
         self._pending: List[str] = []
         self._next_id = 0
@@ -215,6 +214,10 @@ class FileStreamSource:
         for name in sorted(entries):
             if not self.include_all and not name.endswith(self.suffix):
                 continue
+            if self.partition is not None:
+                idx, count = self.partition
+                if partition_of(name, count) != idx:
+                    continue
             p = os.path.join(self.directory, name)
             if os.path.isfile(p) and p not in self._seen:
                 out.append(p)
@@ -368,6 +371,11 @@ def _vectorize_quarantined(
 # ---------------------------------------------------------------------------
 # Streaming scorer
 # ---------------------------------------------------------------------------
+# Failures of the card rather than of a document's data.
+_DEVICE_FAULTS = (_build.KernelError,
+                  getattr(torch, "AcceleratorError", _build.KernelError))
+
+
 @dataclass
 class ScoredDoc:
     name: str
@@ -381,12 +389,24 @@ class StreamingScorer:
 
     Per trigger: preprocess on the host, vectorize over the model's
     vocabulary (raw counts, no IDF, as ``score``), score each chunk of
-    ``batch_capacity`` documents as one pinned ``[batch_capacity,
-    row_len]`` batch through ``model.topic_distribution`` (on the model's
-    device: the E-step kernel on the card), tally argmax topics.
-    ``row_len`` is pinned on the first trigger and grows to the next power
-    of two only when a longer document arrives.  A chunk whose scoring
-    raises goes to the quarantine, as in the JAX package.
+    ``batch_capacity`` documents as one ``[batch_capacity, row_len]``
+    batch, pad rows included, through ``model.topic_distribution`` (on
+    the model's device: the E-step kernel on the card), tally argmax
+    topics.  Each
+    chunk is as wide as the next power of two of its longest document (at
+    least ``row_len`` when one is given), so a document's distribution
+    depends on its chunk alone and not on what the stream scored before:
+    a fleet worker that is respawned, or takes over another's files after
+    a resize, writes the reports an uninterrupted run writes, byte for
+    byte.  (The JAX package pins the width on the first trigger and only
+    grows it, to reuse one XLA compilation; a hand kernel has none to
+    reuse.)  ``row_len`` afterwards is the last chunk's width.
+
+    A chunk whose scoring raises goes to the quarantine, as in the JAX
+    package, unless the card failed (a kernel that did not build or
+    launch, a CUDA error): that raises, so a fleet worker exits non-zero
+    and its supervisor sees a crash instead of a stream that quarantines
+    every document.
     """
 
     def __init__(
@@ -406,6 +426,7 @@ class StreamingScorer:
         self.hashed = is_hashed_vocab(model.vocab)
         self._rows_for = make_vectorizer(model.vocab)
         self.batch_capacity = batch_capacity
+        self.min_row_len = row_len or 8
         self.row_len = row_len
         self.tallies = np.zeros(model.k, np.int64)
         # keep_results=False keeps only the tallies (constant memory for
@@ -418,21 +439,19 @@ class StreamingScorer:
         all_names, all_texts, rows = _vectorize_quarantined(
             self.pre, self._rows_for, mb, self.quarantine, "vectorize"
         )
-        if self.row_len is None:
-            max_nnz = max((len(i) for i, _ in rows), default=1)
-            self.row_len = max(8, next_pow2(max_nnz))
         out: List[ScoredDoc] = []
         for at in range(0, len(rows), self.batch_capacity):
             chunk = rows[at : at + self.batch_capacity]
             names = all_names[at : at + self.batch_capacity]
             max_nnz = max((len(i) for i, _ in chunk), default=1)
-            if max_nnz > self.row_len:
-                self.row_len = next_pow2(max_nnz)
+            self.row_len = max(self.min_row_len, next_pow2(max_nnz))
             batch = batch_from_rows(
                 pad_rows(chunk, self.batch_capacity), row_len=self.row_len
             )
             try:
                 dist = self.model.topic_distribution(batch)[: len(chunk)]
+            except _DEVICE_FAULTS:
+                raise   # the card failed, not the documents: stop here
             except Exception as exc:
                 # a score-time failure: the chunk's docs to the
                 # quarantine, and the stream goes on
@@ -512,6 +531,7 @@ class StreamingOnlineLDA:
         device="cuda",
         init_lam: Optional[np.ndarray] = None,
         gamma0_fn: Optional[Callable[[int, int], np.ndarray]] = None,
+        fence=None,
     ) -> None:
         if (vocab is None) == (num_features is None):
             raise ValueError("exactly one of vocab / num_features required")
@@ -545,8 +565,12 @@ class StreamingOnlineLDA:
         self._alpha_dev = torch.from_numpy(self._alpha).to(self.device)
         self._gamma0_fn = gamma0_fn
 
+        # ``fence``: a supervised fleet worker's token
+        # (``resilience.supervisor.FleetFence``), verified before every
+        # ledger write, so a worker superseded by a respawn or a resize
+        # stops with ``FencedEpochError`` instead of committing
         self.ledger = (
-            EpochLedger(params.checkpoint_dir)
+            EpochLedger(params.checkpoint_dir, fence=fence)
             if params.checkpoint_dir else None
         )
         self._pending_sources: List[str] = []

@@ -521,21 +521,23 @@ def test_books_root_routes_through_lang_dirs(native_lib, corpus, tmp_path):
 
 
 @pytest.mark.parametrize("cmd", ["train", "score", "stream-score",
-                                 "stream-train", "stream"])
+                                 "stream-train", "stream", "supervise"])
 def test_cli_flags_and_defaults_match_jax(cmd):
-    """Every flag of the JAX CLI's train, score and stream verbs, with its
-    default, and the port's own: --device (default cuda) and, on train and
-    score, --dist-backend (default by device); score also takes the grid
-    bring-up flags train has.  ``stream`` has the JAX package's two
-    maintenance verbs, with their flags."""
+    """Every flag of the JAX CLI's train, score, stream and supervise
+    verbs, with its default, and the port's own: --device (default cuda;
+    on supervise None, which passes no --device to the workers) and, on
+    train and score, --dist-backend (default by device); score also takes
+    the grid bring-up flags train has.  ``stream`` has the JAX package's
+    two maintenance verbs, with their flags."""
     def subparsers(parser):
         (sub,) = [a for a in parser._actions
                   if isinstance(a, argparse._SubParsersAction)]
         return sub.choices
 
     def flags(parser):
-        return {(o, a.default) for a in parser._actions
-                for o in a.option_strings}
+        return {(o, tuple(a.default) if isinstance(a.default, list)
+                 else a.default)
+                for a in parser._actions for o in a.option_strings}
 
     if cmd == "stream":
         def verbs(parser):
@@ -546,7 +548,7 @@ def test_cli_flags_and_defaults_match_jax(cmd):
         return
     got = flags(subparsers(tcli.build_parser())[cmd])
     want = flags(subparsers(jcli.build_parser())[cmd])
-    extra = {("--device", "cuda")}
+    extra = {("--device", None if cmd == "supervise" else "cuda")}
     if cmd in ("train", "score"):
         extra.add(("--dist-backend", None))
     if cmd == "score":
@@ -579,8 +581,8 @@ def test_resume_mismatch_exits_2(native_lib, corpus, tmp_path):
     assert rc == 2 and "--resume requires --checkpoint-dir" in se
 
 
-_FLEET = "item 7b, the supervised fleet"
 _STREAM_GRID = "item 7c, streaming on the grid"
+_SERVE = "item 8b, the serve fleet"
 REFUSED = [
     (["train", "--telemetry-file", "t.jsonl"], "--telemetry-file", "item 9"),
     (["train", "--compile-cache", "cc"], "--compile-cache", "item 10"),
@@ -590,20 +592,37 @@ REFUSED = [
      "item 9"),
     (["stream-train", "--compile-cache", "cc"], "--compile-cache",
      "item 10"),
-    (["stream-score", "--fleet-dir", "f"], "--fleet-dir", _FLEET),
-    (["stream-train", "--fleet-dir", "f"], "--fleet-dir", _FLEET),
-    (["stream-train", "--worker-index", "1"], "--worker-index", _FLEET),
-    (["stream-score", "--worker-count", "3"], "--worker-count", _FLEET),
-    (["stream-train", "--fleet-generation", "2"], "--fleet-generation",
-     _FLEET),
-    (["stream-score", "--fleet-spawn-id", "5"], "--fleet-spawn-id", _FLEET),
-    (["stream-train", "--heartbeat-interval", "2"], "--heartbeat-interval",
-     _FLEET),
-    (["stream-score", "--lease-timeout", "9"], "--lease-timeout", _FLEET),
     (["stream-train", "--data-shards", "2"], "--data-shards 2",
      _STREAM_GRID),
     (["stream-train", "--model-shards", "2"], "--model-shards 2",
      _STREAM_GRID),
+    (["supervise", "--role", "serve"], "--role serve", _SERVE),
+    (["supervise", "--front-port", "0"], "--front-port", _SERVE),
+    (["supervise", "--max-seconds", "5"], "--max-seconds", _SERVE),
+    (["supervise", "--swap-timeout", "9"], "--swap-timeout", _SERVE),
+    (["supervise", "--serve-max-batch", "8"], "--serve-max-batch", _SERVE),
+    (["supervise", "--serve-linger-ms", "1"], "--serve-linger-ms", _SERVE),
+    (["supervise", "--serve-emulate-doc-ms", "1"], "--serve-emulate-doc-ms",
+     _SERVE),
+    (["supervise", "--serve-max-queue", "4"], "--serve-max-queue", _SERVE),
+    (["supervise", "--serve-batch-weight", "0.5"], "--serve-batch-weight",
+     _SERVE),
+    (["supervise", "--autoscale"], "--autoscale", _SERVE),
+    (["supervise", "--autoscale-high-rho", "0.9"], "--autoscale-high-rho",
+     _SERVE),
+    (["supervise", "--autoscale-low-rho", "0.1"], "--autoscale-low-rho",
+     _SERVE),
+    (["supervise", "--autoscale-confirm", "3"], "--autoscale-confirm",
+     _SERVE),
+    (["supervise", "--autoscale-cooldown", "1"], "--autoscale-cooldown",
+     _SERVE),
+    (["supervise", "--telemetry-file", "t.jsonl"], "--telemetry-file",
+     "item 9"),
+    (["supervise", "--worker-telemetry-dir", "t"], "--worker-telemetry-dir",
+     "item 9"),
+    (["supervise", "--ship-to", "localhost:1"], "--ship-to", "item 9"),
+    (["supervise", "--actions-file", "a.json"], "--actions-file", "item 9"),
+    (["supervise", "--compile-cache", "cc"], "--compile-cache", "item 10"),
 ]
 
 
@@ -613,13 +632,18 @@ def test_unported_flags_exit_2_and_name_their_item(tmp_path, argv, flag,
                                                    item):
     """Each flag whose machinery is not ported exits 2 before any work,
     naming its ROADMAP.md queue 1 item; none is accepted and ignored (a
-    fleet flag left at the JAX package's default is the JAX CLI's
-    unsupervised stream)."""
-    source = "--watch-dir" if argv[0].startswith("stream") else "--books"
-    books = [source, str(tmp_path / "none")]
+    serve flag left at the JAX package's default is the JAX CLI's stream
+    fleet)."""
+    if argv[0] == "supervise":
+        books = ["--watch-dir", str(tmp_path / "none"), "--fleet-dir",
+                 str(tmp_path / "fleet")]
+    else:
+        source = "--watch-dir" if argv[0].startswith("stream") else "--books"
+        books = [source, str(tmp_path / "none")]
     rc, so, se = run(port_main, [*argv[:1], *books, *argv[1:]])
     assert rc == 2 and so == ""
     assert f"error: {flag} is not ported yet (ROADMAP.md queue 1 {item}" in se
+    assert not os.path.exists(tmp_path / "fleet")
 
 
 GRID_REFUSED = [
@@ -1270,3 +1294,65 @@ def test_fenced_ledger_write_exits_3_in_both(native_lib, stream_books,
         assert rc == 3 and model is None
         assert "error: fenced ledger write (fleet '/fleet')" in se
         assert not os.path.exists(tmp_path / name / "ck" / "epochs.jsonl")
+
+
+@pytest.mark.parametrize("spawn_id", [0, 1])
+def test_stream_worker_flags_match_jax_cli(native_lib, stream_books,
+                                           tmp_path, spawn_id,
+                                           sigterm_restored):
+    """``stream-score`` as worker 1 of 2 of a supervised fleet (the flags
+    ``supervise`` passes), in both CLIs, each under a fleet dir whose
+    spawn record its own package wrote: with the current token both
+    score only the worker's partition of the books, commit the same
+    sources in records that carry the worker's identity, and leave a done
+    lease (reason idle); with a superseded token (the record names spawn
+    id 1) both exit 3 before committing and mark the lease fenced."""
+    from spark_text_clustering_tpu.resilience import (
+        configure_lease_deadline as j_deadline,
+    )
+    from spark_text_clustering_tpu.resilience import supervisor as jsup
+    from spark_text_clustering_tpu_torch.resilience import supervisor as tsup
+
+    books, stop = stream_books
+    model = str(tmp_path / "LdaModel_EN_1000")
+    lda_model_from_numpy(
+        np.random.default_rng(3).gamma(1.0, 1.0, (K, 1024)),
+        np.full(K, 0.5, np.float32), 0.1, [f"h{i}" for i in range(1024)],
+        algorithm="online", device="cpu").save(model)
+    mine = sorted(os.path.join(books, n) for n in os.listdir(books)
+                  if tsup.partition_of(n, 2) == 1)
+    assert 0 < len(mine) < 6
+    got = {}
+    for name, main, sup in (("jax", jax_main, jsup), ("port", port_main,
+                                                      tsup)):
+        fleet = str(tmp_path / name / "fleet")
+        sup.FleetLedger(fleet).append(kind="spawn", generation=0,
+                                      worker_count=2, spawn_ids={0: 0, 1: 1})
+        ck = sup.worker_dir(fleet, 1)
+        try:
+            with jax_python_text():
+                rc, so, se = run(main, [
+                    "stream-score", "--watch-dir", books, "--stop-words",
+                    stop, "--model", model, "--checkpoint-dir", ck,
+                    "--output-dir", str(tmp_path / name / "o"),
+                    "--fleet-dir", fleet, "--worker-index", "1",
+                    "--worker-count", "2", "--fleet-spawn-id",
+                    str(spawn_id), "--heartbeat-interval", "0.1",
+                    "--lease-timeout", "5", *STREAM_FLAGS])
+        finally:
+            j_deadline(None)
+        got[name] = (rc, se, ck, sup.read_lease(sup.lease_path(fleet, 1)))
+    for name, (rc, se, ck, lease) in got.items():
+        assert lease["worker"] == 1 and lease["spawn_id"] == spawn_id
+        assert lease["done"] is True
+        if spawn_id == 1:
+            assert rc == 0, se
+            assert lease["reason"] == "idle"
+            recs = tsup.EpochLedger(ck).records()
+            assert sorted(s for r in recs for s in r["sources"]) == mine
+            assert {(r["worker"], r["generation"], r["spawn_id"])
+                    for r in recs} == {(1, 0, 1)}
+        else:
+            assert rc == 3 and "superseded" in se, se
+            assert lease["reason"] == "fenced"
+            assert tsup.EpochLedger(ck).records() == []

@@ -76,7 +76,7 @@ def test_the_grid_modules_are_scanned():
 def test_the_streaming_modules_are_scanned():
     """The import and source scans cover streaming and the resilience
     modules it brought: the ledger, retry, fault injection, the
-    quarantine and the drain notice."""
+    quarantine and the fleet supervisor."""
     mods = set(_port_modules())
     assert {"spark_text_clustering_tpu_torch.streaming",
             "spark_text_clustering_tpu_torch.resilience.ledger",
@@ -225,6 +225,90 @@ def test_stream_verbs_default_to_the_card(tmp_path):
         StreamingOnlineLDA(Params(k=2), num_features=8)
     assert cli.main(["stream-score", "--watch-dir", watch, "--models-dir",
                      str(tmp_path), "--device", "cpu"]) == 2
+
+
+def test_supervisor_imports_neither_torch_nor_jax():
+    """The fleet supervisor is subprocess-and-files machinery that must
+    survive whatever a worker does to the card: importing it (and the
+    resilience layer under it) loads neither torch, jax nor the JAX
+    package, and running a fleet of workers that import nothing keeps it
+    so."""
+    code = (
+        "import sys, importlib.util, types\n"
+        "spec = importlib.util.find_spec('spark_text_clustering_tpu_torch')\n"
+        "pkg = types.ModuleType(spec.name)\n"
+        "pkg.__path__ = list(spec.submodule_search_locations)\n"
+        "sys.modules[spec.name] = pkg\n"
+        "from spark_text_clustering_tpu_torch.resilience import supervisor\n"
+        "import tempfile, os\n"
+        "d = tempfile.mkdtemp()\n"
+        "def argv(i, n, g, s):\n"
+        "    lease = supervisor.lease_path(d, i)\n"
+        "    return [sys.executable, '-c', 'import json, os, sys; '\n"
+        "            'json.dump({\"spawn_id\": %d, \"done\": True, '\n"
+        "            '\"ts\": 0}, open(sys.argv[1], \"w\"))' % s, lease]\n"
+        "rep = supervisor.FleetSupervisor(d, argv, workers=2,\n"
+        "                                 sweep_interval=0.05).run()\n"
+        "assert rep.converged and rep.spawns == 2, rep\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('torch', 'jax', 'numpy', 'spark_text_clustering_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def _worker_argv(argv, index=1, count=3, generation=2, spawn_id=7):
+    from spark_text_clustering_tpu_torch import cli
+
+    args = cli.build_parser().parse_args(
+        ["supervise", "--watch-dir", "w", "--fleet-dir", "f", *argv])
+    return cli._worker_argv(args, index, count, generation, spawn_id)
+
+
+@pytest.mark.parametrize("role", ["stream-score", "stream-train"])
+def test_supervise_workers_run_the_ports_cli(role):
+    """``supervise`` starts each worker as the port's CLI, never the JAX
+    package's, with its fleet identity and its own checkpoint dir."""
+    from spark_text_clustering_tpu_torch import cli
+
+    argv = _worker_argv(["--role", role])
+    assert argv[:4] == [sys.executable, "-m",
+                        "spark_text_clustering_tpu_torch.cli", role]
+    args = cli.build_parser().parse_args(argv[3:])
+    assert (args.fleet_dir, args.worker_index, args.worker_count,
+            args.fleet_generation, args.fleet_spawn_id) == ("f", 1, 3, 2, 7)
+    assert args.checkpoint_dir == os.path.join("f", "w001")
+
+
+@pytest.mark.parametrize("device,want", [(None, "cuda"), ("cpu", "cpu"),
+                                         ("cuda:0", "cuda:0")])
+def test_supervise_workers_default_to_the_card(device, want):
+    """Without --device, ``supervise`` passes none, so every worker runs on
+    the card as the stream verbs do; a --device given is passed on."""
+    from spark_text_clustering_tpu_torch import cli
+
+    for role in ("stream-score", "stream-train"):
+        extra = [] if device is None else ["--device", device]
+        argv = _worker_argv(["--role", role, *extra])
+        assert ("--device" in argv) == (device is not None)
+        assert cli.build_parser().parse_args(argv[3:]).device == want
+
+
+def test_supervise_defaults_to_the_card(tmp_path):
+    """Without a card and without --device cpu, ``supervise`` raises
+    before it writes a fleet record or starts a worker."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs on it")
+    from spark_text_clustering_tpu_torch import cli
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["supervise", "--watch-dir", str(tmp_path / "w"),
+                  "--fleet-dir", str(tmp_path / "f")])
+    assert os.listdir(tmp_path) == []
 
 
 def test_resolving_cuda_turns_tf32_off(monkeypatch):

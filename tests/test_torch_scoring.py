@@ -220,3 +220,41 @@ def test_topic_distribution_doc_term_batch(jax_model_dir, seed):
                      (tm, batch)):
         with pytest.raises(ValueError, match="scores row lists"):
             model.topic_distribution(b, convergence="per_doc")
+
+
+@pytest.mark.parametrize("algorithm", ["em", "online"])
+def test_log_likelihood_doc_term_batch(jax_model_dir, algorithm):
+    """Fault L1: ``log_likelihood`` and ``log_perplexity`` take one pinned
+    [8, 64] DocTermBatch of 6 rows and 2 pad rows as it is, in both
+    packages, from one lambda and all-ones gamma inits: the port agrees
+    with the JAX package within 1e-4 relative, each package's batch
+    result equals its own row-list result within 1e-6 relative (pad rows
+    add nothing to the bound), and a 1x1 grid agrees with one device."""
+    from spark_text_clustering_tpu.ops.sparse import (
+        batch_from_rows as j_batch, pad_rows as j_pad,
+    )
+    from spark_text_clustering_tpu_torch.ops.sparse import (
+        batch_from_rows, pad_rows,
+    )
+    from spark_text_clustering_tpu_torch.parallel import make_grid
+
+    rows = _rows(6, seed=9, lo=20, hi=65)
+    src = j_load(jax_model_dir)
+    jm = JLDAModel(lam=np.asarray(src.lam), vocab=src.vocab,
+                   alpha=src.alpha, eta=src.eta, algorithm=algorithm)
+    tm = lda_model_from_numpy(np.asarray(src.lam), src.alpha, src.eta,
+                              src.vocab, algorithm=algorithm, device="cpu")
+    jb = j_batch(j_pad(rows, 8), row_len=64)
+    tb = batch_from_rows(pad_rows(rows, 8), row_len=64)
+    want = (jm.log_likelihood(jb), jm.log_perplexity(jb))
+    got = (tm.log_likelihood(tb), tm.log_perplexity(tb))
+    assert all(np.isfinite(got))
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    np.testing.assert_allclose(
+        want, (jm.log_likelihood(rows), jm.log_perplexity(rows)), rtol=1e-6)
+    np.testing.assert_allclose(
+        got, (tm.log_likelihood(rows), tm.log_perplexity(rows)), rtol=1e-6)
+    grid = make_grid(1, 1, device="cpu")
+    np.testing.assert_allclose(
+        (tm.log_likelihood(tb, grid=grid), tm.log_perplexity(tb, grid=grid)),
+        got, rtol=1e-6)
