@@ -140,10 +140,27 @@
    plain version and its reports byte equal to the fleet's worker 0; each
    fleet's seconds, books/s, seconds from spawn to first lease beat and
    time to recover;
-15. a ``total`` line with the run's seconds, then a ``kernels`` line: per
-   kernel, the launches of the main-path runs of 3-14 (each must be > 0),
+15. config M, streaming on a 2x2 gloo grid of 4 ranks on the one card, on
+   config E's books with config K's widths and 8 files a trigger: M-train
+   (``stream-train --data-shards 2 --model-shards 2 --dist-backend gloo``
+   against K's 1x1 run with the grid's numerics, its row sums' order and
+   its E-step tiles: lambda within 1e-3 relative or twice that run's
+   spread over a repeat; every book committed once; one state shard an
+   epoch, ``process_count`` 1), M-resume (24 books, idle, 27 more,
+   ``--resume``: lambda within 1e-3 of M-train's, docs_seen 51 and step
+   7; the port's 1x1 trainer loads the dir's lambda bit for bit, and a
+   1x1 ``--resume`` exits 2), M-fleet (``supervise --role stream-train``,
+   2 workers each a 2x1 grid, worker 0 killed at its first commit: every
+   book committed once, no process of the killed
+   worker alive once its respawn commits, each partition's lambda within
+   1e-3 of one 2x1 grid training it; time to recover); each rank's E-step
+   launches held against the plain version; ms a trigger, docs/s, the
+   front end's share, the collectives' ms a trigger and share, and the
+   grid's seconds from spawn to result;
+16. a ``total`` line with the run's seconds, then a ``kernels`` line: per
+   kernel, the launches of the main-path runs of 3-15 (each must be > 0),
    the largest difference from the plain version, and the times beside
-   the card's bound.
+   the card's bound (the E-step's entry also M's own, as ``config_M``).
 
 Every phase prints one JSON line; the first line is ``nvidia-smi``'s name
 and power limit, and the last is ``{"ok": true, "device": {...}}``.  Any
@@ -156,6 +173,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
+import io
 import json
 import os
 import re
@@ -2751,26 +2770,37 @@ def grid_online_estep_check(torch, grid, rows, v, seed):
 
 @contextlib.contextmanager
 def shard_row_sums(torch, module, shards: int):
-    """Inside the block, ``module._eb_at`` (the online fit's exp(E[log
-    beta]) at the tokens) on one device sums lambda's rows as a grid of
-    ``shards`` vocabulary shards does: each shard's columns, then the
-    shards in order.  A last-bit change in a row sum can move a tile at
-    the tol boundary by one inner iteration, and that moves lambda by
-    ~1e-4 an iteration."""
-    eb_at = module._eb_at
+    """Inside the block, ``module._eb_at`` and ``module._eb_table`` (the
+    online fit's exp(E[log beta]) at the tokens and over lambda's columns)
+    on one device sum lambda's rows as a grid of ``shards`` vocabulary
+    shards does: each shard's columns, then the shards in order.  A
+    last-bit change in a row sum can move a tile at the tol boundary by
+    one inner iteration, and that moves lambda by ~1e-4 an iteration; a
+    stream's unconverged E-step tiles (100 inner iterations) carry it
+    further (config M)."""
+    from spark_text_clustering_tpu_torch.ops.lda_math import (
+        dirichlet_expectation_sharded,
+    )
+
+    eb_at, eb_table = module._eb_at, module._eb_table
+
+    def row_sums(lam):
+        w = lam.shape[1] // shards
+        return sum(lam[:, i * w:(i + 1) * w].contiguous().sum(dim=1)
+                   for i in range(shards))
 
     def grid_order(lam, flat, grid=None):
-        w = lam.shape[1] // shards
-        row_sum = sum(lam[:, i * w:(i + 1) * w].contiguous().sum(dim=1)
-                      for i in range(shards))
         return torch.exp(torch.digamma(lam[:, flat].clamp(min=1e-30))
-                         - torch.digamma(row_sum)[:, None])
+                         - torch.digamma(row_sums(lam))[:, None])
 
-    module._eb_at = grid_order
+    def table_grid_order(lam, grid=None):
+        return torch.exp(dirichlet_expectation_sharded(lam, row_sums(lam)))
+
+    module._eb_at, module._eb_table = grid_order, table_grid_order
     try:
         yield
     finally:
-        module._eb_at = eb_at
+        module._eb_at, module._eb_table = eb_at, eb_table
 
 
 def _timed_fit(torch, grid, fit, units: int) -> dict:
@@ -3777,6 +3807,461 @@ def run_config_l(torch, seed, e, smi):
     }
 
 
+def pid_alive(pid: int) -> bool:
+    """Whether process ``pid`` runs (a zombie does not)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _proc_table():
+    """{pid: (parent pid, argv)} of this host's live processes."""
+    out = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                argv = [a.decode(errors="replace")
+                        for a in f.read().split(b"\0")]
+        except OSError:
+            continue
+        if fields[0] != "Z":
+            out[int(name)] = (int(fields[1]), argv)
+    return out
+
+
+@contextlib.contextmanager
+def rank_watch(fleet):
+    """Inside the block, a thread lists this host's processes every 20 ms:
+    each worker command of ``fleet`` (its argv names the fleet dir) and
+    each process it spawned (a grid worker's ranks), as {(worker, spawn
+    id): {pid: [first seen, last seen, whether a spawned rank]}} in wall
+    seconds."""
+    seen, stop = {}, threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            now, table, workers = time.time(), _proc_table(), {}
+            for pid, (_, argv) in table.items():
+                if fleet in argv and "--fleet-spawn-id" in argv:
+                    workers[pid] = (
+                        int(argv[argv.index("--worker-index") + 1]),
+                        int(argv[argv.index("--fleet-spawn-id") + 1]))
+            for pid, (ppid, argv) in table.items():
+                key = workers.get(pid) or workers.get(ppid)
+                if key is not None:
+                    span = seen.setdefault(key, {}).setdefault(
+                        pid, [now, now, "--multiprocessing-fork" in argv])
+                    span[1] = now
+            stop.wait(0.02)
+
+    thread = threading.Thread(target=poll, daemon=True)
+    thread.start()
+    try:
+        yield seen
+    finally:
+        stop.set()
+        thread.join()
+
+
+def orphans_after_respawn(fleet, procs, worker=0):
+    """The processes of ``worker``'s first incarnation (seen by
+    ``rank_watch``) against the first epoch its respawn committed: how
+    many there were, how many were grid ranks, the ones still seen alive
+    at or after that commit, and the seconds from the last one seen to the
+    commit."""
+    from spark_text_clustering_tpu_torch.resilience import EpochLedger
+    from spark_text_clustering_tpu_torch.resilience.supervisor import (
+        FleetLedger,
+    )
+
+    records = FleetLedger(fleet).records()
+    first = int(records[0]["spawn_ids"][str(worker)])
+    (respawn,) = [r for r in records
+                  if r["kind"] == "respawn" and r["worker"] == worker]
+    new_id = int(respawn["spawn_ids"][str(worker)])
+    commit = min(r["ts"] for r in EpochLedger(os.path.join(
+        fleet, f"w{worker:03d}")).records() if r.get("spawn_id") == new_id)
+    old = procs.get((worker, first), {})
+    return {"processes": len(old),
+            "ranks": sum(1 for _, _, rank in old.values() if rank),
+            "alive_after_respawn_commit": sorted(
+                pid for pid, (_, last, _) in old.items() if last >= commit),
+            "last_seen_to_respawn_commit_s": commit - max(
+                (last for _, last, _ in old.values()), default=commit)}
+
+
+# ---- config M: streaming on the (data, model) grid --------------------------
+M_FLAGS = ["--data-shards", "2", "--model-shards", "2", "--dist-backend",
+           "gloo"]
+
+
+def m_rank(grid, body_name, args):
+    """One rank of a config M command: the CLI's own rank function
+    (``cli._grid_rank``) under spies.  On rank 0 each trigger (``process``)
+    is timed to the end of its device work, with its text front end and
+    its collectives (the grid's ``all_reduce``s, synchronized, and the
+    trainer's broadcasts); every rank's E-step launches are recorded.
+    After the command each recorded launch is held against its plain
+    version, those launches left out of the counts.  Returns (the exit
+    code, the rank's stats)."""
+    import torch
+
+    from spark_text_clustering_tpu_torch import cli, streaming
+    from spark_text_clustering_tpu_torch.models import online_lda
+    from spark_text_clustering_tpu_torch.ops import _build
+
+    trainer = streaming.StreamingOnlineLDA
+    share, process = trainer._share, trainer.process
+    vectorize = streaming._vectorize_quarantined
+    shares = {"calls": 0, "seconds": 0.0}
+    front, triggers = [], []
+
+    def collective_s():
+        return grid.stats["seconds"] + shares["seconds"]
+
+    def timed_share(self, msg=None):
+        t0 = time.perf_counter()
+        try:
+            return share(self, msg)
+        finally:
+            shares["calls"] += 1
+            shares["seconds"] += time.perf_counter() - t0
+
+    def timed_vectorize(*a):
+        t0 = time.perf_counter()
+        out = vectorize(*a)
+        front.append(time.perf_counter() - t0)
+        return out
+
+    def timed_process(self, mb=None):
+        del front[:]
+        c0, t0 = collective_s(), time.perf_counter()
+        out = process(self, mb)
+        torch.cuda.synchronize()
+        triggers.append(("StreamingOnlineLDA", "cuda", list(mb.names),
+                         time.perf_counter() - t0, sum(front),
+                         collective_s() - c0))
+        return out
+
+    trainer._share, trainer.process = timed_share, timed_process
+    streaming._vectorize_quarantined = timed_vectorize
+    grid.timed = True
+    try:
+        with recorded(online_lda, "gamma_fixed_point_bkl") as seen:
+            rc = cli._grid_rank(grid, body_name, args)
+    finally:
+        trainer._share, trainer.process = share, process
+        streaming._vectorize_quarantined = vectorize
+        grid.timed = False
+    launches = dict(_build.LAUNCHES)
+    widest = max(range(len(seen)), key=lambda i: seen[i][0][0].shape[2],
+                 default=None)
+    cases = [{"rank": grid.rank, "launch": i, **estep_case(
+        torch, *a[:4], f"M_{grid.rank}_{i}", timed=i == widest)}
+        for i, (a, _) in enumerate(seen)]
+    del seen
+    _build.LAUNCHES.update(launches)
+    return rc, {"rank": grid.rank, "triggers": triggers, "shares": shares,
+                "all_reduce": dict(grid.stats), "launches": launches,
+                "cases": cases}
+
+
+@contextlib.contextmanager
+def m_grid_spy():
+    """Inside the block, a grid command run through ``cli.main`` in this
+    process spawns its ranks under ``m_rank`` (which runs the CLI's own
+    rank function); each command's seconds from spawn to result and its
+    ranks' stats are appended to the yielded list."""
+    from spark_text_clustering_tpu_torch import cli
+
+    run_grid, runs = cli.run_grid, []
+
+    def spied(fn, d, m, args, **kw):
+        t0 = time.perf_counter()
+        out = run_grid(m_rank, d, m, args, **kw)
+        runs.append({"grid_s": time.perf_counter() - t0,
+                     "ranks": [stats for _, stats in out]})
+        return [rc for rc, _ in out]
+
+    cli.run_grid = spied
+    try:
+        yield runs
+    finally:
+        cli.run_grid = run_grid
+
+
+def m_partition_rank(grid, watch, stop, seed):
+    """One rank of a 2x1 grid training each of a two-worker fleet's
+    partitions of ``watch`` in turn, as one ``stream-train`` worker does
+    (one file a trigger, every trigger committed to a checkpoint-less
+    trainer): each partition's lambda [k, V]."""
+    from spark_text_clustering_tpu_torch import Params, cli
+    from spark_text_clustering_tpu_torch.streaming import (
+        FileStreamSource, StreamingOnlineLDA,
+    )
+
+    out = []
+    for w in range(2):
+        t = StreamingOnlineLDA(
+            Params(k=EN_K, algorithm="online", seed=seed,
+                   data_shards=grid.data_shards),
+            num_features=1 << 18, stop_words=cli._load_stop_words(stop),
+            grid=grid)
+        if grid.rank == 0:
+            t.run(FileStreamSource(watch, max_files_per_trigger=1,
+                                   partition=(w, 2)),
+                  poll_interval=0.05, idle_timeout=0.5)
+        else:
+            t.run()
+        out.append(t.model().lam)
+    return out
+
+
+def run_cli_err(argv, out_path):
+    """``cli.main(argv)`` in this process: (exit code, stdout, stderr)."""
+    from spark_text_clustering_tpu_torch import cli
+
+    err = io.StringIO()
+    with open(out_path, "w") as f, contextlib.redirect_stdout(f), \
+            contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    with open(out_path) as f:
+        return rc, f.read(), err.getvalue()
+
+
+def run_config_m(torch, seed, e, smi):
+    """Streaming on a 2x2 gloo grid of 4 ranks on the one card, on config
+    E's 51 books with config K's widths (batch capacity 8, 2^18 hash
+    features, k=5) and 8 files a trigger (7 triggers),
+    ``--checkpoint-interval 2``; every grid command runs through
+    ``cli.main`` with its ranks under ``m_rank``'s spies.
+
+    M-train: ``stream-train --data-shards 2 --model-shards 2 --dist-backend
+    gloo`` against K's 1x1 ``stream-train`` on the card run again with the
+    grid's numerics: lambda's rows summed in the grid's order
+    (``shard_row_sums``, J's rule) and E-step tiles of the grid's data
+    blocks (4 rows; a tile's sums run in another order than an 8-row
+    tile's, and most of a stream's E-step tiles run all 100 inner
+    iterations unconverged, which carries a last-bit change to ~1e-3 of
+    lambda in 7 steps), within
+    1e-3 relative, or twice that run's spread over a repeat where that is
+    larger (``index_add_`` adds with atomics); the differences from K's
+    own run, of the grid and of that 1x1 run, are reported beside it.  Every book committed once, each state
+    record one shard over [0, V_pad) with ``process_count`` 1.  M-resume: 24 books, the stream ends idle, 27
+    more, ``--resume``: lambda within 1e-3 of M-train's, docs_seen 51 and
+    step 7, every book committed once; the port's 1x1 library trainer
+    loads the dir's lambda bit for bit, and ``stream-train --resume`` at
+    1x1 on it exits 2 with the config-hash message.  M-fleet: ``supervise
+    --role stream-train`` (a subprocess) with 2 workers, each a 2x1 grid
+    (``--worker-arg=--data-shards=2 --worker-arg=--dist-backend=gloo``: 4
+    ranks on the card), worker 0 killed at its first commit: every book
+    committed once, no process of the killed worker alive once its respawn
+    commits (their PIDs read from /proc), each partition's lambda within
+    1e-3 of one 2x1 grid training it, time to recover.  The kernel: every
+    rank's E-step launches of M-train and M-resume against the plain
+    version."""
+    from spark_text_clustering_tpu_torch import Params
+    from spark_text_clustering_tpu_torch.models import online_lda
+    from spark_text_clustering_tpu_torch.models.persistence import (
+        latest_model_dir, load_train_state,
+    )
+    from spark_text_clustering_tpu_torch.ops import _build
+    from spark_text_clustering_tpu_torch.parallel import run_grid
+    from spark_text_clustering_tpu_torch.resilience import EpochLedger
+    from spark_text_clustering_tpu_torch.streaming import StreamingOnlineLDA
+
+    root = os.path.join(e["root"], "M")
+    os.makedirs(root)
+    books, stop = e["books"], e["stop"]
+    names = sorted(os.listdir(books))
+    watch = os.path.join(e["root"], "K", "watch")       # K's, mtime-ordered
+    n_triggers = -(-len(names) // K_TRIGGER_FILES)
+
+    def stream_train(tag, watch_dir_, *extra, models=None):
+        models = models or os.path.join(root, f"m_{tag}")
+        out, secs = stream_cli("M", [
+            "stream-train", "--watch-dir", watch_dir_, "--stop-words", stop,
+            "--checkpoint-dir", os.path.join(root, f"ck_{tag}"),
+            "--checkpoint-interval", "2", "--models-dir", models,
+            "--seed", str(seed), "--device", "cuda", *K_STREAM, *extra],
+            os.path.join(root, f"train_{tag}.out"))
+        return out, secs, latest_model_dir(models, "EN")
+
+    def lam_of(path):
+        with np.load(os.path.join(path, "arrays.npz")) as z:
+            return z["lam"]
+
+    def rel_diff(a, b):
+        return float(np.max(np.abs(a - b) / np.abs(b)))
+
+    def state_records(tag):
+        recs = [r for r in EpochLedger(os.path.join(
+            root, f"ck_{tag}")).records() if r.get("shards")]
+        shards = {(r["process_count"], len(r["shards"]),
+                   r["shards"][0]["p"], tuple(r["shards"][0]["cols"]))
+                  for r in recs}
+        srcs = [os.path.basename(s) for r in recs for s in r["sources"]]
+        if shards != {(1, 1, 0, (0, 1 << 18))} or sorted(srcs) != names:
+            raise AssertionError(f"config M-{tag}: records {shards}, "
+                                 f"{len(srcs)} sources of {len(names)}")
+        return recs
+
+    # M-train; K's 1x1 run twice more with the grid's numerics (lambda's
+    # rows summed in the grid's order, J's rule, and E-step tiles of the
+    # grid's data blocks), which M-train is held to, beside K's own
+    _build.reset_launches()
+    with m_grid_spy() as runs:
+        train_out, train_s, train_dir = stream_train("train", watch,
+                                                     *M_FLAGS)
+    train_launches = dict(_build.LAUNCHES)
+    train_run = runs[0]
+    lam = lam_of(train_dir)
+    k_lam = lam_of(latest_model_dir(os.path.join(e["root"], "K", "m_whole"),
+                                    "EN"))
+    estep_kernel = online_lda.gamma_fixed_point_bkl
+    online_lda.gamma_fixed_point_bkl = functools.partial(
+        estep_kernel, tile_b=8 // 2)
+    try:
+        with shard_row_sums(torch, online_lda, 2):
+            ordered = [lam_of(stream_train(f"k_order{i}", watch)[2])
+                       for i in range(2)]
+    finally:
+        online_lda.gamma_fixed_point_bkl = estep_kernel
+    spread = rel_diff(ordered[1], ordered[0])
+    vs_order = rel_diff(lam, ordered[0])
+    vs_k = rel_diff(lam, k_lam)
+    k_numerics = rel_diff(ordered[0], k_lam)
+    train_recs = state_records("train")
+    triggers = train_run["ranks"][0]["triggers"]
+    if (f"stream ended: {len(names)} docs / {n_triggers} micro-batches"
+            not in train_out or len(triggers) != n_triggers
+            or train_launches["gamma_fixed_point_bkl"] != 4 * n_triggers
+            or not vs_order <= max(1e-3, 2 * spread)):
+        raise AssertionError(
+            f"config M-train: {len(triggers)} triggers, {train_launches}, "
+            f"lambda against K with the grid's numerics {vs_order} (its "
+            f"spread {spread}; against K {vs_k}, K against K with the "
+            f"grid's numerics {k_numerics})")
+
+    # M-resume: 24 books, the stream ends idle, 27 more, --resume
+    _build.reset_launches()
+    with m_grid_spy() as wave_runs:
+        wave = watch_dir(books, os.path.join(root, "watch_wave"),
+                         names[:K_WAVE])
+        first_out, _, _ = stream_train("wave", wave, *M_FLAGS)
+        watch_dir(books, wave, names[K_WAVE:])
+        resumed_out, _, resumed_dir = stream_train("wave", wave, *M_FLAGS,
+                                                   "--resume")
+    wave_launches = dict(_build.LAUNCHES)
+    resume_rel = rel_diff(lam_of(resumed_dir), lam)
+    last = state_records("wave")[-1]
+    if (f"stream ended: {K_WAVE} docs / 3 micro-batches" not in first_out
+            or "committed epoch" not in resumed_out
+            or (last["docs_seen"], last["step"]) != (len(names), n_triggers)
+            or not resume_rel <= 1e-3):
+        raise AssertionError(f"config M-resume: lambda {resume_rel}, "
+                             f"{last['docs_seen']} docs, step {last['step']}")
+    # the 1x1 library trainer loads the grid's dir bit for bit; the CLI at
+    # 1x1 refuses to resume it
+    ck_wave = os.path.join(root, "ck_wave")
+    (shard,) = last["shards"]
+    written = load_train_state(EpochLedger(ck_wave).resolve(
+        shard["file"]))["lam"]
+    one = StreamingOnlineLDA(Params(k=EN_K, seed=seed,
+                                    checkpoint_dir=ck_wave),
+                             num_features=1 << 18, device="cuda")
+    loaded_equal = bool(np.array_equal(one.lam.cpu().numpy(), written))
+    rc, _, err = run_cli_err([
+        "stream-train", "--watch-dir", wave, "--stop-words", stop,
+        "--checkpoint-dir", ck_wave, "--models-dir",
+        os.path.join(root, "m_refused"), "--seed", str(seed), "--resume",
+        *K_STREAM], os.path.join(root, "refused.out"))
+    if not loaded_equal or rc != 2 or (
+            "checkpoint was written by config" not in err) or (
+            os.path.exists(os.path.join(root, "m_refused"))):
+        raise AssertionError(f"config M-resume: 1x1 load bit-equal "
+                             f"{loaded_equal}, 1x1 --resume exit {rc}: "
+                             f"{err[-500:]}")
+
+    # M-fleet: two 2x1 grid workers, worker 0 killed at its first commit
+    fleet = os.path.join(root, "fleet")
+    models = os.path.join(root, "models_fleet")
+    with rank_watch(fleet) as procs:
+        run = run_fleet("M-fleet", [
+            "--role", "stream-train", "--watch-dir", watch, "--fleet-dir",
+            fleet, "--workers", "2", *L_FLEET, "--stop-words", stop,
+            "--seed", str(seed), "--models-dir", models,
+            "--chaos-worker", "0:ledger.commit:kill@1",
+            "--worker-arg=--data-shards=2",
+            "--worker-arg=--dist-backend=gloo"], root)
+    fleet_exactly_once("M-fleet", fleet, watch)
+    killed = orphans_after_respawn(fleet, procs, 0)
+    recover = time_to_recover(run, fleet, 0)
+    t0 = time.perf_counter()
+    want = run_grid(m_partition_rank, 2, 1, (watch, stop, seed),
+                    backend="gloo", device="cuda", timeout=600)[0]
+    partition_s = time.perf_counter() - t0
+    fleet_rel = [rel_diff(lam_of(latest_model_dir(
+        os.path.join(models, f"w{w:03d}"), "EN")), want[w])
+        for w in range(2)]
+    if (run["counts"]["respawns"] != 1 or killed["ranks"] < 2
+            or killed["alive_after_respawn_commit"]
+            or not max(fleet_rel) <= 1e-3):
+        raise AssertionError(f"config M-fleet: {run['counts']}, killed "
+                             f"worker {killed}, lambda {fleet_rel}")
+
+    cases = [c for r in (*train_run["ranks"], *(
+        rank for w in wave_runs for rank in w["ranks"])) for c in r["cases"]]
+    coll = np.array([t[5] for t in triggers])
+    secs = np.array([t[3] for t in triggers])
+    launches = {name: train_launches[name] + wave_launches[name]
+                for name in train_launches}
+    return {
+        "phase": "config_M", "card": smi, "grid": [2, 2], "backend": "gloo",
+        "ranks": 4, "books": len(names), "files_per_trigger": K_TRIGGER_FILES,
+        "k": EN_K, "hash_features": 1 << 18, "batch_capacity": 8,
+        "train": {**trigger_stats(triggers), "seconds": train_s,
+                  "grid_s": train_run["grid_s"],
+                  "collective_ms_per_trigger": 1e3 * float(coll.mean()),
+                  "collective_share": float(coll.sum() / secs.sum()),
+                  "broadcasts": train_run["ranks"][0]["shares"],
+                  "all_reduce": train_run["ranks"][0]["all_reduce"],
+                  "epochs_committed": len(train_recs),
+                  "lam_max_rel_diff_vs_k_grid_numerics": vs_order,
+                  "k_grid_numerics_repeat_lam_max_rel_diff": spread,
+                  "lam_max_rel_diff_vs_k": vs_k,
+                  "k_grid_numerics_vs_k_lam_max_rel_diff": k_numerics},
+        "resume": {"lam_max_rel_diff": resume_rel,
+                   "grid_s": [w["grid_s"] for w in wave_runs],
+                   "resumed_docs_seen": last["docs_seen"],
+                   "resumed_step": last["step"],
+                   "one_device_load_bit_equal": loaded_equal,
+                   "one_device_resume_exit": rc},
+        "fleet": {"seconds": run["seconds"],
+                  "books_per_s": len(names) / run["seconds"],
+                  **run["counts"], "fleet_records": run["records"],
+                  "first_beat_s": run["first_beat_s"],
+                  "time_to_recover_s": recover, "killed_worker": killed,
+                  "lam_max_rel_diff_vs_2x1": fleet_rel,
+                  "partition_2x1_s": partition_s},
+        "launches": launches,
+        "kernel": {"launches": len(cases),
+                   "max_abs_err": max(c["max_abs_err"] for c in cases),
+                   "widest": [c for c in cases if c["ms"] is not None],
+                   "shapes": sorted({tuple(c["shape"]) for c in cases})},
+        "bounds": {"lam_max_rel_diff_vs_k_grid_numerics":
+                   "1e-3, or twice that 1x1 run's spread over a repeat",
+                   "resume_lam_max_rel_diff": 1e-3,
+                   "fleet_lam_max_rel_diff": 1e-3},
+    }
+
+
 def profile_configs(torch, rows_a, rows_b, seed, out_dir):
     """torch.profiler over one fit and the scoring (A, B: padded scoring
     of every doc; D: topic_distribution of EVAL_DOCS docs) or evaluation
@@ -4093,17 +4578,24 @@ def main() -> int:
         summary_l = run_config_l(torch, args.seed, books_e, smi)
         summary_l["seconds"] = time.perf_counter() - t0
         emit(summary_l)
+
+        # 15. config M, streaming on a 2x2 grid of ranks on E's books
+        t0 = time.perf_counter()
+        summary_m = run_config_m(torch, args.seed, books_e, smi)
+        summary_m["seconds"] = time.perf_counter() - t0
+        emit(summary_m)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     if args.profile:
         profile_configs(torch, rows_a, rows_b, args.seed, args.out)
 
-    # 15. the kernels line; the sweep's error is the largest of config A's
+    # 16. the kernels line; the sweep's error is the largest of config A's
     # and config E's checks and config I's ranks'; the gamma row is config
     # B's most populated bucket, and its error the largest of the four
     # buckets, the edge geometries, config H's, K's and L's launches
-    # checked and config I's and J's ranks'; the scatter's includes config
+    # checked and config I's, J's and M's ranks' (its config_M entry: M's
+    # launches, error and widest rank launch); the scatter's includes config
     # I's ranks'; the tile row's error includes config G's launches and
     # J's ranks', the NMF row's J's ranks'
     grid_err = {name: max(c["max_abs_err"] for c in cases)
@@ -4142,11 +4634,12 @@ def main() -> int:
                             + [summary_h["kernel"]["max_abs_err"],
                                summary_k["kernel"]["max_abs_err"],
                                summary_l["kernel"]["max_abs_err"],
+                               summary_m["kernel"]["max_abs_err"],
                                grid_err["gamma_fixed_point_bkl"],
                                j_err["gamma_fixed_point_bkl"]]),
          "buckets": esteps, "geometries": estep_edges,
          "config_H": summary_h["kernel"], "config_K": summary_k["kernel"],
-         "config_L": summary_l["kernel"],
+         "config_L": summary_l["kernel"], "config_M": summary_m["kernel"],
          "config_I": summary_i["checks"]["gamma_fixed_point_bkl"],
          "config_J": summary_j["checks"]["gamma_fixed_point_bkl"]},
     ]
@@ -4159,15 +4652,23 @@ def main() -> int:
             sm["launches"][name]
             for sm in (summary_a, summary_b, summary_c, summary_d, summary_e,
                        summary_f, summary_g, summary_h, summary_i,
-                       summary_j, summary_k, summary_l))
+                       summary_j, summary_k, summary_l, summary_m))
         if kern["launches"] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
         line.append({k_: kern[k_] for k_ in keys})
+        if "config_M" in kern:
+            m_kern = kern["config_M"]
+            line[-1]["config_M"] = {
+                "launches": summary_m["launches"][name],
+                "max_abs_err": m_kern["max_abs_err"],
+                **{k_: max(c[k_] for c in m_kern["widest"])
+                   for k_ in ("ms", "plain_ms", "bound_ms")}}
     record.update(build=build, kernels=kernels, config_A=summary_a,
                   config_B=summary_b, config_C=summary_c, config_D=summary_d,
                   config_E=summary_e, config_F=summary_f, config_G=summary_g,
                   config_H=summary_h, config_I=summary_i, config_J=summary_j,
-                  config_K=summary_k, config_L=summary_l)
+                  config_K=summary_k, config_L=summary_l,
+                  config_M=summary_m)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)

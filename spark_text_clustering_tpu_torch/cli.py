@@ -23,22 +23,29 @@ whose machinery the port has not ported yet exit with code 2 and name the
 ROADMAP item that brings it; none is accepted and then ignored.
 
 ``--data-shards D --model-shards M`` run training (IDF included; EM,
-online VB or NMF) and scoring on a grid of D x M ranks (``parallel``).  Unlike the JAX package,
-where one process drives every local device, each rank is one process on
-one device (rank r on ``cuda:(r mod cards)``).  Without ``--coordinator``
-the command spawns the D x M ranks on this host itself; with
-``--coordinator host:port --num-processes N --process-id i`` it is rank i
-of N = D x M processes started by the caller.  Every rank reads and
-preprocesses the whole book directory, as every JAX process does; only
-rank 0 prints, saves the model and writes the report, and the exit code
-is the worst of the ranks'.
+online VB or NMF), scoring and ``stream-train`` on a grid of D x M ranks
+(``parallel``).  Unlike the JAX package, where one process drives every
+local device, each rank is one process on one device (rank r on
+``cuda:(r mod cards)``).  Without ``--coordinator`` the command spawns the
+D x M ranks on this host itself, and they end with it; with
+``--coordinator host:port --num-processes N --process-id i`` (``train``
+and ``score``) it is rank i of N = D x M processes started by the caller.
+Every rank of ``train`` and ``score`` reads and preprocesses the whole
+book directory, as every JAX process does; only rank 0 prints, saves the
+model and writes the report, and the exit code is the worst of the
+ranks'.
 
 The stream verbs watch a directory and score or train on the files that
 arrive, one trigger at a time, on ``--device``; with ``--checkpoint-dir``
 each trigger commits through the epoch ledger (``resilience.ledger``), so
 a restarted stream emits each report and trains each file exactly once.
-A SIGTERM ends a stream after its in-flight trigger.  A stream runs in
-one process: ``stream-train`` shards (ROADMAP.md queue 1 item 7c) exit 2.
+A SIGTERM ends a stream after its in-flight trigger.  ``stream-train`` on
+a grid (the JAX package's one process over a mesh, as D x M ranks) reads
+the source and runs the text front end on rank 0, which shares each
+micro-batch's rows with the other ranks, holds the lease and the SIGTERM
+drain, and commits one state shard an epoch, as the JAX process does;
+the command's SIGTERM is passed on to rank 0.  ``stream-score`` takes no
+grid flags, as in the JAX package.
 
 ``supervise --role stream-score|stream-train`` runs N stream workers of
 this CLI as subprocesses (``resilience.supervisor``): each takes its
@@ -57,7 +64,9 @@ flag not ported yet; 3 for a stream whose ledger write was fenced.
 from __future__ import annotations
 
 import argparse
+import functools
 import os
+import signal
 import sys
 import time
 from typing import List, Optional
@@ -160,7 +169,6 @@ _NOT_PORTED = {
     "compile_cache": ("--compile-cache",
                       "queue 1 item 10, a compile cache"),
 }
-_STREAM_GRID_ITEM = "queue 1 item 7c, streaming on the grid"
 _SERVE_ITEM = "queue 1 item 8b, the serve fleet"
 
 # ``supervise``'s serve-role flags, their JAX defaults and types (None:
@@ -226,10 +234,12 @@ def _grid_shape(args: argparse.Namespace):
     return d, m, backend
 
 
-def _on_grid(args: argparse.Namespace, body) -> int:
+def _on_grid(args: argparse.Namespace, body, stream: bool = False) -> int:
     """Run ``body(args, grid)``: on one device (grid None), as rank
     ``--process-id`` of a ``--coordinator`` world, or on ranks spawned
-    here for a grid larger than 1x1."""
+    here for a grid larger than 1x1.  A ``stream``'s ranks run without a
+    time limit, end a second after one fails (they wait on each other),
+    and get this process's SIGTERM on rank 0."""
     shape = _grid_shape(args)
     if isinstance(shape, str):
         print(f"error: {shape}", file=sys.stderr)
@@ -256,9 +266,11 @@ def _on_grid(args: argparse.Namespace, body) -> int:
         native.build()
     except RuntimeError:
         pass  # the ranks take the Python text path, as "auto" does
+    limits = ({"timeout": None, "grace": 1.0,
+               "forward_signals": (signal.SIGTERM,)} if stream else {})
     try:
         codes = run_grid(_grid_rank, d, m, (body.__name__, args),
-                         backend=backend, device=args.device)
+                         backend=backend, device=args.device, **limits)
     except RuntimeError as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 1
@@ -299,8 +311,10 @@ def _resume_gate(
     envelope records the process count and the ledger flag (a restart
     with another process count is then an elastic resume through the
     ledger's shards), and --resume announces the last committed epoch,
-    agreed across ranks, rather than a state file.  The stream verbs run
-    one process (ROADMAP.md queue 1 item 7c)."""
+    agreed across ranks, rather than a state file.  The process count is
+    1 on a grid too: rank 0 commits one state shard, as the JAX package's
+    one process over its mesh does (``jax.process_count()`` is 1 there),
+    and the grid's shape is in the config hash."""
     if not params.checkpoint_dir:
         if resume_requested:
             print("--resume requires --checkpoint-dir", file=sys.stderr)
@@ -728,19 +742,27 @@ def _stream_score(args: argparse.Namespace, preempt, lease, fence,
 
 
 def cmd_stream_train(args: argparse.Namespace) -> int:
-    """Continuous online-VB training over a watched directory, in one
-    process; saves the final model as ``train`` does."""
-    extra = [(f"{flag} {val}", _STREAM_GRID_ITEM)
-             for flag, val, ok in (("--data-shards", args.data_shards,
-                                    (None, 1)),
-                                   ("--model-shards", args.model_shards,
-                                    (1,)))
-             if val not in ok]
-    return _stream(args, _stream_train, extra)
+    """Continuous online-VB training over a watched directory, on one
+    device or a (data, model) grid of ranks; saves the final model as
+    ``train`` does."""
+    rc = _refuse_unported(args)
+    if rc is not None:
+        return rc
+    return _on_grid(args, _stream_train_on, stream=True)
+
+
+def _stream_train_on(args: argparse.Namespace, grid) -> int:
+    """``stream-train`` on one device (grid None) or one rank of a grid:
+    the stream's frame (the lease, the fence, the SIGTERM drain) in the
+    process that polls and commits, rank 0; the other ranks follow it."""
+    if grid is None or grid.rank == 0:
+        return _stream(args, functools.partial(_stream_train, grid=grid))
+    return _stream_train(args, None, None, None, None, grid=grid)
 
 
 def _stream_train(args: argparse.Namespace, preempt, lease, fence,
-                  partition) -> int:
+                  partition, grid=None) -> int:
+    device = args.device if grid is None else grid.device
     params = Params(
         input=args.watch_dir,
         k=args.k,
@@ -754,7 +776,7 @@ def _stream_train(args: argparse.Namespace, preempt, lease, fence,
     num_features = args.hash_features
     if args.vocab_from_model:
         try:
-            vocab = load_model(args.vocab_from_model, device=args.device).vocab
+            vocab = load_model(args.vocab_from_model, device=device).vocab
         except CorruptArtifactError as exc:
             print(f"error: {exc}", file=sys.stderr)
             return 2
@@ -780,9 +802,16 @@ def _stream_train(args: argparse.Namespace, preempt, lease, fence,
         corpus_size_hint=args.corpus_size_hint,
         checkpoint_every=args.checkpoint_interval,
         quarantine_dir=args.quarantine_dir,
-        device=args.device,
+        device=device,
         fence=fence,
+        grid=grid,
     )
+    if grid is not None and grid.rank != 0:
+        # rank 0 reads the source and shares each micro-batch
+        trainer.run()
+        if trainer.aborted:
+            return 0            # rank 0 failed: its exit code tells
+        return _stream_train_end(args, params, trainer, trainer.stopped)
     # source progress is exactly-once through the trainer's ledger: its
     # committed paths are never ingested again; the pre-ledger
     # seen_files.txt is still read and written
@@ -802,15 +831,28 @@ def _stream_train(args: argparse.Namespace, preempt, lease, fence,
                 idle_timeout=args.idle_timeout,
                 heartbeat=lease.heartbeat_callback() if lease else None,
                 stop=preempt)
-    print(f"stream ended: {trainer.docs_seen} docs / "
-          f"{trainer.batches_seen} micro-batches")
-    if preempt:
+    # on a grid, the stop every rank was told of
+    return _stream_train_end(args, params, trainer, bool(
+        preempt if grid is None else trainer.stopped))
+
+
+def _stream_train_end(args: argparse.Namespace, params: Params, trainer,
+                      preempted: bool) -> int:
+    """The end of ``stream-train``: the summary, then (unless preempted)
+    the model, fetched on every rank of a grid, published by rank 0."""
+    leader = trainer.grid is None or trainer.grid.rank == 0
+    say = print if leader else _quiet
+    say(f"stream ended: {trainer.docs_seen} docs / "
+        f"{trainer.batches_seen} micro-batches")
+    if preempted:
         # the in-flight epoch is committed (or rolls back); the resumed
         # run publishes the model
-        print("preemption notice honored: epoch committed, model "
-              "publish deferred to the resumed worker")
+        say("preemption notice honored: epoch committed, model "
+            "publish deferred to the resumed worker")
         return 0
     model = trainer.model()
+    if not leader:
+        return 0
     for i, topic in enumerate(model.describe_topics_terms(10)):
         print(f"TOPIC {i}: " + ", ".join(t for t, _ in topic))
     out_dir = model_dir_name(args.lang, base=args.models_dir)
@@ -1227,11 +1269,18 @@ def build_parser() -> argparse.ArgumentParser:
                          "vocab-fingerprint validated)")
     st.add_argument("--seed", type=int, default=0)
     st.add_argument("--data-shards", type=int, default=None,
-                    help="not ported yet above 1 (exits 2)")
+                    help="document shards of the grid (ranks spawned "
+                         "here; rank 0 reads the source)")
     st.add_argument("--model-shards", type=int, default=1,
-                    help="not ported yet above 1 (exits 2)")
+                    help="vocabulary shards of the grid")
+    st.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="torch.distributed backend of a grid (default "
+                         "nccl on cuda, gloo on cpu; nccl takes one rank a "
+                         "card)")
     st.add_argument("--models-dir", default="models")
-    st.set_defaults(fn=cmd_stream_train)
+    # spawned here, never joined: the JAX verb has no --coordinator
+    st.set_defaults(fn=cmd_stream_train, coordinator=None,
+                    num_processes=None, process_id=None)
 
     stream = sub.add_parser(
         "stream",

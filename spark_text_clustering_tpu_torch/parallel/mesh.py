@@ -23,13 +23,17 @@ card, so a grid with more ranks than visible cards needs
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import datetime
 import multiprocessing
 import os
 import pickle
 import shutil
+import signal
 import sys
 import tempfile
+import threading
 import time
 from typing import Callable, List, Optional, Sequence
 
@@ -58,6 +62,8 @@ MODEL_AXIS = "model"
 _TIMEOUT_S = 1800.0
 # How long run_grid lets the other ranks run on once one has failed
 _GRACE_S = 10.0
+# prctl(2): deliver a signal to this process when its parent ends
+_PR_SET_PDEATHSIG = 1
 
 
 class ProcessGrid:
@@ -289,13 +295,37 @@ def agree_ledger_epoch(ledger_dir: Optional[str]) -> int:
 
 
 # ---- spawning a grid on this host -----------------------------------------
+def _die_with_parent(parent: int) -> None:
+    """End this process when ``parent`` (the process that spawned it)
+    ends, however it ends: the kernel's parent-death signal (Linux
+    ``prctl(PR_SET_PDEATHSIG, SIGKILL)``), else a thread that watches
+    ``os.getppid()``.  A rank whose parent was SIGKILLed would otherwise
+    block in a collective for good, holding its CUDA context."""
+    try:
+        libc = ctypes.CDLL(None, use_errno=True)
+        armed = libc.prctl(_PR_SET_PDEATHSIG, signal.SIGKILL, 0, 0, 0) == 0
+    except (OSError, AttributeError):
+        armed = False
+    if not armed:
+        def watch() -> None:
+            while os.getppid() == parent:
+                time.sleep(0.5)
+            os._exit(1)
+
+        threading.Thread(target=watch, daemon=True).start()
+    if os.getppid() != parent:
+        os._exit(1)          # the parent ended before the signal was armed
+
+
 def _rank_main(fn, args, data_shards, model_shards, rank, init, backend,
-               device, tmp) -> None:
-    """One spawned rank: its output into files under ``tmp``, the world
-    joined through the ``file://`` rendezvous, ``fn(grid, *args)`` run,
-    its result and kernel launches pickled for the parent."""
+               device, tmp, parent) -> None:
+    """One spawned rank: bound to its parent's life, its output into files
+    under ``tmp``, the world joined through the ``file://`` rendezvous,
+    ``fn(grid, *args)`` run, its result and kernel launches pickled for
+    the parent."""
     from ..ops import _build
 
+    _die_with_parent(parent)
     world = data_shards * model_shards
     sys.stdout = open(os.path.join(tmp, f"out_{rank}"), "w", buffering=1)
     sys.stderr = open(os.path.join(tmp, f"err_{rank}"), "w", buffering=1)
@@ -312,6 +342,26 @@ def _rank_main(fn, args, data_shards, model_shards, rank, init, backend,
         pickle.dump((result, dict(_build.LAUNCHES)), f)
 
 
+@contextlib.contextmanager
+def _forwarded(signals: Sequence[int], proc):
+    """Inside the block, each of ``signals`` this process receives is
+    passed on to ``proc`` instead (where this is the main thread, the
+    only one that may set handlers)."""
+    if threading.current_thread() is not threading.main_thread():
+        signals = ()
+
+    def forward(signum, frame) -> None:
+        with contextlib.suppress(ProcessLookupError, TypeError):
+            os.kill(proc.pid, signum)
+
+    previous = {sig: signal.signal(sig, forward) for sig in signals}
+    try:
+        yield
+    finally:
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
+
+
 def run_grid(
     fn: Callable,
     data_shards: int,
@@ -320,7 +370,9 @@ def run_grid(
     *,
     backend: Optional[str] = None,
     device="cuda",
-    timeout: float = 3600.0,
+    timeout: Optional[float] = 3600.0,
+    grace: float = _GRACE_S,
+    forward_signals: Sequence[int] = (),
 ) -> List:
     """Run ``fn(grid, *args)`` on every rank of a ``data_shards x
     model_shards`` grid of processes spawned on this host; returns the
@@ -336,9 +388,14 @@ def run_grid(
     process's counts (``_build.LAUNCHES``).
 
     A rank that fails leaves the others blocked in a collective: once one
-    fails, the rest get ten seconds, then are killed, as is every
-    rank still running after ``timeout`` seconds.  Any failure raises
-    ``RuntimeError`` naming the ranks and their exit codes."""
+    fails, the rest get ``grace`` seconds (ten by default), then are
+    killed, as is every rank still running after ``timeout`` seconds
+    (None: no limit, for a stream).  Any failure raises ``RuntimeError``
+    naming the ranks and their exit codes.  Every rank ends when this
+    process ends, even by SIGKILL, so none is left blocked behind it.
+    ``forward_signals`` (say ``(signal.SIGTERM,)``) are passed on to rank
+    0 while the ranks run, instead of ending this process: a stream's
+    preemption notice reaches the rank that polls its source."""
     from ..ops import _build
 
     world = data_shards * model_shards
@@ -350,23 +407,24 @@ def run_grid(
     procs = [
         ctx.Process(target=_rank_main, args=(
             fn, tuple(args), data_shards, model_shards, r, init, backend,
-            str(device), tmp))
+            str(device), tmp, os.getpid()))
         for r in range(world)
     ]
     try:
         for p in procs:
             p.start()
-        deadline = time.monotonic() + timeout
+        deadline = None if timeout is None else time.monotonic() + timeout
         failed_at = None
-        while any(p.is_alive() for p in procs):
-            now = time.monotonic()
-            if failed_at is None and any(
-                    p.exitcode not in (None, 0) for p in procs):
-                failed_at = now
-            if now > deadline or (failed_at is not None
-                                  and now > failed_at + _GRACE_S):
-                break
-            procs[0].join(0.05)
+        with _forwarded(forward_signals, procs[0]):
+            while any(p.is_alive() for p in procs):
+                now = time.monotonic()
+                if failed_at is None and any(
+                        p.exitcode not in (None, 0) for p in procs):
+                    failed_at = now
+                if (deadline is not None and now > deadline) or (
+                        failed_at is not None and now > failed_at + grace):
+                    break
+                procs[0].join(0.05)
         for p in procs:
             if p.is_alive():
                 p.kill()

@@ -1,5 +1,5 @@
-"""Micro-batch streaming on one device: sources, the streaming scorer and
-the streaming trainer (the JAX package's ``streaming.py``).
+"""Micro-batch streaming: sources, the streaming scorer and the streaming
+trainer (the JAX package's ``streaming.py``).
 
 A stream is a host-side source yielding micro-batches of documents.  Each
 trigger packs its documents into ``[batch_capacity, row_len]``
@@ -17,20 +17,23 @@ chunk is one launch of the padded E-step kernel on the card.
   by ``LDAModel.topic_distribution`` on those chunks; per-topic tallies
   and report rows accumulate.
 * ``StreamingOnlineLDA``: continuous online VB, one ``padded_iteration``
-  a chunk, the corpus size the running count of documents seen; state
+  a chunk (on a grid, each rank's block of its rows), the corpus size the
+  running count of documents seen; state
   checkpointed through the epoch commit ledger (``resilience.ledger``)
   with the JAX package's records and shard files, so a checkpoint dir
   either package wrote resumes in the other.
 
-The JAX package also records telemetry (spans, gauges, micro-batch
-events); the port's telemetry is ROADMAP queue 1 item 9.  Streaming on a
-(data, model) grid is item 7c.  A supervised fleet of stream workers
-(``resilience.supervisor``) gives each worker a ``FileStreamSource``
-partition and a fenced ledger.
+The trainer also runs on a (data, model) grid of ranks (``parallel``),
+rank 0 reading the source and sharing each micro-batch.  The JAX package
+also records telemetry (spans, gauges, micro-batch events); the port's
+telemetry is ROADMAP queue 1 item 9.  A supervised fleet of stream
+workers (``resilience.supervisor``) gives each worker a
+``FileStreamSource`` partition and a fenced ledger.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from dataclasses import dataclass
@@ -38,6 +41,7 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import Params
 from .device import resolve_device
@@ -47,6 +51,8 @@ from .models.persistence import load_train_state
 from .ops import _build
 from .ops.lda_math import init_gamma, init_lambda, seeded_generator
 from .ops.sparse import batch_from_rows, next_pow2, pad_rows
+from .parallel.collectives import data_shard_rows, fetch_global
+from .parallel.mesh import MODEL_AXIS, agree_ledger_epoch, make_grid
 from .pipeline import TextPreprocessor, is_hashed_vocab, make_vectorizer
 from .resilience import (
     CorruptArtifactError,
@@ -491,7 +497,8 @@ class StreamingScorer:
 # Streaming trainer
 # ---------------------------------------------------------------------------
 class StreamingOnlineLDA:
-    """Continuous online-VB LDA over a micro-batch stream, on one device.
+    """Continuous online-VB LDA over a micro-batch stream, on one device
+    or on a (data, model) grid of ranks.
 
     Each chunk of ``batch_capacity`` nonempty documents is one online
     update (``models.online_lda.padded_iteration``: the padded E-step
@@ -503,16 +510,34 @@ class StreamingOnlineLDA:
     The vocabulary is fixed up front: an explicit ``vocab`` or hashing
     into ``num_features`` buckets.  Random draws come from CPU
     ``torch.Generator``s seeded from ``params.seed``, so a run on the
-    card and one on the CPU start alike: lambda0 [k, V] from (seed,
+    card and one on the CPU start alike: lambda0 [k, V_pad] from (seed,
     0xFFFF), step t's gamma inits [batch_capacity, k] from (seed, 0x6A33,
-    t), the keys of ``OnlineLDA``.  ``init_lam`` and ``gamma0_fn(step, n)`` replace them (the JAX
-    package's threefry draws, say); both are numpy-valued.
+    t), the keys of ``OnlineLDA``.  ``init_lam`` and ``gamma0_fn(step,
+    n)`` replace them (the JAX package's threefry draws, say); both are
+    numpy-valued and whole (every column, every row of the chunk).
+
+    On a ``grid`` (a ``parallel.ProcessGrid``; without one, a ``params``
+    that asks for shards takes the grid of the started world), as the JAX
+    package's trainer on a mesh: lambda is kept at V_pad = ceil(V / M) M
+    columns, each rank holding its vocabulary shard [k, V_pad / M];
+    ``batch_capacity`` is rounded up to a multiple of the data shards, and
+    each chunk is cut into consecutive blocks, one a data shard, with the
+    gamma inits of its rows.  Both draws are made whole and sliced, so a
+    grid starts from the draws of one device.  Rank 0 alone reads the
+    source and runs the text front end: ``process(mb)`` and ``run(source)``
+    on rank 0 share each micro-batch's names and nonempty rows with the
+    other ranks (one broadcast), where ``process()`` and ``run()`` receive
+    them, so every rank counts the same documents, steps and checkpoints.
 
     With ``params.checkpoint_dir`` the state (lambda, step, docs and
     micro-batches seen, the vocabulary fingerprint) commits through the
     epoch ledger every ``checkpoint_every`` micro-batches and at the end
     of ``run``; a new trainer on the dir resumes from the newest committed
-    shard set, or from a pre-ledger ``stream_state.npz``.
+    shard set, or from a pre-ledger ``stream_state.npz``.  On a grid every
+    rank joins the fetch of lambda, and rank 0 alone recovers the ledger
+    and commits one shard over [0, V_pad) with ``process_count`` 1: the
+    dir the JAX package's one process writes over its mesh, which either
+    package resumes at the same shape.
     """
 
     def __init__(
@@ -532,15 +557,20 @@ class StreamingOnlineLDA:
         init_lam: Optional[np.ndarray] = None,
         gamma0_fn: Optional[Callable[[int, int], np.ndarray]] = None,
         fence=None,
+        grid=None,
     ) -> None:
         if (vocab is None) == (num_features is None):
             raise ValueError("exactly one of vocab / num_features required")
-        if params.model_shards != 1 or params.data_shards not in (None, 1):
-            raise NotImplementedError(
-                "streaming on a (data, model) grid is not ported yet "
-                "(ROADMAP.md queue 1 item 7c, streaming on the grid)")
         if params.algorithm != "online":
             params = params.replace(algorithm="online")
+        if grid is None and (params.model_shards != 1
+                             or params.data_shards not in (None, 1)):
+            grid = make_grid(params.data_shards, params.model_shards,
+                             device=device)
+        if grid is not None:
+            device = grid.device
+        self.grid = grid if grid is not None and grid.size > 1 else None
+        self._leader = self.grid is None or self.grid.rank == 0
         self.params = params
         self.device = resolve_device(device)
         self.pre = TextPreprocessor(stop_words=stop_words, lemmatize=lemmatize)
@@ -553,13 +583,22 @@ class StreamingOnlineLDA:
             self.vocab = [f"h{i}" for i in range(num_features)]
         self._rows_for = make_vectorizer(self.vocab)
         self._v = len(self.vocab)
-        self.batch_capacity = batch_capacity
+        n_data, n_model = ((1, 1) if self.grid is None else
+                           (self.grid.data_shards, self.grid.model_shards))
+        self._v_pad = -(-self._v // n_model) * n_model
+        self._shard_v = self._v_pad // n_model
+        self.batch_capacity = -(-batch_capacity // n_data) * n_data
         self.row_len = row_len
         self.corpus_size_hint = corpus_size_hint
         self.checkpoint_every = checkpoint_every
         self.docs_seen = 0
         self.batches_seen = 0
         self.step = 0
+        # how the last ``run`` ended: on its ``stop()`` (a preemption
+        # notice), or, off rank 0, because rank 0 failed
+        self.stopped = False
+        self.aborted = False
+        self._busy = False          # inside a collective of the update
         k = params.k
         self._alpha = np.full((k,), params.resolved_alpha(), np.float32)
         self._alpha_dev = torch.from_numpy(self._alpha).to(self.device)
@@ -570,7 +609,8 @@ class StreamingOnlineLDA:
         # ledger write, so a worker superseded by a respawn or a resize
         # stops with ``FencedEpochError`` instead of committing
         self.ledger = (
-            EpochLedger(params.checkpoint_dir, fence=fence)
+            EpochLedger(params.checkpoint_dir,
+                        fence=fence if self._leader else None)
             if params.checkpoint_dir else None
         )
         self._pending_sources: List[str] = []
@@ -580,9 +620,15 @@ class StreamingOnlineLDA:
             if params.checkpoint_dir else None
         )
         if self.ledger is not None:
-            # a consistent dir before reading it: torn appends truncated,
-            # uncommitted payloads quarantined
-            self.ledger.recover()
+            if self._leader:
+                # a consistent dir before reading it: torn appends
+                # truncated, uncommitted payloads quarantined
+                self.ledger.recover()
+            if self.grid is not None:
+                # no rank reads the ledger while rank 0 rolls it back, and
+                # a rank that reads another epoch raises
+                dist.barrier()
+                agree_ledger_epoch(params.checkpoint_dir)
         # the resume point: the newest committed epoch carrying state
         # shards (model-publish records carry none)
         resume_rec = None
@@ -591,39 +637,75 @@ class StreamingOnlineLDA:
                 if rec.get("shards"):
                     resume_rec = rec
         if resume_rec is not None:
-            self._restore_ledger(resume_rec)
+            lam = self._restore_ledger(resume_rec)
         elif self._ckpt_path and os.path.exists(self._ckpt_path):
-            self._restore()             # the pre-ledger format
+            lam = self._restore()             # the pre-ledger format
         else:
             if init_lam is None:
-                lam0 = init_lambda(
+                lam = init_lambda(
                     seeded_generator("cpu", params.seed, _LAMBDA_KEY), k,
-                    self._v, params.gamma_shape)
+                    self._v_pad, params.gamma_shape).numpy()
             else:
-                lam0 = torch.from_numpy(
-                    np.array(init_lam, np.float32).reshape(k, self._v))
-            self.lam = lam0.to(self.device)
+                lam = np.array(init_lam, np.float32).reshape(k, self._v_pad)
             self._last_committed_step = 0
+        lo = 0 if self.grid is None else self.grid.m * self._shard_v
+        self.lam = torch.from_numpy(np.ascontiguousarray(
+            lam[:, lo:lo + self._shard_v])).to(self.device)
+
+    # -- the grid's messages ---------------------------------------------
+    def _share(self, msg=None):
+        """Rank 0's ``msg`` on every rank: one broadcast of the pickled
+        object over the grid."""
+        box = [msg]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def _tell(self, *msg) -> None:
+        """Rank 0: ``msg`` to the other ranks of a grid."""
+        if self.grid is not None:
+            self._share(msg)
 
     # -- the per-trigger update -----------------------------------------
-    def _gamma0(self, n: int) -> torch.Tensor:
+    def _gamma0(self) -> torch.Tensor:
+        """This step's gamma inits for this rank's rows: the chunk's whole
+        [batch_capacity, k] draw, cut to this data shard's block."""
+        n = self.batch_capacity
         if self._gamma0_fn is not None:
-            g = np.array(self._gamma0_fn(self.step, n), np.float32)
-            return torch.from_numpy(g).to(self.device)
-        gen = seeded_generator("cpu", self.params.seed, _GAMMA_KEY, self.step)
-        return init_gamma(gen, n, self.params.k,
-                          self.params.gamma_shape).to(self.device)
+            g = torch.from_numpy(np.array(self._gamma0_fn(self.step, n),
+                                          np.float32).reshape(n, -1))
+        else:
+            gen = seeded_generator("cpu", self.params.seed, _GAMMA_KEY,
+                                   self.step)
+            g = init_gamma(gen, n, self.params.k, self.params.gamma_shape)
+        if self.grid is not None:
+            per = n // self.grid.data_shards
+            g = g[self.grid.d * per:(self.grid.d + 1) * per]
+        return g.contiguous().to(self.device)
 
-    def process(self, mb: MicroBatch) -> bool:
+    def process(self, mb: Optional[MicroBatch] = None) -> bool:
         """Train on one micro-batch.  Returns True when this call committed
-        a checkpoint: the caller's cue to commit source progress."""
+        a checkpoint: the caller's cue to commit source progress.  On a
+        grid, rank 0 vectorizes ``mb`` and shares it; every other rank
+        passes nothing and receives it."""
+        if self._leader:
+            _, _, raw_rows = _vectorize_quarantined(
+                self.pre, self._rows_for, mb, self.quarantine, "vectorize"
+            )
+            names = list(mb.names)
+            rows = [(i, w) for i, w in raw_rows if len(i) > 0]
+            self._tell("batch", names, rows)
+        else:
+            msg = self._share()
+            if msg[0] != "batch":
+                raise RuntimeError(f"rank 0 sent {msg[0]!r} where a "
+                                   "micro-batch was due")
+            _, names, rows = msg
+        return self._train(names, rows)
+
+    def _train(self, names: List[str], rows) -> bool:
         # every consumed path joins the next epoch's record, whether or
         # not its docs survive vectorization (else it would replay forever)
-        self._pending_sources.extend(mb.names)
-        _, _, raw_rows = _vectorize_quarantined(
-            self.pre, self._rows_for, mb, self.quarantine, "vectorize"
-        )
-        rows = [(i, w) for i, w in raw_rows if len(i) > 0]
+        self._pending_sources.extend(names)
         if not rows:
             return False
         self.docs_seen += len(rows)
@@ -643,26 +725,43 @@ class StreamingOnlineLDA:
         max_nnz = max(len(i) for i, _ in chunk)
         if max_nnz > self.row_len:
             self.row_len = next_pow2(max_nnz)
-        batch = batch_from_rows(pad_rows(chunk, self.batch_capacity),
-                                row_len=self.row_len, device=self.device)
+        rows = pad_rows(chunk, self.batch_capacity)
+        if self.grid is None:
+            batch = batch_from_rows(rows, row_len=self.row_len,
+                                    device=self.device)
+        else:
+            batch, _, _ = data_shard_rows(self.grid, rows, self.row_len,
+                                          self.device)
         p = self.params
+        self._busy = True
         self.lam = padded_iteration(
             self.lam, self.step, batch.token_ids, batch.token_weights,
-            self._gamma0(self.batch_capacity),
+            self._gamma0(),
             sum(1 for _, w in chunk if np.sum(w) > 0),
             alpha=self._alpha_dev, eta=p.resolved_eta(), tau0=p.tau0,
             kappa=p.kappa,
             corpus_size=float(max(self.docs_seen, self.corpus_size_hint or 0)),
+            grid=self.grid,
         )
+        self._busy = False
         self.step += 1
 
     # -- lifecycle -------------------------------------------------------
-    def run(self, source, controller=None, **stream_kw) -> "StreamingOnlineLDA":
+    def run(self, source=None, controller=None,
+            **stream_kw) -> "StreamingOnlineLDA":
         """Drain a source (``stream``-able, ``poll``-able or an iterable of
         MicroBatch), committing source progress each time a checkpoint
         lands and once more, after a final checkpoint, at the end.
         ``controller`` (an ``AIMDTriggerController``) retunes the source's
-        cap after each trigger."""
+        cap after each trigger.  ``stopped`` then says whether the stream
+        ended on its ``stop()``.
+
+        On a grid, rank 0 drains the source and the other ranks pass none:
+        they train on what rank 0 shares, until it tells them the stream
+        ended (``stopped`` is then rank 0's) or that it left it
+        (``aborted``)."""
+        if not self._leader:
+            return self._follow()
         if hasattr(source, "stream"):
             it = source.stream(**stream_kw)
         elif hasattr(source, "poll"):
@@ -676,52 +775,91 @@ class StreamingOnlineLDA:
         else:
             it = iter(source)
         commit = getattr(source, "commit", None)
-        for mb in it:
-            t0 = time.perf_counter()
-            wrote_ckpt = self.process(mb)
-            if controller is not None:
-                controller.update(
-                    getattr(source, "last_queue_depth", 0),
-                    time.perf_counter() - t0,
-                )
-                controller.apply(source)
-            if wrote_ckpt and commit is not None:
-                commit()
-        if self._ckpt_path:
-            self.checkpoint()
+        stop = stream_kw.get("stop")
+        try:
+            for mb in it:
+                t0 = time.perf_counter()
+                wrote_ckpt = self.process(mb)
+                if controller is not None:
+                    controller.update(
+                        getattr(source, "last_queue_depth", 0),
+                        time.perf_counter() - t0,
+                    )
+                    controller.apply(source)
+                if wrote_ckpt and commit is not None:
+                    commit()
+            self.stopped = bool(stop is not None and stop())
+            if self._ckpt_path:
+                self._tell("final")
+                self.checkpoint()
+            self._tell("end", self.stopped)
+        except BaseException:
+            # the other ranks wait for rank 0's next message, unless this
+            # failed inside a collective (the grid then ends with it)
+            if self.grid is not None and not self._busy:
+                with contextlib.suppress(Exception):
+                    self._share(("abort",))
+            raise
         if commit is not None:
             commit()
         return self
+
+    def _follow(self) -> "StreamingOnlineLDA":
+        """``run`` on a rank other than 0: rank 0's messages, to the end."""
+        while True:
+            msg = self._share()
+            if msg[0] == "batch":
+                self._train(msg[1], msg[2])
+            elif msg[0] == "final":
+                self.checkpoint()
+            elif msg[0] == "end":
+                self.stopped = bool(msg[1])
+                return self
+            else:
+                self.aborted = True
+                return self
+
+    def _host_lam(self) -> np.ndarray:
+        """lambda [k, V_pad] on the host (on a grid, of every rank: a
+        fetch over the vocabulary shards)."""
+        if self.grid is None:
+            return self.lam.cpu().numpy()
+        self._busy = True
+        lam = fetch_global(self.grid, self.lam, MODEL_AXIS)
+        self._busy = False
+        return lam
 
     def checkpoint(self) -> bool:
         """Commit one epoch: stage the intent (the consumed sources and the
         state shard about to land), write the shard durably, append the
         commit record.  Returns False when there was nothing new since the
-        last commit."""
+        last commit.  On a grid every rank calls it (the fetch of lambda
+        is collective) and rank 0 writes."""
         sources = self._pending_sources
         step = self.step
         if not sources and step == self._last_committed_step:
             return False
-        epoch = self.ledger.next_epoch()
-        lo, hi = shard_span(self._v, 0, 1)
-        lam = self.lam.cpu().numpy()
-        self.ledger.begin(
-            epoch, kind="stream-train", sources=sources,
-            payloads=[shard_filename(epoch, 0)], process_count=1,
-        )
-        spec = self.ledger.stage_shard(
-            epoch, 0, 1,
-            cols=(lo, hi), step=step,
-            lam=lam[:, lo:hi],
-            docs_seen=np.int64(self.docs_seen),
-            batches_seen=np.int64(self.batches_seen),
-            vocab_fp=np.int64(_vocab_fingerprint(self.vocab)),
-        )
-        self.ledger.commit(
-            epoch, kind="stream-train", sources=sources, shards=[spec],
-            process_count=1, step=step, docs_seen=int(self.docs_seen),
-            batches_seen=int(self.batches_seen),
-        )
+        lam = self._host_lam()
+        if self._leader:
+            epoch = self.ledger.next_epoch()
+            lo, hi = shard_span(self._v_pad, 0, 1)
+            self.ledger.begin(
+                epoch, kind="stream-train", sources=sources,
+                payloads=[shard_filename(epoch, 0)], process_count=1,
+            )
+            spec = self.ledger.stage_shard(
+                epoch, 0, 1,
+                cols=(lo, hi), step=step,
+                lam=lam[:, lo:hi],
+                docs_seen=np.int64(self.docs_seen),
+                batches_seen=np.int64(self.batches_seen),
+                vocab_fp=np.int64(_vocab_fingerprint(self.vocab)),
+            )
+            self.ledger.commit(
+                epoch, kind="stream-train", sources=sources, shards=[spec],
+                process_count=1, step=step, docs_seen=int(self.docs_seen),
+                batches_seen=int(self.batches_seen),
+            )
         self._pending_sources = []
         self._last_committed_step = step
         return True
@@ -736,14 +874,14 @@ class StreamingOnlineLDA:
                 f"fresh checkpoint dir"
             )
 
-    def _restore_ledger(self, record) -> None:
+    def _restore_ledger(self, record) -> np.ndarray:
         """Resume from a committed epoch: every shard verified against its
         recorded digest (a mismatch is a torn checkpoint: refused), then
-        the vocabulary-column shards merged into one lambda.  The shard
-        plan is checked against this run's vocabulary width, so shards of
-        any process count merge."""
-        shards = validate_shard_plan(record, self._v)
-        lam = np.empty((self.params.k, self._v), np.float32)
+        the vocabulary-column shards merged into one lambda [k, V_pad].
+        The shard plan is checked against this run's padded width, so
+        shards of any process count merge."""
+        shards = validate_shard_plan(record, self._v_pad)
+        lam = np.empty((self.params.k, self._v_pad), np.float32)
         for s in shards:
             path = self.ledger.resolve(s["file"])
             if not os.path.exists(path) or file_sha256(path) != s["sha256"]:
@@ -762,32 +900,32 @@ class StreamingOnlineLDA:
                     f"{(self.params.k, hi - lo)}"
                 )
             lam[:, lo:hi] = st["lam"]
-        self.lam = torch.from_numpy(lam).to(self.device)
         self.step = int(record["step"])
         self.docs_seen = int(record.get("docs_seen", 0))
         self.batches_seen = int(record.get("batches_seen", 0))
         self._last_committed_step = self.step
+        return lam
 
-    def _restore(self) -> None:
+    def _restore(self) -> np.ndarray:
         st = load_train_state(self._ckpt_path, require=("lam",))
         lam = st["lam"]
-        if lam.shape != (self.params.k, self._v):
+        if lam.shape != (self.params.k, self._v_pad):
             raise ValueError(
-                f"checkpoint lam {lam.shape} != {(self.params.k, self._v)}"
+                f"checkpoint lam {lam.shape} != "
+                f"{(self.params.k, self._v_pad)}"
             )
         self._check_vocab(self._ckpt_path, st)
-        self.lam = torch.from_numpy(np.asarray(lam, np.float32)).to(
-            self.device)
         self.step = int(st["step"])
         self.docs_seen = int(st.get("docs_seen", 0))
         self.batches_seen = int(st.get("batches_seen", 0))
         self._last_committed_step = self.step
+        return np.asarray(lam, np.float32)
 
     def model(self):
-        """The current topics as an ``LDAModel`` on the trainer's
-        device."""
+        """The current topics as an ``LDAModel`` on the trainer's device
+        (on a grid, on every rank: a fetch over the vocabulary shards)."""
         return LDAModel(
-            lam=self.lam.cpu().numpy()[:, : self._v],
+            lam=self._host_lam()[:, : self._v],
             vocab=list(self.vocab),
             alpha=self._alpha,
             eta=float(self.params.resolved_eta()),

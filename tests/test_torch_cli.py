@@ -526,8 +526,8 @@ def test_cli_flags_and_defaults_match_jax(cmd):
     """Every flag of the JAX CLI's train, score, stream and supervise
     verbs, with its default, and the port's own: --device (default cuda;
     on supervise None, which passes no --device to the workers) and, on
-    train and score, --dist-backend (default by device); score also takes
-    the grid bring-up flags train has.  ``stream`` has the JAX package's
+    train, score and stream-train, --dist-backend (default by device);
+    score also takes the grid bring-up flags train has.  ``stream`` has the JAX package's
     two maintenance verbs, with their flags."""
     def subparsers(parser):
         (sub,) = [a for a in parser._actions
@@ -549,7 +549,7 @@ def test_cli_flags_and_defaults_match_jax(cmd):
     got = flags(subparsers(tcli.build_parser())[cmd])
     want = flags(subparsers(jcli.build_parser())[cmd])
     extra = {("--device", None if cmd == "supervise" else "cuda")}
-    if cmd in ("train", "score"):
+    if cmd in ("train", "score", "stream-train"):
         extra.add(("--dist-backend", None))
     if cmd == "score":
         extra |= {("--coordinator", None), ("--num-processes", None),
@@ -581,7 +581,6 @@ def test_resume_mismatch_exits_2(native_lib, corpus, tmp_path):
     assert rc == 2 and "--resume requires --checkpoint-dir" in se
 
 
-_STREAM_GRID = "item 7c, streaming on the grid"
 _SERVE = "item 8b, the serve fleet"
 REFUSED = [
     (["train", "--telemetry-file", "t.jsonl"], "--telemetry-file", "item 9"),
@@ -592,10 +591,6 @@ REFUSED = [
      "item 9"),
     (["stream-train", "--compile-cache", "cc"], "--compile-cache",
      "item 10"),
-    (["stream-train", "--data-shards", "2"], "--data-shards 2",
-     _STREAM_GRID),
-    (["stream-train", "--model-shards", "2"], "--model-shards 2",
-     _STREAM_GRID),
     (["supervise", "--role", "serve"], "--role serve", _SERVE),
     (["supervise", "--front-port", "0"], "--front-port", _SERVE),
     (["supervise", "--max-seconds", "5"], "--max-seconds", _SERVE),

@@ -106,6 +106,37 @@ def test_source_scan_finds_no_jax_import():
     assert not hits, hits
 
 
+def test_grid_stream_worker_and_path_load_no_jax():
+    """The grid stream tests' rank module holds no jax import, and a 1x2
+    grid stream run through it (``run_grid``, the trainer on both ranks,
+    rank 0 sharing the micro-batches) loads neither jax nor the JAX
+    package, in the ranks or in the process that spawned them."""
+    path = os.path.join(REPO, "tests", "torch_grid_stream_worker.py")
+    with open(path, encoding="utf-8") as f:
+        assert not _FORBIDDEN.findall(f.read())
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {os.path.join(REPO, 'tests')!r})\n"
+        "import torch_grid_stream_worker as w\n"
+        "from spark_text_clustering_tpu_torch.parallel import run_grid\n"
+        "from spark_text_clustering_tpu_torch.streaming import MicroBatch\n"
+        "spec = {'k': 2, 'seed': 0, 'capacity': 4, 'checkpoint_every': 1,\n"
+        "        'v': 64, 'batches': [MicroBatch(b, [f'd{b}{i}' for i in\n"
+        "        range(4)], ['alpha beta gamma delta.'] * 4)\n"
+        "        for b in range(2)]}\n"
+        "out = run_grid(w.loaded_jax, 1, 2, (spec,), backend='gloo',\n"
+        "               device='cpu', timeout=120)\n"
+        "here = [m for m in sys.modules\n"
+        "        if m.split('.')[0] in ('jax', 'spark_text_clustering_tpu')]\n"
+        "assert out == [[], []] and not here, (out, here)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
 def test_entry_points_default_to_the_card():
     """With no card, the default device raises; device='cpu' runs."""
     if torch.cuda.is_available():

@@ -443,9 +443,10 @@ def test_run_commits_sources_alike(tmp_path):
 
 def test_trainer_refuses_what_jax_refuses(tmp_path):
     """Exactly one of vocab/num_features; a checkpoint of another
-    vocabulary of the same size is refused; shards name ROADMAP item 7c.
-    (A fleet partition, refused until the fleet was ported, is held to
-    the JAX package's in ``test_torch_supervisor.py``.)"""
+    vocabulary of the same size is refused.  (A fleet partition, refused
+    until the fleet was ported, is held to the JAX package's in
+    ``test_torch_supervisor.py``; shards, refused until the grid stream
+    was ported, in ``test_torch_stream_grid.py``.)"""
     with pytest.raises(ValueError, match="exactly one"):
         ts.StreamingOnlineLDA(TParams(k=K), device="cpu")
     _, tt = _trainers("vocab", tmp_path)
@@ -458,6 +459,3 @@ def test_trainer_refuses_what_jax_refuses(tmp_path):
             mod.StreamingOnlineLDA(
                 params(k=K, checkpoint_dir=str(tmp_path / "port")),
                 vocab=other, **extra)
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        ts.StreamingOnlineLDA(TParams(k=K, model_shards=2),
-                              num_features=8, device="cpu")
