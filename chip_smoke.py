@@ -157,7 +157,27 @@
    launches held against the plain version; ms a trigger, docs/s, the
    front end's share, the collectives' ms a trigger and share, and the
    grid's seconds from spawn to result;
-16. a ``total`` line with the run's seconds, then a ``kernels`` line: per
+16. telemetry (``--telemetry-file``) on commands the configs already run:
+   E's card ``train`` and ``score`` run again with the flag (their launch
+   counts equal to the runs without it) and its ``train --device cpu``
+   takes it: the card stream's names equal the CPU stream's (less
+   ``mem.device.*``), the card manifest says ``backend: "gpu"`` with the
+   CPU run's ``config_hash``, ``mem.device.bytes_in_use`` is above 0, 50
+   ``train_iteration`` events and ``train_fit``'s log-likelihood over the
+   documents equal to the printed average; K's uninterrupted card
+   ``stream-train`` (with a spawner's ``STC_TRACE``): one ``micro_batch``
+   a trigger, their trace id on every committed ledger record,
+   ``ledger.commits`` equal to the records; M-train: each rank's
+   ``-p<rank>`` stream with ``process_index``/``process_count`` r/4,
+   ``mesh_shape`` {"data": 2, "model": 2}, ``collective.*`` above 0 and,
+   under a spawner's ``STC_TRACE``, its trace id on every rank's
+   ``micro_batch`` events;
+   and, on config A's in-process fit, the disabled facade's estimated
+   cost (telemetry calls of one enabled fit x each disabled primitive's
+   time in a tight loop) within 2% of the fit, beside the enabled and
+   disabled ms a sweep.  A ``telemetry`` line sums the seconds these
+   phases added;
+17. a ``total`` line with the run's seconds, then a ``kernels`` line: per
    kernel, the launches of the main-path runs of 3-15 (each must be > 0),
    the largest difference from the plain version, and the times beside
    the card's bound (the E-step's entry also M's own, as ``config_M``).
@@ -1535,6 +1555,91 @@ def run_cli(argv, out_path):
         return rc, f.read(), secs
 
 
+def telemetry_stream(path):
+    """(manifest, events, final registry snapshot) of a port run stream,
+    read with the port's own reader; fails unless the stream starts with
+    its manifest and ends with the registry."""
+    from spark_text_clustering_tpu_torch.telemetry import read_events
+
+    events = read_events(path)
+    if not events or events[0]["event"] != "manifest" or (
+            events[-1]["event"] != "registry"):
+        ends = [e["event"] for e in events[:1] + events[-1:]]
+        raise AssertionError(f"telemetry stream {path}: {ends}")
+    return events[0], events[1:-1], events[-1]["snapshot"]
+
+
+def stream_names(events, snapshot):
+    """The event types and registry names of a stream, less the device
+    memory families a CPU run cannot report."""
+    names = {f"event:{e['event']}" for e in events}
+    for kind in ("counters", "gauges", "histograms"):
+        names |= {f"{kind}:{n}" for n in snapshot[kind]}
+    return {n for n in names if not (
+        n.split(":", 1)[1].startswith("mem.device.")
+        or n.endswith(":mem.device_stats_unavailable"))}
+
+
+def telemetry_overhead(torch, tfidf, ckpt, seed):
+    """The disabled facade's cost on config A's in-process fit, by the JAX
+    package's method (scripts/check_telemetry_overhead.py): the telemetry
+    calls of one enabled fit (registry only) times each disabled
+    primitive's seconds in a tight loop, against the fit's wall time (the
+    median of three disabled fits).  Fails above 2%."""
+    from spark_text_clustering_tpu_torch import LDA, Params, telemetry
+    from spark_text_clustering_tpu_torch.telemetry import tracing, transport
+
+    params = Params(k=EN_K, max_iterations=SWEEPS, seed=seed,
+                    checkpoint_dir=ckpt, checkpoint_interval=10 * SWEEPS)
+
+    def fit():
+        t0 = time.perf_counter()
+        model = LDA(params).fit(tfidf).model
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, 1e3 * float(
+            np.mean(model.iteration_times))
+
+    t_start = time.perf_counter()
+    telemetry.shutdown()
+    disabled = sorted(fit() for _ in range(3))
+    fit_s, disabled_ms = disabled[1]
+    telemetry.configure(None, device="cuda")
+    try:
+        enabled_s, enabled_ms = fit()
+        snap = telemetry.get_registry().snapshot()
+    finally:
+        telemetry.shutdown()
+    calls = (sum(snap["counters"].values()) + len(snap["gauges"])
+             + sum(h["count"] for h in snap["histograms"].values()))
+    if telemetry.enabled() or tracing.current() is not None or (
+            transport.get_shipper() is not None):
+        raise AssertionError("telemetry overhead: the facade is not off")
+    x, rec, loop = torch.ones(1), {"event": "overhead.probe"}, 100_000
+    t0 = time.perf_counter()
+    for _ in range(loop):
+        with telemetry.span("overhead.probe"):
+            pass
+        telemetry.count("overhead.probe")
+        telemetry.observe("overhead.probe", 0.0)
+        telemetry.event("overhead.probe", seconds=0.0)
+        telemetry.device_sync(x, "overhead")
+        tracing.fields()
+        transport.offer(rec)
+    per_call = (time.perf_counter() - t0) / (7 * loop)
+    share = calls * per_call / fit_s
+    if not share <= 0.02:
+        raise AssertionError(f"telemetry overhead: {calls} calls x "
+                             f"{per_call * 1e9:.0f} ns is {share:.4%} of "
+                             f"the {fit_s * 1e3:.1f} ms fit")
+    return {"phase": "telemetry_overhead", "config": "A", "sweeps": SWEEPS,
+            "fit_s": fit_s, "enabled_fit_s": enabled_s,
+            "disabled_ms_per_sweep": disabled_ms,
+            "enabled_ms_per_sweep": enabled_ms,
+            "calls_per_fit": calls, "disabled_ns_per_call": per_call * 1e9,
+            "estimated_overhead_share": share, "budget": 0.02,
+            "seconds": time.perf_counter() - t_start}
+
+
 def cli_train(label, books, stop, device, models_dir, v, out_path,
               extra=()):
     """``train`` (k=EN_K, the defaults, plus ``extra``) on ``device``
@@ -1635,13 +1740,14 @@ def recorded(module, name):
         setattr(module, name, kernel)
 
 
-def cli_score(label, books, stop, device, out_dir, out_path, model_args):
+def cli_score(label, books, stop, device, out_dir, out_path, model_args,
+              extra=()):
     """``score`` on ``device`` through ``cli.main`` with ``model_args``
-    (``--models-dir DIR`` or ``--model DIR``): (the report's text, wall
-    seconds).  Fails unless it exits 0 and writes one report."""
+    (``--models-dir DIR`` or ``--model DIR``) and ``extra``: (the report's
+    text, wall seconds).  Fails unless it exits 0 and writes one report."""
     rc, _, secs = run_cli(
         ["score", "--books", books, "--stop-words", stop, *model_args,
-         "--output-dir", out_dir, "--device", device], out_path)
+         "--output-dir", out_dir, "--device", device, *extra], out_path)
     written = os.listdir(out_dir) if os.path.isdir(out_dir) else []
     if rc != 0 or len(written) != 1:
         raise AssertionError(f"config {label} score on {device}: rc {rc}")
@@ -1716,10 +1822,13 @@ def run_config_e(torch, seed, workdir):
         raise AssertionError(f"config E: V={v}, distinct terms a book "
                              f"{min(distinct)}-{max(distinct)}")
 
-    def train(device, models_dir):
+    tel = os.path.join(root, "telemetry")
+
+    def train(device, models_dir, extra=(), tag=""):
         """``train`` on ``device``: (its console numbers, saved model)."""
         nums, path = cli_train("E", books, stop, device, models_dir, v,
-                               os.path.join(root, f"train_{device}.out"))
+                               os.path.join(root, f"train_{device}{tag}.out"),
+                               extra)
         return nums, load_model(path, device="cpu")
 
     _build.reset_launches()
@@ -1734,7 +1843,10 @@ def run_config_e(torch, seed, workdir):
                                     torch.device("cuda"), seed)
     # the whole train again on the CPU (the plain versions) from the same
     # seeded start: the average log-likelihoods must agree within 1e-4
-    cpu_train, cpu_model = train("cpu", os.path.join(root, "models_cpu"))
+    # (with --telemetry-file: the CPU stream the card's is held to)
+    cpu_train, cpu_model = train("cpu", os.path.join(root, "models_cpu"),
+                                 ["--telemetry-file",
+                                  os.path.join(tel, "train_cpu.jsonl")])
     ll_rel = abs(cpu_train["avg_log_likelihood"]
                  - summary["avg_log_likelihood"]) / abs(
                      cpu_train["avg_log_likelihood"])
@@ -1761,6 +1873,8 @@ def run_config_e(torch, seed, workdir):
                              f"{score_launches}")
     diff, agreement, clear = distributions_agree("E", reports["cuda"],
                                                  reports["cpu"])
+    telemetry = check_e_telemetry(books, stop, tel, root, models, train,
+                                  train_launches, score_launches)
     summary.update({
         "phase": "config_E", "docs": EN_DOCS, "vocab": v, "k": EN_K,
         "sweeps": SWEEPS, "tokens": int(sum(distinct)),
@@ -1780,6 +1894,7 @@ def run_config_e(torch, seed, workdir):
         "main_topic_agreement": agreement,
         "main_topic_clear_docs": clear,
         "report_bytes": len(reports["cuda"].encode()),
+        "telemetry": telemetry,
         "bounds": {"max_dist_diff": 5e-3,
                    "avg_log_likelihood_rel_diff": 1e-4},
     })
@@ -1787,6 +1902,71 @@ def run_config_e(torch, seed, workdir):
                      "rows": tf_rows, "vocab": ds["vocab"],
                      "card_report": reports["cuda"],
                      "avg_log_likelihood": summary["avg_log_likelihood"]}
+
+
+def check_e_telemetry(books, stop, tel, root, models, train,
+                      train_launches, score_launches):
+    """Config E's ``train`` and ``score`` on the card again with
+    ``--telemetry-file``: the same launch counts as without it; the card
+    train's stream against the CPU train's (the same names less the device
+    memory families, ``backend`` "gpu" against "cpu", one
+    ``config_hash``), live device memory above 0, one
+    ``train_iteration`` a sweep, and ``train_fit``'s log-likelihood over
+    the corpus's documents equal to the average the CLI printed."""
+    from spark_text_clustering_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    card_nums, _ = train("cuda", os.path.join(root, "models_telemetry"),
+                         ["--telemetry-file",
+                          os.path.join(tel, "train_cuda.jsonl")], "_tel")
+    tel_train = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    cli_score("E", books, stop, "cuda", os.path.join(root, "TestOutput_tel"),
+              os.path.join(root, "score_tel.out"), ["--models-dir", models],
+              ["--telemetry-file", os.path.join(tel, "score_cuda.jsonl")])
+    tel_score = dict(_build.LAUNCHES)
+    if tel_train != train_launches or tel_score != score_launches:
+        raise AssertionError(f"config E telemetry: launches {tel_train}, "
+                             f"{tel_score} against {train_launches}, "
+                             f"{score_launches} without the flag")
+    card = telemetry_stream(os.path.join(tel, "train_cuda.jsonl"))
+    cpu = telemetry_stream(os.path.join(tel, "train_cpu.jsonl"))
+    score_man, score_events, score_snap = telemetry_stream(
+        os.path.join(tel, "score_cuda.jsonl"))
+    only_card = stream_names(*card[1:]) - stream_names(*cpu[1:])
+    only_cpu = stream_names(*cpu[1:]) - stream_names(*card[1:])
+    (fit,) = [e for e in card[1] if e["event"] == "train_fit"]
+    (corpus,) = [e for e in card[1] if e["event"] == "corpus"]
+    iterations = sum(1 for e in card[1] if e["event"] == "train_iteration")
+    avg = fit["log_likelihood"] / corpus["documents"]
+    in_use = card[2]["gauges"].get("mem.device.bytes_in_use", 0)
+    peak = card[2]["gauges"].get("mem.device.peak_bytes_in_use", 0)
+    if (only_card or only_cpu or card[0]["backend"] != "gpu"
+            or cpu[0]["backend"] != "cpu" or score_man["backend"] != "gpu"
+            or card[0]["config_hash"] != cpu[0]["config_hash"]
+            or not in_use > 0
+            or not score_snap["gauges"].get("mem.device.bytes_in_use", 0) > 0
+            or iterations != SWEEPS
+            or abs(avg - card_nums["avg_log_likelihood"]) > 1e-12 * abs(avg)):
+        raise AssertionError(
+            f"config E telemetry: names only on the card {sorted(only_card)}"
+            f", only on the CPU {sorted(only_cpu)}; backends "
+            f"{card[0]['backend']}/{cpu[0]['backend']}, config_hash "
+            f"{card[0]['config_hash']}/{cpu[0]['config_hash']}, "
+            f"bytes_in_use {in_use}, {iterations} iterations, train_fit avg "
+            f"{avg} against {card_nums['avg_log_likelihood']}")
+    return {"train_launches": tel_train, "score_launches": tel_score,
+            "names": len(stream_names(*card[1:])),
+            "events": len(card[1]), "score_events": len(score_events),
+            "config_hash": card[0]["config_hash"],
+            "device_count": card[0]["device_count"],
+            "bytes_in_use": in_use, "peak_bytes_in_use": peak,
+            "bytes_limit": card[2]["gauges"].get("mem.device.bytes_limit"),
+            "train_iterations": iterations,
+            "train_fit_avg_log_likelihood": avg,
+            "train_s": card_nums["train_s"],
+            "seconds": time.perf_counter() - t0}
 
 
 def run_config_f(torch, seed, workdir, smi):
@@ -3350,20 +3530,52 @@ def run_config_k(torch, seed, e):
             os.path.join(root, f"train_{tag}.out"))
         return out, secs, latest_model_dir(models, "EN")
 
+    # the uninterrupted run writes its telemetry, under a spawner's trace
+    # context as a supervised worker would be
+    from spark_text_clustering_tpu_torch.telemetry import tracing
+
+    tel_path = os.path.join(root, "telemetry", "train_whole.jsonl")
+    trace = tracing.mint(sampled=True)
+    os.environ[tracing.ENV_CONTEXT] = trace.format()
     _build.reset_launches()
-    with stream_triggers(torch) as triggers, \
-            recorded(online_lda, "gamma_fixed_point_bkl") as train_seen:
-        _, train_s, whole_dir = stream_train("cuda", "whole", watch)
-        whole_batches = [t[2] for t in triggers]
-        train_triggers = list(triggers)
-        wave = watch_dir(books, os.path.join(root, "watch_wave"),
-                         names[:K_WAVE])
-        first_out, _, _ = stream_train("cuda", "wave", wave)
-        watch_dir(books, wave, names[K_WAVE:])
-        resumed_out, _, resumed_dir = stream_train("cuda", "wave", wave,
-                                                   "--resume")
-        wave_batches = [t[2] for t in triggers[len(whole_batches):]]
+    try:
+        with stream_triggers(torch) as triggers, \
+                recorded(online_lda, "gamma_fixed_point_bkl") as train_seen:
+            _, train_s, whole_dir = stream_train(
+                "cuda", "whole", watch, "--telemetry-file", tel_path)
+            os.environ.pop(tracing.ENV_CONTEXT)
+            tracing.install(None)
+            whole_batches = [t[2] for t in triggers]
+            train_triggers = list(triggers)
+            wave = watch_dir(books, os.path.join(root, "watch_wave"),
+                             names[:K_WAVE])
+            first_out, _, _ = stream_train("cuda", "wave", wave)
+            watch_dir(books, wave, names[K_WAVE:])
+            resumed_out, _, resumed_dir = stream_train("cuda", "wave", wave,
+                                                       "--resume")
+            wave_batches = [t[2] for t in triggers[len(whole_batches):]]
+    finally:
+        os.environ.pop(tracing.ENV_CONTEXT, None)
+        tracing.install(None)
     train_launches = dict(_build.LAUNCHES)
+    t0 = time.perf_counter()
+    _, tel_events, tel_snap = telemetry_stream(tel_path)
+    whole_recs = EpochLedger(os.path.join(root, "ck_whole")).records()
+    batches = [e for e in tel_events if e["event"] == "micro_batch"]
+    commits = tel_snap["counters"].get("ledger.commits")
+    if (len(batches) != n_triggers
+            or {b.get("trace_id") for b in batches} != {trace.trace_id}
+            or {r.get("trace", {}).get("trace_id") for r in whole_recs}
+            != {trace.trace_id} or commits != len(whole_recs)):
+        raise AssertionError(
+            f"config K telemetry: {len(batches)} micro_batch events of "
+            f"{n_triggers} triggers, trace ids "
+            f"{ {b.get('trace_id') for b in batches} } against "
+            f"{trace.trace_id}, ledger.commits {commits} of "
+            f"{len(whole_recs)} records")
+    k_telemetry = {"micro_batches": len(batches), "ledger_commits": commits,
+                   "records_traced": len(whole_recs),
+                   "seconds": time.perf_counter() - t0}
     rel = [os.path.basename(p) for b in whole_batches for p in b]
     if ([[os.path.basename(p) for p in b] for b in wave_batches]
             != [[os.path.basename(p) for p in b] for b in whole_batches]
@@ -3457,6 +3669,7 @@ def run_config_k(torch, seed, e):
                   "resumed_step": last["step"],
                   "compact": compact_out.strip(),
                   "compacted_resume_bit_equal": True},
+        "telemetry": k_telemetry,
         "launches": launches, "score_launches": score_launches,
         "train_launches": train_launches,
         "published_score_launches": published_launches,
@@ -4035,6 +4248,39 @@ def run_cli_err(argv, out_path):
         return rc, f.read(), err.getvalue()
 
 
+def check_m_telemetry(path, ranks, trace_id, triggers):
+    """Each rank's ``-p<rank>`` stream of a grid ``stream-train`` run
+    under a spawner's ``STC_TRACE``: the grid's process fields and mesh
+    shape in its manifest, one ``micro_batch`` a trigger, each carrying
+    the spawner's trace id, ``collective.*`` counters above 0 in its
+    registry, and no stream at the path itself (the spawning process
+    writes none)."""
+    t0 = time.perf_counter()
+    stem, ext = os.path.splitext(path)
+    collectives = []
+    for r in range(ranks):
+        man, events, snap = telemetry_stream(f"{stem}-p{r}{ext}")
+        calls = sum(v for n, v in snap["counters"].items()
+                    if n.startswith("collective.") and n.endswith(".calls"))
+        traces = [e.get("trace_id") for e in events
+                  if e["event"] == "micro_batch"]
+        if ((man["process_index"], man["process_count"]) != (r, ranks)
+                or man["mesh_shape"] != {"data": 2, "model": 2}
+                or not calls > 0 or traces != [trace_id] * triggers):
+            raise AssertionError(
+                f"config M telemetry: rank {r}: process "
+                f"{man['process_index']}/{man['process_count']}, mesh "
+                f"{man.get('mesh_shape')}, collective calls {calls}, "
+                f"micro_batch trace ids {traces} against {triggers} x "
+                f"{trace_id}")
+        collectives.append(calls)
+    if os.path.exists(path):
+        raise AssertionError(f"config M telemetry: {path} was written")
+    return {"ranks": ranks, "collective_calls": collectives,
+            "micro_batches_traced": ranks * triggers,
+            "seconds": time.perf_counter() - t0}
+
+
 def run_config_m(torch, seed, e, smi):
     """Streaming on a 2x2 gloo grid of 4 ranks on the one card, on config
     E's 51 books with config K's widths (batch capacity 8, 2^18 hash
@@ -4115,11 +4361,23 @@ def run_config_m(torch, seed, e, smi):
     # M-train; K's 1x1 run twice more with the grid's numerics (lambda's
     # rows summed in the grid's order, J's rule, and E-step tiles of the
     # grid's data blocks), which M-train is held to, beside K's own
+    # (its telemetry under a spawner's trace context, which every rank
+    # adopts)
+    from spark_text_clustering_tpu_torch.telemetry import tracing
+
+    tel_path = os.path.join(root, "telemetry", "train.jsonl")
+    trace = tracing.mint(sampled=True)
+    os.environ[tracing.ENV_CONTEXT] = trace.format()
     _build.reset_launches()
-    with m_grid_spy() as runs:
-        train_out, train_s, train_dir = stream_train("train", watch,
-                                                     *M_FLAGS)
+    try:
+        with m_grid_spy() as runs:
+            train_out, train_s, train_dir = stream_train(
+                "train", watch, *M_FLAGS, "--telemetry-file", tel_path)
+    finally:
+        os.environ.pop(tracing.ENV_CONTEXT, None)
+        tracing.install(None)
     train_launches = dict(_build.LAUNCHES)
+    m_telemetry = check_m_telemetry(tel_path, 4, trace.trace_id, n_triggers)
     train_run = runs[0]
     lam = lam_of(train_dir)
     k_lam = lam_of(latest_model_dir(os.path.join(e["root"], "K", "m_whole"),
@@ -4250,6 +4508,7 @@ def run_config_m(torch, seed, e, smi):
                   "time_to_recover_s": recover, "killed_worker": killed,
                   "lam_max_rel_diff_vs_2x1": fleet_rel,
                   "partition_2x1_s": partition_s},
+        "telemetry": m_telemetry,
         "launches": launches,
         "kernel": {"launches": len(cases),
                    "max_abs_err": max(c["max_abs_err"] for c in cases),
@@ -4467,7 +4726,7 @@ def main() -> int:
             return soft_start(torch, tf_rows, EN_K, EN_V, args.seed)
 
         vocab_a = [f"t{i}" for i in range(EN_V)]
-        summary_a, tfidf_a, _, model_a = run_config(
+        summary_a, tfidf_a, ckpt_a, model_a = run_config(
             torch, "A", rows_a, vocab_a, EN_K, args.seed,
             workdir, resume_state=start_a)
         ckpt_cpu = os.path.join(workdir, "A_ckpt_cpu")
@@ -4497,6 +4756,8 @@ def main() -> int:
             raise AssertionError(
                 f"config A: CUDA and CPU avg logLik differ by {rel}")
         emit(summary_a)
+        overhead = telemetry_overhead(torch, tfidf_a, ckpt_a, args.seed)
+        emit(overhead)
 
         # 4. config B
         vocab_b = [f"h{i}" for i in range(NG_V)]
@@ -4590,7 +4851,17 @@ def main() -> int:
     if args.profile:
         profile_configs(torch, rows_a, rows_b, args.seed, args.out)
 
-    # 16. the kernels line; the sweep's error is the largest of config A's
+    # 16. the seconds the telemetry phases added to the run
+    added = {"A_overhead": overhead["seconds"],
+             "E": summary_e["telemetry"]["seconds"],
+             "K": summary_k["telemetry"]["seconds"],
+             "M": summary_m["telemetry"]["seconds"]}
+    telemetry_line = {"phase": "telemetry", "added_s": sum(added.values()),
+                      "per_config_s": added,
+                      "overhead_share": overhead["estimated_overhead_share"]}
+    emit(telemetry_line)
+
+    # 17. the kernels line; the sweep's error is the largest of config A's
     # and config E's checks and config I's ranks'; the gamma row is config
     # B's most populated bucket, and its error the largest of the four
     # buckets, the edge geometries, config H's, K's and L's launches
@@ -4664,6 +4935,7 @@ def main() -> int:
                 **{k_: max(c[k_] for c in m_kern["widest"])
                    for k_ in ("ms", "plain_ms", "bound_ms")}}
     record.update(build=build, kernels=kernels, config_A=summary_a,
+                  telemetry_overhead=overhead, telemetry=telemetry_line,
                   config_B=summary_b, config_C=summary_c, config_D=summary_d,
                   config_E=summary_e, config_F=summary_f, config_G=summary_g,
                   config_H=summary_h, config_I=summary_i, config_J=summary_j,

@@ -53,8 +53,17 @@ partition of the watch dir, heartbeats a lease and writes through a
 fenced epoch ledger, and the supervisor respawns, escalates and resizes
 between committed epochs.  Its ``--device`` is passed on to every worker
 when given; without it the workers run on the card, as the stream verbs
-do.  ``--role serve`` (item 8b) and the telemetry and actions flags (item
-9) exit 2.
+do.  ``--role serve`` (item 8b), the fleet's telemetry flags (item 9c)
+and ``--actions-file`` (item 9b) exit 2.
+
+``--telemetry-file F`` on ``train``, ``score``, ``stream-score`` and
+``stream-train`` writes the run's telemetry stream to ``F``: a manifest,
+then the JAX package's events (``corpus``, ``phase``, ``span``,
+``train_iteration``, ``train_fit``, ``micro_batch``, ``ledger_commit``,
+``model_saved``, ...), then a final ``registry`` snapshot, on every exit
+path.  Each rank of a grid writes its own stream, ``<stem>-p<rank><ext>``;
+the JAX package's ``metrics summarize`` reads one and ``metrics merge``
+folds a grid's into one run.
 
 Exit codes: 0 on success; 1 for a fleet that spent its respawn budget; 2
 for a usage error, a missing or corrupt model, a resume mismatch and a
@@ -64,7 +73,6 @@ flag not ported yet; 3 for a stream whose ledger write was fenced.
 from __future__ import annotations
 
 import argparse
-import functools
 import os
 import signal
 import sys
@@ -73,6 +81,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from . import telemetry
 from .config import Params
 from .device import resolve_device
 from .models.persistence import (
@@ -126,6 +135,7 @@ from .streaming import (
     StreamingOnlineLDA,
     StreamingScorer,
 )
+from .telemetry import tracing
 from .utils import native
 from .utils.profiling import MetricsLogger, trace
 from .utils.readers import read_stop_word_file, read_text_dir
@@ -159,13 +169,15 @@ LANG_DIRS = {
 }
 
 # The ROADMAP.md queue 1 item that ports the machinery behind each flag
-# the port refuses for now.
-_TELEMETRY_ITEM = "queue 1 item 9, telemetry"
+# the port refuses for now (``supervise --telemetry-file`` is refused by
+# ``cmd_supervise``: the stream verbs take the flag).
+_FLEET_TELEMETRY_ITEM = "queue 1 item 9c, the fleet's telemetry"
 _NOT_PORTED = {
-    "telemetry_file": ("--telemetry-file", _TELEMETRY_ITEM),
-    "worker_telemetry_dir": ("--worker-telemetry-dir", _TELEMETRY_ITEM),
-    "ship_to": ("--ship-to", _TELEMETRY_ITEM),
-    "actions_file": ("--actions-file", _TELEMETRY_ITEM),
+    "worker_telemetry_dir": ("--worker-telemetry-dir",
+                             _FLEET_TELEMETRY_ITEM),
+    "ship_to": ("--ship-to", _FLEET_TELEMETRY_ITEM),
+    "actions_file": ("--actions-file",
+                     "queue 1 item 9b, the rest of telemetry"),
     "compile_cache": ("--compile-cache",
                       "queue 1 item 10, a compile cache"),
 }
@@ -286,6 +298,33 @@ def _quiet(*args, **kwargs) -> None:
     """``print`` on a rank other than the coordinator."""
 
 
+def _with_telemetry(args: argparse.Namespace, device, run) -> int:
+    """``run()`` with ``--telemetry-file`` configured for this process (on
+    a grid, its rank's ``-p<rank>`` stream) on ``device``; the stream's
+    final registry snapshot is written on every way out, an exception
+    included."""
+    if not args.telemetry_file:
+        return run()
+    telemetry.configure(telemetry.per_process_path(args.telemetry_file),
+                        device=device)
+    try:
+        return run()
+    finally:
+        telemetry.shutdown()
+
+
+def _worker_manifest_fields(args: argparse.Namespace) -> dict:
+    """A supervised worker's fleet index, for its stream's manifest."""
+    return {"worker_index": args.worker_index} if args.fleet_dir else {}
+
+
+def _note_replays_suppressed(preseen: list, ledger_dir: str) -> None:
+    if preseen:
+        telemetry.count("ledger.replays_suppressed", len(preseen))
+        telemetry.event("replays_suppressed", files=len(preseen),
+                        ledger=ledger_dir)
+
+
 def _load_stop_words(path: Optional[str]) -> frozenset:
     if not path:
         return frozenset()
@@ -367,9 +406,14 @@ def cmd_train(args: argparse.Namespace) -> int:
 
 
 def _train(args: argparse.Namespace, grid) -> int:
+    device = args.device if grid is None else grid.device
+    return _with_telemetry(args, device,
+                           lambda: _train_run(args, grid, device))
+
+
+def _train_run(args: argparse.Namespace, grid, device) -> int:
     coordinator = is_coordinator()
     say = print if coordinator else _quiet
-    device = args.device if grid is None else grid.device
     timer = PhaseTimer()
     sw = _load_stop_words(args.stop_words)
     with timer.phase("read"):
@@ -416,8 +460,9 @@ def _train(args: argparse.Namespace, grid) -> int:
         # transform would run it twice
         ds: dict = {"texts": texts}
         for stage in feat_stages:
-            t = stage.fit(ds) if isinstance(stage, Estimator) else stage
-            ds = t.transform(ds)
+            with telemetry.span(f"pipeline.fit.{type(stage).__name__}"):
+                t = stage.fit(ds) if isinstance(stage, Estimator) else stage
+                ds = t.transform(ds)
     rows = ds["rows"]
     n_docs = sum(1 for i, _ in rows if len(i) > 0)
     # the reference's "token" count is DISTINCT terms per doc summed
@@ -426,6 +471,16 @@ def _train(args: argparse.Namespace, grid) -> int:
     rc = _resume_gate(params, ds["vocab"], args.resume)
     if rc is not None:
         return rc
+    # the manifest (the stream's first record; earlier spans were
+    # buffered): what a later `metrics diff` needs to judge two runs
+    # comparable
+    telemetry.manifest(
+        params=params,
+        mesh=grid if grid is not None else {"data": 1, "model": 1},
+        vocab_width=len(ds["vocab"]), kind="train", books_dir=args.books,
+    )
+    telemetry.event("corpus", documents=n_docs, tokens=n_tokens,
+                    vocab_width=len(ds["vocab"]))
 
     # corpus summary, reference format (LDAClustering.scala:28-34);
     # timings print full precision like Scala's Double.toString
@@ -499,6 +554,10 @@ def _train(args: argparse.Namespace, grid) -> int:
         vocab_size=model.vocab_size,
         algorithm=params.algorithm,
     )
+    for name, seconds in timer.phases.items():
+        telemetry.event("phase", name=name, seconds=round(seconds, 6))
+    telemetry.event("model_saved", path=out_dir, k=model.k,
+                    vocab_size=model.vocab_size, algorithm=params.algorithm)
     return 0
 
 
@@ -510,6 +569,11 @@ def cmd_score(args: argparse.Namespace) -> int:
 
 
 def _score(args: argparse.Namespace, grid) -> int:
+    device = args.device if grid is None else grid.device
+    return _with_telemetry(args, device, lambda: _score_run(args, grid))
+
+
+def _score_run(args: argparse.Namespace, grid) -> int:
     say = print if is_coordinator() else _quiet
     # a missing or truncated/uncommitted artifact fails here with a typed
     # error and exit code 2, never a partial report
@@ -522,6 +586,8 @@ def _score(args: argparse.Namespace, grid) -> int:
         print(f"error: {exc}", file=sys.stderr)
         return 2
     say(f"loaded model {model_path}: k={model.k}, V={model.vocab_size}")
+    telemetry.manifest(kind="score", model=model_path,
+                       vocab_width=model.vocab_size)
 
     books_dir = args.books
     if books_dir is None and args.books_root:
@@ -551,6 +617,8 @@ def _score(args: argparse.Namespace, grid) -> int:
     print(text)
     path = write_scoring_report(text, args.output_dir, args.lang)
     print(f"report written to {path}")
+    telemetry.sample_memory("score")
+    telemetry.event("scored", documents=len(docs), report=path)
     return 0
 
 
@@ -579,6 +647,9 @@ def _fleet_worker_context(args: argparse.Namespace):
 
     Returns ``(preempt, lease, fence, partition)``; the last three are
     None for an unsupervised stream."""
+    # a spawner's causal context (STC_TRACE) first: the first lease beat
+    # and every ledger record of this worker hang off it
+    tracing.adopt_env()
     preempt = PreemptionNotice().install()
     if not args.fleet_dir:
         return preempt, None, None, None
@@ -656,7 +727,8 @@ def _preseen(args: argparse.Namespace, ledger) -> list:
 def cmd_stream_score(args: argparse.Namespace) -> int:
     """Watch a directory and score arriving books incrementally (the
     LDALoader flow as a micro-batch stream)."""
-    return _stream(args, _stream_score)
+    return _stream(args, lambda *frame: _with_telemetry(
+        args, args.device, lambda: _stream_score(*frame)))
 
 
 def _stream_score(args: argparse.Namespace, preempt, lease, fence,
@@ -670,6 +742,10 @@ def _stream_score(args: argparse.Namespace, preempt, lease, fence,
         print(f"error: {exc}", file=sys.stderr)
         return 2
     print(f"loaded model {model_path}: k={model.k}, V={model.vocab_size}")
+    telemetry.manifest(kind="stream-score", model=model_path,
+                       vocab_width=model.vocab_size, watch_dir=args.watch_dir,
+                       **_worker_manifest_fields(args))
+    tracing.emit_adopt()
 
     # with --checkpoint-dir every trigger is one committed epoch: its
     # report and its consumed files commit in one ledger append, so a
@@ -680,6 +756,7 @@ def _stream_score(args: argparse.Namespace, preempt, lease, fence,
         ledger = EpochLedger(args.checkpoint_dir, fence=fence)
         ledger.recover()
         preseen = _preseen(args, ledger)
+        _note_replays_suppressed(preseen, args.checkpoint_dir)
     src = FileStreamSource(
         args.watch_dir,
         include_all=args.include_all,
@@ -754,10 +831,16 @@ def cmd_stream_train(args: argparse.Namespace) -> int:
 def _stream_train_on(args: argparse.Namespace, grid) -> int:
     """``stream-train`` on one device (grid None) or one rank of a grid:
     the stream's frame (the lease, the fence, the SIGTERM drain) in the
-    process that polls and commits, rank 0; the other ranks follow it."""
+    process that polls and commits, rank 0; the other ranks follow it.
+    Each rank writes its own telemetry stream, and each adopts the
+    spawner's ``STC_TRACE``, so every rank's triggers hang off it."""
+    device = args.device if grid is None else grid.device
     if grid is None or grid.rank == 0:
-        return _stream(args, functools.partial(_stream_train, grid=grid))
-    return _stream_train(args, None, None, None, None, grid=grid)
+        return _stream(args, lambda *frame: _with_telemetry(
+            args, device, lambda: _stream_train(*frame, grid=grid)))
+    tracing.adopt_env()
+    return _with_telemetry(args, device, lambda: _stream_train(
+        args, None, None, None, None, grid=grid))
 
 
 def _stream_train(args: argparse.Namespace, preempt, lease, fence,
@@ -792,6 +875,13 @@ def _stream_train(args: argparse.Namespace, preempt, lease, fence,
     )
     if rc is not None:
         return rc
+    telemetry.manifest(
+        params=params, kind="stream-train",
+        vocab_width=len(vocab) if vocab is not None else num_features,
+        watch_dir=args.watch_dir, **({} if grid is None else {"mesh": grid}),
+        **_worker_manifest_fields(args),
+    )
+    tracing.emit_adopt()
     trainer = StreamingOnlineLDA(
         params,
         vocab=vocab,
@@ -816,6 +906,7 @@ def _stream_train(args: argparse.Namespace, preempt, lease, fence,
     # committed paths are never ingested again; the pre-ledger
     # seen_files.txt is still read and written
     preseen = [] if trainer.ledger is None else _preseen(args, trainer.ledger)
+    _note_replays_suppressed(preseen, params.checkpoint_dir)
     src = FileStreamSource(
         args.watch_dir,
         include_all=args.include_all,
@@ -869,6 +960,8 @@ def _stream_train_end(args: argparse.Namespace, params: Params, trainer,
     else:
         model.save(out_dir)
     print(f"model saved to {out_dir}")
+    telemetry.event("model_saved", path=out_dir, k=model.k,
+                    vocab_size=model.vocab_size, algorithm="online")
     return 0
 
 
@@ -986,6 +1079,8 @@ def cmd_supervise(args: argparse.Namespace) -> int:
     expiry, resized between committed epochs with fence tokens so that a
     zombie's writes are refused."""
     extra = [("--role serve", _SERVE_ITEM)] if args.role == "serve" else []
+    if args.telemetry_file is not None:
+        extra.append(("--telemetry-file", _FLEET_TELEMETRY_ITEM))
     extra += [(flag, _SERVE_ITEM)
               for dest, (flag, default, _) in _SERVE_FLAGS.items()
               if getattr(args, dest) != default]
@@ -1107,7 +1202,9 @@ def _add_stream_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--no-lemmatize", action="store_true")
     p.add_argument("--include-all", action="store_true")
     p.add_argument("--telemetry-file", default=None,
-                   help="not ported yet (exits 2)")
+                   help="write the run's telemetry stream (JSONL: manifest, "
+                        "events, final registry snapshot) here; each rank "
+                        "of a grid writes <stem>-p<rank><ext>")
     p.add_argument("--quarantine-dir", default=None,
                    help="dead-letter dir for per-document failures: the "
                         "offending doc and a structured .error.json "
@@ -1187,7 +1284,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="append structured JSONL metrics (phases, "
                          "per-iteration times) to this file")
     tr.add_argument("--telemetry-file", default=None,
-                    help="not ported yet (exits 2)")
+                    help="write the run's telemetry stream (JSONL: "
+                         "manifest, events, final registry snapshot) here; "
+                         "each rank of a grid writes <stem>-p<rank><ext>")
     tr.add_argument("--no-tfidf", action="store_true",
                     help="train on raw counts instead of TF-IDF pseudo-counts")
     tr.add_argument("--export-mllib", action="store_true",
@@ -1224,7 +1323,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "OWN change drops below tol, so each distribution "
                          "depends on its own document only")
     sc.add_argument("--telemetry-file", default=None,
-                    help="not ported yet (exits 2)")
+                    help="write the run's telemetry stream (JSONL) here; "
+                         "each rank of a grid writes <stem>-p<rank><ext>")
     _add_compile_cache_arg(sc)
     _add_device_arg(sc)
     sc.set_defaults(fn=cmd_score)

@@ -41,6 +41,7 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..config import Params
 from ..device import resolve_device
 from ..ops.emscatter import plan_em_scatter, scatter_add_vtiles
@@ -589,22 +590,23 @@ class EMLDA:
                 w0 = np.pad(w0, ((0, 0), (0, v_pad - v)))
             n_wk, n_dk = layout.put(w0, d0.numpy()[packed_slot])
 
-        def sync():
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-
+        # the JAX package's label of this layout's wait
+        sync_label = ("em_packed" if not padded
+                      else "em_verbose" if verbose else "em_chunk")
         per_iter = verbose or p.record_iteration_times
         interval = 1 if per_iter else (
             max(1, p.checkpoint_interval) if ckpt_path else max(1, n_iters)
         )
         timer = IterationTimer()
         it = start_it
+        dispatches = 0
         while it < n_iters:
             m = min(interval - (it % interval), n_iters - it)
             timer.start()
             for _ in range(m):
                 n_wk, n_dk = layout.sweep(n_wk, n_dk)
-            sync()
+            dispatches += 1
+            telemetry.device_sync(n_wk, sync_label)
             timer.stop()
             timer.split_last(m)
             if verbose and is_coordinator():
@@ -618,6 +620,15 @@ class EMLDA:
                     save_train_state(ckpt_path, it, n_wk=n_wk_host,
                                      n_dk=n_dk_host)
         self.last_log_likelihood = float(layout.loglik(n_wk, n_dk))
+        if telemetry.enabled():
+            telemetry.emit_fit(
+                "em", timer.times, kind=timer.kind, start_iteration=start_it,
+                log_likelihood=self.last_log_likelihood,
+                layout=self.last_layout, sweep=self.last_sweep,
+                cells=(em_padded_cells(rows, p.bucket_by_length) if padded
+                       else int(len(ids))),
+                dispatches=dispatches, k=k, vocab_width=v, docs=n,
+            )
         if p.keep_doc_topic_counts:
             self.last_doc_topic_counts = layout.get_ndk(n_dk)
         return LDAModel(

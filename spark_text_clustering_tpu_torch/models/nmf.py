@@ -45,6 +45,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..config import Params
 from ..device import resolve_device
 from ..ops.lda_math import seeded_generator
@@ -55,6 +56,7 @@ from ..parallel.collectives import (
     data_shard_rows,
     gather_model_rows_kbl,
     model_handoff,
+    note_host_handoff,
     psum_data,
     psum_model,
     scatter_add_model_shard,
@@ -436,9 +438,12 @@ class NMF:
         dev = self.device
         timer = IterationTimer()
 
+        # a handle on the device for the wait (the sweeps hand no tensor
+        # back between sweeps)
+        on_dev = torch.empty(0, device=dev)
+
         def sync():
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            telemetry.device_sync(on_dev, "nmf")
 
         per_sweep = verbose or self.params.record_iteration_times
         say = verbose and (self.grid is None or self.grid.rank == 0)
@@ -538,6 +543,17 @@ class NMF:
             (w, h, loss), timer = self._run(sweep, p.max_iterations, verbose,
                                             "")
         self.last_loss = float(loss)
+        telemetry.emit_fit(
+            "nmf", timer.times, kind=timer.kind, loss=self.last_loss,
+            layout=self.last_layout, mu_backend=self.last_mu_backend,
+            cells=self.last_cells,
+            # the timed chunks: one, or one a sweep
+            dispatches=(1 if timer.kind == "interval_mean"
+                        else len(timer.times)),
+            k=k, vocab_width=v, docs=n,
+        )
+        if g is None:
+            note_host_handoff(k * v * h.element_size())
         return NMFModel(
             h=h.cpu().numpy() if g is None else model_handoff(g, h, v),
             vocab=list(vocab),

@@ -79,6 +79,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..config import Params
 from ..device import resolve_device
 from ..ops.estep import gamma_fixed_point_bkl
@@ -104,6 +105,7 @@ from ..parallel.collectives import (
     gather_model_rows_bkl,
     gather_model_rows_kbl,
     model_handoff,
+    note_host_handoff,
     model_row_sum,
     psum_data,
     scatter_add_model_shard,
@@ -129,6 +131,10 @@ _GAMMA_KEY = 0x6A33      # step t's gamma inits: (seed, 0x6A33, t)
 _TILE_EPOCH_KEY = 0x71E5  # the tile sampler's numpy stream, as in JAX
 _DOC_EPOCH_KEY = 0xE90C   # the doc-level epoch stream, as in JAX
 _RULES = ("card", "cpu")
+# the JAX package's device-sync label of each chunked path (the packed
+# path's follows the gamma backend of its last chunk)
+_SYNC_LABELS = {"tiles-resident": "online_tiles",
+                "padded-resident": "online_resident"}
 
 
 def _rho_scale(step: int, tau0: float, kappa: float, corpus_size: float,
@@ -503,6 +509,8 @@ class OnlineLDA:
         self.last_row_len: Optional[int] = None
         self.last_layout = "padded"
         self.last_batch_cells: Optional[int] = None
+        # the timed chunks (device round trips) of the last fit
+        self.last_dispatches = 0
         # the gamma loop the last tiled or packed fit ran: "pallas_tiles"
         # (the tile kernel), "xla_tiles" (the segment loop over tile
         # slots), "xla" (the flat segment loop; the JAX package's names),
@@ -531,9 +539,10 @@ class OnlineLDA:
                            device=self.rng_device)
         return table[ids.clamp(max=run.n).long()].to(self.device)
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def _sync(self, lam: torch.Tensor, label: str) -> None:
+        """The wait for the card at the end of a chunk, under the JAX
+        package's label of the path (``online_tiles``, ...)."""
+        telemetry.device_sync(lam, label)
 
     def _save(self, run: _Run, it: int, lam: torch.Tensor) -> None:
         # a collective fetch on every rank; one writer
@@ -547,6 +556,19 @@ class OnlineLDA:
             print(text)
 
     def _model(self, run: _Run, lam: torch.Tensor, vocab) -> LDAModel:
+        """The fitted model, after the fit's telemetry (every layout's
+        return path comes through here)."""
+        telemetry.emit_fit(
+            "online", run.timer.times, kind=run.timer.kind,
+            start_iteration=run.start_it, layout=self.last_layout,
+            gamma_backend=self.last_gamma_backend,
+            batch_size=self.last_batch_size,
+            batch_cells=self.last_batch_cells,
+            dispatches=self.last_dispatches,
+            k=self.params.k, vocab_width=run.v, docs=run.n,
+        )
+        if self.grid is None:
+            note_host_handoff(lam.shape[0] * run.v * lam.element_size())
         return LDAModel(
             lam=(lam.cpu().numpy() if self.grid is None
                  else model_handoff(self.grid, lam, run.v)),
@@ -567,11 +589,15 @@ class OnlineLDA:
         checkpoints on the JAX package's cadence.  Returns lambda."""
         lam, it = run.lam, run.start_it
         cadence = _save_cadence(self.params, interval)
+        self.last_dispatches = 0
         while it < run.n_iters:
             m = min(interval - (it % interval), run.n_iters - it)
             run.timer.start()
             lam = chunk(lam, it, m)
-            self._sync()
+            self.last_dispatches += 1
+            self._sync(lam, _SYNC_LABELS.get(label) or (
+                "online_tiles" if self.last_gamma_backend == "pallas_tiles"
+                else "online_packed"))
             run.timer.stop()
             run.timer.split_last(m)
             self._say(run, f"iter {it}: {run.timer.times[-1]:.4f}s ({label})")
@@ -925,6 +951,7 @@ class OnlineLDA:
         self.last_gamma_backend = "pallas"
         empty = (np.zeros(0, np.int32), np.zeros(0, np.float32))
         lam, timer = run.lam, run.timer
+        self.last_dispatches = run.n_iters - run.start_it
         for it in range(run.start_it, run.n_iters):
             timer.start()
             pick = self.sample_pick(it)
@@ -962,7 +989,7 @@ class OnlineLDA:
                 lam = padded_mstep(lam, eb, sstats, it, docs, eta=run.eta,
                                    tau0=p.tau0, kappa=p.kappa,
                                    corpus_size=float(n))
-                self._sync()
+                self._sync(lam, "online_host")
             # an empty Bernoulli draw skips the update, not the checkpoint
             timer.stop()
             self._say(run, f"iter {it}: {timer.times[-1]:.4f}s (padded-host)")

@@ -30,6 +30,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from .. import telemetry
 from ..resilience import (
     CorruptArtifactError,
     faultinject,
@@ -84,14 +85,30 @@ def latest_model_dir(
             continue
     for _, d in sorted(cands, reverse=True):
         path = os.path.join(base, d)
-        if artifact_status(path) not in ("committed", "legacy"):
+        status = artifact_status(path)
+        if status not in ("committed", "legacy"):
+            telemetry.count("resilience.artifacts_skipped")
+            telemetry.event(
+                "artifact_skipped", path=path, status=status, lang=lang,
+            )
             continue
         if verify_deep:
             try:
                 verify_artifact(path)
-            except CorruptArtifactError:
+            except CorruptArtifactError as exc:
+                telemetry.count("resilience.artifacts_skipped")
+                telemetry.event(
+                    "artifact_skipped", path=path,
+                    status="corrupt", lang=lang, error=str(exc),
+                )
                 continue
         return path
+    if cands:
+        # every candidate was partial or uncommitted
+        telemetry.event(
+            "artifact_none_valid", base=base, lang=lang,
+            candidates=len(cands),
+        )
     return None
 
 

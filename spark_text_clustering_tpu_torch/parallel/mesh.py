@@ -40,6 +40,7 @@ from typing import Callable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from .. import telemetry
 from ..device import resolve_device
 
 __all__ = [
@@ -256,13 +257,24 @@ def agree_checkpoint_exists(path: Optional[str]) -> bool:
         # the other ranks look after the broadcast: a checkpoint the
         # coordinator wrote before it got here is then in place for them
         exists = coord if coordinator else train_state_valid(path)
+        _note_rejected(path, exists)
         if coord != exists:
             raise RuntimeError(
                 f"checkpoint {path}: exists={exists} on rank "
                 f"{dist.get_rank()} but {coord} on the coordinator; "
                 "checkpoint_dir must be a filesystem every rank sees")
         return coord
-    return train_state_valid(path)
+    exists = train_state_valid(path)
+    _note_rejected(path, exists)
+    return exists
+
+
+def _note_rejected(path: str, valid: bool) -> None:
+    """Count a checkpoint file this rank found but could not resume
+    from."""
+    if not valid and os.path.exists(path):
+        telemetry.count("resilience.checkpoints_rejected")
+        telemetry.event("checkpoint_rejected", path=path)
 
 
 def agree_ledger_epoch(ledger_dir: Optional[str]) -> int:

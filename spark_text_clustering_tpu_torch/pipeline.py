@@ -20,6 +20,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from . import telemetry
 from .config import Params
 from .device import resolve_device
 from .ops.sparse import (
@@ -323,8 +324,13 @@ class PipelineModel(Transformer):
         self.stages = list(stages)
 
     def transform(self, ds: Dict) -> Dict:
+        # per-stage spans: wall time per transformer (no-ops when
+        # telemetry is off)
         for s in self.stages:
-            ds = s.transform(ds)
+            with telemetry.span(
+                f"pipeline.transform.{type(s).__name__}", emit=False
+            ):
+                ds = s.transform(ds)
         return ds
 
 
@@ -338,9 +344,10 @@ class Pipeline(Estimator):
         fitted: List[Transformer] = []
         last = len(self.stages) - 1
         for i, s in enumerate(self.stages):
-            t = s.fit(ds) if isinstance(s, Estimator) else s
-            if i != last:
-                # the final model's transform output is unused here
-                ds = t.transform(ds)
+            with telemetry.span(f"pipeline.fit.{type(s).__name__}"):
+                t = s.fit(ds) if isinstance(s, Estimator) else s
+                if i != last:
+                    # the final model's transform output is unused here
+                    ds = t.transform(ds)
             fitted.append(t)
         return PipelineModel(fitted)

@@ -41,6 +41,7 @@ from .resume import (  # noqa: F401
 )
 from .retry import (  # noqa: F401
     IO_POLICY,
+    TELEMETRY_POLICY,
     RetryGiveUp,
     RetryPolicy,
     configure_lease_deadline,

@@ -65,6 +65,8 @@ SITES = frozenset({
     "supervisor.spawn",   # before the supervisor spawns a worker process
     "worker.heartbeat",   # before a worker's lease heartbeat write
     "worker.kill",        # before the supervisor's SIGKILL escalation
+    "telemetry.write",    # telemetry run-stream append
+    "telemetry.ship",     # before a shipper batch POSTs to the collector
 })
 
 

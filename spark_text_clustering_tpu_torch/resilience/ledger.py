@@ -32,10 +32,11 @@ merged state.
 
 Fault-injection sites: ``ledger.stage`` (before the intent write) and
 ``ledger.commit`` (before the append); the payload writes have
-``ckpt.write`` and ``report.write``.  The JAX package also stamps the
-causal trace context on intents and records, and counts commits,
-rollbacks and compactions; that is the port's telemetry, ROADMAP queue 1
-item 9.
+``ckpt.write`` and ``report.write``.  Intents, committed records and
+ready markers carry the process's causal trace context (each committed
+record a child span of it), and commits, rollbacks and compactions count
+in ``ledger.commits`` / ``.rollbacks`` / ``.compactions`` with an event
+each, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -48,6 +49,8 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Set, Tuple
 
+from .. import telemetry
+from ..telemetry import tracing
 from . import faultinject
 from .errors import CorruptArtifactError, ResilienceError
 from .integrity import atomic_write_text, file_sha256
@@ -83,6 +86,11 @@ def record_checksum(record: Dict) -> str:
             body, sort_keys=True, separators=(",", ":")
         ).encode("utf-8")
     ).hexdigest()
+
+
+COMMITS_COUNTER = "ledger.commits"
+ROLLBACKS_COUNTER = "ledger.rollbacks"
+COMPACTIONS_COUNTER = "ledger.compactions"
 
 
 def shard_span(v_pad: int, process_index: int, process_count: int) -> Tuple[int, int]:
@@ -251,6 +259,12 @@ class EpochLedger:
             "payloads": sorted(payloads),
             "process_count": int(process_count),
         }
+        # the staged intent carries the process span (the committed record
+        # carries its own child span), so a crash between stage and commit
+        # still leaves an attributable orphan
+        ctx = tracing.current()
+        if ctx is not None:
+            intent["trace"] = ctx.to_fields()
         path = self._intent_path(epoch)
 
         def _write() -> None:
@@ -304,6 +318,13 @@ class EpochLedger:
             **({"model_ref": model_ref} if model_ref else {}),
             **extra,
         }
+        # every committed record owns one span, a child of the process
+        # context, so an epoch hangs off the worker that produced it
+        ctx = tracing.current()
+        span_fields = None
+        if ctx is not None:
+            span_fields = ctx.child().to_fields()
+            record["trace"] = span_fields
         if self.fence is not None:
             # worker identity rides the record too: lineage resolves
             # "which worker/generation/spawn committed this epoch"
@@ -333,6 +354,12 @@ class EpochLedger:
                 os.fsync(f.fileno())
 
         retry_call(_append, site="ledger.commit")
+        telemetry.count(COMMITS_COUNTER)
+        telemetry.event(
+            "ledger_commit", epoch=epoch, kind=kind,
+            sources=len(record["sources"]), payloads=len(digests),
+            **(span_fields or {}),
+        )
         # post-commit cleanup: best-effort — a crash in THIS window
         # leaves a stale intent for a committed epoch, which recover()
         # simply deletes (no rollback)
@@ -420,6 +447,11 @@ class EpochLedger:
                     json.dumps(r, sort_keys=True) + "\n" for r in records
                 ),
             )
+            telemetry.count(ROLLBACKS_COUNTER)
+            telemetry.event(
+                "ledger_rollback", reason="torn_append",
+                last_epoch=report.last_epoch,
+            )
         committed = {r["epoch"] for r in records}
         try:
             names = sorted(os.listdir(self.directory))
@@ -487,6 +519,10 @@ class EpochLedger:
         except OSError:
             pass
         report.rolled_back.append(epoch)
+        telemetry.count(ROLLBACKS_COUNTER)
+        telemetry.event(
+            "ledger_rollback", reason="uncommitted_epoch", epoch=epoch,
+        )
 
     def _quarantine_file(self, epoch: int, path: str, report: RecoveryReport) -> None:
         qdir = os.path.join(
@@ -571,6 +607,13 @@ class EpochLedger:
         atomic_write_text(
             self.path, json.dumps(snapshot, sort_keys=True) + "\n"
         )
+        telemetry.count(COMPACTIONS_COUNTER)
+        telemetry.event(
+            "ledger_compact",
+            epoch=snapshot["epoch"],
+            compacted=len(records),
+            sources=len(snapshot["sources"]),
+        )
         return snapshot
 
     # -- multi-host staging rendezvous ----------------------------------
@@ -602,6 +645,10 @@ class EpochLedger:
             "cols": [int(cols[0]), int(cols[1])],
             "sha256": file_sha256(path),
         }
+        # the ready marker names the staging process's causal context
+        ctx = tracing.current()
+        if ctx is not None:
+            spec["trace"] = ctx.to_fields()
         atomic_write_text(
             self._marker_path(epoch, process_index),
             json.dumps(spec, indent=2, sort_keys=True) + "\n",

@@ -23,9 +23,10 @@ from .integrity import atomic_write_text
 
 __all__ = ["ARCHIVE_DIRNAME", "QUARANTINED_COUNTER", "Quarantine", "requeue"]
 
-# the JAX package's counter of quarantined documents; the port's
-# telemetry (ROADMAP queue 1 item 9) counts it under this name
+# the JAX package's counters of quarantined, replayed and archived docs
 QUARANTINED_COUNTER = "resilience.quarantined"
+REPLAYED_COUNTER = "requeue.replayed"
+ARCHIVED_COUNTER = "requeue.archived"
 ARCHIVE_DIRNAME = ".archive"
 
 _SAFE = re.compile(r"[^A-Za-z0-9._-]+")
@@ -51,7 +52,15 @@ class Quarantine:
         """Quarantine one document; returns the payload path (None without
         a directory).  Never raises: a failing quarantine disk must not
         take the stream down with it."""
+        from .. import telemetry
+
         self.count += 1
+        telemetry.count(QUARANTINED_COUNTER)
+        telemetry.event(
+            "quarantine",
+            doc=name, stage=stage, error=repr(error),
+            **({} if batch_id is None else {"batch_id": batch_id}),
+        )
         if not self.directory:
             return None
         safe = _SAFE.sub("_", os.path.basename(name))[:80] or "doc"
@@ -88,6 +97,8 @@ def requeue(
     ``dry_run`` lists what would move.  Returns ``{"replayed": [...],
     "archived": [...], "skipped": [...]}`` (skipped: moves that failed;
     they stay quarantined)."""
+    from .. import telemetry
+
     out: Dict[str, List[str]] = {"replayed": [], "archived": [], "skipped": []}
     try:
         names = sorted(os.listdir(quarantine_dir))
@@ -112,11 +123,14 @@ def requeue(
             out["skipped"].append(src)
             continue
         out["replayed"].append(dest)
+        telemetry.count(REPLAYED_COUNTER)
         if os.path.exists(side_src):
             try:
                 os.makedirs(archive, exist_ok=True)
                 shutil.move(side_src, os.path.join(archive, sidecar))
                 out["archived"].append(os.path.join(archive, sidecar))
+                telemetry.count(ARCHIVED_COUNTER)
             except OSError:
                 out["skipped"].append(side_src)
+        telemetry.event("requeue", doc=n, watch_dir=watch_dir)
     return out

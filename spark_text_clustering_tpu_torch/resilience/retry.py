@@ -4,9 +4,10 @@ JAX package: one policy object serves every transient-I/O call site
 
 Jitter is deterministic per call site: the jitter stream is seeded from
 the site name, so a fault-injected run replays exactly and takes the same
-delays in both packages.  The JAX package also counts every absorbed
-failure and give-up in its telemetry registry; the port's telemetry is
-ROADMAP queue 1 item 9, which brings those counters.
+delays in both packages.  Retries are observable: every absorbed failure
+counts in ``resilience.retries`` and every exhausted policy in
+``resilience.giveups`` (and ``resilience.deadline_giveups`` when the clock
+ran out), plus a ``retry`` event when a run stream is configured.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from .errors import ResilienceError
 
 __all__ = [
     "IO_POLICY",
+    "TELEMETRY_POLICY",
     "RetryGiveUp",
     "RetryPolicy",
     "configure_lease_deadline",
@@ -28,6 +30,10 @@ __all__ = [
     "retry_call",
     "sleep",
 ]
+
+RETRIES_COUNTER = "resilience.retries"
+GIVEUPS_COUNTER = "resilience.giveups"
+DEADLINE_GIVEUPS_COUNTER = "resilience.deadline_giveups"
 
 
 def sleep(seconds: float) -> None:
@@ -81,6 +87,10 @@ class RetryPolicy:
     jitter: float = 0.25            # fraction of the delay, uniform ±
     deadline_seconds: Optional[float] = None
     retry_on: Tuple[Type[BaseException], ...] = (OSError,)
+    # False: count retries in the registry but emit no ``retry`` event —
+    # the telemetry sink's own retries (an event would re-enter the
+    # failing sink)
+    emit_events: bool = True
 
     def delay(self, attempt: int, rng: Optional[random.Random] = None) -> float:
         if attempt <= 0:
@@ -96,6 +106,12 @@ class RetryPolicy:
 # I/O micro-retry: absorbs transient filesystem hiccups without letting a
 # dead disk stall the caller for more than about a second.
 IO_POLICY = RetryPolicy(attempts=4, base_delay=0.05, max_delay=0.5)
+
+# Telemetry writes are best-effort: one quick second chance, never a
+# stall, and no retry events.
+TELEMETRY_POLICY = RetryPolicy(
+    attempts=2, base_delay=0.01, max_delay=0.01, emit_events=False
+)
 
 # Process-wide cap on every retry loop's deadline (None: unbounded), for a
 # worker that must fail typed before its supervisor's lease runs out.
@@ -125,6 +141,15 @@ def _site_rng(site: str) -> random.Random:
     return random.Random(zlib.crc32(site.encode("utf-8")))
 
 
+def _count(name: str, **event_fields) -> None:
+    # late import: the telemetry sink's own retries route through here
+    from .. import telemetry
+
+    telemetry.count(name)
+    if event_fields:
+        telemetry.event("retry", **event_fields)
+
+
 def retry_call(
     fn: Callable,
     *args,
@@ -134,9 +159,10 @@ def retry_call(
     **kwargs,
 ):
     """``fn(*args, **kwargs)`` under ``policy``: exceptions in
-    ``policy.retry_on`` are absorbed until the attempts or the deadline
-    run out, then ``RetryGiveUp`` raises with the last one chained.  Other
-    exceptions propagate at once."""
+    ``policy.retry_on`` are absorbed (counted in ``resilience.retries``)
+    until the attempts or the deadline run out, then ``RetryGiveUp``
+    raises (counted in ``resilience.giveups``) with the last one chained.
+    Other exceptions propagate at once."""
     rng = _site_rng(site)
     t0 = time.monotonic()
     deadline = _effective_deadline(policy)
@@ -159,11 +185,19 @@ def retry_call(
             return fn(*args, **kwargs)
         except policy.retry_on as exc:
             last = exc
+            if policy.emit_events:
+                _count(RETRIES_COUNTER, site=site, attempt=attempt,
+                       error=repr(exc))
+            else:
+                _count(RETRIES_COUNTER)
     if last is None:
         # a zero or negative budget expired before the first attempt
         last = TimeoutError(
             f"retry budget of {deadline}s expired before any attempt"
         )
+    _count(GIVEUPS_COUNTER)
+    if deadline_hit:
+        _count(DEADLINE_GIVEUPS_COUNTER)
     raise RetryGiveUp(
         site, attempts_made, last, deadline_exceeded=deadline_hit
     ) from last

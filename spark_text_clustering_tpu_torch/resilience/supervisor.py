@@ -47,8 +47,9 @@ Supervisor-side sites: ``supervisor.spawn`` and ``worker.kill``.
 This module imports neither ``torch`` nor the port's device code: it is
 subprocess-and-files machinery that must survive whatever a worker does
 to the card.  The JAX package also records telemetry and trace context
-here and applies a monitor's actions file (ROADMAP queue 1 item 9), and
-supervises serve replicas (item 8b); the port has neither yet.
+here (ROADMAP queue 1 item 9c), applies a monitor's actions file (item
+9b) and supervises serve replicas (item 8b); the port has none of these
+yet.
 """
 
 from __future__ import annotations

@@ -24,10 +24,13 @@ chunk is one launch of the padded E-step kernel on the card.
   either package wrote resumes in the other.
 
 The trainer also runs on a (data, model) grid of ranks (``parallel``),
-rank 0 reading the source and sharing each micro-batch.  The JAX package
-also records telemetry (spans, gauges, micro-batch events); the port's
-telemetry is ROADMAP queue 1 item 9.  A supervised fleet of stream
-workers (``resilience.supervisor``) gives each worker a
+rank 0 reading the source and sharing each micro-batch.  Every trigger
+reports through ``telemetry`` under the JAX package's names: the
+``stream.score_batch`` / ``stream.train_batch`` spans, the
+``stream.{score,train}.micro_batch_seconds`` histograms, one
+``micro_batch`` event stamped with the trace context, a memory sample, and
+the ``stream.queue_depth`` / ``stream.trigger_cap`` gauges.  A supervised
+fleet of stream workers (``resilience.supervisor``) gives each worker a
 ``FileStreamSource`` partition and a fenced ledger.
 """
 
@@ -43,6 +46,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from . import telemetry
 from .config import Params
 from .device import resolve_device
 from .models.base import LDAModel
@@ -69,6 +73,7 @@ from .resilience import (
 from .resilience.resume import vocab_fingerprint as _vocab_fingerprint
 from .resilience.supervisor import partition_of
 from .resilience.retry import sleep as _sleep
+from .telemetry import tracing
 from .utils.report import format_scoring_report, write_scoring_report
 
 __all__ = [
@@ -117,6 +122,7 @@ class AIMDTriggerController:
         elif queue_depth > self.cap:
             # a true backlog with latency headroom: one step wider
             self.cap = min(self.max_cap, self.cap + self.increase)
+        telemetry.gauge("stream.trigger_cap", self.cap)
         return self.cap
 
     def apply(self, source) -> None:
@@ -251,8 +257,10 @@ class FileStreamSource:
         try:
             new = retry_call(_list, site="stream.poll")
         except RetryGiveUp:
+            telemetry.event("stream_poll_giveup", directory=self.directory)
             return None
         self.last_queue_depth = len(new)
+        telemetry.gauge("stream.queue_depth", len(new))
         if not new:
             return None
         if self.max_files is not None:
@@ -328,6 +336,7 @@ class MemoryStreamSource:
 
     def poll(self) -> Optional[MicroBatch]:
         self.last_queue_depth = len(self._queue)
+        telemetry.gauge("stream.queue_depth", len(self._queue))
         if not self._queue:
             return None
         n = len(self._queue) if self.max_docs is None else self.max_docs
@@ -442,6 +451,20 @@ class StreamingScorer:
         self.batches_seen = 0
 
     def process(self, mb: MicroBatch) -> List[ScoredDoc]:
+        t0 = time.perf_counter()
+        with telemetry.span("stream.score_batch", emit=False):
+            out = self._score(mb)
+        dt = time.perf_counter() - t0
+        telemetry.observe("stream.score.micro_batch_seconds", dt)
+        telemetry.event(
+            "micro_batch", role="score", batch_id=mb.batch_id,
+            docs=len(mb), seconds=round(dt, 6), **tracing.fields(),
+        )
+        # a trigger boundary is a memory sample point
+        telemetry.sample_memory("stream.score")
+        return out
+
+    def _score(self, mb: MicroBatch) -> List[ScoredDoc]:
         all_names, all_texts, rows = _vectorize_quarantined(
             self.pre, self._rows_for, mb, self.quarantine, "vectorize"
         )
@@ -687,22 +710,29 @@ class StreamingOnlineLDA:
         a checkpoint: the caller's cue to commit source progress.  On a
         grid, rank 0 vectorizes ``mb`` and shares it; every other rank
         passes nothing and receives it."""
-        if self._leader:
-            _, _, raw_rows = _vectorize_quarantined(
-                self.pre, self._rows_for, mb, self.quarantine, "vectorize"
-            )
-            names = list(mb.names)
-            rows = [(i, w) for i, w in raw_rows if len(i) > 0]
-            self._tell("batch", names, rows)
-        else:
-            msg = self._share()
-            if msg[0] != "batch":
-                raise RuntimeError(f"rank 0 sent {msg[0]!r} where a "
-                                   "micro-batch was due")
-            _, names, rows = msg
-        return self._train(names, rows)
+        t0 = time.perf_counter()
+        with telemetry.span("stream.train_batch", emit=False):
+            if self._leader:
+                _, _, raw_rows = _vectorize_quarantined(
+                    self.pre, self._rows_for, mb, self.quarantine,
+                    "vectorize"
+                )
+                names = list(mb.names)
+                rows = [(i, w) for i, w in raw_rows if len(i) > 0]
+                batch_id = mb.batch_id
+                self._tell("batch", names, rows, batch_id)
+            else:
+                msg = self._share()
+                if msg[0] != "batch":
+                    raise RuntimeError(f"rank 0 sent {msg[0]!r} where a "
+                                       "micro-batch was due")
+                _, names, rows, batch_id = msg
+            return self._train(names, rows, batch_id, t0)
 
-    def _train(self, names: List[str], rows) -> bool:
+    def _train(self, names: List[str], rows, batch_id=None,
+               t0: Optional[float] = None) -> bool:
+        if t0 is None:
+            t0 = time.perf_counter()
         # every consumed path joins the next epoch's record, whether or
         # not its docs survive vectorization (else it would replay forever)
         self._pending_sources.extend(names)
@@ -719,6 +749,17 @@ class StreamingOnlineLDA:
         )
         if wrote_ckpt:
             self.checkpoint()
+        if telemetry.enabled():
+            dt = time.perf_counter() - t0
+            telemetry.observe("stream.train.micro_batch_seconds", dt)
+            telemetry.event(
+                "micro_batch", role="train", batch_id=batch_id,
+                docs=len(rows), seconds=round(dt, 6),
+                docs_seen=self.docs_seen, step=self.step,
+                **tracing.fields(),
+            )
+            # a trigger boundary is a memory sample point
+            telemetry.sample_memory("stream.train")
         return wrote_ckpt
 
     def _update(self, chunk) -> None:
@@ -809,7 +850,8 @@ class StreamingOnlineLDA:
         while True:
             msg = self._share()
             if msg[0] == "batch":
-                self._train(msg[1], msg[2])
+                with telemetry.span("stream.train_batch", emit=False):
+                    self._train(*msg[1:])
             elif msg[0] == "final":
                 self.checkpoint()
             elif msg[0] == "end":

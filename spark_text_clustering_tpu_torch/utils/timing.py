@@ -1,10 +1,16 @@
-"""Phase and per-iteration wall times (MLlib's ``iterationTimes``)."""
+"""Phase and per-iteration wall times (MLlib's ``iterationTimes``).
+
+Both timers also report into the process telemetry registry when it is
+enabled (a ``phase.<name>`` span, the ``train_iteration_seconds``
+histogram); disabled, that is one bool check."""
 
 from __future__ import annotations
 
 import time
 from contextlib import contextmanager
 from typing import Dict, List
+
+from .. import telemetry
 
 __all__ = ["IterationTimer", "PhaseTimer"]
 
@@ -17,7 +23,8 @@ class PhaseTimer:
     def phase(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with telemetry.span(f"phase.{name}"):
+                yield
         finally:
             self.phases[name] = self.phases.get(name, 0.0) + (
                 time.perf_counter() - t0
@@ -41,7 +48,9 @@ class IterationTimer:
 
     def stop(self) -> None:
         if self._t0 is not None:
-            self.times.append(time.perf_counter() - self._t0)
+            dt = time.perf_counter() - self._t0
+            self.times.append(dt)
+            telemetry.observe("train_iteration_seconds", dt)
             self._t0 = None
 
     @property

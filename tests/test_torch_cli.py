@@ -583,14 +583,16 @@ def test_resume_mismatch_exits_2(native_lib, corpus, tmp_path):
 
 _SERVE = "item 8b, the serve fleet"
 REFUSED = [
-    (["train", "--telemetry-file", "t.jsonl"], "--telemetry-file", "item 9"),
     (["train", "--compile-cache", "cc"], "--compile-cache", "item 10"),
-    (["score", "--telemetry-file", "t.jsonl"], "--telemetry-file", "item 9"),
     (["score", "--compile-cache", "cc"], "--compile-cache", "item 10"),
-    (["stream-score", "--telemetry-file", "t.jsonl"], "--telemetry-file",
-     "item 9"),
+    (["stream-score", "--compile-cache", "cc"], "--compile-cache",
+     "item 10"),
     (["stream-train", "--compile-cache", "cc"], "--compile-cache",
      "item 10"),
+    (["supervise", "--role", "stream-train", "--telemetry-file", "t.jsonl"],
+     "--telemetry-file", "item 9c"),
+    (["supervise", "--telemetry-file", "t.jsonl", "--ship-to",
+      "localhost:1"], "--ship-to", "item 9c"),
     (["supervise", "--role", "serve"], "--role serve", _SERVE),
     (["supervise", "--front-port", "0"], "--front-port", _SERVE),
     (["supervise", "--max-seconds", "5"], "--max-seconds", _SERVE),
@@ -612,11 +614,11 @@ REFUSED = [
     (["supervise", "--autoscale-cooldown", "1"], "--autoscale-cooldown",
      _SERVE),
     (["supervise", "--telemetry-file", "t.jsonl"], "--telemetry-file",
-     "item 9"),
+     "item 9c"),
     (["supervise", "--worker-telemetry-dir", "t"], "--worker-telemetry-dir",
-     "item 9"),
-    (["supervise", "--ship-to", "localhost:1"], "--ship-to", "item 9"),
-    (["supervise", "--actions-file", "a.json"], "--actions-file", "item 9"),
+     "item 9c"),
+    (["supervise", "--ship-to", "localhost:1"], "--ship-to", "item 9c"),
+    (["supervise", "--actions-file", "a.json"], "--actions-file", "item 9b"),
     (["supervise", "--compile-cache", "cc"], "--compile-cache", "item 10"),
 ]
 

@@ -10,7 +10,7 @@ a kill at commit publishes a loadable model per worker; a bare
 fleet dir one package's ``supervise`` started in the other package's.
 
 The JAX drill that reads the supervisor's telemetry stream is left out:
-the port's telemetry is ROADMAP.md queue 1 item 9.
+the fleet's telemetry is ROADMAP.md queue 1 item 9c.
 """
 
 import os

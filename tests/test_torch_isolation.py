@@ -57,6 +57,44 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
 
 
+def test_telemetry_and_a_run_with_it_load_no_jax(tmp_path):
+    """Importing the port's telemetry, and running a CLI command with
+    ``--telemetry-file``, leaves jax and the JAX package out of
+    ``sys.modules``; the stream the run wrote starts with its manifest
+    and ends with the registry."""
+    books = tmp_path / "books"
+    books.mkdir()
+    for i in range(3):
+        (books / f"b{i}.txt").write_text(
+            "The quick brown fox jumps over the lazy dog. " * (5 + i)
+            + "Lorem ipsum dolor sit amet. " * (3 * i + 1))
+    stream = tmp_path / "t.jsonl"
+    code = (
+        "import json, sys\n"
+        "import spark_text_clustering_tpu_torch.telemetry\n"
+        "from spark_text_clustering_tpu_torch.utils import native\n"
+        "native._tried, native._error = True, 'the Python text path'\n"
+        "from spark_text_clustering_tpu_torch import cli\n"
+        f"rc = cli.main(['train', '--books', {str(books)!r}, '--k', '2',\n"
+        "              '--max-iterations', '2', '--models-dir',\n"
+        f"              {str(tmp_path / 'm')!r}, '--device', 'cpu',\n"
+        f"              '--telemetry-file', {str(stream)!r}])\n"
+        "assert rc == 0, rc\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'spark_text_clustering_tpu')]\n"
+        "assert not bad, bad\n"
+        f"lines = open({str(stream)!r}).read().splitlines()\n"
+        "assert json.loads(lines[0])['event'] == 'manifest'\n"
+        "assert json.loads(lines[-1])['event'] == 'registry'\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=180)
+    assert out.returncode == 0, out.stderr[-3000:]
+
+
 def test_the_grid_modules_are_scanned():
     """The import and source scans cover the grid's modules: the
     ``parallel`` package, sharded evaluation, and the estimators and
@@ -84,6 +122,14 @@ def test_the_streaming_modules_are_scanned():
             "spark_text_clustering_tpu_torch.resilience.faultinject",
             "spark_text_clustering_tpu_torch.resilience.quarantine",
             "spark_text_clustering_tpu_torch.resilience.supervisor"} <= mods
+
+
+def test_the_telemetry_modules_are_scanned():
+    """The import and source scans cover the telemetry core."""
+    mods = set(_port_modules())
+    assert {f"spark_text_clustering_tpu_torch.telemetry{m}" for m in (
+        "", ".registry", ".names", ".tracing", ".transport", ".prometheus",
+        ".events", ".spans", ".memory")} <= mods
 
 
 _FORBIDDEN = re.compile(
