@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--profile] [--out DIR] [--kernels-only]
 
-1. builds the five CUDA kernels from ``spark_text_clustering_tpu_torch/
+1. builds the six CUDA kernels from ``spark_text_clustering_tpu_torch/
    csrc`` and the native text library from ``.../native`` (one ``nvcc``
    per source and one ``g++``, in parallel, into build/torch_kernels;
    ``--kernels-only`` skips the text library);
@@ -18,7 +18,11 @@
    iteration 5's minibatch and on the fit's heaviest launch.  The NMF
    kernel is also timed by graph replay and by host enqueue, beside the
    sweep's H-side ``index_add_``, with its placement, CTAs an SM and
-   ptxas registers and spills recorded;
+   ptxas registers and spills recorded.  The per-document kernel of
+   scoring (``csrc/segments.cu``) is held against its plain version on 8
+   of config A's rows at the widest serve bucket (262,144 slots, 8 doc
+   slots), repeated bit for bit, and a doc's bytes held equal alone and in
+   a batch at other widths;
 3. config A, the EN books shape: 51 docs of 2,000-20,000 distinct terms,
    V=39,380, k=5.  IDF -> EM fit (fused sweep, resumed from one random
    start) -> save -> load -> padded-bucket scoring -> scoring report.  The
@@ -157,7 +161,20 @@
    launches held against the plain version; ms a trigger, docs/s, the
    front end's share, the collectives' ms a trigger and share, and the
    grid's seconds from spawn to result;
-16. telemetry (``--telemetry-file``) on commands the configs already run:
+16. config N, one serve replica on config E's 51 books and card model
+   (``run_config_n``): the per-document kernel's check again on the
+   model's own rows (the plain version run the same ways, its bytes
+   recorded); ``cli serve`` as subprocesses on the card, on ``--device
+   cpu`` and with ``--max-queue 8``: the books one a request from 8
+   threads and as 6 requests of 8-9, every served distribution equal in
+   bytes to this process's per-doc scoring on the card (the CPU server's
+   within 1e-4), a hot swap mid-traffic (each response equal to its
+   model's bytes), a 429 with Retry-After in [1, 60], ``/healthz`` and
+   Prometheus ``/metrics``, SIGTERM drains with no retrace after warmup;
+   then ``score --per-doc-convergence`` (its report equal to the served
+   bytes' report) and the same ``serve`` in this process, its launches
+   counted; spawn to first response, warmup, request p50/p99, docs/s;
+17. telemetry (``--telemetry-file``) on commands the configs already run:
    E's card ``train`` and ``score`` run again with the flag (their launch
    counts equal to the runs without it) and its ``train --device cpu``
    takes it: the card stream's names equal the CPU stream's (less
@@ -177,8 +194,8 @@
    time in a tight loop) within 2% of the fit, beside the enabled and
    disabled ms a sweep.  A ``telemetry`` line sums the seconds these
    phases added;
-17. a ``total`` line with the run's seconds, then a ``kernels`` line: per
-   kernel, the launches of the main-path runs of 3-15 (each must be > 0),
+18. a ``total`` line with the run's seconds, then a ``kernels`` line: per
+   kernel, the launches of the main-path runs of 3-16 (each must be > 0),
    the largest difference from the plain version, and the times beside
    the card's bound (the E-step's entry also M's own, as ``config_M``).
 
@@ -4521,6 +4538,586 @@ def run_config_m(torch, seed, e, smi):
     }
 
 
+# ---- config N: one serve replica -------------------------------------------
+N_BUCKETS = (16384, 65536, 262144)   # --token-bucket: E's books batch to 8
+N_MAX_BATCH = 8                      # --max-batch: the pinned doc axis
+N_SEGMENTS = {"name": "topic_inference_segments", "route": "cuda",
+              "source": "spark_text_clustering_tpu_torch/csrc/segments.cu",
+              "replaces": "spark_text_clustering_tpu/ops/lda_math.py:434"}
+
+
+def segments_batch(torch, eb_vk, rows, t, dev, b):
+    """``rows`` packed as a serve dispatch packs them: docs contiguous from
+    slot 0 at width ``t``, ``b`` doc slots (the empty ones past the rows),
+    gamma0 all ones: (eb_tok, cts, offsets, gamma0) on ``dev``."""
+    from spark_text_clustering_tpu_torch.ops.segments import pack_offsets
+
+    lens = [len(i) for i, _ in rows]
+    flat_i = np.zeros(t, np.int64)
+    flat_c = np.zeros(t, np.float32)
+    o = 0
+    for ids, wts in rows:
+        flat_i[o:o + len(ids)] = ids
+        flat_c[o:o + len(ids)] = wts
+        o += len(ids)
+    offsets = pack_offsets(lens + [0] * (b - len(rows)))
+    return (eb_vk[torch.from_numpy(flat_i).to(dev)],
+            torch.from_numpy(flat_c).to(dev),
+            torch.from_numpy(offsets).to(dev),
+            torch.ones((b, eb_vk.shape[1]), dtype=torch.float32, device=dev))
+
+
+def n_bucket(total: int) -> int:
+    want = max(8, 1 << max(0, int(total - 1).bit_length()))
+    return next(t for t in N_BUCKETS if t >= want)
+
+
+def check_segments(torch, eb_vk, alpha, rows, dev, label):
+    """The per-document kernel at a serve dispatch's shapes: 8 of ``rows``
+    (the largest 8 that fit) in the widest bucket against the plain version
+    on the same card tensors (distributions within 1e-5, on books most of
+    which converge: where every book runs all 100 iterations unconverged
+    the two summation orders drift further apart, 2.3e-5 on A's rows under
+    a lambda whose topics barely differ), a repeat bit for bit, and the first of them alone at its own bucket, alone at the widest
+    and fourth in a batch of the others: equal bytes through the kernel.
+    The plain version is run the same ways, and whether its bytes moved is
+    recorded (index_add_'s float atomics and shape-dependent reductions on
+    the card).  Times: events over back-to-back launches; the bound from
+    these inputs' live tokens and each doc's iterations."""
+    from spark_text_clustering_tpu_torch.ops import segments
+
+    order = sorted(range(len(rows)), key=lambda i: -len(rows[i][0]))
+    batch, total = [], 0
+    for i in order:
+        if len(batch) < N_MAX_BATCH and total + len(rows[i][0]) <= N_BUCKETS[-1]:
+            batch.append(rows[i])
+            total += len(rows[i][0])
+    t, b, k = N_BUCKETS[-1], N_MAX_BATCH, eb_vk.shape[1]
+    args = segments_batch(torch, eb_vk, batch, t, dev, b)
+
+    def kernel(a):
+        return segments.topic_inference_segments(a[0], a[1], a[2], alpha, a[3])
+
+    def plain(a):
+        return segments.topic_inference_segments_plain(
+            a[0], a[1], a[2], alpha, a[3])
+
+    got = kernel(args)
+    again = kernel(args)
+    want, iters = segments.topic_inference_segments_plain(
+        *args[:3], alpha, args[3], with_iters=True)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    repeat = bool(torch.equal(got, again))
+    one = batch[0]
+    others = batch[1:]
+    ways = {
+        "alone_own_bucket": segments_batch(torch, eb_vk, [one],
+                                           n_bucket(len(one[0])), dev, b),
+        "alone_widest": segments_batch(torch, eb_vk, [one], t, dev, b),
+        "fourth_of_batch": segments_batch(
+            torch, eb_vk, others[:3] + [one] + others[3:], t, dev, b),
+    }
+    pos = {"alone_own_bucket": 0, "alone_widest": 0, "fourth_of_batch": 3}
+    kern_rows = {"first_of_batch": got[0]}
+    plain_rows = {"first_of_batch": want[0]}
+    for way, a in ways.items():
+        kern_rows[way] = kernel(a)[pos[way]]
+        plain_rows[way] = plain(a)[pos[way]]
+    torch.cuda.synchronize()
+
+    def same(rowset):
+        ref = rowset["first_of_batch"].cpu().numpy().tobytes()
+        return all(r.cpu().numpy().tobytes() == ref for r in rowset.values())
+
+    kernel_same = same(kern_rows)
+    plain_same = same(plain_rows)
+    plain_again = plain(args)
+    plain_repeat = bool(torch.equal(plain_again, want))
+    plain_spread = float((plain_again - want).abs().max())
+    ms = cuda_ms(torch, lambda: kernel(args), 20)
+    plain_ms = cuda_ms(torch, lambda: plain(args), 3)
+    lens = np.asarray([len(i) for i, _ in batch] + [0] * (b - len(batch)))
+    it = iters.cpu().numpy()
+    bytes_moved = 4 * (int(lens.sum()) * (k + 1) + (b + 1) + k + 2 * b * k)
+    flops = float((it * lens).sum()) * (4 * k + 2)
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    res = {**N_SEGMENTS, "label": label, "docs": len(batch), "t": t,
+           "max_batch": b, "k": k, "live_tokens": int(lens.sum()),
+           "doc_tokens": [int(x) for x in lens[:len(batch)]],
+           "iterations": [int(x) for x in it[:len(batch)]],
+           "max_abs_err": err, "repeat_bit_equal": repeat,
+           "kernel_bytes_equal_alone_vs_batch": kernel_same,
+           "plain_bytes_equal_alone_vs_batch": plain_same,
+           "plain_repeat_bit_equal": plain_repeat,
+           "plain_repeat_max_abs_diff": plain_spread,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": None}
+    if not err <= 1e-5 or not repeat or not kernel_same:
+        raise AssertionError(f"segments kernel ({label}): {res}")
+    return res
+
+
+class ServeProc:
+    """``cli serve`` as a subprocess of the port's CLI (a process group of
+    its own, output in ``root/<label>.out``): the URL once warm, then
+    ``stop()`` sends SIGTERM and returns the exit code and the output."""
+
+    def __init__(self, label, argv, root):
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [here] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                      if p])
+        self.label = label
+        self.path = os.path.join(root, f"{label}.out")
+        self.out = open(self.path, "w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "spark_text_clustering_tpu_torch.cli",
+             "serve", *argv], cwd=here, env=env, stdout=self.out,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        self.url = None
+
+    def wait_url(self, timeout=180.0):
+        deadline = time.monotonic() + timeout
+        while self.url is None:
+            with open(self.path) as f:
+                for line in f:
+                    if line.startswith("serving ") and " on http://" in line:
+                        self.url = line.split(" on ")[1].split(" ")[0]
+                        self.url_s = time.perf_counter() - self.t0
+            if self.url is None:
+                if self.proc.poll() is not None or time.monotonic() > deadline:
+                    self.stop()
+                    raise AssertionError(
+                        f"config N {self.label}: no URL line: "
+                        f"{open(self.path).read()[-2000:]}")
+                time.sleep(0.05)
+        return self.url
+
+    def stop(self, timeout=120.0):
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            rc = self.proc.wait()
+        self.out.close()
+        with open(self.path) as f:
+            return rc, f.read()
+
+
+def http_json(url, body=None, headers=None, timeout=120.0):
+    """(status, headers, JSON body) of a GET, or of a POST of ``body``;
+    an HTTP error status is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        "Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            raw = resp.read()
+            status, hdrs = resp.status, dict(resp.headers)
+    except urllib.error.HTTPError as err:
+        raw, status, hdrs = err.read(), err.code, dict(err.headers)
+    ctype = hdrs.get("Content-Type", "")
+    return status, hdrs, (json.loads(raw) if ctype.startswith(
+        "application/json") else raw.decode())
+
+
+def post_books(url, texts, names):
+    """One POST of ``texts``: (seconds, the response's results)."""
+    t0 = time.perf_counter()
+    status, _, doc = http_json(f"{url}/score", {"texts": texts,
+                                                "names": names})
+    if status != 200:
+        raise AssertionError(f"config N: POST /score {status}: {doc}")
+    return time.perf_counter() - t0, doc["results"]
+
+
+def served(results):
+    return np.asarray([r["distribution"] for r in results],
+                      np.float64).astype(np.float32)
+
+
+def in_threads(fn, items, threads):
+    """``fn(item)`` over ``items`` from ``threads`` threads; results in
+    order; the first exception raised again."""
+    out = [None] * len(items)
+    errors = []
+    lock = threading.Lock()
+    todo = list(range(len(items)))
+
+    def work():
+        while True:
+            with lock:
+                if not todo or errors:
+                    return
+                i = todo.pop(0)
+            try:
+                out[i] = fn(items[i])
+            except Exception as exc:  # noqa: BLE001 - raised again below
+                with lock:
+                    errors.append(exc)
+
+    pool = [threading.Thread(target=work) for _ in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def parse_prometheus(text):
+    """{sample: value} of a Prometheus text exposition; fails on a line
+    that is neither a comment nor ``name[{labels}] value``."""
+    samples = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, _, value = line.rpartition(" ")
+        if not re.match(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{.*\})?$", name):
+            raise AssertionError(f"config N: prometheus line {line!r}")
+        samples[name] = float(value)
+    return samples
+
+
+def run_config_n(torch, seed, e, smi):
+    """One serve replica on config E's 51 books and E's card model (k=5).
+
+    N-kernel: ``check_segments`` on the model's own rows of the books.
+    N-serve: ``cli serve --port 0 --max-batch 8 --token-bucket 16384
+    --token-bucket 65536 --token-bucket 262144 --telemetry-file`` as a
+    subprocess on the card, beside a ``--max-queue 8`` card server (both
+    started at once) and, once the timed traffic is done, the same on
+    ``--device cpu``.  The 51 books from
+    8 client threads one a request, then as 6 requests of 8-9 books: every
+    served distribution equal in bytes to this process's
+    ``topic_distribution(rows, convergence="per_doc")`` on the card, whose
+    scoring report equals ``score --per-doc-convergence``'s byte for byte,
+    and none degraded; the CPU server's within 1e-4, its requests of 8
+    books paced (twice each request's time idle after it) so its queueing
+    estimate stays below degraded mode's threshold: a CPU dispatch takes
+    ~1 s, and a closed loop holds it at ρ ≈ 1, where the service truncates
+    books to its smallest bucket.  N-swap: a newer model published
+    mid-traffic: ``swaps`` 1, every response equal to its attributed
+    model's bytes.  N-admission: 64 concurrent one-book requests against
+    the ``--max-queue 8`` server: at least one 429, Retry-After in [1,
+    60].  N-health: ``/healthz`` ok, ``/metrics?format=prometheus``
+    parses.  N-drain: SIGTERM to each; exit 0, and the card server's
+    drain report says no retrace after warmup.  N-inproc: the same
+    ``serve`` command in this process (its launches counted, with the
+    counts at 0 before ``score --per-doc-convergence`` and read after the
+    drain): the books' bytes equal the subprocess's."""
+    from spark_text_clustering_tpu_torch import load_model
+    from spark_text_clustering_tpu_torch.device import resolve_device
+    from spark_text_clustering_tpu_torch.models.persistence import (
+        latest_model_dir, save_model,
+    )
+    from spark_text_clustering_tpu_torch.ops import _build
+    from spark_text_clustering_tpu_torch.pipeline import (
+        TextPreprocessor, make_vectorizer,
+    )
+    from spark_text_clustering_tpu_torch.utils.readers import (
+        read_stop_word_file, read_text_dir,
+    )
+    from spark_text_clustering_tpu_torch.utils.report import (
+        format_scoring_report,
+    )
+    from spark_text_clustering_tpu_torch.utils.textproc import (
+        parse_stop_words,
+    )
+
+    t_start = time.perf_counter()
+    dev = resolve_device("cuda")
+    root = os.path.join(e["root"], "N")
+    models = os.path.join(root, "models")
+    os.makedirs(models)
+    src = latest_model_dir(os.path.join(e["root"], "models"), "EN")
+    model_a = os.path.join(models, os.path.basename(src))
+    shutil.copytree(src, model_a)
+    stamp = int(model_a.rsplit("_", 1)[1])
+    buckets = [x for t in N_BUCKETS for x in ("--token-bucket", str(t))]
+    common = ["--models-dir", models, "--stop-words", e["stop"], "--port",
+              "0", "--max-batch", str(N_MAX_BATCH), *buckets,
+              "--max-seconds", "600"]
+    tel = os.path.join(root, "serve_cuda.jsonl")
+    procs = {
+        "serve_cuda": ServeProc("serve_cuda", [
+            *common, "--model-poll-interval", "0.2", "--telemetry-file",
+            tel], root),
+        "serve_queue8": ServeProc("serve_queue8", [
+            *common, "--max-queue", "8", "--model-poll-interval", "600"],
+            root),
+    }
+    try:
+        # the books as serve and score vectorize them, and the card's
+        # per-doc reference (the kernel launch of `score
+        # --per-doc-convergence`'s path)
+        docs = list(read_text_dir(e["books"]))
+        texts = [d.text for d in docs]
+        names = [os.path.basename(d.path) for d in docs]
+        pre = TextPreprocessor(stop_words=parse_stop_words(
+            read_stop_word_file(e["stop"])))
+        model = load_model(model_a, device="cuda")
+        rows = make_vectorizer(model.vocab)(
+            pre.transform({"texts": texts})["tokens"])
+        want = np.asarray(model.topic_distribution(rows,
+                                                    convergence="per_doc"))
+        kernel = check_segments(
+            torch, model._exp_elog_beta(dev).T.contiguous(),
+            torch.as_tensor(np.asarray(model.alpha, np.float32), device=dev),
+            rows, dev, "N")
+        emit({"phase": "config_N_kernel_vs_plain", **kernel})
+
+        # the CPU server's answers, paced (each request of 8 books one
+        # dispatch, then twice its time idle) so its load stays below the
+        # degraded-mode threshold, beside the untimed phases below
+        cpu_res = {}
+
+        def cpu_traffic():
+            try:
+                cpu_url = procs["serve_cpu"].wait_url()
+                out = []
+                for lo in range(0, len(texts), N_MAX_BATCH):
+                    t0 = time.perf_counter()
+                    part = list(range(lo, min(lo + N_MAX_BATCH, len(texts))))
+                    out += post_books(cpu_url, [texts[i] for i in part],
+                                      [names[i] for i in part])[1]
+                    time.sleep(2.0 * (time.perf_counter() - t0))
+                cpu_res["results"] = out
+            except Exception as exc:  # noqa: BLE001 - raised again below
+                cpu_res["error"] = exc
+
+        cpu_thread = threading.Thread(target=cpu_traffic)
+
+        # N-serve
+        url = procs["serve_cuda"].wait_url()
+        first = {}
+
+        def one(i):
+            secs, (res,) = post_books(url, [texts[i]], [names[i]])
+            first.setdefault("at", time.perf_counter())
+            return secs, res
+
+        t0 = time.perf_counter()
+        singles = in_threads(one, list(range(len(texts))), 8)
+        single_s = time.perf_counter() - t0
+        spawn_to_first = first["at"] - procs["serve_cuda"].t0
+        lat = np.asarray([s for s, _ in singles]) * 1e3
+        groups = [list(range(i, min(i + 9 if i < 27 else i + 8, len(texts))))
+                  for i in (0, 9, 18, 27, 35, 43)]
+        t0 = time.perf_counter()
+        grouped = in_threads(lambda g: post_books(
+            url, [texts[i] for i in g], [names[i] for i in g])[1], groups, 6)
+        grouped_s = time.perf_counter() - t0
+        grouped = [r for g in grouped for r in g]
+        # the CPU server starts once the timed traffic is done: its torch
+        # threads would share the host's cores with the card server's
+        # text front end
+        procs["serve_cpu"] = ServeProc("serve_cpu", [
+            *common, "--device", "cpu", "--model", model_a], root)
+        cpu_thread.start()
+        card_single = served([r for _, r in singles])
+        card_grouped = served(grouped)
+        degraded = sum(bool(r.get("degraded"))
+                       for r in [r for _, r in singles] + grouped)
+        if (degraded or card_single.tobytes() != want.tobytes()
+                or card_grouped.tobytes() != want.tobytes()
+                or [r["name"] for r in grouped] != names):
+            raise AssertionError(
+                "config N: served bytes differ from the card's per-doc "
+                f"scoring by {np.abs(card_single - want).max()}, "
+                f"{np.abs(card_grouped - want).max()} ({degraded} "
+                "degraded answers)")
+
+        # N-swap: a newer model published mid-traffic
+        newer = load_model(model_a, device="cpu")
+        newer.lam = (newer.lam * np.random.default_rng(seed + 7).uniform(
+            0.5, 1.5, newer.lam.shape)).astype(np.float32)
+        model_b = os.path.join(models, f"LdaModel_EN_{stamp + 1000}")
+        stop_swap = threading.Event()
+        seen = []
+
+        def swap_client(c):
+            j = c
+            while not stop_swap.is_set():
+                i = j % len(texts)
+                _, (res,) = post_books(url, [texts[i]], [names[i]])
+                seen.append((i, res))
+                j += 4
+
+        clients = [threading.Thread(target=swap_client, args=(c,))
+                   for c in range(4)]
+        for c in clients:
+            c.start()
+        time.sleep(0.5)
+        save_model(newer, model_b)
+        deadline = time.monotonic() + 60.0
+        while http_json(f"{url}/healthz")[2]["swaps"] < 1:
+            if time.monotonic() > deadline:
+                stop_swap.set()
+                raise AssertionError("config N: no hot swap in 60 s")
+            time.sleep(0.05)
+        time.sleep(1.0)
+        stop_swap.set()
+        for c in clients:
+            c.join()
+        want_b = np.asarray(load_model(model_b, device="cuda")
+                            .topic_distribution(rows, convergence="per_doc"))
+        by_model = {model_a: want, model_b: want_b}
+        attributed = {}
+        for i, res in seen:
+            path = res["model"]["model"]
+            attributed[path] = attributed.get(path, 0) + 1
+            got = np.asarray(res["distribution"], np.float64).astype(
+                np.float32)
+            if got.tobytes() != by_model[path][i].tobytes():
+                raise AssertionError(f"config N swap: book {i} under {path}")
+        health = http_json(f"{url}/healthz")[2]
+        if health["swaps"] != 1 or set(attributed) != {model_a, model_b}:
+            raise AssertionError(f"config N swap: {health}, {attributed}")
+
+        # N-admission: 64 concurrent docs against --max-queue 8
+        q_url = procs["serve_queue8"].wait_url()
+        gate = threading.Barrier(64)
+
+        def burst(i):
+            gate.wait(60.0)
+            status, hdrs, doc = http_json(
+                f"{q_url}/score", {"texts": [texts[i % len(texts)]]})
+            return status, hdrs.get("Retry-After"), doc
+
+        outcomes = in_threads(burst, list(range(64)), 64)
+        refused = [(s, ra) for s, ra, _ in outcomes if s == 429]
+        statuses = sorted({s for s, _, _ in outcomes})
+        if not refused or set(statuses) - {200, 429} or not all(
+                ra is not None and 1 <= int(ra) <= 60 for _, ra in refused):
+            raise AssertionError(f"config N admission: {statuses}, "
+                                 f"{refused[:4]}")
+
+        # the CPU server against the card's
+        cpu_thread.join()
+        if "error" in cpu_res:
+            raise cpu_res["error"]
+        cpu = served(cpu_res["results"])
+        cpu_degraded = sum(bool(r.get("degraded"))
+                           for r in cpu_res["results"])
+        cpu_diff = float(np.abs(cpu - card_single).max())
+        if cpu_degraded or not cpu_diff <= 1e-4:
+            raise AssertionError(f"config N: card and CPU serve differ by "
+                                 f"{cpu_diff} ({cpu_degraded} degraded "
+                                 "CPU answers)")
+
+        # N-health
+        status, _, health = http_json(f"{url}/healthz")
+        _, hdrs, prom = http_json(f"{url}/metrics?format=prometheus")
+        samples = parse_prometheus(prom)
+        if status != 200 or health["status"] != "ok" or (
+                samples.get("stc_serve_swaps_total") != 1):
+            raise AssertionError(f"config N health: {health}, "
+                                 f"{sorted(samples)[:8]}")
+    finally:
+        stopped = {name: p.stop() for name, p in procs.items()}
+
+    # N-drain
+    drains = {}
+    for name, (rc, out) in stopped.items():
+        line = [x for x in out.splitlines() if x.startswith("drain complete")]
+        if rc != 0 or not line:
+            raise AssertionError(f"config N {name}: exit {rc}: {out[-2000:]}")
+        drains[name] = line[0]
+    events = [json.loads(x) for x in open(tel)]
+    (report,) = [x for x in events if x["event"] == "serve_drained"]
+    (warm,) = [x for x in events if x["event"] == "serve_warmup"]
+    if (events[0]["event"] != "manifest" or events[0].get("kind") != "serve"
+            or report["retraces_after_warmup"] != 0 or report["swaps"] != 1):
+        raise AssertionError(f"config N drain: {report}")
+
+    # N-inproc: the same command in this process, its launches counted
+    # with `score --per-doc-convergence`'s
+    _build.reset_launches()
+    rc, _, score_s = run_cli(
+        ["score", "--books", e["books"], "--stop-words", e["stop"],
+         "--model", model_a, "--output-dir", os.path.join(root, "score"),
+         "--per-doc-convergence"], os.path.join(root, "score.out"))
+    (rep_name,) = os.listdir(os.path.join(root, "score"))
+    with open(os.path.join(root, "score", rep_name)) as f:
+        score_report = f.read()
+    report_equal = score_report == format_scoring_report(
+        model, [d.path for d in docs], card_single, rows)
+    inproc = {}
+
+    def traffic():
+        try:
+            out_path = os.path.join(root, "serve_inproc.out")
+            deadline = time.monotonic() + 120.0
+            while "url" not in inproc and time.monotonic() < deadline:
+                for line in open(out_path):
+                    if line.startswith("serving ") and " on http://" in line:
+                        inproc["url"] = line.split(" on ")[1].split(" ")[0]
+                time.sleep(0.05)
+            inproc["dists"] = served([r for g in in_threads(
+                lambda g: post_books(inproc["url"], [texts[i] for i in g],
+                                     [names[i] for i in g])[1],
+                groups, 6) for r in g])
+        finally:
+            if "url" in inproc:
+                # the serve's SIGTERM drain; without a URL it ends at its
+                # --max-seconds
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    open(os.path.join(root, "serve_inproc.out"), "w").close()
+    client = threading.Thread(target=traffic)
+    client.start()
+    rc_serve, serve_out, _ = run_cli(
+        ["serve", "--model", model_a, "--stop-words", e["stop"], "--port",
+         "0", "--max-batch", str(N_MAX_BATCH), *buckets, "--max-seconds",
+         "300"], os.path.join(root, "serve_inproc.out"))
+    client.join()
+    launches = dict(_build.LAUNCHES)
+    if (rc != 0 or rc_serve != 0 or not report_equal
+            or inproc.get("dists") is None
+            or inproc["dists"].tobytes() != want.tobytes()
+            or launches["topic_inference_segments"] < 1 + len(N_BUCKETS)):
+        raise AssertionError(
+            f"config N in-process: score {rc}, serve {rc_serve}, report "
+            f"equal {report_equal}, launches {launches}: {serve_out[-1000:]}")
+    kernel["launches"] = launches["topic_inference_segments"]
+    return {
+        "phase": "config_N", "docs": len(texts), "k": model.k,
+        "vocab": model.vocab_size, "card": smi,
+        "tokens": int(sum(len(i) for i, _ in rows)),
+        "buckets": list(N_BUCKETS), "max_batch": N_MAX_BATCH,
+        "spawn_to_url_s": procs["serve_cuda"].url_s,
+        "spawn_to_first_response_s": spawn_to_first,
+        "warmup_s": warm["warmup_seconds"],
+        "request_p50_ms": float(np.percentile(lat, 50)),
+        "request_p99_ms": float(np.percentile(lat, 99)),
+        "docs_per_s": len(texts) / single_s,
+        "grouped_docs_per_s": len(texts) / grouped_s,
+        "served_bytes_equal_per_doc": True,
+        "score_report_equal": report_equal, "score_s": score_s,
+        "cpu_max_dist_diff": cpu_diff, "degraded_answers": degraded,
+        "swap": {"responses": len(seen), "by_model": {
+            os.path.basename(p): n for p, n in attributed.items()}},
+        "admission": {"requests": 64, "refused": len(refused),
+                      "retry_after": sorted({int(ra) for _, ra in refused})},
+        "drain": drains, "drain_report": report,
+        "prometheus_samples": len(samples),
+        "kernel": kernel, "launches": launches,
+        "seconds": time.perf_counter() - t_start,
+        "bounds": {"cpu_max_dist_diff": 1e-4, "kernel_vs_plain": 1e-5},
+    }
+
+
 def profile_configs(torch, rows_a, rows_b, seed, out_dir):
     """torch.profiler over one fit and the scoring (A, B: padded scoring
     of every doc; D: topic_distribution of EVAL_DOCS docs) or evaluation
@@ -4643,6 +5240,9 @@ def main() -> int:
     from spark_text_clustering_tpu_torch import EMLDA, Params
     from spark_text_clustering_tpu_torch.interop import em_state_from_numpy
     from spark_text_clustering_tpu_torch.ops import _build
+    from spark_text_clustering_tpu_torch.ops.lda_math import (
+        dirichlet_expectation,
+    )
     from spark_text_clustering_tpu_torch.utils import native
 
     if not torch.cuda.is_available():
@@ -4707,14 +5307,24 @@ def main() -> int:
     ]
     estep_edges = check_estep_edges(
         torch, dev, np.random.default_rng(args.seed + 3))
-    for c in (*checks.values(), *esteps):
+    # the per-document kernel on 8 of A's rows at the widest serve bucket,
+    # eb of a random lambda whose topics differ enough for A's books to
+    # converge (config N repeats it on E's card model)
+    lam_seg = np.random.default_rng(args.seed + 5).gamma(
+        0.5, 4.0, (EN_K, EN_V)).astype(np.float32)
+    seg_check = check_segments(
+        torch, torch.exp(dirichlet_expectation(
+            torch.from_numpy(lam_seg).to(dev))).T.contiguous(),
+        torch.full((EN_K,), 50.0 / EN_K + 1.0, device=dev), rows_a, dev, "A")
+    for c in (*checks.values(), *esteps, seg_check):
         emit({"phase": "kernel_vs_plain", **c})
     emit({"phase": "kernel_vs_plain_edges", "name": "gamma_fixed_point_bkl",
           "geometries": estep_edges})
     if args.kernels_only:
         if args.out:
             record.update(build=build, kernels=list(checks.values()),
-                          estep_buckets=esteps, estep_edges=estep_edges)
+                          estep_buckets=esteps, estep_edges=estep_edges,
+                          segments=seg_check)
             with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
                 json.dump(record, f, indent=1)
         return 0
@@ -4845,13 +5455,17 @@ def main() -> int:
         summary_m = run_config_m(torch, args.seed, books_e, smi)
         summary_m["seconds"] = time.perf_counter() - t0
         emit(summary_m)
+
+        # 16. config N, one serve replica on E's books and card model
+        summary_n = run_config_n(torch, args.seed, books_e, smi)
+        emit(summary_n)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     if args.profile:
         profile_configs(torch, rows_a, rows_b, args.seed, args.out)
 
-    # 16. the seconds the telemetry phases added to the run
+    # 17. the seconds the telemetry phases added to the run
     added = {"A_overhead": overhead["seconds"],
              "E": summary_e["telemetry"]["seconds"],
              "K": summary_k["telemetry"]["seconds"],
@@ -4861,7 +5475,7 @@ def main() -> int:
                       "overhead_share": overhead["estimated_overhead_share"]}
     emit(telemetry_line)
 
-    # 17. the kernels line; the sweep's error is the largest of config A's
+    # 18. the kernels line; the sweep's error is the largest of config A's
     # and config E's checks and config I's ranks'; the gamma row is config
     # B's most populated bucket, and its error the largest of the four
     # buckets, the edge geometries, config H's, K's and L's launches
@@ -4913,6 +5527,11 @@ def main() -> int:
          "config_L": summary_l["kernel"], "config_M": summary_m["kernel"],
          "config_I": summary_i["checks"]["gamma_fixed_point_bkl"],
          "config_J": summary_j["checks"]["gamma_fixed_point_bkl"]},
+        # the per-document kernel: config N's check on E's card model at a
+        # serve dispatch's shapes, and phase 2's on A's rows
+        {**summary_n["kernel"], "config_A": seg_check,
+         "max_abs_err": max(seg_check["max_abs_err"],
+                            summary_n["kernel"]["max_abs_err"])},
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -4923,7 +5542,8 @@ def main() -> int:
             sm["launches"][name]
             for sm in (summary_a, summary_b, summary_c, summary_d, summary_e,
                        summary_f, summary_g, summary_h, summary_i,
-                       summary_j, summary_k, summary_l, summary_m))
+                       summary_j, summary_k, summary_l, summary_m,
+                       summary_n))
         if kern["launches"] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
         line.append({k_: kern[k_] for k_ in keys})
@@ -4940,7 +5560,7 @@ def main() -> int:
                   config_E=summary_e, config_F=summary_f, config_G=summary_g,
                   config_H=summary_h, config_I=summary_i, config_J=summary_j,
                   config_K=summary_k, config_L=summary_l,
-                  config_M=summary_m)
+                  config_M=summary_m, config_N=summary_n)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)

@@ -4,7 +4,7 @@ Imports ``torch``, never ``jax``, and nothing of the JAX package.  Entry
 points take ``device=`` and default to ``"cuda"``; pass ``device="cpu"``
 to run the plain PyTorch versions of the kernels on the host.  The
 command line is ``python -m spark_text_clustering_tpu_torch.cli
-train|score`` (``--device cpu`` for the host).
+train|score|serve|...`` (``--device cpu`` for the host).
 """
 
 from .config import Params

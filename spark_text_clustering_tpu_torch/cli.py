@@ -1,6 +1,7 @@
 """Command-line entry points of the port: ``train`` and ``score``, the
 streaming verbs ``stream-score``, ``stream-train``, ``stream requeue`` and
-``stream compact``, and ``supervise``, a fleet of stream workers.
+``stream compact``, ``supervise``, a fleet of stream workers, and
+``serve``, one resident scoring replica.
 
 The reference's two entry points (LDATraining.scala, LDALoader.scala) as
 subcommands, with the JAX package's flags, defaults, console output and
@@ -14,6 +15,8 @@ exit codes:
         --watch-dir <dir> --checkpoint-dir <dir> --idle-timeout 5
     python -m spark_text_clustering_tpu_torch.cli supervise \
         --role stream-score --watch-dir <dir> --fleet-dir <dir> --workers 2
+    python -m spark_text_clustering_tpu_torch.cli serve \
+        --models-dir <dir> --port 0
 
 Two flags are the port's own: ``--device`` (default ``cuda``) names the
 device that IDF, training and scoring run on (without a card, pass
@@ -46,6 +49,12 @@ micro-batch's rows with the other ranks, holds the lease and the SIGTERM
 drain, and commits one state shard an epoch, as the JAX process does;
 the command's SIGTERM is passed on to rank 0.  ``stream-score`` takes no
 grid flags, as in the JAX package.
+
+``serve`` keeps one scoring replica resident (``serving``): it loads the
+newest verified model once, runs one dispatch per token bucket, coalesces
+concurrent ``POST /score`` requests into one launch of the per-document
+kernel, hot-swaps a newer published model, answers ``/healthz`` and
+``/metrics``, and drains on SIGTERM; ``--device`` as on the other verbs.
 
 ``supervise --role stream-score|stream-train`` runs N stream workers of
 this CLI as subprocesses (``resilience.supervisor``): each takes its
@@ -147,6 +156,7 @@ __all__ = [
     "LANG_DIRS",
     "build_parser",
     "cmd_score",
+    "cmd_serve",
     "cmd_stream_compact",
     "cmd_stream_requeue",
     "cmd_stream_score",
@@ -182,6 +192,19 @@ _NOT_PORTED = {
                       "queue 1 item 10, a compile cache"),
 }
 _SERVE_ITEM = "queue 1 item 8b, the serve fleet"
+_ALERTS_ITEM = "queue 1 item 9b, the rest of telemetry"
+
+# ``serve``'s fleet-replica and bench-harness flags, their JAX defaults
+# and types: refused unless left at the default.
+_SERVE_REPLICA_FLAGS = {
+    "emulate_doc_ms": ("--emulate-doc-ms", None, float),
+    "fleet_dir": ("--fleet-dir", None, str),
+    "worker_index": ("--worker-index", 0, int),
+    "fleet_generation": ("--fleet-generation", 0, int),
+    "fleet_spawn_id": ("--fleet-spawn-id", 0, int),
+    "heartbeat_interval": ("--heartbeat-interval", 0.5, float),
+    "lease_timeout": ("--lease-timeout", None, float),
+}
 
 # ``supervise``'s serve-role flags, their JAX defaults and types (None:
 # a switch): refused unless left at the default.
@@ -620,6 +643,99 @@ def _score_run(args: argparse.Namespace, grid) -> int:
     telemetry.sample_memory("score")
     telemetry.event("scored", documents=len(docs), report=path)
     return 0
+
+
+# ---- serving ---------------------------------------------------------------
+def cmd_serve(args: argparse.Namespace) -> int:
+    """Persistent scoring service: load the newest verified model ONCE,
+    run one dispatch per token bucket, coalesce concurrent requests into
+    one launch each (continuous batching), hot-swap atomically when a
+    ``stream-train`` fleet publishes a newer model, and drain cleanly on
+    SIGTERM — the LDALoader flow as a resident process instead of a cold
+    batch job.  The URL line is printed once the service is warm."""
+    import threading
+
+    from .resilience import sleep as _idle_sleep
+
+    extra = [(flag, _SERVE_ITEM)
+             for dest, (flag, default, _) in _SERVE_REPLICA_FLAGS.items()
+             if getattr(args, dest) != default]
+    if args.alerts_file is not None:
+        extra.append(("--alerts-file", _ALERTS_ITEM))
+    rc = _refuse_unported(args, extra)
+    if rc is not None:
+        return rc
+    device = resolve_device(args.device)  # no card, no --device cpu: raise
+    # registry-only when no run stream is asked for: /metrics and the
+    # serve histograms need a live registry
+    telemetry.configure(args.telemetry_file or None, device=args.device)
+    tracing.adopt_env()
+    preempt = PreemptionNotice().install()
+    try:
+        from .serving import ScoringService, make_http_server
+
+        buckets = tuple(args.token_bucket) or None
+        try:
+            service = ScoringService(
+                args.models_dir,
+                args.lang,
+                model=args.model,
+                verify_deep=not args.no_verify_deep,
+                stop_words=_load_stop_words(args.stop_words),
+                lemmatize=not args.no_lemmatize,
+                max_batch=args.max_batch,
+                linger_s=args.linger_ms / 1000.0,
+                **({"token_buckets": buckets} if buckets else {}),
+                model_poll_interval=args.model_poll_interval,
+                quarantine_dir=args.quarantine_dir,
+                max_queue=args.max_queue,
+                batch_weight=args.batch_weight,
+                device=device,
+            )
+        except CorruptArtifactError as exc:
+            print(f"error: {exc}", file=sys.stderr)
+            return 2
+        scorer = service.scorer
+        # the writer buffers pre-manifest events (serve_warmup), so the
+        # manifest still lands first in the stream
+        telemetry.manifest(kind="serve", model=scorer.path, lang=args.lang,
+                           vocab_width=scorer.model.vocab_size)
+        httpd = make_http_server(service, args.host, args.port)
+        host, port = httpd.server_address[:2]
+        wr = service.warmup_report
+        print(
+            f"serving {scorer.path} (k={scorer.model.k}, "
+            f"V={scorer.model.vocab_size}) on http://{host}:{port} — "
+            f"warmed buckets {wr['buckets']} in {wr['warmup_seconds']}s; "
+            f"POST /score, GET /healthz /metrics", flush=True
+        )
+        http_thread = threading.Thread(
+            target=httpd.serve_forever, name="stc-serve-http", daemon=True
+        )
+        http_thread.start()
+        deadline = (time.monotonic() + args.max_seconds
+                    if args.max_seconds else None)
+        while not preempt:
+            if deadline is not None and time.monotonic() >= deadline:
+                break
+            _idle_sleep(0.1)
+        # preemption notice (or drill deadline): finish queued documents,
+        # refuse new ones (503), then take the port down
+        report = service.begin_drain()
+        httpd.shutdown()
+        httpd.server_close()
+        telemetry.event("serve_drained", **report)
+        print(
+            f"drain complete: {report['requests']} request(s) in "
+            f"{report['batches']} batch(es), {report['swaps']} hot-swap(s), "
+            f"{report['rejected']} refused while draining, "
+            f"{report['retraces_after_warmup']} recompile(s) after warmup",
+            flush=True,
+        )
+        return 0
+    finally:
+        preempt.uninstall()
+        telemetry.shutdown()
 
 
 # ---- streaming -----------------------------------------------------------
@@ -1406,6 +1522,74 @@ def build_parser() -> argparse.ArgumentParser:
     cp.add_argument("--checkpoint-dir", required=True,
                     help="epoch-ledger checkpoint dir to compact")
     cp.set_defaults(fn=cmd_stream_compact)
+
+    se = sub.add_parser(
+        "serve",
+        help="persistent scoring service: load once, warm each token "
+             "bucket, continuous batching, atomic model hot-swap, SIGTERM "
+             "drain",
+    )
+    se.add_argument("--models-dir", default="models")
+    se.add_argument("--model", default=None,
+                    help="pin an explicit model dir (disables hot-swap "
+                         "discovery)")
+    se.add_argument("--lang", default="EN", choices=sorted(LANG_DIRS))
+    se.add_argument("--host", default="127.0.0.1",
+                    help="bind address (localhost by design; put a real "
+                         "proxy in front for anything else)")
+    se.add_argument("--port", type=int, default=8765,
+                    help="TCP port (0 picks a free one and prints it)")
+    se.add_argument("--max-batch", type=int, default=64,
+                    help="coalescer batch capacity = the pinned doc axis "
+                         "of every serve dispatch")
+    se.add_argument("--linger-ms", type=float, default=5.0,
+                    help="max milliseconds a batch waits to fill after "
+                         "its first document arrives")
+    se.add_argument("--max-queue", type=int, default=None,
+                    help="bounded admission: refuse intake beyond this "
+                         "many queued documents with a typed 429 + "
+                         "Retry-After (default 8x --max-batch; 0 "
+                         "disables the bound)")
+    se.add_argument("--batch-weight", type=float, default=0.25,
+                    help="fraction of every dispatch reserved for "
+                         "batch-class documents while any wait "
+                         "(anti-starvation floor under interactive "
+                         "pressure)")
+    se.add_argument("--token-bucket", action="append", type=int,
+                    default=[], metavar="T",
+                    help="warmed pow2 token-bucket sizes (repeatable; "
+                         "default 256 1024 4096); a request beyond the "
+                         "largest bucket runs at its own pow2 width")
+    se.add_argument("--model-poll-interval", type=float, default=2.0,
+                    help="seconds between hot-swap discovery polls of "
+                         "--models-dir")
+    se.add_argument("--no-verify-deep", action="store_true",
+                    help="trust COMMIT markers instead of re-verifying "
+                         "SHA256 manifests at model selection "
+                         "(verify-deep is the serve default)")
+    se.add_argument("--stop-words", default=None)
+    se.add_argument("--no-lemmatize", action="store_true")
+    se.add_argument("--quarantine-dir", default=None,
+                    help="dead-letter dir for documents that fail "
+                         "vectorize/score (they get error responses "
+                         "either way; this keeps the payloads)")
+    se.add_argument("--max-seconds", type=float, default=None,
+                    help="drain + exit after this many seconds (drills); "
+                         "default: run until SIGTERM")
+    se.add_argument("--alerts-file", default=None,
+                    help="not ported yet (exits 2)")
+    se.add_argument("--telemetry-file", default=None,
+                    help="telemetry run stream (serve.* histograms, "
+                         "hot-swap events) as JSONL — `metrics summarize` "
+                         "renders its serving-health section from this")
+    for flag, default, kind in _SERVE_REPLICA_FLAGS.values():
+        se.add_argument(flag, type=kind, default=default,
+                        help="a serve fleet replica's or the bench "
+                             "harness's flag: not ported yet (exits 2 "
+                             "unless left at its default)")
+    _add_compile_cache_arg(se)
+    _add_device_arg(se)
+    se.set_defaults(fn=cmd_serve)
 
     sv = sub.add_parser(
         "supervise",

@@ -29,6 +29,7 @@ from ..ops.lda_math import (
     topic_inference,
     topic_inference_segments,
 )
+from ..ops.segments import pack_offsets
 from ..ops.sparse import (
     DocTermBatch,
     batch_from_rows,
@@ -228,8 +229,9 @@ class LDAModel:
         CPU.  ``convergence``: "batch" iterates until the worst doc of the
         dispatch (a tile of the kernel, or the packed batch) converges;
         "per_doc" freezes each doc at its own convergence, so its result
-        depends on its own tokens only (packed layout).  ``grid`` scores on
-        the grid's ranks: per length bucket, each rank's block of docs
+        depends on its own tokens only (packed layout; on the card the
+        per-document kernel, whose bytes do not depend on the batch).
+        ``grid`` scores on the grid's ranks: per length bucket, each rank's block of docs
         through the E-step kernel against its vocabulary shard (layout
         and ``device`` do not apply; "per_doc" is refused, as in the JAX
         package)."""
@@ -307,6 +309,7 @@ class LDAModel:
             eb_tok, torch.from_numpy(flat_c).to(dev),
             torch.from_numpy(seg).to(dev), alpha, gamma0,
             max_inner=max_inner, tol=tol, freeze=freeze,
+            offsets=torch.from_numpy(pack_offsets(lens)).to(dev),
         )
         return dist.cpu().numpy()
 

@@ -38,7 +38,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "KernelError", "build_all", "build_lock",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("estep", "emscatter", "emsweep", "packed", "nmf")
+SOURCES = ("estep", "emscatter", "emsweep", "packed", "nmf", "segments")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -71,6 +71,11 @@ SIGNATURES = {
         "stc_nmf_smem_bytes": [_I] * 4,
         "stc_nmf_scratch_floats": [_I] * 4,
         "stc_nmf_blocks_per_sm": [_I] * 4,
+    },
+    "segments": {
+        "stc_topic_inference_segments": [_P] * 5 + [_I] * 3 + [_F] + [_P] * 3,
+        "stc_segments_max_k": [],
+        "stc_segments_scratch_per_token": [_I],
     },
 }
 
@@ -187,6 +192,7 @@ LAUNCHES: Dict[str, int] = {
     "em_sweep_fused": 0,
     "gamma_fixed_point_tiles": 0,
     "nmf_mu_update_tiles": 0,
+    "topic_inference_segments": 0,
 }
 
 

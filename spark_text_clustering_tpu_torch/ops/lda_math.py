@@ -4,8 +4,10 @@ scoring and evaluation entry points built on it, and the random inits.
 ``topic_inference`` scores a padded [B, L] batch through the E-step kernel
 (``estep.gamma_fixed_point``: the CUDA kernel on the card, its plain
 version on the CPU).  ``topic_inference_segments`` scores a token-packed
-batch in plain PyTorch, with whole-batch or per-document (``freeze``)
-convergence.  ``infer_gamma`` and ``approx_bound`` are the evaluation
+batch with whole-batch convergence in plain PyTorch, or with per-document
+(``freeze``) convergence: on the card through the per-document kernel
+(``segments``), whose bytes follow each document alone, on the CPU in
+plain PyTorch.  ``infer_gamma`` and ``approx_bound`` are the evaluation
 pair behind ``LDAModel.log_likelihood``.  Pad slots (weight 0) add exactly
 0 everywhere.  Gamma starts at all ones, or at Gamma(shape, 1/shape)
 draws from an explicit ``torch.Generator`` (``seeded_generator``), as
@@ -30,6 +32,7 @@ __all__ = [
     "init_gamma",
     "init_lambda",
     "seeded_generator",
+    "segments_distribution_plain",
     "gamma_fixed_point_batch",
     "gamma_fixed_point_segments",
     "token_sstats_factors_bkl",
@@ -131,13 +134,15 @@ def gamma_fixed_point_segments(
     tol: float,
     freeze: bool = False,
     reduce_fn=None,
-) -> Tuple[torch.Tensor, int]:
-    """The gamma fixed point over a token-packed batch.  ``freeze``
-    switches to per-document convergence: a row stops updating the
-    iteration its own mean|delta gamma| drops below ``tol``, so its result
-    depends on its own tokens only.  ``reduce_fn`` combines the per-doc
-    sums of a token axis split over ranks (``psum_data``) each iteration,
-    so gamma stays the same on every rank."""
+    with_iters: bool = False,
+):
+    """The gamma fixed point over a token-packed batch: (gamma, iterations
+    run).  ``freeze`` switches to per-document convergence: a row stops
+    updating the iteration its own mean|delta gamma| drops below ``tol``,
+    so its result depends on its own tokens only.  ``reduce_fn`` combines
+    the per-doc sums of a token axis split over ranks (``psum_data``) each
+    iteration, so gamma stays the same on every rank.  ``with_iters`` adds
+    the iterations each row was updated [B]."""
     b = gamma0.shape[0]
     seg_l = seg.long()
 
@@ -153,11 +158,14 @@ def gamma_fixed_point_segments(
 
     gamma = gamma0
     frozen = torch.zeros(b, dtype=torch.bool, device=gamma0.device)
+    iters = torch.zeros(b, dtype=torch.int64, device=gamma0.device)
     it = 0
     while it < max_inner:
         g_new = step(gamma)
         change = (g_new - gamma).abs().mean(dim=-1)
         it += 1
+        if with_iters:
+            iters += ~frozen
         if freeze:
             gamma = torch.where(frozen[:, None], gamma, g_new)
             frozen = frozen | (change < tol)
@@ -167,7 +175,7 @@ def gamma_fixed_point_segments(
             worst = change.max()
         if float(worst) < tol:
             break
-    return gamma, it
+    return (gamma, it, iters) if with_iters else (gamma, it)
 
 
 def token_sstats_factors_segments(
@@ -280,11 +288,43 @@ def topic_inference_segments(
     max_inner: int = 100,
     tol: float = 1e-3,
     freeze: bool = False,
+    offsets: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """``topic_inference`` over a token-packed batch."""
+    """``topic_inference`` over a token-packed batch.  With ``freeze`` on
+    CUDA tensors the per-document kernel (``segments.
+    topic_inference_segments``) computes it from the docs' int32
+    ``offsets`` [B + 1] (docs contiguous from slot 0), so each row's bytes
+    follow from its own document alone; everywhere else the plain code
+    (``segments_distribution_plain``) runs."""
+    if freeze and eb_tok.device.type == "cuda":
+        if offsets is None:
+            raise ValueError("per-document convergence on the card takes "
+                             "the docs' offsets")
+        from .segments import topic_inference_segments as per_doc
+
+        return per_doc(eb_tok, cts, offsets, alpha, gamma0, max_inner, tol)
+    return segments_distribution_plain(eb_tok, cts, seg, alpha, gamma0,
+                                       max_inner, tol, freeze=freeze)
+
+
+def segments_distribution_plain(
+    eb_tok: torch.Tensor,    # [T, k]
+    cts: torch.Tensor,       # [T]
+    seg: torch.Tensor,       # [T]
+    alpha,
+    gamma0: torch.Tensor,    # [B, k]
+    max_inner: int = 100,
+    tol: float = 1e-3,
+    freeze: bool = False,
+    with_iters: bool = False,
+):
+    """The packed fixed point in plain PyTorch, normalized (empty docs
+    uniform); with ``with_iters``, also each doc's iterations [B]."""
     b = gamma0.shape[0]
-    gamma, _ = gamma_fixed_point_segments(
-        eb_tok, cts, seg, alpha, gamma0, max_inner, tol, freeze=freeze
+    gamma, _, iters = gamma_fixed_point_segments(
+        eb_tok, cts, seg, alpha, gamma0, max_inner, tol, freeze=freeze,
+        with_iters=True,
     )
     mass = cts.new_zeros(b).index_add_(0, seg.long(), cts)
-    return _normalize(gamma, mass > 0)
+    dist = _normalize(gamma, mass > 0)
+    return (dist, iters) if with_iters else dist

@@ -67,6 +67,11 @@ SITES = frozenset({
     "worker.kill",        # before the supervisor's SIGKILL escalation
     "telemetry.write",    # telemetry run-stream append
     "telemetry.ship",     # before a shipper batch POSTs to the collector
+    "serve.accept",       # before the scoring service accepts a request
+    "serve.admit",        # inside the coalescer's bounded admission
+                          # check (forces a typed 429, never a crash)
+    "serve.batch",        # before a coalesced serve batch dispatches
+    "serve.swap",         # before a verified model hot-swap installs
 })
 
 

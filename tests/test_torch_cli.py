@@ -40,6 +40,9 @@ from spark_text_clustering_tpu_torch import pipeline as tpipeline
 from spark_text_clustering_tpu_torch.config import Params as TParams
 from spark_text_clustering_tpu_torch.interop import lda_model_from_numpy
 from spark_text_clustering_tpu_torch.models import online_lda as tonline
+from spark_text_clustering_tpu_torch.models.persistence import (
+    load_model as tload_model,
+)
 from spark_text_clustering_tpu_torch.ops import tfidf as ttfidf
 from spark_text_clustering_tpu_torch.resilience import resume as tresume
 from spark_text_clustering_tpu_torch.utils import native as tnative
@@ -620,6 +623,16 @@ REFUSED = [
     (["supervise", "--ship-to", "localhost:1"], "--ship-to", "item 9c"),
     (["supervise", "--actions-file", "a.json"], "--actions-file", "item 9b"),
     (["supervise", "--compile-cache", "cc"], "--compile-cache", "item 10"),
+    (["serve", "--alerts-file", "a.jsonl"], "--alerts-file", "item 9b"),
+    (["serve", "--emulate-doc-ms", "5"], "--emulate-doc-ms", _SERVE),
+    (["serve", "--fleet-dir", "fleet"], "--fleet-dir", _SERVE),
+    (["serve", "--worker-index", "1"], "--worker-index", _SERVE),
+    (["serve", "--fleet-generation", "2"], "--fleet-generation", _SERVE),
+    (["serve", "--fleet-spawn-id", "3"], "--fleet-spawn-id", _SERVE),
+    (["serve", "--heartbeat-interval", "0.2"], "--heartbeat-interval",
+     _SERVE),
+    (["serve", "--lease-timeout", "5"], "--lease-timeout", _SERVE),
+    (["serve", "--compile-cache", "cc"], "--compile-cache", "item 10"),
 ]
 
 
@@ -634,6 +647,8 @@ def test_unported_flags_exit_2_and_name_their_item(tmp_path, argv, flag,
     if argv[0] == "supervise":
         books = ["--watch-dir", str(tmp_path / "none"), "--fleet-dir",
                  str(tmp_path / "fleet")]
+    elif argv[0] == "serve":
+        books = ["--models-dir", str(tmp_path / "none")]
     else:
         source = "--watch-dir" if argv[0].startswith("stream") else "--books"
         books = [source, str(tmp_path / "none")]
@@ -641,6 +656,97 @@ def test_unported_flags_exit_2_and_name_their_item(tmp_path, argv, flag,
     assert rc == 2 and so == ""
     assert f"error: {flag} is not ported yet (ROADMAP.md queue 1 {item}" in se
     assert not os.path.exists(tmp_path / "fleet")
+
+
+def test_serve_subprocess_answers_and_drains(trained, corpus, tmp_path):
+    """``serve --device cpu --port 0 --max-seconds`` as a subprocess on the
+    port's trained model: the URL line once warm, one POST of three books
+    whose distributions equal in bytes the port's per-doc scoring of the
+    same books here, then SIGTERM and the drain report (no retrace after
+    warmup), exit 0; its telemetry stream starts with the serve manifest
+    and holds the drain."""
+    import signal
+    import subprocess
+    import sys
+    import urllib.request
+
+    books, stop = corpus
+    model_dir = trained["port"][3]
+    texts = [d.text for d in read_text_dir(books)][:3]
+    stream = str(tmp_path / "serve.jsonl")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "spark_text_clustering_tpu_torch.cli",
+         "serve", "--model", model_dir, "--stop-words", stop,
+         "--device", "cpu", "--port", "0", "--max-seconds", "120",
+         "--max-batch", "4", "--linger-ms", "1", "--token-bucket", "1024",
+         "--token-bucket", "4096", "--telemetry-file", stream],
+        cwd=str(tmp_path), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert " on http://127.0.0.1:" in line, (line, proc.stderr.read()
+                                                 if proc.poll() else "")
+        assert "warmed buckets [1024, 4096]" in line
+        url = line.split(" on ")[1].split(" ")[0]
+        req = urllib.request.Request(
+            f"{url}/score", data=json.dumps({"texts": texts}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            doc = json.loads(resp.read())
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err[-2000:]
+    assert ("drain complete: 3 request(s) in" in out
+            and "0 refused while draining, 0 recompile(s) after warmup"
+            in out), out
+    model = tload_model(model_dir, device="cpu")
+    pre = tpipeline.TextPreprocessor(stop_words=tcli._load_stop_words(stop))
+    rows = tpipeline.make_vectorizer(model.vocab)(
+        pre.transform({"texts": texts})["tokens"])
+    want = model.topic_distribution(rows, convergence="per_doc")
+    got = np.asarray([r["distribution"] for r in doc["results"]],
+                     np.float64).astype(np.float32)
+    assert got.tobytes() == np.asarray(want, np.float32).tobytes()
+    assert doc["model"]["model"] == model_dir
+    with open(stream, encoding="utf-8") as f:
+        events = [json.loads(x) for x in f]
+    assert events[0]["event"] == "manifest" and events[0]["kind"] == "serve"
+    drained = [e for e in events if e["event"] == "serve_drained"]
+    assert len(drained) == 1 and drained[0]["requests"] == 3
+
+
+def test_native_front_end_under_concurrent_requests(native_lib, corpus):
+    """17 threads running one ``TextPreprocessor`` at once (the serve
+    handlers' vectorize) give each book the tokens a lone call gives."""
+    import threading
+
+    books, stop = corpus
+    texts = [d.text for d in read_text_dir(books)]
+    texts = (texts * 2)[:17]
+    pre = tpipeline.TextPreprocessor(stop_words=tcli._load_stop_words(stop))
+    want = [pre.transform({"texts": [t]})["tokens"][0] for t in texts]
+    assert pre.last_backend == "native"
+    got = [None] * len(texts)
+    start = threading.Barrier(len(texts))
+
+    def client(i):
+        start.wait(10.0)
+        for _ in range(3):
+            got[i] = pre.transform({"texts": [texts[i]]})["tokens"][0]
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(texts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60.0)
+    assert got == want
 
 
 GRID_REFUSED = [

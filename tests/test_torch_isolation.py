@@ -132,6 +132,58 @@ def test_the_telemetry_modules_are_scanned():
         ".events", ".spans", ".memory")} <= mods
 
 
+def test_the_serving_modules_are_scanned():
+    """The import and source scans cover the scoring service, the queueing
+    estimator it prices refusals with and the per-document kernel's
+    wrapper."""
+    mods = set(_port_modules())
+    assert {"spark_text_clustering_tpu_torch.serving",
+            "spark_text_clustering_tpu_torch.serving.coalescer",
+            "spark_text_clustering_tpu_torch.serving.front",
+            "spark_text_clustering_tpu_torch.serving.server",
+            "spark_text_clustering_tpu_torch.telemetry.queueing",
+            "spark_text_clustering_tpu_torch.ops.segments"} <= mods
+
+
+def test_a_scoring_service_loads_no_jax(tmp_path):
+    """A port scoring service on the CPU, over HTTP (load, warmup, one
+    POST, drain), leaves jax and the JAX package out of ``sys.modules``."""
+    code = (
+        "import json, sys, threading, urllib.request\n"
+        "import numpy as np\n"
+        "from spark_text_clustering_tpu_torch.utils import native\n"
+        "native._tried, native._error = True, 'the Python text path'\n"
+        "from spark_text_clustering_tpu_torch.interop import "
+        "lda_model_from_numpy\n"
+        "from spark_text_clustering_tpu_torch.serving import (\n"
+        "    ScoringService, make_http_server)\n"
+        "vocab = ['alpha', 'beta', 'gamma', 'delta']\n"
+        "m = lda_model_from_numpy(np.arange(1, 13).reshape(3, 4), 0.5, 1.1,\n"
+        "                         vocab, device='cpu')\n"
+        f"m.save({str(tmp_path / 'm' / 'LdaModel_EN_1000')!r})\n"
+        f"svc = ScoringService({str(tmp_path / 'm')!r}, 'EN', max_batch=4,\n"
+        "                     token_buckets=(64,), lemmatize=False,\n"
+        "                     watch_model=False, device='cpu')\n"
+        "httpd = make_http_server(svc, port=0)\n"
+        "threading.Thread(target=httpd.serve_forever, daemon=True).start()\n"
+        "req = urllib.request.Request(\n"
+        "    f'http://127.0.0.1:{httpd.server_address[1]}/score',\n"
+        "    data=json.dumps({'text': 'alpha beta beta delta'}).encode())\n"
+        "doc = json.loads(urllib.request.urlopen(req, timeout=30).read())\n"
+        "assert len(doc['results'][0]['distribution']) == 3, doc\n"
+        "svc.begin_drain(); httpd.shutdown(); httpd.server_close()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'spark_text_clustering_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=180)
+    assert out.returncode == 0, out.stderr[-3000:]
+
+
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b"
     r"|import\s+spark_text_clustering_tpu(\.|\s|$)"

@@ -429,6 +429,7 @@ def test_launch_counters_start_at_zero_and_reset():
     assert set(_build.LAUNCHES) == {
         "gamma_fixed_point_bkl", "scatter_add_vtiles", "em_sweep_fused",
         "gamma_fixed_point_tiles", "nmf_mu_update_tiles",
+        "topic_inference_segments",
     }
     _build.LAUNCHES["em_sweep_fused"] += 3
     _build.reset_launches()

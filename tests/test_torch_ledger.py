@@ -314,6 +314,15 @@ def test_fault_sites_are_the_ports_calls():
     assert tfault.SITES <= jfault.SITES
 
 
+@pytest.mark.parametrize("site", ["serve.accept", "serve.admit",
+                                  "serve.batch", "serve.swap"])
+def test_serve_fault_sites_are_registered_and_checked(site):
+    """The scoring service's four sites are in ``SITES`` (and so, by the
+    both-ways check above, each is a ``check`` call of the port), and are
+    sites of the JAX package."""
+    assert site in tfault.SITES and site in jfault.SITES
+
+
 @pytest.mark.parametrize("failures", [0, 1, 3, 4, 6])
 def test_retry_attempts_and_giveups_match_jax(failures):
     """A call failing its first ``failures`` times: the same attempts, the
