@@ -21,8 +21,11 @@
    ptxas registers and spills recorded.  The per-document kernel of
    scoring (``csrc/segments.cu``) is held against its plain version on 8
    of config A's rows at the widest serve bucket (262,144 slots, 8 doc
-   slots), repeated bit for bit, and a doc's bytes held equal alone and in
-   a batch at other widths;
+   slots), repeated bit for bit, a doc's bytes held equal alone, in a
+   batch at other widths and in the whole-corpus launch, and the batch's
+   bytes equal at forced clusters of 1-16 CTAs a doc; timed at the serve
+   dispatch, a book alone and the whole corpus, with each launch's cluster,
+   shared memory and staged share of tokens;
 3. config A, the EN books shape: 51 docs of 2,000-20,000 distinct terms,
    V=39,380, k=5.  IDF -> EM fit (fused sweep, resumed from one random
    start) -> save -> load -> padded-bucket scoring -> scoring report.  The
@@ -4572,19 +4575,38 @@ def n_bucket(total: int) -> int:
     return next(t for t in N_BUCKETS if t >= want)
 
 
+def staged_share(lens, plan):
+    """Share of the live tokens the kernel reads from shared memory under
+    ``launch_plan``'s ``plan``: piece p of a doc (``piece_tokens`` tokens
+    from the doc's start) is staged where p // cluster < stage_pieces."""
+    p_tok, c, q = plan["piece_tokens"], plan["cluster"], plan["stage_pieces"]
+    staged = sum(min(n, q * c * p_tok) for n in lens)
+    return staged / max(1, sum(lens))
+
+
 def check_segments(torch, eb_vk, alpha, rows, dev, label):
     """The per-document kernel at a serve dispatch's shapes: 8 of ``rows``
     (the largest 8 that fit) in the widest bucket against the plain version
     on the same card tensors (distributions within 1e-5, on books most of
     which converge: where every book runs all 100 iterations unconverged
     the two summation orders drift further apart, 2.3e-5 on A's rows under
-    a lambda whose topics barely differ), a repeat bit for bit, and the first of them alone at its own bucket, alone at the widest
-    and fourth in a batch of the others: equal bytes through the kernel.
-    The plain version is run the same ways, and whether its bytes moved is
+    a lambda whose topics barely differ), a repeat bit for bit, and the
+    first of them alone at its own bucket, alone at the widest, fourth in
+    a batch of the others and in the whole-corpus launch of ``score
+    --per-doc-convergence`` (all ``rows`` at the next power of two of
+    their tokens): equal bytes through the kernel.  The serve dispatch
+    again at forced cluster sizes 1, 2, 4, 8 and 16: equal bytes.  The
+    plain version is run the same ways, and whether its bytes moved is
     recorded (index_add_'s float atomics and shape-dependent reductions on
-    the card).  Times: events over back-to-back launches; the bound from
-    these inputs' live tokens and each doc's iterations."""
+    the card).  Times: events over back-to-back launches and CUDA-graph
+    replay (device time alone: in config N the serve subprocesses start
+    beside this check) at three shapes, each at the cluster size the
+    wrapper picks (the serve dispatch, the book alone in its own bucket,
+    the whole corpus), with the launch's shared memory and the share of
+    tokens staged there; the bound from these inputs' live tokens and each
+    doc's iterations."""
     from spark_text_clustering_tpu_torch.ops import segments
+    from spark_text_clustering_tpu_torch.ops.sparse import next_pow2
 
     order = sorted(range(len(rows)), key=lambda i: -len(rows[i][0]))
     batch, total = [], 0
@@ -4595,8 +4617,9 @@ def check_segments(torch, eb_vk, alpha, rows, dev, label):
     t, b, k = N_BUCKETS[-1], N_MAX_BATCH, eb_vk.shape[1]
     args = segments_batch(torch, eb_vk, batch, t, dev, b)
 
-    def kernel(a):
-        return segments.topic_inference_segments(a[0], a[1], a[2], alpha, a[3])
+    def kernel(a, cluster=None):
+        return segments.topic_inference_segments(a[0], a[1], a[2], alpha, a[3],
+                                                 cluster=cluster)
 
     def plain(a):
         return segments.topic_inference_segments_plain(
@@ -4609,16 +4632,23 @@ def check_segments(torch, eb_vk, alpha, rows, dev, label):
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     repeat = bool(torch.equal(got, again))
+    forced = {c: bool(torch.equal(kernel(args, c), got))
+              for c in (1, 2, 4, 8, 16)}
     one = batch[0]
     others = batch[1:]
+    lens_all = [len(i) for i, _ in rows]
+    t_corpus = next_pow2(max(8, sum(lens_all)))
+    corpus = segments_batch(torch, eb_vk, rows, t_corpus, dev, len(rows))
     ways = {
         "alone_own_bucket": segments_batch(torch, eb_vk, [one],
                                            n_bucket(len(one[0])), dev, b),
         "alone_widest": segments_batch(torch, eb_vk, [one], t, dev, b),
         "fourth_of_batch": segments_batch(
             torch, eb_vk, others[:3] + [one] + others[3:], t, dev, b),
+        "whole_corpus": corpus,
     }
-    pos = {"alone_own_bucket": 0, "alone_widest": 0, "fourth_of_batch": 3}
+    pos = {"alone_own_bucket": 0, "alone_widest": 0, "fourth_of_batch": 3,
+           "whole_corpus": order[0]}
     kern_rows = {"first_of_batch": got[0]}
     plain_rows = {"first_of_batch": want[0]}
     for way, a in ways.items():
@@ -4636,24 +4666,54 @@ def check_segments(torch, eb_vk, alpha, rows, dev, label):
     plain_repeat = bool(torch.equal(plain_again, want))
     plain_spread = float((plain_again - want).abs().max())
     ms = cuda_ms(torch, lambda: kernel(args), 20)
+    enqueue_ms = host_ms(torch, lambda: kernel(args), 20)
     plain_ms = cuda_ms(torch, lambda: plain(args), 3)
+
+    def bound_of(lens, it):
+        lens = np.asarray(lens)
+        n_docs = len(lens)
+        bytes_moved = 4 * (int(lens.sum()) * (k + 1) + (n_docs + 1) + k
+                           + 2 * n_docs * k)
+        return bound(bytes_moved, float((it * lens).sum()) * (4 * k + 2))
+
     lens = np.asarray([len(i) for i, _ in batch] + [0] * (b - len(batch)))
     it = iters.cpu().numpy()
-    bytes_moved = 4 * (int(lens.sum()) * (k + 1) + (b + 1) + k + 2 * b * k)
-    flops = float((it * lens).sum()) * (4 * k + 2)
-    bound_ms, bound_by = bound(bytes_moved, flops)
+    bound_ms, bound_by = bound_of(lens, it)
+    _, it_corpus = segments.topic_inference_segments_plain(
+        *corpus[:3], alpha, corpus[3], with_iters=True)
+    it_corpus = it_corpus.cpu().numpy()
+    shapes = {}
+    for name, a, shape_lens, shape_it in (
+            ("serve_dispatch", args, list(lens), it),
+            ("one_book_own_bucket", ways["alone_own_bucket"],
+             [len(one[0])] + [0] * (b - 1),
+             np.concatenate([it[:1], np.zeros(b - 1)])),
+            ("whole_corpus", corpus, lens_all, it_corpus)):
+        plan = segments.launch_plan(k, a[0].shape[0], a[3].shape[0], dev)
+        shape_ms = ms if name == "serve_dispatch" else cuda_ms(
+            torch, lambda a=a: kernel(a), 20)
+        b_ms, b_by = bound_of(shape_lens, shape_it)
+        shapes[name] = {
+            "t": int(a[0].shape[0]), "doc_slots": int(a[3].shape[0]),
+            "live_tokens": int(sum(shape_lens)), "ms": shape_ms,
+            "graph_ms": cuda_graph_ms(torch, lambda a=a: kernel(a), 20),
+            "bound_ms": b_ms, "bound_by": b_by, **plan,
+            "staged_token_share": staged_share(shape_lens, plan)}
     res = {**N_SEGMENTS, "label": label, "docs": len(batch), "t": t,
            "max_batch": b, "k": k, "live_tokens": int(lens.sum()),
            "doc_tokens": [int(x) for x in lens[:len(batch)]],
            "iterations": [int(x) for x in it[:len(batch)]],
            "max_abs_err": err, "repeat_bit_equal": repeat,
            "kernel_bytes_equal_alone_vs_batch": kernel_same,
+           "kernel_bytes_equal_at_forced_clusters": forced,
            "plain_bytes_equal_alone_vs_batch": plain_same,
            "plain_repeat_bit_equal": plain_repeat,
            "plain_repeat_max_abs_diff": plain_spread,
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "library_ms": None}
-    if not err <= 1e-5 or not repeat or not kernel_same:
+           "ms": ms, "host_ms": enqueue_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "shapes": shapes, "ptxas": ptxas_report("segments")}
+    if (not err <= 1e-5 or not repeat or not kernel_same
+            or not all(forced.values())):
         raise AssertionError(f"segments kernel ({label}): {res}")
     return res
 

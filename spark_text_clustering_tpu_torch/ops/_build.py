@@ -73,9 +73,16 @@ SIGNATURES = {
         "stc_nmf_blocks_per_sm": [_I] * 4,
     },
     "segments": {
-        "stc_topic_inference_segments": [_P] * 5 + [_I] * 3 + [_F] + [_P] * 3,
+        "stc_topic_inference_segments": [_P] * 5 + [_I] * 6 + [_F] + [_P] * 3,
         "stc_segments_max_k": [],
-        "stc_segments_scratch_per_token": [_I],
+        "stc_segments_max_cluster": [],
+        "stc_segments_piece_tokens": [_I],
+        "stc_segments_smem_limit": [],
+        "stc_segments_smem_budget": [],
+        "stc_segments_smem_bytes": [_I] * 4,
+        "stc_segments_stage_pieces": [_I] * 4,
+        "stc_segments_scratch_floats": [_I] * 5,
+        "stc_segments_active_clusters": [_I] * 4,
     },
 }
 

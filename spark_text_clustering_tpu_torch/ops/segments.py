@@ -16,13 +16,16 @@ until its own mean|delta gamma| over k drops below ``tol`` (the update that
 converged it is kept) or at ``max_inner``; its distribution is gamma over
 its sum, or uniform for a document with no weight.
 
-On the card one CTA of a fixed size takes one document, sums in a fixed
-order and uses nothing atomic, so a document's bytes follow from its own
-tokens alone, wherever it sits in whatever batch (the serving contract:
-a served answer equals ``score --per-doc-convergence`` byte for byte on the
-same device).  The kernel and the plain version differ in summation order
-and in digamma (the kernel's is ``digamma.cuh``'s series), so they agree
-to a tolerance, not in bytes.
+On the card a cluster of C CTAs takes one document.  The document is cut
+into pieces of a fixed number of tokens from its own start; each piece's
+sums and the document's sum over the pieces run in one fixed order, and
+nothing is atomic, so a document's bytes follow from its own tokens alone,
+wherever it sits in whatever batch and whatever C the launch takes (the
+serving contract: a served answer equals ``score --per-doc-convergence``
+byte for byte on the same device).  C is a choice of launch geometry
+(``cluster_size``), not of arithmetic.  The kernel and the plain version
+differ in summation order and in digamma (the kernel's is
+``digamma.cuh``'s series), so they agree to a tolerance, not in bytes.
 """
 
 from __future__ import annotations
@@ -30,11 +33,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, estep
 from .estep import _prep_alpha
 from .lda_math import segments_distribution_plain
 
 __all__ = [
+    "cluster_size",
+    "launch_plan",
     "offsets_to_seg",
     "pack_offsets",
     "topic_inference_segments",
@@ -72,6 +77,57 @@ def topic_inference_segments_plain(
         with_iters=with_iters)
 
 
+_MAX_CLUSTER = 16
+# (device index, k, T, doc slots) -> the cluster size the rule picked
+_CLUSTERS = {}
+
+
+def cluster_size(n_slots: int, sms: int, fits=None) -> int:
+    """CTAs a document: the largest power of two <= 16 with ``n_slots *
+    size <= sms`` and, where ``fits`` is given, ``fits(size)`` (the card
+    can run all the launch's clusters of that size at once); 1 where none
+    is.  A choice of speed only: the bytes are the same for every size."""
+    size = _MAX_CLUSTER
+    while size > 1 and (n_slots * size > sms
+                        or (fits is not None and not fits(size))):
+        size //= 2
+    return size
+
+
+def _pick_cluster(lib, dev, k: int, t: int, b: int) -> int:
+    """``cluster_size``'s rule for a launch of ``b`` doc slots over ``t``
+    token slots, against the card's count of the clusters it can place at
+    the library's shared-memory budget; asked once per key."""
+    key = (dev.index, k, t, b)
+    size = _CLUSTERS.get(key)
+    if size is None:
+        cap = lib.stc_segments_smem_budget()
+
+        def fits(c):
+            n = lib.stc_segments_active_clusters(k, t, c, cap)
+            if n < 0:
+                raise _build.KernelError(
+                    f"topic_inference_segments: the card's cluster query "
+                    f"failed: CUDA error {-n}")
+            return n >= b
+
+        size = _CLUSTERS[key] = cluster_size(b, estep._sm_count(dev), fits)
+    return size
+
+
+def launch_plan(k: int, t: int, b: int, device, cluster=None) -> dict:
+    """How the kernel lays out a launch of ``b`` doc slots over ``t`` token
+    slots on ``device``: {"cluster", "smem_bytes", "stage_pieces" (pieces a
+    CTA keeps in shared memory), "piece_tokens"}."""
+    lib = _build.load_library("segments")
+    c = cluster or _pick_cluster(lib, torch.device(device), k, t, b)
+    cap = lib.stc_segments_smem_budget()
+    return {"cluster": c,
+            "smem_bytes": lib.stc_segments_smem_bytes(k, t, c, cap),
+            "stage_pieces": lib.stc_segments_stage_pieces(k, t, c, cap),
+            "piece_tokens": lib.stc_segments_piece_tokens(k)}
+
+
 def topic_inference_segments(
     eb_tok: torch.Tensor,    # [T, k] gathered exp(E[log beta])
     cts: torch.Tensor,       # [T]
@@ -80,11 +136,15 @@ def topic_inference_segments(
     gamma0: torch.Tensor,    # [B, k]
     max_inner: int = 100,
     tol: float = 1e-3,
+    *,
+    cluster=None,
 ) -> torch.Tensor:
     """Per-document distributions [B, k].  CPU tensors take the plain
     version; CUDA tensors launch the kernel or raise (a k past the
-    kernel's limit raises ``KernelError``).  ``offsets`` are trusted: the
-    packer that made the batch made them."""
+    kernel's limit, or a cluster size other than 1, 2, 4, 8 or 16, raises
+    ``KernelError``).  ``cluster`` forces the CTAs a document (None:
+    ``cluster_size``'s rule); it changes no byte.  ``offsets`` are
+    trusted: the packer that made the batch made them."""
     if eb_tok.device.type == "cpu":
         return topic_inference_segments_plain(
             eb_tok, cts, offsets, alpha, gamma0, max_inner, tol)
@@ -111,16 +171,25 @@ def topic_inference_segments(
         raise _build.KernelError(
             f"topic_inference_segments: the kernel takes k <= {max_k}, got "
             f"k={k}")
+    max_c = lib.stc_segments_max_cluster()
+    if cluster is not None and (not 1 <= cluster <= max_c
+                                or cluster & (cluster - 1)):
+        raise _build.KernelError(
+            f"topic_inference_segments: a cluster of a power of two <= "
+            f"{max_c} CTAs, got {cluster}")
     out = torch.empty((b, k), dtype=torch.float32, device=eb_tok.device)
     if b == 0:
         return out
-    ratio = (torch.empty(max(1, t), dtype=torch.float32,
-                         device=eb_tok.device)
-             if lib.stc_segments_scratch_per_token(k) else None)
+    t = max(1, t)
+    c = cluster or _pick_cluster(lib, eb_tok.device, k, t, b)
+    cap = lib.stc_segments_smem_budget()
+    n_scratch = lib.stc_segments_scratch_floats(k, t, b, c, cap)
+    scratch = (torch.empty(n_scratch, dtype=torch.float32,
+                           device=eb_tok.device) if n_scratch > 0 else None)
     err = lib.stc_topic_inference_segments(
         eb_tok.data_ptr(), cts.data_ptr(), offsets.data_ptr(),
-        alpha.data_ptr(), gamma0.data_ptr(), b, k, max_inner, tol,
-        out.data_ptr(), None if ratio is None else ratio.data_ptr(),
+        alpha.data_ptr(), gamma0.data_ptr(), b, k, t, c, cap, max_inner, tol,
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(),
         torch.cuda.current_stream(eb_tok.device).cuda_stream,
     )
     _build.check(err, "topic_inference_segments")
