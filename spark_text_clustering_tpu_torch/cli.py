@@ -1,7 +1,7 @@
 """Command-line entry points of the port: ``train`` and ``score``, the
 streaming verbs ``stream-score``, ``stream-train``, ``stream requeue`` and
-``stream compact``, ``supervise``, a fleet of stream workers, and
-``serve``, one resident scoring replica.
+``stream compact``, ``supervise``, a fleet of stream workers, ``serve``,
+one resident scoring replica, and ``collect``, the telemetry collector.
 
 The reference's two entry points (LDATraining.scala, LDALoader.scala) as
 subcommands, with the JAX package's flags, defaults, console output and
@@ -17,6 +17,7 @@ exit codes:
         --role stream-score --watch-dir <dir> --fleet-dir <dir> --workers 2
     python -m spark_text_clustering_tpu_torch.cli serve \
         --models-dir <dir> --port 0
+    python -m spark_text_clustering_tpu_torch.cli collect --dir <dir>
 
 Two flags are the port's own: ``--device`` (default ``cuda``) names the
 device that IDF, training and scoring run on (without a card, pass
@@ -62,8 +63,16 @@ partition of the watch dir, heartbeats a lease and writes through a
 fenced epoch ledger, and the supervisor respawns, escalates and resizes
 between committed epochs.  Its ``--device`` is passed on to every worker
 when given; without it the workers run on the card, as the stream verbs
-do.  ``--role serve`` (item 8b), the fleet's telemetry flags (item 9c)
-and ``--actions-file`` (item 9b) exit 2.
+do.  ``--telemetry-file`` writes the supervisor's own stream (``fleet_*``
+events, ``fleet.*`` counters), ``--worker-telemetry-dir`` gives every
+worker incarnation a stream (``worker-wNNN-sSS.jsonl``), all on the
+supervisor's trace, and ``--ship-to host:port`` pushes every stream of
+the fleet to a collector.  ``--role serve`` (item 8b) and
+``--actions-file`` (item 9b) exit 2.
+
+``collect`` is the telemetry collector those shippers push to (the JAX
+package's shippers too): one manifested stream a source, folded exactly
+once.
 
 ``--telemetry-file F`` on ``train``, ``score``, ``stream-score`` and
 ``stream-train`` writes the run's telemetry stream to ``F``: a manifest,
@@ -155,6 +164,7 @@ from .utils.timing import PhaseTimer
 __all__ = [
     "LANG_DIRS",
     "build_parser",
+    "cmd_collect",
     "cmd_score",
     "cmd_serve",
     "cmd_stream_compact",
@@ -179,13 +189,8 @@ LANG_DIRS = {
 }
 
 # The ROADMAP.md queue 1 item that ports the machinery behind each flag
-# the port refuses for now (``supervise --telemetry-file`` is refused by
-# ``cmd_supervise``: the stream verbs take the flag).
-_FLEET_TELEMETRY_ITEM = "queue 1 item 9c, the fleet's telemetry"
+# the port refuses for now.
 _NOT_PORTED = {
-    "worker_telemetry_dir": ("--worker-telemetry-dir",
-                             _FLEET_TELEMETRY_ITEM),
-    "ship_to": ("--ship-to", _FLEET_TELEMETRY_ITEM),
     "actions_file": ("--actions-file",
                      "queue 1 item 9b, the rest of telemetry"),
     "compile_cache": ("--compile-cache",
@@ -1145,6 +1150,14 @@ def _worker_argv(args: argparse.Namespace, index: int, count: int,
     argv = [
         sys.executable, "-m", "spark_text_clustering_tpu_torch.cli",
         args.role,
+    ]
+    if args.worker_telemetry_dir:
+        # one run stream an incarnation (the spawn id in the name): a
+        # respawn must not truncate the dead incarnation's stream
+        argv += ["--telemetry-file", os.path.join(
+            args.worker_telemetry_dir,
+            f"worker-w{index:03d}-s{spawn_id}.jsonl")]
+    argv += [
         "--watch-dir", args.watch_dir,
         "--checkpoint-dir", worker_dir(args.fleet_dir, index),
         "--fleet-dir", args.fleet_dir,
@@ -1195,8 +1208,6 @@ def cmd_supervise(args: argparse.Namespace) -> int:
     expiry, resized between committed epochs with fence tokens so that a
     zombie's writes are refused."""
     extra = [("--role serve", _SERVE_ITEM)] if args.role == "serve" else []
-    if args.telemetry_file is not None:
-        extra.append(("--telemetry-file", _FLEET_TELEMETRY_ITEM))
     extra += [(flag, _SERVE_ITEM)
               for dest, (flag, default, _) in _SERVE_FLAGS.items()
               if getattr(args, dest) != default]
@@ -1230,6 +1241,26 @@ def cmd_supervise(args: argparse.Namespace) -> int:
         native.build()
     except RuntimeError:
         pass  # the workers take the Python text path, as "auto" does
+    if args.ship_to:
+        # the environment, not the argv: every worker inherits it (the
+        # supervisor copies this environment) and the supervisor's own
+        # stream ships through configure(): one knob, every stream
+        os.environ[telemetry.transport.ENV_SHIP_TO] = args.ship_to
+    own_telemetry = args.telemetry_file is not None
+    if own_telemetry:
+        telemetry.configure(args.telemetry_file)
+        telemetry.manifest(kind="supervise", role=args.role,
+                           watch_dir=args.watch_dir,
+                           fleet_dir=args.fleet_dir)
+    try:
+        return _run_fleet(args, worker_faults, resize_plan)
+    finally:
+        if own_telemetry:
+            telemetry.shutdown()
+
+
+def _run_fleet(args: argparse.Namespace, worker_faults, resize_plan) -> int:
+    """``supervise``'s fleet, run to convergence; its exit code."""
     sup = FleetSupervisor(
         args.fleet_dir,
         lambda *ids: _worker_argv(args, *ids),
@@ -1260,6 +1291,67 @@ def cmd_supervise(args: argparse.Namespace) -> int:
         f"expiry(ies), {rep.preemptions} preemption(s) survived, "
         f"{rep.crashes} crash(es)"
     )
+    return 0
+
+
+def cmd_collect(args: argparse.Namespace) -> int:
+    """The telemetry collector daemon: receives sequence-numbered batches
+    from shippers (this package's or the JAX package's) on ``POST
+    /ingest``, dedupes on ``(source_id, seq)`` and folds each source into
+    a manifested JSONL stream under ``--dir``, so the ``metrics`` tools
+    read the aggregated dir as they read a local one.  Serves
+    ``/healthz`` and ``/metrics`` (Prometheus by content negotiation),
+    announces its bound address in ``<dir>/collect.json``, and drains on
+    SIGTERM or after ``--max-seconds``."""
+    import threading
+
+    from .telemetry import transport
+
+    # a collector never ships its own run stream to itself: an inherited
+    # STC_SHIP_TO would loop every folded event back in
+    os.environ.pop(transport.ENV_SHIP_TO, None)
+    own_telemetry = args.telemetry_file is not None
+    telemetry.configure(args.telemetry_file)
+    collector = transport.Collector(args.dir,
+                                    registry=telemetry.get_registry())
+    try:
+        httpd = transport.make_collector_server(collector, args.host,
+                                                args.port)
+    except OSError as exc:
+        print(f"error: cannot bind {args.host}:{args.port}: {exc}",
+              file=sys.stderr)
+        telemetry.shutdown()
+        return 1
+    host, port = httpd.server_address[:2]
+    transport.write_collect_announce(args.dir, host, port)
+    if own_telemetry:
+        telemetry.manifest(kind="collect", collect_dir=args.dir, host=host,
+                           port=port)
+    serve_thread = threading.Thread(target=httpd.serve_forever,
+                                    name="stc-collect-http", daemon=True)
+    serve_thread.start()
+    print(f"collector on http://{host}:{port} -> {args.dir}", flush=True)
+    preempt = PreemptionNotice().install()
+    stop = threading.Event()
+    deadline = (time.monotonic() + args.max_seconds
+                if args.max_seconds is not None else None)
+    try:
+        while not preempt():
+            if deadline is not None and time.monotonic() >= deadline:
+                break
+            stop.wait(0.2)
+    finally:
+        preempt.uninstall()
+        httpd.shutdown()
+        httpd.server_close()
+        serve_thread.join(timeout=5.0)
+    stats = collector.stats()
+    print(
+        f"collector drained: {stats['sources']} source(s), "
+        f"{stats['batches']} batch(es), {stats['ingested']} event(s), "
+        f"{stats['duplicates']} duplicate batch(es) suppressed"
+    )
+    telemetry.shutdown()
     return 0
 
 
@@ -1666,11 +1758,18 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--seed", type=int, default=0)
     sv.add_argument("--checkpoint-interval", type=int, default=1)
     sv.add_argument("--telemetry-file", default=None,
-                    help="not ported yet (exits 2)")
+                    help="the supervisor's telemetry run stream (fleet_* "
+                         "events, fleet.* counters): `metrics summarize` "
+                         "renders its fleet health")
     sv.add_argument("--worker-telemetry-dir", default=None,
-                    help="not ported yet (exits 2)")
+                    help="give every worker incarnation its own telemetry "
+                         "run stream under this dir "
+                         "(worker-wNNN-sSS.jsonl)")
     sv.add_argument("--ship-to", default=None, metavar="HOST:PORT",
-                    help="not ported yet (exits 2)")
+                    help="push every run stream of the fleet (supervisor "
+                         "and workers) to a `collect` daemon at this "
+                         "address; the workers inherit it through the "
+                         "STC_SHIP_TO environment variable")
     sv.add_argument("--worker-arg", action="append", default=[],
                     help="extra argv appended to every worker command "
                          "(repeatable)")
@@ -1687,6 +1786,27 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device passed to every worker (default: "
                          "none passed, so the workers run on cuda)")
     sv.set_defaults(fn=cmd_supervise)
+
+    co = sub.add_parser(
+        "collect",
+        help="telemetry collector: HTTP ingest of shipped run-stream "
+             "batches, exactly once on (source_id, seq), one manifested "
+             "JSONL stream a source under --dir",
+    )
+    co.add_argument("--dir", required=True,
+                    help="aggregation dir: one <source_id>.jsonl a "
+                         "shipper, and the collect.json announce")
+    co.add_argument("--host", default="127.0.0.1")
+    co.add_argument("--port", type=int, default=0,
+                    help="ingest port (0 picks one; announced in "
+                         "<dir>/collect.json)")
+    co.add_argument("--max-seconds", type=float, default=None,
+                    help="exit after this long (drills); default: run "
+                         "until SIGTERM")
+    co.add_argument("--telemetry-file", default=None,
+                    help="the collector's own run stream (collect.* "
+                         "counters; never shipped to itself)")
+    co.set_defaults(fn=cmd_collect)
     return ap
 
 

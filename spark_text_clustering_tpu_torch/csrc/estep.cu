@@ -50,6 +50,17 @@
 //   instance needs 229 registers, one CTA an SM).  Measured with
 //   chip_smoke.py on the H100 above: [22, 5, 16384] 0.552-0.566 ms,
 //   [4652, 20, 64] 0.385-0.390 ms, [12, 5, 32768] 1.20-1.21 ms from L2.
+// * k > 64 takes a fourth way, the wide instance, whose state is sized
+//   by k in shared memory and whose registers do not grow with k: each
+//   iteration (1) a thread per (doc, slot) of a chunk of the slice sums
+//   phinorm over all k topics, reading eb from device memory (L2) at
+//   stride L, coalesced over slots, into a [tile_b, chunk] ratio buffer
+//   in shared memory (chunks of up to 1024 slots a doc), then (2) a warp
+//   per (doc, topic) row sums eb * ratio over the chunk, lanes over
+//   slots, into the [tile_b, k] partials; the update's lanes walk the
+//   topics in chunks of 32.  The largest k is where the tile state
+//   (k + 4 tile_b k floats at tile_b = 8 with two partial buffers) and a
+//   32-slot ratio chunk still fit a CTA (stc_estep_max_k).
 // * Rank 0 writes the result.  No atomics: the result repeats bit for bit.
 // digamma is the same six-step recurrence and asymptotic series as the TPU
 // kernel (digamma.cuh).
@@ -67,10 +78,12 @@ using stc::digamma_approx;
 
 constexpr int kMaxTileB = 8;
 constexpr int kMaxCluster = 16;
-constexpr int kMaxK = 64;
+constexpr int kRegMaxK = 64;           // largest k of the register and two-phase paths
 constexpr int kSmemLimit = 232448;     // 227 KB a block on the H100
 constexpr int kSlotsPerThread = 4;     // fewest slots a thread walks
 constexpr int kSlabRegThreads = 1024;  // register path over shared memory
+constexpr int kWideThreads = 1024;     // the wide path (k > kRegMaxK)
+constexpr int kWideChunk = 1024;       // most slots a doc the wide path's ratios hold
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -78,22 +91,14 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// exp(E[log theta]) of doc t from its gamma; lane j holds topics j, j+32
+// exp(E[log theta]) of doc t from its gamma; lane j walks topics j + 32 h
 __device__ __forceinline__ void refresh_et(const float* gamma, float* et,
                                            int t, int k, int lane) {
-  float g[2];
   float tot = 0.0f;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int j = lane + 32 * h;
-    g[h] = j < k ? gamma[t * k + j] : 0.0f;
-    tot += g[h];
-  }
+  for (int j = lane; j < k; j += 32) tot += gamma[t * k + j];
   const float dg_tot = digamma_approx(warp_sum(tot));
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int j = lane + 32 * h;
-    if (j < k) et[t * k + j] = expf(digamma_approx(g[h]) - dg_tot);
+  for (int j = lane; j < k; j += 32) {
+    et[t * k + j] = expf(digamma_approx(gamma[t * k + j]) - dg_tot);
   }
 }
 
@@ -106,7 +111,8 @@ struct Args {
   float* out;           // [B, k]
   int b, k, l, tile_b;
   int ls;               // slots of L one CTA takes
-  int par;              // stream: threads per doc; slab: chunks per (doc, topic)
+  int par;              // stream: threads per doc; slab: chunks per (doc, topic);
+                        // wide: slots a doc of one ratio chunk
   int max_inner;
   float tol;
 };
@@ -114,16 +120,17 @@ struct Args {
 // The tile state each CTA keeps, in floats: alpha [k], gamma and
 // exp(E[log theta]) [tile_b, k], this slice's partial sums [tile_b, k]
 // (two buffers when other CTAs read them), each doc's mean |delta gamma|.
-__host__ __device__ __forceinline__ int part_buffers(int cs) {
+__host__ __device__ constexpr int part_buffers(int cs) {
   return cs > 1 ? 2 : 1;
 }
-__host__ __device__ __forceinline__ int state_floats(int k, int tk, int cs) {
+__host__ __device__ constexpr int state_floats(int k, int tk, int cs) {
   return k + (2 + part_buffers(cs)) * tk + kMaxTileB;
 }
 
 // The iteration loop of one tile, around a Slice that sums this CTA's
 // slice of L into `part` ([tile_b, k]).  Every CTA of the cluster runs it
-// and ends each iteration with the same gamma and stop flag.
+// and ends each iteration with the same gamma and stop flag.  A lane of
+// the update takes topics lane + 32 h, h < ceil(k / 32).
 template <class Slice>
 __device__ __forceinline__ void run_tile(const Args& a, float* smem,
                                          Slice& slice, int tile) {
@@ -160,18 +167,14 @@ __device__ __forceinline__ void run_tile(const Args& a, float* smem,
     if (warp < a.tile_b) {
       const int t = warp;
       float dsum = 0.0f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int j = lane + 32 * h;
-        if (j < k) {
-          float s = 0.0f;
-          for (int q = 0; q < cs; ++q) {
-            s += cluster.map_shared_rank(part, q)[t * k + j];
-          }
-          const float g = alpha_s[j] + et_s[t * k + j] * s;
-          dsum += fabsf(g - gamma_s[t * k + j]);
-          gamma_s[t * k + j] = g;
+      for (int j = lane; j < k; j += 32) {
+        float s = 0.0f;
+        for (int q = 0; q < cs; ++q) {
+          s += cluster.map_shared_rank(part, q)[t * k + j];
         }
+        const float g = alpha_s[j] + et_s[t * k + j] * s;
+        dsum += fabsf(g - gamma_s[t * k + j]);
+        gamma_s[t * k + j] = g;
       }
       dsum = warp_sum(dsum);
       refresh_et(gamma_s, et_s, t, k, lane);
@@ -457,6 +460,89 @@ __global__ void __launch_bounds__(kPhaseThreads) estep_phase_kernel(const Args a
   run_tile(a, smem, slice, slice.tile);
 }
 
+// Wide path, for k > 64: nothing of the slab is kept in shared memory,
+// and no register array grows with k.  The slice is walked in chunks of
+// `rc` slots a doc; for each, (1) a thread per (doc, slot) sums phinorm
+// over the k topics (eb read from device memory at stride L, coalesced
+// over slots; pad slots' eb never) into `ratio`, (2) a warp per (doc,
+// topic) row sums eb * ratio over the chunk, lane l taking slots l + 32 i
+// in order and the warp's shuffle tree adding the lanes, and adds that to
+// the row's partial in chunk order.  Every sum has a fixed order: a launch
+// repeats bit for bit.
+struct WideSlice {
+  const float* eb;
+  const float* cts;
+  float* ratio_s;  // [tile_b, rc]
+  int b, k, l, tile_b, l0, n, tile, rc;
+
+  __device__ __forceinline__ void load() {}
+
+  __device__ __forceinline__ void partials(float* part, const float* et_s) {
+    const int lane = threadIdx.x & 31;
+    const int warps = blockDim.x >> 5;
+    const int tk = tile_b * k;
+    // one pass even for an empty slice, so its partials are written as 0
+    for (int c0 = 0; c0 == 0 || c0 < n; c0 += rc) {
+      const int m = min(rc, n - c0);  // slots of this chunk (<= 0: none)
+      if (c0 > 0) __syncthreads();    // the last chunk's ratios are read
+      for (int q = threadIdx.x; q < tile_b * rc; q += blockDim.x) {
+        const int tt = q / rc;
+        const int s = q - tt * rc;
+        const int dd = tile * tile_b + tt;
+        float r = 0.0f;
+        if (dd < b && s < m) {
+          const long long at = static_cast<long long>(dd) * l + l0 + c0 + s;
+          const float c = cts[at];
+          if (c != 0.0f) {  // a pad slot's eb is never read
+            const float* e = eb + static_cast<long long>(dd) * k * l + l0 + c0 + s;
+            const float* et = et_s + tt * k;
+            float phin = 0.0f;
+            for (int j = 0; j < k; ++j) phin += e[static_cast<long long>(j) * l] * et[j];
+            r = c / (phin + 1e-30f);
+          }
+        }
+        ratio_s[q] = r;
+      }
+      __syncthreads();
+      for (int row = threadIdx.x >> 5; row < tk; row += warps) {
+        const int tt = row / k;
+        const int dd = tile * tile_b + tt;
+        const float* rr = ratio_s + tt * rc;
+        float acc = 0.0f;
+        if (dd < b) {
+          const float* e = eb + static_cast<long long>(tile * tile_b) * k * l +
+                           static_cast<long long>(row) * l + l0 + c0;
+          for (int s = lane; s < m; s += 32) {
+            const float r = rr[s];
+            if (r != 0.0f) acc += e[s] * r;
+          }
+        }
+        const float v = warp_sum(acc);
+        if (lane == 0) part[row] = c0 == 0 ? v : part[row] + v;
+      }
+    }
+  }
+};
+
+__global__ void __launch_bounds__(kWideThreads) estep_wide_kernel(const Args a) {
+  extern __shared__ float smem[];
+  const int cs = static_cast<int>(cg::this_cluster().num_blocks());
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  WideSlice slice;
+  slice.eb = a.eb;
+  slice.cts = a.cts;
+  slice.ratio_s = smem + state_floats(a.k, a.tile_b * a.k, cs);
+  slice.b = a.b;
+  slice.k = a.k;
+  slice.l = a.l;
+  slice.tile_b = a.tile_b;
+  slice.l0 = min(a.l, rank * a.ls);
+  slice.n = min(a.l, slice.l0 + a.ls) - slice.l0;
+  slice.tile = blockIdx.x / cs;
+  slice.rc = a.par;
+  run_tile(a, smem, slice, slice.tile);
+}
+
 struct Geometry {
   int ls, par, threads;
   long long smem;
@@ -507,6 +593,33 @@ Geometry geometry(int k, int l, int tile_b, int cs, int nt) {
   g.smem = base + (g.slab ? bytes : 0);
   return g;
 }
+
+// The wide path's launch: ratio chunks of up to kWideChunk slots a doc,
+// fewer where the tile state leaves less room (none under 32: smem past
+// the limit, which run_wide refuses); a thread for every 4 (doc, slot)
+// pairs of a chunk, 256 to kWideThreads.
+Geometry wide_geometry(int k, int l, int tile_b, int cs) {
+  Geometry g;
+  g.ls = ((l + cs - 1) / cs + 31) / 32 * 32;
+  g.slab = g.phase = false;
+  const long long state = 4LL * state_floats(k, tile_b * k, cs);
+  const long long room = (kSmemLimit - state) / (4LL * tile_b) / 32 * 32;
+  long long rc = g.ls < kWideChunk ? g.ls : kWideChunk;
+  if (rc > room) rc = room;
+  g.par = static_cast<int>(rc < 32 ? 32 : rc);
+  g.smem = rc < 32 ? kSmemLimit + 1LL : state + 4LL * tile_b * rc;
+  const int threads = (tile_b * g.par / 4 + 31) / 32 * 32;
+  g.threads = threads < 256 ? 256 : threads > kWideThreads ? kWideThreads : threads;
+  return g;
+}
+
+// Largest k the kernel takes: the wide path's tile state at the largest
+// tile_b, with two partial buffers (k + 4 tile_b k + tile_b floats), and
+// a ratio chunk of 32 slots a doc in one CTA's shared memory.
+constexpr int kMaxK =
+    (kSmemLimit / 4 - kMaxTileB - 32 * kMaxTileB) / (1 + 4 * kMaxTileB);
+static_assert(state_floats(kMaxK, kMaxTileB * kMaxK, 2) + 32 * kMaxTileB <=
+              kSmemLimit / 4, "the largest k's state and chunk fit");
 
 // The launch configuration of one geometry: a cluster of cs CTAs a tile.
 struct Launch {
@@ -572,9 +685,18 @@ cudaError_t run(Args a, int cs, cudaStream_t s) {
   return submit(estep_reg_kernel<KMAX, NT, U, false>, attr, a, cs, g, s);
 }
 
+cudaError_t run_wide(Args a, int cs, cudaStream_t s) {
+  const Geometry g = wide_geometry(a.k, a.l, a.tile_b, cs);
+  if (g.smem > kSmemLimit) return cudaErrorInvalidValue;
+  a.ls = g.ls;
+  a.par = g.par;
+  static const cudaError_t attr = set_attributes(estep_wide_kernel);
+  return submit(estep_wide_kernel, attr, a, cs, g, s);
+}
+
 }  // namespace
 
-// Largest k the kernel takes (a thread keeps k values in registers).
+// Largest k the kernel takes (the wide path's state in shared memory).
 extern "C" int stc_estep_max_k() { return kMaxK; }
 
 // Largest tile_b the kernel takes (a warp per doc in the update).
@@ -605,5 +727,6 @@ extern "C" int stc_gamma_fixed_point_bkl(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k <= 8) return run<8, 512, 2>(a, cluster, s);
   if (k <= 32) return run<32, 256, 2>(a, cluster, s);
-  return run<64, 256, 1>(a, cluster, s);
+  if (k <= kRegMaxK) return run<64, 256, 1>(a, cluster, s);
+  return run_wide(a, cluster, s);
 }

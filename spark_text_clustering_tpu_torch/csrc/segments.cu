@@ -63,6 +63,15 @@
 //   its batchmates or T: a document's bits depend on its own tokens,
 //   alpha, gamma0, max_inner and tol alone, and a repeat is bit for bit.
 //   One launch a batch, no host sync inside.
+// - Three instances: Small (k <= 8) and Large (k <= 128) keep the doc's
+//   gamma and alpha in warp 0's registers (a lane holds topics lane + 32 h)
+//   and et in a fixed shared array; Wide (k > 128) keeps gamma and et in
+//   shared memory sized by k, and warp 0 updates the topics in chunks of
+//   32 as the doc's sums come (the ratio of a token is formed once, in the
+//   first chunk of its piece's sums, and kept in the stage or the scratch
+//   for the others, as in Large).  The largest k is where a CTA's fixed
+//   words and one piece's partial sums fill the shared budget
+//   (stc_segments_max_k).
 // digamma is digamma.cuh's, the TPU kernels' series.
 
 #include <cooperative_groups.h>
@@ -74,19 +83,23 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxK = 128;
+constexpr int kRegK = 128;  // largest k whose gamma warp 0 keeps in registers
 constexpr int kMaxCluster = 16;
 constexpr int kSmemLimit = 232448;           // 227 KB a block on the H100
 // The shared bytes the wrapper lets a CTA take: the rest of the SM's
 // 256 KB stays L1 (at 8 CTAs a doc, a 227 KB request ran slower on the
 // H100 than 80-150 KB, with every piece staged either way).
 constexpr int kSmemBudget = 147456;
-// Shared words besides the pieces: et [kMaxK], the live and stop flags.
-constexpr int kFixedWords = kMaxK + 32;
 // At most this many shared words hold partial sums; the staged rows get
 // the rest of the capacity.
 constexpr int kPartWords = 8192;
 constexpr float kPhiEps = 1e-30f;
+
+// Shared words besides the pieces: et [kRegK] (Wide: et and gamma [k]
+// each), then 32 words whose first two are the live and stop flags.
+__host__ __device__ __forceinline__ int fixed_words(int k) {
+  return (k <= kRegK ? kRegK : 2 * k) + 32;
+}
 
 // Where a launch keeps what: the same in every CTA of a launch.
 struct Plan {
@@ -111,13 +124,13 @@ __host__ __device__ __forceinline__ Plan make_plan(int k, int t, int cs,
   Plan pl;
   const int pieces = (t + piece_tokens(k) - 1) / piece_tokens(k);
   pl.local_max = (pieces + cs - 1) / cs;
-  long long words = smem_cap / 4 - kFixedWords;
+  long long words = smem_cap / 4 - fixed_words(k);
   long long q = (words < kPartWords ? words : kPartWords) / (2 * k);
   pl.part_q = static_cast<int>(q < pl.local_max ? q : pl.local_max);
   words -= 2LL * pl.part_q * k;
   q = words / stage_words(k);
   pl.stage_q = static_cast<int>(q < pl.local_max ? q : pl.local_max);
-  pl.smem = 4LL * (kFixedWords + 2LL * pl.part_q * k +
+  pl.smem = 4LL * (fixed_words(k) + 2LL * pl.part_q * k +
                    static_cast<long long>(pl.stage_q) * stage_words(k));
   return pl;
 }
@@ -295,6 +308,18 @@ __device__ __forceinline__ void refresh_et(const float (&g)[H], float* et_s,
   }
 }
 
+// refresh_et for the Wide instance: gamma and et in shared memory [k],
+// lane l taking topics l + 32 h.
+__device__ __forceinline__ void refresh_et_wide(const float* g_s, float* et_s,
+                                                int k, int lane) {
+  float tot = 0.0f;
+  for (int j = lane; j < k; j += 32) tot = __fadd_rn(tot, g_s[j]);
+  const float dg_tot = stc::digamma_approx(warp_sum(tot));
+  for (int j = lane; j < k; j += 32) {
+    et_s[j] = expf(__fsub_rn(stc::digamma_approx(g_s[j]), dg_tot));
+  }
+}
+
 // Warp 0's share of an update: gamma [H topics a lane: lane + 32 h] from
 // the sums s, then et; returns the mean |delta gamma|, the same in every
 // lane.  g and al are lane registers.
@@ -318,10 +343,10 @@ __device__ __forceinline__ float update(float (&g)[H], const float (&s)[H],
 }
 
 // KC: topic sums a lane keeps in registers (8 for k <= 8, else 32 with
-// the topics in chunks); NT: threads a CTA.
-template <int KC, int NT>
+// the topics in chunks); NT: threads a CTA; kWide: gamma in shared memory.
+template <int KC, int NT, bool kWide>
 __global__ void __launch_bounds__(NT, 1) segments_kernel(const Args a) {
-  constexpr int H = KC == 8 ? 1 : kMaxK / 32;  // topics a lane updates
+  constexpr int H = KC == 8 ? 1 : kRegK / 32;  // topics a lane updates
   constexpr int kP = piece_tokens(KC);
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -329,9 +354,10 @@ __global__ void __launch_bounds__(NT, 1) segments_kernel(const Args a) {
   const int rank = static_cast<int>(cluster.block_rank());
   const int k = a.k;
   const Plan pl = make_plan(k, a.t, cs, a.smem_cap);
-  float* et_s = smem;                     // [kMaxK]
-  float* flags = et_s + kMaxK;            // [0] live, [1] stop
-  float* part_s = flags + 32;             // [2][part_q, k]
+  float* et_s = smem;                     // [kRegK] (Wide: [k])
+  float* g_s = smem + k;                  // Wide: gamma [k]
+  float* flags = smem + fixed_words(k) - 32;  // [0] live, [1] stop
+  float* part_s = smem + fixed_words(k);  // [2][part_q, k]
   float* stage_s = part_s + 2 * pl.part_q * k;  // [stage_q][stage_words]
   float* ratio_g = a.scratch;             // [T] for k > 32
   float* over_g = a.scratch + ratio_floats(k, a.t);  // [2][slots, k]
@@ -372,13 +398,20 @@ __global__ void __launch_bounds__(NT, 1) segments_kernel(const Args a) {
   // warp 0 holds the doc's gamma (lane + 32 h) and alpha; et to the block
   float g[H], al[H], s[H];
   if (warp == 0) {
+    if constexpr (kWide) {
+      for (int j = lane; j < k; j += 32) {
+        g_s[j] = a.gamma0[static_cast<long long>(doc) * k + j];
+      }
+      refresh_et_wide(g_s, et_s, k, lane);
+    } else {
 #pragma unroll
-    for (int h = 0; h < H; ++h) {
-      const int j = lane + 32 * h;
-      g[h] = j < k ? a.gamma0[static_cast<long long>(doc) * k + j] : 0.0f;
-      al[h] = j < k ? a.alpha[j] : 0.0f;
+      for (int h = 0; h < H; ++h) {
+        const int j = lane + 32 * h;
+        g[h] = j < k ? a.gamma0[static_cast<long long>(doc) * k + j] : 0.0f;
+        al[h] = j < k ? a.alpha[j] : 0.0f;
+      }
+      refresh_et<H>(g, et_s, k, lane);
     }
-    refresh_et<H>(g, et_s, k, lane);
   }
   wait_copies();
   cluster.sync();
@@ -409,7 +442,10 @@ __global__ void __launch_bounds__(NT, 1) segments_kernel(const Args a) {
     cluster.sync();
     if (warp == 0) {
       // the doc's sums in piece order: lane l over pieces l + 32 m, then
-      // the lanes' tree; topics in chunks of KC
+      // the lanes' tree; topics in chunks of KC.  Wide updates each
+      // chunk's topics as their sums come (et stays the last update's
+      // until all are done), adding |delta gamma| in topic order a lane.
+      float chg = 0.0f;
       for (int c0 = 0; c0 < k; c0 += KC) {
         float acc[KC];
 #pragma unroll
@@ -435,12 +471,27 @@ __global__ void __launch_bounds__(NT, 1) segments_kernel(const Args a) {
           }
         }
         const float v = lane_topic_sums<KC>(acc, lane);
+        if constexpr (kWide) {
+          const int j = c0 + lane;  // KC == 32: topic c0 + lane
+          if (j < k) {
+            const float old = g_s[j];
+            g_s[j] = __fmaf_rn(et_s[j], v, a.alpha[j]);
+            chg = __fadd_rn(chg, fabsf(__fsub_rn(g_s[j], old)));
+          }
+        } else {
 #pragma unroll
-        for (int h = 0; h < H; ++h) {
-          if (32 * h == c0) s[h] = v;  // topic c0 + lane
+          for (int h = 0; h < H; ++h) {
+            if (32 * h == c0) s[h] = v;  // topic c0 + lane
+          }
         }
       }
-      const float mean = update<H>(g, s, al, et_s, k, lane);
+      float mean;
+      if constexpr (kWide) {
+        refresh_et_wide(g_s, et_s, k, lane);
+        mean = __fdiv_rn(warp_sum(chg), static_cast<float>(k));
+      } else {
+        mean = update<H>(g, s, al, et_s, k, lane);
+      }
       if (lane == 0) flags[1] = mean < a.tol ? 1.0f : 0.0f;
     }
     __syncthreads();
@@ -450,18 +501,27 @@ __global__ void __launch_bounds__(NT, 1) segments_kernel(const Args a) {
   cluster.sync();
 
   if (rank == 0 && warp == 0) {
-    float tot = 0.0f;
+    float* out = a.out + static_cast<long long>(doc) * k;
+    if constexpr (kWide) {
+      float tot = 0.0f;
+      for (int j = lane; j < k; j += 32) tot = __fadd_rn(tot, g_s[j]);
+      tot = warp_sum(tot);
+      for (int j = lane; j < k; j += 32) {
+        out[j] = nonempty ? __fdiv_rn(g_s[j], tot) : 1.0f / static_cast<float>(k);
+      }
+    } else {
+      float tot = 0.0f;
 #pragma unroll
-    for (int h = 0; h < H; ++h) {
-      if (lane + 32 * h < k) tot = __fadd_rn(tot, g[h]);
-    }
-    tot = warp_sum(tot);
+      for (int h = 0; h < H; ++h) {
+        if (lane + 32 * h < k) tot = __fadd_rn(tot, g[h]);
+      }
+      tot = warp_sum(tot);
 #pragma unroll
-    for (int h = 0; h < H; ++h) {
-      const int j = lane + 32 * h;
-      if (j < k) {
-        a.out[static_cast<long long>(doc) * k + j] =
-            nonempty ? __fdiv_rn(g[h], tot) : 1.0f / static_cast<float>(k);
+      for (int h = 0; h < H; ++h) {
+        const int j = lane + 32 * h;
+        if (j < k) {
+          out[j] = nonempty ? __fdiv_rn(g[h], tot) : 1.0f / static_cast<float>(k);
+        }
       }
     }
   }
@@ -496,11 +556,11 @@ cudaError_t set_attributes(Kernel kernel) {
       kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
 }
 
-// The instance for k: {KC, threads}.
-template <int KC, int NT>
+// The instance for k: {KC, threads, gamma in shared memory}.
+template <int KC, int NT, bool W = false>
 struct Instance {
   static cudaError_t attributes() {
-    static const cudaError_t attr = set_attributes(segments_kernel<KC, NT>);
+    static const cudaError_t attr = set_attributes(segments_kernel<KC, NT, W>);
     return attr;
   }
   static cudaError_t launch(const Args& a, int cs, long long smem,
@@ -508,23 +568,42 @@ struct Instance {
     const cudaError_t attr = attributes();
     if (attr != cudaSuccess) return attr;
     Launch l(a.n_docs, cs, NT, smem, s);
-    const cudaError_t err = cudaLaunchKernelEx(&l.cfg, segments_kernel<KC, NT>, a);
+    const cudaError_t err = cudaLaunchKernelEx(&l.cfg, segments_kernel<KC, NT, W>, a);
     return err != cudaSuccess ? err : cudaGetLastError();
   }
   static cudaError_t clusters(int cs, long long smem, int* n) {
     const cudaError_t attr = attributes();
     if (attr != cudaSuccess) return attr;
     Launch l(1, cs, NT, smem, nullptr);
-    return cudaOccupancyMaxActiveClusters(n, segments_kernel<KC, NT>, &l.cfg);
+    return cudaOccupancyMaxActiveClusters(n, segments_kernel<KC, NT, W>, &l.cfg);
   }
 };
 using Small = Instance<8, 512>;   // k <= 8
 using Large = Instance<32, 256>;  // 8 < k <= 128
+using Wide = Instance<32, 256, true>;  // k > 128
+
+// A launch needs its fixed words and one piece's two partial buffers in
+// shared memory; the largest k is where they fill the budget.
+bool fits(int k, int smem_cap) {
+  return 4LL * (fixed_words(k) + 2LL * k) <= smem_cap;
+}
+
+// Past kRegK the fixed words are 2k + 32, so the words a launch needs are
+// 4k + 32.
+constexpr int kMaxK = (kSmemBudget / 4 - 32) / 4;
+static_assert(kMaxK > kRegK, "the budget takes k past the register path");
 
 bool valid(int k, int t, int cluster, int smem_cap) {
   return k >= 1 && k <= kMaxK && t >= 1 && cluster >= 1 &&
          cluster <= kMaxCluster && (cluster & (cluster - 1)) == 0 &&
-         smem_cap >= 4 * (kFixedWords + 2 * k) && smem_cap <= kSmemLimit;
+         fits(k, smem_cap) && smem_cap <= kSmemLimit;
+}
+
+template <class Fn>
+cudaError_t by_instance(int k, Fn fn) {
+  if (k <= 8) return fn(Small{});
+  if (k <= kRegK) return fn(Large{});
+  return fn(Wide{});
 }
 
 }  // namespace
@@ -563,8 +642,8 @@ extern "C" int stc_segments_active_clusters(int k, int t, int cluster,
   if (!valid(k, t, cluster, smem_cap)) return -static_cast<int>(cudaErrorInvalidValue);
   const long long smem = make_plan(k, t, cluster, smem_cap).smem;
   int n = 0;
-  const cudaError_t err = k <= 8 ? Small::clusters(cluster, smem, &n)
-                                 : Large::clusters(cluster, smem, &n);
+  const cudaError_t err = by_instance(
+      k, [&](auto inst) { return decltype(inst)::clusters(cluster, smem, &n); });
   return err != cudaSuccess ? -static_cast<int>(err) : n;
 }
 
@@ -596,7 +675,7 @@ extern "C" int stc_topic_inference_segments(
   a.max_inner = max_inner;
   a.tol = tol;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = k <= 8 ? Small::launch(a, cluster, pl.smem, s)
-                                 : Large::launch(a, cluster, pl.smem, s);
+  const cudaError_t err = by_instance(
+      k, [&](auto inst) { return decltype(inst)::launch(a, cluster, pl.smem, s); });
   return static_cast<int>(err);
 }

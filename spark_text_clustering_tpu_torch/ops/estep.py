@@ -9,7 +9,10 @@ use the same ``digamma_approx``.  ``gamma_fixed_point`` is the [B, L, k]
 slab contract of the scoring path.
 
 On the card a tile is one thread-block cluster whose CTAs split L;
-``cluster_size`` picks how many CTAs from the tile count and L.
+``cluster_size`` picks how many CTAs from the tile count and L.  Any k
+runs on the card up to the largest the library reports
+(``stc_estep_max_k``, from the size of the wide instance's state in
+shared memory); past it the wrapper raises ``ValueError`` naming it.
 """
 
 from __future__ import annotations

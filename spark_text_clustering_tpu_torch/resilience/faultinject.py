@@ -67,6 +67,7 @@ SITES = frozenset({
     "worker.kill",        # before the supervisor's SIGKILL escalation
     "telemetry.write",    # telemetry run-stream append
     "telemetry.ship",     # before a shipper batch POSTs to the collector
+    "collect.ingest",     # top of the collector's /ingest fold
     "serve.accept",       # before the scoring service accepts a request
     "serve.admit",        # inside the coalescer's bounded admission
                           # check (forces a typed 429, never a crash)

@@ -44,12 +44,24 @@ Chaos: ``STC_FAULTS`` reaches generation-0 workers only (recovery must
 run clean), and ``worker_faults`` pins a spec to one worker index.
 Supervisor-side sites: ``supervisor.spawn`` and ``worker.kill``.
 
+Telemetry, under the JAX package's names: the ``fleet.*`` counters and
+the ``fleet.workers`` gauge, one ``fleet_*`` event a transition (spawn,
+preempt, kill, respawn, resize, crash, lease expiry, exit, sweep,
+converged) and a ``lease_sync`` clock anchor a lease renewal, into the
+supervisor's own run stream (``supervise --telemetry-file``); the
+``ledger.fence_refusals`` counter and a ``fence_refused`` event where a
+fence refuses a write, and ``fleet.heartbeats`` a lease renewal, in the
+worker's stream.  The supervisor holds one trace (the adopted
+``STC_TRACE`` or a fresh one): each spawn gets a child span of it in its
+environment, which the worker adopts and stamps on its lease renewals,
+its stream and its ledger records, and every fleet ledger record of a
+spawn set carries its ``trace_id``.  The JAX package also applies a
+monitor's actions file here (item 9b) and supervises serve replicas
+(item 8b); the port has neither yet.
+
 This module imports neither ``torch`` nor the port's device code: it is
 subprocess-and-files machinery that must survive whatever a worker does
-to the card.  The JAX package also records telemetry and trace context
-here (ROADMAP queue 1 item 9c), applies a monitor's actions file (item
-9b) and supervises serve replicas (item 8b); the port has none of these
-yet.
+to the card.
 """
 
 from __future__ import annotations
@@ -93,6 +105,17 @@ __all__ = [
 FLEET_LOG_NAME = "fleet.jsonl"
 LEASE_DIRNAME = "leases"
 CONTROL_DIRNAME = "control"
+
+# metric names (declared in telemetry/names.py)
+WORKERS_GAUGE = "fleet.workers"
+SPAWNS_COUNTER = "fleet.spawns"
+RESPAWNS_COUNTER = "fleet.respawns"
+RESIZES_COUNTER = "fleet.resizes"
+PREEMPTIONS_COUNTER = "fleet.preemptions"
+LEASE_EXPIRIES_COUNTER = "fleet.lease_expiries"
+CRASHES_COUNTER = "fleet.crashes"
+HEARTBEATS_COUNTER = "fleet.heartbeats"
+FENCE_REFUSALS_COUNTER = "ledger.fence_refusals"
 
 
 def worker_dir(fleet_dir: str, index: int) -> str:
@@ -212,6 +235,8 @@ class FleetFence:
     spawn_id: int
 
     def verify(self) -> None:
+        from .. import telemetry
+
         cur = FleetLedger(self.fleet_dir).current()
         if cur is None:
             return                      # no fence state yet: standalone
@@ -222,6 +247,14 @@ class FleetFence:
         )
         if ok:
             return
+        telemetry.count(FENCE_REFUSALS_COUNTER)
+        telemetry.event(
+            "fence_refused",
+            worker=self.worker_index,
+            generation=self.generation,
+            spawn_id=self.spawn_id,
+            current_generation=cur.get("generation"),
+        )
         raise FencedEpochError(
             self.fleet_dir,
             f"worker {self.worker_index} token (generation "
@@ -281,12 +314,18 @@ class WorkerLease:
         self._last = 0.0
 
     def _write(self, **fields) -> None:
+        from .. import telemetry
+        from ..telemetry import tracing
+
         payload = {
             "pid": os.getpid(),
             "worker": self.worker_index,
             "generation": self.generation,
             "spawn_id": self.spawn_id,
             "ts": time.time(),
+            # the adopted trace rides every renewal, so whatever reads
+            # the leases sees which trace owns the pid
+            **tracing.fields(),
             **fields,
         }
 
@@ -298,6 +337,7 @@ class WorkerLease:
             )
 
         retry_call(_put, site="worker.heartbeat")
+        telemetry.count(HEARTBEATS_COUNTER)
 
     def beat(
         self,
@@ -490,13 +530,28 @@ class FleetSupervisor:
         self._procs: Dict[int, _Worker] = {}
         self._depth_streak = 0
         self._idle_streak = 0
+        # the causal root: each spawn gets a child span of it in its
+        # environment (STC_TRACE), so one trace id covers supervisor,
+        # worker, ledger and publish
+        from ..telemetry import tracing
+
+        self.trace = tracing.current() or tracing.mint()
+        # newest lease ts seen per worker: a lease_sync event (the clock
+        # anchor of `metrics trace --causal`) a renewal, not a sweep
+        self._lease_sync: Dict[int, float] = {}
 
     # -- spawning --------------------------------------------------------
-    def _worker_env(self, index: int, chaos: bool) -> Dict[str, str]:
+    def _worker_env(self, index: int, chaos: bool,
+                    trace=None) -> Dict[str, str]:
+        from ..telemetry import tracing
+
         env = {
             k: v for k, v in self.env.items()
             if k not in (faultinject.ENV_SPEC, faultinject.ENV_SEED)
         }
+        # the worker adopts this span at start-up (tracing.adopt_env) and
+        # stamps it on its lease renewals and ledger records
+        env.update(tracing.env_for_child(trace))
         # STC_FAULTS reaches each worker's first generation-0 spawn only:
         # the injected crash is the drill, and recovery must run clean (a
         # respawn that inherited kill@1 would die forever)
@@ -515,15 +570,20 @@ class FleetSupervisor:
         self, index: int, count: int, spawn_id: int, *,
         chaos: bool = False,
     ) -> _Worker:
+        from .. import telemetry
+
         argv = list(
             self.worker_argv(index, count, self.generation, spawn_id)
         )
+        # one child span a spawn: the env hands it to the worker, the
+        # fleet_spawn event anchors the supervisor's end of the edge
+        span = self.trace.child()
 
         def _launch() -> subprocess.Popen:
             faultinject.check("supervisor.spawn")
             return subprocess.Popen(
                 argv,
-                env=self._worker_env(index, chaos),
+                env=self._worker_env(index, chaos, trace=span),
                 stdout=subprocess.DEVNULL,
                 stderr=subprocess.DEVNULL,
             )
@@ -538,11 +598,20 @@ class FleetSupervisor:
         )
         self._procs[index] = w
         self.report.spawns += 1
+        telemetry.count(SPAWNS_COUNTER)
+        telemetry.event(
+            "fleet_spawn",
+            worker=index, pid=proc.pid,
+            generation=self.generation, spawn_id=spawn_id,
+            **span.to_fields(),
+        )
         return w
 
     def _spawn_set(self, count: int, *, kind: str, **extra) -> None:
         """Issue fresh spawn ids for ``count`` workers, append the fence
         record first (so every new token verifies), then spawn."""
+        from .. import telemetry
+
         spawn_ids = {}
         for i in range(count):
             spawn_ids[i] = self._next_spawn_id
@@ -552,6 +621,7 @@ class FleetSupervisor:
             generation=self.generation,
             worker_count=count,
             spawn_ids=spawn_ids,
+            trace_id=self.trace.trace_id,
             **extra,
         )
         for i in range(count):
@@ -559,6 +629,7 @@ class FleetSupervisor:
                 i, count, spawn_ids[i],
                 chaos=kind == "spawn" and self.generation == 0,
             )
+        telemetry.gauge(WORKERS_GAUGE, count)
 
     # -- killing ---------------------------------------------------------
     def _signal(self, w: _Worker, sig) -> None:
@@ -581,11 +652,20 @@ class FleetSupervisor:
         """The kill ladder: drain SIGTERM, grace, SIGKILL, reap.  After
         this returns the pid is reaped; the fence handles any zombie
         write."""
+        from .. import telemetry
+
         w.drain_requested = True
         self._signal(w, signal.SIGTERM)
+        telemetry.count(PREEMPTIONS_COUNTER)
+        telemetry.event(
+            "fleet_preempt", worker=w.index, pid=w.proc.pid, why=why,
+        )
         if self._await_exit(w, self.grace_seconds) is None:
             faultinject.check("worker.kill")
             self._signal(w, signal.SIGKILL)
+            telemetry.event(
+                "fleet_kill", worker=w.index, pid=w.proc.pid, why=why,
+            )
             w.proc.wait()
 
     def _recover_worker(self, index: int) -> None:
@@ -597,6 +677,8 @@ class FleetSupervisor:
         """Roll the dead worker's ledger back and respawn it under a fresh
         spawn id (same topology).  The respawn's fence record supersedes
         the dead incarnation's token, on top of the SIGKILL and reap."""
+        from .. import telemetry
+
         self._recover_worker(w.index)
         self.report.respawns += 1
         if self.report.respawns > self.max_respawns:
@@ -605,6 +687,11 @@ class FleetSupervisor:
                 f"({self.max_respawns}) — last death: worker "
                 f"{w.index} ({cause}); aborting supervision"
             )
+        telemetry.count(RESPAWNS_COUNTER)
+        telemetry.event(
+            "fleet_respawn", worker=w.index, cause=cause,
+            generation=self.generation,
+        )
         count = self._current_count()
         spawn_id = self._next_spawn_id
         self._next_spawn_id += 1
@@ -633,12 +720,19 @@ class FleetSupervisor:
         """Ledger-gated topology change: drain the whole fleet between
         committed epochs, recover every worker ledger, then commit the new
         generation to the fleet ledger and spawn the re-sliced set."""
+        from .. import telemetry
+
         old = self._current_count()
         new_count = max(self.min_workers, min(self.max_workers, new_count))
         if new_count == old:
             return
         self.report.resizes += 1
         self.report.resize_history.append(new_count)
+        telemetry.count(RESIZES_COUNTER)
+        telemetry.event(
+            "fleet_resize", workers_from=old, workers_to=new_count,
+            why=why, generation=self.generation,
+        )
         # every active worker gets the preemption notice; one that cannot
         # drain within grace is SIGKILLed (its epoch rolls back below)
         active = [
@@ -694,6 +788,8 @@ class FleetSupervisor:
 
     # -- the loop --------------------------------------------------------
     def run(self) -> FleetReport:
+        from .. import telemetry
+
         os.makedirs(
             os.path.join(self.fleet_dir, LEASE_DIRNAME), exist_ok=True
         )
@@ -731,13 +827,23 @@ class FleetSupervisor:
         self.report.committed_epochs = fleet_committed_epochs(
             self.fleet_dir
         )
+        telemetry.event(
+            "fleet_converged",
+            workers=self.report.final_workers,
+            committed_epochs=self.report.committed_epochs,
+            resizes=self.report.resizes,
+            respawns=self.report.respawns,
+        )
         return self.report
 
     def _sweep(self) -> bool:
         """One supervision sweep; True when the fleet converged (every
         worker finished cleanly)."""
+        from .. import telemetry
+
         now = time.time()
         depths: Dict[int, int] = {}
+        slack_min: Optional[float] = None
         for i, w in sorted(self._procs.items()):
             if w.finished:
                 continue
@@ -754,15 +860,27 @@ class FleetSupervisor:
                 if reason == "preempted" and not w.drain_requested:
                     # an external preemption notice (we never asked): the
                     # worker drained cleanly; survive it
+                    telemetry.count(PREEMPTIONS_COUNTER)
                     self.report.preemptions += 1
+                    telemetry.event(
+                        "fleet_preempted_externally", worker=i,
+                    )
                     self._handle_death(w, cause="preemption")
                 else:
                     w.finished = True
+                    telemetry.event(
+                        "fleet_exit", worker=i, reason=reason, rc=rc,
+                    )
                 continue
             if rc is not None:
                 # death without a done lease: a crash (or an injected
                 # kill); recover and respawn
                 self.report.crashes += 1
+                telemetry.count(CRASHES_COUNTER)
+                telemetry.event(
+                    "fleet_crash", worker=i, rc=rc,
+                    generation=w.generation,
+                )
                 self._handle_death(w, cause=f"exit_{rc}")
                 continue
             # running: judge the lease's freshness
@@ -773,11 +891,43 @@ class FleetSupervisor:
                 age = now - float(lease.get("ts", 0.0))
                 budget = self.lease_timeout
                 depths[i] = int(lease.get("queue_depth", 0))
+                # clock anchor: the worker's lease ts beside the
+                # supervisor's observation; `metrics trace --causal`
+                # takes the least delta a worker as its skew correction
+                lts = float(lease.get("ts", 0.0))
+                if self._lease_sync.get(i) != lts:
+                    self._lease_sync[i] = lts
+                    telemetry.event(
+                        "lease_sync", worker=i, lease_ts=lts,
+                        observed_ts=now,
+                    )
+                # slack against the steady lease budget only (the
+                # start-up grace would drown it)
+                slack = budget - age
+                slack_min = slack if slack_min is None else min(
+                    slack_min, slack
+                )
             if age > budget:
+                telemetry.count(LEASE_EXPIRIES_COUNTER)
                 self.report.lease_expiries += 1
+                telemetry.event(
+                    "fleet_lease_expired", worker=i,
+                    age_seconds=round(age, 3),
+                    pid=w.proc.pid,
+                )
                 self._escalate(w, why="lease_expiry")
                 self._handle_death(w, cause="lease_expiry")
         active = [w for w in self._procs.values() if not w.finished]
+        telemetry.gauge(WORKERS_GAUGE, len(active))
+        telemetry.event(
+            "fleet_sweep",
+            workers=len(active),
+            queue_depth=sum(depths.values()),
+            **(
+                {"lease_slack_min": round(slack_min, 3)}
+                if slack_min is not None else {}
+            ),
+        )
         if not active:
             return True
         self._check_resize(depths)

@@ -1,11 +1,12 @@
-"""Telemetry transport, the worker side: push-based event shipping.
+"""Telemetry transport plane: push-based event shipping and the collector.
 
 Every ``metrics`` tool reads JSONL run streams on a *local* filesystem.
 A multi-host fleet has no shared dir, so a run can also push its stream
-to a collector daemon (the JAX package's ``stc collect``), which folds
-each source into a manifested stream of the same schema.
+to a collector daemon (``cli collect``, or the JAX package's ``stc
+collect``: the two are interchangeable), which folds each source into a
+manifested stream of the same schema.
 
-:class:`EventShipper` hooks :class:`~.events.JsonlSink` (every record the
+Worker side: :class:`EventShipper` hooks :class:`~.events.JsonlSink` (every record the
 run stream writer appends locally is also offered to the shipper),
 batches records, gzips them, and POSTs each batch to the collector's
 ``/ingest`` with a monotonically increasing sequence number.  Pushes
@@ -16,12 +17,25 @@ unreachable the batch is appended to a durable local spool (fsync'd,
 checksummed lines — epoch-ledger discipline) and replayed in order on
 reconnect, so a collector outage loses nothing.
 
-A run ships when ``STC_SHIP_TO`` names the collector's ``host:port``.
-The collector itself, and the ``--ship-to`` flag, come with the fleet's
-telemetry (ROADMAP item 9c).
+A run ships when ``STC_SHIP_TO`` names the collector's ``host:port``
+(``supervise --ship-to`` sets it for a whole fleet).
 
-The module is import-light (stdlib only; resilience is imported
-lazily).
+Collector side: :class:`Collector` and ``cli collect``, a torch-free HTTP
+daemon.  ``POST /ingest`` dedupes on ``(source_id, seq)`` and folds each
+accepted batch into a per-source manifested JSONL stream in the same
+schema, so the analysis tools work unchanged over the aggregated dir.
+The commit point of a batch is its trailing ``collect_batch`` marker
+line (fsync'd before the ack): a crash mid-append leaves un-markered
+event lines that recovery truncates, and the worker, which never saw the
+ack, re-ships the batch.  At-least-once shipping, seq dedupe and
+marker-last appends give exactly-once folding.  The marker carries the
+shipper's send stamp (``sent_ts``, the source host's clock) and the
+ingest stamp (``recv_ts``, the collector's), the clock anchors of the
+HTTP hop.
+
+The module is import-light (stdlib only; resilience and prometheus are
+imported lazily), so ``cli collect`` starts fast on a host without
+torch.
 """
 from __future__ import annotations
 
@@ -33,6 +47,7 @@ import re
 import socket
 import threading
 import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Tuple
 
 from .registry import MetricRegistry
@@ -42,6 +57,9 @@ ENV_SHIP_TO = "STC_SHIP_TO"
 #: spool file kept next to the run stream (one checksummed line per
 #: un-acked batch; replayed in seq order on reconnect)
 SPOOL_NAME = "ship-spool.jsonl"
+
+#: announce file the collector writes into its aggregation dir
+COLLECT_ANNOUNCE_NAME = "collect.json"
 
 #: wire schema for the batch envelope
 WIRE_SCHEMA = 1
@@ -53,6 +71,14 @@ SPOOLED = "telemetry.spooled"
 DROPPED = "telemetry.dropped"
 SHIP_ERRORS = "telemetry.ship_errors"
 SHIP_REPLAYED = "telemetry.ship_replayed"
+COLLECT_BATCHES = "collect.batches"
+COLLECT_INGESTED = "collect.ingested"
+COLLECT_DUPLICATES = "collect.duplicates"
+COLLECT_DUPLICATE_EVENTS = "collect.duplicate_events"
+COLLECT_INGEST_ERRORS = "collect.ingest_errors"
+COLLECT_RECOVERED = "collect.recovered_streams"
+COLLECT_TRUNCATED = "collect.truncated_events"
+COLLECT_SOURCES = "collect.sources"
 
 _SOURCE_ID_SAFE = re.compile(r"[^A-Za-z0-9._-]")
 
@@ -504,3 +530,342 @@ def close_shipping() -> None:
     _shipper = None
     if s is not None:
         s.close()
+
+
+# ---------------------------------------------------------------------------
+# collector (aggregation side)
+# ---------------------------------------------------------------------------
+
+def source_stream_path(collect_dir: str, source_id: str) -> str:
+    """Per-source aggregated stream: ``<dir>/<source_id>.jsonl``."""
+    return os.path.join(
+        collect_dir, sanitize_source_id(source_id) + ".jsonl"
+    )
+
+
+class Collector:
+    """Folds shipped batches into per-source manifested JSONL streams.
+
+    Exactly-once discipline: an accepted batch's event lines are
+    appended followed by ONE ``collect_batch`` marker line, then
+    fsync'd, and only then acked.  The marker is the commit point —
+    ``recover()`` rebuilds the seen-seq set from markers and truncates
+    any un-markered tail (a crash between append and ack), and the
+    shipper, which never saw the ack, re-ships that batch; the seq
+    dedup then folds it exactly once.
+    """
+
+    def __init__(
+        self,
+        collect_dir: str,
+        *,
+        registry: Optional[MetricRegistry] = None,
+    ) -> None:
+        self.collect_dir = collect_dir
+        self.registry = registry or MetricRegistry()
+        self._lock = threading.Lock()   # guards _seen + stream appends
+        self._seen: Dict[str, set] = {}
+        os.makedirs(collect_dir, exist_ok=True)
+        self.recover()
+
+    # -- crash recovery ----------------------------------------------
+
+    def recover(self) -> None:
+        with self._lock:
+            self._seen = {}
+            for name in sorted(os.listdir(self.collect_dir)):
+                if not name.endswith(".jsonl"):
+                    continue
+                self._recover_stream(
+                    os.path.join(self.collect_dir, name)
+                )
+            self.registry.gauge(COLLECT_SOURCES).set(len(self._seen))
+
+    def _recover_stream(self, path: str) -> None:
+        try:
+            with open(path, "r", encoding="utf-8") as f:
+                data = f.read()
+        except OSError:
+            return
+        seen: set = set()
+        pending = 0                 # lines since last marker (torn ones
+        source_id = os.path.splitext(os.path.basename(path))[0]
+        for ln in data.split("\n"):     # included: they are uncommitted)
+            if not ln.strip():
+                continue
+            try:
+                rec = json.loads(ln)
+            except json.JSONDecodeError:
+                pending += 1        # torn tail line: uncommitted
+                continue
+            if isinstance(rec, dict) and (
+                rec.get("event") == "collect_batch"
+            ):
+                seen.add(int(rec.get("seq", -1)))
+                source_id = rec.get("source_id", source_id)
+                pending = 0
+            else:
+                pending += 1
+        if pending:
+            # un-markered tail = batch that never got its ack: truncate
+            # by atomic rewrite; the shipper re-sends it
+            tmp = path + ".tmp"
+            with open(tmp, "w", encoding="utf-8") as f:
+                f.write(_truncate_to_committed(data))
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+            self.registry.counter(COLLECT_TRUNCATED).inc(pending)
+            self.registry.counter(COLLECT_RECOVERED).inc()
+        self._seen[source_id] = seen
+
+    # -- ingest -------------------------------------------------------
+
+    def ingest(
+        self,
+        raw: bytes,
+        *,
+        gzipped: bool = False,
+        recv_ts: Optional[float] = None,
+    ) -> Dict:
+        """Fold one wire batch; returns the ack dict.  Raises
+        ``ValueError`` on malformed input (the HTTP layer maps that to
+        a 400, which the shipper treats as a ship error)."""
+        from ..resilience import faultinject
+
+        faultinject.check("collect.ingest")
+        recv_ts = time.time() if recv_ts is None else recv_ts
+        batch = _decode_envelope(raw, gzipped)
+        source_id = sanitize_source_id(batch["source_id"])
+        seq = int(batch["seq"])
+        events = batch["events"]
+        if not isinstance(events, list):
+            raise ValueError("events must be a list")
+        sent_ts = batch.get("sent_ts")
+        replayed = bool(batch.get("replayed", False))
+        with self._lock:
+            seen = self._seen.setdefault(source_id, set())
+            if seq in seen:
+                self.registry.counter(COLLECT_DUPLICATES).inc()
+                self.registry.counter(COLLECT_DUPLICATE_EVENTS).inc(
+                    len(events)
+                )
+                return {
+                    "status": "duplicate", "seq": seq,
+                    "recv_ts": recv_ts,
+                }
+            path = source_stream_path(self.collect_dir, source_id)
+            first = not os.path.exists(path)
+            marker = {
+                "ts": recv_ts,
+                "event": "collect_batch",
+                "source_id": source_id,
+                "seq": seq,
+                "sent_ts": sent_ts,
+                "recv_ts": recv_ts,
+                "events": len(events),
+                "replayed": replayed,
+            }
+            with open(path, "a", encoding="utf-8") as f:
+                for ev in events:
+                    if first and isinstance(ev, dict) and (
+                        ev.get("event") == "manifest"
+                    ):
+                        # manifest record: stamp the collector's view
+                        # so merge/trace can pair this stream with its
+                        # clock anchors even without a fleet index
+                        ev = dict(ev)
+                        ev["source_id"] = source_id
+                        ev["collect_recv_ts"] = recv_ts
+                    f.write(json.dumps(ev) + "\n")
+                f.write(json.dumps(marker, sort_keys=True) + "\n")
+                f.flush()
+                os.fsync(f.fileno())    # marker durable BEFORE the ack
+            seen.add(seq)
+            self.registry.counter(COLLECT_BATCHES).inc()
+            self.registry.counter(COLLECT_INGESTED).inc(len(events))
+            self.registry.gauge(COLLECT_SOURCES).set(len(self._seen))
+        return {"status": "ok", "seq": seq, "recv_ts": recv_ts}
+
+    def stats(self) -> Dict:
+        snap = self.registry.snapshot()
+        counters = snap.get("counters", {})
+        with self._lock:
+            sources = len(self._seen)
+        return {
+            "sources": sources,
+            "batches": counters.get(COLLECT_BATCHES, 0),
+            "ingested": counters.get(COLLECT_INGESTED, 0),
+            "duplicates": counters.get(COLLECT_DUPLICATES, 0),
+        }
+
+
+def _decode_envelope(raw: bytes, gzipped: bool) -> Dict:
+    """Decode one wire batch envelope; ``ValueError`` on anything
+    malformed (the HTTP layer answers 400, which the shipper counts as
+    a ship error and spools the batch)."""
+    if gzipped:
+        try:
+            raw = gzip.decompress(raw)
+        except OSError as e:
+            raise ValueError(f"bad gzip body: {e}")
+    try:
+        batch = json.loads(raw.decode("utf-8"))
+    except (ValueError, UnicodeDecodeError) as e:
+        raise ValueError(f"bad batch json: {e}")
+    if not isinstance(batch, dict):
+        raise ValueError("batch envelope must be an object")
+    return batch
+
+
+def _truncate_to_committed(data: str) -> str:
+    """Keep everything up to and including the LAST ``collect_batch``
+    marker line; drop the un-markered tail."""
+    lines = data.split("\n")
+    last = -1
+    for i, ln in enumerate(lines):
+        if not ln.strip():
+            continue
+        try:
+            rec = json.loads(ln)
+        except json.JSONDecodeError:
+            continue
+        if isinstance(rec, dict) and rec.get("event") == "collect_batch":
+            last = i
+    if last < 0:
+        return ""
+    return "\n".join(lines[:last + 1]) + "\n"
+
+
+# ---------------------------------------------------------------------------
+# collector HTTP server
+# ---------------------------------------------------------------------------
+
+class _CollectorHandler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+    collector: Collector = None  # type: ignore[assignment]
+
+    def log_message(self, fmt, *args):          # silence stderr chatter
+        pass
+
+    def _send(self, code: int, body: bytes, ctype: str) -> None:
+        self.send_response(code)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _send_json(self, code: int, obj: Dict) -> None:
+        self._send(
+            code, json.dumps(obj).encode("utf-8"), "application/json"
+        )
+
+    def do_POST(self):                          # noqa: N802
+        if self.path.split("?", 1)[0] != "/ingest":
+            self._send_json(404, {"error": "unknown path"})
+            return
+        try:
+            n = int(self.headers.get("Content-Length", "0"))
+            raw = self.rfile.read(n)
+            gzipped = (
+                self.headers.get("Content-Encoding", "") == "gzip"
+            )
+            ack = self.collector.ingest(raw, gzipped=gzipped)
+        except ValueError as e:
+            self.collector.registry.counter(COLLECT_INGEST_ERRORS).inc()
+            self._send_json(400, {"error": str(e)})
+            return
+        except Exception as e:
+            self.collector.registry.counter(COLLECT_INGEST_ERRORS).inc()
+            self._send_json(500, {"error": str(e)})
+            return
+        self._send_json(200, ack)
+
+    def do_GET(self):                           # noqa: N802
+        path, _, query = self.path.partition("?")
+        if path == "/healthz":
+            self._send_json(200, {"status": "ok", **self.collector.stats()})
+        elif path == "/metrics":
+            self._metrics(query)
+        else:
+            self._send_json(404, {"error": "unknown path"})
+
+    def _metrics(self, query: str) -> None:
+        from urllib.parse import parse_qs
+
+        from . import prometheus
+
+        params = parse_qs(query)
+        snap = self.collector.registry.snapshot()
+        accept = self.headers.get("Accept", "")
+        want_prom = (
+            params.get("format", [""])[0] == "prometheus"
+            or prometheus.wants_prometheus(accept)
+        )
+        if want_prom:
+            labels = {}
+            for kv in params.get("label", []):
+                k, _, v = kv.partition("=")
+                if k:
+                    labels[k] = v
+            body = prometheus.render(snap, labels=labels or None)
+            self._send(
+                200, body.encode("utf-8"), prometheus.CONTENT_TYPE
+            )
+        else:
+            self._send_json(200, snap)
+
+
+def make_collector_server(
+    collector: Collector, host: str = "127.0.0.1", port: int = 0
+) -> ThreadingHTTPServer:
+    handler = type(
+        "_BoundCollectorHandler", (_CollectorHandler,),
+        {"collector": collector},
+    )
+    httpd = ThreadingHTTPServer((host, port), handler)
+    httpd.daemon_threads = True
+    return httpd
+
+
+def write_collect_announce(
+    collect_dir: str, host: str, port: int, **extra
+) -> str:
+    """Publish the collector's address into its own dir (atomic, like
+    ``front.json``) so drills and operators can discover the bound
+    port without racing the bind."""
+    from ..resilience.integrity import atomic_write_text
+
+    path = os.path.join(collect_dir, COLLECT_ANNOUNCE_NAME)
+    os.makedirs(collect_dir, exist_ok=True)
+    atomic_write_text(path, json.dumps({
+        "schema": 1,
+        "host": host,
+        "port": int(port),
+        "pid": os.getpid(),
+        "ts": time.time(),
+        **extra,
+    }, sort_keys=True) + "\n")
+    return path
+
+
+def read_collect_announce(
+    collect_dir: str, wait_s: float = 10.0
+) -> Dict:
+    """Poll for ``collect.json`` (the collector may still be binding);
+    tolerates a torn write by retrying within the deadline."""
+    from ..resilience.retry import sleep as _sleep
+
+    path = os.path.join(collect_dir, COLLECT_ANNOUNCE_NAME)
+    deadline = time.monotonic() + wait_s
+    while True:
+        try:
+            with open(path, "r", encoding="utf-8") as f:
+                return json.loads(f.read())
+        except (OSError, ValueError):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"no collector announce at {path} "
+                    f"after {wait_s:.1f}s"
+                )
+            _sleep(0.05)

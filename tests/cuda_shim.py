@@ -2,7 +2,7 @@
 of the port's kernel sources against it with g++.
 
 Enough of the runtime for ``csrc/packed.cu``, ``csrc/nmf.cu``,
-``csrc/emsweep.cu`` and ``csrc/segments.cu``: every block runs as
+``csrc/emsweep.cu``, ``csrc/segments.cu`` and ``csrc/estep.cu``: every block runs as
 blockDim.x threads with real barriers, warp shuffles and ballots and its
 own shared memory, one block after another (over a grid of x and y), and
 each ``<<<grid, block, smem, stream>>>`` launch becomes the stand-in's

@@ -592,10 +592,6 @@ REFUSED = [
      "item 10"),
     (["stream-train", "--compile-cache", "cc"], "--compile-cache",
      "item 10"),
-    (["supervise", "--role", "stream-train", "--telemetry-file", "t.jsonl"],
-     "--telemetry-file", "item 9c"),
-    (["supervise", "--telemetry-file", "t.jsonl", "--ship-to",
-      "localhost:1"], "--ship-to", "item 9c"),
     (["supervise", "--role", "serve"], "--role serve", _SERVE),
     (["supervise", "--front-port", "0"], "--front-port", _SERVE),
     (["supervise", "--max-seconds", "5"], "--max-seconds", _SERVE),
@@ -616,11 +612,6 @@ REFUSED = [
      _SERVE),
     (["supervise", "--autoscale-cooldown", "1"], "--autoscale-cooldown",
      _SERVE),
-    (["supervise", "--telemetry-file", "t.jsonl"], "--telemetry-file",
-     "item 9c"),
-    (["supervise", "--worker-telemetry-dir", "t"], "--worker-telemetry-dir",
-     "item 9c"),
-    (["supervise", "--ship-to", "localhost:1"], "--ship-to", "item 9c"),
     (["supervise", "--actions-file", "a.json"], "--actions-file", "item 9b"),
     (["supervise", "--compile-cache", "cc"], "--compile-cache", "item 10"),
     (["serve", "--alerts-file", "a.jsonl"], "--alerts-file", "item 9b"),

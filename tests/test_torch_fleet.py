@@ -9,8 +9,8 @@ a kill at commit publishes a loadable model per worker; a bare
 ``stream-score`` drains on SIGTERM and resumes.  Two drills resume a
 fleet dir one package's ``supervise`` started in the other package's.
 
-The JAX drill that reads the supervisor's telemetry stream is left out:
-the fleet's telemetry is ROADMAP.md queue 1 item 9c.
+The drill that reads the supervisor's telemetry stream is in
+``test_torch_fleet_telemetry.py``.
 """
 
 import os

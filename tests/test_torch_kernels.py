@@ -67,18 +67,20 @@ def _estep_problem(b, l=64, k=5, v=300, seed=0, pad=7):
 
 
 @pytest.mark.parametrize(
-    "b,tile_b,l,pad",
-    [(16, 8, 64, 7), (13, 8, 64, 7), (11, 1, 64, 7), (5, 8, 64, 7),
-     (12, 8, 4096, 2048)],
-    ids=["16-8", "13-8", "11-1", "5-8", "en-width-12-5-4096-half-pad"],
+    "b,tile_b,l,pad,k",
+    [(16, 8, 64, 7, 5), (13, 8, 64, 7, 5), (11, 1, 64, 7, 5),
+     (5, 8, 64, 7, 5), (12, 8, 4096, 2048, 5), (13, 8, 64, 7, 100)],
+    ids=["16-8", "13-8", "11-1", "5-8", "en-width-12-5-4096-half-pad",
+         "13-8-k100"],
 )
-def test_gamma_fixed_point_bkl_matches_pallas(b, tile_b, l, pad):
+def test_gamma_fixed_point_bkl_matches_pallas(b, tile_b, l, pad, k):
     """Normalized gamma within 5e-3 (the Pallas kernel's own bound vs the
     XLA loop).  Same algorithm and tile stop rule on both sides: the
     median per-doc difference is at the float32 rounding level (< 1e-5).
-    The last case is an EN-books-like bucket: few docs, k=5, wide L with
-    half of every doc's slots pad."""
-    eb, cts, alpha, g0 = _estep_problem(b, l=l, pad=pad)
+    The fifth case is an EN-books-like bucket: few docs, k=5, wide L with
+    half of every doc's slots pad; the last is k=100, the card's wide
+    instance (the JAX bench's online k)."""
+    eb, cts, alpha, g0 = _estep_problem(b, l=l, k=k, pad=pad)
     want = jestep.gamma_fixed_point_pallas_bkl(
         jnp.asarray(eb), jnp.asarray(cts), jnp.asarray(alpha),
         jnp.asarray(g0), tile_b=tile_b, interpret=True,

@@ -99,7 +99,10 @@ def _plain(eb_tok, cts, offsets, alpha, gamma0, max_inner):
 
 # case: (k, doc lengths, max_inner); 0 is an empty doc, 1300 a doc of 6
 # pieces of 256 tokens (at C=4 two CTAs take two pieces, two one), k=33
-# walks the topics in two chunks (pieces of 128) through the staged ratio
+# walks the topics in two chunks (pieces of 128) through the staged ratio;
+# k=129, 500 and 1024 take the Wide instance (gamma in shared memory;
+# past k=129 no piece fits the stage, so every piece streams from device
+# memory and its ratio goes through the scratch)
 _CASES = {
     "k5": (5, [40, 0, 1300, 7], 6),
     "k20": (20, [60, 25], 3),
@@ -107,6 +110,9 @@ _CASES = {
     "max_inner_0": (5, [40, 0, 9], 0),
     "max_inner_1": (5, [40, 0, 9], 1),
     "k128": (128, [24], 2),
+    "k129": (129, [70, 0, 300], 2),
+    "k500": (500, [40, 0, 20], 2),
+    "k1024": (1024, [30, 140], 1),
 }
 
 
@@ -173,28 +179,34 @@ def test_segments_kernel_bytes_follow_the_document_alone(seg_kernel_on_cpu,
 @pytest.mark.parametrize("cluster", [1, 4])
 def test_segments_kernel_refuses_k_past_its_cap(seg_kernel_on_cpu,
                                                 monkeypatch, cluster):
-    """k = 129 is refused by the C entry point and, before any launch, by
-    the wrapper with ``KernelError``: no fallback.  So is a cluster size
-    other than 1, 2, 4, 8 or 16."""
+    """The library reports its largest k from its state: a CTA's fixed
+    words (et and gamma [k] each, 32 flag words) and one piece's two
+    partial-sum buffers in the shared budget.  k just past it is refused
+    by the C entry point and, before any launch, by the wrapper with
+    ``KernelError``: no fallback.  So is a cluster size other than 1, 2,
+    4, 8 or 16."""
     lib = seg_kernel_on_cpu
-    assert lib.stc_segments_max_k() == 128
+    max_k = lib.stc_segments_max_k()
+    assert max_k == (lib.stc_segments_smem_budget() // 4 - 32) // 4 >= 1024
+    k = max_k + 1
     cap = lib.stc_segments_smem_limit()
-    z = np.zeros(8, np.float32)
+    z = np.zeros(8 * k, np.float32)
     off = np.array([0, 1], np.int32)
     assert lib.stc_topic_inference_segments(
         z.ctypes.data, z.ctypes.data, off.ctypes.data, z.ctypes.data,
-        z.ctypes.data, 1, 129, 8, cluster, cap, 10, TOL, z.ctypes.data,
+        z.ctypes.data, 1, k, 8, cluster, cap, 10, TOL, z.ctypes.data,
         z.ctypes.data, None) != 0
-    assert lib.stc_segments_scratch_floats(129, 8, 1, cluster, cap) < 0
+    assert lib.stc_segments_scratch_floats(k, 8, 1, cluster, cap) < 0
+    assert lib.stc_segments_scratch_floats(max_k, 8, 1, cluster, cap) >= 0
     assert lib.stc_segments_scratch_floats(5, 8, 1, 3 * cluster, cap) < 0
     monkeypatch.setattr(_build, "check_tensors", lambda *a: None)
     monkeypatch.setattr(_build, "load_library", lambda name: lib)
     f32 = dict(dtype=torch.float32, device="meta")
-    with pytest.raises(_build.KernelError, match="k <= 128"):
+    with pytest.raises(_build.KernelError, match=f"k <= {max_k}"):
         tseg.topic_inference_segments(
-            torch.empty(8, 129, **f32), torch.empty(8, **f32),
+            torch.empty(8, k, **f32), torch.empty(8, **f32),
             torch.empty(2, dtype=torch.int32, device="meta"),
-            torch.ones(129, **f32), torch.empty(1, 129, **f32),
+            torch.ones(k, **f32), torch.empty(1, k, **f32),
             cluster=cluster)
     with pytest.raises(_build.KernelError, match="cluster"):
         tseg.topic_inference_segments(
@@ -204,20 +216,25 @@ def test_segments_kernel_refuses_k_past_its_cap(seg_kernel_on_cpu,
             cluster=17 * cluster)
 
 
-# (k, the doc's length, max_inner): a doc of 5 pieces of 256 tokens and a
-# k=128 doc of 2 pieces of 128, each scored with shared memory at the
-# card's capacity and at two shrunken ones (``_caps``)
-_CAPS = {"k5": (5, 1100, 3), "k128": (128, 200, 1)}
+# (k, the doc's length, max_inner): a doc of 5 pieces of 256 tokens, a
+# k=128 doc of 2 pieces of 128 and a k=500 doc of 11 pieces of 128 (Wide),
+# each scored with shared memory at the card's capacity and at two
+# shrunken ones (``_caps``)
+_CAPS = {"k5": (5, 1100, 3), "k128": (128, 200, 1), "k500": (500, 1300, 1)}
 
 
 def _caps(k, piece):
     """Shared bytes a CTA may use, at T = 4096 and C = 1: room to stage one
-    piece (the rest streamed from device memory), and room for the partial
-    sums of two pieces only (the rest through the scratch, nothing
-    staged)."""
+    piece (the rest streamed from device memory), or, where one piece's
+    stage does not fit a CTA (k = 500), the card's limit (every piece
+    streamed, the partial sums of 8 pieces in shared memory and the rest
+    through the scratch); and room for the partial sums of two pieces only
+    (the rest through the scratch, nothing staged)."""
+    fixed = 160 if k <= 128 else 2 * k + 32
     part = 2 * min(4096 // piece, 8192 // (2 * k)) * k
     stage = piece * (k + 1 + (k > 32))
-    return 4 * (160 + part + stage), 4 * (160 + 2 * 2 * k)
+    first = 4 * (fixed + part + stage)
+    return min(first, 232448), 4 * (fixed + 2 * 2 * k)
 
 
 @pytest.mark.parametrize("case", list(_CAPS))
@@ -229,9 +246,13 @@ def test_segments_kernel_bytes_equal_at_every_cluster_size(seg_kernel_on_cpu,
     lib = seg_kernel_on_cpu
     k, n, max_inner = _CAPS[case]
     one_staged, two_parts = _caps(k, lib.stc_segments_piece_tokens(k))
-    assert lib.stc_segments_stage_pieces(k, 4096, 1, one_staged) == 1
-    assert lib.stc_segments_scratch_floats(k, 4096, 2, 1, one_staged) == (
-        4096 if k > 32 else 0)
+    staged = 1 if k <= 128 else 0
+    assert lib.stc_segments_stage_pieces(k, 4096, 1, one_staged) == staged
+    if staged:
+        assert lib.stc_segments_scratch_floats(k, 4096, 2, 1, one_staged) == (
+            4096 if k > 32 else 0)
+    else:
+        assert lib.stc_segments_scratch_floats(k, 4096, 2, 1, one_staged) > 4096
     assert lib.stc_segments_stage_pieces(k, 4096, 1, two_parts) == 0
     assert lib.stc_segments_scratch_floats(k, 4096, 2, 1, two_parts) > (
         4096 if k > 32 else 0)

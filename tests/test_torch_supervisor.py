@@ -4,8 +4,9 @@ deadline, and the supervisor loop against stub workers (lease expiry,
 SIGTERM then SIGKILL, crash and external-preemption respawns, queue-depth
 scale-out, the respawn budget).  The JAX package's own tests of the same
 machinery are copied here with their assertions, less the telemetry
-counters the port does not record yet; the cross-package checks hold a
-fleet dir, a lease and a fence interchangeable between the packages.
+counters (held against the JAX supervisor's in
+``test_torch_fleet_telemetry.py``); the cross-package checks hold a fleet
+dir, a lease and a fence interchangeable between the packages.
 
 The stream workers themselves run in ``test_torch_fleet.py``.
 """
