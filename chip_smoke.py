@@ -148,7 +148,8 @@
    (2 -> 3 workers, a hung worker: the same reports, exactly once) and
    L-train (2 ``stream-train`` workers under a kill: each worker's lambda
    within 1e-3 relative of one process training its partition, each
-   published model scoring on the card); then worker 0's own command in
+   published model scoring on the card), the four fleets at once; then
+   worker 0's own command in
    this process with the counts at 0, every E-step launch held against its
    plain version and its reports byte equal to the fleet's worker 0; each
    fleet's seconds, books/s, seconds from spawn to first lease beat and
@@ -173,7 +174,8 @@
    2 workers each a 2x1 grid, worker 0 killed at its first commit: every
    book committed once, no process of the killed
    worker alive once its respawn commits, each partition's lambda within
-   1e-3 of one 2x1 grid training it; time to recover); each rank's E-step
+   1e-3 of one 2x1 grid training it; time to recover; it runs beside
+   the untimed rest of M, after M-train and M-resume); each rank's E-step
    launches held against the plain version; ms a trigger, docs/s, the
    front end's share, the collectives' ms a trigger and share, and the
    grid's seconds from spawn to result;
@@ -190,7 +192,22 @@
    then ``score --per-doc-convergence`` (its report equal to the served
    bytes' report) and the same ``serve`` in this process, its launches
    counted; spawn to first response, warmup, request p50/p99, docs/s;
-17. telemetry (``--telemetry-file``) on commands the configs already run:
+17. config O, the serve fleet on config E's books, N's card models and
+   N's per-document bytes (``run_config_o``): ``cli supervise --role
+   serve --device cuda --workers 2 --front-port 0`` as a subprocess, 8
+   client streams sending one book a request through the front for two
+   passes, N's newer model published mid-way through the first (rolled
+   through both replicas) and replica 1 killed mid-way through the second
+   (respawned while the front retries on replica 0), then ``cli probe``
+   and SIGTERM: no failed request, every stream's generations monotone,
+   every response equal in bytes to its generation's per-document
+   scoring, both replicas serving, every replica incarnation on the card
+   with per-document kernel launches, one complete roll, one respawn
+   after the lease's retirement, a clean probe and a clean drain; spawn
+   to the front's announce and to each replica's ready, request p50/p99,
+   docs/s, the roll's seconds and swap lag, time to recover, drain
+   seconds, each replica's share and launches;
+18. telemetry (``--telemetry-file``) on commands the configs already run:
    E's card ``train`` and ``score`` run again with the flag (their launch
    counts equal to the runs without it) and its ``train --device cpu``
    takes it: the card stream's names equal the CPU stream's (less
@@ -210,8 +227,8 @@
    time in a tight loop) within 2% of the fit, beside the enabled and
    disabled ms a sweep.  A ``telemetry`` line sums the seconds these
    phases added;
-18. a ``total`` line with the run's seconds, then a ``kernels`` line: per
-   kernel, the launches of the main-path runs of 3-16 (each must be > 0),
+19. a ``total`` line with the run's seconds, then a ``kernels`` line: per
+   kernel, the launches of the main-path runs of 3-17 (each must be > 0),
    the largest difference from the plain version, and the times beside
    the card's bound (the E-step's entry also M's own, as ``config_M``).
 
@@ -3927,6 +3944,29 @@ def fleet_exactly_once(label, fleet, watch):
     return len(per)
 
 
+@contextlib.contextmanager
+def beside(fn):
+    """``fn()`` on a thread while the block runs (two fleets' start-ups
+    overlap); yields a dict that holds its result under "out" once the
+    block has ended, and raises again what ``fn`` raised."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except Exception as exc:  # noqa: BLE001 - raised again below
+            box["error"] = exc
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    try:
+        yield box
+    finally:
+        thread.join()
+    if "error" in box:
+        raise box["error"]
+
+
 def run_fleet(label, argv, root):
     """``supervise`` with ``argv`` as a subprocess of the port's CLI (its
     workers on the card: no --device) in a session of its own, killed
@@ -4129,7 +4169,10 @@ def run_config_l(torch, seed, e, smi):
     of one process training the same partition on the card.  The kernel:
     worker 0's own command, in this process, under a fleet dir holding one
     spawn record, with the counts at 0: every E-step launch held against
-    its plain version and its reports byte equal to L-score's w000."""
+    its plain version and its reports byte equal to L-score's w000.  The
+    four fleets run at once (``beside``), so their start-ups overlap; each
+    fleet's seconds, first beats and time to recover are read with the
+    others' processes on the host and the card."""
     from spark_text_clustering_tpu_torch import Params, cli, load_model
     from spark_text_clustering_tpu_torch.models.persistence import (
         latest_model_dir,
@@ -4179,8 +4222,27 @@ def run_config_l(torch, seed, e, smi):
         return out
 
     # L-score, uninterrupted, with the fleet's telemetry: every stream
-    # collected whole
-    counts, ref = fleet_with_telemetry("score", 2)
+    # collected whole.  Beside it: L-kill and L-hang in one fleet, worker 0
+    # killed at its first commit, worker 1 hung at its third lease beat,
+    # byte equal, with the fleet's telemetry (the killed and the hung
+    # incarnation may lose what their shippers had not sent); L-resize (2
+    # -> 3 workers with a hung worker); L-train (2 stream-train workers, a
+    # kill at worker 0's first commit).  The four fleets' start-ups overlap
+    models = os.path.join(root, "models_train")
+    with beside(lambda: fleet_with_telemetry(
+            "faults", 2, "--chaos-worker", "0:ledger.commit:kill@1",
+            "--chaos-worker", "1:worker.heartbeat:hang@3",
+            killed=("worker-w000-s0", "worker-w001-s1"))) as faults, \
+            beside(lambda: fleet("resize", score_argv(
+                "resize", 2, "--resize-at", "2:3", "--chaos-worker",
+                "0:worker.heartbeat:hang@4"))) as resize, \
+            beside(lambda: fleet("train", [
+                "--role", "stream-train", "--watch-dir", watch,
+                "--fleet-dir", os.path.join(root, "fleet_train"),
+                "--workers", "2", *L_FLEET, "--stop-words", stop, "--seed",
+                str(seed), "--models-dir", models, "--chaos-worker",
+                "0:ledger.commit:kill@1"])) as train:
+        counts, ref = fleet_with_telemetry("score", 2)
     fleet_exactly_once("L-score", os.path.join(root, "fleet_score"), watch)
     dists = {}
     for text in ref.values():
@@ -4193,14 +4255,7 @@ def run_config_l(torch, seed, e, smi):
             "w000", "w001"} or counts["respawns"] or counts["spawns"] != 2:
         raise AssertionError(f"config L-score: {len(ref)} reports, {counts}")
 
-    # L-kill and L-hang in one fleet: worker 0 killed at its first
-    # commit, worker 1 hung at its third lease beat; byte equal.  With the
-    # fleet's telemetry: the killed and the hung incarnation may lose what
-    # their shippers had not sent
-    counts, tree = fleet_with_telemetry(
-        "faults", 2, "--chaos-worker", "0:ledger.commit:kill@1",
-        "--chaos-worker", "1:worker.heartbeat:hang@3",
-        killed=("worker-w000-s0", "worker-w001-s1"))
+    counts, tree = faults["out"]
     fleet_exactly_once("L-faults", os.path.join(root, "fleet_faults"), watch)
     if tree != ref or (counts["respawns"], counts["crashes"],
                        counts["lease_expiries"]) != (2, 1, 1):
@@ -4210,10 +4265,8 @@ def run_config_l(torch, seed, e, smi):
         root, "fleet_faults"), worker) for tag, worker in (("kill", 0),
                                                            ("hang", 1))}
 
-    # L-resize: 2 -> 3 workers with a hung worker
-    counts, tree = fleet("resize", score_argv(
-        "resize", 2, "--resize-at", "2:3", "--chaos-worker",
-        "0:worker.heartbeat:hang@4"))
+    # L-resize
+    counts, tree = resize["out"]
     fleet_exactly_once("L-resize", os.path.join(root, "fleet_resize"), watch)
     if sorted(tree.values()) != sorted(ref.values()) or (
             counts["resizes"] != 1 or "resize" not in runs["resize"]["records"]
@@ -4221,13 +4274,8 @@ def run_config_l(torch, seed, e, smi):
         raise AssertionError(f"config L-resize: {counts}, "
                              f"{runs['resize']['records']}")
 
-    # L-train: 2 stream-train workers, a kill at worker 0's first commit
-    models = os.path.join(root, "models_train")
-    counts, _ = fleet("train", [
-        "--role", "stream-train", "--watch-dir", watch, "--fleet-dir",
-        os.path.join(root, "fleet_train"), "--workers", "2", *L_FLEET,
-        "--stop-words", stop, "--seed", str(seed), "--models-dir", models,
-        "--chaos-worker", "0:ledger.commit:kill@1"])
+    # L-train
+    counts, _ = train["out"]
     fleet_exactly_once("L-train", os.path.join(root, "fleet_train"), watch)
     if counts["respawns"] != 1:
         raise AssertionError(f"config L-train: {counts}")
@@ -4602,7 +4650,11 @@ def run_config_m(torch, seed, e, smi):
     ranks on the card), worker 0 killed at its first commit: every book
     committed once, no process of the killed worker alive once its respawn
     commits (their PIDs read from /proc), each partition's lambda within
-    1e-3 of one 2x1 grid training it, time to recover.  The kernel: every
+    1e-3 of one 2x1 grid training it, time to recover; the fleet runs
+    beside the untimed rest of M (``beside``): K's 1x1 runs with the
+    grid's numerics, the 1x1 load and refusal and the reference grid;
+    M-train and M-resume, whose ranks time the E-step and the triggers,
+    run alone before it.  The kernel: every
     rank's E-step launches of M-train and M-resume against the plain
     version."""
     from spark_text_clustering_tpu_torch import Params
@@ -4651,11 +4703,12 @@ def run_config_m(torch, seed, e, smi):
                                  f"{len(srcs)} sources of {len(names)}")
         return recs
 
-    # M-train; K's 1x1 run twice more with the grid's numerics (lambda's
-    # rows summed in the grid's order, J's rule, and E-step tiles of the
-    # grid's data blocks), which M-train is held to, beside K's own
-    # (its telemetry under a spawner's trace context, which every rank
-    # adopts)
+    # M-train and M-resume run alone: their ranks time the widest E-step
+    # launch and the triggers.  K's 1x1 run with the grid's numerics
+    # (lambda's rows summed in the grid's order, J's rule, and E-step tiles
+    # of the grid's data blocks), which M-train is held to, runs beside
+    # M-fleet after them (M-train's telemetry under a spawner's trace
+    # context, which every rank adopts)
     from spark_text_clustering_tpu_torch.telemetry import tracing
 
     tel_path = os.path.join(root, "telemetry", "train.jsonl")
@@ -4673,32 +4726,8 @@ def run_config_m(torch, seed, e, smi):
     m_telemetry = check_m_telemetry(tel_path, 4, trace.trace_id, n_triggers)
     train_run = runs[0]
     lam = lam_of(train_dir)
-    k_lam = lam_of(latest_model_dir(os.path.join(e["root"], "K", "m_whole"),
-                                    "EN"))
-    estep_kernel = online_lda.gamma_fixed_point_bkl
-    online_lda.gamma_fixed_point_bkl = functools.partial(
-        estep_kernel, tile_b=8 // 2)
-    try:
-        with shard_row_sums(torch, online_lda, 2):
-            ordered = [lam_of(stream_train(f"k_order{i}", watch)[2])
-                       for i in range(2)]
-    finally:
-        online_lda.gamma_fixed_point_bkl = estep_kernel
-    spread = rel_diff(ordered[1], ordered[0])
-    vs_order = rel_diff(lam, ordered[0])
-    vs_k = rel_diff(lam, k_lam)
-    k_numerics = rel_diff(ordered[0], k_lam)
     train_recs = state_records("train")
     triggers = train_run["ranks"][0]["triggers"]
-    if (f"stream ended: {len(names)} docs / {n_triggers} micro-batches"
-            not in train_out or len(triggers) != n_triggers
-            or train_launches["gamma_fixed_point_bkl"] != 4 * n_triggers
-            or not vs_order <= max(1e-3, 2 * spread)):
-        raise AssertionError(
-            f"config M-train: {len(triggers)} triggers, {train_launches}, "
-            f"lambda against K with the grid's numerics {vs_order} (its "
-            f"spread {spread}; against K {vs_k}, K against K with the "
-            f"grid's numerics {k_numerics})")
 
     # M-resume: 24 books, the stream ends idle, 27 more, --resume
     _build.reset_launches()
@@ -4714,50 +4743,88 @@ def run_config_m(torch, seed, e, smi):
     last = state_records("wave")[-1]
     if (f"stream ended: {K_WAVE} docs / 3 micro-batches" not in first_out
             or "committed epoch" not in resumed_out
-            or (last["docs_seen"], last["step"]) != (len(names), n_triggers)
+            or (last["docs_seen"], last["step"])
+            != (len(names), n_triggers)
             or not resume_rel <= 1e-3):
-        raise AssertionError(f"config M-resume: lambda {resume_rel}, "
-                             f"{last['docs_seen']} docs, step {last['step']}")
-    # the 1x1 library trainer loads the grid's dir bit for bit; the CLI at
-    # 1x1 refuses to resume it
-    ck_wave = os.path.join(root, "ck_wave")
-    (shard,) = last["shards"]
-    written = load_train_state(EpochLedger(ck_wave).resolve(
-        shard["file"]))["lam"]
-    one = StreamingOnlineLDA(Params(k=EN_K, seed=seed,
-                                    checkpoint_dir=ck_wave),
-                             num_features=1 << 18, device="cuda")
-    loaded_equal = bool(np.array_equal(one.lam.cpu().numpy(), written))
-    rc, _, err = run_cli_err([
-        "stream-train", "--watch-dir", wave, "--stop-words", stop,
-        "--checkpoint-dir", ck_wave, "--models-dir",
-        os.path.join(root, "m_refused"), "--seed", str(seed), "--resume",
-        *K_STREAM], os.path.join(root, "refused.out"))
-    if not loaded_equal or rc != 2 or (
-            "checkpoint was written by config" not in err) or (
-            os.path.exists(os.path.join(root, "m_refused"))):
-        raise AssertionError(f"config M-resume: 1x1 load bit-equal "
-                             f"{loaded_equal}, 1x1 --resume exit {rc}: "
-                             f"{err[-500:]}")
+        raise AssertionError(
+            f"config M-resume: lambda {resume_rel}, "
+            f"{last['docs_seen']} docs, step {last['step']}")
 
-    # M-fleet: two 2x1 grid workers, worker 0 killed at its first commit
+    # M-fleet (a subprocess: its workers' launches are not this
+    # process's) runs beside the untimed rest of M: two 2x1 grid workers,
+    # worker 0 killed at its first commit
     fleet = os.path.join(root, "fleet")
     models = os.path.join(root, "models_fleet")
-    with rank_watch(fleet) as procs:
-        run = run_fleet("M-fleet", [
-            "--role", "stream-train", "--watch-dir", watch, "--fleet-dir",
-            fleet, "--workers", "2", *L_FLEET, "--stop-words", stop,
-            "--seed", str(seed), "--models-dir", models,
-            "--chaos-worker", "0:ledger.commit:kill@1",
-            "--worker-arg=--data-shards=2",
-            "--worker-arg=--dist-backend=gloo"], root)
+
+    def m_fleet():
+        with rank_watch(fleet) as procs:
+            return run_fleet("M-fleet", [
+                "--role", "stream-train", "--watch-dir", watch,
+                "--fleet-dir", fleet, "--workers", "2", *L_FLEET,
+                "--stop-words", stop, "--seed", str(seed), "--models-dir",
+                models, "--chaos-worker", "0:ledger.commit:kill@1",
+                "--worker-arg=--data-shards=2",
+                "--worker-arg=--dist-backend=gloo"], root), procs
+
+    with beside(m_fleet) as fleet_out:
+        k_lam = lam_of(latest_model_dir(
+            os.path.join(e["root"], "K", "m_whole"), "EN"))
+        estep_kernel = online_lda.gamma_fixed_point_bkl
+        online_lda.gamma_fixed_point_bkl = functools.partial(
+            estep_kernel, tile_b=8 // 2)
+        try:
+            with shard_row_sums(torch, online_lda, 2):
+                ordered = [lam_of(stream_train(f"k_order{i}", watch)[2])
+                           for i in range(2)]
+        finally:
+            online_lda.gamma_fixed_point_bkl = estep_kernel
+        spread = rel_diff(ordered[1], ordered[0])
+        vs_order = rel_diff(lam, ordered[0])
+        vs_k = rel_diff(lam, k_lam)
+        k_numerics = rel_diff(ordered[0], k_lam)
+        if (f"stream ended: {len(names)} docs / {n_triggers} micro-batches"
+                not in train_out or len(triggers) != n_triggers
+                or train_launches["gamma_fixed_point_bkl"] != 4 * n_triggers
+                or not vs_order <= max(1e-3, 2 * spread)):
+            raise AssertionError(
+                f"config M-train: {len(triggers)} triggers, {train_launches}, "
+                f"lambda against K with the grid's numerics {vs_order} (its "
+                f"spread {spread}; against K {vs_k}, K against K with the "
+                f"grid's numerics {k_numerics})")
+
+        # the 1x1 library trainer loads the grid's dir bit for bit; the CLI at
+        # 1x1 refuses to resume it
+        ck_wave = os.path.join(root, "ck_wave")
+        (shard,) = last["shards"]
+        written = load_train_state(EpochLedger(ck_wave).resolve(
+            shard["file"]))["lam"]
+        one = StreamingOnlineLDA(Params(k=EN_K, seed=seed,
+                                        checkpoint_dir=ck_wave),
+                                 num_features=1 << 18, device="cuda")
+        loaded_equal = bool(np.array_equal(one.lam.cpu().numpy(), written))
+        rc, _, err = run_cli_err([
+            "stream-train", "--watch-dir", wave, "--stop-words", stop,
+            "--checkpoint-dir", ck_wave, "--models-dir",
+            os.path.join(root, "m_refused"), "--seed", str(seed), "--resume",
+            *K_STREAM], os.path.join(root, "refused.out"))
+        if not loaded_equal or rc != 2 or (
+                "checkpoint was written by config" not in err) or (
+                os.path.exists(os.path.join(root, "m_refused"))):
+            raise AssertionError(f"config M-resume: 1x1 load bit-equal "
+                                 f"{loaded_equal}, 1x1 --resume exit {rc}: "
+                                 f"{err[-500:]}")
+
+        # M-fleet's reference, the 2x1 grid training each partition, once
+        # M's own launches are counted (a grid's ranks add theirs to this
+        # process's)
+        t0 = time.perf_counter()
+        want = run_grid(m_partition_rank, 2, 1, (watch, stop, seed),
+                        backend="gloo", device="cuda", timeout=600)[0]
+        partition_s = time.perf_counter() - t0
+    run, procs = fleet_out["out"]
     fleet_exactly_once("M-fleet", fleet, watch)
     killed = orphans_after_respawn(fleet, procs, 0)
     recover = time_to_recover(run, fleet, 0)
-    t0 = time.perf_counter()
-    want = run_grid(m_partition_rank, 2, 1, (watch, stop, seed),
-                    backend="gloo", device="cuda", timeout=600)[0]
-    partition_s = time.perf_counter() - t0
     fleet_rel = [rel_diff(lam_of(latest_model_dir(
         os.path.join(models, f"w{w:03d}"), "EN")), want[w])
         for w in range(2)]
@@ -5537,6 +5604,350 @@ def run_config_n(torch, seed, e, smi):
         "kernel": kernel, "launches": launches,
         "seconds": time.perf_counter() - t_start,
         "bounds": {"cpu_max_dist_diff": 1e-4, "kernel_vs_plain": 1e-5},
+    }, {"model_a": model_a, "model_b": model_b, "by_model": by_model,
+        "texts": texts, "names": names}
+
+
+# ---- config O: the serve fleet ------------------------------------------
+O_WORKERS = 2                  # --workers: the canary and one more replica
+O_CLIENTS = 8                  # client threads, one X-STC-Stream each
+O_PASSES = 2                   # passes over the 51 books, one a request
+O_PROBES = ["--count", "5", "--rate", "5"]
+
+
+@contextlib.contextmanager
+def lease_log(fleet, workers, period=0.02):
+    """Inside the block, a thread reads each replica's lease file every
+    ``period`` seconds and records every change it sees as (wall time,
+    spawn id or None when the file is absent, state, model stamp, pid):
+    {worker: [observations]}."""
+    from spark_text_clustering_tpu_torch.resilience.supervisor import (
+        lease_path, read_lease,
+    )
+
+    seen = {w: [] for w in range(workers)}
+    stop = threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            for w in range(workers):
+                lease = read_lease(lease_path(fleet, w))
+                obs = (None, None, None, None) if lease is None else (
+                    lease.get("spawn_id"), lease.get("state"),
+                    lease.get("model_stamp"), lease.get("pid"))
+                if not seen[w] or seen[w][-1][1:] != obs:
+                    seen[w].append((time.time(), *obs))
+            stop.wait(period)
+
+    thread = threading.Thread(target=poll, daemon=True)
+    thread.start()
+    try:
+        yield seen
+    finally:
+        stop.set()
+        thread.join()
+
+
+def run_config_o(torch, seed, e, n, smi):
+    """The serve fleet on the card (``supervise --role serve``), on config
+    E's 51 books and E's card model, right after N, whose model copy and
+    in-process per-document reference bytes it reuses.
+
+    ``cli supervise --role serve --device cuda --workers 2 --front-port 0
+    --serve-max-batch 8 --serve-linger-ms 5`` with N's token buckets passed
+    to each replica (``--worker-arg``), ``--heartbeat-interval 0.2
+    --lease-timeout 5 --grace-seconds 2 --startup-grace 60``, the
+    supervisor's and each replica incarnation's telemetry, as a
+    subprocess.  8 client threads, each its own ``X-STC-Stream``, send one
+    book a request through the front, two passes over the books; mid-way
+    through pass 1 N's newer model is published and rolls through both
+    replicas; mid-way through pass 2 replica 1 gets SIGKILL and is
+    respawned while the front retries on replica 0.  Then ``cli probe
+    --count 5 --rate 5`` and SIGTERM to the supervisor.
+
+    O fails unless every request succeeds; each stream's generations
+    never go backward; every response's distribution equals in bytes the
+    in-process card ``topic_distribution(rows, convergence="per_doc")`` of
+    the model its ``X-STC-Generation`` names (and its result names),
+    whichever replica answered; both replicas served; every replica
+    incarnation's stream has a manifest on the card (``backend`` "gpu"), a
+    ``serve_warmup`` and
+    per-document kernel launches (a replica on the CPU launches none);
+    one ``fleet_swap_roll_done`` with ``swapped`` 2 and no
+    ``fleet_swap_stalled``; one respawn, the killed replica's lease gone
+    before its respawn's first beat; the probe reports no failure and no
+    pin violation; the supervisor exits 0 with its ``serve fleet
+    drained:`` line and no replica process outlives it."""
+    from spark_text_clustering_tpu_torch.ops import _build
+    from spark_text_clustering_tpu_torch.serving.front import model_stamp
+
+    t_start = time.perf_counter()
+    root = os.path.join(e["root"], "O")
+    models = os.path.join(root, "models")
+    fleet = os.path.join(root, "fleet")
+    wtel = os.path.join(root, "wtel")
+    sup_tel = os.path.join(root, "sup.jsonl")
+    os.makedirs(models)
+    model_a, model_b = n["model_a"], n["model_b"]
+    shutil.copytree(model_a, os.path.join(models, os.path.basename(model_a)))
+    stamp_a, stamp_b = model_stamp(model_a), model_stamp(model_b)
+    want = {stamp_a: n["by_model"][model_a], stamp_b: n["by_model"][model_b]}
+    texts, names = n["texts"], n["names"]
+    buckets = [f"--worker-arg={x}" for t in N_BUCKETS
+               for x in ("--token-bucket", str(t))]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("STC_FAULTS", "STC_FAULT_SEED")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [here] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    argv = [sys.executable, "-m", "spark_text_clustering_tpu_torch.cli",
+            "supervise", "--role", "serve", "--device", "cuda", "--workers",
+            str(O_WORKERS), "--front-port", "0", "--fleet-dir", fleet,
+            "--models-dir", models, "--stop-words", e["stop"],
+            "--serve-max-batch", str(N_MAX_BATCH), "--serve-linger-ms", "5",
+            *buckets, "--heartbeat-interval", "0.2", "--lease-timeout", "5",
+            "--grace-seconds", "2", "--startup-grace", "60",
+            "--worker-telemetry-dir", wtel, "--telemetry-file", sup_tel,
+            "--max-seconds", "300"]
+    out_path = os.path.join(root, "supervise.out")
+    items = [(p, i) for p in range(O_PASSES) for i in range(len(texts))]
+    todo = list(items)
+    done, failures, records = [], [], []
+    lock = threading.Lock()
+    marks = {}
+    with lease_log(fleet, O_WORKERS) as leases, \
+            open(out_path, "w+") as out:
+        t0_wall = time.time()
+        proc = subprocess.Popen(argv, cwd=here, env=env, stdout=out,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            deadline = time.monotonic() + 60.0
+            front = os.path.join(fleet, "front.json")
+            while not os.path.exists(front):
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError("config O: no front announce")
+                time.sleep(0.02)
+            marks["announce"] = time.time()
+            with open(front) as f:
+                url = f"http://127.0.0.1:{json.load(f)['port']}"
+            deadline = time.monotonic() + 120.0
+            while http_json(f"{url}/healthz")[2]["ready"] < O_WORKERS:
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError("config O: replicas not ready")
+                time.sleep(0.05)
+            marks["ready"] = time.time()
+
+            def client(c):
+                while True:
+                    with lock:
+                        if not todo:
+                            return
+                        item = todo.pop(0)
+                    p, i = item
+                    t0 = time.perf_counter()
+                    try:
+                        status, hdrs, doc = http_json(
+                            f"{url}/score", {"texts": [texts[i]],
+                                             "names": [names[i]]},
+                            headers={"X-STC-Stream": f"o-{c}"})
+                        hdrs = {k.lower(): v for k, v in hdrs.items()}
+                    except Exception as exc:  # noqa: BLE001 - counted
+                        with lock:
+                            failures.append(f"{item}: {exc!r}")
+                        continue
+                    secs = time.perf_counter() - t0
+                    if status != 200 or "distribution" not in doc.get(
+                            "results", [{}])[0]:
+                        with lock:
+                            failures.append(f"{item}: {status} {doc}")
+                        continue
+                    with lock:
+                        records.append({
+                            "stream": c, "pass": p, "book": i,
+                            "seconds": secs, "done": time.time(),
+                            "generation": int(hdrs["x-stc-generation"]),
+                            "replica": int(hdrs["x-stc-replica"]),
+                            "model": doc["results"][0]["model"]["model"],
+                            "dist": served(doc["results"])[0]})
+                        done.append(item)
+
+            clients = [threading.Thread(target=client, args=(c,))
+                       for c in range(O_CLIENTS)]
+            t_traffic = time.perf_counter()
+            for c in clients:
+                c.start()
+            # mid-way through pass 1: N's newer model, published as a
+            # stream trainer does (a complete dir renamed into place)
+            half = len(texts) // 2
+            while len(done) < half and any(c.is_alive() for c in clients):
+                time.sleep(0.005)
+            staged = os.path.join(root, "staged_model")
+            shutil.copytree(model_b, staged)
+            os.rename(staged, os.path.join(models,
+                                           os.path.basename(model_b)))
+            marks["publish"] = time.time()
+            # mid-way through pass 2, the roll done: SIGKILL replica 1
+
+            def rolled():
+                return all(next((o[3] for o in reversed(leases[w])
+                                 if o[1] is not None), None) == stamp_b
+                           for w in range(O_WORKERS))
+
+            while ((len(done) < len(texts) + half or not rolled())
+                   and any(c.is_alive() for c in clients)):
+                time.sleep(0.005)
+            victim = [o for o in leases[1] if o[1] is not None][-1]
+            os.kill(victim[4], signal.SIGKILL)
+            marks["kill"] = time.time()
+            for c in clients:
+                c.join()
+            traffic_s = time.perf_counter() - t_traffic
+            deadline = time.monotonic() + 90.0
+            while not any(o[1] not in (None, victim[1]) and o[2] == "ready"
+                          for o in leases[1]):
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError("config O: no respawned replica")
+                time.sleep(0.05)
+            marks["recovered"] = time.time()
+            probe = subprocess.run(
+                [sys.executable, "-m", "spark_text_clustering_tpu_torch.cli",
+                 "probe", "--fleet-dir", fleet, *O_PROBES], cwd=here,
+                env=env, capture_output=True, text=True, timeout=120)
+            marks["term"] = time.time()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+            marks["exited"] = time.time()
+        finally:
+            if proc.poll() is None:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        out.seek(0)
+        sup_out = out.read()
+    seconds = time.perf_counter() - t_start
+
+    # the drain and the supervisor's stream
+    if rc != 0 or "serve fleet drained:" not in sup_out:
+        raise AssertionError(f"config O: supervise exited {rc}: "
+                             f"{sup_out[-2000:]}")
+    events = [json.loads(x) for x in open(sup_tel)]
+    kinds = [x["event"] for x in events]
+    spawns = [x for x in events if x["event"] == "fleet_spawn"]
+    alive = sorted(x["pid"] for x in spawns if pid_alive(x["pid"]))
+    (roll,) = [x for x in events if x["event"] == "fleet_swap_roll"]
+    rolls = [x for x in events if x["event"] == "fleet_swap_roll_done"]
+    respawns = [x for x in events if x["event"] == "fleet_respawn"]
+    if (len(rolls) != 1 or rolls[0]["swapped"] != O_WORKERS
+            or rolls[0]["stamp"] != stamp_b
+            or "fleet_swap_stalled" in kinds or len(respawns) != 1
+            or respawns[0]["worker"] != 1 or len(spawns) != O_WORKERS + 1
+            or alive or "fleet_shutdown" not in kinds):
+        raise AssertionError(
+            f"config O: rolls {rolls}, respawns {respawns}, "
+            f"{len(spawns)} spawns, alive {alive}, events "
+            f"{sorted(set(kinds))}")
+
+    # the killed replica's lease retired before its respawn's first beat
+    obs = leases[1]
+    last_old = max(i for i, o in enumerate(obs) if o[1] == victim[1])
+    first_new = min(i for i, o in enumerate(obs)
+                    if o[1] not in (None, victim[1]))
+    retired = any(o[1] is None for o in obs[last_old:first_new])
+    if not retired:
+        raise AssertionError(f"config O: replica 1's lease was never seen "
+                             f"absent between incarnations: {obs}")
+
+    # the probe
+    m = re.search(r"probe done: (\d+) probe\(s\).*?(\d+) failure\(s\).*?"
+                  r"(\d+) pin violation\(s\)", probe.stdout)
+    if probe.returncode != 0 or m is None or int(m.group(1)) != 5 or (
+            int(m.group(2)) or int(m.group(3))):
+        raise AssertionError(f"config O probe: exit {probe.returncode}: "
+                             f"{probe.stdout[-500:]} {probe.stderr[-1000:]}")
+
+    # the traffic: every request, monotone streams, bytes per generation
+    if failures or sorted(done) != sorted(items):
+        raise AssertionError(f"config O: {len(failures)} failed requests "
+                             f"({failures[:4]}), {len(done)} answered")
+    streams = {}
+    for r in sorted(records, key=lambda r: r["done"]):
+        streams.setdefault(r["stream"], []).append(r["generation"])
+    backward = {s: g for s, g in streams.items() if g != sorted(g)}
+    wrong = [(r["pass"], r["book"], r["replica"], r["generation"])
+             for r in records
+             if r["generation"] not in want
+             or model_stamp(r["model"]) != r["generation"]
+             or r["dist"].tobytes() != want[r["generation"]][
+                 r["book"]].tobytes()]
+    shares = {}
+    for r in records:
+        shares[r["replica"]] = shares.get(r["replica"], 0) + 1
+    if backward or wrong or sorted(shares) != list(range(O_WORKERS)) or (
+            stamp_b not in {r["generation"] for r in records}):
+        raise AssertionError(f"config O: streams going backward {backward}, "
+                             f"responses not their model's bytes {wrong[:6]}"
+                             f", replicas {shares}")
+
+    # each replica incarnation on the card, through the kernel
+    replicas = {}
+    for name in sorted(os.listdir(wtel)):
+        ev = [json.loads(x) for x in open(os.path.join(wtel, name))
+              if x.strip()]
+        kl = [x for x in ev if x["event"] == "kernel_launches"]
+        launched = max((x["topic_inference_segments"] for x in kl),
+                       default=0)
+        if (not ev or ev[0]["event"] != "manifest"
+                or ev[0].get("backend") != "gpu"
+                or "serve_warmup" not in [x["event"] for x in ev]
+                or launched <= 0):
+            raise AssertionError(f"config O: replica stream {name}: "
+                                 f"{ev[:1]}, launches {launched}")
+        replicas[name[:-len(".jsonl")]] = {
+            "launches": launched,
+            "drained": any(x["event"] == "serve_drained" for x in ev)}
+    if len(replicas) != O_WORKERS + 1:
+        raise AssertionError(f"config O: replica streams {sorted(replicas)}")
+
+    def first(w, pred):
+        return min((o[0] for o in leases[w] if pred(o)), default=None)
+
+    spawned = {(x["worker"], x["spawn_id"]): x["ts"] for x in spawns}
+    ready_s = {}
+    for (w, sid), ts in sorted(spawned.items()):
+        at = first(w, lambda o, s=sid: o[1] == s and o[2] == "ready")
+        ready_s[f"w{w}/s{sid}"] = None if at is None else at - ts
+    lat = np.asarray([r["seconds"] for r in records]) * 1e3
+    launches = sum(r["launches"] for r in replicas.values())
+    return {
+        "phase": "config_O", "card": smi, "replicas": O_WORKERS,
+        "clients": O_CLIENTS, "requests": len(records),
+        "books": len(texts), "k": EN_K, "buckets": list(N_BUCKETS),
+        "max_batch": N_MAX_BATCH,
+        "spawn_to_announce_s": marks["announce"] - t0_wall,
+        "spawn_to_ready_s": ready_s,
+        "spawn_to_fleet_ready_s": marks["ready"] - t0_wall,
+        "request_p50_ms": float(np.percentile(lat, 50)),
+        "request_p99_ms": float(np.percentile(lat, 99)),
+        "docs_per_s": len(records) / traffic_s,
+        "publish_to_roll_done_s": rolls[0]["ts"] - marks["publish"],
+        "roll_started_after_publish_s": roll["ts"] - marks["publish"],
+        "swap_lag_s": rolls[0]["swap_lag_seconds"],
+        "time_to_recover_s": marks["recovered"] - marks["kill"],
+        "drain_s": marks["exited"] - marks["term"],
+        "requests_by_replica": {str(k): v for k, v in sorted(
+            shares.items())},
+        "requests_by_generation": {
+            str(g): sum(1 for r in records if r["generation"] == g)
+            for g in sorted(want)},
+        "replica_streams": replicas,
+        "probe": probe.stdout.strip().splitlines()[-1],
+        "failed_requests": 0, "streams_monotone": True,
+        "served_bytes_equal_per_doc": True,
+        "launches": {name: (launches if name == "topic_inference_segments"
+                            else 0) for name in _build.LAUNCHES},
+        "seconds": seconds,
     }
 
 
@@ -5882,15 +6293,19 @@ def main() -> int:
         emit(summary_m)
 
         # 16. config N, one serve replica on E's books and card model
-        summary_n = run_config_n(torch, args.seed, books_e, smi)
+        summary_n, n_refs = run_config_n(torch, args.seed, books_e, smi)
         emit(summary_n)
+
+        # 17. config O, the serve fleet on N's models and references
+        summary_o = run_config_o(torch, args.seed, books_e, n_refs, smi)
+        emit(summary_o)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     if args.profile:
         profile_configs(torch, rows_a, rows_b, args.seed, args.out)
 
-    # 17. the seconds the telemetry phases added to the run
+    # 18. the seconds the telemetry phases added to the run
     added = {"A_overhead": overhead["seconds"],
              "E": summary_e["telemetry"]["seconds"],
              "K": summary_k["telemetry"]["seconds"],
@@ -5900,7 +6315,7 @@ def main() -> int:
                       "overhead_share": overhead["estimated_overhead_share"]}
     emit(telemetry_line)
 
-    # 18. the kernels line; the sweep's error is the largest of config A's
+    # 19. the kernels line; the sweep's error is the largest of config A's
     # and config E's checks and config I's ranks'; the gamma row is config
     # B's most populated bucket, and its error the largest of the four
     # buckets, the edge geometries, config H's, K's and L's launches
@@ -5957,8 +6372,11 @@ def main() -> int:
          "config_I": summary_i["checks"]["gamma_fixed_point_bkl"],
          "config_J": summary_j["checks"]["gamma_fixed_point_bkl"]},
         # the per-document kernel: config N's check on E's card model at a
-        # serve dispatch's shapes, and phase 2's on A's rows
+        # serve dispatch's shapes, and phase 2's on A's rows; its launches
+        # also config O's replicas'
         {**summary_n["kernel"], "config_A": seg_check, "at_k": seg_k,
+         "config_O": {"launches": summary_o["launches"][
+             "topic_inference_segments"]},
          "max_abs_err": max([seg_check["max_abs_err"],
                              summary_n["kernel"]["max_abs_err"]]
                             + [c["max_abs_err"] for c in seg_k])},
@@ -5973,7 +6391,7 @@ def main() -> int:
             for sm in (summary_a, summary_b, summary_c, summary_d, summary_e,
                        summary_f, summary_g, summary_h, summary_i,
                        summary_j, summary_k, summary_l, summary_m,
-                       summary_n))
+                       summary_n, summary_o))
         if kern["launches"] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
         line.append({k_: kern[k_] for k_ in keys})
@@ -5990,7 +6408,8 @@ def main() -> int:
                   config_E=summary_e, config_F=summary_f, config_G=summary_g,
                   config_H=summary_h, config_I=summary_i, config_J=summary_j,
                   config_K=summary_k, config_L=summary_l,
-                  config_M=summary_m, config_N=summary_n)
+                  config_M=summary_m, config_N=summary_n,
+                  config_O=summary_o)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)

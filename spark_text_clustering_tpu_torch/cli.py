@@ -1,7 +1,9 @@
 """Command-line entry points of the port: ``train`` and ``score``, the
 streaming verbs ``stream-score``, ``stream-train``, ``stream requeue`` and
-``stream compact``, ``supervise``, a fleet of stream workers, ``serve``,
-one resident scoring replica, and ``collect``, the telemetry collector.
+``stream compact``, ``supervise``, a fleet of stream workers or of serve
+replicas, ``serve``, one resident scoring replica, ``front``, the serve
+fleet's routing front, ``probe``, its black-box canary, and ``collect``,
+the telemetry collector.
 
 The reference's two entry points (LDATraining.scala, LDALoader.scala) as
 subcommands, with the JAX package's flags, defaults, console output and
@@ -17,6 +19,10 @@ exit codes:
         --role stream-score --watch-dir <dir> --fleet-dir <dir> --workers 2
     python -m spark_text_clustering_tpu_torch.cli serve \
         --models-dir <dir> --port 0
+    python -m spark_text_clustering_tpu_torch.cli supervise --role serve \
+        --fleet-dir <dir> --models-dir <dir> --workers 2 --front-port 0
+    python -m spark_text_clustering_tpu_torch.cli front --fleet-dir <dir>
+    python -m spark_text_clustering_tpu_torch.cli probe --fleet-dir <dir>
     python -m spark_text_clustering_tpu_torch.cli collect --dir <dir>
 
 Two flags are the port's own: ``--device`` (default ``cuda``) names the
@@ -67,8 +73,23 @@ do.  ``--telemetry-file`` writes the supervisor's own stream (``fleet_*``
 events, ``fleet.*`` counters), ``--worker-telemetry-dir`` gives every
 worker incarnation a stream (``worker-wNNN-sSS.jsonl``), all on the
 supervisor's trace, and ``--ship-to host:port`` pushes every stream of
-the fleet to a collector.  ``--role serve`` (item 8b) and
-``--actions-file`` (item 9b) exit 2.
+the fleet to a collector.  ``--actions-file`` (item 9b) exits 2.
+
+``supervise --role serve`` runs N ``serve`` replicas of this CLI as one
+service (``resilience.supervisor.ServeFleetSupervisor``): each replica
+serves on a port of its own, on ``--device`` (passed on when given; the
+card otherwise), through the per-document kernel, and announces its port,
+state and model in its lease; the supervisor brings them up staggered,
+respawns a dead one, rolls a newly published model through them one at a
+time and drains them on SIGTERM or after ``--max-seconds``.
+``--front-port`` runs the routing front in the supervisor's process and
+announces it in ``<fleet-dir>/front.json``; the ``front`` verb runs it
+alone.  ``probe`` scores a sentinel document through the front at a fixed
+rate and reports what a client saw.  Neither ``front`` nor ``probe``
+touches the card.  The autoscaler (``--autoscale`` and its knobs) acts
+through ``--actions-file`` and waits for item 9b with it; so does every
+resize of a serve fleet (``--resize-at`` and the ``--scale-*`` flags exit
+2 with ``--role serve``).
 
 ``collect`` is the telemetry collector those shippers push to (the JAX
 package's shippers too): one manifested stream a source, folded exactly
@@ -165,6 +186,8 @@ __all__ = [
     "LANG_DIRS",
     "build_parser",
     "cmd_collect",
+    "cmd_front",
+    "cmd_probe",
     "cmd_score",
     "cmd_serve",
     "cmd_stream_compact",
@@ -190,38 +213,18 @@ LANG_DIRS = {
 
 # The ROADMAP.md queue 1 item that ports the machinery behind each flag
 # the port refuses for now.
+_ALERTS_ITEM = "queue 1 item 9b, the rest of telemetry"
 _NOT_PORTED = {
-    "actions_file": ("--actions-file",
-                     "queue 1 item 9b, the rest of telemetry"),
+    "actions_file": ("--actions-file", _ALERTS_ITEM),
     "compile_cache": ("--compile-cache",
                       "queue 1 item 10, a compile cache"),
 }
-_SERVE_ITEM = "queue 1 item 8b, the serve fleet"
-_ALERTS_ITEM = "queue 1 item 9b, the rest of telemetry"
 
-# ``serve``'s fleet-replica and bench-harness flags, their JAX defaults
-# and types: refused unless left at the default.
-_SERVE_REPLICA_FLAGS = {
-    "emulate_doc_ms": ("--emulate-doc-ms", None, float),
-    "fleet_dir": ("--fleet-dir", None, str),
-    "worker_index": ("--worker-index", 0, int),
-    "fleet_generation": ("--fleet-generation", 0, int),
-    "fleet_spawn_id": ("--fleet-spawn-id", 0, int),
-    "heartbeat_interval": ("--heartbeat-interval", 0.5, float),
-    "lease_timeout": ("--lease-timeout", None, float),
-}
-
-# ``supervise``'s serve-role flags, their JAX defaults and types (None:
-# a switch): refused unless left at the default.
-_SERVE_FLAGS = {
-    "front_port": ("--front-port", None, int),
-    "max_seconds": ("--max-seconds", None, float),
-    "swap_timeout": ("--swap-timeout", 60.0, float),
-    "serve_max_batch": ("--serve-max-batch", 64, int),
-    "serve_linger_ms": ("--serve-linger-ms", 5.0, float),
-    "serve_emulate_doc_ms": ("--serve-emulate-doc-ms", None, float),
-    "serve_max_queue": ("--serve-max-queue", None, int),
-    "serve_batch_weight": ("--serve-batch-weight", None, float),
+# ``supervise``'s autoscaler flags, their JAX defaults and types (None: a
+# switch): the JAX package applies the autoscaler's decisions only
+# through ``--actions-file``, so they are refused with it unless left at
+# the default.
+_AUTOSCALE_FLAGS = {
     "autoscale": ("--autoscale", False, None),
     "autoscale_high_rho": ("--autoscale-high-rho", 0.8, float),
     "autoscale_low_rho": ("--autoscale-low-rho", 0.3, float),
@@ -651,22 +654,96 @@ def _score_run(args: argparse.Namespace, grid) -> int:
 
 
 # ---- serving ---------------------------------------------------------------
+def _serve_replica_loop(args: argparse.Namespace, service, lease, preempt,
+                        port: int, deadline) -> None:
+    """A supervised serve replica's main loop: renew the ``role=serve``
+    lease with the routing front's discovery fields (port, state, the
+    served model's path and stamp), and poll the replica's control file
+    for the supervisor's rolling-swap commands; the replica acks a swap
+    by reporting the new ``model_stamp`` in its lease.  The kernels'
+    launches so far go to the run stream as a ``kernel_launches`` event
+    when they changed, at most once a second."""
+    from .resilience import sleep as _idle_sleep
+    from .resilience.supervisor import control_path, read_control
+
+    ctrl = control_path(args.fleet_dir, args.worker_index)
+    ctrl_stamp = None
+    cmd = None
+    last_ctrl_id = 0
+    last_attempt = 0.0
+    launches, launches_at = dict(_build.LAUNCHES), time.monotonic()
+    reg = telemetry.get_registry()
+    telemetry.gauge("serve.replica.index", args.worker_index)
+    telemetry.gauge("serve.replica.draining", 0)
+    while not preempt:
+        if deadline is not None and time.monotonic() >= deadline:
+            break
+        scorer = service.scorer
+        telemetry.gauge(
+            "serve.replica.stamp",
+            scorer.stamp if scorer.stamp is not None else -1,
+        )
+        lease.beat(
+            queue_depth=service.coalescer.queue_depth(),
+            state="draining" if service.draining else "ready",
+            port=port,
+            model_path=scorer.path,
+            model_stamp=scorer.stamp,
+            swap_id=last_ctrl_id,
+            requests=int(reg.counter("serve.requests").value),
+        )
+        # control poll (mtime-cached): a new swap command re-resolves the
+        # selection path until the commanded stamp serves
+        try:
+            st = os.stat(ctrl)
+            stamp = (st.st_mtime, st.st_size)
+        except OSError:
+            stamp = None
+        if stamp is not None and stamp != ctrl_stamp:
+            ctrl_stamp = stamp
+            cmd = read_control(ctrl)
+            if cmd is None:             # mid-write; the next loop re-reads
+                ctrl_stamp = None
+        if isinstance(cmd, dict) and isinstance(cmd.get("id"), int) \
+                and cmd["id"] > last_ctrl_id:
+            want = cmd.get("stamp")
+            cur = scorer.stamp if scorer.stamp is not None else -1
+            if want is None or cur >= int(want):
+                last_ctrl_id = cmd["id"]
+            elif time.monotonic() - last_attempt > 0.25:
+                last_attempt = time.monotonic()
+                service.poll_model_once()
+                new = service.scorer.stamp
+                if new is not None and new >= int(want):
+                    last_ctrl_id = cmd["id"]
+        if (_build.LAUNCHES != launches
+                and time.monotonic() - launches_at >= 1.0):
+            launches, launches_at = dict(_build.LAUNCHES), time.monotonic()
+            telemetry.event("kernel_launches", phase="serving", **launches)
+        _idle_sleep(0.05)
+
+
 def cmd_serve(args: argparse.Namespace) -> int:
     """Persistent scoring service: load the newest verified model ONCE,
     run one dispatch per token bucket, coalesce concurrent requests into
     one launch each (continuous batching), hot-swap atomically when a
     ``stream-train`` fleet publishes a newer model, and drain cleanly on
     SIGTERM — the LDALoader flow as a resident process instead of a cold
-    batch job.  The URL line is printed once the service is warm."""
+    batch job.  The URL line is printed once the service is warm.
+
+    With ``--fleet-dir`` (``supervise --role serve`` passes it) the
+    service is a fleet replica: its first lease beat (``state`` starting,
+    ``port`` 0) lands before the CUDA context, the per-document kernel's
+    load and the model's load and warmup, so those fall under the
+    supervisor's startup grace; it then serves on the port its lease
+    announces, swaps only when the supervisor's control file says so, and
+    reports ``draining`` in its lease before it drains."""
     import threading
 
     from .resilience import sleep as _idle_sleep
 
-    extra = [(flag, _SERVE_ITEM)
-             for dest, (flag, default, _) in _SERVE_REPLICA_FLAGS.items()
-             if getattr(args, dest) != default]
-    if args.alerts_file is not None:
-        extra.append(("--alerts-file", _ALERTS_ITEM))
+    extra = ([("--alerts-file", _ALERTS_ITEM)]
+             if args.alerts_file is not None else [])
     rc = _refuse_unported(args, extra)
     if rc is not None:
         return rc
@@ -674,9 +751,21 @@ def cmd_serve(args: argparse.Namespace) -> int:
     # registry-only when no run stream is asked for: /metrics and the
     # serve histograms need a live registry
     telemetry.configure(args.telemetry_file or None, device=args.device)
-    tracing.adopt_env()
-    preempt = PreemptionNotice().install()
+    # the fleet wiring first: the replica's starting beat must land before
+    # the slow work below, or a supervisor with a tight startup grace
+    # would declare a warming replica stuck
+    preempt, lease, _fence, _ = _fleet_worker_context(
+        args, lease_fields={"role": "serve"})
     try:
+        if lease is not None:
+            lease.beat(force=True, state="starting", port=0)
+            if device.type == "cuda" and args.emulate_doc_ms is None:
+                # the CUDA context and the kernel every dispatch launches
+                # (built if missing), under the startup grace
+                import torch
+
+                torch.zeros(1, device=device)
+                _build.load_library("segments")
         from .serving import ScoringService, make_http_server
 
         buckets = tuple(args.token_bucket) or None
@@ -693,18 +782,30 @@ def cmd_serve(args: argparse.Namespace) -> int:
                 **({"token_buckets": buckets} if buckets else {}),
                 model_poll_interval=args.model_poll_interval,
                 quarantine_dir=args.quarantine_dir,
+                # a supervised replica swaps when the supervisor says so
+                # (one replica at a time), never on its own
+                watch_model=lease is None,
+                replica_index=(args.worker_index if lease is not None
+                               else None),
+                emulate_doc_seconds=(args.emulate_doc_ms / 1000.0
+                                     if args.emulate_doc_ms is not None
+                                     else None),
                 max_queue=args.max_queue,
                 batch_weight=args.batch_weight,
                 device=device,
             )
         except CorruptArtifactError as exc:
+            if lease is not None:
+                lease.mark_done("corrupt_model")
             print(f"error: {exc}", file=sys.stderr)
             return 2
         scorer = service.scorer
         # the writer buffers pre-manifest events (serve_warmup), so the
         # manifest still lands first in the stream
         telemetry.manifest(kind="serve", model=scorer.path, lang=args.lang,
-                           vocab_width=scorer.model.vocab_size)
+                           vocab_width=scorer.model.vocab_size,
+                           **_worker_manifest_fields(args))
+        telemetry.event("kernel_launches", phase="warmup", **_build.LAUNCHES)
         httpd = make_http_server(service, args.host, args.port)
         host, port = httpd.server_address[:2]
         wr = service.warmup_report
@@ -720,16 +821,30 @@ def cmd_serve(args: argparse.Namespace) -> int:
         http_thread.start()
         deadline = (time.monotonic() + args.max_seconds
                     if args.max_seconds else None)
-        while not preempt:
-            if deadline is not None and time.monotonic() >= deadline:
-                break
-            _idle_sleep(0.1)
+        if lease is not None:
+            _serve_replica_loop(args, service, lease, preempt, port,
+                                deadline)
+        else:
+            while not preempt:
+                if deadline is not None and time.monotonic() >= deadline:
+                    break
+                _idle_sleep(0.1)
         # preemption notice (or drill deadline): finish queued documents,
-        # refuse new ones (503), then take the port down
+        # refuse new ones (503), then take the port down.  A fleet replica
+        # shows the draining state in its lease first, so the front stops
+        # routing to it before any 503.
+        if lease is not None:
+            lease.beat(force=True, state="draining", port=port,
+                       model_path=service.scorer.path,
+                       model_stamp=service.scorer.stamp)
+            telemetry.gauge("serve.replica.draining", 1)
         report = service.begin_drain()
         httpd.shutdown()
         httpd.server_close()
         telemetry.event("serve_drained", **report)
+        telemetry.event("kernel_launches", phase="drain", **_build.LAUNCHES)
+        if lease is not None:
+            lease.mark_done("preempted")
         print(
             f"drain complete: {report['requests']} request(s) in "
             f"{report['batches']} batch(es), {report['swaps']} hot-swap(s), "
@@ -740,6 +855,8 @@ def cmd_serve(args: argparse.Namespace) -> int:
         return 0
     finally:
         preempt.uninstall()
+        if lease is not None and args.lease_timeout:
+            configure_lease_deadline(None)
         telemetry.shutdown()
 
 
@@ -755,32 +872,38 @@ def _make_trigger_controller(args: argparse.Namespace):
     )
 
 
-def _fleet_worker_context(args: argparse.Namespace):
-    """A stream's worker wiring: the SIGTERM drain notice (every stream
-    ends after its in-flight trigger on SIGTERM), and with ``--fleet-dir``
-    the heartbeat lease, the fence token every ledger write verifies, the
-    worker's file partition and the lease-bounded retry deadline.
+def _fleet_worker_context(args: argparse.Namespace,
+                          lease_fields: Optional[dict] = None):
+    """A worker's wiring, shared by the stream verbs and ``serve``: the
+    SIGTERM drain notice (every stream ends after its in-flight trigger on
+    SIGTERM, and a server drains), and with ``--fleet-dir`` the heartbeat
+    lease (``lease_fields`` ride every renewal: a serve replica's
+    ``role``), the fence token every ledger write verifies, the worker's
+    file partition and the lease-bounded retry deadline.
 
-    A supervised worker on the card also makes its CUDA context and loads
-    the E-step kernel (building it if missing) and the text library here,
-    before its first lease beat, so that they fall under the supervisor's
-    startup grace and not between two beats.
+    A supervised stream worker on the card also makes its CUDA context and
+    loads the E-step kernel (building it if missing) and the text library
+    here, before its first lease beat, so that they fall under the
+    supervisor's startup grace and not between two beats.  A serve
+    replica beats first and does that work after (``cmd_serve``).
 
     Returns ``(preempt, lease, fence, partition)``; the last three are
-    None for an unsupervised stream."""
+    None for an unsupervised worker."""
     # a spawner's causal context (STC_TRACE) first: the first lease beat
     # and every ledger record of this worker hang off it
     tracing.adopt_env()
     preempt = PreemptionNotice().install()
     if not args.fleet_dir:
         return preempt, None, None, None
-    idx, count = args.worker_index, max(1, args.worker_count)
+    idx = args.worker_index
+    count = max(1, getattr(args, "worker_count", 1))
     lease = WorkerLease(
         lease_path(args.fleet_dir, idx),
         interval=args.heartbeat_interval,
         worker_index=idx,
         generation=args.fleet_generation,
         spawn_id=args.fleet_spawn_id,
+        static_fields=lease_fields,
     )
     fence = FleetFence(
         fleet_dir=args.fleet_dir,
@@ -791,16 +914,17 @@ def _fleet_worker_context(args: argparse.Namespace):
     partition = (idx, count) if count > 1 else None
     if args.lease_timeout:
         configure_lease_deadline(args.lease_timeout)
-    dev = resolve_device(args.device)
-    if dev.type == "cuda":
-        import torch
+    if lease_fields is None:
+        dev = resolve_device(args.device)
+        if dev.type == "cuda":
+            import torch
 
-        torch.zeros(1, device=dev)
-        _build.load_library("estep")
-    try:
-        native.load()
-    except RuntimeError:
-        pass  # the Python text path, as "auto" takes it
+            torch.zeros(1, device=dev)
+            _build.load_library("estep")
+        try:
+            native.load()
+        except RuntimeError:
+            pass  # the Python text path, as "auto" takes it
     lease.beat(force=True)
     return preempt, lease, fence, partition
 
@@ -1206,15 +1330,23 @@ def cmd_supervise(args: argparse.Namespace) -> int:
     ``stream-train`` workers over a watch directory: partitioned over the
     arriving files, heartbeat-leased, SIGTERM then SIGKILL on lease
     expiry, resized between committed epochs with fence tokens so that a
-    zombie's writes are refused."""
-    extra = [("--role serve", _SERVE_ITEM)] if args.role == "serve" else []
-    extra += [(flag, _SERVE_ITEM)
-              for dest, (flag, default, _) in _SERVE_FLAGS.items()
-              if getattr(args, dest) != default]
+    zombie's writes are refused.  ``--role serve`` runs ``serve`` replicas
+    behind the routing front instead (``_supervise_serve``)."""
+    extra = [(flag, _ALERTS_ITEM)
+             for dest, (flag, default, _) in _AUTOSCALE_FLAGS.items()
+             if getattr(args, dest) != default]
+    if args.role == "serve":
+        # the JAX package resizes a serve fleet only from the actions file
+        extra += [(flag, _ALERTS_ITEM) for flag, given in (
+            ("--resize-at", bool(args.resize_at)),
+            ("--scale-out-depth", args.scale_out_depth is not None),
+            ("--scale-out-sweeps", args.scale_out_sweeps != 3),
+            ("--scale-in-sweeps", args.scale_in_sweeps is not None),
+        ) if given]
     rc = _refuse_unported(args, extra)
     if rc is not None:
         return rc
-    if not args.watch_dir:
+    if args.role != "serve" and not args.watch_dir:
         print("--watch-dir is required for stream roles", file=sys.stderr)
         return 2
     worker_faults = {}
@@ -1253,6 +1385,8 @@ def cmd_supervise(args: argparse.Namespace) -> int:
                            watch_dir=args.watch_dir,
                            fleet_dir=args.fleet_dir)
     try:
+        if args.role == "serve":
+            return _supervise_serve(args, worker_faults)
         return _run_fleet(args, worker_faults, resize_plan)
     finally:
         if own_telemetry:
@@ -1292,6 +1426,281 @@ def _run_fleet(args: argparse.Namespace, worker_faults, resize_plan) -> int:
         f"{rep.crashes} crash(es)"
     )
     return 0
+
+
+def _serve_replica_argv(args: argparse.Namespace, index: int, count: int,
+                        generation: int, spawn_id: int) -> List[str]:
+    """One ``supervise --role serve`` replica's command line: ``serve`` of
+    this CLI on an auto-picked port with the fleet flags (the JAX
+    package's argv, this package's module), then ``--device`` where the
+    supervisor was given one and the ``--worker-arg`` extras."""
+    argv = [
+        sys.executable, "-m", "spark_text_clustering_tpu_torch.cli", "serve",
+    ]
+    if args.worker_telemetry_dir:
+        argv += ["--telemetry-file", os.path.join(
+            args.worker_telemetry_dir,
+            f"worker-w{index:03d}-s{spawn_id}.jsonl")]
+    argv += [
+        "--models-dir", args.models_dir,
+        "--lang", args.lang,
+        "--port", "0",              # auto-picked; announced in the lease
+        "--max-batch", str(args.serve_max_batch),
+        "--linger-ms", str(args.serve_linger_ms),
+        "--fleet-dir", args.fleet_dir,
+        "--worker-index", str(index),
+        "--fleet-generation", str(generation),
+        "--fleet-spawn-id", str(spawn_id),
+        "--heartbeat-interval", str(args.heartbeat_interval),
+        "--lease-timeout", str(args.lease_timeout),
+    ]
+    if args.model:
+        argv += ["--model", args.model]
+    if args.no_lemmatize:
+        argv.append("--no-lemmatize")
+    if args.stop_words:
+        argv += ["--stop-words", args.stop_words]
+    if args.quarantine_dir:
+        argv += ["--quarantine-dir", args.quarantine_dir]
+    if args.serve_emulate_doc_ms is not None:
+        argv += ["--emulate-doc-ms", str(args.serve_emulate_doc_ms)]
+    if args.serve_max_queue is not None:
+        argv += ["--max-queue", str(args.serve_max_queue)]
+    if args.serve_batch_weight is not None:
+        argv += ["--batch-weight", str(args.serve_batch_weight)]
+    if args.device is not None:
+        argv += ["--device", args.device]
+    return argv + args.worker_arg
+
+
+def _supervise_serve(args: argparse.Namespace, worker_faults) -> int:
+    """``supervise --role serve``: N ``serve`` replicas on auto-picked
+    ports, with the routing front in this process under ``--front-port``,
+    until SIGTERM or ``--max-seconds``; its exit code.  The front's
+    outcome counters and the replicas' streams under
+    ``--worker-telemetry-dir`` feed a queueing estimate
+    (``queueing_estimate`` events) twice a second."""
+    import threading
+
+    from .resilience.supervisor import ServeFleetSupervisor
+
+    preempt = PreemptionNotice().install()
+    sup = ServeFleetSupervisor(
+        args.fleet_dir,
+        lambda *ids: _serve_replica_argv(args, *ids),
+        models_dir=args.models_dir,
+        lang=args.lang,
+        stop=preempt,
+        max_seconds=args.max_seconds,
+        swap_timeout=args.swap_timeout,
+        worker_faults=worker_faults,
+        workers=args.workers,
+        min_workers=args.min_workers,
+        max_workers=args.max_workers,
+        lease_timeout=args.lease_timeout,
+        grace_seconds=args.grace_seconds,
+        startup_grace_seconds=args.startup_grace,
+        sweep_interval=args.sweep_interval,
+        max_respawns=args.max_respawns,
+    )
+    front_httpd = None
+    queue_stop = threading.Event()
+    queue_thread = None
+    if args.front_port is not None:
+        from .serving.front import (
+            FrontRouter,
+            make_front_server,
+            write_front_announce,
+        )
+        from .telemetry.alerts import StreamSet
+        from .telemetry.queueing import QueueingEstimator
+
+        router = FrontRouter(
+            args.fleet_dir, lease_timeout=max(5.0, 2.0 * args.lease_timeout))
+        front_httpd = make_front_server(router, "127.0.0.1", args.front_port)
+        fhost, fport = front_httpd.server_address[:2]
+        write_front_announce(args.fleet_dir, fhost, fport)
+        threading.Thread(target=front_httpd.serve_forever,
+                         name="stc-front-http", daemon=True).start()
+        print(f"serve-fleet front on http://{fhost}:{fport}", flush=True)
+        # the queueing estimate: arrivals from the front's own outcome
+        # counters, service from the replicas' run streams; its
+        # queueing.* gauges live in this registry, on the front's /metrics
+        est = QueueingEstimator()
+        qstreams = (StreamSet([os.path.join(args.worker_telemetry_dir,
+                                            "worker-*.jsonl")])
+                    if args.worker_telemetry_dir else None)
+
+        def _queue_loop() -> None:
+            reg = telemetry.get_registry()
+            seen = 0
+            while not queue_stop.is_set():
+                now = time.time()
+                snap = reg.snapshot()["counters"]
+                total = sum(v for k, v in snap.items()
+                            if k.startswith("front.request_outcomes."))
+                if total > seen:
+                    est.note_arrivals(total - seen, now)
+                    seen = total
+                if qstreams is not None:
+                    for e in qstreams.poll():
+                        ts = e.get("ts")
+                        est.observe_event(
+                            float(ts) if isinstance(ts, (int, float))
+                            and not isinstance(ts, bool) else now, e)
+                ev = est.estimate(now)
+                if ev is not None:
+                    telemetry.event("queueing_estimate", **{
+                        k: v for k, v in ev.items()
+                        if k not in ("event", "ts")})
+                queue_stop.wait(0.5)
+
+        queue_thread = threading.Thread(target=_queue_loop,
+                                        name="stc-queueing", daemon=True)
+        queue_thread.start()
+    try:
+        rep = sup.run()
+    except ResilienceError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    finally:
+        preempt.uninstall()
+        queue_stop.set()
+        if queue_thread is not None:
+            queue_thread.join(timeout=2.0)
+        if front_httpd is not None:
+            front_httpd.shutdown()
+            front_httpd.server_close()
+    print(
+        f"serve fleet drained: {rep.final_workers} replica(s) — "
+        f"{rep.spawns} spawn(s), {rep.respawns} respawn(s), "
+        f"{rep.resizes} resize(s), {rep.swap_rolls} rolling swap(s), "
+        f"{rep.crashes} crash(es)", flush=True
+    )
+    return 0
+
+
+def cmd_front(args: argparse.Namespace) -> int:
+    """The serve fleet's routing front alone: one port spreading ``/score``
+    over the replicas a ``supervise --role serve`` fleet leases
+    (least-outstanding routing, drain-aware, retry on another replica,
+    per-stream generation pinning), its address announced in
+    ``<fleet-dir>/front.json``, until SIGTERM or ``--max-seconds``.  It
+    never touches the card."""
+    import threading
+
+    from .resilience import sleep as _idle_sleep
+    from .serving.front import (
+        FrontRouter,
+        make_front_server,
+        write_front_announce,
+    )
+
+    rc = _refuse_unported(args, [("--alerts-file", _ALERTS_ITEM)]
+                          if args.alerts_file is not None else [])
+    if rc is not None:
+        return rc
+    own_telemetry = args.telemetry_file is not None
+    telemetry.configure(args.telemetry_file)
+    if own_telemetry:
+        telemetry.manifest(kind="front", fleet_dir=args.fleet_dir)
+    preempt = PreemptionNotice().install()
+    try:
+        router = FrontRouter(
+            args.fleet_dir,
+            lease_timeout=args.lease_timeout,
+            wait_for_replica_s=args.wait_for_replica,
+            max_pending=args.max_pending,
+            retry_budget=args.retry_budget,
+        )
+        httpd = make_front_server(router, args.host, args.port)
+        host, port = httpd.server_address[:2]
+        write_front_announce(args.fleet_dir, host, port)
+        print(f"fronting fleet {args.fleet_dir} on http://{host}:{port} — "
+              f"POST /score, GET /healthz /metrics", flush=True)
+        thread = threading.Thread(target=httpd.serve_forever,
+                                  name="stc-front-http", daemon=True)
+        thread.start()
+        deadline = (time.monotonic() + args.max_seconds
+                    if args.max_seconds else None)
+        while not preempt:
+            if deadline is not None and time.monotonic() >= deadline:
+                break
+            _idle_sleep(0.1)
+        httpd.shutdown()
+        httpd.server_close()
+        h = router.health()
+        print(f"front drained: {h['requests']} request(s) routed across "
+              f"{len(h['replicas'])} replica(s), {h['retries']} retried",
+              flush=True)
+        return 0
+    finally:
+        preempt.uninstall()
+        telemetry.shutdown()
+
+
+def cmd_probe(args: argparse.Namespace) -> int:
+    """The black-box canary: score one fixed sentinel document through the
+    serve front at a fixed rate (or, with ``--ramp-to``, an open-loop
+    ramp) and record what a client saw (outcome, latency, and whether
+    the generations it was answered with ever went backward) in the
+    probe's own run stream.  It never touches the card."""
+    from .serving.probe import SENTINEL_TEXT, Prober, read_front_announce
+
+    if not args.url and not args.fleet_dir:
+        print("probe needs --fleet-dir or --url", file=sys.stderr)
+        return 2
+    ship_env = telemetry.transport.ENV_SHIP_TO
+    before = os.environ.get(ship_env)
+    if args.ship_to:
+        # the port's telemetry ships where this variable says
+        os.environ[ship_env] = args.ship_to
+    own_telemetry = args.telemetry_file is not None
+    telemetry.configure(args.telemetry_file)
+    try:
+        try:
+            if args.url:
+                part = args.url.split("//")[-1].rstrip("/")
+                host, _, port_s = part.partition(":")
+                host, port = host or "127.0.0.1", int(port_s or 80)
+            else:
+                host, port = read_front_announce(args.fleet_dir,
+                                                 wait_s=args.wait_front)
+        except (RuntimeError, ValueError) as exc:
+            print(f"error: {exc}", file=sys.stderr)
+            return 2
+        if own_telemetry:
+            telemetry.manifest(
+                kind="probe", host=host, port=port,
+                fleet_dir=args.fleet_dir, stream=args.stream,
+                count=args.count, rate=args.rate,
+                priority=args.priority, ramp_to=args.ramp_to,
+            )
+        prober = Prober(host, port, stream=args.stream, timeout=args.timeout,
+                        text=args.text or SENTINEL_TEXT,
+                        priority=args.priority)
+        if args.ramp_to is not None:
+            # open loop: an overload generator, not a canary; the send
+            # rate climbs however slowly the fleet answers
+            rep = prober.run_ramp(count=args.count, rate=args.rate,
+                                  ramp_to=args.ramp_to)
+        else:
+            rep = prober.run(count=args.count, rate=args.rate)
+        print(
+            f"probe done: {rep['sent']} probe(s) against "
+            f"http://{host}:{port}, {rep['failures']} failure(s), "
+            f"{rep['rejected']} rejected (typed 429), "
+            f"{rep['degraded']} degraded answer(s), "
+            f"{rep['pin_violations']} pin violation(s)", flush=True
+        )
+        bad = rep["failures"] + rep["pin_violations"]
+        return 1 if args.fail_on_error and bad else 0
+    finally:
+        telemetry.shutdown()
+        if before is None:
+            os.environ.pop(ship_env, None)
+        else:
+            os.environ[ship_env] = before
 
 
 def cmd_collect(args: argparse.Namespace) -> int:
@@ -1674,11 +2083,30 @@ def build_parser() -> argparse.ArgumentParser:
                     help="telemetry run stream (serve.* histograms, "
                          "hot-swap events) as JSONL — `metrics summarize` "
                          "renders its serving-health section from this")
-    for flag, default, kind in _SERVE_REPLICA_FLAGS.values():
-        se.add_argument(flag, type=kind, default=default,
-                        help="a serve fleet replica's or the bench "
-                             "harness's flag: not ported yet (exits 2 "
-                             "unless left at its default)")
+    se.add_argument("--emulate-doc-ms", type=float, default=None,
+                    help="the fleet drill's emulated dispatch: sleep this "
+                         "many milliseconds a document instead of "
+                         "launching the kernel, and answer a fixed "
+                         "distribution (lets a CPU host run N replicas)")
+    # a fleet replica's flags (passed by `supervise --role serve`):
+    # identity and lease cadence; the replica announces its auto-picked
+    # port through the lease and obeys the supervisor's control file
+    se.add_argument("--fleet-dir", default=None,
+                    help="fleet dir of a supervising `supervise --role "
+                         "serve`: enables the role=serve heartbeat lease "
+                         "(port, state and model for the routing front) "
+                         "and the replica's swap control file")
+    se.add_argument("--worker-index", type=int, default=0,
+                    help="this replica's index in the serve fleet")
+    se.add_argument("--fleet-generation", type=int, default=0,
+                    help="fence token: topology generation at spawn")
+    se.add_argument("--fleet-spawn-id", type=int, default=0,
+                    help="fence token: this incarnation's spawn id")
+    se.add_argument("--heartbeat-interval", type=float, default=0.5,
+                    help="seconds between lease renewals")
+    se.add_argument("--lease-timeout", type=float, default=None,
+                    help="the supervisor's lease timeout, installed as the "
+                         "process-wide retry deadline")
     _add_compile_cache_arg(se)
     _add_device_arg(se)
     se.set_defaults(fn=cmd_serve)
@@ -1691,10 +2119,12 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sv.add_argument("--role", default="stream-score",
                     choices=["stream-score", "stream-train", "serve"],
-                    help="worker verb the fleet runs (serve: not ported "
-                         "yet, exits 2)")
+                    help="worker verb the fleet runs (serve: N hot scoring "
+                         "replicas behind the lease-discovered routing "
+                         "front instead of partitioned stream workers)")
     sv.add_argument("--watch-dir", default=None,
-                    help="directory the stream workers watch (required)")
+                    help="directory the stream workers watch (required for "
+                         "the stream roles; unused by --role serve)")
     sv.add_argument("--fleet-dir", required=True,
                     help="fleet state dir: fleet.jsonl (fence records), "
                          "leases/, and per-worker checkpoint dirs w000/, "
@@ -1773,19 +2203,127 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--worker-arg", action="append", default=[],
                     help="extra argv appended to every worker command "
                          "(repeatable)")
-    for flag, default, kind in _SERVE_FLAGS.values():
+    # the serve role's flags
+    sv.add_argument("--front-port", type=int, default=None,
+                    help="--role serve: also run the routing front in this "
+                         "process on this port (0 picks one; announced in "
+                         "<fleet-dir>/front.json)")
+    sv.add_argument("--max-seconds", type=float, default=None,
+                    help="--role serve: drain the fleet and exit after "
+                         "this long (drills); default: run until SIGTERM")
+    sv.add_argument("--swap-timeout", type=float, default=60.0,
+                    help="--role serve: seconds one replica may take to ack "
+                         "a rolling swap before the roll skips it "
+                         "(fleet.swap_stalls)")
+    sv.add_argument("--serve-max-batch", type=int, default=64,
+                    help="--role serve: replica coalescer capacity")
+    sv.add_argument("--serve-linger-ms", type=float, default=5.0,
+                    help="--role serve: replica batch linger")
+    sv.add_argument("--serve-emulate-doc-ms", type=float, default=None,
+                    help="--role serve: pass `serve --emulate-doc-ms` on to "
+                         "every replica (the fleet drill)")
+    sv.add_argument("--serve-max-queue", type=int, default=None,
+                    help="--role serve: pass `serve --max-queue` (bounded "
+                         "admission, typed 429s) on to every replica")
+    sv.add_argument("--serve-batch-weight", type=float, default=None,
+                    help="--role serve: pass `serve --batch-weight` on to "
+                         "every replica")
+    for flag, default, kind in _AUTOSCALE_FLAGS.values():
         if kind is None:
             sv.add_argument(flag, action="store_true",
-                            help="--role serve: not ported yet (exits 2)")
+                            help="--role serve's autoscaler: not ported "
+                                 "yet (exits 2)")
         else:
             sv.add_argument(flag, type=kind, default=default,
-                            help="--role serve: not ported yet (exits 2 "
-                                 "unless left at its default)")
+                            help="--role serve's autoscaler: not ported yet "
+                                 "(exits 2 unless left at its default)")
     _add_compile_cache_arg(sv)
     sv.add_argument("--device", default=None,
                     help="torch device passed to every worker (default: "
                          "none passed, so the workers run on cuda)")
     sv.set_defaults(fn=cmd_supervise)
+
+    fr = sub.add_parser(
+        "front",
+        help="the serve fleet's routing front: one port spreading /score "
+             "over a `supervise --role serve` fleet (least-outstanding "
+             "routing, drain-aware, retry on another replica, per-stream "
+             "generation pinning)",
+    )
+    fr.add_argument("--fleet-dir", required=True,
+                    help="the serve fleet's state dir (replicas are "
+                         "discovered from its role=serve lease files)")
+    fr.add_argument("--host", default="127.0.0.1")
+    fr.add_argument("--port", type=int, default=8766,
+                    help="TCP port (0 picks a free one, announced in "
+                         "<fleet-dir>/front.json)")
+    fr.add_argument("--lease-timeout", type=float, default=10.0,
+                    help="seconds without a lease renewal before a replica "
+                         "leaves the rotation")
+    fr.add_argument("--wait-for-replica", type=float, default=30.0,
+                    help="seconds a request waits for any ready replica "
+                         "before failing 503")
+    fr.add_argument("--max-pending", type=int, default=128,
+                    help="front-side shedding: 429 new requests once this "
+                         "many are in flight (batch-class sheds at half; 0 "
+                         "disables)")
+    fr.add_argument("--retry-budget", type=int, default=3,
+                    help="most retries a request on connection-level "
+                         "failures and 503s, with jittered backoff; a typed "
+                         "429 never spends one")
+    fr.add_argument("--max-seconds", type=float, default=None,
+                    help="drain and exit after this many seconds (drills); "
+                         "default: run until SIGTERM")
+    fr.add_argument("--telemetry-file", default=None,
+                    help="the front's run stream (front.* counters, the "
+                         "front.replica.<i>.* families, swap observations)")
+    fr.add_argument("--alerts-file", default=None,
+                    help="not ported yet (exits 2)")
+    fr.set_defaults(fn=cmd_front)
+
+    pb = sub.add_parser(
+        "probe",
+        help="black-box canary: score a fixed sentinel document through "
+             "the serve front at a fixed rate and record what a client "
+             "saw (outcome, latency, generation pinning)",
+    )
+    pb.add_argument("--fleet-dir", default=None,
+                    help="discover the front from <fleet-dir>/front.json")
+    pb.add_argument("--url", default=None,
+                    help="probe this front address (http://host:port) "
+                         "instead of discovering it")
+    pb.add_argument("--count", type=int, default=60,
+                    help="number of probes to send")
+    pb.add_argument("--rate", type=float, default=1.0,
+                    help="probes per second (fixed wall-clock pacing)")
+    pb.add_argument("--ramp-to", type=float, default=None,
+                    help="open-loop overload mode: ramp the send rate "
+                         "linearly from --rate to this over --count "
+                         "requests, each on its own thread at its "
+                         "scheduled time")
+    pb.add_argument("--priority", default=None,
+                    choices=("interactive", "batch"),
+                    help="send X-STC-Priority on every probe")
+    pb.add_argument("--timeout", type=float, default=5.0,
+                    help="per-probe HTTP timeout (a timeout is an `error` "
+                         "outcome, not a crash)")
+    pb.add_argument("--stream", default="stc-probe",
+                    help="X-STC-Stream header value: the pinned stream the "
+                         "generation check rides")
+    pb.add_argument("--text", default=None,
+                    help="override the sentinel document")
+    pb.add_argument("--wait-front", type=float, default=10.0,
+                    help="seconds to wait for front.json to appear")
+    pb.add_argument("--fail-on-error", action="store_true",
+                    help="exit 1 when any probe failed or saw a generation "
+                         "go backward")
+    pb.add_argument("--telemetry-file", default=None,
+                    help="the probe's run stream (probe_request events and "
+                         "probe.* counters)")
+    pb.add_argument("--ship-to", default=None, metavar="HOST:PORT",
+                    help="also push the probe's run stream to a `collect` "
+                         "daemon at this address")
+    pb.set_defaults(fn=cmd_probe)
 
     co = sub.add_parser(
         "collect",

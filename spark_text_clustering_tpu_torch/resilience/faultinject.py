@@ -73,6 +73,8 @@ SITES = frozenset({
                           # check (forces a typed 429, never a crash)
     "serve.batch",        # before a coalesced serve batch dispatches
     "serve.swap",         # before a verified model hot-swap installs
+    "front.shed",         # the front's pending-set admission (forces a
+                          # typed 429 shed at the edge)
 })
 
 

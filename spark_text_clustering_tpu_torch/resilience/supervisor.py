@@ -1,5 +1,6 @@
 """Elastic fleet supervisor: the lifecycle of a preemptible stream worker
-fleet, copied from the JAX package (its ``resilience/supervisor.py``).
+fleet and of a serve fleet, copied from the JAX package (its
+``resilience/supervisor.py``).
 
 A supervisor owns the worker set: it spawns N ``stream-train`` or
 ``stream-score`` subprocesses, watches them through heartbeat lease
@@ -55,9 +56,13 @@ worker's stream.  The supervisor holds one trace (the adopted
 ``STC_TRACE`` or a fresh one): each spawn gets a child span of it in its
 environment, which the worker adopts and stamps on its lease renewals,
 its stream and its ledger records, and every fleet ledger record of a
-spawn set carries its ``trace_id``.  The JAX package also applies a
-monitor's actions file here (item 9b) and supervises serve replicas
-(item 8b); the port has neither yet.
+spawn set carries its ``trace_id``.
+
+``ServeFleetSupervisor`` runs N ``serve`` replicas as one service: no
+epoch ledgers, a staggered bring-up, a drain-free resize, a rolling
+hot-swap through per-replica control files and a parallel drain (its
+docstring).  The JAX package also applies a monitor's actions file here
+(item 9b); the port does not yet.
 
 This module imports neither ``torch`` nor the port's device code: it is
 subprocess-and-files machinery that must survive whatever a worker does
@@ -73,7 +78,7 @@ import signal
 import subprocess
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence, Set
+from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 from . import faultinject
 from .errors import FencedEpochError, ResilienceError
@@ -100,6 +105,7 @@ __all__ = [
     "fleet_committed_epochs",
     "FleetReport",
     "FleetSupervisor",
+    "ServeFleetSupervisor",
 ]
 
 FLEET_LOG_NAME = "fleet.jsonl"
@@ -116,6 +122,8 @@ LEASE_EXPIRIES_COUNTER = "fleet.lease_expiries"
 CRASHES_COUNTER = "fleet.crashes"
 HEARTBEATS_COUNTER = "fleet.heartbeats"
 FENCE_REFUSALS_COUNTER = "ledger.fence_refusals"
+SWAP_ROLLS_COUNTER = "fleet.swap_rolls"
+SWAP_STALLS_COUNTER = "fleet.swap_stalls"
 
 
 def worker_dir(fleet_dir: str, index: int) -> str:
@@ -305,12 +313,16 @@ class WorkerLease:
         worker_index: int = 0,
         generation: int = 0,
         spawn_id: int = 0,
+        static_fields: Optional[Dict] = None,
     ) -> None:
         self.path = path
         self.interval = float(interval)
         self.worker_index = int(worker_index)
         self.generation = int(generation)
         self.spawn_id = int(spawn_id)
+        # constant identity riders on every renewal (a serve replica's
+        # role="serve", which the routing front keys on)
+        self.static_fields = dict(static_fields or {})
         self._last = 0.0
 
     def _write(self, **fields) -> None:
@@ -326,6 +338,7 @@ class WorkerLease:
             # the adopted trace rides every renewal, so whatever reads
             # the leases sees which trace owns the pid
             **tracing.fields(),
+            **self.static_fields,
             **fields,
         }
 
@@ -345,12 +358,15 @@ class WorkerLease:
         queue_depth: int = 0,
         epoch: int = -1,
         force: bool = False,
+        **extra,
     ) -> bool:
-        """Renew the lease (rate-limited); True when a write happened."""
+        """Renew the lease (rate-limited); True when a write happened.
+        ``extra`` fields ride the renewal as they are (a serve replica's
+        ``state``, ``port``, ``model_path`` and ``model_stamp``)."""
         now = time.monotonic()
         if not force and now - self._last < self.interval:
             return False
-        self._write(queue_depth=int(queue_depth), epoch=int(epoch))
+        self._write(queue_depth=int(queue_depth), epoch=int(epoch), **extra)
         self._last = now
         return True
 
@@ -451,6 +467,7 @@ class _Worker:
     spawned_at: float
     drain_requested: bool = False
     finished: bool = False
+    finished_reason: str = ""
 
 
 @dataclass
@@ -466,6 +483,7 @@ class FleetReport:
     preemptions: int = 0
     crashes: int = 0
     committed_epochs: int = 0
+    swap_rolls: int = 0
     sweeps: int = 0
     resize_history: List[int] = field(default_factory=list)
 
@@ -868,6 +886,7 @@ class FleetSupervisor:
                     self._handle_death(w, cause="preemption")
                 else:
                     w.finished = True
+                    w.finished_reason = reason
                     telemetry.event(
                         "fleet_exit", worker=i, reason=reason, rc=rc,
                     )
@@ -931,4 +950,362 @@ class FleetSupervisor:
         if not active:
             return True
         self._check_resize(depths)
+        return False
+
+
+# ---------------------------------------------------------------------------
+# The serve fleet: N hot scoring replicas as a worker role
+# ---------------------------------------------------------------------------
+class ServeFleetSupervisor(FleetSupervisor):
+    """Supervise N ``serve`` replicas as one logical service.
+
+    The lease, escalation and fleet-ledger machinery of the stream
+    fleets, with what replication implies:
+
+      * **No epoch ledgers.**  Replicas are stateless readers of a
+        published model; recovery is a respawn, not a rollback.  A dead
+        replica's lease is retired before its respawn, so the routing
+        front drops it at once.
+      * **Staggered bring-up.**  Replica 0 (the canary) spawns first;
+        replicas 1..N-1 spawn once its lease says ``ready`` or the
+        startup grace passes.  The port has no executable cache, so the
+        stagger only lets the canary make its CUDA context and load the
+        per-document kernel (building it if missing) first.
+      * **Drain-free resize.**  Replicas serve disjoint requests, not a
+        partitioned file corpus: scale-out spawns new replicas next to
+        the serving ones and scale-in drains only the retired indices,
+        so the fleet never stops answering (ledger records still fence
+        each topology).
+      * **Rolling hot-swap.**  The supervisor watches ``models_dir`` for
+        a newer COMMITted publish and rolls it replica by replica
+        through per-replica control files; a replica acks by reporting
+        the new ``model_stamp`` in its lease.  At most one replica swaps
+        at a time, and the routing front keeps a client stream on the
+        old generation until it is gone from the fleet, so one stream
+        never sees generations interleave.
+      * **Run until stopped.**  A serve fleet never converges: the loop
+        ends when ``stop`` (a SIGTERM ``PreemptionNotice``) fires,
+        ``request_stop`` is called or ``max_seconds`` pass, and drains
+        every replica in parallel (SIGTERM, grace, SIGKILL).
+
+    The JAX package also scales this fleet from a monitor's actions file
+    (item 9b); the port does not yet.
+    """
+
+    def __init__(
+        self,
+        fleet_dir: str,
+        worker_argv: Callable[[int, int, int, int], Sequence[str]],
+        *,
+        models_dir: Optional[str] = None,
+        lang: str = "EN",
+        stop: Optional[Callable[[], bool]] = None,
+        max_seconds: Optional[float] = None,
+        swap_timeout: float = 60.0,
+        **kw,
+    ) -> None:
+        super().__init__(fleet_dir, worker_argv, **kw)
+        self.models_dir = models_dir
+        self.lang = lang
+        self.stop = stop
+        self.max_seconds = max_seconds
+        self.swap_timeout = float(swap_timeout)
+        self._stop_flag = False
+        self._stopping = False
+        self._deadline = (
+            time.monotonic() + float(max_seconds)
+            if max_seconds is not None else None
+        )
+        # replicas deferred until the canary (lowest index) is ready
+        self._deferred: List[Tuple[int, int]] = []
+        self._deferred_deadline = 0.0
+        # the rolling-swap state machine (one replica in flight at a time)
+        self._roll: Optional[Dict] = None
+        self._next_control_id = 0
+        self._target_stamp: Optional[int] = None
+        if models_dir is not None:
+            from ..serving.front import discover_latest_model_dir, model_stamp
+
+            self._target_stamp = model_stamp(
+                discover_latest_model_dir(models_dir, lang)
+            )
+
+    def request_stop(self) -> None:
+        """Ask the loop to drain the fleet and exit (thread-safe)."""
+        self._stop_flag = True
+
+    # -- role overrides --------------------------------------------------
+    def _recover_worker(self, index: int) -> None:
+        # serve replicas keep no epoch ledger; recovery is the respawn
+        pass
+
+    def _handle_death(self, w: _Worker, *, cause: str) -> None:
+        # retire the dead incarnation's lease before the respawn: the
+        # front drops it from rotation at once
+        try:
+            os.remove(lease_path(self.fleet_dir, w.index))
+        except OSError:
+            pass
+        if self._stopping:
+            w.finished = True
+            w.finished_reason = cause
+            return
+        super()._handle_death(w, cause=cause)
+
+    def _spawn_set(self, count: int, *, kind: str, **extra) -> None:
+        """The fence record for the whole set, then a staggered spawn: the
+        canary (lowest index) first, the rest once it is ready or the
+        startup grace passes."""
+        from .. import telemetry
+
+        spawn_ids = {}
+        for i in range(count):
+            spawn_ids[i] = self._next_spawn_id
+            self._next_spawn_id += 1
+        self.ledger.append(
+            kind=kind,
+            generation=self.generation,
+            worker_count=count,
+            spawn_ids=spawn_ids,
+            trace_id=self.trace.trace_id,
+            **extra,
+        )
+        chaos = kind == "spawn" and self.generation == 0
+        if count > 1:
+            self._spawn(0, count, spawn_ids[0], chaos=chaos)
+            self._deferred = [(i, spawn_ids[i]) for i in range(1, count)]
+            self._deferred_deadline = (
+                time.monotonic() + self.startup_grace_seconds
+            )
+        else:
+            for i in range(count):
+                self._spawn(i, count, spawn_ids[i], chaos=chaos)
+        telemetry.gauge(WORKERS_GAUGE, count)
+
+    def _spawn_deferred_if_ready(self) -> None:
+        if not self._deferred:
+            return
+        canary = min(
+            (i for i, w in self._procs.items() if not w.finished),
+            default=None,
+        )
+        ready = False
+        if canary is not None:
+            lease = read_lease(lease_path(self.fleet_dir, canary))
+            ready = (
+                lease is not None
+                and lease.get("state") == "ready"
+                and int(lease.get("spawn_id", -1))
+                == self._procs[canary].spawn_id
+            )
+        if not ready and time.monotonic() < self._deferred_deadline:
+            return
+        deferred, self._deferred = self._deferred, []
+        count = self._current_count()
+        for i, sid in deferred:
+            self._spawn(i, count, sid)
+
+    def _resize(self, new_count: int, *, why: str) -> None:
+        """Drain-free resize: grow by spawning fresh replicas next to the
+        serving set, shrink by draining only the retired (highest)
+        indices.  The fleet keeps answering throughout."""
+        from .. import telemetry
+
+        old = self._current_count()
+        new_count = max(self.min_workers, min(self.max_workers, new_count))
+        if new_count == old or self._stopping:
+            return
+        self.report.resizes += 1
+        self.report.resize_history.append(new_count)
+        telemetry.count(RESIZES_COUNTER)
+        telemetry.event(
+            "fleet_resize", workers_from=old, workers_to=new_count,
+            why=why, generation=self.generation, role="serve",
+        )
+        live = {
+            i: w.spawn_id for i, w in self._procs.items() if not w.finished
+        }
+        if new_count > old:
+            fresh = {}
+            for i in range(old, new_count):
+                fresh[i] = self._next_spawn_id
+                self._next_spawn_id += 1
+            self.ledger.append(
+                kind="resize",
+                generation=self.generation,
+                worker_count=new_count,
+                spawn_ids={**live, **fresh},
+                why=why,
+            )
+            for i, sid in fresh.items():
+                self._spawn(i, new_count, sid)
+        else:
+            retire = [
+                i for i in sorted(self._procs, reverse=True)
+                if not self._procs[i].finished
+            ][: old - new_count]
+            keep = {i: sid for i, sid in live.items() if i not in retire}
+            self.ledger.append(
+                kind="resize",
+                generation=self.generation,
+                worker_count=new_count,
+                spawn_ids=keep,
+                why=why,
+            )
+            for i in retire:
+                w = self._procs.pop(i)
+                self._escalate(w, why=f"resize_{why}")
+                w.proc.wait()
+                for p in (
+                    lease_path(self.fleet_dir, i),
+                    control_path(self.fleet_dir, i),
+                ):
+                    try:
+                        os.remove(p)
+                    except OSError:
+                        pass
+        telemetry.gauge(WORKERS_GAUGE, new_count)
+
+    # -- rolling hot-swap ------------------------------------------------
+    def _issue_swap(self, index: int, path: str, stamp: int) -> None:
+        self._next_control_id += 1
+        os.makedirs(
+            os.path.join(self.fleet_dir, CONTROL_DIRNAME), exist_ok=True
+        )
+        atomic_write_text(
+            control_path(self.fleet_dir, index),
+            json.dumps(
+                {
+                    "id": self._next_control_id,
+                    "swap_to": path,
+                    "stamp": int(stamp),
+                },
+                sort_keys=True,
+            ) + "\n",
+        )
+
+    def _maybe_start_roll(self) -> None:
+        from .. import telemetry
+
+        if self.models_dir is None or self._stopping:
+            return
+        from ..serving.front import discover_latest_model_dir, model_stamp
+
+        latest = discover_latest_model_dir(self.models_dir, self.lang)
+        stamp = model_stamp(latest)
+        if stamp is None:
+            return
+        if self._target_stamp is not None and stamp <= self._target_stamp:
+            return
+        queue = sorted(i for i, w in self._procs.items() if not w.finished)
+        if not queue:
+            return
+        self.report.swap_rolls += 1
+        telemetry.count(SWAP_ROLLS_COUNTER)
+        telemetry.event(
+            "fleet_swap_roll", target=latest, stamp=stamp,
+            replicas=len(queue),
+        )
+        self._roll = {
+            "path": latest,
+            "stamp": int(stamp),
+            "queue": queue,
+            "current": None,
+            "deadline": 0.0,
+            "swaps": {},
+        }
+
+    def _advance_roll(self) -> None:
+        from .. import telemetry
+
+        if self._roll is None:
+            self._maybe_start_roll()
+            if self._roll is None:
+                return
+        r = self._roll
+        cur = r["current"]
+        if cur is None:
+            if not r["queue"]:
+                swaps = r["swaps"]
+                lag = (
+                    round(max(swaps.values()) - min(swaps.values()), 6)
+                    if len(swaps) >= 2 else 0.0
+                )
+                telemetry.event(
+                    "fleet_swap_roll_done",
+                    stamp=r["stamp"],
+                    swapped=len(swaps),
+                    swap_lag_seconds=lag,
+                )
+                self._target_stamp = r["stamp"]
+                self._roll = None
+                return
+            nxt = r["queue"].pop(0)
+            w = self._procs.get(nxt)
+            if w is None or w.finished:
+                return                  # retired mid-roll: skip it
+            self._issue_swap(nxt, r["path"], r["stamp"])
+            r["current"] = nxt
+            r["deadline"] = time.monotonic() + self.swap_timeout
+            return
+        lease = read_lease(lease_path(self.fleet_dir, cur))
+        got = None
+        if lease is not None and not lease.get("done"):
+            try:
+                got = int(lease.get("model_stamp"))
+            except (TypeError, ValueError):
+                got = None
+        if got is not None and got >= r["stamp"]:
+            r["swaps"][cur] = time.time()
+            telemetry.event(
+                "fleet_replica_swapped",
+                worker=cur, stamp=got, model=r["path"],
+            )
+            r["current"] = None
+        elif time.monotonic() > r["deadline"]:
+            # a stuck swap must not wedge the roll (the replica keeps
+            # serving its verified old model; the stall is counted)
+            telemetry.count(SWAP_STALLS_COUNTER)
+            telemetry.event(
+                "fleet_swap_stalled", worker=cur, stamp=r["stamp"],
+            )
+            r["current"] = None
+
+    # -- lifecycle -------------------------------------------------------
+    def _shutdown_fleet(self) -> None:
+        """Drain every replica in parallel (SIGTERM all, grace, SIGKILL
+        the stragglers) and mark the fleet finished."""
+        from .. import telemetry
+
+        self._stopping = True
+        active = [w for w in self._procs.values() if not w.finished]
+        for w in active:
+            w.drain_requested = True
+            self._signal(w, signal.SIGTERM)
+        deadline = time.monotonic() + self.grace_seconds
+        for w in active:
+            left = max(0.05, deadline - time.monotonic())
+            if self._await_exit(w, left) is None:
+                self._signal(w, signal.SIGKILL)
+                w.proc.wait()
+            w.finished = True
+            w.finished_reason = "shutdown"
+        telemetry.event("fleet_shutdown", replicas=len(active))
+
+    def _sweep(self) -> bool:
+        if not self._stopping and (
+            self._stop_flag
+            or (self.stop is not None and self.stop())
+            or (
+                self._deadline is not None
+                and time.monotonic() >= self._deadline
+            )
+        ):
+            self._shutdown_fleet()
+            return True
+        done = super()._sweep()
+        if done or self._stopping:
+            return True
+        self._spawn_deferred_if_ready()
+        self._advance_roll()
         return False

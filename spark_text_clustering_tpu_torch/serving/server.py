@@ -76,6 +76,7 @@ from .front import (
     DEGRADED_HEADER,
     GENERATION_HEADER,
     PRIORITY_HEADER,
+    REPLICA_HEADER,
     model_stamp,
 )
 
@@ -141,6 +142,7 @@ class ServeScorer:
         token_buckets: Sequence[int] = DEFAULT_TOKEN_BUCKETS,
         device="cuda",
         shapes: Optional[ShapeLog] = None,
+        emulate_doc_seconds: Optional[float] = None,
     ) -> None:
         from ..models.base import LDAModel
         from ..pipeline import TextPreprocessor, make_vectorizer
@@ -154,6 +156,11 @@ class ServeScorer:
         # generation-pinning key; None for unstamped explicit dirs)
         self.stamp = model_stamp(path)
         self.shapes = shapes if shapes is not None else ShapeLog()
+        # the fleet drill's emulated dispatch: a pinned per-document
+        # sleep in place of the kernel, so a CPU host can run N replicas
+        # and the drill measures the fleet path (routing, transport,
+        # coalescing) around a device-shaped service time
+        self.emulate_doc_seconds = emulate_doc_seconds
         self.pre = TextPreprocessor(
             stop_words=stop_words, lemmatize=lemmatize
         )
@@ -177,7 +184,8 @@ class ServeScorer:
             # events) link the serving trace back to the trace that
             # ingested and trained the bytes being served
             self.attribution["publish_trace"] = publish_trace
-        self._lda = isinstance(model, LDAModel)
+        self._lda = (isinstance(model, LDAModel)
+                     and emulate_doc_seconds is None)
         if self._lda:
             dev = self.device
             with _on_device(dev):
@@ -236,12 +244,24 @@ class ServeScorer:
         ``degraded=True`` is the overload tier (docs/SERVING.md
         "Overload & degradation"): documents are truncated to fit the
         SMALLEST warmed token bucket — cheaper answers on a shape warmup
-        already ran."""
+        already ran.  The emulated path halves its pinned service time
+        instead."""
         n = len(rows)
         if n > self.max_batch:
             raise ValueError(f"{n} rows > max_batch {self.max_batch}")
         if n == 0:
             return np.zeros((0, self.k), np.float32)
+        if self.emulate_doc_seconds is not None:
+            # a device-shaped service time and a fixed answer: block for
+            # the pinned seconds a document, answer the uniform
+            # distribution with topic 0 ahead (the JAX package's bytes)
+            per_doc = self.emulate_doc_seconds
+            if degraded:
+                per_doc *= 0.5
+            _sleep(per_doc * n)
+            out = np.full((n, self.k), 1.0 / self.k, np.float32)
+            out[:, 0] += 1e-3
+            return out
         if not self._lda:
             return np.asarray(
                 self.model.topic_distribution(rows, device=self.device),
@@ -294,12 +314,13 @@ class ServeScorer:
         reg = telemetry.get_registry()
         t0 = time.perf_counter()
         v = max(1, self.model.vocab_size)
-        for t in self.token_buckets:
-            live = max(1, t // 2 + 1)  # lands exactly in bucket t
-            ids = (np.arange(live, dtype=np.int64) % v).astype(np.int32)
-            self.score_rows([(ids, np.ones(live, np.float32))])
+        if self.emulate_doc_seconds is None:
+            for t in self.token_buckets:
+                live = max(1, t // 2 + 1)  # lands exactly in bucket t
+                ids = (np.arange(live, dtype=np.int64) % v).astype(np.int32)
+                self.score_rows([(ids, np.ones(live, np.float32))])
         retraces = reg.counter("compile.retraces").value
-        return {
+        report = {
             "buckets": list(self.token_buckets),
             "warmup_seconds": round(time.perf_counter() - t0, 6),
             "signatures": [
@@ -308,6 +329,9 @@ class ServeScorer:
             "retraces_at_warmup": int(retraces),
             "compile_cache": "off",
         }
+        if self.emulate_doc_seconds is not None:
+            report["emulated_doc_seconds"] = self.emulate_doc_seconds
+        return report
 
 
 class DegradeController:
@@ -411,12 +435,18 @@ class ScoringService:
         batch_weight: float = 0.25,
         degrade: Optional[DegradeController] = None,
         device="cuda",
+        replica_index: Optional[int] = None,
+        emulate_doc_seconds: Optional[float] = None,
     ) -> None:
         self.models_dir = models_dir
         self.lang = lang
         self.explicit_model = model
         self.verify_deep = verify_deep
         self.device = resolve_device(device)
+        # fleet identity: responses carry X-STC-Replica, and the
+        # Prometheus exposition labels every series with the index, so a
+        # scraper sees N replicas as one labelled family
+        self.replica_index = replica_index
         self._scorer_kw = dict(
             stop_words=stop_words,
             lemmatize=lemmatize,
@@ -424,6 +454,7 @@ class ScoringService:
             token_buckets=token_buckets,
             device=self.device,
             shapes=ShapeLog(),
+            emulate_doc_seconds=emulate_doc_seconds,
         )
         self.model_poll_interval = float(model_poll_interval)
         self.request_timeout = float(request_timeout)
@@ -469,7 +500,10 @@ class ScoringService:
         self._watcher = None
         if model is None and watch_model:
             # an explicitly pinned --model never swaps; discovery mode
-            # polls the selection path for a newer published artifact
+            # polls the selection path for a newer published artifact.
+            # Fleet replicas run with watch_model=False: the supervisor
+            # sequences swaps replica by replica through control files,
+            # so the fleet never re-warms everywhere at once.
             self._watcher = threading.Thread(
                 target=self._watch, name="stc-serve-watcher", daemon=True
             )
@@ -862,7 +896,7 @@ class _ServeHandler(BaseHTTPRequestHandler):
         pass
 
     def _send(
-        self, code: int, doc: dict, trace=None, headers=None
+        self, code: int, doc: dict, trace=None, headers=None, stamp=None,
     ) -> None:
         service: ScoringService = self.server.service
         body = json.dumps(doc).encode("utf-8")
@@ -878,10 +912,15 @@ class _ServeHandler(BaseHTTPRequestHandler):
             # the walk from this header
             self.send_header(tracing.HEADER, trace.format())
         # which publish generation answered (the fleet front's
-        # generation-pinning key)
-        stamp = service.scorer.stamp
+        # generation-pinning key): the newest model that scored the
+        # request's documents, else the one serving now
+        if stamp is None:
+            stamp = service.scorer.stamp
         if stamp is not None:
             self.send_header(GENERATION_HEADER, str(stamp))
+        # and which replica (the front forwards it as it is)
+        if service.replica_index is not None:
+            self.send_header(REPLICA_HEADER, str(service.replica_index))
         self.end_headers()
         self.wfile.write(body)
 
@@ -917,9 +956,14 @@ class _ServeHandler(BaseHTTPRequestHandler):
                 not params.get("format")
                 and prometheus.wants_prometheus(accept)
             ):
+                labels = (
+                    {"replica": str(service.replica_index)}
+                    if service.replica_index is not None else None
+                )
                 self._send_text(
                     200,
-                    prometheus.render(snap, buckets=want_buckets),
+                    prometheus.render(snap, labels=labels,
+                                      buckets=want_buckets),
                     prometheus.CONTENT_TYPE,
                 )
             else:
@@ -984,6 +1028,9 @@ class _ServeHandler(BaseHTTPRequestHandler):
                 headers={"Retry-After": str(int(math.ceil(ra)))},
             )
             return
+        stamps = [model_stamp(r["model"]["model"]) for r in results
+                  if "model" in r]
+        stamps = [st for st in stamps if st is not None]
         extra = None
         if any(r.get("degraded") for r in results):
             # quality-shed attribution: clients can tell a cheap answer
@@ -998,6 +1045,7 @@ class _ServeHandler(BaseHTTPRequestHandler):
             },
             trace=ctx,
             headers=extra,
+            stamp=max(stamps) if stamps else None,
         )
 
 

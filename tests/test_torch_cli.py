@@ -584,7 +584,7 @@ def test_resume_mismatch_exits_2(native_lib, corpus, tmp_path):
     assert rc == 2 and "--resume requires --checkpoint-dir" in se
 
 
-_SERVE = "item 8b, the serve fleet"
+_ALERTS = "item 9b"
 REFUSED = [
     (["train", "--compile-cache", "cc"], "--compile-cache", "item 10"),
     (["score", "--compile-cache", "cc"], "--compile-cache", "item 10"),
@@ -592,38 +592,28 @@ REFUSED = [
      "item 10"),
     (["stream-train", "--compile-cache", "cc"], "--compile-cache",
      "item 10"),
-    (["supervise", "--role", "serve"], "--role serve", _SERVE),
-    (["supervise", "--front-port", "0"], "--front-port", _SERVE),
-    (["supervise", "--max-seconds", "5"], "--max-seconds", _SERVE),
-    (["supervise", "--swap-timeout", "9"], "--swap-timeout", _SERVE),
-    (["supervise", "--serve-max-batch", "8"], "--serve-max-batch", _SERVE),
-    (["supervise", "--serve-linger-ms", "1"], "--serve-linger-ms", _SERVE),
-    (["supervise", "--serve-emulate-doc-ms", "1"], "--serve-emulate-doc-ms",
-     _SERVE),
-    (["supervise", "--serve-max-queue", "4"], "--serve-max-queue", _SERVE),
-    (["supervise", "--serve-batch-weight", "0.5"], "--serve-batch-weight",
-     _SERVE),
-    (["supervise", "--autoscale"], "--autoscale", _SERVE),
+    (["supervise", "--autoscale"], "--autoscale", _ALERTS),
     (["supervise", "--autoscale-high-rho", "0.9"], "--autoscale-high-rho",
-     _SERVE),
+     _ALERTS),
     (["supervise", "--autoscale-low-rho", "0.1"], "--autoscale-low-rho",
-     _SERVE),
+     _ALERTS),
     (["supervise", "--autoscale-confirm", "3"], "--autoscale-confirm",
-     _SERVE),
+     _ALERTS),
     (["supervise", "--autoscale-cooldown", "1"], "--autoscale-cooldown",
-     _SERVE),
-    (["supervise", "--actions-file", "a.json"], "--actions-file", "item 9b"),
+     _ALERTS),
+    (["supervise", "--actions-file", "a.json"], "--actions-file", _ALERTS),
+    (["supervise", "--role", "serve", "--resize-at", "0:3"], "--resize-at",
+     _ALERTS),
+    (["supervise", "--role", "serve", "--scale-out-depth", "4"],
+     "--scale-out-depth", _ALERTS),
+    (["supervise", "--role", "serve", "--scale-out-sweeps", "2"],
+     "--scale-out-sweeps", _ALERTS),
+    (["supervise", "--role", "serve", "--scale-in-sweeps", "2"],
+     "--scale-in-sweeps", _ALERTS),
     (["supervise", "--compile-cache", "cc"], "--compile-cache", "item 10"),
-    (["serve", "--alerts-file", "a.jsonl"], "--alerts-file", "item 9b"),
-    (["serve", "--emulate-doc-ms", "5"], "--emulate-doc-ms", _SERVE),
-    (["serve", "--fleet-dir", "fleet"], "--fleet-dir", _SERVE),
-    (["serve", "--worker-index", "1"], "--worker-index", _SERVE),
-    (["serve", "--fleet-generation", "2"], "--fleet-generation", _SERVE),
-    (["serve", "--fleet-spawn-id", "3"], "--fleet-spawn-id", _SERVE),
-    (["serve", "--heartbeat-interval", "0.2"], "--heartbeat-interval",
-     _SERVE),
-    (["serve", "--lease-timeout", "5"], "--lease-timeout", _SERVE),
+    (["serve", "--alerts-file", "a.jsonl"], "--alerts-file", _ALERTS),
     (["serve", "--compile-cache", "cc"], "--compile-cache", "item 10"),
+    (["front", "--alerts-file", "a.jsonl"], "--alerts-file", _ALERTS),
 ]
 
 
@@ -632,21 +622,139 @@ REFUSED = [
 def test_unported_flags_exit_2_and_name_their_item(tmp_path, argv, flag,
                                                    item):
     """Each flag whose machinery is not ported exits 2 before any work,
-    naming its ROADMAP.md queue 1 item; none is accepted and ignored (a
-    serve flag left at the JAX package's default is the JAX CLI's stream
-    fleet)."""
+    naming its ROADMAP.md queue 1 item; none is accepted and ignored (an
+    autoscaler flag left at the JAX package's default is the JAX CLI's
+    fleet without the autoscaler)."""
     if argv[0] == "supervise":
         books = ["--watch-dir", str(tmp_path / "none"), "--fleet-dir",
                  str(tmp_path / "fleet")]
     elif argv[0] == "serve":
         books = ["--models-dir", str(tmp_path / "none")]
+    elif argv[0] == "front":
+        books = ["--fleet-dir", str(tmp_path / "fleet")]
     else:
         source = "--watch-dir" if argv[0].startswith("stream") else "--books"
         books = [source, str(tmp_path / "none")]
-    rc, so, se = run(port_main, [*argv[:1], *books, *argv[1:]])
+    # the front takes no --device: it never touches the card
+    main = tcli.main if argv[0] == "front" else port_main
+    rc, so, se = run(main, [*argv[:1], *books, *argv[1:]])
     assert rc == 2 and so == ""
     assert f"error: {flag} is not ported yet (ROADMAP.md queue 1 {item}" in se
     assert not os.path.exists(tmp_path / "fleet")
+
+
+# each serve-fleet flag of ``supervise`` (and of the replica it starts):
+# the supervise flags given, the replica's (index, generation, spawn id),
+# and the ``serve`` argument of the replica that must hold the value
+# (None: the flag stays with the supervisor)
+SERVE_FLEET_FLAGS = [
+    ("--role serve", [], (0, 0, 0), "fn", tcli.cmd_serve),
+    ("--front-port", ["--front-port", "0"], (0, 0, 0), None, None),
+    ("--max-seconds", ["--max-seconds", "5"], (0, 0, 0), "max_seconds",
+     None),
+    ("--swap-timeout", ["--swap-timeout", "9"], (0, 0, 0), None, None),
+    ("--serve-max-batch", ["--serve-max-batch", "8"], (0, 0, 0),
+     "max_batch", 8),
+    ("--serve-linger-ms", ["--serve-linger-ms", "1"], (0, 0, 0),
+     "linger_ms", 1.0),
+    ("--serve-emulate-doc-ms", ["--serve-emulate-doc-ms", "1"], (0, 0, 0),
+     "emulate_doc_ms", 1.0),
+    ("--serve-max-queue", ["--serve-max-queue", "4"], (0, 0, 0),
+     "max_queue", 4),
+    ("--serve-batch-weight", ["--serve-batch-weight", "0.5"], (0, 0, 0),
+     "batch_weight", 0.5),
+    ("serve --emulate-doc-ms", ["--serve-emulate-doc-ms", "5"], (0, 0, 0),
+     "emulate_doc_ms", 5.0),
+    ("serve --fleet-dir", [], (0, 0, 0), "fleet_dir", "FLEET"),
+    ("serve --worker-index", [], (1, 0, 4), "worker_index", 1),
+    ("serve --fleet-generation", [], (0, 2, 0), "fleet_generation", 2),
+    ("serve --fleet-spawn-id", [], (0, 0, 3), "fleet_spawn_id", 3),
+    ("serve --heartbeat-interval", ["--heartbeat-interval", "0.2"],
+     (0, 0, 0), "heartbeat_interval", 0.2),
+    ("serve --lease-timeout", ["--lease-timeout", "5"], (0, 0, 0),
+     "lease_timeout", 5.0),
+]
+
+
+def _jax_replica_argv(monkeypatch, argv, ids):
+    """The replica argv the JAX CLI's ``supervise --role serve`` builds for
+    ``ids``, read from its supervisor's constructor (whose run then ends
+    the command)."""
+    import signal
+
+    from spark_text_clustering_tpu.resilience import ResilienceError
+    from spark_text_clustering_tpu.resilience import supervisor as jsup
+
+    got = {}
+
+    class Recorder:
+        def __init__(self, fleet_dir, worker_argv, **kw):
+            got["argv"] = list(worker_argv(ids[0], 2, ids[1], ids[2]))
+
+        def run(self):
+            raise ResilienceError("argv recorded")
+
+    monkeypatch.setattr(jsup, "ServeFleetSupervisor", Recorder)
+    before = signal.getsignal(signal.SIGTERM)
+    try:
+        rc, _, _ = run(jax_main, argv)
+    finally:
+        signal.signal(signal.SIGTERM, before)
+    assert rc == 1
+    return got["argv"]
+
+
+@pytest.mark.parametrize("case", SERVE_FLEET_FLAGS,
+                         ids=[c[0] for c in SERVE_FLEET_FLAGS])
+def test_serve_fleet_flags_reach_the_replica_argv(tmp_path, monkeypatch,
+                                                  case):
+    """``supervise --role serve`` builds each replica's argv as the JAX
+    CLI does (its module name swapped), and the port's replica, given
+    ``--device``, parses it to the ``serve`` arguments and the
+    ``ScoringService`` arguments it stands for."""
+    from spark_text_clustering_tpu_torch.resilience import (
+        CorruptArtifactError,
+    )
+    from spark_text_clustering_tpu_torch.serving import server as tserver
+
+    _, extra, ids, dest, want = case
+    fleet = str(tmp_path / "fleet")
+    argv = ["supervise", "--role", "serve", "--fleet-dir", fleet,
+            "--models-dir", str(tmp_path / "models"), *extra]
+    jargv = _jax_replica_argv(monkeypatch, argv, ids)
+    sargs = tcli.build_parser().parse_args(argv)
+    targv = tcli._serve_replica_argv(sargs, ids[0], 2, ids[1], ids[2])
+    assert jargv[2] == "spark_text_clustering_tpu.cli"
+    assert targv == [*jargv[:2], "spark_text_clustering_tpu_torch.cli",
+                     *jargv[3:]]
+    cargs = tcli.build_parser().parse_args([*argv, "--device", "cpu"])
+    rargv = tcli._serve_replica_argv(cargs, ids[0], 2, ids[1], ids[2])
+    assert rargv[3] == "serve" and rargv[-2:] == ["--device", "cpu"]
+    rargs = tcli.build_parser().parse_args(rargv[3:])
+    if dest is not None:
+        assert getattr(rargs, dest) == (fleet if want == "FLEET" else want)
+    else:
+        assert extra[0] not in rargv
+    seen = {}
+
+    def service(models_dir, lang, **kw):
+        seen.update(kw)
+        raise CorruptArtifactError(models_dir, "stub")
+
+    monkeypatch.setattr(tserver, "ScoringService", service)
+    assert rargs.fn(rargs) == 2
+    assert seen["device"] == torch.device("cpu")
+    assert (seen["max_batch"], seen["linger_s"], seen["max_queue"],
+            seen["batch_weight"], seen["replica_index"],
+            seen["watch_model"]) == (
+        rargs.max_batch, rargs.linger_ms / 1000.0, rargs.max_queue,
+        rargs.batch_weight, ids[0], False)
+    assert seen["emulate_doc_seconds"] == (
+        None if rargs.emulate_doc_ms is None
+        else rargs.emulate_doc_ms / 1000.0)
+    # the replica's lease beat before the model's load
+    assert os.path.exists(os.path.join(fleet, "leases",
+                                       f"w{ids[0]:03d}.json"))
 
 
 def test_serve_subprocess_answers_and_drains(trained, corpus, tmp_path):

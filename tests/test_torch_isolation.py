@@ -7,6 +7,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -134,15 +135,116 @@ def test_the_telemetry_modules_are_scanned():
 
 def test_the_serving_modules_are_scanned():
     """The import and source scans cover the scoring service, the queueing
-    estimator it prices refusals with and the per-document kernel's
-    wrapper."""
+    estimator it prices refusals with, the per-document kernel's wrapper,
+    and the serve fleet's front, probe and stream tailers."""
     mods = set(_port_modules())
     assert {"spark_text_clustering_tpu_torch.serving",
             "spark_text_clustering_tpu_torch.serving.coalescer",
             "spark_text_clustering_tpu_torch.serving.front",
+            "spark_text_clustering_tpu_torch.serving.probe",
             "spark_text_clustering_tpu_torch.serving.server",
+            "spark_text_clustering_tpu_torch.telemetry.alerts",
             "spark_text_clustering_tpu_torch.telemetry.queueing",
             "spark_text_clustering_tpu_torch.ops.segments"} <= mods
+
+
+def test_front_and_probe_modules_load_neither_jax_nor_torch():
+    """The serve fleet's front, probe and stream tailers are standard
+    library only: importing them (past the package's own ``__init__``)
+    loads neither torch, jax nor the JAX package, and starts no
+    process."""
+    code = (
+        "import sys, importlib.util, subprocess, types\n"
+        "def no_proc(*a, **k):\n"
+        "    raise AssertionError(f'a process was started: {a}')\n"
+        "subprocess.Popen = subprocess.run = no_proc\n"
+        "spec = importlib.util.find_spec('spark_text_clustering_tpu_torch')\n"
+        "pkg = types.ModuleType(spec.name)\n"
+        "pkg.__path__ = list(spec.submodule_search_locations)\n"
+        "sys.modules[spec.name] = pkg\n"
+        "for m in ('serving.front', 'serving.probe', 'telemetry.alerts'):\n"
+        "    importlib.import_module(f'{spec.name}.{m}')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('torch', 'jax', 'spark_text_clustering_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_front_and_probe_run_without_a_cuda_context(tmp_path, monkeypatch):
+    """The ``front`` and ``probe`` verbs never touch the card: with every
+    way to a CUDA context made to raise, the front serves a request (503:
+    no replica) and drains, and the probe probes a front."""
+    import http.client
+    import json
+    import threading
+
+    from spark_text_clustering_tpu_torch import cli
+
+    def no_card(*a, **k):
+        raise AssertionError("a CUDA context was asked for")
+
+    monkeypatch.setattr(torch.cuda, "_lazy_init", no_card)
+    monkeypatch.setattr(torch.cuda, "init", no_card)
+    monkeypatch.setattr(cli, "resolve_device", no_card)
+    fleet = str(tmp_path / "fleet")
+    got = {}
+
+    def client():
+        front = os.path.join(fleet, "front.json")
+        deadline = time.monotonic() + 30
+        while not os.path.exists(front) and time.monotonic() < deadline:
+            time.sleep(0.02)
+        with open(front) as f:
+            port = json.load(f)["port"]
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+        conn.request("POST", "/score", body=b'{"text": "x"}')
+        got["status"] = conn.getresponse().status
+        conn.close()
+        got["probe"] = cli.main(["probe", "--url", f"http://127.0.0.1:{port}",
+                                 "--count", "1", "--rate", "50",
+                                 "--timeout", "5"])
+
+    t = threading.Thread(target=client)
+    t.start()
+    rc = cli.main(["front", "--fleet-dir", fleet, "--port", "0",
+                   "--wait-for-replica", "0.1", "--max-seconds", "3"])
+    t.join(30)
+    assert rc == 0 and got == {"status": 503, "probe": 0}
+    assert not torch.cuda.is_initialized()
+
+
+def test_supervised_serve_replicas_resolve_the_card(tmp_path, monkeypatch):
+    """A ``serve`` replica that ``supervise --role serve`` starts without
+    ``--device`` asks for the card: its argv carries no device, parses to
+    cuda, and the replica resolves cuda before anything else (a stub
+    raises on a CPU fallback)."""
+    from spark_text_clustering_tpu_torch import cli
+
+    class Card(Exception):
+        pass
+
+    def resolve(device="cuda"):
+        if torch.device(device).type != "cuda":
+            raise AssertionError(f"the replica fell back to {device}")
+        raise Card(device)
+
+    args = cli.build_parser().parse_args(
+        ["supervise", "--role", "serve", "--fleet-dir",
+         str(tmp_path / "fleet")])
+    argv = cli._serve_replica_argv(args, 0, 2, 0, 0)
+    assert argv[2:4] == ["spark_text_clustering_tpu_torch.cli", "serve"]
+    assert "--device" not in argv
+    rargs = cli.build_parser().parse_args(argv[3:])
+    assert rargs.device == "cuda"
+    monkeypatch.setattr(cli, "resolve_device", resolve)
+    with pytest.raises(Card, match="cuda"):
+        rargs.fn(rargs)
+    assert not os.path.exists(tmp_path / "fleet")
 
 
 def test_a_scoring_service_loads_no_jax(tmp_path):
