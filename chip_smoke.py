@@ -103,7 +103,8 @@
    fused sweep on every rank) and I-B (B's: grid IDF -> EM fit, the
    two-stage sweep -> grid scoring of 512 docs), each against the 1x1
    card fit from the same seed (avg logLik 1e-4, lambda 1e-3 relative
-   or twice the 1x1 fit's spread against itself, B's atomics;
+   or twice the 1x1 fit's spread, the largest pairwise distance of five
+   1x1 card fits of B from the seed, whose N_dk adds with atomics;
    scoring 5e-3, the grid's EM log-likelihood of the 512 docs 1e-4),
    with ms a sweep and the share of it spent in the collectives; I-CLI:
    ``train --data-shards 2 --model-shards 2 --dist-backend gloo`` and
@@ -214,7 +215,16 @@
    ``mem.device.*``), the card manifest says ``backend: "gpu"`` with the
    CPU run's ``config_hash``, ``mem.device.bytes_in_use`` is above 0, 50
    ``train_iteration`` events and ``train_fit``'s log-likelihood over the
-   documents equal to the printed average; K's uninterrupted card
+   documents equal to the printed average; the two card streams read by
+   the port's ``metrics summarize``, ``roofline`` and ``compile-check``:
+   every kernel launch attributed to a call (per kernel, the launches
+   summed over the digests equal the wrappers' counts), every call that
+   launched a kernel on the ``nvidia-h100`` peaks at a roofline fraction
+   in (0, 1.05] (the rows on a ``config_E_roofline`` line), and one
+   ``score.topic_inference`` signature a length bucket; N-inproc's
+   ``serve`` stream: ``serve.topic_inference``'s calls equal the
+   per-document kernel's launches, and the sentinel counts no retrace
+   after warmup; K's uninterrupted card
    ``stream-train`` (with a spawner's ``STC_TRACE``): one ``micro_batch``
    a trigger, their trace id on every committed ledger record,
    ``ledger.commits`` equal to the records; M-train: each rank's
@@ -224,7 +234,8 @@
    ``micro_batch`` events;
    and, on config A's in-process fit, the disabled facade's estimated
    cost (telemetry calls of one enabled fit x each disabled primitive's
-   time in a tight loop) within 2% of the fit, beside the enabled and
+   time in a tight loop, the dispatch wrapper among them) within 2% of
+   the fit, beside the enabled and
    disabled ms a sweep.  A ``telemetry`` line sums the seconds these
    phases added;
 19. a ``total`` line with the run's seconds, then a ``kernels`` line: per
@@ -410,10 +421,6 @@ def bound(bytes_moved: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
 # ---- phase 2: each kernel against its plain version ------------------------
 def sorted_layout(torch, rows, v, dev):
     """The fit's packed, vocab-sorted token layout for ``rows``."""
@@ -551,13 +558,9 @@ def check_sweep(torch, rows, dev, rng, seed):
     def kernel():
         return emsweep.em_sweep_fused(*args, **geo)
 
-    # bytes the kernel needs: the table, the doc factor, every slot's lid
-    # and block map, seg and cts of live slots only, and the two outputs
-    # (the doc stream's second read of the tokens lies above it)
+    # the kernel's cost (emsweep.cost) at the live slots
     live = int((cts_s > 0).sum())
-    t_bytes, by = bound(
-        nbytes(*args[:4], args[6]) + 8 * live
-        + nbytes(*got), 8.0 * k * live)
+    t_bytes, by = bound(*emsweep.cost(*args, **geo, live=live))
     return {
         "name": "em_sweep_fused", "route": "cuda",
         "source": "spark_text_clustering_tpu_torch/csrc/emsweep.cu",
@@ -684,10 +687,10 @@ def check_scatter(torch, rows, dev, rng, edge_rng, profile=False):
     edges = [scatter_edge_case(torch, dev, edge_rng, kk) for kk in (5, 20, 500)]
     edges.append(scatter_edge_case(torch, dev, edge_rng, NG_K,
                                    spread_pads=True))
-    # bytes the kernel needs: k posteriors of each live slot (it skips pad
-    # slots), every slot's lid, the block map, and the table it writes
+    # the kernel's cost (emscatter.cost) at the live slots
     live = int((cts_s > 0).sum())
-    t_bytes, by = bound(4 * k * live + nbytes(lids, bv, got), float(k * live))
+    t_bytes, by = bound(*emscatter.cost(wphi, lids, bv, shard_v=v,
+                                        live=live))
     extra = {}
     if profile:
         extra = {
@@ -799,8 +802,7 @@ def estep_case(torch, eb, cts, alpha, g0, label, timed=True):
     tile_b = min(8, b)
     n_tiles = -(-b // tile_b)
     cluster = estep.cluster_size(n_tiles, width, estep._sm_count(eb.device))
-    t_bytes, by = estep_bound(torch, cts, k, iters, b, tile_b,
-                              (alpha, g0, got))
+    t_bytes, by = estep_bound(eb, cts, alpha, g0, iters, tile_b)
     return {
         "shape": [b, k, width], "tiles": n_tiles, "cluster": cluster,
         "instance": estep_instance(k, width, tile_b, cluster),
@@ -859,15 +861,14 @@ ESTEP_EDGES = (
 )
 
 
-def estep_bound(torch, cts, k, iters, b, tile_b, small):
-    """The least time of one padded E-step call on the card: the eb of the
-    live slots (the kernel never reads a pad slot's), every slot's cts and
-    the small tensors (alpha, gamma0, the output) once; 4k + 1 flops a
-    live slot an iteration, over each tile's iterations ``iters``."""
-    nnz = (cts > 0).sum(1).to(torch.float64)
-    per_doc_iters = iters.repeat_interleave(tile_b)[:b].to(torch.float64)
-    flops = float((per_doc_iters * nnz * (4 * k + 1)).sum())
-    return bound(4 * k * int(nnz.sum()) + nbytes(cts, *small), flops)
+def estep_bound(eb, cts, alpha, g0, iters, tile_b):
+    """The least time of one padded E-step call on the card: its cost
+    (``estep.cost``) at each doc's live slots and each tile's iterations
+    ``iters``."""
+    from spark_text_clustering_tpu_torch.ops import estep
+
+    return bound(*estep.cost(eb, cts, alpha, g0, tile_b=tile_b, iters=iters,
+                             live=(cts > 0).sum(1)))
 
 
 def check_estep_edges(torch, dev, rng):
@@ -913,8 +914,7 @@ def check_estep_edges(torch, dev, rng):
         if not ok:
             raise AssertionError(f"gamma_fixed_point_bkl edge geometry: {case}")
         if k > 64:
-            b_ms, b_by = estep_bound(torch, cts, k, iters, b, 8,
-                                     (alpha, g0, got))
+            b_ms, b_by = estep_bound(eb, cts, alpha, g0, iters, 8)
             rc, chunks = estep_wide_chunks(k, l, 8, cs)
             case.update(
                 ratio_chunk=rc, chunks=chunks,
@@ -993,15 +993,14 @@ def tiles_case(torch, packed, args, d, label, doc_ids=None, b=None,
 
 
 def tiles_bound(torch, args, d, iters, live_slots):
-    """The least time for one launch on ``args``: bytes of eb, seg and cts
-    of live tokens, gamma0 read and gamma written for live slots, alpha;
-    operations per tile iteration and live token: phinorm (2k), the ratio,
-    and the k products and k adds of the per-slot sums."""
-    k = args[0].shape[0]
-    tok = (args[2] < d).sum(1).to(torch.float64)
-    flops = float((iters.to(torch.float64) * tok).sum()) * (4 * k + 1)
-    return bound(int(tok.sum()) * (4 * k + 8) + 8 * k * live_slots + 4 * k,
-                 flops)
+    """The least time for one launch on ``args``: its cost
+    (``packed.cost``) at each tile's live tokens, the live slots and each
+    tile's iterations ``iters``."""
+    from spark_text_clustering_tpu_torch.ops import packed
+
+    return bound(*packed.cost(*args, d, iters=iters,
+                              live_tokens=(args[2] < d).sum(1),
+                              live_slots=live_slots))
 
 
 # (label, k, doc lengths or a corpus name, n_shards, max_inner, tiles):
@@ -1402,8 +1401,8 @@ def check_nmf(torch, rows, dev, seed):
     live_tok = int((plan.seg < plan.d).sum())
     live_slots = int((plan.doc_ids < n).sum())
     flat_ids = args[0].new_tensor(plan.ids.reshape(-1), dtype=torch.long)
-    t_bytes, by = bound(live_tok * (8 * k + 8) + live_slots * 8 * k + 4 * k * k,
-                        2.0 * k * live_tok + live_slots * (2.0 * k * k + 3 * k))
+    t_bytes, by = bound(*nmf.cost(*args, plan.d, live_tokens=live_tok,
+                                  live_slots=live_slots))
     return {
         "name": "nmf_mu_update_tiles", "route": "cuda",
         "source": "spark_text_clustering_tpu_torch/csrc/nmf.cu",
@@ -1685,23 +1684,101 @@ def telemetry_stream(path):
     return events[0], events[1:-1], events[-1]["snapshot"]
 
 
+_DIGEST_NAME = re.compile(r"^(dispatch|mem|compile)\.[0-9a-f]{10}\.")
+# the dispatch layer's names a call carries only where it launched a
+# kernel (none on the CPU, whose wrappers run their plain versions), and
+# the gauge only a process's first instrumented stream carries
+_KERNEL_ONLY = re.compile(r"^dispatch\.<digest>\.(est_|device_.*_total$|"
+                          r"launches\.)|^mem\.<digest>\.code_bytes$|"
+                          r"^compile\.time_to_first_dispatch_seconds$")
+
+
 def stream_names(events, snapshot):
-    """The event types and registry names of a stream, less the device
-    memory families a CPU run cannot report."""
+    """The event types and registry names of a stream, digests masked,
+    less the device memory families a CPU run cannot report and the
+    dispatch names of kernel launches (``_KERNEL_ONLY``)."""
     names = {f"event:{e['event']}" for e in events}
     for kind in ("counters", "gauges", "histograms"):
-        names |= {f"{kind}:{n}" for n in snapshot[kind]}
+        names |= {f"{kind}:" + _DIGEST_NAME.sub(r"\1.<digest>.", n)
+                  for n in snapshot[kind]}
     return {n for n in names if not (
         n.split(":", 1)[1].startswith("mem.device.")
-        or n.endswith(":mem.device_stats_unavailable"))}
+        or n.endswith(":mem.device_stats_unavailable")
+        or _KERNEL_ONLY.match(n.split(":", 1)[1]))}
+
+
+def port_metrics(argv):
+    """``metrics <argv>`` through the port's CLI in this process: (exit
+    code, stdout)."""
+    from spark_text_clustering_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["metrics", *argv])
+    return rc, out.getvalue()
+
+
+def attributed_launches(summary):
+    """{kernel: launches} summed over a stream's digests, from ``metrics
+    summarize --json``'s metrics."""
+    out = {}
+    for name, value in summary["metrics"].items():
+        m = re.match(r"^counter\.dispatch\.[0-9a-f]{10}\.launches\.(\w+)$",
+                     name)
+        if m:
+            out[m.group(1)] = out.get(m.group(1), 0) + int(value)
+    return out
+
+
+def dispatch_attribution(label, paths, launches, baseline):
+    """The card streams ``paths`` of one command each, read by the port's
+    ``metrics summarize --json``, ``roofline --json`` and
+    ``compile-check``: every hand-written kernel launch of each command
+    attributed to a call (per kernel, the launches summed over its digests
+    equal ``launches[i]``, the wrappers' counts over that command), the
+    ``nvidia-h100`` peaks, every call that launched a kernel joined with a
+    roofline fraction in (0, 1.05] and every other call with no cost, and
+    the labels' signatures within ``baseline`` ({label: count})."""
+    rows, per_path = [], []
+    for path, counts in zip(paths, launches):
+        rc1, summ = port_metrics(["summarize", path, "--json"])
+        rc2, roof = port_metrics(["roofline", path, "--json"])
+        summ, roof = json.loads(summ), json.loads(roof)
+        seen = attributed_launches(summ)
+        want = {k: v for k, v in counts.items() if v}
+        bad = [r for r in roof["rows"] if (
+            r["cost_source"] == "kernels" and not (
+                r["available"] and 0.0 < r["roofline_frac"] <= 1.05))
+            or r["cost_source"] not in ("kernels", "none")]
+        if rc1 or rc2 or seen != want or roof["peaks_key"] != "nvidia-h100" \
+                or bad or not any(r["cost_source"] == "kernels"
+                                  for r in roof["rows"]):
+            raise AssertionError(
+                f"config {label} dispatch attribution of {path}: launches "
+                f"{seen} against {want}, peaks {roof['peaks_key']}, rows "
+                f"outside (0, 1.05]: {bad}")
+        per_path.append(seen)
+        rows += [{key: r.get(key) for key in (
+            "label", "calls", "warm_calls", "seconds", "est_bytes",
+            "est_flops", "roofline_frac", "frac_peak_bytes", "bound",
+            "cost_source", "mem_peak_bytes")} for r in roof["rows"]]
+    base = os.path.join(os.path.dirname(paths[0]), "compile_baseline.json")
+    with open(base, "w") as f:
+        json.dump({"schema": 1, "labels": baseline}, f)
+    rc, text = port_metrics(["compile-check", *paths, "--baseline", base])
+    if rc != 0:
+        raise AssertionError(f"config {label} compile-check: {text}")
+    return {"rows": rows, "launches": per_path,
+            "compile_check": text.strip().splitlines()[-1]}
 
 
 def telemetry_overhead(torch, tfidf, ckpt, seed):
     """The disabled facade's cost on config A's in-process fit, by the JAX
     package's method (scripts/check_telemetry_overhead.py): the telemetry
-    calls of one enabled fit (registry only) times each disabled
-    primitive's seconds in a tight loop, against the fit's wall time (the
-    median of three disabled fits).  Fails above 2%."""
+    calls of one enabled fit (registry only; a dispatch counts one call of
+    its ``dispatch.*.calls``) times each disabled primitive's seconds in a
+    tight loop (the dispatch wrapper among them), against the fit's wall
+    time (the median of three disabled fits).  Fails above 2%."""
     from spark_text_clustering_tpu_torch import LDA, Params, telemetry
     from spark_text_clustering_tpu_torch.telemetry import tracing, transport
 
@@ -1731,6 +1808,7 @@ def telemetry_overhead(torch, tfidf, ckpt, seed):
             transport.get_shipper() is not None):
         raise AssertionError("telemetry overhead: the facade is not off")
     x, rec, loop = torch.ones(1), {"event": "overhead.probe"}, 100_000
+    probe = telemetry.instrument_dispatch("overhead.probe", lambda y: y)
     t0 = time.perf_counter()
     for _ in range(loop):
         with telemetry.span("overhead.probe"):
@@ -1741,7 +1819,8 @@ def telemetry_overhead(torch, tfidf, ckpt, seed):
         telemetry.device_sync(x, "overhead")
         tracing.fields()
         transport.offer(rec)
-    per_call = (time.perf_counter() - t0) / (7 * loop)
+        probe(x)
+    per_call = (time.perf_counter() - t0) / (8 * loop)
     share = calls * per_call / fit_s
     if not share <= 0.02:
         raise AssertionError(f"telemetry overhead: {calls} calls x "
@@ -1903,6 +1982,7 @@ def run_config_e(torch, seed, workdir):
     from spark_text_clustering_tpu_torch.pipeline import (
         IDF, CountVectorizer, TextPreprocessor,
     )
+    from spark_text_clustering_tpu_torch.telemetry import dispatch
     from spark_text_clustering_tpu_torch.utils.readers import (
         read_stop_word_file, read_text_dir,
     )
@@ -1959,7 +2039,9 @@ def run_config_e(torch, seed, workdir):
                                     torch.device("cuda"), seed)
     # the whole train again on the CPU (the plain versions) from the same
     # seeded start: the average log-likelihoods must agree within 1e-4
-    # (with --telemetry-file: the CPU stream the card's is held to)
+    # (with --telemetry-file: the CPU stream the card's is held to, its
+    # dispatch records and sentinel empty, as in a process of its own)
+    dispatch.reset()
     cpu_train, cpu_model = train("cpu", os.path.join(root, "models_cpu"),
                                  ["--telemetry-file",
                                   os.path.join(tel, "train_cpu.jsonl")])
@@ -1990,7 +2072,8 @@ def run_config_e(torch, seed, workdir):
     diff, agreement, clear = distributions_agree("E", reports["cuda"],
                                                  reports["cpu"])
     telemetry = check_e_telemetry(books, stop, tel, root, models, train,
-                                  train_launches, score_launches)
+                                  train_launches, score_launches, tokens,
+                                  ds["vocab"])
     summary.update({
         "phase": "config_E", "docs": EN_DOCS, "vocab": v, "k": EN_K,
         "sweeps": SWEEPS, "tokens": int(sum(distinct)),
@@ -2021,22 +2104,32 @@ def run_config_e(torch, seed, workdir):
 
 
 def check_e_telemetry(books, stop, tel, root, models, train,
-                      train_launches, score_launches):
+                      train_launches, score_launches, tokens, vocab):
     """Config E's ``train`` and ``score`` on the card again with
     ``--telemetry-file``: the same launch counts as without it; the card
     train's stream against the CPU train's (the same names less the device
-    memory families, ``backend`` "gpu" against "cpu", one
-    ``config_hash``), live device memory above 0, one
+    memory families and the names of kernel launches, ``backend`` "gpu"
+    against "cpu", one ``config_hash``), live device memory above 0, one
     ``train_iteration`` a sweep, and ``train_fit``'s log-likelihood over
-    the corpus's documents equal to the average the CLI printed."""
+    the corpus's documents equal to the average the CLI printed; then the
+    two card streams through the port's ``metrics``
+    (``dispatch_attribution``): every launch attributed, the roofline rows
+    on the ``nvidia-h100`` peaks, printed on a line of their own, and the
+    sentinel's signatures, one ``score.topic_inference`` a length
+    bucket."""
     from spark_text_clustering_tpu_torch.ops import _build
+    from spark_text_clustering_tpu_torch.telemetry import dispatch
 
     t0 = time.perf_counter()
+    # each command's dispatch records and sentinel start empty, as in a
+    # process of its own
+    dispatch.reset()
     _build.reset_launches()
     card_nums, _ = train("cuda", os.path.join(root, "models_telemetry"),
                          ["--telemetry-file",
                           os.path.join(tel, "train_cuda.jsonl")], "_tel")
     tel_train = dict(_build.LAUNCHES)
+    dispatch.reset()
     _build.reset_launches()
     cli_score("E", books, stop, "cuda", os.path.join(root, "TestOutput_tel"),
               os.path.join(root, "score_tel.out"), ["--models-dir", models],
@@ -2050,12 +2143,29 @@ def check_e_telemetry(books, stop, tel, root, models, train,
     cpu = telemetry_stream(os.path.join(tel, "train_cpu.jsonl"))
     score_man, score_events, score_snap = telemetry_stream(
         os.path.join(tel, "score_cuda.jsonl"))
+    from spark_text_clustering_tpu_torch.ops.sparse import (
+        bucket_indices_by_length,
+    )
+    from spark_text_clustering_tpu_torch.pipeline import make_vectorizer
+
     only_card = stream_names(*card[1:]) - stream_names(*cpu[1:])
     only_cpu = stream_names(*cpu[1:]) - stream_names(*card[1:])
     (fit,) = [e for e in card[1] if e["event"] == "train_fit"]
     (corpus,) = [e for e in card[1] if e["event"] == "corpus"]
     iterations = sum(1 for e in card[1] if e["event"] == "train_iteration")
     avg = fit["log_likelihood"] / corpus["documents"]
+    # the dispatch layer: every launch attributed, the roofline on the
+    # card's peaks, the sentinel's signatures (one a length bucket of the
+    # rows the score vectorizes)
+    buckets = len(bucket_indices_by_length(make_vectorizer(vocab)(tokens)))
+    roofline = dispatch_attribution(
+        "E", [os.path.join(tel, "train_cuda.jsonl"),
+              os.path.join(tel, "score_cuda.jsonl")],
+        [tel_train, tel_score],
+        {"em.packed_chunk": 1, "em.packed_loglik": 1,
+         "score.topic_inference": buckets})
+    emit({"phase": "config_E_roofline", "peaks": "nvidia-h100",
+          "rows": roofline["rows"]})
     in_use = card[2]["gauges"].get("mem.device.bytes_in_use", 0)
     peak = card[2]["gauges"].get("mem.device.peak_bytes_in_use", 0)
     if (only_card or only_cpu or card[0]["backend"] != "gpu"
@@ -2073,6 +2183,10 @@ def check_e_telemetry(books, stop, tel, root, models, train,
             f"bytes_in_use {in_use}, {iterations} iterations, train_fit avg "
             f"{avg} against {card_nums['avg_log_likelihood']}")
     return {"train_launches": tel_train, "score_launches": tel_score,
+            "dispatch": {"launches": roofline["launches"],
+                         "compile_check": roofline["compile_check"],
+                         "score_buckets": buckets,
+                         "roofline": roofline["rows"]},
             "names": len(stream_names(*card[1:])),
             "events": len(card[1]), "score_events": len(score_events),
             "config_hash": card[0]["config_hash"],
@@ -2632,11 +2746,9 @@ def grid_sweep_check(torch, grid, rows, k, v):
     geo = dict(n_vtiles=plan.n_vtiles, nb=plan.nb, vt=plan.vt, tb=plan.tb,
                d_pad=d_pad, shard_v=shard_v, eta_m1=eta - 1.0)
     got, err, rel = sweep_against_plain(torch, args, geo)
-    # bytes as check_sweep counts them: the table, the doc factor, every
-    # slot's lid and block map, seg and cts of live slots, the outputs
+    # the kernel's cost (emsweep.cost) at the live slots, as check_sweep
     live = int((cts > 0).sum())
-    t_bytes, by = bound(nbytes(*args[:4], bv) + 8 * live + nbytes(*got),
-                        8.0 * k * live)
+    t_bytes, by = bound(*emsweep.cost(*args, **geo, live=live))
     return {"pair": [grid.d, grid.m], "docs": d_max, "k": k,
             "shard_v": shard_v, "nb": plan.nb, "tokens": live,
             "doc_stream": int(stream[0].shape[0]),
@@ -2670,10 +2782,11 @@ def grid_scatter_check(torch, grid, rows, k, v):
         raise AssertionError(f"config I: scatter_add_vtiles differs from its "
                              f"plain version by {err} on pair "
                              f"{(grid.d, grid.m)}")
-    # bytes as check_scatter counts them: k posteriors of each live slot,
-    # every slot's lid, the block map, and the table it writes
+    # the kernel's cost (emscatter.cost) at the live slots, as
+    # check_scatter
     live = int((cts > 0).sum())
-    t_bytes, by = bound(4 * k * live + nbytes(lids, bv, got), float(k * live))
+    t_bytes, by = bound(*emscatter.cost(wphi, lids, bv, shard_v=shard_v,
+                                        live=live))
     return {"pair": [grid.d, grid.m], "k": k, "shard_v": shard_v,
             "nb": plan.nb, "tokens": live, "max_abs_err": err,
             "tolerance": "rtol 1e-5, atol 1e-5",
@@ -2832,13 +2945,40 @@ def nccl_rank(grid):
     return {"backend": dist.get_backend(), "sum": float(x.sum())}
 
 
+I_REPEATS = {"A": 1, "B": 4}    # repeat 1x1 card fits beside the first
+
+
+def lam_rel(a, b):
+    """The largest difference of lambda ``a`` from ``b``, relative to
+    max(|b|, 1)."""
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1.0)))
+
+
+def lam_spread(lams):
+    """The spread of repeat fits' lambdas: (the largest pairwise
+    ``lam_rel`` of a later fit from an earlier one, every pair's distance
+    as ``{"i-j": d}``)."""
+    pairs = {f"{i}-{j}": lam_rel(lams[j], lams[i])
+             for i in range(len(lams)) for j in range(i + 1, len(lams))}
+    return max(pairs.values(), default=0.0), pairs
+
+
+def grid_lam_bound(spread):
+    """Config I's bound on the grid's lambda against the 1x1 fit's: 1e-3,
+    or twice the 1x1 fits' spread (``lam_spread``) where that is
+    larger."""
+    return max(1e-3, 2.0 * spread)
+
+
 def run_config_i(torch, seed, e):
     """EM and scoring on a 2x2 grid of 4 ranks on the one card, gloo with
     CUDA tensors: I-A and I-B (``config_i_rank``) against the 1x1 card
     fits from the same seed (avg logLik within 1e-4, lambda within 1e-3
-    relative, or within twice the 1x1 fit's own spread over two more
-    1x1 fits where that spread is larger: B's two-stage sweep adds with
-    float atomics, and 50 EM sweeps amplify the order), B's 512-doc grid scoring against 1x1 card scoring of the
+    relative, or within twice the 1x1 fit's own spread where that is
+    larger: the largest pairwise distance of ``I_REPEATS`` + 1 1x1 fits
+    from the seed, five for B, whose two-stage sweep adds N_dk with float
+    atomics, so 50 EM sweeps of it do not repeat; two for A, whose fused
+    sweep repeats bit for bit), B's 512-doc grid scoring against 1x1 card scoring of the
     same model (5e-3) and the grid's EM log-likelihood against the 1x1
     one (1e-4); then I-CLI: ``train --data-shards 2 --model-shards 2
     --dist-backend gloo`` and ``score --model-shards 2`` on E's books
@@ -2863,9 +3003,6 @@ def run_config_i(torch, seed, e):
     rank0 = ranks[0]
     corpora = {"A": (en_books_rows(seed), EN_V, EN_K),
                "B": (newsgroups_rows(seed), NG_V, NG_K)}
-    def lam_rel(a, b):
-        return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1.0)))
-
     for label, (rows, v, k) in corpora.items():
         ds = {"rows": rows, "vocab": [f"t{i}" for i in range(v)]}
         tf_rows = IDF(min_doc_freq=2, idf_floor=1e-4).fit(ds).transform(ds)
@@ -2873,12 +3010,14 @@ def run_config_i(torch, seed, e):
                         keep_doc_topic_counts=label == "B")
         one = LDA(params).fit(tf_rows)
         avg1 = one.log_likelihood / one.corpus_size
-        # the 1x1 card fit against itself, twice more from the same seed:
+        # the 1x1 card fit against itself, repeated from the same seed:
         # B's two-stage sweep adds N_dk with float atomics, so its 50
         # sweeps are not repeatable to the grid's limit (the fused sweep
-        # is, bit for bit)
-        repeat = max(lam_rel(LDA(params).fit(tf_rows).model.lam,
-                             one.model.lam) for _ in range(2))
+        # is, bit for bit); its noise is the largest distance between any
+        # two of the fits
+        lams = [one.model.lam] + [LDA(params).fit(tf_rows).model.lam
+                                  for _ in range(I_REPEATS[label])]
+        repeat, pairs = lam_spread(lams)
         res = {key: val for key, val in rank0[label].items()
                if key not in ("lam", "dist", "n_dk")}
         res["ranks"] = [{key: r[label][key] for key in (
@@ -2886,12 +3025,18 @@ def run_config_i(torch, seed, e):
             "lam_sum", "launches")} for r in ranks]
         ll_rel = abs(res["avg_log_likelihood"] - avg1) / abs(avg1)
         lam_diff = lam_rel(rank0[label]["lam"], one.model.lam)
-        lam_bound = max(1e-3, 2.0 * repeat)
+        lam_bound = grid_lam_bound(repeat)
         res.update(one_device_avg_log_likelihood=avg1,
                    avg_log_likelihood_rel_diff=ll_rel,
                    lam_max_rel_diff=lam_diff,
+                   one_device_fits=len(lams),
+                   one_device_pairwise_lam_rel=pairs,
                    one_device_repeat_lam_max_rel_diff=repeat,
-                   lam_bound=lam_bound)
+                   lam_bound=lam_bound,
+                   lam_bound_reason=(
+                       "1e-3" if lam_bound == 1e-3 else
+                       f"twice the largest pairwise distance of "
+                       f"{len(lams)} 1x1 card fits from the seed"))
         if not ll_rel <= 1e-4 or not lam_diff <= lam_bound:
             raise AssertionError(f"config I-{label}: grid vs 1x1 avg logLik "
                                  f"{ll_rel}, lambda {lam_diff} (bound "
@@ -2972,8 +3117,9 @@ def run_config_i(torch, seed, e):
         name: grid_launches[name] + train_launches[name]
         + score_launches[name] for name in grid_launches}
     summary["bounds"] = {"avg_log_likelihood_rel_diff": 1e-4,
-                         "lam_max_rel_diff": "1e-3, or twice the 1x1 "
-                                             "fit's spread against itself",
+                         "lam_max_rel_diff": "1e-3, or twice the largest "
+                                             "pairwise distance of the 1x1 "
+                                             "card fits from the seed",
                          "score_max_dist_diff": 5e-3,
                          "em_log_likelihood_rel_diff": 1e-4}
     return summary
@@ -3075,8 +3221,8 @@ def grid_nmf_check(torch, grid, rows, seed):
                              f"{grid.rank}")
     live_tok = int((plan.seg[blk] < d).sum())
     live_slots = int((plan.doc_ids[blk] < n).sum())
-    t_bytes, by = bound(live_tok * (8 * k + 8) + live_slots * 8 * k + 4 * k * k,
-                        2.0 * k * live_tok + live_slots * (2.0 * k * k + 3 * k))
+    t_bytes, by = bound(*nmf.cost(*args, d, live_tokens=live_tok,
+                                  live_slots=live_slots))
     return {"rank": grid.rank, "pair": [grid.d, grid.m], "k": k,
             "tiles": per, "tt": plan.tt, "d": d, "live_tokens": live_tok,
             "live_slots": live_slots, "max_abs_err": err,
@@ -5019,7 +5165,7 @@ def check_segments(torch, eb_vk, alpha, rows, dev, label):
 
     lens = np.asarray([len(i) for i, _ in batch] + [0] * (b - len(batch)))
     it = iters.cpu().numpy()
-    bound_ms, bound_by = segments_bound(lens, it, k)
+    bound_ms, bound_by = segments_bound(args, alpha, lens, it)
     _, it_corpus = segments.topic_inference_segments_plain(
         *corpus[:3], alpha, corpus[3], with_iters=True)
     it_corpus = it_corpus.cpu().numpy()
@@ -5033,7 +5179,7 @@ def check_segments(torch, eb_vk, alpha, rows, dev, label):
         plan = segments.launch_plan(k, a[0].shape[0], a[3].shape[0], dev)
         shape_ms = ms if name == "serve_dispatch" else cuda_ms(
             torch, lambda a=a: kernel(a), 20)
-        b_ms, b_by = segments_bound(shape_lens, shape_it, k)
+        b_ms, b_by = segments_bound(a, alpha, shape_lens, shape_it)
         shapes[name] = {
             "t": int(a[0].shape[0]), "doc_slots": int(a[3].shape[0]),
             "live_tokens": int(sum(shape_lens)), "ms": shape_ms,
@@ -5059,15 +5205,14 @@ def check_segments(torch, eb_vk, alpha, rows, dev, label):
     return res
 
 
-def segments_bound(lens, it, k):
-    """The least time of one per-document launch: each live token's eb row
-    and count, the offsets, alpha, gamma0 and the output once; 4k + 2
-    flops a live token an iteration, over each doc's iterations ``it``."""
-    lens = np.asarray(lens)
-    n_docs = len(lens)
-    bytes_moved = 4 * (int(lens.sum()) * (k + 1) + (n_docs + 1) + k
-                       + 2 * n_docs * k)
-    return bound(bytes_moved, float((np.asarray(it) * lens).sum()) * (4 * k + 2))
+def segments_bound(args, alpha, lens, it):
+    """The least time of one per-document launch on ``args`` (eb_tok, cts,
+    offsets, gamma0): its cost (``segments.cost``) at each doc's tokens
+    ``lens`` and iterations ``it``."""
+    from spark_text_clustering_tpu_torch.ops import segments
+
+    return bound(*segments.cost(args[0], args[1], args[2], alpha, args[3],
+                                lens=lens, iters=it))
 
 
 SEGMENTS_K = (100, 500)     # the Large instance's k=100, the Wide one's 500
@@ -5115,7 +5260,7 @@ def check_segments_k(torch, rows, dev, k, seed):
     ).tobytes()
     lens = [len(i) for i, _ in batch] + [0] * (b - len(batch))
     it = iters.cpu().numpy()
-    bound_ms, bound_by = segments_bound(lens, it, k)
+    bound_ms, bound_by = segments_bound(args, alpha, lens, it)
     res = {**N_SEGMENTS, "k": k, "docs": len(batch), "t": t,
            "max_batch": b, "live_tokens": int(sum(lens)),
            "iterations": [int(x) for x in it[:len(batch)]],
@@ -5264,6 +5409,37 @@ def parse_prometheus(text):
     return samples
 
 
+def serve_dispatch(path, launched):
+    """A serve run stream's dispatch layer against the per-document
+    kernel's ``launched`` launches over the run: ``serve.topic_inference``'s
+    calls summed over its digests equal them, and so do the launches
+    charged to those calls; the recompile sentinel's ``compile.retraces``
+    after warmup (the registry's count less the warmup report's) is 0."""
+    _, events, snap = telemetry_stream(path)
+    digests = {e["digest"]: e["label"] for e in events
+               if e["event"] == "dispatch_executable"}
+    counters = snap["counters"]
+    calls = sum(counters.get(f"dispatch.{d}.calls", 0)
+                for d, lbl in digests.items()
+                if lbl == "serve.topic_inference")
+    charged = sum(counters.get(
+        f"dispatch.{d}.launches.topic_inference_segments", 0)
+        for d, lbl in digests.items() if lbl == "serve.topic_inference")
+    (warm,) = [e for e in events if e["event"] == "serve_warmup"]
+    (drained,) = [e for e in events if e["event"] == "serve_drained"]
+    after = counters.get("compile.retraces", 0) - warm["retraces_at_warmup"]
+    res = {"serve_topic_inference_calls": calls,
+           "charged_launches": charged, "launches": launched,
+           "retraces_at_warmup": warm["retraces_at_warmup"],
+           "retraces_after_warmup": after,
+           "signatures": {lbl: sum(1 for x in digests.values() if x == lbl)
+                          for lbl in set(digests.values())}}
+    if (calls != launched or charged != launched or after != 0
+            or drained["retraces_after_warmup"] != 0):
+        raise AssertionError(f"config N dispatch: {res}")
+    return res
+
+
 def run_config_n(torch, seed, e, smi):
     """One serve replica on config E's 51 books and E's card model (k=5).
 
@@ -5291,7 +5467,10 @@ def run_config_n(torch, seed, e, smi):
     ``serve`` command in this process (its launches counted, with the
     counts at 0 before ``score --per-doc-convergence`` and read after the
     drain), the 6 requests one at a time, each followed by as long idle:
-    none degraded, the books' bytes equal the subprocess's."""
+    none degraded, the books' bytes equal the subprocess's; with
+    ``--telemetry-file``, its stream's ``serve.topic_inference`` calls
+    equal the kernel's launches over the serve and no retrace after warmup
+    from the sentinel (``serve_dispatch``)."""
     from spark_text_clustering_tpu_torch import load_model
     from spark_text_clustering_tpu_torch.device import resolve_device
     from spark_text_clustering_tpu_torch.models.persistence import (
@@ -5301,6 +5480,7 @@ def run_config_n(torch, seed, e, smi):
     from spark_text_clustering_tpu_torch.pipeline import (
         TextPreprocessor, make_vectorizer,
     )
+    from spark_text_clustering_tpu_torch.telemetry import dispatch
     from spark_text_clustering_tpu_torch.utils.readers import (
         read_stop_word_file, read_text_dir,
     )
@@ -5562,12 +5742,19 @@ def run_config_n(torch, seed, e, smi):
     open(os.path.join(root, "serve_inproc.out"), "w").close()
     client = threading.Thread(target=traffic)
     client.start()
+    score_launches = _build.LAUNCHES["topic_inference_segments"]
+    inproc_tel = os.path.join(root, "serve_inproc.jsonl")
+    # the serve's sentinel starts empty, as in a process of its own
+    dispatch.reset()
     rc_serve, serve_out, _ = run_cli(
         ["serve", "--model", model_a, "--stop-words", e["stop"], "--port",
          "0", "--max-batch", str(N_MAX_BATCH), *buckets, "--max-seconds",
-         "300"], os.path.join(root, "serve_inproc.out"))
+         "300", "--telemetry-file", inproc_tel],
+        os.path.join(root, "serve_inproc.out"))
     client.join()
     launches = dict(_build.LAUNCHES)
+    sentinel = serve_dispatch(inproc_tel, launches["topic_inference_segments"]
+                              - score_launches)
     if (rc != 0 or rc_serve != 0 or not report_equal
             or inproc.get("dists") is None or inproc["degraded"]
             or inproc["dists"].tobytes() != want.tobytes()
@@ -5581,7 +5768,7 @@ def run_config_n(torch, seed, e, smi):
             f"launches {launches}: {serve_out[-1000:]}")
     kernel["launches"] = launches["topic_inference_segments"]
     return {
-        "phase": "config_N", "docs": len(texts), "k": model.k,
+        "phase": "config_N", "dispatch": sentinel, "docs": len(texts), "k": model.k,
         "vocab": model.vocab_size, "card": smi,
         "tokens": int(sum(len(i) for i, _ in rows)),
         "buckets": list(N_BUCKETS), "max_batch": N_MAX_BATCH,

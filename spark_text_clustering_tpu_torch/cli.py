@@ -73,7 +73,7 @@ do.  ``--telemetry-file`` writes the supervisor's own stream (``fleet_*``
 events, ``fleet.*`` counters), ``--worker-telemetry-dir`` gives every
 worker incarnation a stream (``worker-wNNN-sSS.jsonl``), all on the
 supervisor's trace, and ``--ship-to host:port`` pushes every stream of
-the fleet to a collector.  ``--actions-file`` (item 9b) exits 2.
+the fleet to a collector.  ``--actions-file`` (item 9b.2) exits 2.
 
 ``supervise --role serve`` runs N ``serve`` replicas of this CLI as one
 service (``resilience.supervisor.ServeFleetSupervisor``): each replica
@@ -87,7 +87,7 @@ announces it in ``<fleet-dir>/front.json``; the ``front`` verb runs it
 alone.  ``probe`` scores a sentinel document through the front at a fixed
 rate and reports what a client saw.  Neither ``front`` nor ``probe``
 touches the card.  The autoscaler (``--autoscale`` and its knobs) acts
-through ``--actions-file`` and waits for item 9b with it; so does every
+through ``--actions-file`` and waits for item 9b.2 with it; so does every
 resize of a serve fleet (``--resize-at`` and the ``--scale-*`` flags exit
 2 with ``--role serve``).
 
@@ -100,9 +100,13 @@ once.
 then the JAX package's events (``corpus``, ``phase``, ``span``,
 ``train_iteration``, ``train_fit``, ``micro_batch``, ``ledger_commit``,
 ``model_saved``, ...), then a final ``registry`` snapshot, on every exit
-path.  Each rank of a grid writes its own stream, ``<stem>-p<rank><ext>``;
-the JAX package's ``metrics summarize`` reads one and ``metrics merge``
-folds a grid's into one run.
+path, with the dispatch layer's families (``dispatch.*`` by call site and
+kernel, ``compile.*``, ``mem.<digest>.*``).  Each rank of a grid writes
+its own stream, ``<stem>-p<rank><ext>``.  ``metrics`` reads them, as the
+JAX package's verb does (``summarize``, ``merge`` of a grid's streams,
+``trace``, ``tail``, ``diff``, ``bench-diff``, ``check``, ``slo``,
+``roofline`` against the card's peaks, ``compile-check``;
+``scale-check`` is item 10 and exits 2).
 
 Exit codes: 0 on success; 1 for a fleet that spent its respawn budget; 2
 for a usage error, a missing or corrupt model, a resume mismatch and a
@@ -213,7 +217,8 @@ LANG_DIRS = {
 
 # The ROADMAP.md queue 1 item that ports the machinery behind each flag
 # the port refuses for now.
-_ALERTS_ITEM = "queue 1 item 9b, the rest of telemetry"
+_ALERTS_ITEM = "queue 1 item 9b.2, alerts and the autoscaler"
+_SCALE_ITEM = "queue 1 item 10, the audit tiers"
 _NOT_PORTED = {
     "actions_file": ("--actions-file", _ALERTS_ITEM),
     "compile_cache": ("--compile-cache",
@@ -2345,6 +2350,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="the collector's own run stream (collect.* "
                          "counters; never shipped to itself)")
     co.set_defaults(fn=cmd_collect)
+
+    # the JAX package's `metrics` verb, copied (telemetry.metrics_cli)
+    from .telemetry.metrics_cli import add_metrics_subparser
+
+    add_metrics_subparser(sub)
     return ap
 
 

@@ -20,6 +20,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..device import resolve_device
 from ..ops.lda_math import (
     approx_bound,
@@ -38,7 +39,22 @@ from ..ops.sparse import (
     next_pow2,
 )
 
-__all__ = ["LDAModel"]
+__all__ = ["LDAModel", "gather_token_rows"]
+
+
+def gather_token_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The rows of ``table`` [V, k] at the token ids: [T, k]."""
+    return table[ids]
+
+
+# the scoring path's dispatches, under the JAX package's labels (each
+# call resolves this module's function then)
+topic_inference = telemetry.instrument_dispatch(
+    "score.topic_inference", topic_inference)
+_segments = telemetry.instrument_dispatch(
+    "score.topic_inference_segments",
+    lambda *args, **kw: topic_inference_segments(*args, **kw))
+_gather = telemetry.instrument_dispatch("score.gather", gather_token_rows)
 
 
 @dataclass
@@ -304,8 +320,8 @@ class LDAModel:
             seg[o:o + len(ids)] = d
             o += len(ids)
         dev = eb.device
-        eb_tok = eb.T[torch.from_numpy(flat_i).to(dev)]          # [T, k]
-        dist = topic_inference_segments(
+        eb_tok = _gather(eb.T, torch.from_numpy(flat_i).to(dev))  # [T, k]
+        dist = _segments(
             eb_tok, torch.from_numpy(flat_c).to(dev),
             torch.from_numpy(seg).to(dev), alpha, gamma0,
             max_inner=max_inner, tol=tol, freeze=freeze,

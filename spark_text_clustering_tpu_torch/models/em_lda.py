@@ -296,6 +296,8 @@ class EMLDA:
             ).to(dev)
 
         ids_s, cts_s, seg_s = _sorted(ids, 0), _sorted(cts, 0), _sorted(seg, 0)
+        # the plan's live slots, from the host copy: the kernels' cost
+        live = int(np.count_nonzero(cts))
         nb, tb = plan.nb, plan.tb
         lids = torch.from_numpy(plan.lids[0, 0]).to(dev)
         bv = torch.from_numpy(plan.block_vtile[0, 0]).to(dev)
@@ -303,7 +305,7 @@ class EMLDA:
         cts_b = cts_s.reshape(nb, 1, tb)
         d_pad = fused_d_pad(d_max)
         geometry = dict(n_vtiles=plan.n_vtiles, nb=nb, vt=plan.vt, tb=tb,
-                        shard_v=v)
+                        shard_v=v, live=live)
         if fused:  # the fused kernel's doc stream: the packed tokens
             doc_toks = [torch.from_numpy(a).to(dev) for a in (ids, cts, seg)]
 
@@ -373,12 +375,18 @@ class EMLDA:
                 acc.index_add_(0, live_ids, wphi.reshape(-1, k)[live])
             return acc.T.contiguous(), torch.cat(n_dk_new)
 
+        # one evaluation a bucket, under the JAX package's label of its
+        # per-bucket evaluator
+        bucket_ll = telemetry.instrument_dispatch(
+            "sharded_eval.em_log_likelihood",
+            lambda n_wk, n_dk, ids_b, wts_b, seg_b: packed_log_likelihood(
+                n_wk, n_dk, ids_b.reshape(-1), wts_b.reshape(-1), seg_b,
+                alpha=alpha, eta=eta, v=v))
+
         def loglik(n_wk, n_dk):
-            return sum(
-                packed_log_likelihood(
-                    n_wk, n_dk[off:off + ids_b.shape[0]], ids_b.reshape(-1),
-                    wts_b.reshape(-1), seg_b, alpha=alpha, eta=eta, v=v)
-                for off, ids_b, wts_b, _, _, seg_b in buckets)
+            return sum(bucket_ll(n_wk, n_dk[off:off + ids_b.shape[0]], ids_b,
+                                 wts_b, seg_b)
+                       for off, ids_b, wts_b, _, _, seg_b in buckets)
 
         return _Layout(sweep, loglik, *self._local(slot, d_max, k))
 
@@ -407,17 +415,19 @@ class EMLDA:
         so = plan.sort_order[d]
 
         def _sorted(a):  # the data shard's sorted axis, model segments
-            return torch.from_numpy(
-                np.concatenate([a[d], np.zeros(1, a.dtype)])[so]).to(dev)
+            return np.concatenate([a[d], np.zeros(1, a.dtype)])[so]
 
-        ids_s, cts_s, seg_s = _sorted(ids_t), _sorted(cts_t), _sorted(seg_t)
         own = slice(m * nb * tb, (m + 1) * nb * tb)
+        # the rank's own live slots, from the host copy: the kernels' cost
+        live = int(np.count_nonzero(_sorted(cts_t)[own]))
+        ids_s, cts_s, seg_s = (torch.from_numpy(_sorted(a)).to(dev)
+                               for a in (ids_t, cts_t, seg_t))
         lids = torch.from_numpy(plan.lids[d, m]).to(dev)
         bv = torch.from_numpy(plan.block_vtile[d, m]).to(dev)
         seg_b = seg_s[own].reshape(nb, 1, tb)
         cts_b = cts_s[own].reshape(nb, 1, tb)
         geometry = dict(n_vtiles=plan.n_vtiles, nb=nb, vt=vt, tb=tb,
-                        shard_v=shard_v)
+                        shard_v=shard_v, live=live)
         d_pad = fused_d_pad(d_max)
         if fused:
             doc_toks = doc_stream(lids, seg_b, cts_b, bv, vt)
@@ -597,14 +607,24 @@ class EMLDA:
         interval = 1 if per_iter else (
             max(1, p.checkpoint_interval) if ckpt_path else max(1, n_iters)
         )
+
+        def chunk(n_wk, n_dk, m):
+            for _ in range(m):
+                n_wk, n_dk = layout.sweep(n_wk, n_dk)
+            return n_wk, n_dk
+
+        # one dispatch a chunk of m sweeps, under the JAX package's label
+        # of the layout's runner (its verbose padded fit steps each bucket)
+        run = telemetry.instrument_dispatch(
+            "em.chunk_runner" if padded and not verbose
+            else "em.bucket_step" if padded else "em.packed_chunk", chunk)
         timer = IterationTimer()
         it = start_it
         dispatches = 0
         while it < n_iters:
             m = min(interval - (it % interval), n_iters - it)
             timer.start()
-            for _ in range(m):
-                n_wk, n_dk = layout.sweep(n_wk, n_dk)
+            n_wk, n_dk = run(n_wk, n_dk, m)
             dispatches += 1
             telemetry.device_sync(n_wk, sync_label)
             timer.stop()
@@ -619,7 +639,9 @@ class EMLDA:
                 if is_coordinator():
                     save_train_state(ckpt_path, it, n_wk=n_wk_host,
                                      n_dk=n_dk_host)
-        self.last_log_likelihood = float(layout.loglik(n_wk, n_dk))
+        loglik = (layout.loglik if padded else telemetry.instrument_dispatch(
+            "em.packed_loglik", layout.loglik))
+        self.last_log_likelihood = float(loglik(n_wk, n_dk))
         if telemetry.enabled():
             telemetry.emit_fit(
                 "em", timer.times, kind=timer.kind, start_iteration=start_it,

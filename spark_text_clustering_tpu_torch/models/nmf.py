@@ -212,6 +212,24 @@ def frobenius_loss(batch: DocTermBatch, w, h, grid=None) -> torch.Tensor:
         _sum_data(w.T @ w, grid) * _hht(h, grid)).sum()
 
 
+_loss_run = telemetry.instrument_dispatch("nmf.loss", frobenius_loss)
+
+
+def _solve_w(xht: torch.Tensor, hht: torch.Tensor, n_iter) -> torch.Tensor:
+    """W [n, k] from 1/k after ``n_iter`` multiplicative updates against
+    the fixed numerator X H^T and H H^T."""
+    n, k = xht.shape
+    w = torch.full((n, k), 1.0 / k, dtype=torch.float32, device=xht.device)
+    for _ in range(int(n_iter)):
+        w = w * xht / (w @ hht + _EPS)
+    return w
+
+
+# the depth rides as a tensor, so transforms of one batch shape share a
+# signature whatever their depth (the JAX package's dynamic n_iter)
+_solve_w_run = telemetry.instrument_dispatch("nmf.solve_w", _solve_w)
+
+
 # ---- the model ---------------------------------------------------------------
 @dataclass
 class NMFModel:
@@ -296,12 +314,8 @@ class NMFModel:
         xht = torch.zeros((n, self.k), dtype=torch.float32,
                           device=dev).index_add_(
             0, seg, cts[:, None] * h.index_select(1, ids).T)
-        hht = h @ h.T
-        w = torch.full((n, self.k), 1.0 / self.k, dtype=torch.float32,
-                       device=dev)
-        for _ in range(int(n_iter)):
-            w = w * xht / (w @ hht + _EPS)
-        return w.cpu().numpy()
+        return _solve_w_run(xht, h @ h.T, torch.tensor(int(n_iter))).cpu(
+        ).numpy()
 
     def topic_distribution(
         self, docs, n_iter: int = 100, mesh=None, convergence: str = "batch",
@@ -430,11 +444,14 @@ class NMF:
         return (ids_t.reshape(-1), cts_t.reshape(-1), seg_t.reshape(-1), slot,
                 d_max, n_data * t_max)
 
-    def _run(self, sweep, m: int, verbose: bool, label: str):
-        """Run ``sweep(m, on_sweep)``: ``m`` sweeps and the loss.  Times
-        the whole run as one span split evenly over the sweeps, or, with
-        ``verbose`` / ``record_iteration_times``, each sweep (a sync
-        after each).  Returns (result, timer)."""
+    def _run(self, sweep, args, m: int, verbose: bool, label: str,
+             dispatch_label: str):
+        """Run ``sweep(*args, m, on_sweep)``: ``m`` sweeps (and, packed,
+        the loss) from the state and corpus tensors ``args``, one dispatch
+        under ``dispatch_label``.  Times the whole run as one span split
+        evenly over the sweeps, or, with ``verbose`` /
+        ``record_iteration_times``, each sweep (a sync after each).
+        Returns (result, timer)."""
         dev = self.device
         timer = IterationTimer()
 
@@ -459,7 +476,8 @@ class NMF:
                     timer.start()
 
         timer.start()
-        out = sweep(m, on_sweep)
+        out = telemetry.instrument_dispatch(dispatch_label, sweep)(
+            *args, m, on_sweep)
         sync()
         if not per_sweep:
             timer.stop()
@@ -532,16 +550,19 @@ class NMF:
                 w = w_doc.new_zeros(batch.token_ids.shape[0], k)
                 w[:hi - lo] = w_doc[lo:hi]
 
-            def sweep(m, on_sweep):
-                w_, h_ = w, h
+            def sweep(w_, h_, ids, wts, m, on_sweep):
                 for _ in range(m):
-                    w_, h_ = padded_step(w_, h_, batch.token_ids,
-                                         batch.token_weights, grid=g)
+                    w_, h_ = padded_step(w_, h_, ids, wts, grid=g)
                     on_sweep()
-                return w_, h_, frobenius_loss(batch, w_, h_, grid=g)
+                return w_, h_
 
-            (w, h, loss), timer = self._run(sweep, p.max_iterations, verbose,
-                                            "")
+            # the JAX package's labels: the sweeps, then the loss
+            (w, h), timer = self._run(
+                sweep, (w, h, batch.token_ids, batch.token_weights),
+                p.max_iterations, verbose, "",
+                "nmf.chunk_runner" if p.max_iterations > 1
+                else "nmf.train_step")
+            loss = _loss_run(batch, w, h, grid=g)
         self.last_loss = float(loss)
         telemetry.emit_fit(
             "nmf", timer.times, kind=timer.kind, loss=self.last_loss,
@@ -594,7 +615,7 @@ class NMF:
             w = docs_w_to_tiles(w_doc, plan.doc_ids[blk])
             ids, cts, seg = (torch.from_numpy(np.ascontiguousarray(a[blk])).to(
                 dev) for a in (plan.ids, plan.cts, plan.seg))
-            d, label = plan.d, " (tiles)"
+            d, label, dispatch = plan.d, " (tiles)", "nmf.fused_chunk"
         else:
             self.last_mu_backend = "flat"
             ids_f, cts_f, seg_f, slot, d_max, cells = self._packed_plan(
@@ -608,11 +629,13 @@ class NMF:
             ids, cts, seg = (
                 torch.from_numpy(a[d_idx * t_max:(d_idx + 1) * t_max]).to(dev)
                 for a in (ids_f, cts_f, seg_f))
-            d, label = None, " (packed)"
+            d, label, dispatch = None, " (packed)", "nmf.packed_chunk"
 
-        def sweep(m, on_sweep):
+        def sweep(w, h, ids, cts, seg, m, on_sweep):
             return packed_sweeps(w, h, ids, cts, seg, x2, m, d=d,
                                  on_sweep=on_sweep, grid=g)
 
-        (w, h, loss), timer = self._run(sweep, p.max_iterations, verbose, label)
+        (w, h, loss), timer = self._run(sweep, (w, h, ids, cts, seg),
+                                        p.max_iterations, verbose, label,
+                                        dispatch)
         return w, h, loss, timer

@@ -135,6 +135,18 @@ _RULES = ("card", "cpu")
 # path's follows the gamma backend of its last chunk)
 _SYNC_LABELS = {"tiles-resident": "online_tiles",
                 "padded-resident": "online_resident"}
+# the JAX package's dispatch label of each path's chunk (its verbose
+# padded-resident fit dispatches one step an iteration)
+_DISPATCH_LABELS = {"tiles-resident": "online.tiles_resident_chunk",
+                    "padded-resident": "online.resident_chunk"}
+# the packed path's chunk, by the layout it took
+_packed_tiles_run = telemetry.instrument_dispatch(
+    "online.packed_tiles_chunk", lambda lam, step, m, work: work(lam))
+_packed_flat_run = telemetry.instrument_dispatch(
+    "online.packed_chunk", lambda lam, step, m, work: work(lam))
+# the padded host path's three dispatches an iteration
+_eb_run = telemetry.instrument_dispatch("online.eb", lambda lam, grid:
+                                        _eb_table(lam, grid))
 
 
 def _rho_scale(step: int, tau0: float, kappa: float, corpus_size: float,
@@ -335,6 +347,14 @@ def padded_mstep(
     rho, scale = _rho_scale(step, tau0, kappa, corpus_size, batch_docs)
     lam_hat = (sstats * eb).mul_(float(scale)).add_(float(np.float32(eta)))
     return lam * float(np.float32(1.0) - rho) + lam_hat.mul_(float(rho))
+
+
+_estep_run = telemetry.instrument_dispatch("online.estep", padded_estep)
+# the step and the minibatch's docs ride as one tensor, so every
+# iteration shares a signature
+_mstep_run = telemetry.instrument_dispatch(
+    "online.mstep", lambda lam, eb, sstats, step_docs, **kw: padded_mstep(
+        lam, eb, sstats, int(step_docs[0]), int(step_docs[1]), **kw))
 
 
 def padded_iteration(
@@ -590,6 +610,18 @@ class OnlineLDA:
         lam, it = run.lam, run.start_it
         cadence = _save_cadence(self.params, interval)
         self.last_dispatches = 0
+        label_d = ("online.resident_step"
+                   if run.verbose and label == "padded-resident"
+                   else _DISPATCH_LABELS.get(label))
+        if label_d is not None:
+            # one dispatch a chunk; the step rides as a tensor, so the
+            # chunks of one width share a signature
+            step_run = telemetry.instrument_dispatch(
+                label_d, lambda lam, step, m, run_chunk=chunk: run_chunk(
+                    lam, int(step), m))
+
+            def chunk(lam, it, m):
+                return step_run(lam, torch.tensor(it), m)
         while it < run.n_iters:
             m = min(interval - (it % interval), run.n_iters - it)
             run.timer.start()
@@ -853,10 +885,13 @@ class OnlineLDA:
                     tile_tokens=tile_tt, n_tiles_multiple=n_data, k=k)
                 # no tile geometry fits: the whole fit takes the flat loop
                 use_tiles = plan is not None
+            step = torch.tensor(it)
             if plan is not None:
-                lam = tiles_chunk(lam, it, picks, packs, plan)
+                lam = _packed_tiles_run(lam, step, m, lambda lam: tiles_chunk(
+                    lam, it, picks, packs, plan))
             else:
-                lam = flat_chunk(lam, it, picks, packs)
+                lam = _packed_flat_run(lam, step, m, lambda lam: flat_chunk(
+                    lam, it, picks, packs))
             self.last_batch_cells = cells[0] // cells[1]
             return lam
 
@@ -963,7 +998,7 @@ class OnlineLDA:
                         groups.setdefault(width, []).append(int(i))
                 else:
                     groups = {row_len: [int(i) for i in pick]}
-                eb = _eb_table(lam, g)
+                eb = _eb_run(lam, g)
                 sstats = torch.zeros_like(lam)
                 docs = 0
                 for width, idxs in sorted(groups.items()):
@@ -976,7 +1011,7 @@ class OnlineLDA:
                     doc_ids = idxs + list(range(n, n + b_pad - len(idxs)))
                     batch = batch_from_rows(padded[mine], row_len=width,
                                             device=dev)
-                    sstats += padded_estep(
+                    sstats += _estep_run(
                         eb, batch.token_ids, batch.token_weights,
                         self._gamma_rows(run, it, torch.from_numpy(
                             np.asarray(doc_ids[mine], np.int64)).to(
@@ -986,9 +1021,9 @@ class OnlineLDA:
                     docs += int(nonempty[idxs].sum())
                 if g is not None:
                     sstats = psum_data(g, sstats)
-                lam = padded_mstep(lam, eb, sstats, it, docs, eta=run.eta,
-                                   tau0=p.tau0, kappa=p.kappa,
-                                   corpus_size=float(n))
+                lam = _mstep_run(lam, eb, sstats, torch.tensor([it, docs]),
+                                 eta=run.eta, tau0=p.tau0, kappa=p.kappa,
+                                 corpus_size=float(n))
                 self._sync(lam, "online_host")
             # an empty Bernoulli draw skips the update, not the checkpoint
             timer.stop()

@@ -28,6 +28,7 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..ops.estep import gamma_fixed_point_bkl
 from ..ops.lda_math import dirichlet_expectation, dirichlet_expectation_sharded
 from ..parallel.collectives import (
@@ -98,7 +99,8 @@ def make_sharded_topic_inference(
         nonempty = wts.sum(dim=-1, keepdim=True) > 0
         return torch.where(nonempty, dist, torch.full_like(dist, 1.0 / k))
 
-    return infer
+    return telemetry.instrument_dispatch("sharded_eval.topic_inference",
+                                         infer)
 
 
 def make_sharded_log_likelihood(
@@ -153,7 +155,8 @@ def make_sharded_log_likelihood(
                          - torch.lgamma(row_sum)).sum()
         return doc + topic
 
-    return loglik
+    return telemetry.instrument_dispatch("sharded_eval.log_likelihood",
+                                         loglik)
 
 
 def make_sharded_em_log_likelihood(
@@ -181,7 +184,8 @@ def make_sharded_em_log_likelihood(
         safe = torch.where(tok > 0, tok, torch.ones_like(tok))
         return _scalar_sum(grid, (wts * torch.log(safe)).sum(), psum_data)
 
-    return loglik
+    return telemetry.instrument_dispatch("sharded_eval.em_log_likelihood",
+                                         loglik)
 
 
 def make_sharded_top_terms(

@@ -31,10 +31,13 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, Optional, Tuple
+
+from ..telemetry import dispatch as _dispatch
 
 __all__ = ["SOURCES", "BUILD_DIR", "KernelError", "build_all", "build_lock",
-           "load_library"]
+           "count_launch", "host_counts", "library_bytes", "load_library",
+           "nbytes"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -169,9 +172,12 @@ def build_all() -> Dict[str, float]:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built if missing."""
+    """The loaded library for ``csrc/<name>.cu``, built if missing.  A
+    load (and a build before it) is the port's compile: the dispatch
+    layer charges the call it falls in with it."""
     lib = _LIBS.get(name)
     if lib is None:
+        _dispatch.note_library_load()
         if not _lib_path(name).exists():
             with build_lock():
                 if not _lib_path(name).exists():
@@ -203,8 +209,58 @@ LAUNCHES: Dict[str, int] = {
 }
 
 
-def count_launch(name: str) -> None:
+# The source (and so the library) of each kernel
+KERNEL_SOURCES = {
+    "gamma_fixed_point_bkl": "estep",
+    "scatter_add_vtiles": "emscatter",
+    "em_sweep_fused": "emsweep",
+    "gamma_fixed_point_tiles": "packed",
+    "nmf_mu_update_tiles": "nmf",
+    "topic_inference_segments": "segments",
+}
+
+
+def count_launch(name: str,
+                 cost: Optional[Callable[[], Tuple[float, float]]] = None,
+                 scratch: int = 0) -> None:
+    """One launch of kernel ``name``.  ``cost`` gives the launch's (bytes,
+    flops), its module's ``cost()`` on its inputs, and ``scratch`` the
+    bytes of the scratch its wrapper allocated: the dispatch layer
+    charges them to the instrumented call the launch falls in, and asks
+    for ``cost`` only then (telemetry enabled)."""
     LAUNCHES[name] += 1
+    if _dispatch.recording():
+        _dispatch.note_launch(name, cost, scratch)
+
+
+def library_bytes(kernel: str) -> Optional[int]:
+    """Size of the loaded library that holds ``kernel``; None where it is
+    not loaded in this process."""
+    source = KERNEL_SOURCES[kernel]
+    if source not in _LIBS:
+        return None
+    try:
+        return os.path.getsize(_lib_path(source))
+    except OSError:
+        return None
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors' elements."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def host_counts(x, n: int, default: int):
+    """``x`` (a tensor, array or sequence: a cost's live counts or
+    iterations) as n float64 counts on the host, or ``default`` for each
+    where ``x`` is None."""
+    import numpy as np
+
+    if x is None:
+        return np.full(n, float(default))
+    if hasattr(x, "detach"):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, np.float64).reshape(-1)
 
 
 def reset_launches() -> None:

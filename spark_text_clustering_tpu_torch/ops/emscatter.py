@@ -18,7 +18,7 @@ spreads over many SMs.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +27,7 @@ from . import _build
 
 __all__ = [
     "EmScatterPlan",
+    "cost",
     "plan_em_scatter",
     "scatter_add_vtiles",
     "scatter_add_vtiles_plain",
@@ -141,6 +142,20 @@ def scatter_piece(tb: int) -> int:
     return max(p for p in range(1, min(tb, _PIECE) + 1) if tb % p == 0)
 
 
+def cost(
+    wphi_sorted, lids, block_vtile, *, shard_v: int,
+    live: Optional[int] = None, **geometry,
+) -> Tuple[int, float]:
+    """(bytes, flops) of one launch on these inputs, shapes only: the k
+    posteriors of ``live`` slots (default: every slot, pads included; the
+    kernel skips pad slots), every slot's lid, the block map, and the
+    [k, shard_v] table written once; k adds a live slot."""
+    k = wphi_sorted.shape[1]
+    live = wphi_sorted.shape[0] if live is None else int(live)
+    return (4 * k * live + _build.nbytes(lids, block_vtile)
+            + 4 * k * shard_v, float(k * live))
+
+
 def scatter_add_vtiles_plain(
     wphi_sorted: torch.Tensor,  # [nb * tb, k]
     lids: torch.Tensor,         # [nb, 1, tb] int32
@@ -171,10 +186,12 @@ def scatter_add_vtiles(
     vt: int,
     tb: int,
     shard_v: int,
+    live: Optional[int] = None,
 ) -> torch.Tensor:
     """``zeros[k, shard_v].at[:, ids].add(wphi.T)`` for tokens in plan
     order.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    kernel or raise.  ``live``, the plan's live slots where the caller
+    holds them on the host, only feeds ``cost``."""
     if wphi_sorted.device.type == "cpu":
         return scatter_add_vtiles_plain(
             wphi_sorted, lids, block_vtile,
@@ -206,5 +223,9 @@ def scatter_add_vtiles(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "scatter_add_vtiles")
-    _build.count_launch("scatter_add_vtiles")
+    _build.count_launch(
+        "scatter_add_vtiles",
+        lambda: cost(wphi_sorted, lids, block_vtile, shard_v=shard_v,
+                     live=live),
+        _build.nbytes(meta, part))
     return out

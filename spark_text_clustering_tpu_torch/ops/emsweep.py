@@ -25,7 +25,7 @@ every device, so both packages take the same branch on the same corpus.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,6 +34,7 @@ from .emscatter import scatter_piece
 
 __all__ = [
     "MAX_FUSED_DOC_SLOTS",
+    "cost",
     "doc_stream",
     "em_sweep_fused",
     "em_sweep_fused_plain",
@@ -76,6 +77,22 @@ def doc_stream(
     return (cols[order].to(torch.int32).contiguous(),
             cts.reshape(-1)[live][order].contiguous(),
             s[order].to(torch.int32).contiguous())
+
+
+def cost(
+    nwk_shard, docf_kd, inv_denom, lids, seg, cts, block_vtile,
+    doc_cols=None, doc_cts=None, doc_seg=None, *, d_pad: int, shard_v: int,
+    live: Optional[int] = None, **geometry,
+) -> Tuple[int, float]:
+    """(bytes, flops) of one launch on these inputs, shapes only: the
+    table, the doc factor, inv_denom, every slot's lid and the block map
+    read once, seg and cts of ``live`` slots (default: every slot, pads
+    included), and the two outputs written once (the doc stream's second
+    read of the tokens lies above it); 8k flops a live slot."""
+    k = nwk_shard.shape[0]
+    live = cts.numel() if live is None else int(live)
+    return (_build.nbytes(nwk_shard, docf_kd, inv_denom, lids, block_vtile)
+            + 8 * live + 4 * k * (shard_v + d_pad), 8.0 * k * live)
 
 
 def em_sweep_fused_plain(
@@ -138,11 +155,13 @@ def em_sweep_fused(
     d_pad: int,
     shard_v: int,
     eta_m1: float,
+    live: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One EM sweep: (N_wk' [k, shard_v], N_dk' [d_pad, k]).  The doc
     stream must hold the sorted layout's live tokens (tokens of weight 0
     may be added: they add 0).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+    tensors launch the kernel or raise.  ``live``, the plan's live slots
+    where the caller holds them on the host, only feeds ``cost``."""
     if nwk_shard.device.type == "cpu":
         return em_sweep_fused_plain(
             nwk_shard, docf_kd, inv_denom, lids, seg, cts, block_vtile,
@@ -190,5 +209,9 @@ def em_sweep_fused(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "em_sweep_fused")
-    _build.count_launch("em_sweep_fused")
+    _build.count_launch(
+        "em_sweep_fused",
+        lambda: cost(nwk_shard, docf_kd, inv_denom, lids, seg, cts,
+                     block_vtile, d_pad=d_pad, shard_v=shard_v, live=live),
+        4 * n_scratch)
     return nwk_out, ndk_out

@@ -17,12 +17,14 @@ shared memory); past it the wrapper raises ``ValueError`` naming it.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _build
 
 __all__ = [
     "cluster_size",
+    "cost",
     "digamma_approx",
     "gamma_fixed_point",
     "gamma_fixed_point_bkl",
@@ -65,6 +67,23 @@ def digamma_approx(x: torch.Tensor) -> torch.Tensor:
         - inv2 * (1.0 / 12.0 - inv2 * (1.0 / 120.0 - inv2 * (1.0 / 252.0)))
     )
     return res + series
+
+
+def cost(eb, cts, alpha, gamma0, max_inner: int = 100, tol: float = 1e-3,
+         tile_b: int = 8, *, iters=None, live=None):
+    """(bytes, flops) of one launch on these inputs, shapes only: the eb
+    rows of the live slots (the kernel never reads a pad slot's), every
+    slot's cts, alpha and gamma0 read once and gamma [B, k] written once;
+    4k + 1 flops a live slot an inner iteration.  ``live``: each doc's
+    live slots [B] (default: all L, pads included); ``iters``: the
+    iterations each tile of ``tile_b`` docs ran (default: one, so the
+    flops are one inner iteration's: the count is data-dependent)."""
+    b, k, l = eb.shape
+    nnz = _build.host_counts(live, b, l)
+    tb = max(1, min(tile_b, b))
+    its = np.repeat(_build.host_counts(iters, -(-b // tb), 1), tb)[:b]
+    return (4 * k * int(nnz.sum()) + 4 * b * l + 4 * k + 8 * b * k,
+            float((its * nnz).sum()) * (4 * k + 1))
 
 
 def _prep_alpha(alpha, k: int, device) -> torch.Tensor:
@@ -167,7 +186,9 @@ def _launch(eb, cts, alpha, gamma0, max_inner, tol, tb):
         torch.cuda.current_stream(eb.device).cuda_stream,
     )
     _build.check(err, "gamma_fixed_point_bkl")
-    _build.count_launch("gamma_fixed_point_bkl")
+    _build.count_launch(
+        "gamma_fixed_point_bkl",
+        lambda: cost(eb, cts, alpha, gamma0, max_inner, tol, tb))
     return out
 
 

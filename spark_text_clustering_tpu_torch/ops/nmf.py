@@ -26,9 +26,25 @@ import torch
 from . import _build
 from .packed import tile_warps
 
-__all__ = ["nmf_mu_update_tiles", "nmf_mu_update_tiles_plain"]
+__all__ = ["cost", "nmf_mu_update_tiles", "nmf_mu_update_tiles_plain"]
 
 _EPS = 1e-9
+
+
+def cost(hg_kt, cts, seg, w_slots, hht, d: int, eps: float = _EPS, *,
+         live_tokens=None, live_slots=None) -> Tuple[int, float]:
+    """(bytes, flops) of one launch on these inputs, shapes only: hg's k
+    values, cts and seg of the live tokens and their k vals written, W
+    read and written for the live slots, H H^T; k products and k scan
+    adds a live token, the k x k denominator and the update a live slot.
+    ``live_tokens`` / ``live_slots``: the plan's live counts (default:
+    every token and slot, pads included)."""
+    n_tiles, tt = cts.shape
+    k = hg_kt.shape[0]
+    tok = n_tiles * tt if live_tokens is None else int(live_tokens)
+    slots = n_tiles * d if live_slots is None else int(live_slots)
+    return (tok * (8 * k + 8) + slots * 8 * k + 4 * k * k,
+            2.0 * k * tok + slots * (2.0 * k * k + 3 * k))
 
 
 def nmf_mu_update_tiles_plain(
@@ -109,5 +125,8 @@ def nmf_mu_update_tiles(
         torch.cuda.current_stream(hg_kt.device).cuda_stream,
     )
     _build.check(err, "nmf_mu_update_tiles")
-    _build.count_launch("nmf_mu_update_tiles")
+    _build.count_launch(
+        "nmf_mu_update_tiles",
+        lambda: cost(hg_kt, cts, seg, w_slots, hht, d, eps),
+        0 if scratch is None else _build.nbytes(scratch))
     return w_new, vals

@@ -35,6 +35,7 @@ from . import _build
 from .estep import _prep_alpha, digamma_approx
 
 __all__ = [
+    "cost",
     "TilePlan",
     "UniformTilePlan",
     "plan_tile_pack",
@@ -335,6 +336,25 @@ def tile_work(seg_row: np.ndarray, d: int, warps: int) -> TileWork:
                     np.asarray(pieces, np.int64).reshape(-1, 4))
 
 
+def cost(eb_kt, cts, seg, alpha, gamma0, d: int, max_inner: int = 100,
+         tol: float = 1e-3, *, iters=None, live_tokens=None,
+         live_slots=None):
+    """(bytes, flops) of one launch on these inputs, shapes only: eb, seg
+    and cts of the live tokens, gamma0 read and gamma written for the live
+    slots, alpha; 4k + 1 flops a live token a tile iteration (phinorm,
+    the ratio, the k products and adds of the slot sums).
+    ``live_tokens``: each tile's live tokens [n_tiles] (default: all tt,
+    pads included); ``live_slots``: the live doc slots (default: every
+    slot); ``iters``: each tile's iterations (default: one)."""
+    n_tiles, tt = cts.shape
+    k = eb_kt.shape[0]
+    tok = _build.host_counts(live_tokens, n_tiles, tt)
+    its = _build.host_counts(iters, n_tiles, 1)
+    slots = n_tiles * d if live_slots is None else int(live_slots)
+    return (int(tok.sum()) * (4 * k + 8) + 8 * k * slots + 4 * k,
+            float((its * tok).sum()) * (4 * k + 1))
+
+
 def gamma_fixed_point_tiles_plain(
     eb_kt: torch.Tensor,     # [k, n_tiles * tt] gathered exp(E[log beta])
     cts: torch.Tensor,       # [n_tiles, tt]
@@ -430,7 +450,10 @@ def gamma_fixed_point_tiles(
         torch.cuda.current_stream(eb_kt.device).cuda_stream,
     )
     _build.check(err, "gamma_fixed_point_tiles")
-    _build.count_launch("gamma_fixed_point_tiles")
+    _build.count_launch(
+        "gamma_fixed_point_tiles",
+        lambda: cost(eb_kt, cts, seg, alpha, gamma0, d, max_inner, tol),
+        0 if scratch is None else _build.nbytes(scratch))
     return out
 
 

@@ -39,6 +39,7 @@ from .lda_math import segments_distribution_plain
 
 __all__ = [
     "cluster_size",
+    "cost",
     "launch_plan",
     "offsets_to_seg",
     "pack_offsets",
@@ -75,6 +76,25 @@ def topic_inference_segments_plain(
     return segments_distribution_plain(
         eb_tok, cts, seg, alpha, gamma0, max_inner, tol, freeze=True,
         with_iters=with_iters)
+
+
+def cost(eb_tok, cts, offsets, alpha, gamma0, max_inner: int = 100,
+         tol: float = 1e-3, *, lens=None, iters=None):
+    """(bytes, flops) of one launch on these inputs, shapes only: each
+    live token's eb row and count, the offsets, alpha, gamma0 and the
+    output once; 4k + 2 flops a live token an iteration.  ``lens``: each
+    doc's tokens [B] (default: all T slots live, pads included);
+    ``iters``: each doc's iterations (default: one)."""
+    t, k = eb_tok.shape
+    b = gamma0.shape[0]
+    if lens is None:
+        live, work = t, float(t)
+    else:
+        n = _build.host_counts(lens, b, 0)
+        live = int(n.sum())
+        work = float((_build.host_counts(iters, b, 1) * n).sum())
+    return (4 * (live * (k + 1) + (b + 1) + k + 2 * b * k),
+            work * (4 * k + 2))
 
 
 _MAX_CLUSTER = 16
@@ -193,7 +213,10 @@ def topic_inference_segments(
         torch.cuda.current_stream(eb_tok.device).cuda_stream,
     )
     _build.check(err, "topic_inference_segments")
-    _build.count_launch("topic_inference_segments")
+    _build.count_launch(
+        "topic_inference_segments",
+        lambda: cost(eb_tok, cts, offsets, alpha, gamma0, max_inner, tol),
+        0 if scratch is None else _build.nbytes(scratch))
     return out
 
 

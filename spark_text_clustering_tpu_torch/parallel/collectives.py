@@ -32,6 +32,7 @@ import torch
 import torch.distributed as dist
 
 from .. import telemetry
+from ..telemetry.dispatch import note_collective
 from ..ops.sparse import DocTermBatch, batch_from_rows
 from .mesh import DATA_AXIS, MODEL_AXIS, ProcessGrid
 
@@ -60,6 +61,8 @@ def _acct(name: str, *tensors) -> None:
     nbytes = sum(int(t.numel()) * t.element_size() for t in tensors)
     telemetry.count(f"collective.{name}.calls")
     telemetry.count(f"collective.{name}.traced_bytes", nbytes)
+    # the call in flight owns the bytes (dispatch.<digest>.collective_bytes)
+    note_collective(nbytes)
 
 
 def _all_reduce(grid: ProcessGrid, x: torch.Tensor, group) -> torch.Tensor:

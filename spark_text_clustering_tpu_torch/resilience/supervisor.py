@@ -62,7 +62,7 @@ spawn set carries its ``trace_id``.
 epoch ledgers, a staggered bring-up, a drain-free resize, a rolling
 hot-swap through per-replica control files and a parallel drain (its
 docstring).  The JAX package also applies a monitor's actions file here
-(item 9b); the port does not yet.
+(item 9b.2); the port does not yet.
 
 This module imports neither ``torch`` nor the port's device code: it is
 subprocess-and-files machinery that must survive whatever a worker does
@@ -989,7 +989,7 @@ class ServeFleetSupervisor(FleetSupervisor):
         every replica in parallel (SIGTERM, grace, SIGKILL).
 
     The JAX package also scales this fleet from a monitor's actions file
-    (item 9b); the port does not yet.
+    (item 9b.2); the port does not yet.
     """
 
     def __init__(

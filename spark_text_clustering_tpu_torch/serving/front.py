@@ -37,7 +37,7 @@ HTTP front spreads ``/score`` over them:
 
 Standard library only, and no torch: the front must survive whatever its
 replicas do to the card.  The JAX front's ``alerts_file`` (``/healthz``
-degrading on firing alerts) is item 9b's; passing one raises.
+degrading on firing alerts) is item 9b.2's; passing one raises.
 """
 
 from __future__ import annotations
@@ -233,7 +233,7 @@ class FrontRouter:
         if alerts_file is not None:
             raise NotImplementedError(
                 "FrontRouter(alerts_file=...) is not ported yet (ROADMAP.md "
-                "queue 1 item 9b, the rest of telemetry)")
+                "queue 1 item 9b.2, alerts and the autoscaler)")
         self.fleet_dir = fleet_dir
         self.host = host
         self.alerts_file = alerts_file

@@ -34,9 +34,12 @@ dispatches; the watcher thread builds and warms the next snapshot.  Each
 names the snapshot's device explicitly.  There is nothing to compile: a
 dispatch is one gather and one kernel launch, so warmup runs one
 dispatch a token bucket (the kernel's load, the thread's CUDA context,
-the allocator's first blocks) and ``compile.retraces`` counts the first
-dispatch at each (bucket, max_batch, k) shape the service's scorers have
-not run (``ShapeLog``), where the JAX package traces.
+the allocator's first blocks).  The gather and the kernel's call go
+through the dispatch layer under the JAX package's labels
+(``serve.gather``, ``serve.topic_inference``), so its recompile sentinel
+counts ``compile.retraces`` at each signature past a label's first, where
+the JAX package traces, process-wide (a swapped-in model of the same k
+meets the signatures already run).
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ import torch
 
 from .. import telemetry
 from ..device import resolve_device
+from ..models.base import gather_token_rows
 from ..models.persistence import latest_model_dir, resolve_latest_model
 from ..ops.lda_math import topic_inference_segments
 from ..ops.segments import pack_offsets
@@ -82,7 +86,6 @@ from .front import (
 
 __all__ = [
     "DEFAULT_TOKEN_BUCKETS",
-    "ShapeLog",
     "ServeScorer",
     "ScoringService",
     "DegradeController",
@@ -92,23 +95,10 @@ __all__ = [
 # default warmup grid: pow2 token buckets a book-sized request lands in
 DEFAULT_TOKEN_BUCKETS = (256, 1024, 4096)
 
-class ShapeLog:
-    """The (token bucket, max_batch, k) shapes a service's scorers have
-    dispatched: the first dispatch at a new one counts
-    ``compile.retraces``, where the JAX package traces.  Shared by a
-    service's scorers (a swapped-in model of the same k meets its shapes
-    already run) and written by the dispatch and watcher threads."""
-
-    def __init__(self) -> None:
-        self._seen: set = set()
-        self._lock = threading.Lock()
-
-    def note(self, shape) -> None:
-        with self._lock:
-            if shape in self._seen:
-                return
-            self._seen.add(shape)
-        telemetry.count("compile.retraces")
+# a dispatch's two calls, under the JAX package's labels
+_infer = telemetry.instrument_dispatch("serve.topic_inference",
+                                       topic_inference_segments)
+_gather = telemetry.instrument_dispatch("serve.gather", gather_token_rows)
 
 
 def _read_meta(path: str) -> dict:
@@ -141,7 +131,6 @@ class ServeScorer:
         max_batch: int = 64,
         token_buckets: Sequence[int] = DEFAULT_TOKEN_BUCKETS,
         device="cuda",
-        shapes: Optional[ShapeLog] = None,
         emulate_doc_seconds: Optional[float] = None,
     ) -> None:
         from ..models.base import LDAModel
@@ -155,7 +144,6 @@ class ServeScorer:
         # publish-order stamp of the served artifact (the fleet front's
         # generation-pinning key; None for unstamped explicit dirs)
         self.stamp = model_stamp(path)
-        self.shapes = shapes if shapes is not None else ShapeLog()
         # the fleet drill's emulated dispatch: a pinned per-document
         # sleep in place of the kernel, so a CPU host can run N replicas
         # and the drill measures the fleet path (routing, transport,
@@ -278,7 +266,6 @@ class ServeScorer:
                 rows = [(ids[:allow], wts[:allow]) for ids, wts in rows]
         lens = [len(i) for i, _ in rows]
         t_pad = self._bucket(sum(lens))
-        self.shapes.note((t_pad, self.max_batch, self.k))
         flat_i = np.zeros(t_pad, np.int64)
         flat_c = np.zeros(t_pad, np.float32)
         seg = np.zeros(t_pad, np.int64)
@@ -291,8 +278,8 @@ class ServeScorer:
         offsets = pack_offsets(lens + [0] * (self.max_batch - n))
         dev = self.device
         with _on_device(dev):
-            out = topic_inference_segments(
-                self._eb_tok_table[torch.from_numpy(flat_i).to(dev)],
+            out = _infer(
+                _gather(self._eb_tok_table, torch.from_numpy(flat_i).to(dev)),
                 torch.from_numpy(flat_c).to(dev),
                 torch.from_numpy(seg).to(dev),
                 self._alpha,
@@ -308,9 +295,11 @@ class ServeScorer:
         makes its CUDA context and the allocator takes its blocks.  Past
         this point an in-bucket dispatch is at a shape this process has
         seen (``compile.retraces`` does not move).  The report keeps the
-        JAX package's keys: ``signatures`` lists the warmed (bucket,
-        max_batch, k) shapes, and there is no executable cache
+        JAX package's keys: ``signatures`` is the recompile sentinel's
+        distinct signatures per label, and there is no executable cache
         (``compile_cache`` "off")."""
+        from ..telemetry import compilation
+
         reg = telemetry.get_registry()
         t0 = time.perf_counter()
         v = max(1, self.model.vocab_size)
@@ -323,9 +312,7 @@ class ServeScorer:
         report = {
             "buckets": list(self.token_buckets),
             "warmup_seconds": round(time.perf_counter() - t0, 6),
-            "signatures": [
-                [t, self.max_batch, self.k] for t in self.token_buckets
-            ] if self._lda else [],
+            "signatures": compilation.signatures(),
             "retraces_at_warmup": int(retraces),
             "compile_cache": "off",
         }
@@ -453,7 +440,6 @@ class ScoringService:
             max_batch=max_batch,
             token_buckets=token_buckets,
             device=self.device,
-            shapes=ShapeLog(),
             emulate_doc_seconds=emulate_doc_seconds,
         )
         self.model_poll_interval = float(model_poll_interval)

@@ -76,6 +76,15 @@ from .resilience.retry import sleep as _sleep
 from .telemetry import tracing
 from .utils.report import format_scoring_report, write_scoring_report
 
+# one micro-batch's update, under the JAX package's label: the step, its
+# docs and the corpus size ride as tensors, so every trigger of one width
+# shares a signature
+_online_step = telemetry.instrument_dispatch(
+    "stream.online_step",
+    lambda lam, step_docs, ids, wts, gamma0, corpus, **kw: padded_iteration(
+        lam, int(step_docs[0]), ids, wts, gamma0, int(step_docs[1]),
+        corpus_size=float(corpus), **kw))
+
 __all__ = [
     "AIMDTriggerController",
     "FileStreamSource",
@@ -775,14 +784,14 @@ class StreamingOnlineLDA:
                                           self.device)
         p = self.params
         self._busy = True
-        self.lam = padded_iteration(
-            self.lam, self.step, batch.token_ids, batch.token_weights,
-            self._gamma0(),
-            sum(1 for _, w in chunk if np.sum(w) > 0),
+        self.lam = _online_step(
+            self.lam, torch.tensor([self.step, sum(
+                1 for _, w in chunk if np.sum(w) > 0)]),
+            batch.token_ids, batch.token_weights, self._gamma0(),
+            torch.tensor(float(max(self.docs_seen,
+                                   self.corpus_size_hint or 0))),
             alpha=self._alpha_dev, eta=p.resolved_eta(), tau0=p.tau0,
-            kappa=p.kappa,
-            corpus_size=float(max(self.docs_seen, self.corpus_size_hint or 0)),
-            grid=self.grid,
+            kappa=p.kappa, grid=self.grid,
         )
         self._busy = False
         self.step += 1

@@ -26,10 +26,10 @@ Usage (a command that owns a run)::
 
 Each rank of a grid is one process and routes its path through
 ``per_process_path`` (``events-p<rank>.jsonl``); ``metrics merge`` folds
-the ranks' streams back into one logical run.  ``instrument_dispatch``
-is a pass-through: per-executable dispatch attribution
-(``dispatch.<digest>.*``), ``compile.*`` and ``mem.<digest>.*`` come with
-ROADMAP item 9b.
+the ranks' streams back into one logical run.  Hot-loop callables wrap
+with ``instrument_dispatch(label, fn)`` for per-call attribution
+(``dispatch.<digest>.*``, the hand-written kernels' launches and costs,
+``compile.*``, ``mem.<digest>.*``; ``telemetry.dispatch``).
 
 **Disabled is the default and costs (almost) nothing**: every helper
 collapses to one module-global bool check; ``span()`` returns a shared
@@ -48,6 +48,8 @@ import time
 from typing import Iterable, Optional
 
 from . import transport
+from .dispatch import instrument as instrument_dispatch
+from .dispatch import note_sync as _note_sync
 from .events import (
     SCHEMA_VERSION,
     JsonlSink,
@@ -111,11 +113,6 @@ _enabled = False
 # the run's torch device (``configure(device=)``): the one memory samples
 # read and the manifest's backend names
 _device = None
-
-
-def instrument_dispatch(label: str, fn):
-    """``fn`` itself: per-executable dispatch attribution is item 9b."""
-    return fn
 
 
 def get_registry() -> MetricRegistry:
@@ -257,6 +254,9 @@ def device_sync(x, label: str = "train"):
     dt = time.perf_counter() - t0
     _registry.histogram(f"device_sync.{label}.seconds").observe(dt)
     _registry.counter(f"device_sync.{label}.calls").inc()
+    # the wait belongs to the call dispatched just before it: it completes
+    # that digest's measured roofline seconds (dispatch.note_sync)
+    _note_sync(dt)
     return x
 
 

@@ -11,7 +11,7 @@ missing file is quiet.
 
 The rest of the JAX module (the alert rules and their engine,
 ``ActionEmitter`` and ``firing_alerts``) comes with ROADMAP.md queue 1
-item 9b.
+item 9b.2; ``metrics tail`` reads with these tailers.
 """
 
 from __future__ import annotations

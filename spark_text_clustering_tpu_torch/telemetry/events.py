@@ -230,11 +230,13 @@ def manifest_fields(
 def backend_fields(device) -> Dict:
     """``backend`` and ``device_count`` of a run on ``device``, in JAX's
     words: ``"gpu"`` and the visible cards for CUDA, ``"cpu"`` and 1
-    otherwise."""
+    otherwise; a CUDA run also names its card (``device_kind``, which
+    ``metrics roofline`` picks its peaks by)."""
     import torch
 
     if torch.device(device).type == "cuda":
-        return {"backend": "gpu", "device_count": torch.cuda.device_count()}
+        return {"backend": "gpu", "device_count": torch.cuda.device_count(),
+                "device_kind": torch.cuda.get_device_name(device)}
     return {"backend": "cpu", "device_count": 1}
 
 

@@ -1,6 +1,19 @@
-"""Live memory sampling (the ``mem.device.*`` / ``mem.host.*`` family).
+"""Memory attribution (the ``mem.*`` family): per call and live.
 
-``sample`` reads the run device's allocator statistics
+Two views, both best-effort by contract (a device that cannot report
+degrades to explicit ``unavailable`` markers, never a crash):
+
+  * **Per-call attribution** — ``attribute_call`` is the port's
+    counterpart of the JAX package's ``attribute_compiled``: at the first
+    call of each dispatch digest (``telemetry.dispatch``) it publishes
+    ``mem.<digest>.arg_bytes`` / ``.out_bytes`` (the call's tensor
+    operands and results), ``.temp_bytes`` (the largest scratch a kernel
+    wrapper allocated for one launch inside the call, 0 where none ran),
+    ``.code_bytes`` (the size of the loaded libraries of the kernels the
+    call launched; left out where it launched none, and ``mem_source``
+    says so) and ``.peak_bytes`` (arg + out + temp, the JAX package's
+    upper bound for one execution).
+  * **Live sampling** — ``sample`` reads the run device's allocator statistics
 (``mem.device.bytes_in_use`` / ``.peak_bytes_in_use`` / ``.bytes_limit``)
 plus the host RSS (``mem.host.rss_bytes``), and emits one
 ``memory_sample`` event.  On a CUDA device ``bytes_in_use`` and
@@ -19,8 +32,6 @@ the JAX package does on its CPU backend, so dashboards can tell "no
 pressure" from "no data".  Call at epoch/trigger boundaries (the
 ``telemetry.sample_memory`` facade gates on enabled).
 
-Per-executable attribution (``mem.<digest>.*``) comes with the dispatch
-layer, ROADMAP item 9b.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ import sys
 from typing import Dict, List, Optional
 
 __all__ = [
+    "attribute_call",
     "sample",
     "host_rss_bytes",
     "device_stats",
@@ -38,6 +50,43 @@ __all__ = [
 
 # gauge suffixes, summed over the devices this process drives
 _DEVICE_FIELDS = ("bytes_in_use", "peak_bytes_in_use", "bytes_limit")
+
+
+def _tensor_bytes(obj) -> int:
+    from .dispatch import leaves
+
+    return sum(x.numel() * x.element_size() for x in leaves(obj)
+               if hasattr(x, "element_size") and hasattr(x, "numel"))
+
+
+def attribute_call(rec, args, kwargs, out, scratch: int,
+                   kernels: List[str]) -> None:
+    """``mem.<digest>.*`` gauges from one call's tensors, the scratch its
+    kernel wrappers allocated and the libraries of ``kernels``, the
+    kernels it launched; stamps ``rec.mem_bytes`` / ``rec.mem_source``."""
+    from . import get_registry
+
+    mem: Dict[str, int] = {
+        "arg_bytes": _tensor_bytes([list(args), dict(kwargs)]),
+        "out_bytes": _tensor_bytes(out),
+        "temp_bytes": int(scratch),
+    }
+    rec.mem_source = "tensors"
+    if kernels:
+        from ..ops import _build
+
+        sizes = [_build.library_bytes(k) for k in kernels]
+        if all(s is not None for s in sizes):
+            mem["code_bytes"] = int(sum(sizes))
+            rec.mem_source = "tensors+libraries"
+    else:
+        rec.mem_source = "tensors:no_kernel_library"
+    mem["peak_bytes"] = (mem["arg_bytes"] + mem["out_bytes"]
+                         + mem["temp_bytes"])
+    reg = get_registry()
+    for name, v in mem.items():
+        reg.gauge(f"mem.{rec.digest}.{name}").set(v)
+    rec.mem_bytes = mem
 
 
 def host_rss_bytes() -> Optional[int]:

@@ -126,11 +126,49 @@ def test_the_streaming_modules_are_scanned():
 
 
 def test_the_telemetry_modules_are_scanned():
-    """The import and source scans cover the telemetry core."""
+    """The import and source scans cover the telemetry core and the
+    dispatch layer with its readers: dispatch, the recompile sentinel,
+    the roofline, the trace export, SLOs and the ``metrics`` verb."""
     mods = set(_port_modules())
     assert {f"spark_text_clustering_tpu_torch.telemetry{m}" for m in (
         "", ".registry", ".names", ".tracing", ".transport", ".prometheus",
-        ".events", ".spans", ".memory")} <= mods
+        ".events", ".spans", ".memory", ".dispatch", ".compilation",
+        ".roofline", ".trace_export", ".slo", ".metrics_cli")} <= mods
+
+
+def test_the_metrics_verb_loads_no_jax(tmp_path):
+    """An instrumented call's stream read back by every ``metrics``
+    subcommand of the port's CLI (``scale-check`` refused with exit 2)
+    leaves jax and the JAX package out of ``sys.modules``."""
+    stream = str(tmp_path / "t.jsonl")
+    code = (
+        "import contextlib, io, sys, torch\n"
+        "from spark_text_clustering_tpu_torch import cli, telemetry\n"
+        f"s = {stream!r}\n"
+        "telemetry.configure(s, device='cpu')\n"
+        "telemetry.manifest(kind='train')\n"
+        "f = telemetry.instrument_dispatch('em.packed_chunk', torch.exp)\n"
+        "f(torch.ones(4)); f(torch.ones(8))\n"
+        "telemetry.shutdown()\n"
+        "rcs = []\n"
+        "for argv in (['summarize', s], ['roofline', s], ['trace', s],\n"
+        "             ['merge', s, s], ['diff', s, s], ['bench-diff', s, s],\n"
+        "             ['tail', s, '--once'], ['slo', s],\n"
+        "             ['scale-check', '--run']):\n"
+        "    with contextlib.redirect_stdout(io.StringIO()), \\\n"
+        "            contextlib.redirect_stderr(io.StringIO()):\n"
+        "        rcs.append(cli.main(['metrics', *argv]))\n"
+        "assert rcs[-1] == 2 and 2 not in rcs[:-1], rcs\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'spark_text_clustering_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
 
 
 def test_the_serving_modules_are_scanned():

@@ -40,6 +40,7 @@ from spark_text_clustering_tpu.resilience import supervisor as jsup
 from spark_text_clustering_tpu.serving import front as jfront
 from spark_text_clustering_tpu.serving import probe as jprobe
 from spark_text_clustering_tpu.serving import server as jserver
+from spark_text_clustering_tpu.telemetry import dispatch as jdispatch
 from spark_text_clustering_tpu_torch import telemetry
 from spark_text_clustering_tpu_torch.interop import lda_model_from_numpy
 from spark_text_clustering_tpu_torch.models.persistence import load_model
@@ -52,6 +53,7 @@ from spark_text_clustering_tpu_torch.resilience import supervisor as tsup
 from spark_text_clustering_tpu_torch.serving import front as tfront
 from spark_text_clustering_tpu_torch.serving import probe as tprobe
 from spark_text_clustering_tpu_torch.serving import server as tserver
+from spark_text_clustering_tpu_torch.telemetry import dispatch as tdispatch
 from spark_text_clustering_tpu_torch.utils import native as tnative
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -650,7 +652,8 @@ def test_resize_grows_beside_and_drains_only_the_retired(tmp_path):
 # ---------------------------------------------------------------------------
 def test_emulated_dispatch_bytes_equal_jax(python_text):
     """``emulate_doc_seconds`` answers JAX's bytes, full and degraded, and
-    its warmup skips the buckets under JAX's report keys."""
+    its warmup skips the buckets under JAX's report keys: both recompile
+    sentinels, fresh, see no signature."""
     jmodel = JLDAModel(lam=_lam(), vocab=list(VOCAB),
                        alpha=np.full(K, 0.5, np.float32), eta=0.1)
     tmodel = lda_model_from_numpy(_lam(), np.full(K, 0.5, np.float32), 0.1,
@@ -664,10 +667,12 @@ def test_emulated_dispatch_bytes_equal_jax(python_text):
     for degraded in (False, True):
         assert tsc.score_rows(rows, degraded=degraded).tobytes() == \
             jsc.score_rows(rows, degraded=degraded).tobytes()
+    jdispatch.reset()
+    tdispatch.reset()
     jw, tw = jsc.warmup(), tsc.warmup()
     assert sorted(tw) == sorted(jw)
     assert tw["emulated_doc_seconds"] == jw["emulated_doc_seconds"] == 0.001
-    assert tw["signatures"] == []
+    assert tw["signatures"] == jw["signatures"] == {}
 
 
 class _Stub429(BaseHTTPRequestHandler):

@@ -51,6 +51,7 @@ from spark_text_clustering_tpu_torch.serving import (
     ServiceOverloaded,
     make_http_server,
 )
+from spark_text_clustering_tpu_torch.telemetry import dispatch as tdispatch
 from spark_text_clustering_tpu_torch.serving.front import (
     DEGRADED_HEADER,
     GENERATION_HEADER,
@@ -75,6 +76,7 @@ def _clean(monkeypatch):
         tel.shutdown()
         tel.get_registry().reset()
     jdispatch.reset()
+    tdispatch.reset()
     faultinject.reset()
     jfault.reset()
     yield
@@ -82,6 +84,7 @@ def _clean(monkeypatch):
         tel.shutdown()
         tel.get_registry().reset()
     jdispatch.reset()
+    tdispatch.reset()
     faultinject.reset()
     jfault.reset()
 
@@ -405,8 +408,8 @@ def test_port_serves_what_jax_serves(models_dir, tmp_path):
     """The same texts through the JAX service and the port's, each with a
     telemetry stream: distributions within 1e-4, equal result keys and
     attribution, and the JAX package's ``metrics summarize --json`` finds
-    the same ``serving_health`` keys in both streams (less
-    ``executables``, the dispatch attribution of item 9b)."""
+    the same ``serving_health`` keys in both streams, ``executables``
+    included: the same labels with the same calls, digests masked."""
     texts = _texts(12, seed=3)
     names = [f"b{i}" for i in range(len(texts))]
     streams = {"jax": str(tmp_path / "jax.jsonl"),
@@ -438,12 +441,14 @@ def test_port_serves_what_jax_serves(models_dir, tmp_path):
         with contextlib.redirect_stdout(buf):
             assert jmetrics.cmd_summarize(
                 argparse.Namespace(run=path, json=True)) == 0
-        sh = json.loads(buf.getvalue())["serving_health"]
-        sh.pop("executables", None)
-        return sh
+        return json.loads(buf.getvalue())["serving_health"]
 
     jsh, tsh = health(streams["jax"]), health(streams["port"])
     assert sorted(tsh) == sorted(jsh)
+    assert [sorted(x) for x in tsh["executables"]] == [
+        sorted(x) for x in jsh["executables"]]
+    assert sorted((x["label"], x["calls"]) for x in tsh["executables"]) == \
+        sorted((x["label"], x["calls"]) for x in jsh["executables"])
     assert sorted(tsh["warmup"]) == sorted(jsh["warmup"])
     assert sorted(tsh["request_seconds"]) == sorted(jsh["request_seconds"])
     assert tsh["requests"] == jsh["requests"] == len(texts)
@@ -452,13 +457,17 @@ def test_port_serves_what_jax_serves(models_dir, tmp_path):
 
 def test_in_bucket_traffic_adds_no_retrace_and_oversize_adds_one(
         models_dir):
-    """Warmup runs each bucket's shape once (2 first-seen shapes); in-bucket
-    traffic adds none; a request past the largest bucket adds one."""
+    """Warmup runs each bucket's shape once: the recompile sentinel counts
+    the second bucket's signature of each of the dispatch's two labels
+    (``serve.gather`` and ``serve.topic_inference``), as the JAX package's
+    counts; in-bucket traffic adds none; a request past the largest bucket
+    adds one signature a label."""
     telemetry.configure(None)
     svc = _service(models_dir)
     at_warmup = svc.warmup_report["retraces_at_warmup"]
     assert at_warmup == 2
-    assert svc.warmup_report["signatures"] == [[64, 8, K], [256, 8, K]]
+    assert svc.warmup_report["signatures"] == {
+        "serve.gather": 2, "serve.topic_inference": 2}
     assert svc.warmup_report["compile_cache"] == "off"
     for chunk in range(4):
         svc.submit_texts(_texts(5, seed=chunk))
@@ -468,8 +477,8 @@ def test_in_bucket_traffic_adds_no_retrace_and_oversize_adds_one(
     long_texts = [" ".join([" ".join(VOCAB)] * 2)] * 8
     svc.submit_texts(long_texts)
     report = svc.begin_drain()
-    assert report["retraces_after_warmup"] == 1
-    assert report["retraces_total"] == 3
+    assert report["retraces_after_warmup"] == 2
+    assert report["retraces_total"] == 4
 
 
 # ---------------------------------------------------------------------------

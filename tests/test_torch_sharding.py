@@ -502,3 +502,27 @@ def test_ranks_loading_a_kernel_at_once_build_it_once(tmp_path):
     names = sorted(os.listdir(build))
     assert len(names) == 2 and names[0] == ".build.lock"
     assert names[1].startswith("estep_") and names[1].endswith(".so")
+
+
+def test_config_i_bounds_the_grid_by_the_largest_pairwise_spread():
+    """``chip_smoke``'s config I bound (fault B1): the spread of five 1x1
+    fits is the largest distance of a later fit from an earlier one over
+    all ten pairs (relative to max(|earlier|, 1)), and the bound is twice
+    it where that passes 1e-3."""
+    import chip_smoke
+
+    base = np.array([10.0, 2.0, 0.5])
+    lams = [base, base.copy(), base + [0.1, 0, 0], base + [0, 0.004, 0],
+            base + [0, 0, 0.003]]
+    spread, pairs = chip_smoke.lam_spread(lams)
+    want = {"0-1": 0.0, "0-2": 0.01, "0-3": 0.002, "0-4": 0.003,
+            "1-2": 0.01, "1-3": 0.002, "1-4": 0.003,
+            "2-3": 0.1 / 10.1, "2-4": 0.1 / 10.1, "3-4": 0.003}
+    assert sorted(pairs) == sorted(want)
+    for key, d in want.items():
+        assert pairs[key] == pytest.approx(d, rel=1e-9, abs=1e-15), key
+    assert spread == pytest.approx(0.01, rel=1e-9)
+    assert chip_smoke.grid_lam_bound(spread) == pytest.approx(0.02)
+    small, _ = chip_smoke.lam_spread([base, base + [0, 0, 1e-4]] * 2 + [base])
+    assert small == pytest.approx(1e-4)
+    assert chip_smoke.grid_lam_bound(small) == 1e-3

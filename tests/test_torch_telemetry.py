@@ -7,13 +7,18 @@ process on the same six small books with ``--telemetry-file``: the JAX
 CLI on a one-device mesh, the port's with ``--device cpu``.  The JAX
 package's own ``metrics summarize --json`` reads both streams, and they
 must carry the same manifest keys, ``config_hash``, event types and
-metric names.  The exceptions: the families of the dispatch layer
-(``dispatch.*``, ``compile.*``, ``mem.<digest>.*``, the
-``dispatch_executable`` events, the ``compile_health`` section), which
-the port brings with ROADMAP item 9b, and ``collective.*``, which JAX
-counts when it traces its one-device mesh and the port's 1x1 path never
-calls.  Both text front ends take their Python path (nltk), so no g++
-build is needed.
+metric names, the dispatch layer's families (``dispatch.*``,
+``compile.*``, ``mem.<digest>.*``, the ``dispatch_executable`` events,
+the ``compile_health`` section) included, with the digests masked (each
+package hashes its own signatures).  The exceptions (``comparable``):
+``collective.*``, which JAX counts when it traces its one-device mesh and
+the port's 1x1 path never calls, and the dispatch names of what the port
+does not do on the CPU (ROADMAP's deliberate differences of item 9b.1):
+no cost estimates, code size or compile seconds where no hand-written
+kernel launched and no kernel library loaded.  The NMF fit's label is the
+port's tiled layout's (it tiles on every device; JAX only where its
+kernel runs).  Both text front ends take their Python path (nltk), so no
+g++ build is needed.
 """
 
 from __future__ import annotations
@@ -177,28 +182,44 @@ def summarize(path):
     return json.loads(out.getvalue())
 
 
-_DIGEST = re.compile(r"^mem\.[0-9a-f]{8,}\.")
+_DIGEST = re.compile(r"\b(dispatch|mem|compile)\.[0-9a-f]{10}\.")
 _KIND = re.compile(r"^(counter|gauge|hist)\.")
+# the dispatch names the port writes only where a call launched a
+# hand-written kernel (cost, code size) or loaded its library (compile
+# seconds): never on the CPU, where JAX's XLA estimates every call
+_KERNEL_ONLY = re.compile(
+    r"^(dispatch\.<digest>\.(est_\w+|device_\w+_total)"
+    r"|mem\.<digest>\.code_bytes|compile\.<digest>\.compile_seconds)$")
+# the port's label where it takes another layout on the CPU
+PORT_LABELS = {"nmf.fused_chunk": "nmf.packed_chunk"}
+
+
+def masked(name):
+    """``name`` with its digest masked and a port-only label renamed."""
+    name = _DIGEST.sub(r"\1.<digest>.", name)
+    for port, jax_label in PORT_LABELS.items():
+        name = name.replace(f".{port}.", f".{jax_label}.")
+    return name
 
 
 def comparable(names, collectives=False):
-    """Metric names less the dispatch layer's families (item 9b) and, on
-    1x1, ``collective.*``."""
+    """Metric names with digests masked, less the dispatch names of kernel
+    launches (``_KERNEL_ONLY``) and, on 1x1, ``collective.*`` and the
+    calls' collective bytes."""
     keep = set()
     for name in names:
+        name = masked(name)
         inner = _KIND.sub("", name)
-        if (inner.startswith(("dispatch.", "compile."))
-                or _DIGEST.match(inner)
-                or name == "events.dispatch_executable.count"
-                or (not collectives and inner.startswith("collective."))):
+        if _KERNEL_ONLY.match(inner) or (not collectives and (
+                inner.startswith("collective.")
+                or inner.endswith(".collective_bytes"))):
             continue
         keep.add(name)
     return keep
 
 
 def event_types(path):
-    return {e["event"] for e in tevents.read_events(path)} - {
-        "dispatch_executable"}
+    return {e["event"] for e in tevents.read_events(path)}
 
 
 @pytest.fixture(scope="module")
@@ -322,9 +343,13 @@ def test_event_types_equal_jax(runs, verb):
 @pytest.mark.parametrize("verb", VERBS)
 def test_metric_names_equal_jax(runs, verb):
     j, t = (summarize(runs[verb][n][2]) for n in ("jax", "port"))
-    assert comparable(t["metrics"]) == comparable(j["metrics"])
-    sections = set(t) - {"compile_health"}
-    assert sections == set(j) - {"compile_health"}
+    # the port's streaming scorer sizes each chunk at its own longest
+    # document, where JAX pins the first trigger's width (ROADMAP's
+    # deliberate differences, the stream fleet): a second width is a
+    # second signature, so its sentinel counts a retrace JAX's does not
+    extra = {"counter.compile.retraces"} if verb == "stream-score" else set()
+    assert comparable(t["metrics"]) - extra == comparable(j["metrics"])
+    assert set(t) == set(j)
 
 
 def test_train_corpus_and_loglik_equal_jax(runs):
