@@ -91,7 +91,9 @@
    plain version) against the same ten on the CPU from the same draws:
    lambda within 1e-3 relative; then ``train --algorithm online --k 100``
    (5 iterations, the E-step's wide instance) -> ``score`` and ``score
-   --per-doc-convergence`` on the card against ``--device cpu`` (5e-3);
+   --per-doc-convergence`` on the card against ``--device cpu`` (5e-3),
+   the two ``--device cpu`` runs on every third book (``H_WIDE_CPU_EVERY``;
+   k=100 on the host is ~0.5 s a book), compared on those books' rows;
 11. config I, EM and scoring on a 2x2 grid of 4 ranks on the one card
    (``parallel.run_grid``, gloo with CUDA tensors: NCCL takes one rank a
    card).  Each rank first holds the fused sweep (its (data, model) pair
@@ -110,7 +112,7 @@
    ``train --data-shards 2 --model-shards 2 --dist-backend gloo`` and
    ``score --model-shards 2`` on E's books against config E's 1x1 card
    CLI (distributions 5e-3, main topics where the top two differ by
-   1e-2); a 1x1 NCCL grid initializes and reduces;
+   1e-2); beside them, a 1x1 NCCL grid initializes and reduces;
 12. config J, online VB and NMF on a 2x2 grid of 4 ranks on the one card
    (gloo).  Each rank first holds the tile kernel (its data shard's tiles
    of J-C's iteration 5, eb gathered from the vocabulary shards), the NMF
@@ -126,7 +128,10 @@
    iteration or sweep and its collectives' share; J-CLI: ``train
    --algorithm online`` at 2x2 and ``score`` on the grid against config
    H's card report (5e-3), ``train --algorithm nmf`` at 1x1 and 2x2, the
-   grid model's report equal to the 1x1 report with floats masked;
+   grid model's report equal to the 1x1 report with floats masked.  The
+   four 2x2 commands run as ``--coordinator`` ranks of one pool of four
+   processes (``GridPool``: one start-up, beside J's 1x1 fits and the 1x1
+   NMF pair); the timed grid runs alone;
 13. config K, one-process streaming through the CLI on config E's 51
    books with the stream verbs' defaults (batch capacity 8, 2^18 hash
    features, k=5) and 8 files a trigger (7 triggers): ``stream-score`` of
@@ -207,7 +212,15 @@
    after the lease's retirement, a clean probe and a clean drain; spawn
    to the front's announce and to each replica's ready, request p50/p99,
    docs/s, the roll's seconds and swap lag, time to recover, drain
-   seconds, each replica's share and launches;
+   seconds, each replica's share and launches.  O-alerts on the same
+   fleet: a ``cli monitor`` (``replica_down``) and a standalone ``cli
+   front --alerts-file`` beside the fleet; the kill fires replica_down
+   for replica 1 and the respawn's first beat resolves it in the
+   checksummed alerts log, the standalone front's ``/healthz`` degraded
+   while it fires and ok after; a second monitor's ``serve_p99`` action
+   scales the fleet out to 3 (``supervise --actions-file --max-workers
+   3``) exactly once, replica 2 beside the serving two, and a third pass
+   goes through the three replicas, each response its generation's bytes;
 18. telemetry (``--telemetry-file``) on commands the configs already run:
    E's card ``train`` and ``score`` run again with the flag (their launch
    counts equal to the runs without it) and its ``train --device cpu``
@@ -1657,14 +1670,117 @@ def report_distributions(text: str, k: int) -> np.ndarray:
     return np.asarray(vals, np.float64).reshape(-1, k)
 
 
-def run_cli(argv, out_path):
-    """``cli.main(argv)`` in this process, its stdout sent to
-    ``out_path``; returns (exit code, stdout text, wall seconds)."""
-    from spark_text_clustering_tpu_torch import cli
+_POOL_RANK = """
+import contextlib, json, os, sys
+reply = os.fdopen(os.dup(1), "w")
+os.dup2(os.open(os.devnull, os.O_WRONLY), 1)   # the replies' pipe alone
+from spark_text_clustering_tpu_torch import cli
+from spark_text_clustering_tpu_torch.ops import _build
+rank, size = sys.argv[1], sys.argv[2]
+for line in sys.stdin:
+    cmd = json.loads(line)
+    _build.reset_launches()
+    with open(cmd["out"] if rank == "0" else os.devnull, "w") as f, \\
+            contextlib.redirect_stdout(f):
+        rc = cli.main(cmd["argv"] + ["--coordinator", cmd["rdv"],
+                                     "--num-processes", size,
+                                     "--process-id", rank])
+    reply.write(json.dumps({"rc": rc, "launches": _build.LAUNCHES}) + "\\n")
+    reply.flush()
+"""
 
+
+class GridPool:
+    """``size`` processes of the port's CLI that stay up between commands:
+    each command runs as rank i of a ``--coordinator`` world of ``size``
+    (a ``file://`` rendezvous of its own), so a run of grid commands pays
+    one start-up of Python, torch and the CUDA context, not one a
+    command.  Rank 0's stdout is the command's; each rank's stderr goes
+    to ``<root>/rank<i>.err``."""
+
+    def __init__(self, size, root, timeout=600.0):
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("STC_FAULTS", "STC_FAULT_SEED")}
+        env["PYTHONPATH"] = os.pathsep.join(
+            [here] + [q for q in env.get("PYTHONPATH", "").split(os.pathsep)
+                      if q])
+        os.makedirs(root)
+        self.root, self.timeout, self.commands = root, timeout, 0
+        self.procs = []
+        for r in range(size):
+            with open(os.path.join(root, f"rank{r}.err"), "w") as err:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, "-c", _POOL_RANK, str(r), str(size)],
+                    cwd=here, env=env, stdin=subprocess.PIPE,
+                    stdout=subprocess.PIPE, stderr=err, text=True))
+
+    def run(self, argv, out_path):
+        """``argv`` on every rank: (the worst exit code, the kernel
+        launches summed over the ranks)."""
+        import select
+
+        rdv = "file://" + os.path.join(self.root, f"rdv{self.commands}")
+        self.commands += 1
+        for p in self.procs:
+            p.stdin.write(json.dumps({"argv": argv, "out": out_path,
+                                      "rdv": rdv}) + "\n")
+            p.stdin.flush()
+        deadline = time.monotonic() + self.timeout
+        replies = []
+        for r, p in enumerate(self.procs):
+            ready = select.select([p.stdout], [], [], max(
+                0.0, deadline - time.monotonic()))[0]
+            line = p.stdout.readline() if ready else ""
+            if not line:
+                with open(os.path.join(self.root, f"rank{r}.err")) as f:
+                    raise AssertionError(f"grid pool rank {r} on {argv[0]}:"
+                                         f" exit {p.poll()}: "
+                                         f"{f.read()[-2000:]}")
+            replies.append(json.loads(line))
+        launches = {}
+        for reply in replies:
+            for name, count in reply["launches"].items():
+                launches[name] = launches.get(name, 0) + count
+        return max(reply["rc"] for reply in replies), launches
+
+    def close(self):
+        for p in self.procs:
+            with contextlib.suppress(OSError):
+                p.stdin.close()
+        for p in self.procs:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+
+@contextlib.contextmanager
+def grid_pool(size, root):
+    """A ``GridPool`` for the block, closed (its ranks ended) after it."""
+    pool = GridPool(size, root)
+    try:
+        yield pool
+    finally:
+        pool.close()
+
+
+def run_cli(argv, out_path, launches=None, pool=None):
+    """``cli.main(argv)`` in this process, its stdout sent to
+    ``out_path``; returns (exit code, stdout text, wall seconds).  With
+    ``pool`` (a ``GridPool``) it runs on the pool's ranks instead, and
+    their kernel launches are added to ``launches``."""
     t0 = time.perf_counter()
-    with open(out_path, "w") as f, contextlib.redirect_stdout(f):
-        rc = cli.main(argv)
+    if pool is not None:
+        rc, counted = pool.run(argv, out_path)
+        for name, count in counted.items():
+            launches[name] = launches.get(name, 0) + count
+    else:
+        from spark_text_clustering_tpu_torch import cli
+
+        with open(out_path, "w") as f, contextlib.redirect_stdout(f):
+            rc = cli.main(argv)
     secs = time.perf_counter() - t0
     with open(out_path) as f:
         return rc, f.read(), secs
@@ -1836,9 +1952,10 @@ def telemetry_overhead(torch, tfidf, ckpt, seed):
 
 
 def cli_train(label, books, stop, device, models_dir, v, out_path,
-              extra=()):
+              extra=(), launches=None, pool=None):
     """``train`` (k=EN_K, the defaults, plus ``extra``) on ``device``
-    through ``cli.main``: (its console numbers and wall seconds, the one
+    through ``cli.main`` (on a ``pool``'s ranks where one is given:
+    ``run_cli``): (its console numbers and wall seconds, the one
     committed model dir it saved).  Fails unless it exits 0, saves one
     committed model, prints a finite average log-likelihood (EM) and the
     vocabulary size ``v`` (any, where ``v`` is None)."""
@@ -1847,7 +1964,7 @@ def cli_train(label, books, stop, device, models_dir, v, out_path,
     rc, out, secs = run_cli(
         ["train", "--books", books, "--stop-words", stop, "--lang", "EN",
          "--k", str(EN_K), "--models-dir", models_dir, "--device", device,
-         *extra], out_path)
+         *extra], out_path, launches, pool)
     nums = {"train_s": secs}
     for line in out.splitlines():
         for key, text in (("preprocess_s", "Preprocessing time:"),
@@ -1936,13 +2053,15 @@ def recorded(module, name):
 
 
 def cli_score(label, books, stop, device, out_dir, out_path, model_args,
-              extra=()):
-    """``score`` on ``device`` through ``cli.main`` with ``model_args``
+              extra=(), launches=None, pool=None):
+    """``score`` on ``device`` through ``cli.main`` (on a ``pool``'s ranks
+    where one is given: ``run_cli``) with ``model_args``
     (``--models-dir DIR`` or ``--model DIR``) and ``extra``: (the report's
     text, wall seconds).  Fails unless it exits 0 and writes one report."""
     rc, _, secs = run_cli(
         ["score", "--books", books, "--stop-words", stop, *model_args,
-         "--output-dir", out_dir, "--device", device, *extra], out_path)
+         "--output-dir", out_dir, "--device", device, *extra], out_path,
+        launches, pool)
     written = os.listdir(out_dir) if os.path.isdir(out_dir) else []
     if rc != 0 or len(written) != 1:
         raise AssertionError(f"config {label} score on {device}: rc {rc}")
@@ -1950,14 +2069,23 @@ def cli_score(label, books, stop, device, out_dir, out_path, model_args,
         return f.read(), secs
 
 
-def distributions_agree(label, card_report, cpu_report, k=EN_K):
+def distributions_agree(label, card_report, cpu_report, k=EN_K, books=None):
     """The card's report against the CPU's: (largest difference of the
     distributions, main-topic agreement, books whose CPU top two differ by
     more than 1e-2).  Fails beyond 5e-3, or where such a book's main topic
-    differs."""
+    differs.  ``books``: the CPU scored only these of the card's books,
+    whose rows are compared."""
     card = report_distributions(card_report, k)
     cpu = report_distributions(cpu_report, k)
-    if card.shape != (EN_DOCS, k) or cpu.shape != card.shape:
+    if books is not None and card.shape == (EN_DOCS, k):
+        card_d, cpu_d = (book_distributions(card_report, k),
+                         book_distributions(cpu_report, k))
+        if sorted(cpu_d) != sorted(books):
+            raise AssertionError(f"config {label}: the CPU scored "
+                                 f"{sorted(cpu_d)}, not {sorted(books)}")
+        card = np.stack([card_d[b] for b in books])
+        cpu = np.stack([cpu_d[b] for b in books])
+    elif card.shape != (EN_DOCS, k) or cpu.shape != card.shape:
         raise AssertionError(f"config {label}: reports hold {card.shape}, "
                              f"{cpu.shape}")
     diff = float(np.abs(card - cpu).max())
@@ -2626,6 +2754,7 @@ def run_config_h(torch, seed, e):
 
 H_WIDE_K = 100                 # the JAX bench's online k
 H_WIDE_ITERS = 5
+H_WIDE_CPU_EVERY = 3           # the k=100 CPU scorings: every third book
 
 
 def run_h_wide(torch, root, books, stop, v):
@@ -2651,6 +2780,13 @@ def run_h_wide(torch, root, books, stop, v):
     seen = {"train": seen_train, "score": []}
     res = {"k": H_WIDE_K, "iterations": H_WIDE_ITERS,
            "train_s": nums["train_s"]}
+    # the CPU scores every H_WIDE_CPU_EVERY-th book (k=100 on the host is
+    # ~0.5 s a book); the card scores them all
+    names = sorted(os.listdir(books))[::H_WIDE_CPU_EVERY]
+    cpu_books = os.path.join(root, "books_k100_cpu")
+    os.makedirs(cpu_books)
+    for name in names:
+        shutil.copy(os.path.join(books, name), cpu_books)
     for tag, extra in (("score", []),
                        ("score_per_doc", ["--per-doc-convergence"])):
         reports, secs = {}, {}
@@ -2658,7 +2794,8 @@ def run_h_wide(torch, root, books, stop, v):
             _build.reset_launches()
             with recorded(estep, "gamma_fixed_point_bkl") as seen_score:
                 reports[device], secs[device] = cli_score(
-                    f"H-k100 {tag}", books, stop, device,
+                    f"H-k100 {tag}", books if device == "cuda" else
+                    cpu_books, stop, device,
                     os.path.join(root, f"out_k100_{tag}_{device}"),
                     os.path.join(root, f"k100_{tag}_{device}.out"),
                     ["--models-dir", models], extra)
@@ -2667,8 +2804,10 @@ def run_h_wide(torch, root, books, stop, v):
             if device == "cuda":
                 launches[tag] = dict(_build.LAUNCHES)
         diff, agreement, clear = distributions_agree(
-            f"H-k100 {tag}", reports["cuda"], reports["cpu"], H_WIDE_K)
+            f"H-k100 {tag}", reports["cuda"], reports["cpu"], H_WIDE_K,
+            books=names)
         res[tag] = {"s": secs["cuda"], "cpu_s": secs["cpu"],
+                    "cpu_books": len(names),
                     "max_dist_diff": diff, "main_topic_agreement": agreement,
                     "main_topic_clear_docs": clear}
     kernel_of = {"train": "gamma_fixed_point_bkl",
@@ -2983,7 +3122,7 @@ def run_config_i(torch, seed, e):
     one (1e-4); then I-CLI: ``train --data-shards 2 --model-shards 2
     --dist-backend gloo`` and ``score --model-shards 2`` on E's books
     against config E's 1x1 card CLI (distributions 5e-3, main topics where
-    the top two differ by 1e-2); then a 1x1 NCCL grid."""
+    the top two differ by 1e-2), beside it a 1x1 NCCL grid."""
     from spark_text_clustering_tpu_torch import IDF, LDA, Params, load_model
     from spark_text_clustering_tpu_torch.models.sharded_eval import (
         make_sharded_em_log_likelihood,
@@ -3074,21 +3213,27 @@ def run_config_i(torch, seed, e):
                 raise AssertionError("config I-B: no E-step launch")
         summary[f"I_{label}"] = res
 
-    # I-CLI on E's books, against config E's 1x1 card CLI
+    # I-CLI on E's books, against config E's 1x1 card CLI, with the 1x1
+    # NCCL grid beside it (its rank launches no kernel)
     root, books, stop = e["root"], e["books"], e["stop"]
     grid_flags = ["--data-shards", "2", "--model-shards", "2",
                   "--dist-backend", "gloo"]
-    _build.reset_launches()
-    nums, path = cli_train("I-CLI", books, stop, "cuda",
-                           os.path.join(root, "models_grid"), len(e["vocab"]),
-                           os.path.join(root, "train_grid.out"), grid_flags)
-    train_launches = dict(_build.LAUNCHES)
-    _build.reset_launches()
-    report, t_score = cli_score(
-        "I-CLI", books, stop, "cuda", os.path.join(root, "out_grid"),
-        os.path.join(root, "score_grid.out"),
-        ["--model", path, "--model-shards", "2", "--dist-backend", "gloo"])
-    score_launches = dict(_build.LAUNCHES)
+    with beside(lambda: run_grid(nccl_rank, 1, 1, backend="nccl",
+                                 device="cuda", timeout=300)) as nccl_box:
+        _build.reset_launches()
+        nums, path = cli_train("I-CLI", books, stop, "cuda",
+                               os.path.join(root, "models_grid"),
+                               len(e["vocab"]),
+                               os.path.join(root, "train_grid.out"),
+                               grid_flags)
+        train_launches = dict(_build.LAUNCHES)
+        _build.reset_launches()
+        report, t_score = cli_score(
+            "I-CLI", books, stop, "cuda", os.path.join(root, "out_grid"),
+            os.path.join(root, "score_grid.out"),
+            ["--model", path, "--model-shards", "2", "--dist-backend",
+             "gloo"])
+        score_launches = dict(_build.LAUNCHES)
     diff, agreement, clear = distributions_agree("I-CLI", report,
                                                  e["card_report"])
     ll_rel = abs(nums["avg_log_likelihood"] - e["avg_log_likelihood"]) / abs(
@@ -3106,8 +3251,7 @@ def run_config_i(torch, seed, e):
         "bounds": {"max_dist_diff": 5e-3,
                    "avg_log_likelihood_rel_diff": 1e-4}}
 
-    (nccl,) = run_grid(nccl_rank, 1, 1, backend="nccl", device="cuda",
-                       timeout=300)
+    (nccl,) = nccl_box["out"]
     if nccl != {"backend": "nccl", "sum": 6.0}:
         raise AssertionError(f"config I: NCCL 1x1 grid gave {nccl}")
     summary["nccl_1x1"] = nccl
@@ -3432,20 +3576,12 @@ def run_config_j(torch, seed, e, log_perplexity_c):
     and ``score`` of its model on the grid against config H's 1x1 card
     report (5e-3), and ``train --algorithm nmf`` at 1x1 and at 2x2, each
     model scored, the grid's report equal to the 1x1 report with floats
-    masked."""
-    from types import SimpleNamespace
-
-    from spark_text_clustering_tpu_torch import NMF, OnlineLDA
-    from spark_text_clustering_tpu_torch.device import resolve_device
-    from spark_text_clustering_tpu_torch.models import online_lda
-    from spark_text_clustering_tpu_torch.ops import _build, packed
-    from spark_text_clustering_tpu_torch.ops.lda_math import (
-        init_lambda, seeded_generator,
-    )
+    masked.  J-CLI's four 2x2 commands run on one ``GridPool`` of four
+    ranks (one start-up for the four, beside J's 1x1 fits and the 1x1 NMF
+    pair); the timed grid runs alone."""
+    from spark_text_clustering_tpu_torch.ops import _build
     from spark_text_clustering_tpu_torch.parallel import run_grid
 
-    dev = resolve_device("cuda")
-    n_data = GRID_J[0]
     summary = {"phase": "config_J", "grid": list(GRID_J),
                "backend": "gloo", "ranks": GRID_J[0] * GRID_J[1]}
     _build.reset_launches()
@@ -3455,6 +3591,113 @@ def run_config_j(torch, seed, e, log_perplexity_c):
                      device="cuda", timeout=900)
     summary["grid_s"] = time.perf_counter() - t0
     grid_launches = dict(_build.LAUNCHES)
+
+    # J-CLI on E's books: its four 2x2 commands on one pool of four ranks
+    # (one start-up, which J's 1x1 fits and the 1x1 NMF pair overlap);
+    # with V a multiple of the model shards the grid draws config H's
+    # lambda
+    root, books, stop = e["root"], e["books"], e["stop"]
+    if len(e["vocab"]) % GRID_J[1]:
+        raise AssertionError(f"config J-CLI: E's V={len(e['vocab'])} pads on "
+                             f"{GRID_J[1]} model shards: another draw than H")
+    flags = ["--data-shards", "2", "--model-shards", "2",
+             "--dist-backend", "gloo"]
+    online_train_launches = {name: 0 for name in grid_launches}
+    cli_launches = {"online_score": dict(online_train_launches),
+                    "nmf": dict(online_train_launches)}
+
+    def nmf_run(name, extra, pool=None):
+        """NMF's `train` and `score` of its model, on the pool's ranks
+        (launches counted) or in this process (not counted)."""
+        counted = cli_launches["nmf"] if pool else None
+        nums, path = cli_train(
+            "J-CLI", books, stop, "cuda",
+            os.path.join(root, f"models_nmf_{name}"), len(e["vocab"]),
+            os.path.join(root, f"train_nmf_{name}.out"),
+            ["--algorithm", "nmf", *extra], counted, pool)
+        report, secs = cli_score(
+            "J-CLI", books, stop, "cuda", os.path.join(root, f"out_nmf_{name}"),
+            os.path.join(root, f"score_nmf_{name}.out"),
+            ["--model", path, *extra], (), counted, pool)
+        return report, {f"nmf_train_{name}_s": nums["train_s"],
+                        f"nmf_score_{name}_s": secs}
+
+    t0 = time.perf_counter()
+    with grid_pool(GRID_J[0] * GRID_J[1], os.path.join(root, "j_pool")) \
+            as pool:
+        j_onedevice(torch, seed, ranks, summary, log_perplexity_c)
+        nmf_one = nmf_run("1x1", [])
+        nums_o, path_o = cli_train(
+            "J-CLI", books, stop, "cuda",
+            os.path.join(root, "models_online_grid"), len(e["vocab"]),
+            os.path.join(root, "train_online_grid.out"),
+            ["--algorithm", "online", *flags], online_train_launches, pool)
+        report_o, t_score_o = cli_score(
+            "J-CLI", books, stop, "cuda",
+            os.path.join(root, "out_online_grid"),
+            os.path.join(root, "score_online_grid.out"),
+            ["--model", path_o, *flags], (), cli_launches["online_score"],
+            pool)
+        nmf_grid = nmf_run("2x2", flags, pool)
+    cli_s = time.perf_counter() - t0
+    reports = {"1x1": nmf_one[0], "2x2": nmf_grid[0]}
+    secs = {**nmf_one[1], **nmf_grid[1]}
+    diff, agreement, clear = distributions_agree("J-CLI", report_o,
+                                                 e["online_card_report"])
+    nmf_equal = mask_floats(reports["2x2"]) == mask_floats(reports["1x1"])
+    nmf_diff = float(np.abs(report_distributions(reports["2x2"], EN_K)
+                            - report_distributions(reports["1x1"], EN_K)).max())
+    if not nmf_equal or online_train_launches["gamma_fixed_point_bkl"] == 0:
+        raise AssertionError(f"config J-CLI: NMF reports equal {nmf_equal} "
+                             f"(distributions {nmf_diff}), online train "
+                             f"{online_train_launches}")
+    launches = {name: online_train_launches[name]
+                + sum(c[name] for c in cli_launches.values())
+                for name in grid_launches}
+    summary["J_CLI"] = {
+        "online_train_s": nums_o["train_s"],
+        "online_preprocess_s": nums_o["preprocess_s"],
+        "online_fit_s": nums_o["fit_s"], "online_score_s": t_score_o,
+        "online_max_dist_diff": diff, "main_topic_agreement": agreement,
+        "main_topic_clear_docs": clear, **secs,
+        "nmf_report_equal_masked": nmf_equal, "nmf_max_dist_diff": nmf_diff,
+        "online_train_launches": online_train_launches,
+        "launches": launches, "cli_s": cli_s,
+        "pool": "the four 2x2 commands on one pool of four ranks, which "
+                "starts beside J's 1x1 fits and the 1x1 NMF pair",
+        "bounds": {"online_max_dist_diff": 5e-3,
+                   "nmf_report": "equal with floats masked"}}
+
+    summary["checks"] = {name: [r["checks"][name] for r in ranks]
+                         for name in ranks[0]["checks"]}
+    summary["launches"] = {name: grid_launches[name] + launches[name]
+                           for name in grid_launches}
+    summary["bounds"] = {
+        "J_C_replay_lam_max_rel_diff": 1e-3,
+        "J_C_log_perplexity_rel_diff": 0.03,
+        "J_G_lam_max_rel_diff": "1e-3, or twice the 1x1 fit's spread "
+                                "against itself",
+        "J_D_check_h_max_rel_diff": 1e-3, "J_D_check_loss_rel_diff": 1e-4,
+        "J_D_loss_rel_diff": 1e-4}
+    return summary
+
+
+def j_onedevice(torch, seed, ranks, summary, log_perplexity_c):
+    """J-C, J-G and J-D's 1x1 side: the replay, the 1x1 card fits and
+    their comparisons with the grid ranks' results (``run_config_j``),
+    into ``summary``."""
+    from types import SimpleNamespace
+
+    from spark_text_clustering_tpu_torch import NMF, OnlineLDA
+    from spark_text_clustering_tpu_torch.device import resolve_device
+    from spark_text_clustering_tpu_torch.models import online_lda
+    from spark_text_clustering_tpu_torch.ops import packed
+    from spark_text_clustering_tpu_torch.ops.lda_math import (
+        init_lambda, seeded_generator,
+    )
+
+    dev = resolve_device("cuda")
+    n_data = GRID_J[0]
     rank0 = ranks[0]
     rows = newsgroups_rows(seed)
     n, vocab = len(rows), [f"h{i}" for i in range(NG_V)]
@@ -3581,82 +3824,6 @@ def run_config_j(torch, seed, e, log_perplexity_c):
         if any(r[label]["launches"][kern] == 0 for r in ranks):
             raise AssertionError(f"config J-{label}: a rank launched no "
                                  f"{kern}")
-
-    # J-CLI on E's books; with V a multiple of the model shards the grid
-    # draws config H's lambda
-    root, books, stop = e["root"], e["books"], e["stop"]
-    if len(e["vocab"]) % GRID_J[1]:
-        raise AssertionError(f"config J-CLI: E's V={len(e['vocab'])} pads on "
-                             f"{GRID_J[1]} model shards: another draw than H")
-    flags = ["--data-shards", "2", "--model-shards", "2",
-             "--dist-backend", "gloo"]
-    cli_launches = {name: 0 for name in grid_launches}
-
-    def counted(fn, *args):
-        _build.reset_launches()
-        out = fn(*args)
-        for name, count in _build.LAUNCHES.items():
-            cli_launches[name] += count
-        return out
-
-    nums_o, path_o = counted(
-        cli_train, "J-CLI", books, stop, "cuda",
-        os.path.join(root, "models_online_grid"), len(e["vocab"]),
-        os.path.join(root, "train_online_grid.out"),
-        ["--algorithm", "online", *flags])
-    online_train_launches = dict(cli_launches)
-    report_o, t_score_o = counted(
-        cli_score, "J-CLI", books, stop, "cuda",
-        os.path.join(root, "out_online_grid"),
-        os.path.join(root, "score_online_grid.out"),
-        ["--model", path_o, *flags])
-    diff, agreement, clear = distributions_agree("J-CLI", report_o,
-                                                 e["online_card_report"])
-    reports, secs = {}, {}
-    for name, extra in (("1x1", []), ("2x2", flags)):
-        fn = counted if extra else (lambda f, *a: f(*a))
-        nums_n, path_n = fn(cli_train, "J-CLI", books, stop, "cuda",
-                            os.path.join(root, f"models_nmf_{name}"),
-                            len(e["vocab"]),
-                            os.path.join(root, f"train_nmf_{name}.out"),
-                            ["--algorithm", "nmf", *extra])
-        secs[f"nmf_train_{name}_s"] = nums_n["train_s"]
-        reports[name], secs[f"nmf_score_{name}_s"] = fn(
-            cli_score, "J-CLI", books, stop, "cuda",
-            os.path.join(root, f"out_nmf_{name}"),
-            os.path.join(root, f"score_nmf_{name}.out"),
-            ["--model", path_n, *extra])
-    nmf_equal = mask_floats(reports["2x2"]) == mask_floats(reports["1x1"])
-    nmf_diff = float(np.abs(report_distributions(reports["2x2"], EN_K)
-                            - report_distributions(reports["1x1"], EN_K)).max())
-    if not nmf_equal or online_train_launches["gamma_fixed_point_bkl"] == 0:
-        raise AssertionError(f"config J-CLI: NMF reports equal {nmf_equal} "
-                             f"(distributions {nmf_diff}), online train "
-                             f"{online_train_launches}")
-    summary["J_CLI"] = {
-        "online_train_s": nums_o["train_s"],
-        "online_preprocess_s": nums_o["preprocess_s"],
-        "online_fit_s": nums_o["fit_s"], "online_score_s": t_score_o,
-        "online_max_dist_diff": diff, "main_topic_agreement": agreement,
-        "main_topic_clear_docs": clear, **secs,
-        "nmf_report_equal_masked": nmf_equal, "nmf_max_dist_diff": nmf_diff,
-        "online_train_launches": online_train_launches,
-        "launches": cli_launches,
-        "bounds": {"online_max_dist_diff": 5e-3,
-                   "nmf_report": "equal with floats masked"}}
-
-    summary["checks"] = {name: [r["checks"][name] for r in ranks]
-                         for name in ranks[0]["checks"]}
-    summary["launches"] = {name: grid_launches[name] + cli_launches[name]
-                           for name in grid_launches}
-    summary["bounds"] = {
-        "J_C_replay_lam_max_rel_diff": 1e-3,
-        "J_C_log_perplexity_rel_diff": 0.03,
-        "J_G_lam_max_rel_diff": "1e-3, or twice the 1x1 fit's spread "
-                                "against itself",
-        "J_D_check_h_max_rel_diff": 1e-3, "J_D_check_loss_rel_diff": 1e-4,
-        "J_D_loss_rel_diff": 1e-4}
-    return summary
 
 
 # ---- config K: one-process streaming through the CLI -----------------------
@@ -5797,9 +5964,19 @@ def run_config_n(torch, seed, e, smi):
 
 # ---- config O: the serve fleet ------------------------------------------
 O_WORKERS = 2                  # --workers: the canary and one more replica
+O_MAX_WORKERS = 3              # --max-workers: room for O-alerts' scale-out
 O_CLIENTS = 8                  # client threads, one X-STC-Stream each
 O_PASSES = 2                   # passes over the 51 books, one a request
 O_PROBES = ["--count", "5", "--rate", "5"]
+# O-alerts: the monitors' rules.  replica_down waits 1 s of absence, not
+# the built-in 3 s: a respawned replica beats before its torch import
+# ends, which can be under 3 s from the kill; serve_p99 fires on the
+# replicas' own card batches of passes 1-2 (any p99 above 0 s, at once).
+O_DOWN_RULES = [{"name": "replica_down", "value": 1.0}]
+O_P99_RULES = [{"name": "serve_p99", "value": 0.0, "for_seconds": 0.0,
+                "signal": {"event": "serve_batch", "field": "seconds",
+                           "agg": "p99", "window_seconds": 600.0}}]
+O_SLACK_S = 2.0                # the alert log's transitions: kill to ready
 
 
 @contextlib.contextmanager
@@ -5835,38 +6012,147 @@ def lease_log(fleet, workers, period=0.02):
         thread.join()
 
 
+@contextlib.contextmanager
+def host_proc(argv, out_path, env, cwd):
+    """``argv`` (a host verb of the port's CLI: ``monitor``, ``front``) as
+    a subprocess in a session of its own, unbuffered, its output sent to
+    ``out_path``; killed whole if it is still running when the block
+    ends.  Yields the ``Popen``."""
+    with open(out_path, "w") as out:
+        proc = subprocess.Popen(argv, cwd=cwd, env={**env,
+                                                    "PYTHONUNBUFFERED": "1"},
+                                stdout=out, stderr=subprocess.STDOUT,
+                                text=True, start_new_session=True)
+        try:
+            yield proc
+        finally:
+            if proc.poll() is None:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+
+
+def stop_host_proc(label, proc, out_path, line):
+    """SIGTERM ``proc`` (``host_proc``) and wait: its output, which must
+    hold ``line``, and exit code 0, or it fails."""
+    proc.send_signal(signal.SIGTERM)
+    rc = proc.wait(timeout=60)
+    with open(out_path) as f:
+        text = f.read()
+    if rc != 0 or line not in text:
+        raise AssertionError(f"config O-alerts: {label} exited {rc}: "
+                             f"{text[-2000:]}")
+    return text
+
+
+def wait_for_line(label, proc, out_path, pattern, timeout=60.0):
+    """The first match of ``pattern`` in ``proc``'s output file, waiting
+    up to ``timeout`` seconds; fails if the process ends first."""
+    deadline = time.monotonic() + timeout
+    while True:
+        with open(out_path) as f:
+            m = re.search(pattern, f.read())
+        if m:
+            return m
+        if proc.poll() is not None or time.monotonic() > deadline:
+            with open(out_path) as f:
+                raise AssertionError(f"config O-alerts: {label} printed no "
+                                     f"{pattern!r}: {f.read()[-2000:]}")
+        time.sleep(0.05)
+
+
+@contextlib.contextmanager
+def health_log(url, period=0.05):
+    """Inside the block, a thread GETs ``url``/healthz every ``period``
+    seconds and records (wall time, status, firing rules) each time the
+    answer changes; an error is recorded as status "error"."""
+    seen = []
+    stop = threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            try:
+                doc = http_json(f"{url}/healthz", timeout=5.0)[2]
+                obs = (doc["status"], tuple(sorted(
+                    f["rule"] for f in doc.get("alerts", {}).get(
+                        "firing", ()))))
+            except Exception as exc:  # noqa: BLE001 - recorded
+                obs = ("error", (repr(exc),))
+            if not seen or seen[-1][1:] != obs:
+                seen.append((time.time(), *obs))
+            stop.wait(period)
+
+    thread = threading.Thread(target=poll, daemon=True)
+    thread.start()
+    try:
+        yield seen
+    finally:
+        stop.set()
+        thread.join()
+
+
 def run_config_o(torch, seed, e, n, smi):
     """The serve fleet on the card (``supervise --role serve``), on config
     E's 51 books and E's card model, right after N, whose model copy and
     in-process per-document reference bytes it reuses.
 
-    ``cli supervise --role serve --device cuda --workers 2 --front-port 0
-    --serve-max-batch 8 --serve-linger-ms 5`` with N's token buckets passed
-    to each replica (``--worker-arg``), ``--heartbeat-interval 0.2
-    --lease-timeout 5 --grace-seconds 2 --startup-grace 60``, the
-    supervisor's and each replica incarnation's telemetry, as a
-    subprocess.  8 client threads, each its own ``X-STC-Stream``, send one
-    book a request through the front, two passes over the books; mid-way
-    through pass 1 N's newer model is published and rolls through both
-    replicas; mid-way through pass 2 replica 1 gets SIGKILL and is
-    respawned while the front retries on replica 0.  Then ``cli probe
-    --count 5 --rate 5`` and SIGTERM to the supervisor.
+    ``cli supervise --role serve --device cuda --workers 2 --max-workers 3
+    --front-port 0 --actions-file A --serve-max-batch 8 --serve-linger-ms
+    5`` with N's token buckets passed to each replica (``--worker-arg``),
+    ``--heartbeat-interval 0.2 --lease-timeout 5 --grace-seconds 2
+    --startup-grace 60``, the supervisor's and each replica incarnation's
+    telemetry, as a subprocess.  8 client threads, each its own
+    ``X-STC-Stream``, send one book a request through the front, two
+    passes over the books; mid-way through pass 1 N's newer model is
+    published and rolls through both replicas; mid-way through pass 2
+    replica 1 gets SIGKILL and is respawned while the front retries on
+    replica 0 (the second half of pass 2 waits for the kill, which waits
+    for the roll).
 
-    O fails unless every request succeeds; each stream's generations
+    O-alerts, on the same fleet: from the front's announce (a CLI process
+    takes 7-9 s to start on the card's host, and the kill must fall inside
+    pass 2), ``cli monitor --fleet-dir --stream '<wtel>/worker-*.jsonl'
+    --builtin replica_down`` (retuned to 1 s, ``O_DOWN_RULES``)
+    ``--alerts-file L --interval 0.25`` and a standalone ``cli front
+    --alerts-file L`` (port 0; it announces itself in the fleet's
+    ``front.json``, so the probe goes through it) run beside the fleet,
+    both up before the traffic starts; the kill takes replica_down
+    for key 1 to firing and the respawn's first beat resolves it, both in
+    the checksummed log between the kill and the respawn's ready (plus
+    ``O_SLACK_S``), none before the kill, and that front's ``/healthz``
+    says ``degraded`` naming the rule while it fires and ``ok`` after.
+    After the recovery a second ``monitor --actions-file A --rules``
+    (``serve_p99`` retuned to fire on the replicas' own card batches)
+    asks for one ``scale_out``, which the supervisor applies exactly once
+    (ack ``{"last_id": 0}``, one ``fleet_action``, ``fleet.actions_applied``
+    1, a ``resize`` fence record to 3 with a ``fleet_resize`` event why
+    ``alert_serve_p99``, no second action while the alert keeps firing):
+    replica 2 spawns beside the serving two, which never leave ``ready``,
+    while ``cli probe --count 5 --rate 5`` runs.  Pass 3, one pass over
+    the books, then goes through the three replicas, and SIGTERM drains
+    them.
+
+    O fails unless every request succeeds; the kill falls inside pass 2;
+    each stream's generations
     never go backward; every response's distribution equals in bytes the
     in-process card ``topic_distribution(rows, convergence="per_doc")`` of
     the model its ``X-STC-Generation`` names (and its result names),
-    whichever replica answered; both replicas served; every replica
-    incarnation's stream has a manifest on the card (``backend`` "gpu"), a
-    ``serve_warmup`` and
+    whichever replica answered; both replicas served passes 1-2 and
+    replica 2 answered in pass 3; every replica incarnation's stream has a
+    manifest on the card (``backend`` "gpu"), a ``serve_warmup`` and
     per-document kernel launches (a replica on the CPU launches none);
     one ``fleet_swap_roll_done`` with ``swapped`` 2 and no
     ``fleet_swap_stalled``; one respawn, the killed replica's lease gone
     before its respawn's first beat; the probe reports no failure and no
-    pin violation; the supervisor exits 0 with its ``serve fleet
-    drained:`` line and no replica process outlives it."""
+    pin violation; the monitors and the standalone front exit 0 on
+    SIGTERM; the supervisor exits 0 with its ``serve fleet drained: 3``
+    line and no replica process outlives it."""
     from spark_text_clustering_tpu_torch.ops import _build
+    from spark_text_clustering_tpu_torch.resilience.supervisor import (
+        FleetLedger,
+    )
     from spark_text_clustering_tpu_torch.serving.front import model_stamp
+    from spark_text_clustering_tpu_torch.telemetry.alerts import AlertLog
 
     t_start = time.perf_counter()
     root = os.path.join(e["root"], "O")
@@ -5874,6 +6160,8 @@ def run_config_o(torch, seed, e, n, smi):
     fleet = os.path.join(root, "fleet")
     wtel = os.path.join(root, "wtel")
     sup_tel = os.path.join(root, "sup.jsonl")
+    actions = os.path.join(root, "actions.json")
+    alerts = os.path.join(root, "alerts.jsonl")
     os.makedirs(models)
     model_a, model_b = n["model_a"], n["model_b"]
     shutil.copytree(model_a, os.path.join(models, os.path.basename(model_a)))
@@ -5888,27 +6176,52 @@ def run_config_o(torch, seed, e, n, smi):
     env["PYTHONPATH"] = os.pathsep.join(
         [here] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                   if p])
-    argv = [sys.executable, "-m", "spark_text_clustering_tpu_torch.cli",
-            "supervise", "--role", "serve", "--device", "cuda", "--workers",
-            str(O_WORKERS), "--front-port", "0", "--fleet-dir", fleet,
-            "--models-dir", models, "--stop-words", e["stop"],
+    cli = [sys.executable, "-m", "spark_text_clustering_tpu_torch.cli"]
+    argv = [*cli, "supervise", "--role", "serve", "--device", "cuda",
+            "--workers", str(O_WORKERS), "--max-workers", str(O_MAX_WORKERS),
+            "--front-port", "0", "--fleet-dir", fleet, "--actions-file",
+            actions, "--models-dir", models, "--stop-words", e["stop"],
             "--serve-max-batch", str(N_MAX_BATCH), "--serve-linger-ms", "5",
             *buckets, "--heartbeat-interval", "0.2", "--lease-timeout", "5",
             "--grace-seconds", "2", "--startup-grace", "60",
             "--worker-telemetry-dir", wtel, "--telemetry-file", sup_tel,
             "--max-seconds", "300"]
-    out_path = os.path.join(root, "supervise.out")
+    rules = {}
+    for tag, spec in (("down", O_DOWN_RULES), ("p99", O_P99_RULES)):
+        rules[tag] = os.path.join(root, f"rules_{tag}.json")
+        with open(rules[tag], "w") as f:
+            json.dump(spec, f)
+    stream_glob = os.path.join(wtel, "worker-*.jsonl")
+    mon_argv = [*cli, "monitor", "--fleet-dir", fleet, "--stream",
+                stream_glob, "--builtin", "replica_down", "--rules",
+                rules["down"], "--alerts-file", alerts, "--interval", "0.25",
+                "--telemetry-file", os.path.join(root, "monitor.jsonl")]
+    scale_argv = [*cli, "monitor", "--stream", stream_glob, "--rules",
+                  rules["p99"], "--actions-file", actions, "--alerts-file",
+                  os.path.join(root, "alerts_p99.jsonl"), "--interval",
+                  "0.25", "--telemetry-file",
+                  os.path.join(root, "monitor_p99.jsonl")]
+    front_argv = [*cli, "front", "--fleet-dir", fleet, "--port", "0",
+                  "--alerts-file", alerts]
+    outs = {name: os.path.join(root, f"{name}.out")
+            for name in ("supervise", "monitor", "monitor_p99", "front")}
     items = [(p, i) for p in range(O_PASSES) for i in range(len(texts))]
-    todo = list(items)
+    pass3 = [(O_PASSES, i) for i in range(len(texts))]
+    # the second half of pass 2 waits for the kill, which waits for the
+    # roll and the monitor: the kill falls inside pass 2 on any host
+    half = len(texts) // 2
+    todo, held = items[:len(texts) + half], items[len(texts) + half:]
+    kill_gate = threading.Event()
     done, failures, records = [], [], []
     lock = threading.Lock()
     marks = {}
-    with lease_log(fleet, O_WORKERS) as leases, \
-            open(out_path, "w+") as out:
+    with lease_log(fleet, O_MAX_WORKERS) as leases, \
+            open(outs["supervise"], "w+") as out:
         t0_wall = time.time()
         proc = subprocess.Popen(argv, cwd=here, env=env, stdout=out,
                                 stderr=subprocess.STDOUT, text=True,
                                 start_new_session=True)
+        hosts = contextlib.ExitStack()
         try:
             deadline = time.monotonic() + 60.0
             front = os.path.join(fleet, "front.json")
@@ -5919,19 +6232,42 @@ def run_config_o(torch, seed, e, n, smi):
             marks["announce"] = time.time()
             with open(front) as f:
                 url = f"http://127.0.0.1:{json.load(f)['port']}"
+            # O-alerts' first monitor and the standalone front start with
+            # the fleet (a CLI process takes 7-9 s to come up on the card's
+            # host): the kill below must fall mid-way through pass 2
+            mon = hosts.enter_context(
+                host_proc(mon_argv, outs["monitor"], env, here))
+            sfront = hosts.enter_context(
+                host_proc(front_argv, outs["front"], env, here))
             deadline = time.monotonic() + 120.0
             while http_json(f"{url}/healthz")[2]["ready"] < O_WORKERS:
                 if proc.poll() is not None or time.monotonic() > deadline:
                     raise AssertionError("config O: replicas not ready")
                 time.sleep(0.05)
             marks["ready"] = time.time()
+            furl = wait_for_line("front", sfront, outs["front"],
+                                 r"on (http://[\d.]+:\d+)").group(1)
+            wait_for_line("monitor", mon, outs["monitor"],
+                          r"monitoring \d+ rule")
+            marks["monitor_up"] = time.time()
+
+            def next_item():
+                while True:
+                    with lock:
+                        if todo:
+                            return todo.pop(0)
+                        if not held:
+                            return None
+                    kill_gate.wait()
+                    with lock:
+                        todo.extend(held)
+                        held.clear()
 
             def client(c):
                 while True:
-                    with lock:
-                        if not todo:
-                            return
-                        item = todo.pop(0)
+                    item = next_item()
+                    if item is None:
+                        return
                     p, i = item
                     t0 = time.perf_counter()
                     try:
@@ -5960,53 +6296,116 @@ def run_config_o(torch, seed, e, n, smi):
                             "dist": served(doc["results"])[0]})
                         done.append(item)
 
-            clients = [threading.Thread(target=client, args=(c,))
-                       for c in range(O_CLIENTS)]
+            def start_clients():
+                threads = [threading.Thread(target=client, args=(c,))
+                           for c in range(O_CLIENTS)]
+                for c in threads:
+                    c.start()
+                return threads
+
+            clients = start_clients()
             t_traffic = time.perf_counter()
-            for c in clients:
-                c.start()
             # mid-way through pass 1: N's newer model, published as a
             # stream trainer does (a complete dir renamed into place)
-            half = len(texts) // 2
-            while len(done) < half and any(c.is_alive() for c in clients):
+            while len(done) < half and any(c.is_alive()
+                                           for c in clients):
                 time.sleep(0.005)
             staged = os.path.join(root, "staged_model")
             shutil.copytree(model_b, staged)
             os.rename(staged, os.path.join(models,
                                            os.path.basename(model_b)))
             marks["publish"] = time.time()
-            # mid-way through pass 2, the roll done: SIGKILL replica 1
+            # mid-way through pass 2, the roll done and the monitor
+            # polling: SIGKILL replica 1
 
             def rolled():
                 return all(next((o[3] for o in reversed(leases[w])
                                  if o[1] is not None), None) == stamp_b
                            for w in range(O_WORKERS))
 
-            while ((len(done) < len(texts) + half or not rolled())
-                   and any(c.is_alive() for c in clients)):
-                time.sleep(0.005)
-            victim = [o for o in leases[1] if o[1] is not None][-1]
-            os.kill(victim[4], signal.SIGKILL)
-            marks["kill"] = time.time()
-            for c in clients:
-                c.join()
-            traffic_s = time.perf_counter() - t_traffic
-            deadline = time.monotonic() + 90.0
-            while not any(o[1] not in (None, victim[1]) and o[2] == "ready"
-                          for o in leases[1]):
-                if proc.poll() is not None or time.monotonic() > deadline:
-                    raise AssertionError("config O: no respawned replica")
-                time.sleep(0.05)
-            marks["recovered"] = time.time()
-            probe = subprocess.run(
-                [sys.executable, "-m", "spark_text_clustering_tpu_torch.cli",
-                 "probe", "--fleet-dir", fleet, *O_PROBES], cwd=here,
-                env=env, capture_output=True, text=True, timeout=120)
+            with health_log(furl) as healths:
+                deadline = time.monotonic() + 120.0
+                while (len(done) < len(texts) + half or not rolled()
+                       or time.time() < marks["monitor_up"] + 1.0):
+                    if failures or time.monotonic() > deadline:
+                        raise AssertionError(
+                            f"config O: {len(done)} answered, rolled "
+                            f"{rolled()}, failures {failures[:4]}")
+                    time.sleep(0.005)
+                victim = [o for o in leases[1] if o[1] is not None][-1]
+                os.kill(victim[4], signal.SIGKILL)
+                marks["kill"] = time.time()
+                with lock:
+                    done_at_kill = len(done)
+                    # the held half waited this long for the kill
+                    gate_wait = max(0.0, marks["kill"] - max(
+                        r["done"] for r in records))
+                kill_gate.set()
+                for c in clients:
+                    c.join()
+                traffic_s = time.perf_counter() - t_traffic
+                deadline = time.monotonic() + 90.0
+                while not any(o[1] not in (None, victim[1])
+                              and o[2] == "ready" for o in leases[1]):
+                    if proc.poll() is not None or (
+                            time.monotonic() > deadline):
+                        raise AssertionError(
+                            "config O: no respawned replica")
+                    time.sleep(0.05)
+                marks["recovered"] = time.time()
+                # the resolve lands at the respawn's first beat (plus
+                # the rule's 0.5 s), before its ready; then a
+                # /healthz answer after it
+                deadline = time.monotonic() + 20.0
+                while True:
+                    logged = AlertLog(alerts).replay()[0]
+                    if len(logged) >= 2 and healths[-1][0] >= (
+                            logged[-1]["ts"]):
+                        break
+                    if time.monotonic() > deadline:
+                        raise AssertionError(
+                            f"config O-alerts: alerts {logged}, "
+                            f"/healthz {healths}")
+                    time.sleep(0.05)
+            mon_out = stop_host_proc("monitor", mon, outs["monitor"],
+                                     "monitor done:")
+            # the scale-out: a second monitor's serve_p99 action,
+            # the probe beside it (through the standalone front)
+            with host_proc(scale_argv, outs["monitor_p99"], env,
+                           here) as scale_mon:
+                marks["scale_monitor"] = time.time()
+                with beside(lambda: subprocess.run(
+                        [*cli, "probe", "--fleet-dir", fleet,
+                         *O_PROBES], cwd=here, env=env,
+                        capture_output=True, text=True,
+                        timeout=120)) as probe_box:
+                    deadline = time.monotonic() + 120.0
+                    while http_json(f"{url}/healthz")[2]["ready"] < (
+                            O_MAX_WORKERS):
+                        if proc.poll() is not None or (
+                                time.monotonic() > deadline):
+                            raise AssertionError(
+                                "config O-alerts: no third replica")
+                        time.sleep(0.05)
+                    marks["scaled"] = time.time()
+                probe = probe_box["out"]
+                # pass 3 through the three replicas, the alert firing
+                todo.extend(pass3)
+                t_pass3 = time.perf_counter()
+                for c in start_clients():
+                    c.join()
+                pass3_s = time.perf_counter() - t_pass3
+                scale_out = stop_host_proc(
+                    "monitor_p99", scale_mon, outs["monitor_p99"],
+                    "monitor done:")
+            stop_host_proc("front", sfront, outs["front"],
+                           "front drained:")
             marks["term"] = time.time()
             proc.send_signal(signal.SIGTERM)
             rc = proc.wait(timeout=120)
             marks["exited"] = time.time()
         finally:
+            hosts.close()
             if proc.poll() is None:
                 with contextlib.suppress(ProcessLookupError):
                     os.killpg(proc.pid, signal.SIGKILL)
@@ -6016,7 +6415,8 @@ def run_config_o(torch, seed, e, n, smi):
     seconds = time.perf_counter() - t_start
 
     # the drain and the supervisor's stream
-    if rc != 0 or "serve fleet drained:" not in sup_out:
+    if rc != 0 or f"serve fleet drained: {O_MAX_WORKERS} replica(s)" \
+            not in sup_out:
         raise AssertionError(f"config O: supervise exited {rc}: "
                              f"{sup_out[-2000:]}")
     events = [json.loads(x) for x in open(sup_tel)]
@@ -6026,11 +6426,13 @@ def run_config_o(torch, seed, e, n, smi):
     (roll,) = [x for x in events if x["event"] == "fleet_swap_roll"]
     rolls = [x for x in events if x["event"] == "fleet_swap_roll_done"]
     respawns = [x for x in events if x["event"] == "fleet_respawn"]
+    shutdown = [x for x in events if x["event"] == "fleet_shutdown"]
     if (len(rolls) != 1 or rolls[0]["swapped"] != O_WORKERS
             or rolls[0]["stamp"] != stamp_b
             or "fleet_swap_stalled" in kinds or len(respawns) != 1
-            or respawns[0]["worker"] != 1 or len(spawns) != O_WORKERS + 1
-            or alive or "fleet_shutdown" not in kinds):
+            or respawns[0]["worker"] != 1
+            or len(spawns) != O_MAX_WORKERS + 1
+            or alive or [x["replicas"] for x in shutdown] != [O_MAX_WORKERS]):
         raise AssertionError(
             f"config O: rolls {rolls}, respawns {respawns}, "
             f"{len(spawns)} spawns, alive {alive}, events "
@@ -6045,6 +6447,70 @@ def run_config_o(torch, seed, e, n, smi):
     if not retired:
         raise AssertionError(f"config O: replica 1's lease was never seen "
                              f"absent between incarnations: {obs}")
+    respawn_beat = obs[first_new][0]
+    respawn_ready = min(o[0] for o in obs[first_new:]
+                        if o[1] == obs[first_new][1] and o[2] == "ready")
+
+    # O-alerts: replica_down on the kill, resolved by the respawn's beat
+    log, torn = AlertLog(alerts).replay()
+    trans = [(r["rule"], r["key"], r["state"]) for r in log]
+    firing_ts, resolved_ts = (log[0]["ts"], log[1]["ts"]) if len(
+        log) == 2 else (None, None)
+    if torn or trans != [("replica_down", "1", "firing"),
+                         ("replica_down", "1", "resolved")] or not (
+            marks["kill"] < firing_ts < resolved_ts
+            <= respawn_ready + O_SLACK_S) or not (
+            respawn_beat <= resolved_ts):
+        raise AssertionError(
+            f"config O-alerts: transitions {log} (torn {torn}); kill "
+            f"{marks['kill']}, respawn beat {respawn_beat}, ready "
+            f"{respawn_ready}")
+    degraded = [h for h in healths if firing_ts <= h[0] < resolved_ts]
+    after = [h for h in healths if h[0] >= resolved_ts]
+    before = [h for h in healths if h[0] < marks["kill"]]
+    if not any(h[1:] == ("degraded", ("replica_down",)) for h in degraded) \
+            or not after or after[-1][1:] != ("ok", ()) or any(
+            h[1:] != ("ok", ()) for h in before):
+        raise AssertionError(f"config O-alerts: the standalone front's "
+                             f"/healthz {healths} (firing {firing_ts}, "
+                             f"resolved {resolved_ts})")
+    if "fired: replica_down [1]" not in mon_out:
+        raise AssertionError(f"config O-alerts: monitor {mon_out[-1000:]}")
+
+    # O-alerts: exactly one scale_out applied, replica 2 beside the two
+    acts = read_json(actions)["actions"]
+    ack = read_json(actions + ".ack")
+    applied = [x for x in events if x["event"] == "fleet_action"]
+    resizes = [x for x in events if x["event"] == "fleet_resize"]
+    fences = [(r["kind"], r["worker_count"]) for r in
+              FleetLedger(fleet).records()]
+    registry = [x for x in events if x["event"] == "registry"]
+    counted = registry[-1]["snapshot"]["counters"].get(
+        "fleet.actions_applied") if registry else None
+    if ([(a["id"], a["kind"], a["alert"]) for a in acts]
+            != [(0, "scale_out", "serve_p99")] or ack != {"last_id": 0}
+            or [(x["id"], x["kind"], x["why"]) for x in applied]
+            != [(0, "scale_out", "alert_serve_p99")]
+            or [(x["workers_to"], x["why"]) for x in resizes]
+            != [(O_MAX_WORKERS, "alert_serve_p99")]
+            or fences.count(("resize", O_MAX_WORKERS)) != 1
+            or counted != 1 or "fired: serve_p99" not in scale_out):
+        raise AssertionError(
+            f"config O-alerts: actions {acts}, ack {ack}, applied "
+            f"{applied}, resizes {resizes}, fences {fences}, counter "
+            f"{counted}, monitor {scale_out[-800:]}")
+    t_action = applied[0]["ts"]
+    for w in range(O_WORKERS):
+        at = [o for o in leases[w] if o[0] <= t_action][-1]
+        later = [o for o in leases[w] if t_action < o[0] < marks["term"]]
+        if at[2] != "ready" or any(o[1] != at[1] or o[2] != "ready"
+                                   for o in later):
+            raise AssertionError(f"config O-alerts: replica {w} left ready "
+                                 f"after the scale-out: {at}, {later}")
+    third = [o for o in leases[2] if o[1] is not None]
+    third_ready = min((o[0] for o in third if o[2] == "ready"), default=None)
+    if third_ready is None:
+        raise AssertionError(f"config O-alerts: replica 2 {leases[2]}")
 
     # the probe
     m = re.search(r"probe done: (\d+) probe\(s\).*?(\d+) failure\(s\).*?"
@@ -6054,8 +6520,12 @@ def run_config_o(torch, seed, e, n, smi):
         raise AssertionError(f"config O probe: exit {probe.returncode}: "
                              f"{probe.stdout[-500:]} {probe.stderr[-1000:]}")
 
-    # the traffic: every request, monotone streams, bytes per generation
-    if failures or sorted(done) != sorted(items):
+    # the traffic: every request, monotone streams, bytes per generation;
+    # the kill fell inside pass 2
+    if not len(texts) < done_at_kill < len(items):
+        raise AssertionError(f"config O: the kill came after {done_at_kill} "
+                             f"of {len(items)} requests")
+    if failures or sorted(done) != sorted(items + pass3):
         raise AssertionError(f"config O: {len(failures)} failed requests "
                              f"({failures[:4]}), {len(done)} answered")
     streams = {}
@@ -6068,14 +6538,18 @@ def run_config_o(torch, seed, e, n, smi):
              or model_stamp(r["model"]) != r["generation"]
              or r["dist"].tobytes() != want[r["generation"]][
                  r["book"]].tobytes()]
-    shares = {}
+    shares, shares3 = {}, {}
     for r in records:
-        shares[r["replica"]] = shares.get(r["replica"], 0) + 1
+        into = shares3 if r["pass"] == O_PASSES else shares
+        into[r["replica"]] = into.get(r["replica"], 0) + 1
     if backward or wrong or sorted(shares) != list(range(O_WORKERS)) or (
-            stamp_b not in {r["generation"] for r in records}):
+            stamp_b not in {r["generation"] for r in records}) or (
+            not shares3.get(O_MAX_WORKERS - 1)) or any(
+            r["generation"] != stamp_b for r in records
+            if r["pass"] == O_PASSES):
         raise AssertionError(f"config O: streams going backward {backward}, "
                              f"responses not their model's bytes {wrong[:6]}"
-                             f", replicas {shares}")
+                             f", replicas {shares}, pass 3 {shares3}")
 
     # each replica incarnation on the card, through the kernel
     replicas = {}
@@ -6094,8 +6568,10 @@ def run_config_o(torch, seed, e, n, smi):
         replicas[name[:-len(".jsonl")]] = {
             "launches": launched,
             "drained": any(x["event"] == "serve_drained" for x in ev)}
-    if len(replicas) != O_WORKERS + 1:
+    if len(replicas) != O_MAX_WORKERS + 1:
         raise AssertionError(f"config O: replica streams {sorted(replicas)}")
+    third_stream = [v for k, v in replicas.items()
+                    if k.startswith(f"worker-w{O_MAX_WORKERS - 1:03d}-")]
 
     def first(w, pred):
         return min((o[0] for o in leases[w] if pred(o)), default=None)
@@ -6105,7 +6581,8 @@ def run_config_o(torch, seed, e, n, smi):
     for (w, sid), ts in sorted(spawned.items()):
         at = first(w, lambda o, s=sid: o[1] == s and o[2] == "ready")
         ready_s[f"w{w}/s{sid}"] = None if at is None else at - ts
-    lat = np.asarray([r["seconds"] for r in records]) * 1e3
+    lat = np.asarray([r["seconds"] for r in records
+                      if r["pass"] < O_PASSES]) * 1e3
     launches = sum(r["launches"] for r in replicas.values())
     return {
         "phase": "config_O", "card": smi, "replicas": O_WORKERS,
@@ -6117,7 +6594,8 @@ def run_config_o(torch, seed, e, n, smi):
         "spawn_to_fleet_ready_s": marks["ready"] - t0_wall,
         "request_p50_ms": float(np.percentile(lat, 50)),
         "request_p99_ms": float(np.percentile(lat, 99)),
-        "docs_per_s": len(records) / traffic_s,
+        "docs_per_s": len(items) / (traffic_s - gate_wait),
+        "gate_wait_s": gate_wait,
         "publish_to_roll_done_s": rolls[0]["ts"] - marks["publish"],
         "roll_started_after_publish_s": roll["ts"] - marks["publish"],
         "swap_lag_s": rolls[0]["swap_lag_seconds"],
@@ -6132,10 +6610,39 @@ def run_config_o(torch, seed, e, n, smi):
         "probe": probe.stdout.strip().splitlines()[-1],
         "failed_requests": 0, "streams_monotone": True,
         "served_bytes_equal_per_doc": True,
+        "alerts": {
+            "replica_down": {"firing_ts": firing_ts,
+                             "resolved_ts": resolved_ts,
+                             "kill_ts": marks["kill"],
+                             "respawn_first_beat_ts": respawn_beat,
+                             "respawn_ready_ts": respawn_ready},
+            "kill_to_firing_s": firing_ts - marks["kill"],
+            "kill_to_respawn_first_beat_s": respawn_beat - marks["kill"],
+            "respawn_to_resolved_s": resolved_ts - respawn_beat,
+            "front_healthz": [[h[0] - marks["kill"], h[1], list(h[2])]
+                              for h in healths],
+            "scale_out": {"action_ts": acts[0]["ts"],
+                          "applied_ts": t_action,
+                          "monitor_start_to_action_s":
+                              acts[0]["ts"] - marks["scale_monitor"]},
+            "action_to_replica_ready_s": third_ready - acts[0]["ts"],
+            "pass3_requests_by_replica": {str(k): v for k, v in sorted(
+                shares3.items())},
+            "pass3_s": pass3_s,
+            "third_replica_launches": sum(v["launches"]
+                                          for v in third_stream),
+            "rules": {"replica_down": O_DOWN_RULES,
+                      "serve_p99": O_P99_RULES},
+            "slack_s": O_SLACK_S},
         "launches": {name: (launches if name == "topic_inference_segments"
                             else 0) for name in _build.LAUNCHES},
         "seconds": seconds,
     }
+
+
+def read_json(path):
+    with open(path) as f:
+        return json.load(f)
 
 
 def profile_configs(torch, rows_a, rows_b, seed, out_dir):

@@ -2,8 +2,8 @@
 streaming verbs ``stream-score``, ``stream-train``, ``stream requeue`` and
 ``stream compact``, ``supervise``, a fleet of stream workers or of serve
 replicas, ``serve``, one resident scoring replica, ``front``, the serve
-fleet's routing front, ``probe``, its black-box canary, and ``collect``,
-the telemetry collector.
+fleet's routing front, ``probe``, its black-box canary, ``collect``, the
+telemetry collector, and ``monitor``, the live alerting engine.
 
 The reference's two entry points (LDATraining.scala, LDALoader.scala) as
 subcommands, with the JAX package's flags, defaults, console output and
@@ -24,6 +24,8 @@ exit codes:
     python -m spark_text_clustering_tpu_torch.cli front --fleet-dir <dir>
     python -m spark_text_clustering_tpu_torch.cli probe --fleet-dir <dir>
     python -m spark_text_clustering_tpu_torch.cli collect --dir <dir>
+    python -m spark_text_clustering_tpu_torch.cli monitor \
+        --fleet-dir <dir> --stream '<dir>/*.jsonl' --alerts-file <file>
 
 Two flags are the port's own: ``--device`` (default ``cuda``) names the
 device that IDF, training and scoring run on (without a card, pass
@@ -73,7 +75,8 @@ do.  ``--telemetry-file`` writes the supervisor's own stream (``fleet_*``
 events, ``fleet.*`` counters), ``--worker-telemetry-dir`` gives every
 worker incarnation a stream (``worker-wNNN-sSS.jsonl``), all on the
 supervisor's trace, and ``--ship-to host:port`` pushes every stream of
-the fleet to a collector.  ``--actions-file`` (item 9b.2) exits 2.
+the fleet to a collector.  ``--actions-file`` applies a ``monitor``'s
+scale and drain requests, each once (``FleetSupervisor``).
 
 ``supervise --role serve`` runs N ``serve`` replicas of this CLI as one
 service (``resilience.supervisor.ServeFleetSupervisor``): each replica
@@ -86,10 +89,20 @@ time and drains them on SIGTERM or after ``--max-seconds``.
 announces it in ``<fleet-dir>/front.json``; the ``front`` verb runs it
 alone.  ``probe`` scores a sentinel document through the front at a fixed
 rate and reports what a client saw.  Neither ``front`` nor ``probe``
-touches the card.  The autoscaler (``--autoscale`` and its knobs) acts
-through ``--actions-file`` and waits for item 9b.2 with it; so does every
-resize of a serve fleet (``--resize-at`` and the ``--scale-*`` flags exit
-2 with ``--role serve``).
+touches the card.  A serve fleet resizes from ``--actions-file`` only, as
+the JAX package's does: ``--resize-at`` and the ``--scale-*`` flags exit 2
+with ``--role serve`` (the JAX verb accepts and ignores them).
+``--autoscale`` (with ``--front-port`` and ``--actions-file``; it exits 2
+without them, where the JAX verb ignores it) feeds the front's queueing
+estimate to a ``PredictiveAutoscaler``, whose decisions go to the actions
+file beside the monitor's.
+
+``monitor`` tail-follows run streams, a fleet's leases and epoch ledgers,
+evaluates alert rules, writes their transitions to a checksummed
+``--alerts-file`` and their scale and drain requests to
+``--actions-file``; ``serve --alerts-file`` and ``front --alerts-file``
+answer ``/healthz`` with ``degraded`` while that log holds a firing
+alert.  Like ``front`` it never touches the card.
 
 ``collect`` is the telemetry collector those shippers push to (the JAX
 package's shippers too): one manifested stream a source, folded exactly
@@ -217,24 +230,10 @@ LANG_DIRS = {
 
 # The ROADMAP.md queue 1 item that ports the machinery behind each flag
 # the port refuses for now.
-_ALERTS_ITEM = "queue 1 item 9b.2, alerts and the autoscaler"
 _SCALE_ITEM = "queue 1 item 10, the audit tiers"
 _NOT_PORTED = {
-    "actions_file": ("--actions-file", _ALERTS_ITEM),
     "compile_cache": ("--compile-cache",
                       "queue 1 item 10, a compile cache"),
-}
-
-# ``supervise``'s autoscaler flags, their JAX defaults and types (None: a
-# switch): the JAX package applies the autoscaler's decisions only
-# through ``--actions-file``, so they are refused with it unless left at
-# the default.
-_AUTOSCALE_FLAGS = {
-    "autoscale": ("--autoscale", False, None),
-    "autoscale_high_rho": ("--autoscale-high-rho", 0.8, float),
-    "autoscale_low_rho": ("--autoscale-low-rho", 0.3, float),
-    "autoscale_confirm": ("--autoscale-confirm", 2, int),
-    "autoscale_cooldown": ("--autoscale-cooldown", 30.0, float),
 }
 
 
@@ -747,9 +746,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
 
     from .resilience import sleep as _idle_sleep
 
-    extra = ([("--alerts-file", _ALERTS_ITEM)]
-             if args.alerts_file is not None else [])
-    rc = _refuse_unported(args, extra)
+    rc = _refuse_unported(args)
     if rc is not None:
         return rc
     device = resolve_device(args.device)  # no card, no --device cpu: raise
@@ -798,6 +795,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
                 max_queue=args.max_queue,
                 batch_weight=args.batch_weight,
                 device=device,
+                alerts_file=args.alerts_file,
             )
         except CorruptArtifactError as exc:
             if lease is not None:
@@ -1337,20 +1335,14 @@ def cmd_supervise(args: argparse.Namespace) -> int:
     expiry, resized between committed epochs with fence tokens so that a
     zombie's writes are refused.  ``--role serve`` runs ``serve`` replicas
     behind the routing front instead (``_supervise_serve``)."""
-    extra = [(flag, _ALERTS_ITEM)
-             for dest, (flag, default, _) in _AUTOSCALE_FLAGS.items()
-             if getattr(args, dest) != default]
-    if args.role == "serve":
-        # the JAX package resizes a serve fleet only from the actions file
-        extra += [(flag, _ALERTS_ITEM) for flag, given in (
-            ("--resize-at", bool(args.resize_at)),
-            ("--scale-out-depth", args.scale_out_depth is not None),
-            ("--scale-out-sweeps", args.scale_out_sweeps != 3),
-            ("--scale-in-sweeps", args.scale_in_sweeps is not None),
-        ) if given]
-    rc = _refuse_unported(args, extra)
+    rc = _refuse_unported(args)
     if rc is not None:
         return rc
+    unused = _unused_supervise_flags(args)
+    if unused:
+        for flag, why in unused:
+            print(f"error: {flag}: {why}", file=sys.stderr)
+        return 2
     if args.role != "serve" and not args.watch_dir:
         print("--watch-dir is required for stream roles", file=sys.stderr)
         return 2
@@ -1398,6 +1390,27 @@ def cmd_supervise(args: argparse.Namespace) -> int:
             telemetry.shutdown()
 
 
+def _unused_supervise_flags(args: argparse.Namespace) -> List[tuple]:
+    """(flag, reason) for each ``supervise`` flag the given role would
+    ignore, where the JAX verb accepts it and does nothing: a serve fleet
+    resizes from ``--actions-file`` only, and the autoscaler runs only in
+    a serve fleet's front and acts only through the actions file."""
+    out = []
+    if args.role == "serve":
+        out += [(flag, "a serve fleet resizes from --actions-file only")
+                for flag, given in (
+                    ("--resize-at", bool(args.resize_at)),
+                    ("--scale-out-depth", args.scale_out_depth is not None),
+                    ("--scale-out-sweeps", args.scale_out_sweeps != 3),
+                    ("--scale-in-sweeps", args.scale_in_sweeps is not None),
+                ) if given]
+    if args.autoscale and (args.role != "serve" or args.front_port is None
+                           or args.actions_file is None):
+        out.append(("--autoscale", "requires --role serve, --front-port "
+                                   "and --actions-file"))
+    return out
+
+
 def _run_fleet(args: argparse.Namespace, worker_faults, resize_plan) -> int:
     """``supervise``'s fleet, run to convergence; its exit code."""
     sup = FleetSupervisor(
@@ -1416,6 +1429,7 @@ def _run_fleet(args: argparse.Namespace, worker_faults, resize_plan) -> int:
         max_respawns=args.max_respawns,
         resize_plan=resize_plan,
         worker_faults=worker_faults,
+        actions_file=args.actions_file,
     )
     try:
         rep = sup.run()
@@ -1478,13 +1492,58 @@ def _serve_replica_argv(args: argparse.Namespace, index: int, count: int,
     return argv + args.worker_arg
 
 
+def _queueing_tick(est, streams, seen: float, now: float, scaler=None,
+                   emitter=None) -> float:
+    """One pass of ``supervise --role serve``'s queueing loop: the front's
+    request outcomes counted since ``seen`` as arrivals, the replicas'
+    streams as service, one ``queueing_estimate`` event, and the
+    autoscaler's decision on it (``_autoscale``); returns the outcome
+    total to pass as ``seen`` next time."""
+    snap = telemetry.get_registry().snapshot()["counters"]
+    total = sum(v for k, v in snap.items()
+                if k.startswith("front.request_outcomes."))
+    if total > seen:
+        est.note_arrivals(total - seen, now)
+        seen = total
+    if streams is not None:
+        for e in streams.poll():
+            ts = e.get("ts")
+            est.observe_event(float(ts) if isinstance(ts, (int, float))
+                              and not isinstance(ts, bool) else now, e)
+    ev = est.estimate(now)
+    if ev is not None:
+        telemetry.event("queueing_estimate", **{
+            k: v for k, v in ev.items() if k not in ("event", "ts")})
+        if scaler is not None:
+            _autoscale(scaler, emitter, ev, now)
+    return seen
+
+
+def _autoscale(scaler, emitter, estimate: dict, now: float):
+    """The autoscaler's decision on one queueing estimate, written to the
+    actions file as a one-replica ``scale_out`` or ``scale_in`` request
+    (the JAX loop's fields); returns the decision or None."""
+    decision = scaler.decide(estimate, now)
+    if decision is None:
+        return None
+    emitter.emit(decision["action"], alert="autoscale_rho",
+                 key="queueing.rho", value=decision["rho"], workers_delta=1)
+    try:
+        emitter.flush()
+    except OSError:
+        pass  # the next decision writes the file again
+    return decision
+
+
 def _supervise_serve(args: argparse.Namespace, worker_faults) -> int:
     """``supervise --role serve``: N ``serve`` replicas on auto-picked
     ports, with the routing front in this process under ``--front-port``,
     until SIGTERM or ``--max-seconds``; its exit code.  The front's
     outcome counters and the replicas' streams under
     ``--worker-telemetry-dir`` feed a queueing estimate
-    (``queueing_estimate`` events) twice a second."""
+    (``queueing_estimate`` events) twice a second, and with
+    ``--autoscale`` the autoscaler's requests on ``--actions-file``
+    (``_queueing_tick``)."""
     import threading
 
     from .resilience.supervisor import ServeFleetSupervisor
@@ -1507,6 +1566,7 @@ def _supervise_serve(args: argparse.Namespace, worker_faults) -> int:
         startup_grace_seconds=args.startup_grace,
         sweep_interval=args.sweep_interval,
         max_respawns=args.max_respawns,
+        actions_file=args.actions_file,
     )
     front_httpd = None
     queue_stop = threading.Event()
@@ -1517,8 +1577,8 @@ def _supervise_serve(args: argparse.Namespace, worker_faults) -> int:
             make_front_server,
             write_front_announce,
         )
-        from .telemetry.alerts import StreamSet
-        from .telemetry.queueing import QueueingEstimator
+        from .telemetry.alerts import ActionEmitter, StreamSet
+        from .telemetry.queueing import PredictiveAutoscaler, QueueingEstimator
 
         router = FrontRouter(
             args.fleet_dir, lease_timeout=max(5.0, 2.0 * args.lease_timeout))
@@ -1535,29 +1595,24 @@ def _supervise_serve(args: argparse.Namespace, worker_faults) -> int:
         qstreams = (StreamSet([os.path.join(args.worker_telemetry_dir,
                                             "worker-*.jsonl")])
                     if args.worker_telemetry_dir else None)
+        scaler = emitter = None
+        if args.autoscale:
+            # the decisions ride the actions file the monitor's alerts
+            # use: the supervisor applies them, acked and clamped
+            scaler = PredictiveAutoscaler(
+                min_replicas=args.min_workers,
+                max_replicas=args.max_workers,
+                high_rho=args.autoscale_high_rho,
+                low_rho=args.autoscale_low_rho,
+                confirm=args.autoscale_confirm,
+                cooldown_seconds=args.autoscale_cooldown)
+            emitter = ActionEmitter(args.actions_file)
 
         def _queue_loop() -> None:
-            reg = telemetry.get_registry()
             seen = 0
             while not queue_stop.is_set():
-                now = time.time()
-                snap = reg.snapshot()["counters"]
-                total = sum(v for k, v in snap.items()
-                            if k.startswith("front.request_outcomes."))
-                if total > seen:
-                    est.note_arrivals(total - seen, now)
-                    seen = total
-                if qstreams is not None:
-                    for e in qstreams.poll():
-                        ts = e.get("ts")
-                        est.observe_event(
-                            float(ts) if isinstance(ts, (int, float))
-                            and not isinstance(ts, bool) else now, e)
-                ev = est.estimate(now)
-                if ev is not None:
-                    telemetry.event("queueing_estimate", **{
-                        k: v for k, v in ev.items()
-                        if k not in ("event", "ts")})
+                seen = _queueing_tick(est, qstreams, seen, time.time(),
+                                      scaler, emitter)
                 queue_stop.wait(0.5)
 
         queue_thread = threading.Thread(target=_queue_loop,
@@ -1601,10 +1656,6 @@ def cmd_front(args: argparse.Namespace) -> int:
         write_front_announce,
     )
 
-    rc = _refuse_unported(args, [("--alerts-file", _ALERTS_ITEM)]
-                          if args.alerts_file is not None else [])
-    if rc is not None:
-        return rc
     own_telemetry = args.telemetry_file is not None
     telemetry.configure(args.telemetry_file)
     if own_telemetry:
@@ -1615,6 +1666,7 @@ def cmd_front(args: argparse.Namespace) -> int:
             args.fleet_dir,
             lease_timeout=args.lease_timeout,
             wait_for_replica_s=args.wait_for_replica,
+            alerts_file=args.alerts_file,
             max_pending=args.max_pending,
             retry_budget=args.retry_budget,
         )
@@ -2083,7 +2135,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="drain + exit after this many seconds (drills); "
                          "default: run until SIGTERM")
     se.add_argument("--alerts-file", default=None,
-                    help="not ported yet (exits 2)")
+                    help="a `monitor` alerts.jsonl: while it holds firing "
+                         "alerts, GET /healthz reports status 'degraded' "
+                         "and lists them")
     se.add_argument("--telemetry-file", default=None,
                     help="telemetry run stream (serve.* histograms, "
                          "hot-swap events) as JSONL — `metrics summarize` "
@@ -2161,7 +2215,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="fleet-wide respawn budget before supervision "
                          "aborts (a crash loop fails loudly)")
     sv.add_argument("--actions-file", default=None,
-                    help="not ported yet (exits 2)")
+                    help="poll this `monitor` actions file every sweep: a "
+                         "firing alert's scale request resizes the fleet "
+                         "(a stream fleet between committed epochs, a "
+                         "serve fleet beside its serving replicas), a "
+                         "drain request runs the escalation ladder "
+                         "(applied ids acked in <file>.ack, exactly once)")
     sv.add_argument("--resize-at", action="append", default=[],
                     metavar="EPOCHS:WORKERS",
                     help="scripted resize: once the fleet's total committed "
@@ -2233,15 +2292,26 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--serve-batch-weight", type=float, default=None,
                     help="--role serve: pass `serve --batch-weight` on to "
                          "every replica")
-    for flag, default, kind in _AUTOSCALE_FLAGS.values():
-        if kind is None:
-            sv.add_argument(flag, action="store_true",
-                            help="--role serve's autoscaler: not ported "
-                                 "yet (exits 2)")
-        else:
-            sv.add_argument(flag, type=kind, default=default,
-                            help="--role serve's autoscaler: not ported yet "
-                                 "(exits 2 unless left at its default)")
+    sv.add_argument("--autoscale", action="store_true",
+                    help="--role serve: predictive autoscaling, the "
+                         "front's queueing estimate of rho into "
+                         "scale_out/scale_in requests on --actions-file "
+                         "(requires --front-port and --actions-file; "
+                         "exits 2 without them), clamped to "
+                         "--min/--max-workers")
+    sv.add_argument("--autoscale-high-rho", type=float, default=0.8,
+                    help="scale out after --autoscale-confirm consecutive "
+                         "estimates at or above this utilization")
+    sv.add_argument("--autoscale-low-rho", type=float, default=0.3,
+                    help="scale in after sustained utilization at or "
+                         "below this (dead band between low and high)")
+    sv.add_argument("--autoscale-confirm", type=int, default=2,
+                    help="consecutive estimates beyond a threshold before "
+                         "a decision (hysteresis)")
+    sv.add_argument("--autoscale-cooldown", type=float, default=30.0,
+                    help="seconds to hold after any decision (a fresh "
+                         "replica must warm before the signal is trusted "
+                         "again)")
     _add_compile_cache_arg(sv)
     sv.add_argument("--device", default=None,
                     help="torch device passed to every worker (default: "
@@ -2283,7 +2353,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="the front's run stream (front.* counters, the "
                          "front.replica.<i>.* families, swap observations)")
     fr.add_argument("--alerts-file", default=None,
-                    help="not ported yet (exits 2)")
+                    help="a `monitor --alerts-file` log: /healthz reports "
+                         "degraded while it holds firing alerts")
     fr.set_defaults(fn=cmd_front)
 
     pb = sub.add_parser(
@@ -2351,10 +2422,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "counters; never shipped to itself)")
     co.set_defaults(fn=cmd_collect)
 
-    # the JAX package's `metrics` verb, copied (telemetry.metrics_cli)
+    # the JAX package's `metrics` and `monitor` verbs, copied
+    # (telemetry.metrics_cli, telemetry.monitor_cli)
     from .telemetry.metrics_cli import add_metrics_subparser
+    from .telemetry.monitor_cli import add_monitor_subparser
 
     add_metrics_subparser(sub)
+    add_monitor_subparser(sub)
     return ap
 
 

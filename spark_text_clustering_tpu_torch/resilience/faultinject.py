@@ -75,6 +75,8 @@ SITES = frozenset({
     "serve.swap",         # before a verified model hot-swap installs
     "front.shed",         # the front's pending-set admission (forces a
                           # typed 429 shed at the edge)
+    "monitor.poll",       # top of each alert-engine evaluation cycle
+    "monitor.action",     # before the monitor's actions-file write
 })
 
 

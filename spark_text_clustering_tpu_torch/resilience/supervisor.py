@@ -61,8 +61,14 @@ spawn set carries its ``trace_id``.
 ``ServeFleetSupervisor`` runs N ``serve`` replicas as one service: no
 epoch ledgers, a staggered bring-up, a drain-free resize, a rolling
 hot-swap through per-replica control files and a parallel drain (its
-docstring).  The JAX package also applies a monitor's actions file here
-(item 9b.2); the port does not yet.
+docstring).
+
+``actions_file`` closes the loop from telemetry to topology, as in the JAX
+package: a ``monitor`` (``telemetry.alerts``) writes scale and drain
+requests there, and every sweep applies the new ones (a resize through
+``_resize``, a drain through the escalation ladder) and acks the last
+applied id in ``<actions_file>.ack``, so a request is applied exactly once
+across supervisor restarts.
 
 This module imports neither ``torch`` nor the port's device code: it is
 subprocess-and-files machinery that must survive whatever a worker does
@@ -122,6 +128,7 @@ LEASE_EXPIRIES_COUNTER = "fleet.lease_expiries"
 CRASHES_COUNTER = "fleet.crashes"
 HEARTBEATS_COUNTER = "fleet.heartbeats"
 FENCE_REFUSALS_COUNTER = "ledger.fence_refusals"
+ACTIONS_APPLIED_COUNTER = "fleet.actions_applied"
 SWAP_ROLLS_COUNTER = "fleet.swap_rolls"
 SWAP_STALLS_COUNTER = "fleet.swap_stalls"
 
@@ -516,6 +523,7 @@ class FleetSupervisor:
         resize_plan: Optional[List[Dict]] = None,
         worker_faults: Optional[Dict[int, str]] = None,
         env: Optional[Dict[str, str]] = None,
+        actions_file: Optional[str] = None,
     ) -> None:
         if workers < 1:
             raise ValueError("workers must be >= 1")
@@ -540,6 +548,14 @@ class FleetSupervisor:
         )
         self.worker_faults = dict(worker_faults or {})
         self.env = dict(env) if env is not None else dict(os.environ)
+        # a monitor's scale and drain requests, polled every sweep; the
+        # last applied id is acked in <actions_file>.ack, so a request is
+        # applied exactly once across supervisor restarts
+        self.actions_file = actions_file
+        self._actions_stamp: Optional[Tuple[float, int]] = None
+        self._last_action_id = -1
+        if actions_file:
+            self._last_action_id = self._read_action_ack()
 
         self.ledger = FleetLedger(fleet_dir)
         self.report = FleetReport()
@@ -805,6 +821,88 @@ class FleetSupervisor:
                 self._resize(count - 1, why="idle")
 
     # -- the loop --------------------------------------------------------
+    # -- the monitor's actions (the other half of the loop) --------------
+    def _ack_path(self) -> str:
+        return self.actions_file + ".ack"
+
+    def _read_action_ack(self) -> int:
+        try:
+            with open(self._ack_path(), "r", encoding="utf-8") as f:
+                return int(json.load(f).get("last_id", -1))
+        except (OSError, json.JSONDecodeError, ValueError):
+            return -1
+
+    def _check_actions(self) -> None:
+        """Apply the new requests of the monitor's actions file: a
+        ``scale_out``, ``scale_in`` or ``resize`` goes through the
+        role's ``_resize`` (a stream fleet's ledger-gated one, a serve
+        fleet's drain-free one), a ``drain`` runs the escalation ladder
+        on one worker and respawns it.  Every id read is acked, a
+        clamped or no-op request too, or a firing alert would apply it
+        forever."""
+        from .. import telemetry
+
+        if not self.actions_file:
+            return
+        try:
+            st = os.stat(self.actions_file)
+            stamp = (st.st_mtime, st.st_size)
+        except OSError:
+            return
+        if stamp == self._actions_stamp:
+            return
+        self._actions_stamp = stamp
+        try:
+            with open(self.actions_file, "r", encoding="utf-8") as f:
+                doc = json.load(f)
+        except (OSError, json.JSONDecodeError):
+            return                      # mid-write; next sweep re-reads
+        actions = doc.get("actions") if isinstance(doc, dict) else None
+        if not isinstance(actions, list):
+            return
+        fresh = sorted(
+            (
+                a for a in actions
+                if isinstance(a, dict)
+                and isinstance(a.get("id"), int)
+                and a["id"] > self._last_action_id
+            ),
+            key=lambda a: a["id"],
+        )
+        for act in fresh:
+            kind = str(act.get("kind", ""))
+            why = f"alert_{act.get('alert', '?')}"
+            telemetry.count(ACTIONS_APPLIED_COUNTER)
+            telemetry.event(
+                "fleet_action", id=act["id"], kind=kind, why=why,
+            )
+            if kind in ("scale_out", "scale_in", "resize"):
+                count = self._current_count()
+                if kind == "resize":
+                    target = int(act.get("workers", count))
+                else:
+                    delta = int(act.get("workers_delta", 1))
+                    target = count + (
+                        delta if kind == "scale_out" else -delta
+                    )
+                self._resize(target, why=why)
+            elif kind == "drain":
+                w = self._procs.get(int(act.get("worker", -1)))
+                if w is not None and not w.finished \
+                        and w.proc.poll() is None:
+                    self._escalate(w, why=why)
+                    self._handle_death(w, cause=why)
+            self._last_action_id = act["id"]
+        if fresh:
+            atomic_write_text(
+                self._ack_path(),
+                json.dumps(
+                    {"last_id": self._last_action_id},
+                    sort_keys=True,
+                ) + "\n",
+            )
+
+    # -- the loop --------------------------------------------------------
     def run(self) -> FleetReport:
         from .. import telemetry
 
@@ -949,6 +1047,7 @@ class FleetSupervisor:
         )
         if not active:
             return True
+        self._check_actions()
         self._check_resize(depths)
         return False
 
@@ -988,8 +1087,11 @@ class ServeFleetSupervisor(FleetSupervisor):
         ``request_stop`` is called or ``max_seconds`` pass, and drains
         every replica in parallel (SIGTERM, grace, SIGKILL).
 
-    The JAX package also scales this fleet from a monitor's actions file
-    (item 9b.2); the port does not yet.
+    A monitor's ``serve_p99`` or ``serve_batch_fill`` alert scales this
+    fleet through the ``actions_file`` protocol of the stream fleets:
+    ``scale_out`` spawns a replica beside the serving ones, ``drain``
+    bounces one through the ladder, each applied exactly once (the CLI
+    resizes a serve fleet this way only).
     """
 
     def __init__(

@@ -36,8 +36,9 @@ HTTP front spreads ``/score`` over them:
     ``front.shed``).
 
 Standard library only, and no torch: the front must survive whatever its
-replicas do to the card.  The JAX front's ``alerts_file`` (``/healthz``
-degrading on firing alerts) is item 9b.2's; passing one raises.
+replicas do to the card.  With ``alerts_file`` (a ``monitor``'s
+``alerts.jsonl``) ``/healthz`` says ``degraded`` while it holds firing
+alerts, and lists them.
 """
 
 from __future__ import annotations
@@ -230,10 +231,6 @@ class FrontRouter:
         max_pending: int = 128,
         retry_budget: int = 3,
     ) -> None:
-        if alerts_file is not None:
-            raise NotImplementedError(
-                "FrontRouter(alerts_file=...) is not ported yet (ROADMAP.md "
-                "queue 1 item 9b.2, alerts and the autoscaler)")
         self.fleet_dir = fleet_dir
         self.host = host
         self.alerts_file = alerts_file
@@ -654,8 +651,16 @@ class FrontRouter:
             pins = len(self._pins)
             inflight = self._inflight
         ready = [r for r in replicas if r["state"] == "ready"]
-        return {
-            "status": "ok" if ready else "degraded",
+        firing: List[Dict] = []
+        if self.alerts_file:
+            # the replicas' contract: firing alerts (a burning error
+            # budget, a replica down) say degraded while the fleet still
+            # answers
+            from ..telemetry.alerts import firing_alerts
+
+            firing = firing_alerts(self.alerts_file)
+        out = {
+            "status": "ok" if ready and not firing else "degraded",
             "fleet_dir": self.fleet_dir,
             "replicas": replicas,
             "ready": len(ready),
@@ -667,6 +672,9 @@ class FrontRouter:
             "shed": reg.counter("front.shed_total").value,
             "rejected": reg.counter("front.rejected_total").value,
         }
+        if self.alerts_file:
+            out["alerts"] = {"source": self.alerts_file, "firing": firing}
+        return out
 
 
 # ---------------------------------------------------------------------------

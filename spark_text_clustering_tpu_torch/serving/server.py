@@ -424,12 +424,15 @@ class ScoringService:
         device="cuda",
         replica_index: Optional[int] = None,
         emulate_doc_seconds: Optional[float] = None,
+        alerts_file: Optional[str] = None,
     ) -> None:
         self.models_dir = models_dir
         self.lang = lang
         self.explicit_model = model
         self.verify_deep = verify_deep
         self.device = resolve_device(device)
+        # a monitor's alerts.jsonl: firing alerts degrade /healthz
+        self.alerts_file = alerts_file
         # fleet identity: responses carry X-STC-Replica, and the
         # Prometheus exposition labels every series with the index, so a
         # scraper sees N replicas as one labelled family
@@ -502,8 +505,17 @@ class ScoringService:
 
     def health(self) -> dict:
         reg = telemetry.get_registry()
-        return {
-            "status": "draining" if self.draining else "ok",
+        firing = []
+        if self.alerts_file:
+            # a torn or missing log reads as no alerts (firing_alerts is
+            # cached by mtime): a health check never fails on its own
+            # telemetry
+            from ..telemetry.alerts import firing_alerts
+
+            firing = firing_alerts(self.alerts_file)
+        out = {
+            "status": "draining" if self.draining else (
+                "degraded" if firing else "ok"),
             "model": self._scorer.attribution,
             "uptime_s": round(time.time() - self.started_at, 3),
             "queue_depth": self.coalescer.queue_depth(),
@@ -517,6 +529,9 @@ class ScoringService:
                 if k != "signatures"
             },
         }
+        if self.alerts_file:
+            out["alerts"] = {"source": self.alerts_file, "firing": firing}
+        return out
 
     # -- request path ----------------------------------------------------
     def retry_after_seconds(self) -> float:

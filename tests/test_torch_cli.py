@@ -584,62 +584,53 @@ def test_resume_mismatch_exits_2(native_lib, corpus, tmp_path):
     assert rc == 2 and "--resume requires --checkpoint-dir" in se
 
 
-_ALERTS = "item 9b"
+_ITEM_10 = "is not ported yet (ROADMAP.md queue 1 item 10"
+_SERVE_RESIZE = "a serve fleet resizes from --actions-file only"
+_AUTOSCALE = "requires --role serve, --front-port and --actions-file"
 REFUSED = [
-    (["train", "--compile-cache", "cc"], "--compile-cache", "item 10"),
-    (["score", "--compile-cache", "cc"], "--compile-cache", "item 10"),
+    (["train", "--compile-cache", "cc"], "--compile-cache", _ITEM_10),
+    (["score", "--compile-cache", "cc"], "--compile-cache", _ITEM_10),
     (["stream-score", "--compile-cache", "cc"], "--compile-cache",
-     "item 10"),
+     _ITEM_10),
     (["stream-train", "--compile-cache", "cc"], "--compile-cache",
-     "item 10"),
-    (["supervise", "--autoscale"], "--autoscale", _ALERTS),
-    (["supervise", "--autoscale-high-rho", "0.9"], "--autoscale-high-rho",
-     _ALERTS),
-    (["supervise", "--autoscale-low-rho", "0.1"], "--autoscale-low-rho",
-     _ALERTS),
-    (["supervise", "--autoscale-confirm", "3"], "--autoscale-confirm",
-     _ALERTS),
-    (["supervise", "--autoscale-cooldown", "1"], "--autoscale-cooldown",
-     _ALERTS),
-    (["supervise", "--actions-file", "a.json"], "--actions-file", _ALERTS),
+     _ITEM_10),
+    (["supervise", "--autoscale"], "--autoscale", _AUTOSCALE),
+    (["supervise", "--role", "serve", "--front-port", "0", "--autoscale"],
+     "--autoscale", _AUTOSCALE),
     (["supervise", "--role", "serve", "--resize-at", "0:3"], "--resize-at",
-     _ALERTS),
+     _SERVE_RESIZE),
     (["supervise", "--role", "serve", "--scale-out-depth", "4"],
-     "--scale-out-depth", _ALERTS),
+     "--scale-out-depth", _SERVE_RESIZE),
     (["supervise", "--role", "serve", "--scale-out-sweeps", "2"],
-     "--scale-out-sweeps", _ALERTS),
+     "--scale-out-sweeps", _SERVE_RESIZE),
     (["supervise", "--role", "serve", "--scale-in-sweeps", "2"],
-     "--scale-in-sweeps", _ALERTS),
-    (["supervise", "--compile-cache", "cc"], "--compile-cache", "item 10"),
-    (["serve", "--alerts-file", "a.jsonl"], "--alerts-file", _ALERTS),
-    (["serve", "--compile-cache", "cc"], "--compile-cache", "item 10"),
-    (["front", "--alerts-file", "a.jsonl"], "--alerts-file", _ALERTS),
+     "--scale-in-sweeps", _SERVE_RESIZE),
+    (["supervise", "--compile-cache", "cc"], "--compile-cache", _ITEM_10),
+    (["serve", "--compile-cache", "cc"], "--compile-cache", _ITEM_10),
 ]
 
 
-@pytest.mark.parametrize("argv,flag,item", REFUSED,
+@pytest.mark.parametrize("argv,flag,why", REFUSED,
                          ids=[" ".join(a) for a, _, _ in REFUSED])
 def test_unported_flags_exit_2_and_name_their_item(tmp_path, argv, flag,
-                                                   item):
+                                                   why):
     """Each flag whose machinery is not ported exits 2 before any work,
-    naming its ROADMAP.md queue 1 item; none is accepted and ignored (an
-    autoscaler flag left at the JAX package's default is the JAX CLI's
-    fleet without the autoscaler)."""
+    naming its ROADMAP.md queue 1 item; so does each flag the JAX CLI
+    accepts and ignores for the role given (a serve fleet resizes from the
+    actions file only, and the autoscaler needs a serve fleet's front and
+    an actions file): none is accepted and ignored."""
     if argv[0] == "supervise":
         books = ["--watch-dir", str(tmp_path / "none"), "--fleet-dir",
                  str(tmp_path / "fleet")]
     elif argv[0] == "serve":
         books = ["--models-dir", str(tmp_path / "none")]
-    elif argv[0] == "front":
-        books = ["--fleet-dir", str(tmp_path / "fleet")]
     else:
         source = "--watch-dir" if argv[0].startswith("stream") else "--books"
         books = [source, str(tmp_path / "none")]
-    # the front takes no --device: it never touches the card
-    main = tcli.main if argv[0] == "front" else port_main
-    rc, so, se = run(main, [*argv[:1], *books, *argv[1:]])
+    rc, so, se = run(port_main, [*argv[:1], *books, *argv[1:]])
     assert rc == 2 and so == ""
-    assert f"error: {flag} is not ported yet (ROADMAP.md queue 1 {item}" in se
+    sep = " " if why == _ITEM_10 else ": "
+    assert f"error: {flag}{sep}{why}" in se
     assert not os.path.exists(tmp_path / "fleet")
 
 

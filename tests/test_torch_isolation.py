@@ -128,12 +128,49 @@ def test_the_streaming_modules_are_scanned():
 def test_the_telemetry_modules_are_scanned():
     """The import and source scans cover the telemetry core and the
     dispatch layer with its readers: dispatch, the recompile sentinel,
-    the roofline, the trace export, SLOs and the ``metrics`` verb."""
+    the roofline, the trace export, SLOs, the ``metrics`` verb, and the
+    alert engine with the ``monitor`` verb."""
     mods = set(_port_modules())
     assert {f"spark_text_clustering_tpu_torch.telemetry{m}" for m in (
         "", ".registry", ".names", ".tracing", ".transport", ".prometheus",
         ".events", ".spans", ".memory", ".dispatch", ".compilation",
-        ".roofline", ".trace_export", ".slo", ".metrics_cli")} <= mods
+        ".roofline", ".trace_export", ".slo", ".metrics_cli", ".alerts",
+        ".monitor_cli")} <= mods
+
+
+def test_the_monitor_verb_loads_no_jax(tmp_path):
+    """``monitor --once`` of a stream, with its own telemetry, an alerts
+    log and an actions file, in a subprocess: it fires, and it leaves jax
+    and the JAX package out of ``sys.modules`` and makes no CUDA
+    context."""
+    stream = str(tmp_path / "t.jsonl")
+    code = (
+        "import sys, torch\n"
+        "torch.cuda.init = lambda: (_ for _ in ()).throw(\n"
+        "    AssertionError('a CUDA context'))\n"
+        "from spark_text_clustering_tpu_torch import cli, telemetry\n"
+        "w = telemetry.TelemetryWriter(sys.argv[1])\n"
+        "w.write_manifest(kind='storm')\n"
+        "for i in range(12):\n"
+        "    w.emit('dispatch_executable', digest=f'd{i}', label='x')\n"
+        "w.close()\n"
+        "rc = cli.main(['monitor', '--once', '--stream', sys.argv[1],\n"
+        "               '--builtin', 'retrace_storm', '--fail-on-alert',\n"
+        "               '--alerts-file', sys.argv[1] + '.alerts',\n"
+        "               '--actions-file', sys.argv[1] + '.actions',\n"
+        "               '--telemetry-file', sys.argv[1] + '.mon'])\n"
+        "assert rc == 1, rc\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'spark_text_clustering_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code, stream],
+                         cwd=str(tmp_path), env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "fired: retrace_storm" in out.stdout
 
 
 def test_the_metrics_verb_loads_no_jax(tmp_path):

@@ -40,6 +40,7 @@ from spark_text_clustering_tpu.resilience import supervisor as jsup
 from spark_text_clustering_tpu.serving import front as jfront
 from spark_text_clustering_tpu.serving import probe as jprobe
 from spark_text_clustering_tpu.serving import server as jserver
+from spark_text_clustering_tpu.telemetry import alerts as jalerts
 from spark_text_clustering_tpu.telemetry import dispatch as jdispatch
 from spark_text_clustering_tpu_torch import telemetry
 from spark_text_clustering_tpu_torch.interop import lda_model_from_numpy
@@ -209,9 +210,30 @@ def test_router_selection_matches_jax(tmp_path, case):
     assert got["port"] == got["jax"]
 
 
-def test_router_alerts_file_is_item_9b(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        tfront.FrontRouter(str(tmp_path), alerts_file="a.jsonl")
+def test_router_healthz_degrades_on_firing_alerts_as_jax(tmp_path):
+    """``FrontRouter(alerts_file=)`` on a ready fleet: ``status`` and
+    ``alerts`` equal to the JAX router's while an alert fires and after it
+    resolves; without the file ``ok`` and no ``alerts`` key."""
+    alerts = str(tmp_path / "alerts.jsonl")
+    log = jalerts.AlertLog(alerts)
+    log.append(rule="budget_burn", key="probe_latency:fast",
+               state="firing", ts=1.0)
+    _write_lease(tmp_path, 0)
+    routers = {name: mod.FrontRouter(str(tmp_path), alerts_file=alerts)
+               for name, (mod, _) in FRONTS.items()}
+    seen = []
+    for _ in range(2):
+        got = {name: r.health() for name, r in routers.items()}
+        assert {k: got["port"][k] for k in ("status", "alerts", "ready")} \
+            == {k: got["jax"][k] for k in ("status", "alerts", "ready")}
+        seen.append((got["port"]["status"], [
+            f["rule"] for f in got["port"]["alerts"]["firing"]]))
+        time.sleep(0.01)
+        log.append(rule="budget_burn", key="probe_latency:fast",
+                   state="resolved", ts=2.0)
+    assert seen == [("degraded", ["budget_burn"]), ("ok", [])]
+    plain = tfront.FrontRouter(str(tmp_path)).health()
+    assert plain["status"] == "ok" and "alerts" not in plain
 
 
 # ---------------------------------------------------------------------------
@@ -628,6 +650,52 @@ def _resized(tmp_path, sup_mod, tag):
                for r in sup_mod.FleetLedger(fleet).records()]
     return records, out["report"], served_on, [
         w.proc.poll() for w in retired]
+
+
+def _scaled_out_by_action(tmp_path, sup_mod, tel, tag):
+    """A stub fleet of two that a monitor's ``serve_p99`` action grows to
+    three beside the serving replicas: (fence records, ack, whether both
+    stayed up, the report's resizes, ``fleet.actions_applied``)."""
+    fleet = str(tmp_path / f"fleet_{tag}")
+    models = tmp_path / f"models_{tag}"
+    actions = str(tmp_path / f"actions_{tag}.json")
+    _committed_model_dir(models, 1000)
+    sup = _stub_fleet(tmp_path, sup_mod, fleet, models, max_workers=3,
+                      actions_file=actions)
+    t, out = _run_in_thread(sup)
+    _wait(_both_ready(fleet), what="fleet ready")
+    pids = {i: _lease(fleet, i)["pid"] for i in (0, 1)}
+    with open(actions, "w") as f:
+        json.dump({"schema": 1, "actions": [
+            {"id": 1, "kind": "scale_out", "alert": "serve_p99"}]}, f)
+    _wait(lambda: (_lease(fleet, 2) or {}).get("state") == "ready",
+          what="the scaled-out replica ready")
+    kept = {i: _lease(fleet, i)["pid"] for i in (0, 1)} == pids
+    sup.request_stop()
+    t.join(20)
+    records = [(r["kind"], r["worker_count"],
+                {int(i): s for i, s in r["spawn_ids"].items()}, r.get("why"))
+               for r in sup_mod.FleetLedger(fleet).records()]
+    with open(actions + ".ack") as f:
+        ack = json.load(f)
+    applied = tel.get_registry().snapshot()["counters"].get(
+        "fleet.actions_applied")
+    return records, ack, kept, out["report"].resizes, applied
+
+
+def test_action_scales_the_serve_fleet_out_without_a_drain(tmp_path):
+    """A ``scale_out`` on the actions file spawns a third replica beside
+    the serving two on both supervisors (JAX
+    ``test_serve_fleet.py:607``): equal fence records and acks, one
+    resize, one applied action, neither serving replica bounced."""
+    got = {tag: _scaled_out_by_action(tmp_path, sup_mod, tel, tag)
+           for tag, sup_mod, tel in (("port", tsup, telemetry),
+                                     ("jax", jsup, jtelemetry))}
+    assert got["port"] == got["jax"]
+    records, ack, kept, resizes, applied = got["port"]
+    assert records == [("spawn", 2, {0: 0, 1: 1}, None),
+                       ("resize", 3, {0: 0, 1: 1, 2: 2}, "alert_serve_p99")]
+    assert ack == {"last_id": 1} and kept and resizes == 1 and applied == 1
 
 
 def test_resize_grows_beside_and_drains_only_the_retired(tmp_path):

@@ -654,6 +654,42 @@ def test_http_score_healthz_and_metrics(models_dir, tmp_path):
         assert err.value.code == 404
 
 
+def test_healthz_degrades_on_firing_alerts_as_jax(models_dir, tmp_path):
+    """A service with a ``monitor`` alerts log answers ``/healthz`` as the
+    JAX service does: ``degraded`` with the firing alert listed while it
+    fires, ``ok`` after it resolves (the log's mtime cache read again),
+    and no ``alerts`` key without the log."""
+    from spark_text_clustering_tpu.telemetry.alerts import AlertLog
+
+    alerts = str(tmp_path / "alerts.jsonl")
+    log = AlertLog(alerts)
+    log.append(rule="serve_p99", key="", state="firing", value=0.9,
+               threshold=0.5, ts=1.0)
+    svcs = {"jax": JService(models_dir, "EN", lemmatize=False, max_batch=8,
+                            linger_s=0.002, token_buckets=(64,),
+                            watch_model=False, alerts_file=alerts),
+            "port": _service(models_dir, watch_model=False,
+                             token_buckets=(64,), alerts_file=alerts)}
+    seen = []
+    for _ in range(2):
+        got = {name: svc.health() for name, svc in svcs.items()}
+        assert {k: got["port"][k] for k in ("status", "alerts")} == {
+            k: got["jax"][k] for k in ("status", "alerts")}
+        seen.append(got["port"]["status"])
+        time.sleep(0.01)
+        log.append(rule="serve_p99", key="", state="resolved", ts=2.0)
+    assert seen == ["degraded", "ok"]
+    with _http(svcs["port"]) as port:
+        with _get(port, "/healthz") as r:
+            health = json.loads(r.read())
+    assert health["status"] == "ok" and health["alerts"] == {
+        "source": alerts, "firing": []}
+    assert "alerts" not in _service(models_dir, watch_model=False,
+                                    token_buckets=(64,)).health()
+    for svc in svcs.values():
+        svc.begin_drain()
+
+
 def test_admission_refusal_is_a_priced_429(models_dir):
     telemetry.configure(None)
     svc = _service(models_dir, watch_model=False)
