@@ -6,7 +6,12 @@
 1. builds the six CUDA kernels from ``spark_text_clustering_tpu_torch/
    csrc`` and the native text library from ``.../native`` (one ``nvcc``
    per source and one ``g++``, in parallel, into build/torch_kernels;
-   ``--kernels-only`` skips the text library);
+   ``--kernels-only`` skips the text library); then, beside the
+   corpora's generation, ``python -m spark_text_clustering_tpu_torch.cli
+   doctor`` as a subprocess: exit 0, the accelerator OK and naming this
+   card, the CPU path and the text library OK, nvcc found and all six
+   libraries built for the current sources, the build directory's
+   listing unchanged by it;
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it and at the edges of its contract, and
    times kernel, plain version, and (for the scatter) the one PyTorch call
@@ -143,7 +148,18 @@
    ``--resume``: the same micro-batches, lambda 1e-3, every book
    committed once), ``stream compact`` and a resume that loads the same
    lambda bit for bit, and ``score`` of the published model on the card;
-   ms a trigger, docs/s and the text front end's share;
+   ms a trigger, docs/s and the text front end's share.  K-lineage:
+   ``cli lineage <published model> --json`` before and after the
+   compaction: the wave's committed sources, the publish epoch of the
+   model's ``ledger_ref``, every epoch on the wave's trace, nothing
+   degraded but the one compaction note after it.  K-serve-lineage: the
+   published model served in this process on the card (the ``serving``
+   library with N's buckets and a run stream), one book POSTed under a
+   minted ``X-STC-Trace``: its distribution equal in bytes to the card's
+   per-doc scoring, and ``lineage`` of the saved response and of the
+   bare trace id, with the stream, back to the same epoch and sources,
+   the request's spans all attributed and the dispatch digest of
+   ``serve.topic_inference``;
 14. config L, the supervised stream fleet on config E's books (the same
    widths, one file a trigger): ``python -m spark_text_clustering_tpu_torch
    .cli supervise`` as a subprocess, its workers on the card.  L-score (2
@@ -154,7 +170,11 @@
    (2 -> 3 workers, a hung worker: the same reports, exactly once) and
    L-train (2 ``stream-train`` workers under a kill: each worker's lambda
    within 1e-3 relative of one process training its partition, each
-   published model scoring on the card), the four fleets at once; then
+   published model scoring on the card; L-lineage: ``cli lineage`` of
+   worker 0's model with ``--fleet-dir``, both workers' committed
+   sources, every book once, the publish by worker 0's respawned
+   incarnation, every epoch on the supervisor's trace), the four fleets
+   at once; then
    worker 0's own command in
    this process with the counts at 0, every E-step launch held against its
    plain version and its reports byte equal to the fleet's worker 0; each
@@ -3953,6 +3973,134 @@ def dists_agree(label, got, want, limit):
     return diff
 
 
+def lineage_walk(label, argv, out_path):
+    """``cli lineage <argv> --json`` in this process: (the report, wall
+    seconds).  Fails unless it exits 0."""
+    rc, out, secs = run_cli(["lineage", *argv, "--json"], out_path)
+    if rc != 0:
+        raise AssertionError(f"config {label}: lineage exited {rc}: "
+                             f"{out[-1000:]}")
+    return json.loads(out), secs
+
+
+def lineage_failed(label, rep, want):
+    """Raise naming the checks of ``want`` ({check: held}) that failed."""
+    failed = sorted(k for k, held in want.items() if not held)
+    if failed:
+        raise AssertionError(
+            f"config {label}: {failed} failed: "
+            f"{json.dumps(rep, sort_keys=True)[:3000]}")
+
+
+def k_serve_lineage(root, model_dir, stop, book, k_walk):
+    """K-serve-lineage: ``model_dir`` served in this process on the card by
+    the ``serving`` library (N's buckets and batch, a run stream), one
+    ``book`` POSTed under a minted, sampled ``X-STC-Trace``; the response
+    saved, then the service drained.  The served distribution must equal
+    in bytes the card's per-doc scoring of the model on the book (N's
+    contract), and ``lineage`` of the response and of the bare trace id,
+    with the stream, must walk back to ``k_walk``'s publish epoch and
+    sources, the request's spans all attributed and ``serve.topic_
+    inference``'s dispatch digest among the served ones.  Returns (the
+    record, the per-document kernel's launches in the serve)."""
+    from spark_text_clustering_tpu_torch import load_model, telemetry
+    from spark_text_clustering_tpu_torch.cli import _load_stop_words
+    from spark_text_clustering_tpu_torch.ops import _build
+    from spark_text_clustering_tpu_torch.pipeline import (
+        TextPreprocessor, make_vectorizer,
+    )
+    from spark_text_clustering_tpu_torch.serving import (
+        ScoringService, make_http_server,
+    )
+    from spark_text_clustering_tpu_torch.telemetry import tracing
+
+    with open(book) as f:
+        text = f.read()
+    stop_words = _load_stop_words(stop)
+    tel = os.path.join(root, "serve_lineage.jsonl")
+    ctx = tracing.mint(sampled=True)
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    telemetry.configure(tel, device="cuda")
+    try:
+        service = ScoringService(
+            os.path.dirname(model_dir), "EN", model=model_dir,
+            stop_words=stop_words, max_batch=N_MAX_BATCH,
+            token_buckets=N_BUCKETS, watch_model=False, device="cuda")
+        telemetry.manifest(kind="serve", model=model_dir, lang="EN",
+                           vocab_width=service.scorer.model.vocab_size)
+        httpd = make_http_server(service, "127.0.0.1", 0)
+        host, port = httpd.server_address[:2]
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            status, _, body = http_json(
+                f"http://{host}:{port}/score",
+                {"texts": [text], "names": [os.path.basename(book)]},
+                headers={tracing.HEADER: ctx.format()})
+        finally:
+            drained = service.begin_drain()
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join()
+        telemetry.event("serve_drained", **drained)
+    finally:
+        telemetry.shutdown()
+    serve_s = time.perf_counter() - t0
+    launches = _build.LAUNCHES["topic_inference_segments"]
+    if status != 200:
+        raise AssertionError(f"config K-serve-lineage: POST {status}: "
+                             f"{body}")
+    response = os.path.join(root, "response.json")
+    with open(response, "w") as f:
+        json.dump(body, f)
+
+    # N's contract on this book, outside the counted serve
+    model = load_model(model_dir, device="cuda")
+    rows = make_vectorizer(model.vocab)(TextPreprocessor(
+        stop_words=stop_words).transform({"texts": [text]})["tokens"])
+    want = np.asarray(model.topic_distribution(rows, convergence="per_doc"))
+    got = served(body["results"])
+    by_response, walk_s = lineage_walk(
+        "K-serve-lineage", [response, "--telemetry", tel],
+        os.path.join(root, "lineage_response.out"))
+    by_trace, trace_s = lineage_walk(
+        "K-serve-lineage", [ctx.trace_id, "--telemetry", tel],
+        os.path.join(root, "lineage_trace.out"))
+    spans = by_response.get("spans") or {}
+    digests = {(d["label"], d["cache"])
+               for d in by_response.get("compile_digests", ())}
+    publish_epoch = k_walk["model"]["publish_epoch"]
+    lineage_failed("K-serve-lineage", by_response, {
+        "served bytes equal the per-doc scoring":
+            got.tobytes() == want.tobytes(),
+        "kind response": by_response["kind"] == "response",
+        "resolved": by_response["lineage"] == "resolved",
+        "the header's trace id": by_response.get("trace_id")
+            == ctx.trace_id == body["trace"]["trace_id"],
+        "spans all attributed": spans.get("unattributed") == 0,
+        "serve.request among the spans":
+            "serve.request" in spans.get("names", ()),
+        "serve.topic_inference's digest, cache off":
+            ("serve.topic_inference", "off") in digests,
+        "the publish epoch": by_response.get("model", {}).get(
+            "publish_epoch") == publish_epoch,
+        "the sources": by_response.get("sources") == k_walk["sources"],
+        "the trace id walks to the model": by_trace["kind"] == "trace"
+            and by_trace.get("model", {}).get("dir") == model_dir
+            and by_trace.get("model", {}).get("publish_epoch")
+            == publish_epoch,
+        "the trace id walks to the sources":
+            by_trace.get("sources") == k_walk["sources"],
+        "kernel launched": launches >= 1,
+    })
+    return {"serve_s": serve_s, "walk_s": walk_s, "trace_walk_s": trace_s,
+            "trace_id": ctx.trace_id, "spans": spans,
+            "digests": sorted(f"{lbl}:{c}" for lbl, c in digests),
+            "launches": launches, "served_bytes_equal_per_doc": True,
+            "degraded": by_response["degraded"]}, launches
+
+
 def run_config_k(torch, seed, e):
     """One-process streaming through the CLI on config E's 51 books, with
     the verbs' defaults (batch capacity 8, 2^18 hash features, k=5) and 8
@@ -4045,7 +4193,10 @@ def run_config_k(torch, seed, e):
                 recorded(online_lda, "gamma_fixed_point_bkl") as train_seen:
             _, train_s, whole_dir = stream_train(
                 "cuda", "whole", watch, "--telemetry-file", tel_path)
-            os.environ.pop(tracing.ENV_CONTEXT)
+            # the interrupted run's two incarnations on a trace of their
+            # own, as a supervised worker's would be (K-lineage walks it)
+            wave_trace = tracing.mint(sampled=True)
+            os.environ[tracing.ENV_CONTEXT] = wave_trace.format()
             tracing.install(None)
             whole_batches = [t[2] for t in triggers]
             train_triggers = list(triggers)
@@ -4055,6 +4206,8 @@ def run_config_k(torch, seed, e):
             watch_dir(books, wave, names[K_WAVE:])
             resumed_out, _, resumed_dir = stream_train("cuda", "wave", wave,
                                                        "--resume")
+            os.environ.pop(tracing.ENV_CONTEXT)
+            tracing.install(None)
             wave_batches = [t[2] for t in triggers[len(whole_batches):]]
     finally:
         os.environ.pop(tracing.ENV_CONTEXT, None)
@@ -4117,11 +4270,49 @@ def run_config_k(torch, seed, e):
         raise AssertionError(f"config K-train: card vs CPU {cpu_rel}, "
                              f"resumed {resume_rel}, {last}, {ledger_ref}")
 
+    # K-lineage: the published model walked back to the wave's committed
+    # sources, its publish epoch and the wave's trace
+    walk, walk_s = lineage_walk("K-lineage", [resumed_dir],
+                                os.path.join(root, "lineage.out"))
+    trained = [r for r in wave_led.records() if r["kind"] != "model-publish"]
+    walked = (walk.get("workers") or [{}])[0]
+    pub = walk.get("model", {})
+    lineage_failed("K-lineage", walk, {
+        "kind model": walk["kind"] == "model",
+        "resolved": walk["lineage"] == "resolved",
+        "nothing degraded": walk["degraded"] == [],
+        "the committed sources": walk.get("sources") == sorted(
+            s_ for r in trained for s_ in r["sources"]),
+        "the publish epoch": pub.get("publish_epoch") == ledger_ref["epoch"]
+            == pub.get("publish", {}).get("epoch")
+            == wave_led.last_committed(),
+        "every epoch": len(walked.get("epochs", ())) == len(trained),
+        "every epoch on the wave's trace": {
+            row.get("trace_id") for row in walked.get("epochs", ())}
+            == {wave_trace.trace_id},
+    })
+    # K-serve-lineage: a served response walked back the same way; the
+    # replica's per-document launches join K's
+    serve_lineage, serve_launches = k_serve_lineage(
+        root, resumed_dir, stop, os.path.join(watch, names[0]), walk)
+
     # compaction: the resumed stream loads the same lambda bit for bit
     # (no new file: it trains nothing and publishes what it loaded)
     compact_out, _ = stream_cli("K", ["stream", "compact", "--checkpoint-dir",
                                       os.path.join(root, "ck_wave")],
                                 os.path.join(root, "compact.out"))
+    # the same walk over the snapshot: the same sources, the one
+    # compaction note
+    compacted, _ = lineage_walk("K-lineage", [resumed_dir],
+                                os.path.join(root, "lineage_compacted.out"))
+    notes = compacted["degraded"]
+    lineage_failed("K-lineage compacted", compacted, {
+        "the same sources": compacted.get("sources") == walk["sources"],
+        "resolved": compacted["lineage"] == "resolved",
+        "one compaction note": len(notes) == 1 and "compacted" in notes[0],
+        "the pinned publish": compacted.get("model", {}).get(
+            "publish", {}).get("compacted") is True,
+    })
     _, _, compacted_dir = stream_train("cuda", "wave", wave, "--resume")
     if not np.array_equal(lam_of(compacted_dir), lam_of(resumed_dir)) or (
             len(wave_led.records()) != 2):
@@ -4147,6 +4338,7 @@ def run_config_k(torch, seed, e):
     del score_seen, train_seen
     launches = {name: score_launches[name] + train_launches[name]
                 + published_launches[name] for name in score_launches}
+    launches["topic_inference_segments"] += serve_launches
     return {
         "phase": "config_K", "books": len(names),
         "files_per_trigger": K_TRIGGER_FILES, "k": EN_K,
@@ -4172,6 +4364,11 @@ def run_config_k(torch, seed, e):
                   "compact": compact_out.strip(),
                   "compacted_resume_bit_equal": True},
         "telemetry": k_telemetry,
+        "lineage": {"seconds": walk_s, "sources": len(walk["sources"]),
+                    "epochs": len(walked["epochs"]),
+                    "publish_epoch": pub["publish_epoch"],
+                    "trace_id": wave_trace.trace_id,
+                    "compacted_degraded": notes, "serve": serve_lineage},
         "launches": launches, "score_launches": score_launches,
         "train_launches": train_launches,
         "published_score_launches": published_launches,
@@ -4491,6 +4688,7 @@ def run_config_l(torch, seed, e, smi):
         latest_model_dir,
     )
     from spark_text_clustering_tpu_torch.ops import _build, estep
+    from spark_text_clustering_tpu_torch.resilience import EpochLedger
     from spark_text_clustering_tpu_torch.resilience.supervisor import (
         FleetLedger,
     )
@@ -4619,6 +4817,52 @@ def run_config_l(torch, seed, e, smi):
     if not max(train_rel) <= 1e-3:
         raise AssertionError(f"config L-train: lambda {train_rel}")
 
+    # L-lineage: worker 0's model walked over the whole fleet's ledgers
+    fleet_train = os.path.join(root, "fleet_train")
+    walk, walk_s = lineage_walk("L-lineage", [
+        latest_model_dir(os.path.join(models, "w000"), "EN"), "--fleet-dir",
+        fleet_train], os.path.join(root, "lineage.out"))
+    fleet_recs = FleetLedger(fleet_train).records()
+    respawns = [r for r in fleet_recs if r["kind"] == "respawn"]
+    respawn = respawns[-1] if respawns else {}
+    # the supervisor's trace rides its spawn sets (both packages)
+    sup_traces = {r["trace_id"] for r in fleet_recs if "trace_id" in r}
+    ledgers = [EpochLedger(os.path.join(fleet_train, f"w{w:03d}")).records()
+               for w in range(2)]
+    w0_publish = [r for r in ledgers[0] if r["kind"] == "model-publish"]
+    walked = walk.get("workers", [])
+    publish = walk.get("model", {}).get("publish", {})
+    books_once = sorted(os.path.join(watch, n) for n in names)
+    lineage_failed("L-lineage", walk, {
+        "2 workers": [w.get("worker") for w in walked] == [0, 1],
+        "resolved": walk["lineage"] == "resolved",
+        "nothing degraded": walk["degraded"] == [],
+        "the sources union": walk.get("sources") == books_once,
+        "every book once": sorted(
+            s_ for w in walked for s_ in w["sources"]) == books_once,
+        "each worker's committed sources": [w["sources"] for w in walked]
+            == [sorted({s_ for r in recs for s_ in r.get("sources", ())})
+                for recs in ledgers],
+        "published in worker 0's ledger": walked[:1] != []
+            and walked[0].get("publish") == publish and len(w0_publish) == 1
+            and publish.get("epoch") == w0_publish[0]["epoch"]
+            == walk["model"].get("publish_epoch"),
+        "by the respawned incarnation": len(respawns) == 1
+            and respawn.get("worker") == 0
+            and (publish.get("worker"), publish.get("generation"),
+                 publish.get("spawn_id")) == (
+                0, respawn.get("generation"),
+                respawn.get("spawn_ids", {}).get("0")),
+        "every epoch on the supervisor's trace": len(sup_traces) == 1
+            and {row.get("trace_id") for w in walked for row in w["epochs"]}
+            == sup_traces,
+    })
+    l_lineage = {"seconds": walk_s, "sources": len(walk["sources"]),
+                 "epochs": [len(w["epochs"]) for w in walked],
+                 "publish": {k: publish.get(k) for k in (
+                     "epoch", "worker", "generation", "spawn_id")},
+                 "trace_id": next(iter(sup_traces))}
+
     # the kernel on L's path: worker 0's own command in this process
     own = os.path.join(root, "inproc")
     FleetLedger(os.path.join(own, "fleet")).append(
@@ -4662,7 +4906,7 @@ def run_config_l(torch, seed, e, smi):
         "batch_capacity": 8, "fleets": fleets,
         "time_to_recover_s": recover, "fleet_telemetry": telemetry_l,
         "max_dist_diff_vs_k": vs_k, "max_dist_diff_vs_score": vs_score,
-        "train_lam_max_rel_diff": train_rel,
+        "train_lam_max_rel_diff": train_rel, "lineage": l_lineage,
         "inproc_worker": {**trigger_stats(triggers), "seconds": inproc_s,
                           "reports_byte_equal": True},
         "launches": launches,
@@ -6747,6 +6991,61 @@ def profile_configs(torch, rows_a, rows_b, seed, out_dir):
     shutil.rmtree(cli_root, ignore_errors=True)
 
 
+def start_doctor(build_dir):
+    """``cli doctor --probe-timeout 120`` started as a subprocess of the
+    port's CLI from this checkout (the entry a user calls), with the build
+    directory's listing before it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("STC_FAULTS", "STC_FAULT_SEED")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [here] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    listing = sorted(os.listdir(build_dir))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "spark_text_clustering_tpu_torch.cli",
+         "doctor", "--probe-timeout", "120"], cwd=here, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, listing, time.perf_counter()
+
+
+def check_doctor(torch, started, build_dir, digest, n_sources):
+    """The doctor's report on this card: exit 0, the accelerator OK and
+    naming device 0, the CPU path and the text library OK, nvcc found
+    and every library built for ``digest`` in ``build_dir``, whose
+    listing the doctor left as it was."""
+    proc, listing, t0 = started
+    try:
+        out, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    secs = time.perf_counter() - t0
+    lines = out.splitlines()
+    kernels = next((ln for ln in lines if ln.startswith(
+        "  kernels (nvcc, sm_90a): ")), "")
+    want = {
+        "exit 0": proc.returncode == 0,
+        "accelerator OK": (
+            f"  accelerator: OK — torch {torch.__version__}, cuda "
+            f"{torch.version.cuda}, {torch.cuda.device_count()} device(s) "
+            f"({torch.cuda.get_device_name(0)})") in lines,
+        "cpu path OK": "  cpu path (--device cpu, gloo): OK" in lines,
+        "native textproc OK": "  native textproc (C++ ctypes): OK" in lines,
+        "nvcc found": bool(kernels) and "nvcc missing" not in kernels,
+        "every library built": kernels.endswith(
+            f", {n_sources}/{n_sources} libraries built for {digest} in "
+            f"{build_dir}"),
+        "the build directory unchanged":
+            sorted(os.listdir(build_dir)) == listing,
+    }
+    failed = sorted(k for k, held in want.items() if not held)
+    if failed:
+        raise AssertionError(f"doctor: {failed} failed: {out[-3000:]}")
+    return {"phase": "doctor", "seconds": secs, "report": lines}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6804,12 +7103,25 @@ def main() -> int:
             if log.exists():
                 shutil.copy(log, os.path.join(args.out, f"ptxas_{name}.log"))
 
+    # the doctor from this checkout, beside the corpora's generation
+    doctor = None if args.kernels_only else start_doctor(_build.BUILD_DIR)
     t0 = time.perf_counter()
-    rows_a = en_books_rows(args.seed)
-    rows_b = newsgroups_rows(args.seed)
+    try:
+        rows_a = en_books_rows(args.seed)
+        rows_b = newsgroups_rows(args.seed)
+    except BaseException:
+        if doctor is not None:
+            doctor[0].kill()
+            doctor[0].wait()
+        raise
     emit({"phase": "corpora", "seconds": time.perf_counter() - t0,
           "A_docs": len(rows_a), "A_tokens": sum(len(i) for i, _ in rows_a),
           "B_docs": len(rows_b), "B_tokens": sum(len(i) for i, _ in rows_b)})
+    if doctor is not None:
+        doctor = check_doctor(torch, doctor, _build.BUILD_DIR,
+                              _build._digest(), len(_build.SOURCES))
+        emit(doctor)
+        record["doctor"] = doctor
 
     # 2. each kernel against its plain version, at main-path shapes
     rng = np.random.default_rng(args.seed + 1)

@@ -3,7 +3,9 @@ streaming verbs ``stream-score``, ``stream-train``, ``stream requeue`` and
 ``stream compact``, ``supervise``, a fleet of stream workers or of serve
 replicas, ``serve``, one resident scoring replica, ``front``, the serve
 fleet's routing front, ``probe``, its black-box canary, ``collect``, the
-telemetry collector, and ``monitor``, the live alerting engine.
+telemetry collector, ``monitor``, the live alerting engine, ``lineage``,
+the walk from a served byte back to its source files, and ``doctor``, the
+environment's health report.
 
 The reference's two entry points (LDATraining.scala, LDALoader.scala) as
 subcommands, with the JAX package's flags, defaults, console output and
@@ -26,6 +28,9 @@ exit codes:
     python -m spark_text_clustering_tpu_torch.cli collect --dir <dir>
     python -m spark_text_clustering_tpu_torch.cli monitor \
         --fleet-dir <dir> --stream '<dir>/*.jsonl' --alerts-file <file>
+    python -m spark_text_clustering_tpu_torch.cli lineage <model dir> \
+        --fleet-dir <dir>
+    python -m spark_text_clustering_tpu_torch.cli doctor
 
 Two flags are the port's own: ``--device`` (default ``cuda``) names the
 device that IDF, training and scoring run on (without a card, pass
@@ -108,6 +113,16 @@ alert.  Like ``front`` it never touches the card.
 package's shippers too): one manifested stream a source, folded exactly
 once.
 
+``lineage`` walks what the stream trainers, the fleet and the serve
+replicas wrote (``meta.json``, the epoch ledgers, a saved ``/score``
+response, the run streams), whichever package wrote them, from a model
+dir, a response or a trace id back to the publish epoch and the committed
+source files (``lineage``).  ``doctor`` reports whether the card, the CPU
+path, the text library and the CUDA kernels' toolchain are usable; it
+probes the card in a throwaway subprocess (``utils.env``), so a wedged
+card can only time out, and it builds nothing.  Neither makes a CUDA
+context in its own process.
+
 ``--telemetry-file F`` on ``train``, ``score``, ``stream-score`` and
 ``stream-train`` writes the run's telemetry stream to ``F``: a manifest,
 then the JAX package's events (``corpus``, ``phase``, ``span``,
@@ -123,7 +138,8 @@ JAX package's verb does (``summarize``, ``merge`` of a grid's streams,
 
 Exit codes: 0 on success; 1 for a fleet that spent its respawn budget; 2
 for a usage error, a missing or corrupt model, a resume mismatch and a
-flag not ported yet; 3 for a stream whose ledger write was fenced.
+flag not ported yet; 3 for a stream whose ledger write was fenced and for
+a ``lineage`` target that names nothing.
 """
 
 from __future__ import annotations
@@ -203,7 +219,9 @@ __all__ = [
     "LANG_DIRS",
     "build_parser",
     "cmd_collect",
+    "cmd_doctor",
     "cmd_front",
+    "cmd_lineage",
     "cmd_probe",
     "cmd_score",
     "cmd_serve",
@@ -1821,6 +1839,102 @@ def cmd_collect(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_lineage(args: argparse.Namespace) -> int:
+    """Walk the causal chain behind a served byte: from a model dir, a
+    serve response JSON, or a trace id, resolve the publish epoch, every
+    contributing worker's committed source set, the request's span chain,
+    and the dispatch digests that served it (``lineage.walk``, the JAX
+    package's walk).  Degrades typed on torn/corrupt/legacy records: exit
+    0 with DEGRADED notes, never a crash; exit 3 only when the target
+    itself is unresolvable.  It never touches the card."""
+    import json as _json
+
+    from . import lineage
+
+    report = lineage.walk(
+        args.target,
+        fleet_dir=args.fleet_dir,
+        ledger_dir=args.ledger_dir,
+        telemetry_paths=args.telemetry or (),
+    )
+    if args.json:
+        print(_json.dumps(report, sort_keys=True))
+    else:
+        print(lineage.render_tree(report))
+    return 3 if report["kind"] == "unknown" else 0
+
+
+def _kernel_toolchain() -> str:
+    """The doctor's line on the CUDA kernels: the nvcc found (and its
+    release) or missing, and how many of ``_build.SOURCES``'s libraries
+    are built for the current sources.  Reads only: it builds nothing."""
+    import subprocess
+
+    try:
+        nvcc = _build._nvcc()
+    except _build.KernelError:
+        found = "nvcc missing"
+    else:
+        try:
+            out = subprocess.run([nvcc, "--version"], capture_output=True,
+                                 text=True, timeout=30).stdout
+        except (OSError, subprocess.TimeoutExpired):
+            out = ""
+        release = next((ln.split("release", 1)[1].strip()
+                        for ln in out.splitlines() if "release" in ln),
+                       "version unknown")
+        found = f"{nvcc} ({release})"
+    built = sum(_build._lib_path(name).exists() for name in _build.SOURCES)
+    return (f"{found}, {built}/{len(_build.SOURCES)} libraries built for "
+            f"{_build._digest()} in {_build.BUILD_DIR}")
+
+
+def cmd_doctor(args: argparse.Namespace) -> int:
+    """Environment health report: whether torch sees the card (probed in
+    a throwaway subprocess, so a wedged card can only time out, never
+    hang this process), the CPU path, the native text library, and the
+    CUDA kernels' toolchain and built libraries.  This process makes no
+    CUDA context and builds no kernel; the text library is built on first
+    use, as every verb that preprocesses builds it.  Always exit 0."""
+    from .utils.env import probe_accelerator, scrubbed_cpu_env
+
+    print("spark_text_clustering_tpu_torch doctor")
+
+    acc = probe_accelerator(
+        attempts=1, probe_timeout=args.probe_timeout,
+        require_accelerator=False,
+    )
+    if acc["ok"] and acc["backend"] != "cpu":
+        print(f"  accelerator: OK — torch {acc['version']}, cuda "
+              f"{acc.get('cuda')}, {acc['devices']} device(s) "
+              f"({acc.get('name')})")
+    elif acc["ok"]:
+        # torch came up without a CUDA device: no reachable card
+        print(f"  accelerator: NONE — torch {acc['version']} sees no CUDA "
+              f"device ({acc['devices']} device(s))")
+    else:
+        print(f"  accelerator: UNREACHABLE ({acc['error']})")
+
+    cpu = probe_accelerator(
+        attempts=1, probe_timeout=120, require_accelerator=False,
+        env=scrubbed_cpu_env(),
+    )
+    if not cpu["ok"]:
+        state = f"FAILED ({cpu['error']})"
+    elif not cpu.get("gloo"):
+        state = "FAILED (torch.distributed has no gloo backend)"
+    else:
+        state = "OK"
+    print(f"  cpu path (--device cpu, gloo): {state}")
+
+    text_ok = native._load() is not None
+    print(f"  native textproc (C++ ctypes): "
+          f"{'OK' if text_ok else 'unavailable — Python path'}")
+
+    print(f"  kernels (nvcc, sm_90a): {_kernel_toolchain()}")
+    return 0
+
+
 def _add_device_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device for IDF, training and scoring "
@@ -2421,6 +2535,37 @@ def build_parser() -> argparse.ArgumentParser:
                     help="the collector's own run stream (collect.* "
                          "counters; never shipped to itself)")
     co.set_defaults(fn=cmd_collect)
+
+    li = sub.add_parser(
+        "lineage",
+        help="walk the causal chain behind a served byte: model dir / "
+             "serve response JSON / trace id -> publish epoch, "
+             "committed source sets, request span chain, compile "
+             "digests",
+    )
+    li.add_argument("target",
+                    help="a model artifact dir, a saved serve response "
+                         "JSON, or a trace id (32-hex or traceparent)")
+    li.add_argument("--fleet-dir", default=None,
+                    help="walk EVERY worker ledger of this fleet dir "
+                         "(w000/, w001/, ...) into the committed "
+                         "source union")
+    li.add_argument("--ledger-dir", default=None,
+                    help="explicit epoch-ledger checkpoint dir "
+                         "(default: the model meta.json's ledger_ref)")
+    li.add_argument("--telemetry", action="append", default=[],
+                    metavar="RUN.JSONL",
+                    help="run stream(s) to resolve the request's trace "
+                         "spans and the serve-side compile digests "
+                         "(repeatable)")
+    li.add_argument("--json", action="store_true")
+    li.set_defaults(fn=cmd_lineage)
+
+    dr = sub.add_parser(
+        "doctor", help="environment health report (hang-proof probes)"
+    )
+    dr.add_argument("--probe-timeout", type=int, default=60)
+    dr.set_defaults(fn=cmd_doctor)
 
     # the JAX package's `metrics` and `monitor` verbs, copied
     # (telemetry.metrics_cli, telemetry.monitor_cli)

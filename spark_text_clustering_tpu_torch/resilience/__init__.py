@@ -44,6 +44,7 @@ from .retry import (  # noqa: F401
     TELEMETRY_POLICY,
     RetryGiveUp,
     RetryPolicy,
+    backoff_delays,
     configure_lease_deadline,
     retry_call,
     sleep,

@@ -77,6 +77,8 @@ SITES = frozenset({
                           # typed 429 shed at the edge)
     "monitor.poll",       # top of each alert-engine evaluation cycle
     "monitor.action",     # before the monitor's actions-file write
+    "lineage.read",       # before each ledger/meta read of a lineage
+                          # walk (the walker must degrade typed)
 })
 
 

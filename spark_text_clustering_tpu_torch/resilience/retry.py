@@ -16,7 +16,7 @@ import random
 import time
 import zlib
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple, Type
+from typing import Callable, Iterator, Optional, Tuple, Type
 
 from .errors import ResilienceError
 
@@ -25,6 +25,7 @@ __all__ = [
     "TELEMETRY_POLICY",
     "RetryGiveUp",
     "RetryPolicy",
+    "backoff_delays",
     "configure_lease_deadline",
     "lease_deadline",
     "retry_call",
@@ -139,6 +140,14 @@ def _effective_deadline(policy: RetryPolicy) -> Optional[float]:
 
 def _site_rng(site: str) -> random.Random:
     return random.Random(zlib.crc32(site.encode("utf-8")))
+
+
+def backoff_delays(policy: RetryPolicy, site: str = "") -> Iterator[float]:
+    """The policy's delay schedule (one entry per attempt, the first 0),
+    for callers that drive their own loop (the accelerator probe)."""
+    rng = _site_rng(site)
+    for i in range(policy.attempts):
+        yield policy.delay(i, rng)
 
 
 def _count(name: str, **event_fields) -> None:

@@ -250,6 +250,81 @@ def test_front_and_probe_modules_load_neither_jax_nor_torch():
     assert out.returncode == 0, out.stderr
 
 
+def test_lineage_and_env_modules_load_neither_jax_nor_torch():
+    """The lineage walker and the accelerator probe are host code: importing
+    them (past the package's own ``__init__``) loads neither torch, jax nor
+    the JAX package, and starts no process."""
+    code = (
+        "import sys, importlib.util, subprocess, types\n"
+        "def no_proc(*a, **k):\n"
+        "    raise AssertionError(f'a process was started: {a}')\n"
+        "subprocess.Popen = subprocess.run = no_proc\n"
+        "spec = importlib.util.find_spec('spark_text_clustering_tpu_torch')\n"
+        "pkg = types.ModuleType(spec.name)\n"
+        "pkg.__path__ = list(spec.submodule_search_locations)\n"
+        "sys.modules[spec.name] = pkg\n"
+        "for m in ('lineage', 'utils.env'):\n"
+        "    importlib.import_module(f'{spec.name}.{m}')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('torch', 'jax', 'spark_text_clustering_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_the_lineage_verb_loads_no_jax(tmp_path):
+    """``lineage`` of a model published through a ledger written on the
+    CPU, by the port's CLI in a subprocess: it resolves the sources, and
+    it leaves jax and the JAX package out of ``sys.modules`` and makes no
+    CUDA context."""
+    code = (
+        "import contextlib, io, json, os, sys, numpy as np, torch\n"
+        "torch.cuda.init = torch.cuda._lazy_init = lambda: (\n"
+        "    _ for _ in ()).throw(AssertionError('a CUDA context'))\n"
+        "from spark_text_clustering_tpu_torch import cli\n"
+        "from spark_text_clustering_tpu_torch.models.base import LDAModel\n"
+        "from spark_text_clustering_tpu_torch.models.persistence import (\n"
+        "    save_model)\n"
+        "from spark_text_clustering_tpu_torch.resilience import (\n"
+        "    EpochLedger, artifact_ref)\n"
+        "from spark_text_clustering_tpu_torch.telemetry import tracing\n"
+        "root = sys.argv[1]\n"
+        "ck, md = os.path.join(root, 'ck'), os.path.join(root, 'm')\n"
+        "tracing.install(tracing.mint())\n"
+        "led = EpochLedger(ck)\n"
+        "led.begin(0, kind='stream-train', sources=['/w/a'], payloads=[])\n"
+        "led.commit(0, kind='stream-train', sources=['/w/a'])\n"
+        "save_model(LDAModel(lam=np.ones((2, 4), np.float32),\n"
+        "                    vocab=list('abcd'),\n"
+        "                    alpha=np.ones(2, np.float32),\n"
+        "                    eta=0.1, device='cpu'), md,\n"
+        "           ledger_ref={'dir': ck, 'epoch': 1})\n"
+        "led.begin(1, kind='model-publish', sources=[], payloads=[])\n"
+        "led.commit(1, kind='model-publish', sources=[],\n"
+        "           model_ref=artifact_ref(md))\n"
+        "out = io.StringIO()\n"
+        "with contextlib.redirect_stdout(out):\n"
+        "    rc = cli.main(['lineage', md, '--json'])\n"
+        "rep = json.loads(out.getvalue())\n"
+        "assert rc == 0 and rep['sources'] == ['/w/a'], rep\n"
+        "assert rep['lineage'] == 'resolved' and not rep['degraded'], rep\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'spark_text_clustering_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=str(tmp_path), env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+
+
 def test_front_and_probe_run_without_a_cuda_context(tmp_path, monkeypatch):
     """The ``front`` and ``probe`` verbs never touch the card: with every
     way to a CUDA context made to raise, the front serves a request (503:
