@@ -218,9 +218,20 @@
    then ``score --per-doc-convergence`` (its report equal to the served
    bytes' report) and the same ``serve`` in this process, its launches
    counted; spawn to first response, warmup, request p50/p99, docs/s;
-17. config O, the serve fleet on config E's books, N's card models and
-   N's per-document bytes (``run_config_o``): ``cli supervise --role
-   serve --device cuda --workers 2 --front-port 0`` as a subprocess, 8
+17. the compile cache (``run_compile_cache``), on an empty store:
+   ``cli compile-cache warm --model <N's model>`` stores all six
+   libraries, none already cached; ``ls --json`` lists six committed
+   entries under the live toolchain fingerprint and ``verify`` exits 0;
+   ``cli score`` of E's books with ``--compile-cache`` under an nvcc shim
+   that refuses any compile: its report equal in bytes to E's card
+   report, cache hits and no miss in its stream, no compile, the build
+   directory unchanged; one byte of a loaded entry's payload flipped and
+   the same ``score`` again: the same report, one miss and one
+   invalidation, the entry quarantined; a line with the phase's seconds;
+18. config O, the serve fleet on config E's books, N's card models and
+   N's per-document bytes (``run_config_o``), on the store 17 warmed:
+   ``cli supervise --role serve --device cuda --workers 2 --front-port 0
+   --compile-cache <store>`` as a subprocess, 8
    client streams sending one book a request through the front for two
    passes, N's newer model published mid-way through the first (rolled
    through both replicas) and replica 1 killed mid-way through the second
@@ -228,11 +239,13 @@
    and SIGTERM: no failed request, every stream's generations monotone,
    every response equal in bytes to its generation's per-document
    scoring, both replicas serving, every replica incarnation on the card
-   with per-document kernel launches, one complete roll, one respawn
+   with per-document kernel launches and its kernel loaded from the
+   store (a hit, no miss), one complete roll, one respawn
    after the lease's retirement, a clean probe and a clean drain; spawn
    to the front's announce and to each replica's ready, request p50/p99,
    docs/s, the roll's seconds and swap lag, time to recover, drain
-   seconds, each replica's share and launches.  O-alerts on the same
+   seconds, each replica's share and launches (``spawn_to_ready_s`` also
+   on a line of its own).  O-alerts on the same
    fleet: a ``cli monitor`` (``replica_down``) and a standalone ``cli
    front --alerts-file`` beside the fleet; the kill fires replica_down
    for replica 1 and the respawn's first beat resolves it in the
@@ -241,7 +254,7 @@
    scales the fleet out to 3 (``supervise --actions-file --max-workers
    3``) exactly once, replica 2 beside the serving two, and a third pass
    goes through the three replicas, each response its generation's bytes;
-18. telemetry (``--telemetry-file``) on commands the configs already run:
+19. telemetry (``--telemetry-file``) on commands the configs already run:
    E's card ``train`` and ``score`` run again with the flag (their launch
    counts equal to the runs without it) and its ``train --device cpu``
    takes it: the card stream's names equal the CPU stream's (less
@@ -271,8 +284,8 @@
    the fit, beside the enabled and
    disabled ms a sweep.  A ``telemetry`` line sums the seconds these
    phases added;
-19. a ``total`` line with the run's seconds, then a ``kernels`` line: per
-   kernel, the launches of the main-path runs of 3-17 (each must be > 0),
+20. a ``total`` line with the run's seconds, then a ``kernels`` line: per
+   kernel, the launches of the main-path runs of 3-18 (each must be > 0),
    the largest difference from the plain version, and the times beside
    the card's bound (the E-step's entry also M's own, as ``config_M``).
 
@@ -2154,7 +2167,8 @@ def run_config_e(torch, seed, workdir):
     ds = pre.transform({"texts": texts})
     t_pre = time.perf_counter() - t0
     defaults = Params()
-    ds = CountVectorizer(defaults.vocab_size).fit(ds).transform(ds)
+    ds = CountVectorizer(defaults.vocab_size, num_workers=1).fit(
+        ds).transform(ds)
     ds = IDF(min_doc_freq=defaults.min_doc_freq, idf_floor=defaults.idf_floor,
              device="cuda").fit(ds).transform(ds)
     tokens, tf_rows = ds["tokens"], ds["rows"]
@@ -6206,6 +6220,199 @@ def run_config_n(torch, seed, e, smi):
         "texts": texts, "names": names}
 
 
+# ---- the compile cache ---------------------------------------------------
+CC_SHIM = """#!/bin/sh
+# nvcc that answers --version only: any compile is logged and refused
+echo "$*" >> "{log}"
+if [ "$1" = "--version" ]; then exec "{real}" --version; fi
+exit 1
+"""
+
+
+def cc_cli(argv, out_path, env, cwd):
+    """The port's CLI as a subprocess: (exit code, output text)."""
+    with open(out_path, "w") as out:
+        rc = subprocess.run(
+            [sys.executable, "-m", "spark_text_clustering_tpu_torch.cli",
+             *argv], cwd=cwd, env=env, stdout=out, stderr=subprocess.STDOUT,
+            text=True, timeout=600).returncode
+    with open(out_path) as f:
+        return rc, f.read()
+
+
+def cc_counters(path):
+    """The ``compile.cache_*`` counters of a run stream's final registry,
+    and the labels of its ``compile_cache`` events by op."""
+    _, events, snap = telemetry_stream(path)
+    counters = {k[len("compile.cache_"):]: int(v)
+                for k, v in snap["counters"].items()
+                if k.startswith("compile.cache_")}
+    ops = {}
+    for ev in events:
+        if ev["event"] == "compile_cache":
+            ops.setdefault(ev["op"], []).append(ev["label"])
+    return counters, ops
+
+
+def run_compile_cache(torch, e, n, smi):
+    """The compile cache on the card, on an empty store, after N's models
+    exist.  (a) ``cli compile-cache warm --cache-dir S --model <N's model>``
+    as a subprocess: exit 0, all six libraries stored, none already
+    cached.  (b) In this process, left disarmed after: ``compile-cache ls
+    --json``: six committed entries under one fingerprint, the live one;
+    ``verify`` exits 0.  (c) ``cli score``
+    of E's books with ``--compile-cache S`` as a subprocess whose ``PATH``
+    is led by an nvcc shim (``--version`` passed on to the real nvcc, any
+    other call logged and refused): exit 0, its report equal in bytes to
+    E's card ``score`` report, its stream's ``compile.cache_hits`` >= 1 and
+    no miss, no compile in the shim's log, the build directory's listing
+    unchanged.  (d) One byte of the payload of an entry (c) loaded flipped,
+    the same ``score`` again: the same report, one miss and one
+    invalidation, the entry under ``.quarantine/``, and published again
+    from the build directory.  Returns the summary and the store for
+    config O's fleet."""
+    from spark_text_clustering_tpu_torch import compilecache
+    from spark_text_clustering_tpu_torch.compilecache import (
+        ExecutableStore,
+    )
+    from spark_text_clustering_tpu_torch.ops import _build
+
+    t_start = time.perf_counter()
+    root = os.path.join(e["root"], "CC")
+    store = os.path.join(root, "store")
+    os.makedirs(root)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("STC_FAULTS", "STC_FAULT_SEED", "STC_COMPILE_CACHE")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [here] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    build_listing = sorted(os.listdir(_build.BUILD_DIR))
+
+    # (a) warm
+    t0 = time.perf_counter()
+    rc, out = cc_cli(["compile-cache", "warm", "--cache-dir", store,
+                      "--model", n["model_a"], "--stop-words", e["stop"]],
+                     os.path.join(root, "warm.out"), env, here)
+    warm_s = time.perf_counter() - t0
+    n_lib = len(_build.SOURCES)
+    m = re.search(r"— (\d+) stored, (\d+) already cached, (\d+) miss",
+                  out)
+    if rc != 0 or not m or (int(m.group(1)), int(m.group(2))) != (n_lib, 0):
+        raise AssertionError(f"compile-cache warm: rc {rc}: {out[-2000:]}")
+
+    # (b) ls and verify, in this process (each arms the store it reads:
+    # disarmed again after, as this process was)
+    try:
+        rc, out, _ = run_cli(["compile-cache", "ls", "--json", "--cache-dir",
+                              store], os.path.join(root, "ls.out"))
+        listed = json.loads(out.strip().splitlines()[-1])["entries"]
+        rc_verify, verify_out, _ = run_cli(
+            ["compile-cache", "verify", "--cache-dir", store],
+            os.path.join(root, "verify.out"))
+    finally:
+        compilecache.reset()
+    live = ExecutableStore(store).fingerprint
+    if (rc != 0 or len(listed) != n_lib
+            or {x["status"] for x in listed} != {"committed"}
+            or {x["fingerprint"] for x in listed} != {live}
+            or any(x["stale"] for x in listed)
+            or sorted(x["label"] for x in listed) != sorted(_build.SOURCES)):
+        raise AssertionError(f"compile-cache ls: rc {rc}: {out[-2000:]}")
+    if rc_verify != 0 or (f"verify: {n_lib}/{n_lib} entry(ies) loadable"
+                          not in verify_out):
+        raise AssertionError(f"compile-cache verify: rc {rc_verify}: "
+                             f"{verify_out[-2000:]}")
+    store_bytes = sum(x["payload_bytes"] for x in listed)
+
+    # (c) a second process loads from the store and builds nothing
+    shim_dir = os.path.join(root, "shim")
+    os.makedirs(shim_dir)
+    shim_log = os.path.join(root, "shim.log")
+    with open(os.path.join(shim_dir, "nvcc"), "w") as f:
+        f.write(CC_SHIM.format(log=shim_log, real=_build._nvcc()))
+    os.chmod(os.path.join(shim_dir, "nvcc"), 0o755)
+    shim_env = {**env, "PATH": f"{shim_dir}{os.pathsep}{env['PATH']}"}
+    models = os.path.join(e["root"], "models")
+
+    def score(tag):
+        out_dir = os.path.join(root, f"TestOutput_{tag}")
+        tel = os.path.join(root, f"score_{tag}.jsonl")
+        t0 = time.perf_counter()
+        rc, out = cc_cli(["score", "--books", e["books"], "--stop-words",
+                          e["stop"], "--models-dir", models, "--output-dir",
+                          out_dir, "--compile-cache", store,
+                          "--telemetry-file", tel],
+                         os.path.join(root, f"score_{tag}.out"), shim_env,
+                         here)
+        secs = time.perf_counter() - t0
+        written = os.listdir(out_dir) if os.path.isdir(out_dir) else []
+        if rc != 0 or len(written) != 1:
+            raise AssertionError(f"compile-cache score {tag}: rc {rc}: "
+                                 f"{out[-2000:]}")
+        with open(os.path.join(out_dir, written[0])) as f:
+            report = f.read()
+        counters, ops = cc_counters(tel)
+        return report, counters, ops, secs
+
+    report, counters, ops, score_s = score("hit")
+    with open(shim_log) as f:
+        calls = [ln.strip() for ln in f if ln.strip()]
+    compiles = [c for c in calls if c != "--version"]
+    if (report != e["card_report"] or counters.get("hits", 0) < 1
+            or counters.get("misses", 0) != 0 or compiles or not calls
+            or sorted(os.listdir(_build.BUILD_DIR)) != build_listing):
+        raise AssertionError(
+            f"compile-cache second process: report equal "
+            f"{report == e['card_report']}, counters {counters}, nvcc "
+            f"calls {calls[:6]}, build dir changed "
+            f"{sorted(os.listdir(_build.BUILD_DIR)) != build_listing}")
+
+    # (d) a corrupt entry: a miss, quarantined, never a crash
+    victim = sorted(ops["hit"])[0]
+    entry = next(x for x in listed if x["label"] == victim)
+    payload = os.path.join(entry["path"], f"{victim}.so")
+    with open(payload, "r+b") as f:
+        f.seek(os.path.getsize(payload) // 2)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    report_d, counters_d, ops_d, score_d_s = score("corrupt")
+    quarantine = os.path.join(os.path.dirname(entry["path"]), ".quarantine")
+    quarantined = sorted(os.listdir(quarantine)) if os.path.isdir(
+        quarantine) else []
+    with open(shim_log) as f:
+        calls = [ln.strip() for ln in f if ln.strip()]
+    if (report_d != e["card_report"] or counters_d.get("misses") != 1
+            or counters_d.get("invalidations") != 1
+            or counters_d.get("hits", 0) != counters["hits"] - 1
+            or counters_d.get("stores") != 1
+            or quarantined != [f"{entry['digest']}.1"]
+            or any(c != "--version" for c in calls)
+            or sorted(os.listdir(_build.BUILD_DIR)) != build_listing):
+        raise AssertionError(
+            f"compile-cache corrupt entry {victim}: report equal "
+            f"{report_d == e['card_report']}, counters {counters_d}, "
+            f"quarantined {quarantined}, nvcc calls {calls[:6]}")
+    entries = ExecutableStore(store).entries()
+    if len(entries) != n_lib or {x["status"] for x in entries} != {
+            "committed"}:
+        raise AssertionError(f"compile-cache after (d): {entries}")
+    return {
+        "phase": "compile_cache", "card": smi, "libraries": n_lib,
+        "fingerprint": live, "store_bytes": store_bytes,
+        "entries": {x["label"]: x["payload_bytes"] for x in listed},
+        "warm_s": warm_s, "score_hit_s": score_s,
+        "score_corrupt_s": score_d_s,
+        "second_process": {"counters": counters, "hit_labels": ops["hit"],
+                           "nvcc_calls": len(calls)},
+        "corrupt_entry": {"label": victim, "counters": counters_d,
+                          "quarantined": quarantined},
+        "report_bytes_equal": True,
+        "seconds": time.perf_counter() - t_start,
+    }, store
+
+
 # ---- config O: the serve fleet ------------------------------------------
 O_WORKERS = 2                  # --workers: the canary and one more replica
 O_MAX_WORKERS = 3              # --max-workers: room for O-alerts' scale-out
@@ -6335,10 +6542,12 @@ def health_log(url, period=0.05):
         thread.join()
 
 
-def run_config_o(torch, seed, e, n, smi):
+def run_config_o(torch, seed, e, n, smi, cache):
     """The serve fleet on the card (``supervise --role serve``), on config
     E's 51 books and E's card model, right after N, whose model copy and
-    in-process per-document reference bytes it reuses.
+    in-process per-document reference bytes it reuses, with the compile
+    cache the compile-cache phase warmed (``--compile-cache``): every
+    replica incarnation loads its kernel from the store, with no miss.
 
     ``cli supervise --role serve --device cuda --workers 2 --max-workers 3
     --front-port 0 --actions-file A --serve-max-batch 8 --serve-linger-ms
@@ -6429,7 +6638,7 @@ def run_config_o(torch, seed, e, n, smi):
             *buckets, "--heartbeat-interval", "0.2", "--lease-timeout", "5",
             "--grace-seconds", "2", "--startup-grace", "60",
             "--worker-telemetry-dir", wtel, "--telemetry-file", sup_tel,
-            "--max-seconds", "300"]
+            "--max-seconds", "300", "--compile-cache", cache]
     rules = {}
     for tag, spec in (("down", O_DOWN_RULES), ("p99", O_P99_RULES)):
         rules[tag] = os.path.join(root, f"rules_{tag}.json")
@@ -6803,14 +7012,17 @@ def run_config_o(torch, seed, e, n, smi):
         kl = [x for x in ev if x["event"] == "kernel_launches"]
         launched = max((x["topic_inference_segments"] for x in kl),
                        default=0)
+        cache_ops = [x["op"] for x in ev if x["event"] == "compile_cache"]
         if (not ev or ev[0]["event"] != "manifest"
                 or ev[0].get("backend") != "gpu"
                 or "serve_warmup" not in [x["event"] for x in ev]
-                or launched <= 0):
+                or launched <= 0 or "hit" not in cache_ops
+                or "miss" in cache_ops):
             raise AssertionError(f"config O: replica stream {name}: "
-                                 f"{ev[:1]}, launches {launched}")
+                                 f"{ev[:1]}, launches {launched}, compile "
+                                 f"cache {cache_ops}")
         replicas[name[:-len(".jsonl")]] = {
-            "launches": launched,
+            "launches": launched, "cache_hits": cache_ops.count("hit"),
             "drained": any(x["event"] == "serve_drained" for x in ev)}
     if len(replicas) != O_MAX_WORKERS + 1:
         raise AssertionError(f"config O: replica streams {sorted(replicas)}")
@@ -7302,16 +7514,28 @@ def main() -> int:
         summary_n, n_refs = run_config_n(torch, args.seed, books_e, smi)
         emit(summary_n)
 
-        # 17. config O, the serve fleet on N's models and references
-        summary_o = run_config_o(torch, args.seed, books_e, n_refs, smi)
+        # 17. the compile cache on N's model, warmed for O's fleet
+        summary_cc, cc_store = run_compile_cache(torch, books_e, n_refs, smi)
+        emit(summary_cc)
+        emit({"phase": "compile_cache_seconds",
+              "seconds": summary_cc["seconds"]})
+
+        # 18. config O, the serve fleet on N's models and references, its
+        # replicas loading their kernel from the warmed store
+        summary_o = run_config_o(torch, args.seed, books_e, n_refs, smi,
+                                 cc_store)
         emit(summary_o)
+        emit({"phase": "config_O_spawn_to_ready", "card": smi,
+              "compile_cache": True,
+              "spawn_to_ready_s": summary_o["spawn_to_ready_s"],
+              "spawn_to_fleet_ready_s": summary_o["spawn_to_fleet_ready_s"]})
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     if args.profile:
         profile_configs(torch, rows_a, rows_b, args.seed, args.out)
 
-    # 18. the seconds the telemetry phases added to the run
+    # 19. the seconds the telemetry phases added to the run
     added = {"A_overhead": overhead["seconds"],
              "E": summary_e["telemetry"]["seconds"],
              "K": summary_k["telemetry"]["seconds"],
@@ -7321,7 +7545,7 @@ def main() -> int:
                       "overhead_share": overhead["estimated_overhead_share"]}
     emit(telemetry_line)
 
-    # 19. the kernels line; the sweep's error is the largest of config A's
+    # 20. the kernels line; the sweep's error is the largest of config A's
     # and config E's checks and config I's ranks'; the gamma row is config
     # B's most populated bucket, and its error the largest of the four
     # buckets, the edge geometries, config H's, K's and L's launches
@@ -7415,7 +7639,7 @@ def main() -> int:
                   config_H=summary_h, config_I=summary_i, config_J=summary_j,
                   config_K=summary_k, config_L=summary_l,
                   config_M=summary_m, config_N=summary_n,
-                  config_O=summary_o)
+                  compile_cache=summary_cc, config_O=summary_o)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)

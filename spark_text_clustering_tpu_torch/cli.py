@@ -4,8 +4,9 @@ streaming verbs ``stream-score``, ``stream-train``, ``stream requeue`` and
 replicas, ``serve``, one resident scoring replica, ``front``, the serve
 fleet's routing front, ``probe``, its black-box canary, ``collect``, the
 telemetry collector, ``monitor``, the live alerting engine, ``lineage``,
-the walk from a served byte back to its source files, and ``doctor``, the
-environment's health report.
+the walk from a served byte back to its source files, ``doctor``, the
+environment's health report, and ``compile-cache``, the kernel-library
+store's maintenance.
 
 The reference's two entry points (LDATraining.scala, LDALoader.scala) as
 subcommands, with the JAX package's flags, defaults, console output and
@@ -31,13 +32,21 @@ exit codes:
     python -m spark_text_clustering_tpu_torch.cli lineage <model dir> \
         --fleet-dir <dir>
     python -m spark_text_clustering_tpu_torch.cli doctor
+    python -m spark_text_clustering_tpu_torch.cli compile-cache warm \
+        --cache-dir <dir> --models-dir <dir>
 
 Two flags are the port's own: ``--device`` (default ``cuda``) names the
 device that IDF, training and scoring run on (without a card, pass
 ``--device cpu``), and ``--dist-backend`` the ``torch.distributed``
-backend of a grid (default ``nccl`` on CUDA, ``gloo`` on the CPU).  Flags
-whose machinery the port has not ported yet exit with code 2 and name the
-ROADMAP item that brings it; none is accepted and then ignored.
+backend of a grid (default ``nccl`` on CUDA, ``gloo`` on the CPU).
+
+``--compile-cache DIR`` (on ``train``, ``score``, ``serve``, ``supervise``
+and the stream verbs; or ``STC_COMPILE_CACHE=DIR``) arms the compile cache
+(``compilecache``): the CUDA kernel libraries load from the store's
+committed entries instead of building, and a library built (or found in
+the build directory) is published there.  The flag is exported to the
+environment, so fleet workers, serve replicas and grid ranks share the
+store.  ``compile-cache warm|ls|verify|gc`` keeps it.
 
 ``--data-shards D --model-shards M`` run training (IDF included; EM,
 online VB or NMF), scoring and ``stream-train`` on a grid of D x M ranks
@@ -136,10 +145,11 @@ JAX package's verb does (``summarize``, ``merge`` of a grid's streams,
 ``roofline`` against the card's peaks, ``compile-check``;
 ``scale-check`` is item 10 and exits 2).
 
-Exit codes: 0 on success; 1 for a fleet that spent its respawn budget; 2
-for a usage error, a missing or corrupt model, a resume mismatch and a
-flag not ported yet; 3 for a stream whose ledger write was fenced and for
-a ``lineage`` target that names nothing.
+Exit codes: 0 on success; 1 for a fleet that spent its respawn budget and
+for a ``compile-cache verify`` with findings; 2 for a usage error, a
+missing or corrupt model, a resume mismatch and a verb not ported yet
+(``metrics scale-check``); 3 for a stream whose ledger write was fenced
+and for a ``lineage`` target that names nothing.
 """
 
 from __future__ import annotations
@@ -245,28 +255,6 @@ LANG_DIRS = {
     "UKR": "Ukrainian",
     "DU": "Dutch",
 }
-
-# The ROADMAP.md queue 1 item that ports the machinery behind each flag
-# the port refuses for now.
-_SCALE_ITEM = "queue 1 item 10, the audit tiers"
-_NOT_PORTED = {
-    "compile_cache": ("--compile-cache",
-                      "queue 1 item 10, a compile cache"),
-}
-
-
-def _refuse_unported(args: argparse.Namespace, extra=()) -> Optional[int]:
-    """Exit code 2, with a message, for a flag the port cannot honour;
-    ``extra`` adds (flag, item) pairs the caller found."""
-    hits = [
-        (flag, item) for dest, (flag, item) in _NOT_PORTED.items()
-        if getattr(args, dest, None) is not None
-    ] + list(extra)
-    for flag, item in hits:
-        print(f"error: {flag} is not ported yet (ROADMAP.md {item})",
-              file=sys.stderr)
-    return 2 if hits else None
-
 
 def _grid_shape(args: argparse.Namespace):
     """(data_shards, model_shards, backend) of the command's grid, or an
@@ -452,9 +440,6 @@ def _resume_gate(
 
 
 def cmd_train(args: argparse.Namespace) -> int:
-    rc = _refuse_unported(args)
-    if rc is not None:
-        return rc
     return _on_grid(args, _train)
 
 
@@ -494,7 +479,9 @@ def _train_run(args: argparse.Namespace, grid, device) -> int:
 
     feat_stages: List[object] = [
         TextPreprocessor(stop_words=sw, lemmatize=not args.no_lemmatize),
-        CountVectorizer(vocab_size=params.vocab_size),
+        # one counting process: the same vocabulary as the JAX CLI's
+        # sharded count, without spawning interpreters that import torch
+        CountVectorizer(vocab_size=params.vocab_size, num_workers=1),
     ]
     if not args.no_tfidf:
         # the reference trains LDA on TF-IDF pseudo-counts
@@ -615,9 +602,6 @@ def _train_run(args: argparse.Namespace, grid, device) -> int:
 
 
 def cmd_score(args: argparse.Namespace) -> int:
-    rc = _refuse_unported(args)
-    if rc is not None:
-        return rc
     return _on_grid(args, _score)
 
 
@@ -764,9 +748,6 @@ def cmd_serve(args: argparse.Namespace) -> int:
 
     from .resilience import sleep as _idle_sleep
 
-    rc = _refuse_unported(args)
-    if rc is not None:
-        return rc
     device = resolve_device(args.device)  # no card, no --device cpu: raise
     # registry-only when no run stream is asked for: /metrics and the
     # serve histograms need a live registry
@@ -950,17 +931,14 @@ def _fleet_worker_context(args: argparse.Namespace,
     return preempt, lease, fence, partition
 
 
-def _stream(args: argparse.Namespace, body, extra=()) -> int:
-    """A stream verb's frame: refusals, the device (no card and no
-    --device cpu raises before any file is read), the worker wiring for
-    the stream's lifetime, and a fenced ledger write as exit code 3.  The
+def _stream(args: argparse.Namespace, body) -> int:
+    """A stream verb's frame: the device (no card and no --device cpu
+    raises before any file is read), the worker wiring for the stream's
+    lifetime, and a fenced ledger write as exit code 3.  The
     lease ends marked ``fenced``, ``preempted`` or ``idle``; the SIGTERM
     handler and the retry deadline are put back at the end.  A worker
     that ends with another code writes no done lease, so its supervisor
     counts a crash."""
-    rc = _refuse_unported(args, extra)
-    if rc is not None:
-        return rc
     resolve_device(args.device)
     preempt, lease, fence, partition = _fleet_worker_context(args)
     try:
@@ -1088,9 +1066,6 @@ def cmd_stream_train(args: argparse.Namespace) -> int:
     """Continuous online-VB training over a watched directory, on one
     device or a (data, model) grid of ranks; saves the final model as
     ``train`` does."""
-    rc = _refuse_unported(args)
-    if rc is not None:
-        return rc
     return _on_grid(args, _stream_train_on, stream=True)
 
 
@@ -1353,9 +1328,6 @@ def cmd_supervise(args: argparse.Namespace) -> int:
     expiry, resized between committed epochs with fence tokens so that a
     zombie's writes are refused.  ``--role serve`` runs ``serve`` replicas
     behind the routing front instead (``_supervise_serve``)."""
-    rc = _refuse_unported(args)
-    if rc is not None:
-        return rc
     unused = _unused_supervise_flags(args)
     if unused:
         for flag, why in unused:
@@ -1839,6 +1811,153 @@ def cmd_collect(args: argparse.Namespace) -> int:
     return 0
 
 
+def _fmt_entry_size(n) -> str:
+    if n is None:
+        return "-"
+    for unit in ("B", "KiB", "MiB"):
+        if n < 1024 or unit == "MiB":
+            return f"{n:.0f}{unit}" if unit == "B" else f"{n:.1f}{unit}"
+        n /= 1024.0
+    return f"{n:.1f}MiB"
+
+
+def cmd_compile_cache(args: argparse.Namespace) -> int:
+    """Maintenance verbs of the compile cache (``compilecache``), with the
+    JAX package's flags, messages and exit codes: ``warm`` publishes the
+    kernel libraries and warms the serve bucket grid, ``ls`` lists
+    entries, ``gc`` prunes, ``verify`` re-hashes every committed entry."""
+    import json as _json
+
+    from . import compilecache
+
+    root = args.cache_dir or os.environ.get(compilecache.ENV_DIR)
+    if not root:
+        print(
+            "compile-cache requires --cache-dir or the "
+            f"{compilecache.ENV_DIR} environment variable",
+            file=sys.stderr,
+        )
+        return 2
+    store = compilecache.configure(root)
+
+    if args.cc_cmd == "ls":
+        entries = store.entries()
+        if getattr(args, "json", False):
+            print(_json.dumps(
+                {"root": root, "entries": entries}, sort_keys=True
+            ))
+            return 0
+        print(f"executable cache {root}: {len(entries)} entry(ies)")
+        for e in entries:
+            mark = " STALE-FP" if e.get("stale") else ""
+            print(
+                f"  [{e['fingerprint']}] {e['digest']} "
+                f"{e.get('label', '?')}: {e['status']}{mark}, "
+                f"{_fmt_entry_size(e.get('payload_bytes'))}, "
+                f"compiled in {e.get('compile_seconds')}s"
+            )
+        return 0
+
+    if args.cc_cmd == "verify":
+        entries = store.entries()
+        findings = store.verify()
+        if getattr(args, "json", False):
+            print(_json.dumps(
+                {
+                    "root": root,
+                    "entries": len(entries),
+                    "findings": findings,
+                },
+                sort_keys=True,
+            ))
+        else:
+            for f_ in findings:
+                print(
+                    f"  BAD [{f_['fingerprint']}] {f_['digest']}: "
+                    f"{f_['finding']}"
+                )
+            print(
+                f"verify: {len(entries) - len(findings)}/{len(entries)} "
+                f"entry(ies) loadable"
+            )
+        return 1 if findings else 0
+
+    if args.cc_cmd == "gc":
+        removed = store.gc(args.keep_newest)
+        print(
+            f"gc: kept the {args.keep_newest} newest committed "
+            f"entry(ies) per fingerprint — removed "
+            f"{removed['entries']} entry(ies), {removed['stages']} "
+            f"stale stage(s), {removed['quarantined']} quarantined"
+        )
+        return 0
+
+    # warm: every kernel library into the store (built where neither the
+    # store nor the build directory holds it), then the deterministic
+    # serve bucket grid, so replicas and workers spawned later load
+    # instead of building
+    own_telemetry = bool(getattr(args, "telemetry_file", None))
+    if own_telemetry:
+        telemetry.configure(args.telemetry_file, device=args.device)
+        telemetry.manifest(kind="compile-cache-warm", cache=root)
+    from .serving.server import DEFAULT_TOKEN_BUCKETS, ServeScorer
+
+    try:
+        model_path, model = resolve_latest_model(
+            args.models_dir, args.lang, explicit=args.model,
+            verify_deep=True, device=args.device,
+        )
+    except CorruptArtifactError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    reg = telemetry.get_registry()
+    cache0 = {k: reg.counter(f"compile.cache_{k}").value
+              for k in ("hits", "misses", "stores")}
+    _build.publish_all()
+    buckets = tuple(args.token_bucket) or DEFAULT_TOKEN_BUCKETS
+    scorer = ServeScorer(
+        model, model_path, generation=0,
+        stop_words=_load_stop_words(args.stop_words),
+        lemmatize=not args.no_lemmatize,
+        max_batch=args.max_batch,
+        token_buckets=buckets,
+        device=args.device,
+    )
+    report = scorer.warmup()
+    # the libraries load before the warmup: count the whole verb
+    report.update({f"cache_{k}": int(reg.counter(f"compile.cache_{k}").value
+                                     - v0) for k, v0 in cache0.items()})
+    print(
+        f"warmed {model_path} buckets {report['buckets']} in "
+        f"{report['warmup_seconds']}s — "
+        f"{report.get('cache_stores', 0)} stored, "
+        f"{report.get('cache_hits', 0)} already cached, "
+        f"{report.get('cache_misses', 0)} miss(es)"
+    )
+    # coverage vs the committed signature expectation: which baseline
+    # labels did this warm populate, and which need a real corpus-shaped
+    # run (their signatures depend on document shapes we cannot invent)
+    if args.baseline and os.path.exists(args.baseline):
+        from .telemetry import compilation
+
+        with open(args.baseline, encoding="utf-8") as f:
+            expected = sorted(_json.load(f).get("labels", {}))
+        warmed = set(compilation.signatures())
+        for lbl in expected:
+            state = (
+                "populated" if lbl in warmed
+                else "needs a corpus-shaped run (stc score/train "
+                     "--compile-cache)"
+            )
+            print(f"  baseline label {lbl}: {state}")
+    if own_telemetry:
+        telemetry.event("compile_cache_warm", model=model_path, **{
+            k: v for k, v in report.items() if k != "signatures"
+        })
+        telemetry.shutdown()
+    return 0
+
+
 def cmd_lineage(args: argparse.Namespace) -> int:
     """Walk the causal chain behind a served byte: from a model dir, a
     serve response JSON, or a trace id, resolve the publish epoch, every
@@ -1867,22 +1986,19 @@ def cmd_lineage(args: argparse.Namespace) -> int:
 def _kernel_toolchain() -> str:
     """The doctor's line on the CUDA kernels: the nvcc found (and its
     release) or missing, and how many of ``_build.SOURCES``'s libraries
-    are built for the current sources.  Reads only: it builds nothing."""
-    import subprocess
-
+    are built for the current sources and toolchain (``_build._digest``).
+    Reads only: it builds nothing."""
     try:
         nvcc = _build._nvcc()
     except _build.KernelError:
         found = "nvcc missing"
     else:
         try:
-            out = subprocess.run([nvcc, "--version"], capture_output=True,
-                                 text=True, timeout=30).stdout
-        except (OSError, subprocess.TimeoutExpired):
-            out = ""
-        release = next((ln.split("release", 1)[1].strip()
-                        for ln in out.splitlines() if "release" in ln),
-                       "version unknown")
+            line = _build.nvcc_release()
+        except _build.KernelError:
+            line = ""
+        release = (line.split("release", 1)[1].strip()
+                   if "release" in line else "version unknown")
         found = f"{nvcc} ({release})"
     built = sum(_build._lib_path(name).exists() for name in _build.SOURCES)
     return (f"{found}, {built}/{len(_build.SOURCES)} libraries built for "
@@ -1961,8 +2077,15 @@ def _add_grid_args(p: argparse.ArgumentParser, data_default) -> None:
 
 
 def _add_compile_cache_arg(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--compile-cache", default=None, metavar="DIR",
-                   help="not ported yet (exits 2)")
+    p.add_argument(
+        "--compile-cache", default=None, metavar="DIR",
+        help="compile cache root: the CUDA kernel libraries load from "
+             "its committed entries instead of building, and libraries "
+             "built or found in the build directory publish back "
+             "(equivalent to STC_COMPILE_CACHE=DIR; exported to the "
+             "environment so spawned workers, replicas and grid ranks "
+             "inherit it)",
+    )
 
 
 def _add_stream_args(p: argparse.ArgumentParser) -> None:
@@ -2561,6 +2684,54 @@ def build_parser() -> argparse.ArgumentParser:
     li.add_argument("--json", action="store_true")
     li.set_defaults(fn=cmd_lineage)
 
+    cc = sub.add_parser(
+        "compile-cache",
+        help="compile cache maintenance: warm (publish the kernel "
+             "libraries and warm the serve bucket grid), ls, gc, verify",
+    )
+    cc_sub = cc.add_subparsers(dest="cc_cmd", required=True)
+    ccw = cc_sub.add_parser(
+        "warm",
+        help="publish every CUDA kernel library to the cache (built if "
+             "the store and the build directory lack it) and run the "
+             "serve warmup over the bucket grid, so replicas and workers "
+             "spawned later load instead of building",
+    )
+    ccw.add_argument("--cache-dir", default=None,
+                     help="store root (default: $STC_COMPILE_CACHE)")
+    ccw.add_argument("--models-dir", default="models")
+    ccw.add_argument("--model", default=None, help="explicit model dir")
+    ccw.add_argument("--lang", default="EN", choices=sorted(LANG_DIRS))
+    ccw.add_argument("--stop-words", default=None)
+    ccw.add_argument("--no-lemmatize", action="store_true")
+    ccw.add_argument("--max-batch", type=int, default=64)
+    ccw.add_argument("--token-bucket", action="append", type=int,
+                     default=[], metavar="T",
+                     help="pow2 buckets to warm (repeatable; default "
+                          "the serve grid 256 1024 4096)")
+    ccw.add_argument("--baseline",
+                     default="scripts/records/compile_baseline.json",
+                     help="compile sentinel baseline to report label "
+                          "coverage against ('' disables)")
+    ccw.add_argument("--telemetry-file", default=None)
+    _add_device_arg(ccw)
+    ccw.set_defaults(fn=cmd_compile_cache)
+    for name, hlp in (
+        ("ls", "list every cache entry with status/size/age"),
+        ("verify", "re-hash every committed entry; exit 1 if any "
+                   "entry would not load"),
+        ("gc", "prune to the newest N committed entries per toolchain "
+               "fingerprint; drop stages + quarantined entries"),
+    ):
+        p = cc_sub.add_parser(name, help=hlp)
+        p.add_argument("--cache-dir", default=None,
+                       help="store root (default: $STC_COMPILE_CACHE)")
+        if name == "gc":
+            p.add_argument("--keep-newest", type=int, required=True)
+        else:
+            p.add_argument("--json", action="store_true")
+        p.set_defaults(fn=cmd_compile_cache)
+
     dr = sub.add_parser(
         "doctor", help="environment health report (hang-proof probes)"
     )
@@ -2579,6 +2750,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    # the compile cache: --compile-cache is exported to the environment,
+    # so every process this one spawns (fleet workers, serve replicas,
+    # grid ranks) inherits the same store; the env alone also works
+    cc_dir = getattr(args, "compile_cache", None)
+    if cc_dir:
+        from . import compilecache
+
+        os.environ[compilecache.ENV_DIR] = cc_dir
+        compilecache.configure(cc_dir)
     return args.fn(args)
 
 

@@ -183,6 +183,7 @@ def save_reference_model(
     doc_rows: Optional[
         Sequence[Tuple[np.ndarray, np.ndarray]]
     ] = None,
+    write_vocab_sidecar: bool = True,
 ) -> None:
     """Write ``model`` in the MLlib ``DistributedLDAModel`` layout at
     ``path`` (conventionally ``<models_dir>/LdaModel_<lang>_<millis>``).
@@ -195,7 +196,8 @@ def save_reference_model(
     metadata, and hyperparameters).
 
     The vocabulary sidecar goes to ``<models_dir>/vocabularies/<name>``
-    exactly like ``LDAClustering.scala:71-72``.
+    exactly like ``LDAClustering.scala:71-72``, unless
+    ``write_vocab_sidecar`` is false.
     """
     pa = _pa()
     lam = np.asarray(model.lam, np.float64)
@@ -273,9 +275,10 @@ def save_reference_model(
     )
 
     # ---- vocabulary sidecar (LDAClustering.scala:71-72) ---------------
-    base = os.path.dirname(path.rstrip("/"))
-    name = os.path.basename(path.rstrip("/"))
-    voc_dir = os.path.join(base, "vocabularies")
-    os.makedirs(voc_dir, exist_ok=True)
-    with open(os.path.join(voc_dir, name), "w", encoding="utf-8") as f:
-        f.write(",".join(model.vocab))
+    if write_vocab_sidecar:
+        base = os.path.dirname(path.rstrip("/"))
+        name = os.path.basename(path.rstrip("/"))
+        voc_dir = os.path.join(base, "vocabularies")
+        os.makedirs(voc_dir, exist_ok=True)
+        with open(os.path.join(voc_dir, name), "w", encoding="utf-8") as f:
+            f.write(",".join(model.vocab))

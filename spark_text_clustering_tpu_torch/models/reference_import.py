@@ -29,7 +29,7 @@ import functools
 import glob
 import json
 import os
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -158,6 +158,7 @@ def load_reference_vocab(model_path: str) -> List[str]:
 
 def load_reference_model(
     model_path: str,
+    vocab: Optional[List[str]] = None,
     placeholder_vocab_ok: bool = True,
     device="cuda",
 ) -> LDAModel:
@@ -167,29 +168,31 @@ def load_reference_model(
     ``lam`` carries the EM topic-word counts (the matrix MLlib's
     ``toLocal`` hands to ``LocalLDAModel``), so ``topic_distribution``
     reproduces ``model.toLocal.topicDistribution`` (LDALoader.scala:108).
-    Without a sidecar the vocabulary is ``term_<i>``, unless
-    ``placeholder_vocab_ok`` is false: then a FileNotFoundError."""
+    ``vocab`` names the terms; without it the sidecar does, and without a
+    sidecar the vocabulary is ``term_<i>``, unless ``placeholder_vocab_ok``
+    is false: then a FileNotFoundError."""
     art = MLlibLDAArtifacts(model_path)
-    try:
-        vocab = load_reference_vocab(model_path)
-    except FileNotFoundError:
-        if not placeholder_vocab_ok:
-            # scoring against fabricated term names would turn every
-            # document into an empty row, without an error
-            raise FileNotFoundError(
-                f"vocabulary sidecar missing for {model_path} "
-                "(expected ../vocabularies/<model_name> next to the "
-                "model dir, LDAClustering.scala:71-72) — scoring "
-                "needs the real term names"
-            ) from None
-        vocab = [f"term_{i}" for i in range(art.vocab_size)]
+    if vocab is None:
+        try:
+            vocab = load_reference_vocab(model_path)
+        except FileNotFoundError:
+            if not placeholder_vocab_ok:
+                # scoring against fabricated term names would turn every
+                # document into an empty row, without an error
+                raise FileNotFoundError(
+                    f"vocabulary sidecar missing for {model_path} "
+                    "(expected ../vocabularies/<model_name> next to the "
+                    "model dir, LDAClustering.scala:71-72) — scoring "
+                    "needs the real term names"
+                ) from None
+            vocab = [f"term_{i}" for i in range(art.vocab_size)]
     meta = art.metadata
     alpha = np.asarray(meta["docConcentration"], np.float32)
     if alpha.ndim == 0:
         alpha = np.full((art.k,), float(alpha), np.float32)
     return LDAModel(
         lam=art.beta.astype(np.float32),
-        vocab=vocab,
+        vocab=list(vocab),
         alpha=alpha,
         eta=float(meta["topicConcentration"]),
         gamma_shape=float(meta.get("gammaShape", 100.0)),

@@ -3,12 +3,19 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface (no PyTorch headers, so a
 build takes seconds).  Libraries land in ``build/torch_kernels/`` at the
-repository root, named by a hash of every source under ``csrc/`` and of
-the compiler flags: an edited source rebuilds, an unchanged one loads.
-``build_all`` starts one ``nvcc`` per source, all at once.  Builds hold
-an exclusive lock on ``BUILD_DIR/.build.lock`` (``build_lock``), so ranks
-of a grid that load the kernels at once build each library once, and
-the others wait for it.
+repository root, named by a hash of every source under ``csrc/``, the
+compiler flags and the nvcc release (``_digest``): an edited source or
+another toolchain rebuilds, an unchanged one loads.  ``build_all``
+starts one ``nvcc`` per source, all at once.  Builds hold an exclusive
+lock on ``BUILD_DIR/.build.lock`` (``build_lock``), so ranks of a grid
+that load the kernels at once build each library once, and the others
+wait for it.
+
+With the compile cache armed (``compilecache``: ``STC_COMPILE_CACHE`` or
+the CLI's ``--compile-cache``), ``load_library`` looks in its store
+first: a hit loads the committed library and runs nothing of nvcc; a
+miss takes the build directory's library (built if missing) and
+publishes it to the store.  Unarmed, a load is what it always was.
 
 Every C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()``.  Wrappers allocate outputs
@@ -26,28 +33,38 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import platform
+import re
 import shutil
+import struct
 import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 from ..telemetry import dispatch as _dispatch
 
 __all__ = ["SOURCES", "BUILD_DIR", "KernelError", "build_all", "build_lock",
-           "count_launch", "host_counts", "library_bytes", "load_library",
-           "nbytes"]
+           "count_launch", "entry_digest", "host_counts", "library_bytes",
+           "load_library", "nbytes", "nvcc_release", "publish_all",
+           "toolchain_fingerprint"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("estep", "emscatter", "emsweep", "packed", "nmf", "segments")
+TARGET = "sm_90a"
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-gencode", f"arch=compute_90a,code={TARGET}", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# the file each loaded library was loaded from (the build directory's,
+# or a compile-cache entry's payload)
+_LIB_PATHS: Dict[str, Path] = {}
+# `nvcc --version`'s release line, per nvcc path, asked once a process
+_RELEASES: Dict[str, str] = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # The C interface of each library: {function: argtypes}; every function
@@ -107,12 +124,56 @@ def _nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
+def nvcc_release() -> str:
+    """The release line of ``nvcc --version`` ("Cuda compilation tools,
+    release 12.4, V12.4.131"), asked once a process for each nvcc;
+    raises ``KernelError`` without nvcc."""
+    nvcc = _nvcc()
+    release = _RELEASES.get(nvcc)
+    if release is None:
+        try:
+            out = subprocess.run([nvcc, "--version"], capture_output=True,
+                                 text=True, timeout=60).stdout
+        except (OSError, subprocess.TimeoutExpired) as exc:
+            raise KernelError(f"{nvcc} --version failed: {exc}") from exc
+        release = next((ln.strip() for ln in out.splitlines()
+                        if "release" in ln), "version unknown")
+        _RELEASES[nvcc] = release
+    return release
+
+
 def _digest() -> str:
+    """The hash that names the libraries: every source under ``csrc/``,
+    the flags, and the nvcc release (without nvcc, none)."""
+    try:
+        release = nvcc_release()
+    except KernelError:
+        release = "nvcc missing"
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(release.encode())
     for p in sorted(CSRC.iterdir()):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
+
+
+def toolchain_fingerprint() -> str:
+    """The compile cache's key prefix: the nvcc release, the target, the
+    flags and the host's machine, as ``nvcc12.4-sm_90a-x86_64-<hex12>``.
+    Raises ``KernelError`` without nvcc."""
+    release = nvcc_release()
+    raw = "|".join((release, TARGET, " ".join(NVCC_FLAGS),
+                    platform.machine()))
+    m = re.search(r"release (\d+(?:\.\d+)*)", release)
+    return (f"nvcc{m.group(1) if m else 'unknown'}-{TARGET}-"
+            f"{platform.machine()}-"
+            f"{hashlib.sha256(raw.encode()).hexdigest()[:12]}")
+
+
+def entry_digest(name: str, signature: str) -> str:
+    """A library's key in the compile cache: its name and the sources'
+    digest, as the dispatch layer keys a label and its signature."""
+    return hashlib.sha1(f"{name}|{signature}".encode()).hexdigest()[:10]
 
 
 def _lib_path(name: str) -> Path:
@@ -153,16 +214,18 @@ def _finish(name: str, proc, tmp: str) -> str:
     return out
 
 
-def build_all() -> Dict[str, float]:
-    """Build every source not yet built, all ``nvcc`` runs in parallel.
-    Returns {name: seconds from the start until its build finished} (0.0
-    for a library already built) and keeps the compiler's register and
-    shared-memory report in ``<lib>.log``."""
+def build_all(names: Sequence[str] = SOURCES) -> Dict[str, float]:
+    """Build every source of ``names`` not yet built, all ``nvcc`` runs in
+    parallel.  Returns {name: seconds from the start until its build
+    finished} (0.0 for a library already built) and keeps the compiler's
+    register and shared-memory report in ``<lib>.log``."""
     t0 = time.perf_counter()
-    secs = {n: 0.0 for n in SOURCES}
+    secs = {n: 0.0 for n in names}
+    if all(_lib_path(n).exists() for n in names):
+        return secs
     with build_lock():
         started = {
-            n: _start(n) for n in SOURCES if not _lib_path(n).exists()
+            n: _start(n) for n in names if not _lib_path(n).exists()
         }
         for n, (proc, tmp) in started.items():
             log = _finish(n, proc, tmp)
@@ -171,24 +234,112 @@ def build_all() -> Dict[str, float]:
     return secs
 
 
+def _built(name: str) -> Tuple[Path, Optional[float]]:
+    """The build directory's library for ``name``, built if missing;
+    with the seconds its build took (None where it was already built)."""
+    path = _lib_path(name)
+    if path.exists():
+        return path, None
+    t0 = time.perf_counter()
+    with build_lock():
+        if not path.exists():
+            proc, tmp = _start(name)
+            _finish(name, proc, tmp)
+            return path, time.perf_counter() - t0
+    return path, None
+
+
+def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    for fn, argtypes in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def _check_elf(path: str) -> None:
+    """Raise ``OSError`` unless ``path`` holds a whole ELF64 file: every
+    segment and the section table inside its size.  ``dlopen`` of a file
+    cut short can fault on a page past its end instead of failing."""
+    size = os.path.getsize(path)
+    with open(path, "rb") as f:
+        head = f.read(64)
+        if len(head) < 64 or head[:5] != b"\x7fELF\x02":
+            raise OSError(f"{path}: not an ELF64 file")
+        phoff, shoff = struct.unpack_from("<QQ", head, 32)
+        phentsize, phnum, shentsize, shnum = struct.unpack_from(
+            "<HHHH", head, 54)
+        end = max(phoff + phentsize * phnum, shoff + shentsize * shnum)
+        if end <= size:
+            f.seek(phoff)
+            table = f.read(phentsize * phnum)
+            for i in range(phnum):
+                offset, = struct.unpack_from("<Q", table, i * phentsize + 8)
+                filesz, = struct.unpack_from("<Q", table, i * phentsize + 32)
+                end = max(end, offset + filesz)
+    if end > size:
+        raise OSError(f"{path}: {size} bytes, its ELF headers need {end}")
+
+
+def _load_cached(name: str) -> ctypes.CDLL:
+    """Load ``name`` through the armed compile cache: a committed entry
+    loads as it is; a miss (absent, stale, corrupt: the store quarantines
+    what it cannot load) takes the build directory's library and
+    publishes it."""
+    from .. import compilecache
+
+    store = compilecache.get_store()
+    signature = _digest()
+    digest = entry_digest(name, signature)
+
+    def load(path: str) -> ctypes.CDLL:
+        _check_elf(path)
+        return _bind(name, ctypes.CDLL(path))
+
+    hit = store.lookup(name, signature, digest, load=load)
+    if hit is not None:
+        _dispatch.note_library_load("hit", hit.load_seconds)
+        _LIB_PATHS[name] = Path(hit.path)
+        return hit.library
+    path, secs = _built(name)
+    store.store(name, signature, digest, str(path), compile_seconds=secs)
+    _dispatch.note_library_load("miss")
+    _LIB_PATHS[name] = path
+    return _bind(name, ctypes.CDLL(str(path)))
+
+
 def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built if missing.  A
-    load (and a build before it) is the port's compile: the dispatch
-    layer charges the call it falls in with it."""
+    """The loaded library for ``csrc/<name>.cu``, built if missing (or,
+    with the compile cache armed, loaded from its store).  A load (and a
+    build before it) is the port's compile: the dispatch layer charges
+    the call it falls in with it."""
     lib = _LIBS.get(name)
     if lib is None:
-        _dispatch.note_library_load()
-        if not _lib_path(name).exists():
-            with build_lock():
-                if not _lib_path(name).exists():
-                    proc, tmp = _start(name)
-                    _finish(name, proc, tmp)
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        for fn, argtypes in SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+        if _dispatch.cache_armed():
+            lib = _load_cached(name)
+        else:
+            _dispatch.note_library_load()
+            path, _ = _built(name)
+            lib = _bind(name, ctypes.CDLL(str(path)))
+            _LIB_PATHS[name] = path
         _LIBS[name] = lib
     return lib
+
+
+def publish_all() -> None:
+    """Every library through the armed compile cache (``compile-cache
+    warm``): the ones neither the store nor the build directory holds
+    are built first, all at once; then each loads, from the store or, on
+    a miss, from the build directory, publishing it."""
+    from .. import compilecache
+
+    store = compilecache.get_store()
+    signature = _digest()
+    build_all([n for n in SOURCES
+               if n not in _LIBS
+               and not store.contains(entry_digest(n, signature))
+               and not _lib_path(n).exists()])
+    for n in SOURCES:
+        load_library(n)
 
 
 def check(err: int, what: str) -> None:
@@ -240,7 +391,7 @@ def library_bytes(kernel: str) -> Optional[int]:
     if source not in _LIBS:
         return None
     try:
-        return os.path.getsize(_lib_path(source))
+        return os.path.getsize(_LIB_PATHS[source])
     except OSError:
         return None
 

@@ -35,7 +35,7 @@ from .ops.tfidf import (
     idf_transform,
     make_doc_freq_sharded,
 )
-from .utils.vocab import build_vocab, count_terms, count_vectors
+from .utils.vocab import build_vocab, count_terms_parallel, count_vectors
 
 __all__ = [
     "CountVectorizer",
@@ -185,13 +185,37 @@ class CountVectorizerModel(Transformer):
 
 
 class CountVectorizer(Estimator):
-    """Frequency-ranked exact vocabulary from ``ds["tokens"]``."""
+    """Frequency-ranked exact vocabulary from ``ds["tokens"]``.
 
-    def __init__(self, vocab_size: int = 2_900_000):
+    Counting shards across ``num_workers`` host processes
+    (``count_terms_parallel``), with the serial count's result at any
+    worker count.  ``docs_are_process_local=True`` is the multi-process
+    ingest mode: each rank of a ``torch.distributed`` group passes only
+    its own documents, the per-rank counters merge once
+    (``merge_term_counts_multihost``), and every rank derives the same
+    top-V.  Leave it False when every rank holds the whole corpus, or
+    shared documents would be counted once a rank."""
+
+    def __init__(
+        self,
+        vocab_size: int = 2_900_000,
+        num_workers: Optional[int] = None,
+        docs_are_process_local: bool = False,
+    ):
         self.vocab_size = vocab_size
+        self.num_workers = num_workers
+        self.docs_are_process_local = docs_are_process_local
 
     def fit(self, ds: Dict) -> CountVectorizerModel:
-        vocab, _ = build_vocab(count_terms(ds["tokens"]), self.vocab_size)
+        if self.docs_are_process_local:
+            from .utils.vocab import build_vocab_multihost
+
+            vocab, _ = build_vocab_multihost(
+                ds["tokens"], self.vocab_size, self.num_workers
+            )
+            return CountVectorizerModel(vocab)
+        counts = count_terms_parallel(ds["tokens"], self.num_workers)
+        vocab, _ = build_vocab(counts, self.vocab_size)
         return CountVectorizerModel(vocab)
 
 

@@ -79,6 +79,8 @@ SITES = frozenset({
     "monitor.action",     # before the monitor's actions-file write
     "lineage.read",       # before each ledger/meta read of a lineage
                           # walk (the walker must degrade typed)
+    "compilecache.read",  # before a compile-cache entry is read
+    "compilecache.write", # before a compile-cache entry is staged
 })
 
 

@@ -387,9 +387,10 @@ class WorkerLease:
         except (RetryGiveUp, OSError):
             pass                        # the exit code still tells
 
-    def heartbeat_callback(self) -> Callable[[int], None]:
+    def heartbeat_callback(self, source=None) -> Callable[[int], None]:
         """A ``stream(heartbeat=...)``-shaped callable bound to this lease
-        (the poll loop forwards its queue depth)."""
+        (the poll loop forwards its queue depth).  ``source`` is accepted
+        and unused, as in the JAX package."""
 
         def _cb(queue_depth: int) -> None:
             self.beat(queue_depth=queue_depth)
@@ -512,6 +513,7 @@ class FleetSupervisor:
         workers: int = 2,
         min_workers: int = 1,
         max_workers: int = 8,
+        heartbeat_interval: float = 0.5,
         lease_timeout: float = 3.0,
         grace_seconds: float = 2.0,
         startup_grace_seconds: float = 60.0,
@@ -532,6 +534,9 @@ class FleetSupervisor:
         self.workers = int(workers)
         self.min_workers = max(1, int(min_workers))
         self.max_workers = max(self.min_workers, int(max_workers))
+        # stored and never read, as in the JAX package: each worker's
+        # beat interval is its own --heartbeat-interval
+        self.heartbeat_interval = float(heartbeat_interval)
         self.lease_timeout = float(lease_timeout)
         self.grace_seconds = float(grace_seconds)
         self.startup_grace_seconds = float(startup_grace_seconds)
@@ -1065,11 +1070,12 @@ class ServeFleetSupervisor(FleetSupervisor):
         published model; recovery is a respawn, not a rollback.  A dead
         replica's lease is retired before its respawn, so the routing
         front drops it at once.
-      * **Staggered bring-up.**  Replica 0 (the canary) spawns first;
-        replicas 1..N-1 spawn once its lease says ``ready`` or the
-        startup grace passes.  The port has no executable cache, so the
-        stagger only lets the canary make its CUDA context and load the
-        per-document kernel (building it if missing) first.
+      * **Staggered bring-up** (``stagger=False`` spawns all at once).
+        Replica 0 (the canary) spawns first; replicas 1..N-1 spawn once
+        its lease says ``ready`` or the startup grace passes.  The canary
+        makes its CUDA context and loads the per-document kernel first
+        (building it if missing, and with the compile cache armed
+        publishing it there, so the others load it from the store).
       * **Drain-free resize.**  Replicas serve disjoint requests, not a
         partitioned file corpus: scale-out spawns new replicas next to
         the serving ones and scale-in drains only the retired indices,
@@ -1104,6 +1110,7 @@ class ServeFleetSupervisor(FleetSupervisor):
         stop: Optional[Callable[[], bool]] = None,
         max_seconds: Optional[float] = None,
         swap_timeout: float = 60.0,
+        stagger: bool = True,
         **kw,
     ) -> None:
         super().__init__(fleet_dir, worker_argv, **kw)
@@ -1112,6 +1119,7 @@ class ServeFleetSupervisor(FleetSupervisor):
         self.stop = stop
         self.max_seconds = max_seconds
         self.swap_timeout = float(swap_timeout)
+        self.stagger = stagger
         self._stop_flag = False
         self._stopping = False
         self._deadline = (
@@ -1173,7 +1181,7 @@ class ServeFleetSupervisor(FleetSupervisor):
             **extra,
         )
         chaos = kind == "spawn" and self.generation == 0
-        if count > 1:
+        if self.stagger and count > 1:
             self._spawn(0, count, spawn_ids[0], chaos=chaos)
             self._deferred = [(i, spawn_ids[i]) for i in range(1, count)]
             self._deferred_deadline = (

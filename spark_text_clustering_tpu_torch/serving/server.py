@@ -296,11 +296,19 @@ class ServeScorer:
         this point an in-bucket dispatch is at a shape this process has
         seen (``compile.retraces`` does not move).  The report keeps the
         JAX package's keys: ``signatures`` is the recompile sentinel's
-        distinct signatures per label, and there is no executable cache
-        (``compile_cache`` "off")."""
+        distinct signatures per label, and ``compile_cache`` says whether
+        the compile cache is armed; armed, ``cache_hits`` /
+        ``cache_misses`` / ``cache_stores`` count the kernel libraries
+        this warmup loaded from the store, missed, and published (a
+        replica that loaded its kernel before the warmup shows zeros)."""
+        from .. import compilecache
         from ..telemetry import compilation
 
         reg = telemetry.get_registry()
+        cache0 = {
+            k: reg.counter(f"compile.cache_{k}").value
+            for k in ("hits", "misses", "stores")
+        }
         t0 = time.perf_counter()
         v = max(1, self.model.vocab_size)
         if self.emulate_doc_seconds is None:
@@ -314,10 +322,17 @@ class ServeScorer:
             "warmup_seconds": round(time.perf_counter() - t0, 6),
             "signatures": compilation.signatures(),
             "retraces_at_warmup": int(retraces),
-            "compile_cache": "off",
+            "compile_cache": (
+                "on" if compilecache.active() else "off"
+            ),
         }
         if self.emulate_doc_seconds is not None:
             report["emulated_doc_seconds"] = self.emulate_doc_seconds
+        if compilecache.active():
+            for k, v0 in cache0.items():
+                report[f"cache_{k}"] = int(
+                    reg.counter(f"compile.cache_{k}").value - v0
+                )
         return report
 
 

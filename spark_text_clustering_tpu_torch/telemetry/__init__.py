@@ -131,19 +131,28 @@ def enabled() -> bool:
     return _enabled
 
 
-def configure(path: Optional[str] = None, *,
-              device=None) -> Optional[TelemetryWriter]:
-    """Enable telemetry for this process, on a fresh registry.
+def configure(
+    path: Optional[str] = None,
+    *,
+    run_id: Optional[str] = None,
+    fresh_registry: bool = True,
+    ship_to: Optional[str] = None,
+    device=None,
+) -> Optional[TelemetryWriter]:
+    """Enable telemetry for this process.
 
     ``path`` is the run's JSONL stream (None = registry-only: spans and
     metrics aggregate in memory, nothing is written).  Reconfiguring
     closes any previous writer.  Returns the writer (or None).
+    ``run_id`` names the run in every record (default: minted);
+    ``fresh_registry=False`` keeps the metrics gathered so far.
     ``device`` is the run's torch device: memory samples read it, and
     the manifest names its backend.
 
-    The ``STC_SHIP_TO`` env var additionally pushes every record of the
-    run stream to a collector daemon at ``host:port`` — see
-    ``telemetry.transport``.
+    ``ship_to`` (or the ``STC_SHIP_TO`` env var, which is how supervised
+    workers inherit the collector address) additionally pushes every
+    record of the run stream to a collector daemon at ``host:port`` —
+    see ``telemetry.transport``.
     """
     import os as _os
 
@@ -152,9 +161,14 @@ def configure(path: Optional[str] = None, *,
         _writer.close()
         _writer = None
     transport.close_shipping()
-    _registry.reset()
-    _writer = TelemetryWriter(path, registry=_registry) if path else None
-    target = _os.environ.get(transport.ENV_SHIP_TO, "")
+    if fresh_registry:
+        _registry.reset()
+    _writer = (
+        TelemetryWriter(path, registry=_registry, run_id=run_id)
+        if path
+        else None
+    )
+    target = ship_to or _os.environ.get(transport.ENV_SHIP_TO, "")
     if path and target:
         transport.configure_shipping(
             target, stream_path=path, registry=_registry

@@ -43,7 +43,11 @@ where that shows:
     built or loaded a kernel library (``ops._build.load_library``), the
     port's one compile; where it loaded nothing it compiled nothing and
     stays None, so the roofline join keeps the call;
-  * ``cache_status`` is always ``"off"``: there is no executable cache.
+  * the compile cache (``compilecache``) stores kernel libraries, not
+    executables: a first call that loaded a library from the store has
+    ``cache_status`` ``"hit"`` (and ``cache_load_seconds``), one that
+    built or took a library and published it ``"miss"``; with the cache
+    unarmed, or where the call loaded nothing, it stays ``"off"``.
 
 Disabled telemetry reduces the wrapper to one bool check plus the call;
 attribution never raises into the loop it observes.  Import is light:
@@ -69,6 +73,8 @@ __all__ = [
     "note_sync",
     "note_launch",
     "note_library_load",
+    "note_cache_config",
+    "cache_armed",
     "recording",
     "cost_tracing",
 ]
@@ -78,8 +84,12 @@ __all__ = [
 _pkg = sys.modules[__package__]
 _tls = threading.local()
 _lock = threading.Lock()
-# kernel libraries loaded (or built and loaded) in this process so far
+# kernel libraries loaded (or built and loaded) in this process so far,
+# and those of them the compile cache served ("hit") or had to take from
+# the build directory and publish ("miss"), with the hits' load seconds
 _library_loads = 0
+_cache_loads = {"hit": 0, "miss": 0}
+_cache_hit_seconds = 0.0
 
 
 @dataclass
@@ -176,10 +186,47 @@ def note_collective(nbytes: int) -> None:
         st[-1].collective_bytes += int(nbytes)
 
 
-def note_library_load() -> None:
-    """A kernel library is being built or loaded (``ops._build``)."""
-    global _library_loads
+def note_library_load(cache: str = "off",
+                      load_seconds: Optional[float] = None) -> None:
+    """``ops._build`` loaded (or built and loaded) a kernel library;
+    ``cache`` says how the compile cache took part ("hit", "miss" or
+    "off")."""
+    global _library_loads, _cache_hit_seconds
     _library_loads += 1
+    if cache in _cache_loads:
+        _cache_loads[cache] += 1
+        if load_seconds is not None:
+            _cache_hit_seconds += load_seconds
+
+
+# -- the compile cache's armed state (compilecache) --------------------------
+# ``compilecache.configure()``/``reset()`` push it here, so a library load
+# reads one global instead of asking the store
+_cache_pending = True
+_cache_on = False
+
+
+def note_cache_config(active: Optional[bool]) -> None:
+    """compilecache pushes its armed state (None = re-read the env
+    lazily on the next library load)."""
+    global _cache_pending, _cache_on
+    if active is None:
+        _cache_pending = True
+        _cache_on = False
+    else:
+        _cache_pending = False
+        _cache_on = bool(active)
+
+
+def cache_armed() -> bool:
+    """Whether library loads go through the compile cache."""
+    global _cache_pending, _cache_on
+    if _cache_pending:
+        from .. import compilecache
+
+        _cache_on = compilecache.active()
+        _cache_pending = False
+    return _cache_on
 
 
 def _launch_seconds(nbytes: float, flops: float) -> float:
@@ -273,12 +320,20 @@ def _digest(label: str, signature: str) -> str:
 
 # -- accounting --------------------------------------------------------------
 def _first_call(rec: ExecutableRecord, frame: _Frame, args, kwargs, out,
-                dt: float, loaded: bool) -> None:
+                dt: float, loads: tuple) -> None:
     from .compilation import note_first_call
     from .memory import attribute_call
 
     rec._seen = True
+    n0, h0, m0, s0 = loads
+    n1, h1, m1, s1 = _load_marks()
+    loaded = n1 != n0
     rec.compile_seconds = dt if loaded else None
+    if m1 != m0:
+        rec.cache_status = "miss"
+    elif h1 != h0:
+        rec.cache_status = "hit"
+        rec.cache_load_seconds = round(s1 - s0, 6)
     rec.collective_bytes_per_call = frame.collective_bytes
     if frame.cost_error is not None:
         rec.cost_source = f"error:{frame.cost_error}"
@@ -347,6 +402,12 @@ def _account(rec: ExecutableRecord, frame: _Frame) -> None:
         )
 
 
+def _load_marks() -> tuple:
+    """Library loads so far: (all, cache hits, cache misses, hit seconds)."""
+    return (_library_loads, _cache_loads["hit"], _cache_loads["miss"],
+            _cache_hit_seconds)
+
+
 def _call_recorded(label: str, fn, args, kwargs):
     signature = _signature(args, kwargs)
     digest = _digest(label, signature)
@@ -361,7 +422,7 @@ def _call_recorded(label: str, fn, args, kwargs):
     frame = _Frame()
     stack = _stack()
     stack.append(frame)
-    loads = _library_loads
+    loads = _load_marks()
     t0 = time.perf_counter()
     try:
         out = fn(*args, **kwargs)
@@ -370,8 +431,7 @@ def _call_recorded(label: str, fn, args, kwargs):
         stack.pop()
     rec.wall_seconds += dt
     if first:
-        _first_call(rec, frame, args, kwargs, out, dt,
-                    _library_loads != loads)
+        _first_call(rec, frame, args, kwargs, out, dt, loads)
     _tls.last_record = rec
     _account(rec, frame)
     return out

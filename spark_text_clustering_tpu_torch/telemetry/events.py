@@ -61,6 +61,7 @@ class JsonlSink:
         path: Optional[str],
         *,
         registry: Optional[MetricRegistry] = None,
+        truncate: bool = True,
     ) -> None:
         self.path = path
         self._registry = registry
@@ -68,9 +69,10 @@ class JsonlSink:
         if path:
             try:
                 os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-                # one run, one file
-                with open(path, "w", encoding="utf-8"):
-                    pass
+                if truncate:
+                    # one run, one file
+                    with open(path, "w", encoding="utf-8"):
+                        pass
             except OSError as exc:
                 self._surface(exc)
 
@@ -253,8 +255,9 @@ class TelemetryWriter:
         path: str,
         *,
         registry: Optional[MetricRegistry] = None,
+        run_id: Optional[str] = None,
     ) -> None:
-        self.run_id = (
+        self.run_id = run_id or (
             time.strftime("%Y%m%d-%H%M%S", time.gmtime())
             + f"-{os.getpid()}"
         )

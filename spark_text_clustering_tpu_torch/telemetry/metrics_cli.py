@@ -2289,10 +2289,10 @@ def cmd_compile_check(args) -> int:
 
 def cmd_scale_check(args) -> int:
     """Exit 2: the measured-scale observatory and its static scale record
-    are ROADMAP item 10 (the CLI's refusal of an unported flag)."""
-    from ..cli import _SCALE_ITEM, _refuse_unported
-
-    return _refuse_unported(args, [("metrics scale-check", _SCALE_ITEM)])
+    are ROADMAP item 10 (the port refuses what it has not ported)."""
+    print("error: metrics scale-check is not ported yet (ROADMAP.md "
+          "queue 1 item 10, the audit tiers)", file=sys.stderr)
+    return 2
 
 
 def add_metrics_subparser(sub) -> None:

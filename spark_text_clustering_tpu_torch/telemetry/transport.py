@@ -500,25 +500,29 @@ def configure_shipping(
     url: str,
     *,
     stream_path: Optional[str] = None,
+    source_id: Optional[str] = None,
     registry: Optional[MetricRegistry] = None,
+    spool_dir: Optional[str] = None,
+    **kw,
 ) -> EventShipper:
     """Install the process-wide shipper (closing any previous one).
 
-    The spool lives next to the run stream so a worker's un-shipped tail
-    survives with the same durability as the stream itself."""
+    The spool defaults to living next to the run stream so a worker's
+    un-shipped tail survives with the same durability as the stream
+    itself."""
     global _shipper
     close_shipping()
-    spool_dir = None
-    if stream_path:
+    if spool_dir is None and stream_path:
         spool_dir = os.path.join(
             os.path.dirname(os.path.abspath(stream_path)) or ".",
             "ship-spool",
         )
     s = EventShipper.from_url(
         url,
-        source_id=default_source_id(stream_path),
+        source_id=source_id or default_source_id(stream_path),
         registry=registry,
         spool_dir=spool_dir,
+        **kw,
     )
     _shipper = s.start()
     return s

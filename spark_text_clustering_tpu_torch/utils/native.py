@@ -36,6 +36,7 @@ __all__ = [
     "lemma_native",
     "lib_path",
     "load",
+    "native_available",
     "preprocess_document_native",
     "preprocess_documents",
     "start",
@@ -150,6 +151,11 @@ def _load() -> Optional[ctypes.CDLL]:
         return _lib
 
 
+def native_available() -> bool:
+    """Whether the native library builds (if missing) and loads here."""
+    return _load() is not None
+
+
 def load() -> ctypes.CDLL:
     """The loaded library; raises ``RuntimeError`` naming why it is not
     there (the build's error, or a wrong ABI)."""
@@ -204,11 +210,15 @@ def preprocess_documents(
     min_lemma_len_exclusive: int = 3,
     dedup_within_sentence: bool = True,
     fold_case: bool = True,
+    max_workers: Optional[int] = None,
 ) -> List[List[str]]:
     """Preprocess a corpus in parallel across host cores (ctypes releases
-    the GIL, so threads give true parallelism)."""
+    the GIL, so threads give true parallelism); ``max_workers`` threads,
+    by default one a core up to 32."""
     load()
-    with ThreadPoolExecutor(max_workers=min(32, os.cpu_count() or 1)) as pool:
+    if max_workers is None:
+        max_workers = min(32, os.cpu_count() or 1)
+    with ThreadPoolExecutor(max_workers=max_workers) as pool:
         return list(
             pool.map(
                 lambda t: preprocess_document_native(

@@ -584,16 +584,9 @@ def test_resume_mismatch_exits_2(native_lib, corpus, tmp_path):
     assert rc == 2 and "--resume requires --checkpoint-dir" in se
 
 
-_ITEM_10 = "is not ported yet (ROADMAP.md queue 1 item 10"
 _SERVE_RESIZE = "a serve fleet resizes from --actions-file only"
 _AUTOSCALE = "requires --role serve, --front-port and --actions-file"
 REFUSED = [
-    (["train", "--compile-cache", "cc"], "--compile-cache", _ITEM_10),
-    (["score", "--compile-cache", "cc"], "--compile-cache", _ITEM_10),
-    (["stream-score", "--compile-cache", "cc"], "--compile-cache",
-     _ITEM_10),
-    (["stream-train", "--compile-cache", "cc"], "--compile-cache",
-     _ITEM_10),
     (["supervise", "--autoscale"], "--autoscale", _AUTOSCALE),
     (["supervise", "--role", "serve", "--front-port", "0", "--autoscale"],
      "--autoscale", _AUTOSCALE),
@@ -605,8 +598,6 @@ REFUSED = [
      "--scale-out-sweeps", _SERVE_RESIZE),
     (["supervise", "--role", "serve", "--scale-in-sweeps", "2"],
      "--scale-in-sweeps", _SERVE_RESIZE),
-    (["supervise", "--compile-cache", "cc"], "--compile-cache", _ITEM_10),
-    (["serve", "--compile-cache", "cc"], "--compile-cache", _ITEM_10),
 ]
 
 
@@ -629,9 +620,54 @@ def test_unported_flags_exit_2_and_name_their_item(tmp_path, argv, flag,
         books = [source, str(tmp_path / "none")]
     rc, so, se = run(port_main, [*argv[:1], *books, *argv[1:]])
     assert rc == 2 and so == ""
-    sep = " " if why == _ITEM_10 else ": "
-    assert f"error: {flag}{sep}{why}" in se
+    assert f"error: {flag}: {why}" in se
     assert not os.path.exists(tmp_path / "fleet")
+
+
+# each verb that takes --compile-cache, with the arguments it requires
+# and the command function it runs
+COMPILE_CACHE_VERBS = [
+    (["train", "--books", "b"], "cmd_train"),
+    (["score", "--books", "b"], "cmd_score"),
+    (["stream-score", "--watch-dir", "w"], "cmd_stream_score"),
+    (["stream-train", "--watch-dir", "w"], "cmd_stream_train"),
+    (["supervise", "--watch-dir", "w", "--fleet-dir", "f"],
+     "cmd_supervise"),
+    (["serve"], "cmd_serve"),
+]
+
+
+@pytest.mark.parametrize("argv,fn", COMPILE_CACHE_VERBS,
+                         ids=[a[0] for a, _ in COMPILE_CACHE_VERBS])
+def test_compile_cache_flag_arms_the_store(tmp_path, monkeypatch, argv, fn):
+    """``--compile-cache DIR`` is accepted on every verb that takes it, as
+    in the JAX CLI: before the verb runs, the store at DIR is armed and
+    ``STC_COMPILE_CACHE`` names it, so the processes the verb spawns
+    inherit it."""
+    from spark_text_clustering_tpu_torch import compilecache
+
+    monkeypatch.setenv(compilecache.ENV_DIR, "unset")
+    monkeypatch.delenv(compilecache.ENV_DIR)
+    compilecache.reset()
+    root = str(tmp_path / "cc")
+    seen = {}
+
+    def verb(args):
+        store = compilecache.get_store()
+        seen.update(active=compilecache.active(), root=store.root,
+                    env=os.environ.get(compilecache.ENV_DIR),
+                    armed=tcli._build._dispatch.cache_armed())
+        return 0
+
+    monkeypatch.setattr(tcli, fn, verb)
+    try:
+        rc, _, se = run(port_main, [*argv, "--compile-cache", root])
+    finally:
+        compilecache.reset()
+    assert rc == 0 and "not ported" not in se
+    assert seen == {"active": True, "root": root, "env": root,
+                    "armed": True}
+    assert not os.path.exists(root)  # arming creates nothing
 
 
 # each serve-fleet flag of ``supervise`` (and of the replica it starts):

@@ -96,8 +96,9 @@ def test_doctor_reports_every_line_without_a_cuda_context(tmp_path,
 def test_doctor_kernel_line_counts_the_built_libraries(tmp_path,
                                                        monkeypatch):
     """The kernels line names nvcc with its release and counts the
-    libraries built for the current sources' digest (a stale digest's do
-    not count), reading only."""
+    libraries built for the current sources' and toolchain's digest (a
+    stale digest's, or another nvcc release's, do not count), reading
+    only."""
     nvcc = tmp_path / "nvcc"
     nvcc.write_text("#!/bin/sh\necho 'nvcc: NVIDIA (R) Cuda compiler'\n"
                     "echo 'Cuda compilation tools, release 12.4, "
@@ -117,15 +118,26 @@ def test_doctor_kernel_line_counts_the_built_libraries(tmp_path,
     _build._lib_path(_build.SOURCES[4]).touch()
     _build._lib_path(_build.SOURCES[5]).touch()
     assert "6/6 libraries" in tcli._kernel_toolchain()
+    digest = _build._digest()
+
+    # another release of nvcc names other libraries
+    nvcc2 = tmp_path / "nvcc2"
+    nvcc2.write_text(nvcc.read_text().replace("12.4", "12.6"))
+    nvcc2.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc2))
+    assert _build._digest() != digest
+    assert tcli._kernel_toolchain().startswith(f"{nvcc2} (12.6, V12.6.131), "
+                                               "0/6")
 
     def missing():
         raise _build.KernelError("nvcc not found")
 
     monkeypatch.setattr(_build, "_nvcc", missing)
-    assert tcli._kernel_toolchain().startswith("nvcc missing, 6/6")
+    assert _build._digest() != digest
+    assert tcli._kernel_toolchain().startswith("nvcc missing, 0/6")
     assert sorted(os.listdir(build)) == sorted(
-        listing + [f"{_build.SOURCES[4]}_{_build._digest()}.so",
-                   f"{_build.SOURCES[5]}_{_build._digest()}.so"])
+        listing + [f"{_build.SOURCES[4]}_{digest}.so",
+                   f"{_build.SOURCES[5]}_{digest}.so"])
 
 
 def test_hanging_probe_returns_hang_within_its_timeout(tmp_path):

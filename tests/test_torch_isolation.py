@@ -325,6 +325,72 @@ def test_the_lineage_verb_loads_no_jax(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
 
 
+def test_compilecache_loads_neither_jax_nor_torch(tmp_path):
+    """The compile cache's store is host code: importing it (past the
+    package's own ``__init__``) and listing a store loads neither torch,
+    jax nor the JAX package, and starts no process."""
+    code = (
+        "import sys, importlib.util, subprocess, types\n"
+        "def no_proc(*a, **k):\n"
+        "    raise AssertionError(f'a process was started: {a}')\n"
+        "subprocess.Popen = subprocess.run = no_proc\n"
+        "spec = importlib.util.find_spec('spark_text_clustering_tpu_torch')\n"
+        "pkg = types.ModuleType(spec.name)\n"
+        "pkg.__path__ = list(spec.submodule_search_locations)\n"
+        "sys.modules[spec.name] = pkg\n"
+        "cc = importlib.import_module(f'{spec.name}.compilecache')\n"
+        "store = cc.configure(sys.argv[1])\n"
+        "assert cc.active() and store.entries() == [] and store.gc(1) == {\n"
+        "    'entries': 0, 'stages': 0, 'quarantined': 0}\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('torch', 'jax', 'spark_text_clustering_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path / "cc")],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_the_compile_cache_ls_verb_loads_no_jax(tmp_path):
+    """``compile-cache ls`` of a store holding an entry, by the port's CLI
+    in a subprocess: it lists the entry, and it leaves jax and the JAX
+    package out of ``sys.modules`` and makes no CUDA context."""
+    code = (
+        "import contextlib, io, json, os, sys, torch\n"
+        "torch.cuda.init = torch.cuda._lazy_init = lambda: (\n"
+        "    _ for _ in ()).throw(AssertionError('a CUDA context'))\n"
+        "from spark_text_clustering_tpu_torch import cli\n"
+        "from spark_text_clustering_tpu_torch.resilience.integrity import (\n"
+        "    finalize_artifact_dir)\n"
+        "entry = os.path.join(sys.argv[1], 'nvcc12.4-sm_90a-x-0', 'd0')\n"
+        "os.makedirs(entry)\n"
+        "open(os.path.join(entry, 'estep.so'), 'wb').write(b'x' * 64)\n"
+        "json.dump({'label': 'estep', 'payload_bytes': 64, 'created_at': 1.0},\n"
+        "          open(os.path.join(entry, 'entry.json'), 'w'))\n"
+        "finalize_artifact_dir(entry)\n"
+        "out = io.StringIO()\n"
+        "with contextlib.redirect_stdout(out):\n"
+        "    rc = cli.main(['compile-cache', 'ls', '--json', '--cache-dir',\n"
+        "                   sys.argv[1]])\n"
+        "(e,) = json.loads(out.getvalue())['entries']\n"
+        "assert rc == 0 and e['label'] == 'estep', e\n"
+        "assert e['status'] == 'committed', e\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'spark_text_clustering_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path / "cc")],
+                         cwd=str(tmp_path), env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+
+
 def test_front_and_probe_run_without_a_cuda_context(tmp_path, monkeypatch):
     """The ``front`` and ``probe`` verbs never touch the card: with every
     way to a CUDA context made to raise, the front serves a request (503:
