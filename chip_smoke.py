@@ -6,12 +6,16 @@
 1. builds the six CUDA kernels from ``spark_text_clustering_tpu_torch/
    csrc`` and the native text library from ``.../native`` (one ``nvcc``
    per source and one ``g++``, in parallel, into build/torch_kernels;
-   ``--kernels-only`` skips the text library); then, beside the
-   corpora's generation, ``python -m spark_text_clustering_tpu_torch.cli
-   doctor`` as a subprocess: exit 0, the accelerator OK and naming this
-   card, the CPU path and the text library OK, nvcc found and all six
+   ``--kernels-only`` skips the text library); then two subprocesses of
+   ``python -m spark_text_clustering_tpu_torch.cli`` that run beside the
+   corpora, the kernel checks and configs A-D and are checked after D
+   (each line gives the seconds it ran and the seconds the script waited
+   for it): ``doctor`` (exit 0, the accelerator OK and naming this card,
+   the CPU path and the text library OK, nvcc found and all six
    libraries built for the current sources, the build directory's
-   listing unchanged by it;
+   listing unchanged by it) and ``lint --no-jaxpr --protocol --format
+   json`` over this checkout (exit 0, no unwaived finding, no stale
+   waiver, every protocol rule clean, the build directory unchanged);
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it and at the edges of its contract, and
    times kernel, plain version, and (for the scatter) the one PyTorch call
@@ -34,7 +38,10 @@
    Large instance) and k = 500 (its Wide one) on the same rows, bytes
    equal at forced clusters of 1-16 and alone.  The padded E-step's edge
    geometries include k = 65, 100, 129 and 500 at L = 1024 and 16384 (its
-   wide instance), each timed beside its bound;
+   wide instance), each timed beside its bound.  ``infer_gamma`` and
+   ``topic_inference`` with the JAX package's ``backend``: "auto" and
+   "pallas" launch the E-step kernel, "xla" the plain loop (no launch),
+   within 5e-3;
 3. config A, the EN books shape: 51 docs of 2,000-20,000 distinct terms,
    V=39,380, k=5.  IDF -> EM fit (fused sweep, resumed from one random
    start) -> save -> load -> padded-bucket scoring -> scoring report.  The
@@ -7203,10 +7210,79 @@ def profile_configs(torch, rows_a, rows_b, seed, out_dir):
     shutil.rmtree(cli_root, ignore_errors=True)
 
 
-def start_doctor(build_dir):
-    """``cli doctor --probe-timeout 120`` started as a subprocess of the
-    port's CLI from this checkout (the entry a user calls), with the build
-    directory's listing before it."""
+def check_gamma_backend(torch, rows, dev, seed):
+    """``infer_gamma``'s and ``topic_inference``'s ``backend`` (the JAX
+    package's argument) on card tensors, on 16 of A's books cut to their
+    first 2,048 terms: "auto" and "pallas" launch the E-step kernel once a
+    call and give the same bytes, "xla" launches nothing (the plain
+    whole-batch loop); the kernel's normalized rows within 5e-3 of the
+    plain loop's (its per-tile stop), as the tier-1 tests hold them on
+    the CPU."""
+    from spark_text_clustering_tpu_torch.ops import _build, lda_math
+    from spark_text_clustering_tpu_torch.ops.sparse import DocTermBatch
+
+    b, width = 16, 2048
+    ids = np.zeros((b, width), np.int32)
+    cts = np.zeros((b, width), np.float32)
+    for i, (r_ids, r_cts) in enumerate(rows[:b]):
+        n = min(width, len(r_ids))
+        ids[i, :n], cts[i, :n] = r_ids[:n], r_cts[:n]
+    lam = np.random.default_rng(seed).gamma(
+        0.5, 4.0, (EN_K, EN_V)).astype(np.float32)
+    eb = torch.exp(lda_math.dirichlet_expectation(
+        torch.from_numpy(lam).to(dev)))
+    batch = DocTermBatch(torch.from_numpy(ids).to(dev),
+                         torch.from_numpy(cts).to(dev))
+    alpha = torch.full((EN_K,), 50.0 / EN_K + 1.0, device=dev)
+    g0 = torch.ones((b, EN_K), device=dev)
+    got, launches = {}, {}
+    for fn in ("infer_gamma", "topic_inference"):
+        for backend in ("auto", "pallas", "xla"):
+            before = _build.LAUNCHES["gamma_fixed_point_bkl"]
+            out = getattr(lda_math, fn)(batch, eb, alpha, g0,
+                                        backend=backend)
+            torch.cuda.synchronize()
+            got[fn, backend] = out.double().cpu().numpy()
+            launches[f"{fn}.{backend}"] = (
+                _build.LAUNCHES["gamma_fixed_point_bkl"] - before)
+
+    def norm(g):
+        return g / g.sum(axis=1, keepdims=True)
+
+    err = max(float(np.abs(norm(got[fn, "auto"]) - norm(got[fn, "xla"]))
+                    .max()) for fn in ("infer_gamma", "topic_inference"))
+    want = {
+        "auto and pallas launch the kernel once": all(
+            launches[f"{fn}.{be}"] == 1
+            for fn in ("infer_gamma", "topic_inference")
+            for be in ("auto", "pallas")),
+        "xla launches nothing": launches["infer_gamma.xla"] == 0
+        and launches["topic_inference.xla"] == 0,
+        "auto equals pallas": all(
+            np.array_equal(got[fn, "auto"], got[fn, "pallas"])
+            for fn in ("infer_gamma", "topic_inference")),
+        "kernel within 5e-3 of the plain loop": err <= 5e-3,
+    }
+    failed = sorted(k for k, held in want.items() if not held)
+    if failed:
+        raise AssertionError(f"gamma backend: {failed} failed: "
+                             f"{launches}, {err}")
+    return {"phase": "gamma_backend", "launches": launches,
+            "max_abs_err_normalized": err}
+
+
+# the subprocesses main() starts beside its phases; killed when it ends,
+# however it ends
+_STARTED = []
+
+
+def start_cli(build_dir, *argv, merge_stderr=False):
+    """``python -m spark_text_clustering_tpu_torch.cli <argv>`` started as
+    a subprocess of the port's CLI from this checkout (the entry a user
+    calls), with the build directory's listing before it; a thread reads
+    its output (stderr into it with ``merge_stderr``) and notes when it
+    ended, so a later check knows how long it ran and how long the check
+    waited."""
     here = os.path.dirname(os.path.abspath(__file__))
     env = {k: v for k, v in os.environ.items()
            if k not in ("STC_FAULTS", "STC_FAULT_SEED")}
@@ -7214,11 +7290,45 @@ def start_doctor(build_dir):
         [here] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                   if p])
     listing = sorted(os.listdir(build_dir))
+    t0 = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "spark_text_clustering_tpu_torch.cli",
-         "doctor", "--probe-timeout", "120"], cwd=here, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, listing, time.perf_counter()
+         *argv], cwd=here, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT if merge_stderr else subprocess.PIPE,
+        text=True)
+    _STARTED.append(proc)
+    box = {}
+
+    def read():
+        box["out"], box["err"] = proc.communicate()
+        box["ended"] = time.perf_counter()
+
+    thread = threading.Thread(target=read, daemon=True)
+    thread.start()
+    return {"proc": proc, "listing": listing, "t0": t0, "box": box,
+            "thread": thread}
+
+
+def wait_cli(started, what, timeout=600):
+    """Wait for a ``start_cli`` process: (stdout, seconds it ran, seconds
+    this call blocked); kills it past ``timeout``."""
+    t_wait = time.perf_counter()
+    started["thread"].join(timeout)
+    blocked = time.perf_counter() - t_wait
+    proc, box = started["proc"], started["box"]
+    if "ended" not in box:
+        proc.kill()
+        started["thread"].join()
+        raise AssertionError(f"{what}: still running after {timeout} s")
+    return box["out"], box["ended"] - started["t0"], blocked
+
+
+def stop_started() -> None:
+    """Kill every subprocess ``start_cli`` started that still runs."""
+    for proc in _STARTED:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def check_doctor(torch, started, build_dir, digest, n_sources):
@@ -7226,14 +7336,8 @@ def check_doctor(torch, started, build_dir, digest, n_sources):
     naming device 0, the CPU path and the text library OK, nvcc found
     and every library built for ``digest`` in ``build_dir``, whose
     listing the doctor left as it was."""
-    proc, listing, t0 = started
-    try:
-        out, _ = proc.communicate(timeout=600)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    secs = time.perf_counter() - t0
+    out, secs, blocked = wait_cli(started, "doctor")
+    proc, listing = started["proc"], started["listing"]
     lines = out.splitlines()
     kernels = next((ln for ln in lines if ln.startswith(
         "  kernels (nvcc, sm_90a): ")), "")
@@ -7255,7 +7359,43 @@ def check_doctor(torch, started, build_dir, digest, n_sources):
     failed = sorted(k for k, held in want.items() if not held)
     if failed:
         raise AssertionError(f"doctor: {failed} failed: {out[-3000:]}")
-    return {"phase": "doctor", "seconds": secs, "report": lines}
+    return {"phase": "doctor", "seconds": secs, "blocked_s": blocked,
+            "report": lines}
+
+
+def check_lint(started, build_dir):
+    """``lint --no-jaxpr --protocol --format json`` over this checkout:
+    exit 0, no unwaived finding, no stale waiver, every protocol rule
+    clean, and the build directory's listing as it was (lint builds
+    nothing); with the seconds it ran and the seconds main() waited."""
+    out, secs, blocked = wait_cli(started, "lint")
+    proc = started["proc"]
+    try:
+        doc = json.loads(out)
+    except ValueError as exc:
+        raise AssertionError(f"lint printed no JSON report: {out[-2000:]} "
+                             f"{started['box'].get('err', '')[-2000:]}"
+                             ) from exc
+    stale = [f for f in doc["findings"]
+             if f["rule"] == "STC000" and "stale" in f["message"]]
+    rules = doc.get("protocol", {}).get("rules", {})
+    want = {
+        "exit 0": proc.returncode == 0,
+        "no unwaived finding": doc["counts"]["findings"] == 0,
+        "no stale waiver": not stale,
+        "the protocol audit ran clean": bool(rules) and not any(
+            rules.values()),
+        "the build directory unchanged":
+            sorted(os.listdir(build_dir)) == started["listing"],
+    }
+    failed = sorted(k for k, held in want.items() if not held)
+    if failed:
+        raise AssertionError(f"lint: {failed} failed: {out[-3000:]}")
+    return {"phase": "lint", "rc": proc.returncode,
+            "findings": doc["counts"]["findings"],
+            "waived": doc["counts"]["waived"], "stale": len(stale),
+            "protocol_sites": doc["protocol"]["sites"],
+            "seconds": secs, "blocked_s": blocked}
 
 
 def main() -> int:
@@ -7315,25 +7455,21 @@ def main() -> int:
             if log.exists():
                 shutil.copy(log, os.path.join(args.out, f"ptxas_{name}.log"))
 
-    # the doctor from this checkout, beside the corpora's generation
-    doctor = None if args.kernels_only else start_doctor(_build.BUILD_DIR)
+    # the doctor and lint from this checkout, beside the corpora, the
+    # kernel checks and configs A-D; checked after D (stop_started kills
+    # them if anything before that raises)
+    doctor = lint = None
+    if not args.kernels_only:
+        doctor = start_cli(_build.BUILD_DIR, "doctor", "--probe-timeout",
+                           "120", merge_stderr=True)
+        lint = start_cli(_build.BUILD_DIR, "lint", "--no-jaxpr",
+                         "--protocol", "--format", "json")
     t0 = time.perf_counter()
-    try:
-        rows_a = en_books_rows(args.seed)
-        rows_b = newsgroups_rows(args.seed)
-    except BaseException:
-        if doctor is not None:
-            doctor[0].kill()
-            doctor[0].wait()
-        raise
+    rows_a = en_books_rows(args.seed)
+    rows_b = newsgroups_rows(args.seed)
     emit({"phase": "corpora", "seconds": time.perf_counter() - t0,
           "A_docs": len(rows_a), "A_tokens": sum(len(i) for i, _ in rows_a),
           "B_docs": len(rows_b), "B_tokens": sum(len(i) for i, _ in rows_b)})
-    if doctor is not None:
-        doctor = check_doctor(torch, doctor, _build.BUILD_DIR,
-                              _build._digest(), len(_build.SOURCES))
-        emit(doctor)
-        record["doctor"] = doctor
 
     # 2. each kernel against its plain version, at main-path shapes
     rng = np.random.default_rng(args.seed + 1)
@@ -7374,6 +7510,9 @@ def main() -> int:
         emit({"phase": "kernel_vs_plain", **c})
     emit({"phase": "kernel_vs_plain_edges", "name": "gamma_fixed_point_bkl",
           "geometries": estep_edges})
+    gamma_backend = check_gamma_backend(torch, rows_a, dev, args.seed + 7)
+    emit(gamma_backend)
+    record["gamma_backend"] = gamma_backend
     if args.kernels_only:
         if args.out:
             record.update(build=build, kernels=list(checks.values()),
@@ -7443,6 +7582,15 @@ def main() -> int:
         # 6. config D
         summary_d = run_config_d(torch, rows_b, args.seed, workdir)
         emit(summary_d)
+
+        # the doctor's and lint's reports, started after the build
+        doctor = check_doctor(torch, doctor, _build.BUILD_DIR,
+                              _build._digest(), len(_build.SOURCES))
+        emit(doctor)
+        record["doctor"] = doctor
+        lint = check_lint(lint, _build.BUILD_DIR)
+        emit(lint)
+        record["lint"] = lint
 
         # 7. config E, the CLI
         t0 = time.perf_counter()
@@ -7652,4 +7800,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_started()

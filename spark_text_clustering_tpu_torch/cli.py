@@ -5,8 +5,8 @@ replicas, ``serve``, one resident scoring replica, ``front``, the serve
 fleet's routing front, ``probe``, its black-box canary, ``collect``, the
 telemetry collector, ``monitor``, the live alerting engine, ``lineage``,
 the walk from a served byte back to its source files, ``doctor``, the
-environment's health report, and ``compile-cache``, the kernel-library
-store's maintenance.
+environment's health report, ``compile-cache``, the kernel-library
+store's maintenance, and ``lint``, the port's static analysis.
 
 The reference's two entry points (LDATraining.scala, LDALoader.scala) as
 subcommands, with the JAX package's flags, defaults, console output and
@@ -34,6 +34,7 @@ exit codes:
     python -m spark_text_clustering_tpu_torch.cli doctor
     python -m spark_text_clustering_tpu_torch.cli compile-cache warm \
         --cache-dir <dir> --models-dir <dir>
+    python -m spark_text_clustering_tpu_torch.cli lint --no-jaxpr --protocol
 
 Two flags are the port's own: ``--device`` (default ``cuda``) names the
 device that IDF, training and scoring run on (without a card, pass
@@ -145,11 +146,21 @@ JAX package's verb does (``summarize``, ``merge`` of a grid's streams,
 ``roofline`` against the card's peaks, ``compile-check``;
 ``scale-check`` is item 10 and exits 2).
 
-Exit codes: 0 on success; 1 for a fleet that spent its respawn budget and
-for a ``compile-cache verify`` with findings; 2 for a usage error, a
-missing or corrupt model, a resume mismatch and a verb not ported yet
-(``metrics scale-check``); 3 for a stream whose ledger write was fenced
-and for a ``lineage`` target that names nothing.
+``lint`` runs the JAX package's static analysis over the port's source:
+with ``--no-jaxpr`` the AST invariant rules (STC000-007, STC101-102;
+STC005 roots at the callables ``telemetry.instrument_dispatch`` wraps),
+and with ``--protocol`` also the STC300-305 protocol audit, against the
+port's own waiver baseline ``analysis/lint_baseline.json``.  The trace
+layers are item 10c: ``--scale``, and ``lint`` without ``--no-jaxpr``,
+exit 2.  It makes no CUDA context and builds nothing.
+
+Exit codes: 0 on success; 1 for a fleet that spent its respawn budget,
+for a ``compile-cache verify`` with findings and for a ``lint`` with
+unwaived findings; 2 for a usage error, a missing or corrupt model, a
+resume mismatch and a verb or layer not ported yet (``metrics
+scale-check``, ``lint --scale``, ``lint`` without ``--no-jaxpr``); 3 for
+a stream whose ledger write was fenced and for a ``lineage`` target that
+names nothing.
 """
 
 from __future__ import annotations
@@ -2738,13 +2749,15 @@ def build_parser() -> argparse.ArgumentParser:
     dr.add_argument("--probe-timeout", type=int, default=60)
     dr.set_defaults(fn=cmd_doctor)
 
-    # the JAX package's `metrics` and `monitor` verbs, copied
-    # (telemetry.metrics_cli, telemetry.monitor_cli)
+    # the JAX package's `metrics`, `monitor` and `lint` verbs, copied
+    # (telemetry.metrics_cli, telemetry.monitor_cli, analysis.cli)
+    from .analysis.cli import add_lint_subparser
     from .telemetry.metrics_cli import add_metrics_subparser
     from .telemetry.monitor_cli import add_monitor_subparser
 
     add_metrics_subparser(sub)
     add_monitor_subparser(sub)
+    add_lint_subparser(sub)
     return ap
 
 

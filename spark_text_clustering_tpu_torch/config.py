@@ -1,6 +1,7 @@
 """Hyperparameters and run configuration: the fields of the reference's
 ``Params`` case class and of the JAX package's ``Params``, every one with
-the same name and default, and the EM/online auto priors.  Kept as its own
+the same name, position and default (a positional call binds the same
+fields in both packages), and the EM/online auto priors.  Kept as its own
 copy so the port imports nothing of the JAX package.
 
 ``to_json`` emits every field as the JAX package does, so the resume gate's
@@ -33,7 +34,13 @@ class Params:
     algorithm: str = "em"
     checkpoint_dir: Optional[str] = None
     checkpoint_interval: int = 10
+    # online VB (MLlib's OnlineLDAOptimizer constants; batch_size None ->
+    # mini_batch_fraction of the corpus per iteration)
+    tau0: float = 1024.0
+    kappa: float = 0.51
     gamma_shape: float = 100.0
+    batch_size: Optional[int] = None
+    sampling: str = "bernoulli"        # "bernoulli" | "fixed" | "epoch"
     seed: int = 0
     # IDF (MLlib minDocFreq, and the reference's floor for a zero idf)
     min_doc_freq: int = 2
@@ -41,20 +48,14 @@ class Params:
     data_shards: Optional[int] = None
     model_shards: int = 1
     bucket_by_length: object = "auto"  # True | False | "auto"
-    record_iteration_times: bool = False
-    keep_doc_topic_counts: bool = False
-    # online VB (MLlib's OnlineLDAOptimizer constants; batch_size None ->
-    # mini_batch_fraction of the corpus per iteration)
-    tau0: float = 1024.0
-    kappa: float = 0.51
-    batch_size: Optional[int] = None
-    sampling: str = "bernoulli"        # "bernoulli" | "fixed" | "epoch"
-    token_layout: str = "auto"         # "padded" | "packed" | "tiles" | "auto"
     device_resident: object = "auto"   # True | False | "auto"
     resident_budget_bytes: int = 2 << 30
+    token_layout: str = "auto"         # "padded" | "packed" | "tiles" | "auto"
+    record_iteration_times: bool = False
     estep_max_inner: int = 100
     estep_tol: float = 1e-3
     dispatch_budget_bytes: int = 256 << 20
+    keep_doc_topic_counts: bool = False
 
     def resolved_alpha(self) -> float:
         if self.doc_concentration > 0:

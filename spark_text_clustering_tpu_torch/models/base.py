@@ -42,9 +42,9 @@ from ..ops.sparse import (
 __all__ = ["LDAModel", "gather_token_rows"]
 
 
-def gather_token_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """The rows of ``table`` [V, k] at the token ids: [T, k]."""
-    return table[ids]
+def gather_token_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The rows of ``table`` [V, k] at the token ids ``idx``: [T, k]."""
+    return table[idx]
 
 
 # the scoring path's dispatches, under the JAX package's labels (each

@@ -3,13 +3,15 @@ scoring and evaluation entry points built on it, and the random inits.
 
 ``topic_inference`` scores a padded [B, L] batch through the E-step kernel
 (``estep.gamma_fixed_point``: the CUDA kernel on the card, its plain
-version on the CPU).  ``topic_inference_segments`` scores a token-packed
-batch with whole-batch convergence in plain PyTorch, or with per-document
-(``freeze``) convergence: on the card through the per-document kernel
-(``segments``), whose bytes follow each document alone, on the CPU in
-plain PyTorch.  ``infer_gamma`` and ``approx_bound`` are the evaluation
-pair behind ``LDAModel.log_likelihood``.  Pad slots (weight 0) add exactly
-0 everywhere.  Gamma starts at all ones, or at Gamma(shape, 1/shape)
+version on the CPU), or, with ``backend="xla"``, through the plain
+whole-batch loop on either device.  ``topic_inference_segments`` scores a
+token-packed batch with whole-batch convergence in plain PyTorch, or with
+per-document (``freeze``) convergence: on the card through the
+per-document kernel (``segments``), whose bytes follow each document
+alone, on the CPU in plain PyTorch.  ``infer_gamma`` and
+``approx_bound`` are the evaluation pair behind
+``LDAModel.log_likelihood``.  Pad slots (weight 0) add exactly 0
+everywhere.  Gamma starts at all ones, or at Gamma(shape, 1/shape)
 draws from an explicit ``torch.Generator`` (``seeded_generator``), as
 does lambda (``init_lambda``).
 """
@@ -132,12 +134,13 @@ def gamma_fixed_point_segments(
     gamma0: torch.Tensor,    # [B, k]
     max_inner: int,
     tol: float,
-    freeze: bool = False,
     reduce_fn=None,
+    freeze: bool = False,
     with_iters: bool = False,
 ):
     """The gamma fixed point over a token-packed batch: (gamma, iterations
-    run).  ``freeze`` switches to per-document convergence: a row stops
+    run), the JAX package's parameters in its order.  ``freeze`` switches
+    to per-document convergence: a row stops
     updating the iteration its own mean|delta gamma| drops below ``tol``,
     so its result depends on its own tokens only.  ``reduce_fn`` combines
     the per-doc sums of a token axis split over ranks (``psum_data``) each
@@ -211,6 +214,31 @@ def _normalize(gamma: torch.Tensor, nonempty: torch.Tensor) -> torch.Tensor:
     return torch.where(nonempty[:, None], dist, torch.full_like(dist, 1.0 / k))
 
 
+def _resolve_gamma_backend(backend: str) -> str:
+    """The JAX package's gamma backends, read for the card: ``"pallas"``
+    asks for the E-step kernel (on a CPU tensor its plain version, which
+    plays interpret mode's role), ``"xla"`` for the plain whole-batch
+    loop on either device.  ``"auto"`` is ``STC_GAMMA_BACKEND`` when set,
+    else ``"pallas"``: the kernel on a CUDA tensor, its plain version on
+    a CPU one.  Anything else raises, as in the JAX package."""
+    if backend == "auto":
+        import os
+
+        backend = os.environ.get("STC_GAMMA_BACKEND", "") or "pallas"
+    if backend not in ("xla", "pallas"):
+        raise ValueError(f"unknown gamma backend {backend!r}")
+    return backend
+
+
+def _run_gamma_fixed_point(eb, cts, alpha, gamma0, max_inner, tol,
+                           backend: str) -> torch.Tensor:
+    """The padded gamma loop on the backend asked for: the E-step kernel
+    (``estep.gamma_fixed_point``) or the plain whole-batch iteration."""
+    if _resolve_gamma_backend(backend) == "pallas":
+        return gamma_fixed_point(eb, cts, alpha, gamma0, max_inner, tol)
+    return gamma_fixed_point_batch(eb, cts, alpha, gamma0, max_inner, tol)[0]
+
+
 def topic_inference(
     batch: DocTermBatch,
     exp_elog_beta: torch.Tensor,   # [k, V]
@@ -218,12 +246,15 @@ def topic_inference(
     gamma0: torch.Tensor,          # [B, k]
     max_inner: int = 100,
     tol: float = 1e-3,
+    backend: str = "auto",
 ) -> torch.Tensor:
     """``LocalLDAModel.topicDistribution`` over a padded batch: normalized
-    gamma [B, k]; empty docs get the uniform distribution."""
+    gamma [B, k]; empty docs get the uniform distribution.  ``backend``
+    as in ``_resolve_gamma_backend``."""
     cts = batch.token_weights
     eb = exp_elog_beta.T[batch.token_ids.long()]              # [B, L, k]
-    gamma = gamma_fixed_point(eb, cts, alpha, gamma0, max_inner, tol)
+    gamma = _run_gamma_fixed_point(eb, cts, alpha, gamma0, max_inner, tol,
+                                   backend)
     return _normalize(gamma, cts.sum(dim=-1) > 0)
 
 
@@ -234,12 +265,14 @@ def infer_gamma(
     gamma0: torch.Tensor,          # [B, k]
     max_inner: int = 100,
     tol: float = 1e-3,
+    backend: str = "auto",
 ) -> torch.Tensor:
-    """Gamma only (no sufficient statistics), through the E-step kernel:
-    the evaluation path of ``LDAModel.log_likelihood``."""
+    """Gamma only (no sufficient statistics), through the E-step kernel
+    unless ``backend`` asks otherwise: the evaluation path of
+    ``LDAModel.log_likelihood``."""
     eb = exp_elog_beta.T[batch.token_ids.long()]              # [B, L, k]
-    return gamma_fixed_point(eb, batch.token_weights, alpha, gamma0,
-                             max_inner, tol)
+    return _run_gamma_fixed_point(eb, batch.token_weights, alpha, gamma0,
+                                  max_inner, tol, backend)
 
 
 def approx_bound(

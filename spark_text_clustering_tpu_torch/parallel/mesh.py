@@ -42,6 +42,7 @@ import torch.distributed as dist
 
 from .. import telemetry
 from ..device import resolve_device
+from ..resilience import retry
 
 __all__ = [
     "DATA_AXIS",
@@ -143,7 +144,7 @@ def _rank_device(device, rank: int) -> torch.device:
 
 
 def initialize_distributed(
-    coordinator: Optional[str] = None,
+    coordinator_address: Optional[str] = None,
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
     *,
@@ -152,25 +153,27 @@ def initialize_distributed(
 ) -> None:
     """Join a grid of ``num_processes`` ranks as rank ``process_id``.
 
-    ``coordinator`` is ``host:port`` of rank 0 (``tcp://host:port``) or a
-    ``tcp://`` / ``file://`` URL.  No-op without a coordinator; partial
-    arguments are an error, not a silent no-op: N processes started with
-    only ``num_processes``/``process_id`` would each train a model of
-    their own."""
-    if coordinator is None:
+    ``coordinator_address`` is ``host:port`` of rank 0
+    (``tcp://host:port``) or a ``tcp://`` / ``file://`` URL.  No-op
+    without a coordinator; partial arguments are an error, not a silent
+    no-op: N processes started with only ``num_processes``/``process_id``
+    would each train a model of their own."""
+    if coordinator_address is None:
         if num_processes is not None or process_id is not None:
             raise ValueError(
-                "num_processes/process_id require coordinator "
+                "num_processes/process_id require coordinator_address "
                 "(pass --coordinator host:port on every process)")
         return
     if num_processes is None or process_id is None:
-        raise ValueError("coordinator requires num_processes and process_id")
+        raise ValueError(
+            "coordinator_address requires num_processes and process_id")
     if not 0 <= process_id < num_processes:
         raise ValueError(f"process_id {process_id} is not in "
                          f"[0, {num_processes})")
     backend = check_backend(backend or default_backend(device), device,
                              num_processes)
-    init = coordinator if "://" in coordinator else f"tcp://{coordinator}"
+    init = (coordinator_address if "://" in coordinator_address
+            else f"tcp://{coordinator_address}")
     dist.init_process_group(
         backend, init_method=init, world_size=num_processes,
         rank=process_id, timeout=datetime.timedelta(seconds=_TIMEOUT_S))
@@ -321,7 +324,7 @@ def _die_with_parent(parent: int) -> None:
     if not armed:
         def watch() -> None:
             while os.getppid() == parent:
-                time.sleep(0.5)
+                retry.sleep(0.5)
             os._exit(1)
 
         threading.Thread(target=watch, daemon=True).start()

@@ -154,7 +154,7 @@ def _count(name: str, **event_fields) -> None:
     # late import: the telemetry sink's own retries route through here
     from .. import telemetry
 
-    telemetry.count(name)
+    telemetry.count(name)  # stc-lint: disable=STC004 -- name forwarded from RETRIES_COUNTER/GIVEUPS_COUNTER, both declared in telemetry/names.py
     if event_fields:
         telemetry.event("retry", **event_fields)
 

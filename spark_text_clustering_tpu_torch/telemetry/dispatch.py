@@ -183,7 +183,7 @@ def note_collective(nbytes: int) -> None:
     on this thread (no-op outside one)."""
     st = getattr(_tls, "frames", None)
     if st:
-        st[-1].collective_bytes += int(nbytes)
+        st[-1].collective_bytes += int(nbytes)  # stc-lint: disable=STC005 -- nbytes is the host-side byte count the collectives compute from their operands' numel and element size; int() of a Python int waits for nothing
 
 
 def note_library_load(cache: str = "off",

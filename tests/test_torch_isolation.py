@@ -391,6 +391,40 @@ def test_the_compile_cache_ls_verb_loads_no_jax(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
 
 
+def test_the_lint_verb_loads_no_jax(tmp_path):
+    """Importing ``analysis`` and running ``lint --no-jaxpr --protocol
+    --format json`` over the port's tree by the port's CLI in a
+    subprocess: exit 0 with no unwaived and no stale findings, and it
+    leaves jax and the JAX package out of ``sys.modules``, makes no CUDA
+    context and loads no kernel library."""
+    code = (
+        "import contextlib, io, json, sys, torch\n"
+        "torch.cuda.init = torch.cuda._lazy_init = lambda: (\n"
+        "    _ for _ in ()).throw(AssertionError('a CUDA context'))\n"
+        "import spark_text_clustering_tpu_torch.analysis\n"
+        "from spark_text_clustering_tpu_torch import cli\n"
+        "from spark_text_clustering_tpu_torch.ops import _build\n"
+        "out = io.StringIO()\n"
+        "with contextlib.redirect_stdout(out):\n"
+        "    rc = cli.main(['lint', '--no-jaxpr', '--protocol', '--format',\n"
+        "                   'json'])\n"
+        "doc = json.loads(out.getvalue())\n"
+        "assert rc == 0 and doc['counts']['findings'] == 0, doc['findings']\n"
+        "assert doc['protocol']['rules'] == {f'STC30{i}': 0 for i in range(6)}\n"
+        "assert not [f for f in doc['findings'] if f['rule'] == 'STC000']\n"
+        "assert doc['counts']['waived'] > 0\n"
+        "assert not torch.cuda.is_initialized() and not _build._LIBS\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'spark_text_clustering_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+
+
 def test_front_and_probe_run_without_a_cuda_context(tmp_path, monkeypatch):
     """The ``front`` and ``probe`` verbs never touch the card: with every
     way to a CUDA context made to raise, the front serves a request (503:

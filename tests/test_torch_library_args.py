@@ -11,31 +11,49 @@ The vocabulary (``CountVectorizer``'s ``num_workers`` and
 ``configure_shipping``'s ``source_id`` / ``spool_dir``, ``JsonlSink``'s
 ``truncate``, ``TelemetryWriter``'s ``run_id``, ``heartbeat_callback``'s
 ``source``, ``FleetSupervisor``'s ``heartbeat_interval``,
-``ServeFleetSupervisor``'s ``stagger``), and one parametrised test that
-holds every signature these touch to the JAX package's.
+``ServeFleetSupervisor``'s ``stagger``), the library arguments outside
+those modules (``Params``' field order, ``gamma_fixed_point_segments``'
+``reduce_fn``/``freeze``, ``infer_gamma``'s and ``topic_inference``'s
+``backend``, ``initialize_distributed``'s ``coordinator_address``,
+``gather_token_rows``' ``idx``), each called by keyword and by position,
+and one parametrised test that holds every signature these touch to the
+JAX package's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import inspect
 import json
 import os
 import sys
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
+from spark_text_clustering_tpu import config as jconfig
 from spark_text_clustering_tpu import pipeline as jpipeline
 from spark_text_clustering_tpu import telemetry as jtelemetry
+from spark_text_clustering_tpu.models import base as jbase
+from spark_text_clustering_tpu.ops import lda_math as jlda
+from spark_text_clustering_tpu.ops import sparse as jsparse
+from spark_text_clustering_tpu.parallel import mesh as jmesh
 from spark_text_clustering_tpu.resilience import supervisor as jsup
 from spark_text_clustering_tpu.telemetry import events as jevents
 from spark_text_clustering_tpu.telemetry import transport as jtransport
 from spark_text_clustering_tpu.utils import textproc as jtextproc
 from spark_text_clustering_tpu.utils import vocab as jvocab
+from spark_text_clustering_tpu_torch import config as tconfig
 from spark_text_clustering_tpu_torch import pipeline as tpipeline
 from spark_text_clustering_tpu_torch import telemetry as ttelemetry
+from spark_text_clustering_tpu_torch.models import base as tbase
 from spark_text_clustering_tpu_torch.models import reference_export as texport
 from spark_text_clustering_tpu_torch.models import reference_import as timport
+from spark_text_clustering_tpu_torch.ops import lda_math as tlda
+from spark_text_clustering_tpu_torch.ops import sparse as tsparse
+from spark_text_clustering_tpu_torch.parallel import mesh as tmesh
 from spark_text_clustering_tpu_torch.parallel import run_grid
 from spark_text_clustering_tpu_torch.resilience import supervisor as tsup
 from spark_text_clustering_tpu_torch.telemetry import events as tevents
@@ -359,8 +377,184 @@ def test_serve_fleet_stagger(tmp_path, stagger):
                            else ([0], [1, 2]))
 
 
+# -- fault V2: Params, lda_math, mesh, base ---------------------------------
+# every field up to seed, by position: the online-VB knobs sit between
+# checkpoint_interval and seed in both packages
+_PARAMS_ARGS = ("books", 7, 30, 2.0, 1.5, 1000, "a b", "online", None, 5,
+                512.0, 0.7, 50.0, 32, "fixed", 3, 1, 0.01)
+
+
+@pytest.mark.parametrize("how", ["positional", "keyword"])
+def test_params_bind_the_same_fields(how):
+    """A call past ``checkpoint_interval`` binds the same fields in both
+    packages, and both hash to the same config JSON."""
+    names = [f.name for f in dataclasses.fields(jconfig.Params)]
+    kw = dict(zip(names, _PARAMS_ARGS))
+    j, t = ((P(*_PARAMS_ARGS) if how == "positional" else P(**kw))
+            for P in (jconfig.Params, tconfig.Params))
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert (t.tau0, t.kappa, t.gamma_shape, t.batch_size, t.sampling,
+            t.seed, t.min_doc_freq) == (512.0, 0.7, 50.0, 32, "fixed", 3, 1)
+    assert json.loads(t.to_json()) == json.loads(j.to_json())
+
+
+def _segments_problem():
+    rng = np.random.default_rng(4)
+    k, t, b = 5, 400, 12
+    eb_tok = rng.random((t, k)).astype(np.float32) + 0.01
+    cts = rng.integers(0, 5, t).astype(np.float32)
+    seg = np.sort(rng.integers(0, b, t)).astype(np.int32)
+    alpha = np.full((k,), 0.2, np.float32)
+    return eb_tok, cts, seg, alpha, np.ones((b, k), np.float32)
+
+
+def _norm(g):
+    g = np.asarray(g, np.float64)
+    return g / g.sum(axis=1, keepdims=True)
+
+
+@pytest.mark.parametrize("how", ["positional", "keyword"])
+def test_segments_reduce_fn_then_freeze(how):
+    """``reduce_fn`` comes before ``freeze`` in both packages: a doubling
+    reduction (two equal token shards) under per-document convergence,
+    passed by position and by keyword."""
+    arrays = _segments_problem()
+
+    def run(lda, conv):
+        xs = [conv(a) for a in arrays]
+        double = lambda c: c + c  # noqa: E731
+        if how == "positional":
+            return lda.gamma_fixed_point_segments(*xs, 100, 1e-3, double,
+                                                  True)[0]
+        return lda.gamma_fixed_point_segments(*xs, 100, 1e-3,
+                                              reduce_fn=double,
+                                              freeze=True)[0]
+
+    want = run(jlda, jnp.asarray)
+    got = run(tlda, torch.from_numpy)
+    plain = tlda.gamma_fixed_point_segments(
+        *[torch.from_numpy(a) for a in arrays], 100, 1e-3, freeze=True)[0]
+    np.testing.assert_allclose(_norm(got.numpy()), _norm(want), atol=1e-4)
+    assert not np.allclose(got.numpy(), plain.numpy())   # the reduction ran
+
+
+def _padded_problem(b=10, l=64, k=5, v=300, seed=5):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, v, (b, l)).astype(np.int32)
+    cts = rng.integers(1, 6, (b, l)).astype(np.float32)
+    cts[:, -7:] = 0.0
+    cts[b // 2] = 0.0                          # an empty doc
+    eb = rng.random((k, v)).astype(np.float32) + 0.05
+    return ids, cts, eb, np.full((k,), 0.2, np.float32), np.ones(
+        (b, k), np.float32)
+
+
+def _padded_call(lda, sparse, conv, fn, backend, how):
+    ids, cts, eb, alpha, g0 = _padded_problem()
+    batch = sparse.DocTermBatch(conv(ids), conv(cts))
+    f = getattr(lda, fn)
+    if how == "positional":
+        return np.asarray(f(batch, conv(eb), conv(alpha), conv(g0), 100,
+                            1e-3, backend))
+    return np.asarray(f(batch, conv(eb), conv(alpha), conv(g0),
+                        max_inner=100, tol=1e-3, backend=backend))
+
+
+@pytest.mark.parametrize("how", ["positional", "keyword"])
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("fn", ["infer_gamma", "topic_inference"])
+def test_gamma_backend_matches_jax(fn, backend, how):
+    """``backend`` in both packages: "xla" is the plain whole-batch loop,
+    "pallas" the E-step kernel (interpret mode in JAX, the kernel's plain
+    version in the port, on the CPU); the E-step kernel's per-tile stop
+    is held to 5e-3 of the normalized rows, as the kernel tests hold it."""
+    want = _padded_call(jlda, jsparse, jnp.asarray, fn, backend, how)
+    got = _padded_call(tlda, tsparse, torch.from_numpy, fn, backend, how)
+    np.testing.assert_allclose(_norm(got), _norm(want),
+                               atol=1e-4 if backend == "xla" else 5e-3)
+
+
+@pytest.mark.parametrize("env,want", [(None, "pallas"), ("xla", "xla"),
+                                      ("pallas", "pallas")])
+def test_gamma_backend_auto_and_env(monkeypatch, env, want):
+    """"auto" takes ``STC_GAMMA_BACKEND`` when set, else the E-step
+    kernel (which on a CPU tensor runs its plain version): it routes to
+    the same loop as the backend it resolves to, and an unknown backend
+    raises in both packages."""
+    if env is None:
+        monkeypatch.delenv("STC_GAMMA_BACKEND", raising=False)
+    else:
+        monkeypatch.setenv("STC_GAMMA_BACKEND", env)
+    calls = []
+    for name in ("gamma_fixed_point", "gamma_fixed_point_batch"):
+        real = getattr(tlda, name)
+        monkeypatch.setattr(tlda, name, lambda *a, _n=name, _f=real, **k: (
+            calls.append(_n), _f(*a, **k))[1])
+    got = _padded_call(tlda, tsparse, torch.from_numpy, "infer_gamma",
+                       "auto", "keyword")
+    assert calls == ["gamma_fixed_point" if want == "pallas"
+                     else "gamma_fixed_point_batch"]
+    monkeypatch.delenv("STC_GAMMA_BACKEND", raising=False)
+    same = _padded_call(tlda, tsparse, torch.from_numpy, "infer_gamma",
+                        want, "keyword")
+    np.testing.assert_array_equal(got, same)
+    for lda, sparse, conv in ((jlda, jsparse, jnp.asarray),
+                              (tlda, tsparse, torch.from_numpy)):
+        with pytest.raises(ValueError, match="unknown gamma backend"):
+            _padded_call(lda, sparse, conv, "topic_inference", "mosaic",
+                         "keyword")
+
+
+@pytest.mark.parametrize("how", ["positional", "keyword"])
+def test_initialize_distributed_coordinator_address(tmp_path, how):
+    """``coordinator_address`` by position and by keyword: no-op without
+    it, partial arguments raise in both packages; the port joins a
+    one-rank gloo group through it."""
+    for mesh in (jmesh, tmesh):
+        if how == "positional":
+            assert mesh.initialize_distributed(None, None, None) is None
+            with pytest.raises(ValueError, match="coordinator_address"):
+                mesh.initialize_distributed(None, 2, 0)
+        else:
+            assert mesh.initialize_distributed(
+                coordinator_address=None) is None
+            with pytest.raises(ValueError, match="coordinator_address"):
+                mesh.initialize_distributed(coordinator_address=None,
+                                            num_processes=2, process_id=0)
+    init = f"file://{tmp_path / 'rendezvous'}"
+    assert not torch.distributed.is_initialized()
+    try:
+        if how == "positional":
+            tmesh.initialize_distributed(init, 1, 0, backend="gloo",
+                                         device="cpu")
+        else:
+            tmesh.initialize_distributed(coordinator_address=init,
+                                         num_processes=1, process_id=0,
+                                         backend="gloo", device="cpu")
+        assert torch.distributed.get_world_size() == 1
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("how", ["positional", "keyword"])
+def test_gather_token_rows_idx(how):
+    """``gather_token_rows(table, idx)`` by position and by keyword."""
+    rng = np.random.default_rng(2)
+    table = rng.random((50, 4)).astype(np.float32)
+    idx = rng.integers(0, 50, 33).astype(np.int32)
+    got, want = (
+        np.asarray(base.gather_token_rows(conv(table), conv(idx))
+                   if how == "positional"
+                   else base.gather_token_rows(table=conv(table),
+                                               idx=conv(idx)))
+        for base, conv in ((tbase, torch.from_numpy), (jbase, jnp.asarray)))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, table[idx])
+
+
 # -- signatures --------------------------------------------------------------
-# every callable V1 repaired, as (port, JAX); each port parameter the JAX
+# every callable V1 and V2 repaired, as (port, JAX); each port parameter the JAX
 # package lacks is a deliberate difference, listed with its reason
 # (ROADMAP.md, "Deliberate differences from the JAX package so far")
 _DEVICE = "entry points take the torch device= (North star)"
@@ -393,6 +587,19 @@ SIGNATURES = {
                         jsup.FleetSupervisor.__init__, {}),
     "ServeFleetSupervisor": (tsup.ServeFleetSupervisor.__init__,
                              jsup.ServeFleetSupervisor.__init__, {}),
+    "Params": ("config.Params", None, {}),
+    "gamma_fixed_point_segments": (
+        "ops.lda_math.gamma_fixed_point_segments", None,
+        {"with_iters": "each row's iterations, for the per-document "
+                       "kernel's checks"}),
+    "infer_gamma": ("ops.lda_math.infer_gamma", None, {}),
+    "topic_inference": ("ops.lda_math.topic_inference", None, {}),
+    "initialize_distributed": (
+        "parallel.mesh.initialize_distributed", None,
+        {"backend": "the torch.distributed backend, nccl or gloo "
+                    "(--dist-backend)",
+         "device": _DEVICE}),
+    "gather_token_rows": ("models.base.gather_token_rows", None, {}),
 }
 
 
