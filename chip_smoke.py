@@ -13,9 +13,12 @@
    for it): ``doctor`` (exit 0, the accelerator OK and naming this card,
    the CPU path and the text library OK, nvcc found and all six
    libraries built for the current sources, the build directory's
-   listing unchanged by it) and ``lint --no-jaxpr --protocol --format
-   json`` over this checkout (exit 0, no unwaived finding, no stale
-   waiver, every protocol rule clean, the build directory unchanged);
+   listing unchanged by it) and ``lint --protocol --format json`` over
+   this checkout, layers 1, 2 and 4 (exit 0, no unwaived finding, no
+   stale waiver, every protocol rule clean, layer 2's trace audit over
+   every registered entry point, at least 20, with no unwaived
+   ``jaxpr:`` finding and no CUDA context made, the build directory
+   unchanged);
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it and at the edges of its contract, and
    times kernel, plain version, and (for the scatter) the one PyTorch call
@@ -7364,10 +7367,13 @@ def check_doctor(torch, started, build_dir, digest, n_sources):
 
 
 def check_lint(started, build_dir):
-    """``lint --no-jaxpr --protocol --format json`` over this checkout:
-    exit 0, no unwaived finding, no stale waiver, every protocol rule
-    clean, and the build directory's listing as it was (lint builds
-    nothing); with the seconds it ran and the seconds main() waited."""
+    """``lint --protocol --format json`` over this checkout: exit 0, no
+    unwaived finding, no stale waiver, every protocol rule clean, layer
+    2's trace audit over at least 20 entry points with no unwaived
+    ``jaxpr:`` finding (a CUDA context made during it would be an
+    unwaived STC200), and the build directory's listing as it was (lint
+    builds nothing); with the seconds it ran and the seconds main()
+    waited."""
     out, secs, blocked = wait_cli(started, "lint")
     proc = started["proc"]
     try:
@@ -7379,12 +7385,19 @@ def check_lint(started, build_dir):
     stale = [f for f in doc["findings"]
              if f["rule"] == "STC000" and "stale" in f["message"]]
     rules = doc.get("protocol", {}).get("rules", {})
+    audited = doc.get("entrypoints_audited", [])
+    jaxpr_unwaived = [f for f in doc["findings"]
+                      if f["path"].startswith("jaxpr:")]
+    jaxpr_waived = [f for f in doc.get("waived", [])
+                    if f["path"].startswith("jaxpr:")]
     want = {
         "exit 0": proc.returncode == 0,
         "no unwaived finding": doc["counts"]["findings"] == 0,
         "no stale waiver": not stale,
         "the protocol audit ran clean": bool(rules) and not any(
             rules.values()),
+        "layer 2 audited >= 20 entry points": len(audited) >= 20,
+        "no unwaived jaxpr finding": not jaxpr_unwaived,
         "the build directory unchanged":
             sorted(os.listdir(build_dir)) == started["listing"],
     }
@@ -7395,6 +7408,9 @@ def check_lint(started, build_dir):
             "findings": doc["counts"]["findings"],
             "waived": doc["counts"]["waived"], "stale": len(stale),
             "protocol_sites": doc["protocol"]["sites"],
+            "entrypoints": len(audited),
+            "jaxpr_unwaived": len(jaxpr_unwaived),
+            "jaxpr_waived": len(jaxpr_waived),
             "seconds": secs, "blocked_s": blocked}
 
 
@@ -7462,8 +7478,8 @@ def main() -> int:
     if not args.kernels_only:
         doctor = start_cli(_build.BUILD_DIR, "doctor", "--probe-timeout",
                            "120", merge_stderr=True)
-        lint = start_cli(_build.BUILD_DIR, "lint", "--no-jaxpr",
-                         "--protocol", "--format", "json")
+        lint = start_cli(_build.BUILD_DIR, "lint", "--protocol",
+                         "--format", "json")
     t0 = time.perf_counter()
     rows_a = en_books_rows(args.seed)
     rows_b = newsgroups_rows(args.seed)

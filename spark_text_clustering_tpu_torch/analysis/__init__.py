@@ -1,6 +1,6 @@
-"""Project-native static analysis (``stc lint``) of the port, a copy of the
-JAX package's ``analysis`` layers 1 and 4 pointed at
-``spark_text_clustering_tpu_torch/``:
+"""Project-native static analysis (``stc lint``) of the port: the JAX
+package's ``analysis`` layers 1 and 4 copied, and its layer 2 read for
+torch, pointed at ``spark_text_clustering_tpu_torch/``:
 
   * **AST invariant checkers** (``ast_rules``) — named STC0xx/STC1xx
     rules over the package source: sleep routing, exception taxonomy,
@@ -12,8 +12,13 @@ JAX package's ``analysis`` layers 1 and 4 pointed at
     ``lint --protocol``) — STC300-305 over the fleet's threads and
     shared files.
 
-The trace layers (the jaxpr audit's analogue and ``lint --scale``) are
-ROADMAP.md queue 1 item 10c; the verb exits 2 when asked for them.
+  * **trace audit** (``jaxpr_audit`` over the ``entrypoints`` registry,
+    on by default, ``--no-jaxpr`` skips it) — STC200-205: each
+    registered entry point called once on CPU tensors under torch's
+    dispatch and function modes.
+
+The scale audit (``lint --scale``, layer 3) is ROADMAP.md queue 1 item
+10c; the verb exits 2 when asked for it.
 
 Waivers: inline ``# stc-lint: disable=RULE -- reason`` pragmas or the
 port's committed ``analysis/lint_baseline.json`` allowlist; both require

@@ -56,7 +56,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 from .findings import Finding, pragma_disables
 
-__all__ = ["LintIndex", "run_ast_rules", "AST_RULES"]
+__all__ = ["LintIndex", "run_ast_rules", "AST_RULES", "dispatch_labels"]
 
 PACKAGE = "spark_text_clustering_tpu_torch"
 
@@ -496,8 +496,9 @@ def _dispatch_target(
     """The simple name of the function a wrapped callable runs, resolved
     the way the JAX package resolves ``jax.jit(X)``: a name (through an
     assignment chain that is not the wrapping itself), ``partial(X,
-    ...)``, or a lambda whose body calls X (a lambda parameter that
-    defaults to a name resolves to that name)."""
+    ...)``, a lambda whose body calls X (a lambda parameter that
+    defaults to a name resolves to that name), or ``make_x(...)``, a
+    factory whose result is the callable (the factory's body holds it)."""
     if depth > 4:
         return None
     if isinstance(expr, ast.Name):
@@ -533,7 +534,140 @@ def _dispatch_target(
         base, attr = _call_name(expr.func)
         if attr == "partial" and base in ("functools", None) and expr.args:
             return _dispatch_target(expr.args[0], assigns, depth + 1)
+        if base is None and attr is not None:
+            return attr
     return None
+
+
+def _dispatch_label(call: ast.Call) -> Optional[ast.AST]:
+    """The label argument of an ``instrument_dispatch`` call."""
+    if call.args:
+        return call.args[0]
+    for kw in call.keywords:
+        if kw.arg == "label":
+            return kw.value
+    return None
+
+
+def _label_values(expr: ast.AST, mod: ModuleInfo,
+                  parents: Dict[int, ast.AST], depth: int = 0) -> Set[str]:
+    """Every string a dispatch label expression can take: constants,
+    both arms of a conditional, ``or``, ``D.get(key)`` of a module-level
+    dict of strings, and names through their assignments in the
+    enclosing function (or the module) or, for a parameter, through the
+    calls of that function in the module."""
+    if depth > 6:
+        return set()
+    if isinstance(expr, ast.Constant) and isinstance(expr.value, str):
+        return {expr.value}
+    if isinstance(expr, ast.IfExp):
+        return (_label_values(expr.body, mod, parents, depth + 1)
+                | _label_values(expr.orelse, mod, parents, depth + 1))
+    if isinstance(expr, ast.BoolOp):
+        out: Set[str] = set()
+        for v in expr.values:
+            out |= _label_values(v, mod, parents, depth + 1)
+        return out
+    if isinstance(expr, ast.Call) and isinstance(expr.func, ast.Attribute):
+        if expr.func.attr == "get" and isinstance(expr.func.value, ast.Name):
+            table = _module_dict(mod, expr.func.value.id)
+            if table is not None:
+                out = set()
+                for v in list(table.values) + expr.args[1:]:
+                    out |= _label_values(v, mod, parents, depth + 1)
+                return out
+        return set()
+    if not isinstance(expr, ast.Name):
+        return set()
+    fn = _enclosing_function(expr, parents)
+    scope = fn if fn is not None else mod.tree
+    out = set()
+    for node in ast.walk(scope):
+        if not isinstance(node, ast.Assign):
+            continue
+        for target in node.targets:
+            if isinstance(target, ast.Name) and target.id == expr.id:
+                out |= _label_values(node.value, mod, parents, depth + 1)
+            elif (isinstance(target, ast.Tuple)
+                  and isinstance(node.value, ast.Tuple)):
+                for t, v in zip(target.elts, node.value.elts):
+                    if isinstance(t, ast.Name) and t.id == expr.id:
+                        out |= _label_values(v, mod, parents, depth + 1)
+    if out:
+        return out
+    for a in _param_arguments(expr, mod, parents):
+        out |= _label_values(a, mod, parents, depth + 1)
+    return out
+
+
+def _enclosing_function(node: ast.AST, parents: Dict[int, ast.AST]):
+    fn = parents.get(id(node))
+    while fn is not None and not isinstance(
+            fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+        fn = parents.get(id(fn))
+    return fn
+
+
+def _param_arguments(name: ast.Name, mod: ModuleInfo,
+                     parents: Dict[int, ast.AST]) -> List[ast.AST]:
+    """Where ``name`` is a parameter of its enclosing function, the
+    expressions the module's calls of that function pass for it."""
+    fn = _enclosing_function(name, parents)
+    if fn is None:
+        return []
+    params = [a.arg for a in fn.args.posonlyargs + fn.args.args]
+    if name.id not in params + [a.arg for a in fn.args.kwonlyargs]:
+        return []
+    pos = params.index(name.id) if name.id in params else None
+    if pos is not None and params[0] in ("self", "cls"):
+        pos -= 1
+    out: List[ast.AST] = []
+    for call in ast.walk(mod.tree):
+        if not isinstance(call, ast.Call):
+            continue
+        _, attr = _call_name(call.func)
+        if attr != fn.name:
+            continue
+        out.extend(kw.value for kw in call.keywords if kw.arg == name.id)
+        if pos is not None and 0 <= pos < len(call.args):
+            out.append(call.args[pos])
+    return out
+
+
+def _module_dict(mod: ModuleInfo, name: str) -> Optional[ast.Dict]:
+    for node in mod.tree.body:
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and any(isinstance(t, ast.Name) and t.id == name
+                        for t in node.targets)):
+            return node.value
+    return None
+
+
+def dispatch_labels(
+    root: str, rel_package: str = PACKAGE
+) -> Tuple[Dict[str, List[str]], List[str]]:
+    """The labels passed to ``telemetry.instrument_dispatch`` anywhere in
+    the package, found at STC005's roots (``_is_dispatch_wrap``): (label
+    -> ["<path>:<line>", ...], the wrap sites whose label resolved to no
+    string)."""
+    idx = LintIndex.build(root, rel_package)
+    labels: Dict[str, List[str]] = {}
+    unresolved: List[str] = []
+    for rel, mod in sorted(idx.modules.items()):
+        parents = {id(child): node for node in ast.walk(mod.tree)
+                   for child in ast.iter_child_nodes(node)}
+        for node in ast.walk(mod.tree):
+            if not _is_dispatch_wrap(node):
+                continue
+            site = f"{rel}:{node.lineno}"
+            expr = _dispatch_label(node)
+            values = (_label_values(expr, mod, parents)
+                      if expr is not None else set())
+            if not values:
+                unresolved.append(site)
+            for label in values:
+                labels.setdefault(label, []).append(site)
+    return labels, unresolved
 
 
 def _sync_message(
@@ -625,6 +759,8 @@ def _check_host_syncs(idx: LintIndex) -> List[Finding]:
     # resolved in its module (or through its package-relative import)
     roots: List[Tuple[str, str]] = []
     for rel, mod in idx.modules.items():
+        parents = {id(child): node for node in ast.walk(mod.tree)
+                   for child in ast.iter_child_nodes(node)}
         assigns: Dict[str, ast.AST] = {}
         for node in ast.walk(mod.tree):
             if (
@@ -637,13 +773,16 @@ def _check_host_syncs(idx: LintIndex) -> List[Finding]:
             if not _is_dispatch_wrap(node):
                 continue
             wrapped = _wrapped_callable(node)
-            name = (
-                _dispatch_target(wrapped, assigns)
-                if wrapped is not None else None
-            )
-            hit = resolve(rel, name) if name else None
-            if hit is not None:
-                roots.append(hit)
+            # a callable handed in as a parameter roots where the
+            # module's calls of the enclosing function pass it
+            exprs = [wrapped] if wrapped is not None else []
+            if isinstance(wrapped, ast.Name):
+                exprs += _param_arguments(wrapped, mod, parents)
+            for expr in exprs:
+                name = _dispatch_target(expr, assigns)
+                hit = resolve(rel, name) if name else None
+                if hit is not None:
+                    roots.append(hit)
 
     # BFS reachability over same-module defs + package-relative imports
     reached: Set[Tuple[str, str]] = set()

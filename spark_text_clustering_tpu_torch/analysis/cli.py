@@ -3,35 +3,39 @@ the JAX package's ``analysis/cli.py`` pointed at the port.
 
 Usage::
 
+    python -m spark_text_clustering_tpu_torch.cli lint
+    python -m spark_text_clustering_tpu_torch.cli lint --protocol
     python -m spark_text_clustering_tpu_torch.cli lint --no-jaxpr
-    python -m spark_text_clustering_tpu_torch.cli lint --no-jaxpr --protocol
     python -m spark_text_clustering_tpu_torch.cli lint --changed
-    python -m spark_text_clustering_tpu_torch.cli lint --no-jaxpr --format json
-    python -m spark_text_clustering_tpu_torch.cli lint --no-jaxpr --rebaseline
+    python -m spark_text_clustering_tpu_torch.cli lint --format json
+    python -m spark_text_clustering_tpu_torch.cli lint --rebaseline
 
 Layer 1 is the AST invariant rules (``analysis.ast_rules``, STC000-007
-and STC101-102) over ``spark_text_clustering_tpu_torch/``; ``--protocol``
-adds layer 4, the protocol audit (``analysis.protocol_audit``):
-STC300-305 over the thread/shared-file coordination fabric, checked both
-directions against the ``analysis.protocol_sites`` registry — pure AST.
+and STC101-102) over ``spark_text_clustering_tpu_torch/``; layer 2, on
+by default (``--no-jaxpr`` skips it), is the trace audit
+(``analysis.jaxpr_audit``, STC200-205): every entry point of
+``analysis.entrypoints`` called once on CPU tensors under torch's
+dispatch and function modes; ``--protocol`` adds layer 4, the protocol
+audit (``analysis.protocol_audit``): STC300-305 over the
+thread/shared-file coordination fabric, checked both directions against
+the ``analysis.protocol_sites`` registry — pure AST.
 
-Layers 2 and 3 (the trace tiers: the jaxpr audit's analogue and
-``--scale``) are not ported yet (ROADMAP.md queue 1 item 10c), and the
-verb refuses them rather than skip them silently: ``--scale``, and
-``lint`` without ``--no-jaxpr`` (the JAX verb's default runs layer 2),
-exit 2.  ``--changed`` scopes the AST layer to git-changed files, runs
-the protocol tier exactly when a registry-watched module changed, and
-refuses the trace layers only when a traced surface changed — where the
-JAX verb would run them; a diff that touches none runs the AST tier, as
-the JAX verb does.
+Layer 3 (``--scale``, the scale audit) is not ported yet (ROADMAP.md
+queue 1 item 10c), and the verb refuses it rather than skip it
+silently: exit 2.  ``--changed`` scopes the AST layer to git-changed
+files, runs the protocol tier exactly when a registry-watched module
+changed, and runs layer 2 (and refuses ``--scale``) only when a traced
+surface changed, as the JAX verb does.
 
 Exit codes mirror ``metrics check``: 0 = clean (no unwaived findings),
 1 = findings, 2 = usage/config error or a layer not ported.  Every run
 mirrors its outcome into the telemetry registry (``lint.findings`` /
 ``lint.waived``, plus ``lint.protocol_*`` under ``--protocol``) and —
 with ``--telemetry-file`` — into a run stream the ``metrics`` verbs can
-diff.  The verb imports no jax, makes no CUDA context and builds no
-kernel library.
+diff (the ``lint_run`` event's ``entrypoints`` is the audited count).
+The verb imports no jax, makes no CUDA context (layer 2 reports one as
+STC200) and builds no kernel library: the kernel wrappers take their
+plain versions on CPU tensors.
 """
 
 from __future__ import annotations
@@ -70,7 +74,7 @@ _TRACED_PREFIXES = (
 
 
 class LayerNotPorted(ValueError):
-    """A trace layer (2 or 3) was asked for: ROADMAP.md queue 1 item
+    """Layer 3 (the scale audit) was asked for: ROADMAP.md queue 1 item
     10c, not ported yet."""
 
 
@@ -104,17 +108,11 @@ def changed_files(root: str) -> List[str]:
     return sorted(set(paths))
 
 
-def _refuse_trace_layers(jaxpr: bool, scale: bool) -> None:
+def _refuse_scale_layer(scale: bool) -> None:
     if scale:
         raise LayerNotPorted(
             "lint --scale (layer 3, the scale audit) is not ported yet "
             "(ROADMAP.md queue 1 item 10c)"
-        )
-    if jaxpr:
-        raise LayerNotPorted(
-            "lint's trace layer (layer 2, the jaxpr audit) is not ported "
-            "yet (ROADMAP.md queue 1 item 10c); pass --no-jaxpr for the "
-            "AST tier (and --protocol for layer 4)"
         )
 
 
@@ -136,7 +134,7 @@ def run_lint(
     Findings come back with pragma AND baseline waivers applied, plus
     any STC000 meta-findings (reasonless/stale waivers — stale checks
     are skipped under a ``changed`` scope, where most waivers
-    legitimately match nothing).  A trace layer that would run raises
+    legitimately match nothing).  A scale layer that would run raises
     ``LayerNotPorted``; ``scale_baseline_path`` belongs to it and is
     never read.
     """
@@ -150,7 +148,7 @@ def run_lint(
         )
         jaxpr = jaxpr and trace_surface_changed
         scale = scale and trace_surface_changed
-    _refuse_trace_layers(jaxpr, scale)
+    _refuse_scale_layer(scale)
     findings = run_ast_rules(root, rules=rules)
     if changed is not None:
         findings = [f for f in findings if f.path in keep_paths]
@@ -165,6 +163,14 @@ def run_lint(
         }
         protocol = bool(keep_paths & protocol_surface)
     audited: List[str] = []
+    if jaxpr:
+        from .jaxpr_audit import run_jaxpr_audit
+
+        jf, audited = run_jaxpr_audit()
+        if rules:
+            keep = set(rules)
+            jf = [f for f in jf if f.rule in keep]
+        findings.extend(jf)
     protocol_report = None
     if protocol:
         from .protocol_audit import run_protocol_audit
@@ -176,8 +182,10 @@ def run_lint(
         findings.extend(pf)
     bl_path = baseline_path or os.path.join(root, DEFAULT_BASELINE_PATH)
     baseline = Baseline.load(bl_path)
-    # the trace layers never run here, so their waivers are never stale
-    exempt = ("jaxpr:", "scale:") + (() if protocol else ("protocol:",))
+    # the scale layer never runs here, so its waivers are never stale
+    exempt = ("scale:",) + tuple(
+        p for p, ran in (("jaxpr:", jaxpr), ("protocol:", protocol))
+        if not ran)
     findings = apply_waivers(
         findings,
         baseline,
@@ -302,10 +310,10 @@ def cmd_lint(args: argparse.Namespace) -> int:
 def add_lint_subparser(sub) -> None:
     p = sub.add_parser(
         "lint",
-        help="project-native static analysis: AST invariant rules "
-             "(--no-jaxpr) + the --protocol audit; the trace layers "
-             "(the default jaxpr layer, --scale) are ROADMAP item 10c "
-             "and exit 2",
+        help="project-native static analysis: AST invariant rules + the "
+             "layer-2 trace audit of the registered entry points (on "
+             "by default) + the --protocol audit; --scale (layer 3) is "
+             "ROADMAP item 10c and exits 2",
     )
     p.add_argument(
         "--format", default="text", choices=["text", "json"],
@@ -317,7 +325,8 @@ def add_lint_subparser(sub) -> None:
     )
     p.add_argument(
         "--no-jaxpr", action="store_true",
-        help="skip layer 2 (not ported: without this flag lint exits 2)",
+        help="skip layer 2 (the trace audit of the registered entry "
+             "points: STC200-205) — AST-only fast mode",
     )
     p.add_argument(
         "--scale", action="store_true",
@@ -336,8 +345,8 @@ def add_lint_subparser(sub) -> None:
         "--changed", action="store_true",
         help="diff-scoped fast mode: AST rules on git-changed files "
              "only; the protocol tier exactly when a protocol-registry "
-             "module changed; the trace layers (refused) only when a "
-             "traced surface (analysis/csrc/models/ops/parallel) "
+             "module changed; layer 2 (and the refused --scale) only "
+             "when a traced surface (analysis/csrc/models/ops/parallel) "
              "changed",
     )
     p.add_argument(

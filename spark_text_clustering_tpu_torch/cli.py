@@ -34,7 +34,7 @@ exit codes:
     python -m spark_text_clustering_tpu_torch.cli doctor
     python -m spark_text_clustering_tpu_torch.cli compile-cache warm \
         --cache-dir <dir> --models-dir <dir>
-    python -m spark_text_clustering_tpu_torch.cli lint --no-jaxpr --protocol
+    python -m spark_text_clustering_tpu_torch.cli lint --protocol
 
 Two flags are the port's own: ``--device`` (default ``cuda``) names the
 device that IDF, training and scoring run on (without a card, pass
@@ -147,18 +147,19 @@ JAX package's verb does (``summarize``, ``merge`` of a grid's streams,
 ``scale-check`` is item 10 and exits 2).
 
 ``lint`` runs the JAX package's static analysis over the port's source:
-with ``--no-jaxpr`` the AST invariant rules (STC000-007, STC101-102;
-STC005 roots at the callables ``telemetry.instrument_dispatch`` wraps),
-and with ``--protocol`` also the STC300-305 protocol audit, against the
-port's own waiver baseline ``analysis/lint_baseline.json``.  The trace
-layers are item 10c: ``--scale``, and ``lint`` without ``--no-jaxpr``,
-exit 2.  It makes no CUDA context and builds nothing.
+the AST invariant rules (STC000-007, STC101-102; STC005 roots at the
+callables ``telemetry.instrument_dispatch`` wraps), the trace audit of
+the registered entry points (STC200-205, each called once on CPU
+tensors; ``--no-jaxpr`` skips it), and with ``--protocol`` also the
+STC300-305 protocol audit, against the port's own waiver baseline
+``analysis/lint_baseline.json``.  The scale audit is item 10c:
+``--scale`` exits 2.  It makes no CUDA context and builds nothing.
 
 Exit codes: 0 on success; 1 for a fleet that spent its respawn budget,
 for a ``compile-cache verify`` with findings and for a ``lint`` with
 unwaived findings; 2 for a usage error, a missing or corrupt model, a
 resume mismatch and a verb or layer not ported yet (``metrics
-scale-check``, ``lint --scale``, ``lint`` without ``--no-jaxpr``); 3 for
+scale-check``, ``lint --scale``); 3 for
 a stream whose ledger write was fenced and for a ``lineage`` target that
 names nothing.
 """

@@ -69,7 +69,8 @@ from .sharded_eval import (
 )
 
 __all__ = ["EMLDA", "em_layout", "em_padded_cells", "em_padded_shape",
-           "packed_plan", "packed_log_likelihood", "packed_shard_plan"]
+           "make_em_bucket_loglik", "make_em_chunk_runner", "packed_plan",
+           "packed_log_likelihood", "packed_shard_plan"]
 
 # Below this many single-bucket cells one padded sweep beats several
 # bucketed ones (the JAX package's auto bucketing rule)
@@ -191,6 +192,32 @@ def packed_log_likelihood(n_wk, n_dk, ids, cts, seg, *, alpha, eta, v):
     tok = (phi_w * theta[seg.long()]).sum(dim=-1)
     safe = torch.where(tok > 0, tok, torch.ones_like(tok))
     return (cts * torch.log(safe)).sum()
+
+
+def make_em_bucket_loglik(*, alpha: float, eta: float,
+                          vocab_size: int) -> Callable[..., torch.Tensor]:
+    """The padded layout's per-bucket ``logLikelihood`` on one device:
+    fn(n_wk [k, V], n_dk [B, k], ids [B, L], weights [B, L], seg [B * L])
+    -> the bucket's term (``packed_log_likelihood`` over its cells)."""
+
+    def bucket_loglik(n_wk, n_dk, ids_b, wts_b, seg_b):
+        return packed_log_likelihood(
+            n_wk, n_dk, ids_b.reshape(-1), wts_b.reshape(-1), seg_b,
+            alpha=alpha, eta=eta, v=vocab_size)
+
+    return bucket_loglik
+
+
+def make_em_chunk_runner(sweep: Callable) -> Callable:
+    """``m`` sweeps of a layout in one dispatch (the JAX package's chunk
+    runner): fn(n_wk, n_dk, m) -> (n_wk, n_dk)."""
+
+    def chunk(n_wk, n_dk, m):
+        for _ in range(m):
+            n_wk, n_dk = sweep(n_wk, n_dk)
+        return n_wk, n_dk
+
+    return chunk
 
 
 class _Layout(NamedTuple):
@@ -379,9 +406,7 @@ class EMLDA:
         # per-bucket evaluator
         bucket_ll = telemetry.instrument_dispatch(
             "sharded_eval.em_log_likelihood",
-            lambda n_wk, n_dk, ids_b, wts_b, seg_b: packed_log_likelihood(
-                n_wk, n_dk, ids_b.reshape(-1), wts_b.reshape(-1), seg_b,
-                alpha=alpha, eta=eta, v=v))
+            make_em_bucket_loglik(alpha=alpha, eta=eta, vocab_size=v))
 
         def loglik(n_wk, n_dk):
             return sum(bucket_ll(n_wk, n_dk[off:off + ids_b.shape[0]], ids_b,
@@ -608,16 +633,12 @@ class EMLDA:
             max(1, p.checkpoint_interval) if ckpt_path else max(1, n_iters)
         )
 
-        def chunk(n_wk, n_dk, m):
-            for _ in range(m):
-                n_wk, n_dk = layout.sweep(n_wk, n_dk)
-            return n_wk, n_dk
-
         # one dispatch a chunk of m sweeps, under the JAX package's label
         # of the layout's runner (its verbose padded fit steps each bucket)
         run = telemetry.instrument_dispatch(
             "em.chunk_runner" if padded and not verbose
-            else "em.bucket_step" if padded else "em.packed_chunk", chunk)
+            else "em.bucket_step" if padded else "em.packed_chunk",
+            make_em_chunk_runner(layout.sweep))
         timer = IterationTimer()
         it = start_it
         dispatches = 0

@@ -70,6 +70,8 @@ __all__ = [
     "NMFModel",
     "docs_w_to_tiles",
     "frobenius_loss",
+    "make_nmf_packed_runner",
+    "make_nmf_train_step",
     "packed_sweeps",
     "padded_step",
 ]
@@ -199,6 +201,36 @@ def padded_step(w, h, ids, wts, eps: float = _EPS, grid=None):
     h = _h_update(h, _wtx(flat, vals.reshape(-1, vals.shape[-1]), h, grid),
                   w, eps, grid)
     return w, h
+
+
+def make_nmf_train_step(grid=None, eps: float = _EPS):
+    """The padded layout's sweeps in one dispatch: fn(w, h, ids [B, L],
+    weights [B, L], m, on_sweep=None) -> (w, h) after ``m``
+    ``padded_step`` sweeps, ``on_sweep()`` after each."""
+
+    def sweep(w, h, ids, wts, m, on_sweep=None):
+        for _ in range(m):
+            w, h = padded_step(w, h, ids, wts, eps, grid=grid)
+            if on_sweep is not None:
+                on_sweep()
+        return w, h
+
+    return sweep
+
+
+def make_nmf_packed_runner(grid=None, *, x2: float, d: Optional[int] = None,
+                           eps: float = _EPS):
+    """The packed layout's sweeps and loss in one dispatch (the JAX
+    package's ``make_nmf_packed_runner``): fn(w, h, ids, cts, seg, m,
+    on_sweep=None) -> ``packed_sweeps``' (w, h, loss); ``d`` given, the
+    tile layout, else the flat one.  ``x2`` is ||X||^2 of the whole
+    corpus."""
+
+    def sweep(w, h, ids, cts, seg, m, on_sweep=None):
+        return packed_sweeps(w, h, ids, cts, seg, x2, m, d=d, eps=eps,
+                             on_sweep=on_sweep, grid=grid)
+
+    return sweep
 
 
 def frobenius_loss(batch: DocTermBatch, w, h, grid=None) -> torch.Tensor:
@@ -550,15 +582,10 @@ class NMF:
                 w = w_doc.new_zeros(batch.token_ids.shape[0], k)
                 w[:hi - lo] = w_doc[lo:hi]
 
-            def sweep(w_, h_, ids, wts, m, on_sweep):
-                for _ in range(m):
-                    w_, h_ = padded_step(w_, h_, ids, wts, grid=g)
-                    on_sweep()
-                return w_, h_
-
             # the JAX package's labels: the sweeps, then the loss
             (w, h), timer = self._run(
-                sweep, (w, h, batch.token_ids, batch.token_weights),
+                make_nmf_train_step(g),
+                (w, h, batch.token_ids, batch.token_weights),
                 p.max_iterations, verbose, "",
                 "nmf.chunk_runner" if p.max_iterations > 1
                 else "nmf.train_step")
@@ -631,11 +658,7 @@ class NMF:
                 for a in (ids_f, cts_f, seg_f))
             d, label, dispatch = None, " (packed)", "nmf.packed_chunk"
 
-        def sweep(w, h, ids, cts, seg, m, on_sweep):
-            return packed_sweeps(w, h, ids, cts, seg, x2, m, d=d,
-                                 on_sweep=on_sweep, grid=g)
-
-        (w, h, loss), timer = self._run(sweep, (w, h, ids, cts, seg),
-                                        p.max_iterations, verbose, label,
-                                        dispatch)
+        (w, h, loss), timer = self._run(
+            make_nmf_packed_runner(g, x2=x2, d=d), (w, h, ids, cts, seg),
+            p.max_iterations, verbose, label, dispatch)
         return w, h, loss, timer

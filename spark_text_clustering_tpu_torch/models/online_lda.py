@@ -71,6 +71,7 @@ checkpoints; every rank returns the same model.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import os
 from dataclasses import dataclass
@@ -118,6 +119,12 @@ from .persistence import load_train_state, save_train_state
 
 __all__ = [
     "OnlineLDA",
+    "make_gamma_rows",
+    "make_online_chunk_runner",
+    "make_online_packed_chunk",
+    "make_online_packed_tiles_chunk",
+    "make_online_resident_chunk",
+    "make_online_tiles_resident_chunk",
     "packed_iteration",
     "padded_estep",
     "padded_iteration",
@@ -388,6 +395,196 @@ def padded_iteration(
                         tau0=tau0, kappa=kappa, corpus_size=corpus_size)
 
 
+def make_gamma_rows(*, seed: int, n: int, k: int, gamma_shape: float,
+                    rng_device, device) -> Callable:
+    """fn(step, ids) -> step ``step``'s gamma inits [len(ids), k] on
+    ``device``, read from the step's Gamma table [n+1, k] at ``ids`` (drawn
+    on ``rng_device`` from (seed, 0x6A33, step); ids past n read row n)."""
+
+    def gamma_rows(step: int, ids: torch.Tensor) -> torch.Tensor:
+        gen = seeded_generator(rng_device, seed, _GAMMA_KEY, step)
+        table = init_gamma(gen, n + 1, k, gamma_shape, device=rng_device)
+        return table[ids.clamp(max=n).long()].to(device)
+
+    return gamma_rows
+
+
+def make_online_chunk_runner(chunk: Callable) -> Callable:
+    """A chunked path's dispatch: fn(lam, step, m) -> lambda after
+    ``chunk(lam, it, m)``, iterations it..it+m-1.  The step rides as a
+    CPU tensor, so the chunks of one width share a signature."""
+
+    def run_chunk(lam, step, m):
+        return chunk(lam, int(step), m)
+
+    return run_chunk
+
+
+def _flat_width(packs, n_data: int) -> int:
+    """Token slots of each minibatch of a flat packed chunk: the widest
+    padded to a power of two, then to a multiple of the data shards (the
+    JAX package's widths)."""
+    t_pad = next_pow2(max(8, max(pk[0].size for pk in packs)))
+    return -(-t_pad // n_data) * n_data
+
+
+def make_online_packed_tiles_chunk(gamma_rows: Callable, *, device,
+                                   rng_device, grid=None,
+                                   **kw) -> Callable:
+    """The host-streaming packed path's chunk on tiles (the JAX package's
+    ``make_online_packed_tiles_chunk``): chunk(lam, it, picks [m, bsz],
+    packs, plan) runs ``tiles_iteration`` on each minibatch's tiles of
+    ``plan`` (``plan_tile_pack_uniform``; this data rank's block), with
+    ``gamma_rows(i, picks[i])``'s inits; ``kw`` are its hyperparameters."""
+    d_idx, n_data = (0, 1) if grid is None else (grid.d, grid.data_shards)
+
+    def chunk(lam, it, picks, packs, plan):
+        per = plan.n_tiles // n_data
+        blk = slice(d_idx * per, (d_idx + 1) * per)
+        ids_c, cts_c, seg_c, doc_c = (
+            torch.from_numpy(np.ascontiguousarray(a[:, blk])).to(device)
+            for a in (plan.ids, plan.cts, plan.seg, plan.doc_ids))
+        picks_rng = torch.from_numpy(picks).to(rng_device)
+        for j, pk in enumerate(packs):
+            gamma0 = docs_gamma_to_tiles(
+                gamma_rows(it + j, picks_rng[j]), doc_c[j])
+            lam = tiles_iteration(lam, it + j, ids_c[j], cts_c[j], seg_c[j],
+                                  gamma0, pk[3], d=plan.d, grid=grid, **kw)
+        return lam
+
+    return chunk
+
+
+def make_online_packed_chunk(gamma_rows: Callable, *, device, rng_device,
+                             grid=None, **kw) -> Callable:
+    """The host-streaming packed path's flat chunk (the JAX package's
+    ``make_online_packed_chunk``): chunk(lam, it, picks [m, bsz], packs)
+    lays each minibatch's (ids, cts, seg) tokens into ``_flat_width``
+    slots (pad slots weigh 0), takes this data rank's slice and runs
+    ``packed_iteration``; ``kw`` are its hyperparameters."""
+    d_idx, n_data = (0, 1) if grid is None else (grid.d, grid.data_shards)
+
+    def chunk(lam, it, picks, packs):
+        m = len(packs)
+        t_pad = _flat_width(packs, n_data)
+        tok = [np.zeros((m, t_pad), dt)
+               for dt in (np.int32, np.float32, np.int32)]
+        for j, pk in enumerate(packs):
+            for a, x in zip(tok, pk[:3]):
+                a[j, :x.size] = x
+        t_l = t_pad // n_data
+        ids_c, cts_c, seg_c = (
+            torch.from_numpy(np.ascontiguousarray(
+                a[:, d_idx * t_l:(d_idx + 1) * t_l])).to(device)
+            for a in tok)
+        picks_rng = torch.from_numpy(picks).to(rng_device)
+        for j, pk in enumerate(packs):
+            lam = packed_iteration(
+                lam, it + j, ids_c[j], cts_c[j], seg_c[j],
+                gamma_rows(it + j, picks_rng[j]), pk[3], grid=grid, **kw)
+        return lam
+
+    return chunk
+
+
+def make_online_tiles_resident_chunk(
+    ids_res: torch.Tensor,       # [shard tiles, tt] this rank's tiles
+    cts_res: torch.Tensor,
+    seg_res: torch.Tensor,
+    doc_rng: torch.Tensor,       # [shard tiles, d] doc ids on rng_device
+    doc_ids: np.ndarray,         # [all tiles, d] the plan's doc ids
+    tile_pick: Callable[[int], np.ndarray],
+    gamma_rows: Callable,
+    *,
+    n: int,
+    d: int,
+    per_tile_stop: bool,
+    grid=None,
+    **kw,
+) -> Callable:
+    """The tiles-resident path's chunk (the JAX package's
+    ``make_online_tiles_resident_chunk``): chunk(lam, it, m) runs
+    ``tiles_iteration`` on the tiles ``tile_pick(i)`` [data shards, tb]
+    picks for each iteration i, with ``gamma_rows(i, doc ids)``'s inits;
+    ``kw`` are ``tiles_iteration``'s hyperparameters."""
+    d_idx, n_data = (0, 1) if grid is None else (grid.d, grid.data_shards)
+    dev, rng_dev = ids_res.device, doc_rng.device
+    shard_base = (np.arange(n_data) * (doc_ids.shape[0] // n_data))[:, None]
+
+    def chunk(lam, it, m):
+        # the chunk's picks go to the device in one copy: a copy per
+        # iteration would wait for the card every iteration
+        picks = np.stack([tile_pick(i) for i in range(it, it + m)])
+        picks_dev = torch.from_numpy(
+            np.ascontiguousarray(picks[:, d_idx])).to(dev)
+        picks_rng = picks_dev.to(rng_dev)
+        for j in range(m):
+            pick = picks_dev[j]
+            # the minibatch's docs, every shard's tiles counted
+            docs = int((doc_ids[(picks[j] + shard_base).reshape(-1)]
+                        < n).sum())
+            gamma0 = gamma_rows(it + j, doc_rng[picks_rng[j]].reshape(-1)).T
+            lam = tiles_iteration(
+                lam, it + j, ids_res[pick], cts_res[pick], seg_res[pick],
+                gamma0.contiguous(), docs, d=d, per_tile_stop=per_tile_stop,
+                grid=grid, **kw)
+        return lam
+
+    return chunk
+
+
+def make_online_resident_chunk(
+    ids_res: torch.Tensor,       # [shard rows, row_len] this rank's rows
+    wts_res: torch.Tensor,
+    nonempty: np.ndarray,        # [n+1] bool: docs with weight
+    make_pick: Callable[[int], np.ndarray],
+    gamma_rows: Callable,
+    *,
+    n: int,
+    bsz: int,
+    rng_device,
+    grid=None,
+    **kw,
+) -> Callable:
+    """The padded-resident path's chunk (the JAX package's
+    ``make_online_resident_chunk``): chunk(lam, it, m) assembles each
+    iteration's picked rows (``make_pick(i)``, padded to ``bsz``) from the
+    ranks that own them (zeros elsewhere, one ``psum_data``) and runs
+    ``padded_iteration`` on this rank's slice; ``kw`` are its
+    hyperparameters."""
+    d_idx, n_data = (0, 1) if grid is None else (grid.d, grid.data_shards)
+    shard_n = ids_res.shape[0]
+    b_s = bsz // n_data
+    mine = slice(d_idx * b_s, (d_idx + 1) * b_s)
+    dev = ids_res.device
+
+    def assemble(pick):
+        local = pick.long() - d_idx * shard_n
+        own = ((local >= 0) & (local < shard_n))[:, None]
+        local = local.clamp(0, max(0, shard_n - 1))
+        ids_b = torch.where(own, ids_res[local], 0)
+        wts_b = torch.where(own, wts_res[local], 0.0)
+        if grid is not None:
+            ids_b, wts_b = psum_data(grid, ids_b), psum_data(grid, wts_b)
+        return ids_b[mine], wts_b[mine]
+
+    def chunk(lam, it, m):
+        picks = np.stack([make_pick(i) for i in range(it, it + m)])
+        picks_rng = torch.from_numpy(picks[:, mine].copy()).to(rng_device)
+        picks_dev = torch.from_numpy(picks).to(dev)
+        for j in range(m):
+            # docs the M-step counts, the whole minibatch's
+            docs = int(nonempty[np.minimum(picks[j], n)].sum())
+            if docs:
+                ids_s, wts_s = assemble(picks_dev[j])
+                lam = padded_iteration(
+                    lam, it + j, ids_s, wts_s,
+                    gamma_rows(it + j, picks_rng[j]), docs, grid=grid, **kw)
+        return lam
+
+    return chunk
+
+
 def _online_batch_size(p: Params, n: int) -> Tuple[int, float]:
     """(docs a minibatch holds, the sampling fraction f): ``batch_size``
     docs or MLlib's fraction of the corpus (clamped to 1); under
@@ -554,10 +751,9 @@ class OnlineLDA:
         read from the step's Gamma table at ``ids`` (on ``rng_device``;
         ids past n read row n)."""
         p = self.params
-        gen = seeded_generator(self.rng_device, p.seed, _GAMMA_KEY, step)
-        table = init_gamma(gen, run.n + 1, run.k, p.gamma_shape,
-                           device=self.rng_device)
-        return table[ids.clamp(max=run.n).long()].to(self.device)
+        return make_gamma_rows(
+            seed=p.seed, n=run.n, k=run.k, gamma_shape=p.gamma_shape,
+            rng_device=self.rng_device, device=self.device)(step, ids)
 
     def _sync(self, lam: torch.Tensor, label: str) -> None:
         """The wait for the card at the end of a chunk, under the JAX
@@ -617,8 +813,7 @@ class OnlineLDA:
             # one dispatch a chunk; the step rides as a tensor, so the
             # chunks of one width share a signature
             step_run = telemetry.instrument_dispatch(
-                label_d, lambda lam, step, m, run_chunk=chunk: run_chunk(
-                    lam, int(step), m))
+                label_d, make_online_chunk_runner(chunk))
 
             def chunk(lam, it, m):
                 return step_run(lam, torch.tensor(it), m)
@@ -749,32 +944,12 @@ class OnlineLDA:
             "tiles_per_iter": n_data * tb_l, "reals_per_shard": reals.tolist(),
             "resident_bytes": resident_bytes,
         }
-        dev, rng_dev = self.device, self.rng_device
-        shard_base = (np.arange(n_data) * per)[:, None]
-
-        def chunk(lam, it, m):
-            # the chunk's picks go to the device in one copy: a copy per
-            # iteration would wait for the card every iteration
-            picks = np.stack([tile_pick(i) for i in range(it, it + m)])
-            picks_dev = torch.from_numpy(
-                np.ascontiguousarray(picks[:, d_idx])).to(dev)
-            picks_rng = picks_dev.to(rng_dev)
-            for j in range(m):
-                pick = picks_dev[j]
-                # the minibatch's docs, every shard's tiles counted
-                docs = int((plan.doc_ids[(picks[j] + shard_base).reshape(-1)]
-                            < n).sum())
-                gamma0 = self._gamma_rows(
-                    run, it + j, doc_rng[picks_rng[j]].reshape(-1)).T
-                lam = tiles_iteration(
-                    lam, it + j, ids_res[pick], cts_res[pick], seg_res[pick],
-                    gamma0.contiguous(), docs,
-                    alpha=run.alpha_t, eta=run.eta, tau0=p.tau0,
-                    kappa=p.kappa, d=plan.d, corpus_size=float(n),
-                    max_inner=p.estep_max_inner, tol=p.estep_tol,
-                    per_tile_stop=kernel, grid=self.grid)
-            return lam
-
+        chunk = make_online_tiles_resident_chunk(
+            ids_res, cts_res, seg_res, doc_rng, plan.doc_ids, tile_pick,
+            functools.partial(self._gamma_rows, run), n=n, d=plan.d,
+            per_tile_stop=kernel, grid=self.grid, alpha=run.alpha_t,
+            eta=run.eta, tau0=p.tau0, kappa=p.kappa, corpus_size=float(n),
+            max_inner=p.estep_max_inner, tol=p.estep_tol)
         interval = _dispatch_interval(p, run.ckpt_path, run.verbose,
                                       run.n_iters, 4 * n_data * tb_l)
         lam = self._chunked(run, interval, chunk, "tiles-resident")
@@ -822,55 +997,11 @@ class OnlineLDA:
         cells = [0, 0]          # cells over the iterations run, iterations
         self.last_tile_chunks = []
 
-        def tiles_chunk(lam, it, picks, packs, plan):
-            m = len(packs)
-            self.last_gamma_backend = "pallas_tiles"
-            real_tiles = [int((plan.doc_ids[j, :, 0] < plan.b).sum())
-                          for j in range(m)]
-            self.last_tile_chunks.append({
-                "iterations": m, "d": plan.d, "n_tiles": plan.n_tiles,
-                "tt": plan.tt,
-                "all_pad_share": 1.0 - sum(real_tiles) / (m * plan.n_tiles)})
-            cells[0] += plan.n_tiles * plan.tt * m
-            per = plan.n_tiles // n_data
-            blk = slice(d_idx * per, (d_idx + 1) * per)
-            ids_c, cts_c, seg_c, doc_c = (
-                torch.from_numpy(np.ascontiguousarray(a[:, blk])).to(dev)
-                for a in (plan.ids, plan.cts, plan.seg, plan.doc_ids))
-            picks_rng = torch.from_numpy(picks).to(rng_dev)
-            for j, pk in enumerate(packs):
-                gamma0 = docs_gamma_to_tiles(
-                    self._gamma_rows(run, it + j, picks_rng[j]), doc_c[j])
-                lam = tiles_iteration(lam, it + j, ids_c[j], cts_c[j],
-                                      seg_c[j], gamma0, pk[3], d=plan.d,
-                                      **kw)
-            return lam
-
-        def flat_chunk(lam, it, picks, packs):
-            """The token slots of each minibatch padded to a power of two,
-            then to a multiple of the data shards (the JAX package's
-            widths); pad slots carry weight 0."""
-            m = len(packs)
-            self.last_gamma_backend = "xla"
-            t_pad = next_pow2(max(8, max(pk[0].size for pk in packs)))
-            t_pad = -(-t_pad // n_data) * n_data
-            cells[0] += t_pad * m
-            tok = [np.zeros((m, t_pad), dt)
-                   for dt in (np.int32, np.float32, np.int32)]
-            for j, pk in enumerate(packs):
-                for a, x in zip(tok, pk[:3]):
-                    a[j, :x.size] = x
-            t_l = t_pad // n_data
-            ids_c, cts_c, seg_c = (
-                torch.from_numpy(np.ascontiguousarray(
-                    a[:, d_idx * t_l:(d_idx + 1) * t_l])).to(dev)
-                for a in tok)
-            picks_rng = torch.from_numpy(picks).to(rng_dev)
-            for j, pk in enumerate(packs):
-                lam = packed_iteration(
-                    lam, it + j, ids_c[j], cts_c[j], seg_c[j],
-                    self._gamma_rows(run, it + j, picks_rng[j]), pk[3], **kw)
-            return lam
+        gamma_rows = functools.partial(self._gamma_rows, run)
+        tiles_chunk = make_online_packed_tiles_chunk(
+            gamma_rows, device=dev, rng_device=rng_dev, **kw)
+        flat_chunk = make_online_packed_chunk(
+            gamma_rows, device=dev, rng_device=rng_dev, **kw)
 
         def chunk(lam, it, m):
             nonlocal use_tiles
@@ -887,9 +1018,20 @@ class OnlineLDA:
                 use_tiles = plan is not None
             step = torch.tensor(it)
             if plan is not None:
+                self.last_gamma_backend = "pallas_tiles"
+                real_tiles = [int((plan.doc_ids[j, :, 0] < plan.b).sum())
+                              for j in range(m)]
+                self.last_tile_chunks.append({
+                    "iterations": m, "d": plan.d, "n_tiles": plan.n_tiles,
+                    "tt": plan.tt,
+                    "all_pad_share": 1.0 - sum(real_tiles) / (
+                        m * plan.n_tiles)})
+                cells[0] += plan.n_tiles * plan.tt * m
                 lam = _packed_tiles_run(lam, step, m, lambda lam: tiles_chunk(
                     lam, it, picks, packs, plan))
             else:
+                self.last_gamma_backend = "xla"
+                cells[0] += _flat_width(packs, n_data) * m
                 lam = _packed_flat_run(lam, step, m, lambda lam: flat_chunk(
                     lam, it, picks, packs))
             self.last_batch_cells = cells[0] // cells[1]
@@ -930,44 +1072,14 @@ class OnlineLDA:
         gather: the rows a rank owns, zeros elsewhere, one ``psum_data``),
         and each rank runs the padded E-step kernel on its slice of them."""
         p = self.params
-        n = run.n
-        g = self.grid
-        d_idx, n_data = self._data
-        ids_res, wts_res = resident
-        shard_n = ids_res.shape[0]
-        b_s = run.bsz // n_data
-        mine = slice(d_idx * b_s, (d_idx + 1) * b_s)
-        dev, rng_dev = self.device, self.rng_device
-        kw = dict(alpha=run.alpha_t, eta=run.eta, tau0=p.tau0,
-                  kappa=p.kappa, corpus_size=float(n),
-                  max_inner=p.estep_max_inner, tol=p.estep_tol, grid=g)
         self.last_gamma_backend = "pallas"
-
-        def assemble(pick):
-            local = pick.long() - d_idx * shard_n
-            own = ((local >= 0) & (local < shard_n))[:, None]
-            local = local.clamp(0, max(0, shard_n - 1))
-            ids_b = torch.where(own, ids_res[local], 0)
-            wts_b = torch.where(own, wts_res[local], 0.0)
-            if g is not None:
-                ids_b, wts_b = psum_data(g, ids_b), psum_data(g, wts_b)
-            return ids_b[mine], wts_b[mine]
-
-        def chunk(lam, it, m):
-            picks = np.stack([run.make_pick(i) for i in range(it, it + m)])
-            picks_rng = torch.from_numpy(picks[:, mine].copy()).to(rng_dev)
-            picks_dev = torch.from_numpy(picks).to(dev)
-            for j in range(m):
-                # docs the M-step counts, the whole minibatch's
-                docs = int(nonempty[np.minimum(picks[j], n)].sum())
-                if docs:
-                    ids_s, wts_s = assemble(picks_dev[j])
-                    lam = padded_iteration(
-                        lam, it + j, ids_s, wts_s,
-                        self._gamma_rows(run, it + j, picks_rng[j]), docs,
-                        **kw)
-            return lam
-
+        chunk = make_online_resident_chunk(
+            *resident, nonempty, run.make_pick,
+            functools.partial(self._gamma_rows, run), n=run.n, bsz=run.bsz,
+            rng_device=self.rng_device, grid=self.grid, alpha=run.alpha_t,
+            eta=run.eta, tau0=p.tau0, kappa=p.kappa,
+            corpus_size=float(run.n), max_inner=p.estep_max_inner,
+            tol=p.estep_tol)
         interval = _dispatch_interval(p, run.ckpt_path, run.verbose,
                                       run.n_iters)
         lam = self._chunked(run, interval, chunk, "padded-resident")

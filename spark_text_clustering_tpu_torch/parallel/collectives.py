@@ -24,8 +24,9 @@ rank.
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,8 +38,11 @@ from ..ops.sparse import DocTermBatch, batch_from_rows
 from .mesh import DATA_AXIS, MODEL_AXIS, ProcessGrid
 
 _EMPTY = (np.zeros(0, np.int32), np.zeros(0, np.float32))
+# the collectives called inside count_collectives(), else None
+_audit_calls: Optional[List[str]] = None
 
 __all__ = [
+    "count_collectives",
     "data_shard_rows",
     "fetch_global",
     "gather_model_rows",
@@ -54,8 +58,23 @@ __all__ = [
 ]
 
 
+@contextlib.contextmanager
+def count_collectives():
+    """Collect the names of the collectives called inside the block,
+    whether telemetry is on or off: the trace audit's hook (lint layer 2,
+    STC205).  Yields the list it fills."""
+    global _audit_calls
+    outer, _audit_calls = _audit_calls, []
+    try:
+        yield _audit_calls
+    finally:
+        _audit_calls = outer
+
+
 def _acct(name: str, *tensors) -> None:
     """One call of the collective ``name`` and its operands' bytes."""
+    if _audit_calls is not None:
+        _audit_calls.append(name)
     if not telemetry.enabled():
         return
     nbytes = sum(int(t.numel()) * t.element_size() for t in tensors)

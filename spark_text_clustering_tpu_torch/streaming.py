@@ -789,7 +789,8 @@ class StreamingOnlineLDA:
                 1 for _, w in chunk if np.sum(w) > 0)]),
             batch.token_ids, batch.token_weights, self._gamma0(),
             torch.tensor(float(max(self.docs_seen,
-                                   self.corpus_size_hint or 0))),
+                                   self.corpus_size_hint or 0)),
+                         dtype=torch.float32),
             alpha=self._alpha_dev, eta=p.resolved_eta(), tau0=p.tau0,
             kappa=p.kappa, grid=self.grid,
         )

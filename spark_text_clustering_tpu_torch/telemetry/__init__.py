@@ -44,6 +44,7 @@ needs it.
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Iterable, Optional
 
@@ -99,6 +100,7 @@ __all__ = [
     "gauge",
     "observe",
     "device_sync",
+    "in_device_sync",
     "sample_memory",
     "emit_fit",
 ]
@@ -108,6 +110,8 @@ __all__ = [
 PROCESS_T0 = time.perf_counter()
 
 _registry = MetricRegistry()
+# device_sync's per-thread flag (in_device_sync)
+_sync_state = threading.local()
 _writer: Optional[TelemetryWriter] = None
 _enabled = False
 # the run's torch device (``configure(device=)``): the one memory samples
@@ -252,26 +256,39 @@ def device_sync(x, label: str = "train"):
     Routing the hot loops' existing syncs through here gives the wait its
     own histogram (``device_sync.<label>.seconds``) and call counter, so
     a profile can say "the card was busy, the host was waiting".  It adds
-    no sync of its own: disabled mode is the bare synchronize.
+    no sync of its own: disabled mode is the bare synchronize.  While it
+    runs, ``in_device_sync()`` is true on this thread: the trace audit
+    (lint layer 2, STC203) exempts the host reads made here, as STC005
+    does.
     """
-    if not _enabled:
+    _sync_state.active = True
+    try:
+        if not _enabled:
+            if x.device.type == "cuda":
+                import torch
+
+                torch.cuda.synchronize(x.device)
+            return x
+        t0 = time.perf_counter()
         if x.device.type == "cuda":
             import torch
 
             torch.cuda.synchronize(x.device)
+        dt = time.perf_counter() - t0
+        _registry.histogram(f"device_sync.{label}.seconds").observe(dt)
+        _registry.counter(f"device_sync.{label}.calls").inc()
+        # the wait belongs to the call dispatched just before it: it
+        # completes that digest's measured roofline seconds
+        # (dispatch.note_sync)
+        _note_sync(dt)
         return x
-    t0 = time.perf_counter()
-    if x.device.type == "cuda":
-        import torch
+    finally:
+        _sync_state.active = False
 
-        torch.cuda.synchronize(x.device)
-    dt = time.perf_counter() - t0
-    _registry.histogram(f"device_sync.{label}.seconds").observe(dt)
-    _registry.counter(f"device_sync.{label}.calls").inc()
-    # the wait belongs to the call dispatched just before it: it completes
-    # that digest's measured roofline seconds (dispatch.note_sync)
-    _note_sync(dt)
-    return x
+
+def in_device_sync() -> bool:
+    """True while ``device_sync`` runs on this thread."""
+    return getattr(_sync_state, "active", False)
 
 
 def sample_memory(label: str = ""):

@@ -17,8 +17,9 @@ Four groups:
     ``jax.jit`` and cannot be parity cases);
   * the port's own tree is clean under its own baseline, every waiver
     with a reason;
-  * the verb's exit codes: 0 clean, 1 findings, 2 for the trace layers
-    (item 10c).
+  * the verb's exit codes: 0 clean, 1 findings, 2 for the scale layer
+    (item 10c); bare ``lint`` runs layer 2, the trace audit of the
+    registered entry points, as the JAX verb's does.
 """
 
 from __future__ import annotations
@@ -35,6 +36,9 @@ from spark_text_clustering_tpu_torch import cli as tcli
 from spark_text_clustering_tpu_torch.analysis import ast_rules as trules
 from spark_text_clustering_tpu_torch.analysis import cli as tlint
 from spark_text_clustering_tpu_torch.analysis import findings as tfind
+from spark_text_clustering_tpu_torch.analysis.entrypoints import (
+    entrypoint_names,
+)
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGES = {"jax": (jrules.PACKAGE, jrules.run_ast_rules),
@@ -599,7 +603,8 @@ def test_committed_port_baseline_reasons_nonempty():
     for w in data["waivers"]:
         assert set(w) == {"rule", "path", "match", "reason"}, w
         assert w["reason"].strip(), w
-        assert w["path"].startswith("spark_text_clustering_tpu_torch/"), w
+        assert w["path"].startswith(
+            ("spark_text_clustering_tpu_torch/", "jaxpr:")), w
 
 
 def test_changed_scope_skips_stale_sweep_and_filters_paths():
@@ -622,11 +627,15 @@ def test_changed_scope_skips_stale_sweep_and_filters_paths():
     "spark_text_clustering_tpu_torch/csrc/estep.cu",
 ])
 def test_changed_traced_surface_refuses_the_trace_layers(changed):
-    """A diff that touches a traced surface would run the jaxpr layer in
-    the JAX package: the port refuses it, naming item 10c."""
+    """A diff that touches a traced surface runs the jaxpr layer, as in
+    the JAX package (every registered entry, each finding waived), and
+    refuses the scale layer, naming item 10c."""
+    findings, audited, _, scale_report, _ = tlint.run_lint(
+        REPO_ROOT, changed=[changed])
+    assert audited == entrypoint_names() and scale_report is None
+    assert not [f for f in findings if not f.waived]
     with pytest.raises(tlint.LayerNotPorted, match="item 10c"):
-        tlint.run_lint(REPO_ROOT, changed=[changed])
-    tlint.run_lint(REPO_ROOT, jaxpr=False, changed=[changed])
+        tlint.run_lint(REPO_ROOT, scale=True, changed=[changed])
 
 
 # ---------------------------------------------------------------------------
@@ -637,27 +646,38 @@ def test_changed_traced_surface_refuses_the_trace_layers(changed):
     (["--no-jaxpr", "--rules", "STC001"], True, 1),
     (["--no-jaxpr", "--rules", "STC001", "--format", "json"], True, 1),
     (["--no-jaxpr", "--rules", "STC001", "--protocol"], False, 0),
-    ([], False, 2),
-    (["--rules", "STC001"], False, 2),
+    ([], None, 0),
+    (["--rules", "STC001"], False, 0),
     (["--no-jaxpr", "--scale"], False, 2),
     (["--no-jaxpr", "--scale", "--scale-baseline", "x.json"], False, 2),
+    (["--rules", "STC001"], True, 1),
+    (["--rules", "STC201"], True, 0),
+    (["--rules", "STC201", "--format", "json"], False, 0),
+    (["--scale"], False, 2),
 ])
 def test_lint_exit_codes(tmp_path, monkeypatch, capsys, argv, planted, rc):
-    """0 clean, 1 for an unwaived finding, 2 for the trace layers (bare
-    ``lint`` runs the jaxpr layer in the JAX package; ``--scale`` is layer
-    3), each refusal naming item 10c."""
-    src = ("import time\n\ndef f():\n    time.sleep(1)\n" if planted
-           else "def f():\n    return 1\n")
-    root = _plant(tmp_path, trules.PACKAGE, {"planted.py": src})
-    monkeypatch.setattr(tlint, "_repo_root", lambda: root)
+    """0 clean, 1 for an unwaived finding, 2 for the scale layer, naming
+    item 10c.  Bare ``lint`` runs layer 2 over the port's registry, as the
+    JAX verb does: over the port's own tree (``planted=None``) it is
+    clean under the port's baseline; over a planted tree a rule filter
+    keeps layer 2 running and its findings out."""
+    if planted is not None:
+        src = ("import time\n\ndef f():\n    time.sleep(1)\n" if planted
+               else "def f():\n    return 1\n")
+        root = _plant(tmp_path, trules.PACKAGE, {"planted.py": src})
+        monkeypatch.setattr(tlint, "_repo_root", lambda: root)
     assert tcli.main(["lint", *argv]) == rc
     out = capsys.readouterr()
     if rc == 2:
         assert "item 10c" in out.err
     elif "json" in argv:
         doc = json.loads(out.out)
-        assert doc["counts"]["findings"] == 1
-        assert doc["findings"][0]["path"] == f"{trules.PACKAGE}/planted.py"
+        assert doc["counts"]["findings"] == rc
+        if "--no-jaxpr" not in argv:
+            assert doc["entrypoints_audited"] == entrypoint_names()
+        if rc:
+            assert doc["findings"][0]["path"] == (
+                f"{trules.PACKAGE}/planted.py")
     else:
         assert "stc lint: %d finding(s)" % rc in out.out
 
@@ -690,3 +710,33 @@ def test_lint_telemetry_stream_parity(tmp_path, monkeypatch):
     assert got["port"] == got["jax"]
     assert got["port"][0] == ["manifest", "lint_run", "registry"]
     assert got["port"][3] == {"lint.findings": 1, "lint.waived": 0}
+
+
+def test_lint_json_report_keys_parity(tmp_path, monkeypatch, capsys):
+    """``lint --format json`` of both verbs on one planted tree has the
+    same top-level keys; the port's default run (layer 2 on) lists its
+    audited entries and writes them into the ``lint_run`` event.  (The
+    JAX verb's layer 2 does not run in this sandbox: its side runs with
+    ``--no-jaxpr``.)"""
+    from spark_text_clustering_tpu import cli as jcli
+    from spark_text_clustering_tpu.analysis import cli as jlint
+
+    src = "import time\n\ndef f():\n    time.sleep(1)\n"
+    docs = {}
+    for name, main, mod, extra in (
+            ("jax", jcli.main, jlint, ["--no-jaxpr"]),
+            ("port", tcli.main, tlint, [])):
+        root = _plant(tmp_path / name, PACKAGES[name][0],
+                      {"planted.py": src})
+        monkeypatch.setattr(mod, "_repo_root", lambda root=root: root)
+        stream = tmp_path / f"{name}.jsonl"
+        assert main(["lint", *extra, "--rules", "STC001", "--format",
+                     "json", "--telemetry-file", str(stream)]) == 1
+        docs[name] = json.loads(capsys.readouterr().out)
+        recs = [json.loads(line)
+                for line in stream.read_text().splitlines() if line]
+        docs[name]["_event"] = recs[1]
+    assert sorted(docs["port"]) == sorted(docs["jax"])
+    assert docs["port"]["entrypoints_audited"] == entrypoint_names()
+    assert docs["port"]["_event"]["entrypoints"] == len(entrypoint_names())
+    assert docs["jax"]["entrypoints_audited"] == []
