@@ -13,11 +13,13 @@
    for it): ``doctor`` (exit 0, the accelerator OK and naming this card,
    the CPU path and the text library OK, nvcc found and all six
    libraries built for the current sources, the build directory's
-   listing unchanged by it) and ``lint --protocol --format json`` over
-   this checkout, layers 1, 2 and 4 (exit 0, no unwaived finding, no
-   stale waiver, every protocol rule clean, layer 2's trace audit over
-   every registered entry point, at least 20, with no unwaived
-   ``jaxpr:`` finding and no CUDA context made, the build directory
+   listing unchanged by it) and ``lint --protocol --scale --format
+   json`` over this checkout, layers 1-4 (exit 0, no unwaived finding,
+   no stale waiver, every protocol rule clean, layer 2's trace audit
+   over every registered entry point, at least 20, with no unwaived
+   ``jaxpr:`` finding, layer 3's scale audit at k=500, V=10M over at
+   least 29 entry points with no unwaived ``scale:`` finding and no drift
+   from the committed record, no CUDA context made, the build directory
    unchanged);
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it and at the edges of its contract, and
@@ -7367,13 +7369,20 @@ def check_doctor(torch, started, build_dir, digest, n_sources):
 
 
 def check_lint(started, build_dir):
-    """``lint --protocol --format json`` over this checkout: exit 0, no
-    unwaived finding, no stale waiver, every protocol rule clean, layer
-    2's trace audit over at least 20 entry points with no unwaived
+    """``lint --protocol --scale --format json`` over this checkout: exit
+    0, no unwaived finding, no stale waiver, every protocol rule clean,
+    layer 2's trace audit over at least 20 entry points with no unwaived
     ``jaxpr:`` finding (a CUDA context made during it would be an
-    unwaived STC200), and the build directory's listing as it was (lint
-    builds nothing); with the seconds it ran and the seconds main()
-    waited."""
+    unwaived STC200), layer 3's scale audit over at least 29 entry points
+    (JAX's 20 and the port's 9) with no unwaived ``scale:`` finding and
+    no drift from the committed record (a CUDA context made during it
+    would be an unwaived STC210), and the build directory's listing as
+    it was (lint builds nothing); with the seconds it ran and the seconds
+    main() waited."""
+    from spark_text_clustering_tpu_torch.analysis.scale_audit import (
+        RECORD_DRIFT,
+    )
+
     out, secs, blocked = wait_cli(started, "lint")
     proc = started["proc"]
     try:
@@ -7390,6 +7399,13 @@ def check_lint(started, build_dir):
                       if f["path"].startswith("jaxpr:")]
     jaxpr_waived = [f for f in doc.get("waived", [])
                     if f["path"].startswith("jaxpr:")]
+    scale_entries = doc.get("scale", {}).get("entries", {})
+    scale_unwaived = [f for f in doc["findings"]
+                      if f["path"].startswith("scale:")]
+    scale_waived = [f for f in doc.get("waived", [])
+                    if f["path"].startswith("scale:")]
+    drift = [f for f in doc["findings"] + doc.get("waived", [])
+             if f.get("snippet") in RECORD_DRIFT]
     want = {
         "exit 0": proc.returncode == 0,
         "no unwaived finding": doc["counts"]["findings"] == 0,
@@ -7398,6 +7414,9 @@ def check_lint(started, build_dir):
             rules.values()),
         "layer 2 audited >= 20 entry points": len(audited) >= 20,
         "no unwaived jaxpr finding": not jaxpr_unwaived,
+        "layer 3 audited >= 29 entry points": len(scale_entries) >= 29,
+        "no unwaived scale finding": not scale_unwaived,
+        "no drift from the scale record": not drift,
         "the build directory unchanged":
             sorted(os.listdir(build_dir)) == started["listing"],
     }
@@ -7411,6 +7430,9 @@ def check_lint(started, build_dir):
             "entrypoints": len(audited),
             "jaxpr_unwaived": len(jaxpr_unwaived),
             "jaxpr_waived": len(jaxpr_waived),
+            "scale_entries": len(scale_entries),
+            "scale_unwaived": len(scale_unwaived),
+            "scale_waived": len(scale_waived), "scale_drift": len(drift),
             "seconds": secs, "blocked_s": blocked}
 
 
@@ -7478,7 +7500,7 @@ def main() -> int:
     if not args.kernels_only:
         doctor = start_cli(_build.BUILD_DIR, "doctor", "--probe-timeout",
                            "120", merge_stderr=True)
-        lint = start_cli(_build.BUILD_DIR, "lint", "--protocol",
+        lint = start_cli(_build.BUILD_DIR, "lint", "--protocol", "--scale",
                          "--format", "json")
     t0 = time.perf_counter()
     rows_a = en_books_rows(args.seed)

@@ -16,9 +16,10 @@ torch, pointed at ``spark_text_clustering_tpu_torch/``:
     on by default, ``--no-jaxpr`` skips it) — STC200-205: each
     registered entry point called once on CPU tensors under torch's
     dispatch and function modes.
-
-The scale audit (``lint --scale``, layer 3) is ROADMAP.md queue 1 item
-10c; the verb exits 2 when asked for it.
+  * **scale audit** (``scale_audit``, via ``lint --scale``) — STC210-215:
+    each entry point called at its declared scale shapes (k=500, V=10M,
+    the pow2 bucket grids) on fake tensors, against the ``nvidia-h100``
+    memory budget and the committed ``analysis/scale_baseline.json``.
 
 Waivers: inline ``# stc-lint: disable=RULE -- reason`` pragmas or the
 port's committed ``analysis/lint_baseline.json`` allowlist; both require

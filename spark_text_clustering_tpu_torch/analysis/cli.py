@@ -5,6 +5,7 @@ Usage::
 
     python -m spark_text_clustering_tpu_torch.cli lint
     python -m spark_text_clustering_tpu_torch.cli lint --protocol
+    python -m spark_text_clustering_tpu_torch.cli lint --scale
     python -m spark_text_clustering_tpu_torch.cli lint --no-jaxpr
     python -m spark_text_clustering_tpu_torch.cli lint --changed
     python -m spark_text_clustering_tpu_torch.cli lint --format json
@@ -18,31 +19,31 @@ by default (``--no-jaxpr`` skips it), is the trace audit
 dispatch and function modes; ``--protocol`` adds layer 4, the protocol
 audit (``analysis.protocol_audit``): STC300-305 over the
 thread/shared-file coordination fabric, checked both directions against
-the ``analysis.protocol_sites`` registry — pure AST.
-
-Layer 3 (``--scale``, the scale audit) is not ported yet (ROADMAP.md
-queue 1 item 10c), and the verb refuses it rather than skip it
-silently: exit 2.  ``--changed`` scopes the AST layer to git-changed
-files, runs the protocol tier exactly when a registry-watched module
-changed, and runs layer 2 (and refuses ``--scale``) only when a traced
-surface changed, as the JAX verb does.
+the ``analysis.protocol_sites`` registry — pure AST; ``--scale`` adds
+layer 3, the scale audit (``analysis.scale_audit``, STC210-215): every
+entry point called at its declared scale shapes (k=500, V=10M, the pow2
+bucket grids) on fake tensors, against the ``nvidia-h100`` memory budget
+and the committed record ``analysis/scale_baseline.json``
+(``--scale-baseline`` names another; ``--scale --rebaseline`` rewrites
+it).  ``--changed`` scopes the AST layer to git-changed files, runs the
+protocol tier exactly when a registry-watched module changed, and runs
+layers 2 and 3 only when a traced surface changed, as the JAX verb does.
 
 Exit codes mirror ``metrics check``: 0 = clean (no unwaived findings),
-1 = findings, 2 = usage/config error or a layer not ported.  Every run
-mirrors its outcome into the telemetry registry (``lint.findings`` /
-``lint.waived``, plus ``lint.protocol_*`` under ``--protocol``) and —
-with ``--telemetry-file`` — into a run stream the ``metrics`` verbs can
-diff (the ``lint_run`` event's ``entrypoints`` is the audited count).
-The verb imports no jax, makes no CUDA context (layer 2 reports one as
-STC200) and builds no kernel library: the kernel wrappers take their
-plain versions on CPU tensors.
+1 = findings, 2 = usage/config error.  Every run mirrors its outcome
+into the telemetry registry (``lint.findings`` / ``lint.waived``, plus
+``lint.scale_*`` under ``--scale`` and ``lint.protocol_*`` under
+``--protocol``) and — with ``--telemetry-file`` — into a run stream the
+``metrics`` verbs can diff (the ``lint_run`` event's ``entrypoints`` and
+``scale_entries`` are the audited counts).  The verb imports no jax,
+makes no CUDA context (layers 2 and 3 report one) and builds no kernel
+library: the kernel wrappers take their plain versions on CPU tensors.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-import sys
 from typing import List, Optional, Sequence
 
 from .findings import (
@@ -54,7 +55,6 @@ from .findings import (
 )
 
 __all__ = [
-    "LayerNotPorted",
     "add_lint_subparser",
     "changed_files",
     "cmd_lint",
@@ -71,11 +71,6 @@ _TRACED_PREFIXES = (
     "spark_text_clustering_tpu_torch/ops/",
     "spark_text_clustering_tpu_torch/parallel/",
 )
-
-
-class LayerNotPorted(ValueError):
-    """Layer 3 (the scale audit) was asked for: ROADMAP.md queue 1 item
-    10c, not ported yet."""
 
 
 def _repo_root() -> str:
@@ -108,14 +103,6 @@ def changed_files(root: str) -> List[str]:
     return sorted(set(paths))
 
 
-def _refuse_scale_layer(scale: bool) -> None:
-    if scale:
-        raise LayerNotPorted(
-            "lint --scale (layer 3, the scale audit) is not ported yet "
-            "(ROADMAP.md queue 1 item 10c)"
-        )
-
-
 def run_lint(
     root: Optional[str] = None,
     *,
@@ -134,9 +121,7 @@ def run_lint(
     Findings come back with pragma AND baseline waivers applied, plus
     any STC000 meta-findings (reasonless/stale waivers — stale checks
     are skipped under a ``changed`` scope, where most waivers
-    legitimately match nothing).  A scale layer that would run raises
-    ``LayerNotPorted``; ``scale_baseline_path`` belongs to it and is
-    never read.
+    legitimately match nothing).
     """
     from .ast_rules import run_ast_rules
 
@@ -148,7 +133,6 @@ def run_lint(
         )
         jaxpr = jaxpr and trace_surface_changed
         scale = scale and trace_surface_changed
-    _refuse_scale_layer(scale)
     findings = run_ast_rules(root, rules=rules)
     if changed is not None:
         findings = [f for f in findings if f.path in keep_paths]
@@ -171,6 +155,27 @@ def run_lint(
             keep = set(rules)
             jf = [f for f in jf if f.rule in keep]
         findings.extend(jf)
+    scale_report = None
+    if scale:
+        from .scale_audit import (
+            DEFAULT_SCALE_BASELINE_PATH,
+            compare_with_record,
+            load_scale_record,
+            run_scale_audit,
+        )
+
+        sf, scale_report = run_scale_audit()
+        sb_path = scale_baseline_path or os.path.join(
+            root, DEFAULT_SCALE_BASELINE_PATH
+        )
+        sf.extend(compare_with_record(
+            scale_report, load_scale_record(sb_path),
+            DEFAULT_SCALE_BASELINE_PATH,
+        ))
+        if rules:
+            keep = set(rules)
+            sf = [f for f in sf if f.rule in keep]
+        findings.extend(sf)
     protocol_report = None
     if protocol:
         from .protocol_audit import run_protocol_audit
@@ -182,17 +187,22 @@ def run_lint(
         findings.extend(pf)
     bl_path = baseline_path or os.path.join(root, DEFAULT_BASELINE_PATH)
     baseline = Baseline.load(bl_path)
-    # the scale layer never runs here, so its waivers are never stale
-    exempt = ("scale:",) + tuple(
-        p for p, ran in (("jaxpr:", jaxpr), ("protocol:", protocol))
-        if not ran)
+    exempt = tuple(
+        p
+        for p, ran in (
+            ("jaxpr:", jaxpr),
+            ("scale:", scale),
+            ("protocol:", protocol),
+        )
+        if not ran
+    )
     findings = apply_waivers(
         findings,
         baseline,
         check_stale=changed is None,
         stale_exempt_prefixes=exempt,
     )
-    return findings, audited, baseline, None, protocol_report
+    return findings, audited, baseline, scale_report, protocol_report
 
 
 def cmd_lint(args: argparse.Namespace) -> int:
@@ -212,19 +222,17 @@ def cmd_lint(args: argparse.Namespace) -> int:
             print("stc lint --changed: no changed files — clean")
             return 0
 
-    try:
-        findings, audited, baseline, _, protocol_report = run_lint(
+    findings, audited, baseline, scale_report, protocol_report = \
+        run_lint(
             root,
             jaxpr=not args.no_jaxpr,
             scale=args.scale,
             protocol=args.protocol,
             rules=rules,
             baseline_path=bl_path,
+            scale_baseline_path=args.scale_baseline,
             changed=changed,
         )
-    except LayerNotPorted as exc:
-        print(f"error: {exc}", file=sys.stderr)
-        return 2
 
     own_telemetry = bool(getattr(args, "telemetry_file", None))
     if own_telemetry:
@@ -237,9 +245,13 @@ def cmd_lint(args: argparse.Namespace) -> int:
         import datetime
 
         stamp = datetime.date.today().isoformat()
+        # with --scale the record is rewritten below: its drift is gone
+        drift = ()
+        if args.scale and scale_report is not None:
+            from .scale_audit import RECORD_DRIFT as drift
         new_waivers = []
         for f in findings:
-            if f.rule == "STC000":
+            if f.rule == "STC000" or f.snippet in drift:
                 continue
             if f.waived and f.waived_by == "pragma":
                 continue  # pragmas live in source, not the baseline
@@ -262,6 +274,21 @@ def cmd_lint(args: argparse.Namespace) -> int:
             f"lint baseline rewritten: {bl_path} "
             f"({len(new_waivers)} waiver(s))"
         )
+        if args.scale and scale_report is not None:
+            from .scale_audit import (
+                DEFAULT_SCALE_BASELINE_PATH,
+                save_scale_record,
+            )
+
+            sb_path = args.scale_baseline or os.path.join(
+                root, DEFAULT_SCALE_BASELINE_PATH
+            )
+            save_scale_record(scale_report, sb_path)
+            print(
+                f"scale record rewritten: {sb_path} "
+                f"({len(scale_report['entries'])} entries at "
+                f"{scale_report['backend']})"
+            )
         if own_telemetry:
             telemetry.shutdown()
         return 0
@@ -270,6 +297,18 @@ def cmd_lint(args: argparse.Namespace) -> int:
     waived = [f for f in findings if f.waived]
     telemetry.count("lint.findings", len(unwaived))
     telemetry.count("lint.waived", len(waived))
+    if args.scale and scale_report is not None:
+        scale_f = [f for f in findings if f.path.startswith("scale:")]
+        telemetry.count(
+            "lint.scale_entries", len(scale_report["entries"])
+        )
+        telemetry.count(
+            "lint.scale_findings",
+            len([f for f in scale_f if not f.waived]),
+        )
+        telemetry.count(
+            "lint.scale_waived", len([f for f in scale_f if f.waived])
+        )
     if protocol_report is not None:
         proto_f = [
             f for f in findings if f.path.startswith("protocol:")
@@ -291,7 +330,9 @@ def cmd_lint(args: argparse.Namespace) -> int:
             findings=len(unwaived),
             waived=len(waived),
             entrypoints=len(audited),
-            scale_entries=0,
+            scale_entries=(
+                len(scale_report["entries"]) if scale_report else 0
+            ),
             protocol_sites=(
                 protocol_report["sites"] if protocol_report else 0
             ),
@@ -299,9 +340,9 @@ def cmd_lint(args: argparse.Namespace) -> int:
         telemetry.shutdown()
 
     out = (
-        render_json(findings, audited, None, protocol_report)
+        render_json(findings, audited, scale_report, protocol_report)
         if args.format == "json"
-        else render_text(findings, audited, None, protocol_report)
+        else render_text(findings, audited, scale_report, protocol_report)
     )
     print(out)
     return 1 if unwaived else 0
@@ -312,8 +353,8 @@ def add_lint_subparser(sub) -> None:
         "lint",
         help="project-native static analysis: AST invariant rules + the "
              "layer-2 trace audit of the registered entry points (on "
-             "by default) + the --protocol audit; --scale (layer 3) is "
-             "ROADMAP item 10c and exits 2",
+             "by default) (+ --scale: the V=10M/k=500 scale audit on "
+             "fake tensors) + the --protocol audit",
     )
     p.add_argument(
         "--format", default="text", choices=["text", "json"],
@@ -330,8 +371,10 @@ def add_lint_subparser(sub) -> None:
     )
     p.add_argument(
         "--scale", action="store_true",
-        help="layer 3, the scale audit: not ported yet (ROADMAP item "
-             "10c), exits 2",
+        help="add layer 3: call every registered entry point at its "
+             "declared scale shapes (V=10M, k=500, pow2 bucket grids) on "
+             "fake tensors and enforce STC210-215 against the "
+             "nvidia-h100 budget and the committed scale record",
     )
     p.add_argument(
         "--protocol", action="store_true",
@@ -345,9 +388,8 @@ def add_lint_subparser(sub) -> None:
         "--changed", action="store_true",
         help="diff-scoped fast mode: AST rules on git-changed files "
              "only; the protocol tier exactly when a protocol-registry "
-             "module changed; layer 2 (and the refused --scale) only "
-             "when a traced surface (analysis/csrc/models/ops/parallel) "
-             "changed",
+             "module changed; layers 2 and 3 only when a traced surface "
+             "(analysis/csrc/models/ops/parallel) changed",
     )
     p.add_argument(
         "--baseline", default=None,
@@ -355,18 +397,20 @@ def add_lint_subparser(sub) -> None:
     )
     p.add_argument(
         "--scale-baseline", default=None,
-        help="the scale audit's evidence record (accepted; --scale "
-             "itself exits 2)",
+        help="committed scale evidence record (default "
+             "spark_text_clustering_tpu_torch/analysis/scale_baseline.json)",
     )
     p.add_argument(
         "--rebaseline", action="store_true",
         help="rewrite the baseline to waive every current finding "
-             "(commit the result deliberately — mirrors `metrics check "
+             "(with --scale: also rewrite the scale record; commit the "
+             "result deliberately — mirrors `metrics check "
              "--write-baseline`)",
     )
     p.add_argument(
         "--telemetry-file", default=None,
         help="emit a lint run stream (lint.findings / lint.waived / "
-             "lint.protocol_*) consumable by the `metrics` verbs",
+             "lint.scale_* / lint.protocol_*) consumable by the `metrics` "
+             "verbs",
     )
     p.set_defaults(fn=cmd_lint)

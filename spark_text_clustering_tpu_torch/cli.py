@@ -152,14 +152,16 @@ callables ``telemetry.instrument_dispatch`` wraps), the trace audit of
 the registered entry points (STC200-205, each called once on CPU
 tensors; ``--no-jaxpr`` skips it), and with ``--protocol`` also the
 STC300-305 protocol audit, against the port's own waiver baseline
-``analysis/lint_baseline.json``.  The scale audit is item 10c:
-``--scale`` exits 2.  It makes no CUDA context and builds nothing.
+``analysis/lint_baseline.json``; ``--scale`` adds the STC210-215 scale
+audit (every entry point at k=500, V=10M on fake tensors) against the
+committed record ``analysis/scale_baseline.json``.  It makes no CUDA
+context and builds nothing.
 
 Exit codes: 0 on success; 1 for a fleet that spent its respawn budget,
 for a ``compile-cache verify`` with findings and for a ``lint`` with
 unwaived findings; 2 for a usage error, a missing or corrupt model, a
-resume mismatch and a verb or layer not ported yet (``metrics
-scale-check``, ``lint --scale``); 3 for
+resume mismatch and a verb not ported yet (``metrics
+scale-check``); 3 for
 a stream whose ledger write was fenced and for a ``lineage`` target that
 names nothing.
 """

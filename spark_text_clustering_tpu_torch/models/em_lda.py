@@ -425,10 +425,14 @@ class EMLDA:
         Fused (d_max <= 512 a shard): the kernel on the pair's tokens,
         with a doc stream of the pair's tokens in shard-local columns;
         N_wk' sums over "data", N_dk' over "model" (each token is swept by
-        one rank).  Two-stage: phi over the data shard's whole sorted axis
-        from ``gather_model_rows`` (phi is the same on every model shard,
-        so N_dk' needs no collective), then the scatter kernel on the
-        rank's own segment, summed over "data"."""
+        one rank).  Two-stage: phi over the data shard's tokens in doc
+        order from ``gather_model_rows`` (phi is the same on every model
+        shard, so N_dk' needs no collective), then the rank's own segment
+        of the sorted axis picked from it (``sort_order``; pad slots read
+        a zero row) for the scatter kernel, summed over "data".  Only the
+        own segment of the sorted axis lives on the device: the plan gives
+        each vocab tile at least one block, so at V=10M the whole axis is
+        40M slots for any corpus, and phi over it [40M, k]."""
         g, dev = self.grid, self.device
         n_data, d, m = g.data_shards, g.d, g.m
         ids_t, cts_t, seg_t, slot, d_max = packed_shard_plan(rows, n_data)
@@ -439,18 +443,18 @@ class EMLDA:
         nb, tb, vt = plan.nb, plan.tb, plan.vt
         so = plan.sort_order[d]
 
-        def _sorted(a):  # the data shard's sorted axis, model segments
-            return np.concatenate([a[d], np.zeros(1, a.dtype)])[so]
+        own = so[m * nb * tb:(m + 1) * nb * tb]   # this rank's segment
 
-        own = slice(m * nb * tb, (m + 1) * nb * tb)
+        def _sorted(a):  # the own segment of the sorted axis (pads: 0)
+            return np.concatenate([a[d], np.zeros(1, a.dtype)])[own]
+
         # the rank's own live slots, from the host copy: the kernels' cost
-        live = int(np.count_nonzero(_sorted(cts_t)[own]))
-        ids_s, cts_s, seg_s = (torch.from_numpy(_sorted(a)).to(dev)
-                               for a in (ids_t, cts_t, seg_t))
+        live = int(np.count_nonzero(_sorted(cts_t)))
+        seg_b, cts_b = (torch.from_numpy(_sorted(a)).to(dev).reshape(nb, 1, tb)
+                        for a in (seg_t, cts_t))
+        own_t = torch.from_numpy(own).to(dev)
         lids = torch.from_numpy(plan.lids[d, m]).to(dev)
         bv = torch.from_numpy(plan.block_vtile[d, m]).to(dev)
-        seg_b = seg_s[own].reshape(nb, 1, tb)
-        cts_b = cts_s[own].reshape(nb, 1, tb)
         geometry = dict(n_vtiles=plan.n_vtiles, nb=nb, vt=vt, tb=tb,
                         shard_v=shard_v, live=live)
         d_pad = fused_d_pad(d_max)
@@ -471,13 +475,14 @@ class EMLDA:
                     d_pad=d_pad, eta_m1=eta - 1.0, **geometry,
                 )
                 return psum_data(g, nwk_p), psum_model(g, ndk_p[:d_max])
-            term = gather_model_rows(g, n_wk, ids_s) + (eta - 1.0)  # [T, k]
-            doc = (n_dk + (alpha - 1.0))[seg_s.long()]              # [T, k]
+            term = gather_model_rows(g, n_wk, ids_p) + (eta - 1.0)  # [T, k]
+            doc = (n_dk + (alpha - 1.0))[seg_p.long()]              # [T, k]
             phi = term * (doc * inv_denom)
             phi = phi / (phi.sum(dim=-1, keepdim=True) + 1e-30)
-            wphi = (cts_s[:, None] * phi).contiguous()
-            ndk_new = torch.zeros_like(n_dk).index_add_(0, seg_s.long(), wphi)
-            return (psum_data(g, scatter_add_vtiles(wphi[own], lids, bv,
+            wphi = cts_p[:, None] * phi
+            ndk_new = torch.zeros_like(n_dk).index_add_(0, seg_p.long(), wphi)
+            wphi_own = torch.cat([wphi, wphi.new_zeros(1, k)])[own_t]
+            return (psum_data(g, scatter_add_vtiles(wphi_own, lids, bv,
                                                     **geometry)),
                     ndk_new)
 

@@ -38,8 +38,9 @@ from ..ops.sparse import DocTermBatch, batch_from_rows
 from .mesh import DATA_AXIS, MODEL_AXIS, ProcessGrid
 
 _EMPTY = (np.zeros(0, np.int32), np.zeros(0, np.float32))
-# the collectives called inside count_collectives(), else None
-_audit_calls: Optional[List[str]] = None
+# the (name, operand bytes) of the collectives called inside
+# count_collectives(), else None
+_audit_calls: Optional[List[Tuple[str, int]]] = None
 
 __all__ = [
     "count_collectives",
@@ -60,9 +61,10 @@ __all__ = [
 
 @contextlib.contextmanager
 def count_collectives():
-    """Collect the names of the collectives called inside the block,
-    whether telemetry is on or off: the trace audit's hook (lint layer 2,
-    STC205).  Yields the list it fills."""
+    """Collect ``(name, operand bytes)`` of each collective called inside
+    the block, whether telemetry is on or off: the trace audits' hook
+    (lint layer 2's STC205 reads the names, layer 3's STC214 the bytes).
+    Yields the list it fills."""
     global _audit_calls
     outer, _audit_calls = _audit_calls, []
     try:
@@ -73,11 +75,13 @@ def count_collectives():
 
 def _acct(name: str, *tensors) -> None:
     """One call of the collective ``name`` and its operands' bytes."""
-    if _audit_calls is not None:
-        _audit_calls.append(name)
-    if not telemetry.enabled():
+    if _audit_calls is None and not telemetry.enabled():
         return
     nbytes = sum(int(t.numel()) * t.element_size() for t in tensors)
+    if _audit_calls is not None:
+        _audit_calls.append((name, nbytes))
+    if not telemetry.enabled():
+        return
     telemetry.count(f"collective.{name}.calls")
     telemetry.count(f"collective.{name}.traced_bytes", nbytes)
     # the call in flight owns the bytes (dispatch.<digest>.collective_bytes)

@@ -460,6 +460,41 @@ def test_the_lint_trace_layer_loads_no_jax(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
 
 
+def test_the_lint_scale_layer_loads_no_jax(tmp_path):
+    """Importing the layer-3 module (``analysis.scale_audit``) and running
+    ``lint --no-jaxpr --scale --format json`` by the port's CLI in a
+    subprocess: exit 0, no unwaived and no stale finding, every
+    registered entry audited at scale against the committed record, and
+    no jax, no JAX package, no CUDA context and no kernel library."""
+    code = (
+        "import contextlib, io, json, sys, torch\n"
+        "torch.cuda.init = torch.cuda._lazy_init = lambda: (\n"
+        "    _ for _ in ()).throw(AssertionError('a CUDA context'))\n"
+        "from spark_text_clustering_tpu_torch.analysis import entrypoints\n"
+        "from spark_text_clustering_tpu_torch.analysis import scale_audit\n"
+        "from spark_text_clustering_tpu_torch import cli\n"
+        "from spark_text_clustering_tpu_torch.ops import _build\n"
+        "out = io.StringIO()\n"
+        "with contextlib.redirect_stdout(out):\n"
+        "    rc = cli.main(['lint', '--no-jaxpr', '--scale', '--format',\n"
+        "                   'json'])\n"
+        "doc = json.loads(out.getvalue())\n"
+        "assert rc == 0 and doc['counts']['findings'] == 0, doc['findings']\n"
+        "assert sorted(doc['scale']['entries']) == sorted(\n"
+        "    entrypoints.entrypoint_names())\n"
+        "assert doc['scale']['backend'] == scale_audit.DEFAULT_BACKEND\n"
+        "assert not torch.cuda.is_initialized() and not _build._LIBS\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'spark_text_clustering_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+
+
 def test_front_and_probe_run_without_a_cuda_context(tmp_path, monkeypatch):
     """The ``front`` and ``probe`` verbs never touch the card: with every
     way to a CUDA context made to raise, the front serves a request (503:

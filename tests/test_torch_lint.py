@@ -17,9 +17,10 @@ Four groups:
     ``jax.jit`` and cannot be parity cases);
   * the port's own tree is clean under its own baseline, every waiver
     with a reason;
-  * the verb's exit codes: 0 clean, 1 findings, 2 for the scale layer
-    (item 10c); bare ``lint`` runs layer 2, the trace audit of the
-    registered entry points, as the JAX verb's does.
+  * the verb's exit codes: 0 clean, 1 findings; bare ``lint`` runs layer 2, the trace audit of the registered entry
+    points, as the JAX verb's does, and ``--scale`` layer 3, the scale
+    audit, against the committed scale record (default, ``--rules``,
+    ``--changed``, ``--rebaseline`` into temp paths).
 """
 
 from __future__ import annotations
@@ -613,7 +614,8 @@ def test_changed_scope_skips_stale_sweep_and_filters_paths():
     layers not refused where no traced surface changed, and the protocol
     tier run because cli.py holds the control-file reader."""
     findings, audited, _, scale_report, protocol_report = tlint.run_lint(
-        REPO_ROOT, changed=["spark_text_clustering_tpu_torch/cli.py"])
+        REPO_ROOT, scale=True,
+        changed=["spark_text_clustering_tpu_torch/cli.py"])
     assert audited == [] and scale_report is None
     assert protocol_report is not None
     assert all(f.path == "spark_text_clustering_tpu_torch/cli.py"
@@ -627,15 +629,17 @@ def test_changed_scope_skips_stale_sweep_and_filters_paths():
     "spark_text_clustering_tpu_torch/csrc/estep.cu",
 ])
 def test_changed_traced_surface_refuses_the_trace_layers(changed):
-    """A diff that touches a traced surface runs the jaxpr layer, as in
-    the JAX package (every registered entry, each finding waived), and
-    refuses the scale layer, naming item 10c."""
+    """A diff that touches a traced surface runs the trace layers, as in
+    the JAX package: layer 2 (every registered entry, each finding
+    waived) and, asked for, layer 3 (every entry at scale, against the
+    committed record); the name is the one this test had while the port
+    refused layer 3."""
     findings, audited, _, scale_report, _ = tlint.run_lint(
-        REPO_ROOT, changed=[changed])
-    assert audited == entrypoint_names() and scale_report is None
+        REPO_ROOT, scale=True, changed=[changed])
+    assert audited == entrypoint_names()
+    assert sorted(scale_report["entries"]) == sorted(entrypoint_names())
     assert not [f for f in findings if not f.waived]
-    with pytest.raises(tlint.LayerNotPorted, match="item 10c"):
-        tlint.run_lint(REPO_ROOT, scale=True, changed=[changed])
+    assert not [f for f in findings if f.rule == "STC000"]
 
 
 # ---------------------------------------------------------------------------
@@ -648,19 +652,22 @@ def test_changed_traced_surface_refuses_the_trace_layers(changed):
     (["--no-jaxpr", "--rules", "STC001", "--protocol"], False, 0),
     ([], None, 0),
     (["--rules", "STC001"], False, 0),
-    (["--no-jaxpr", "--scale"], False, 2),
-    (["--no-jaxpr", "--scale", "--scale-baseline", "x.json"], False, 2),
+    (["--no-jaxpr", "--scale"], None, 0),
+    (["--no-jaxpr", "--scale", "--scale-baseline", "x.json"], None, 1),
     (["--rules", "STC001"], True, 1),
     (["--rules", "STC201"], True, 0),
     (["--rules", "STC201", "--format", "json"], False, 0),
-    (["--scale"], False, 2),
+    (["--scale", "--rules", "STC210", "--format", "json"], False, 1),
 ])
 def test_lint_exit_codes(tmp_path, monkeypatch, capsys, argv, planted, rc):
-    """0 clean, 1 for an unwaived finding, 2 for the scale layer, naming
-    item 10c.  Bare ``lint`` runs layer 2 over the port's registry, as the
-    JAX verb does: over the port's own tree (``planted=None``) it is
-    clean under the port's baseline; over a planted tree a rule filter
-    keeps layer 2 running and its findings out."""
+    """0 clean, 1 for an unwaived finding.  Bare ``lint`` runs layer 2
+    over the port's registry, as the JAX verb does:
+    over the port's own tree (``planted=None``) it is clean under the
+    port's baseline; over a planted tree a rule filter keeps layer 2
+    running and its findings out.  ``--scale`` adds layer 3: clean over
+    the port's tree and its committed record, one STC210 where the
+    record is missing (a named one that does not exist, or a planted
+    tree's)."""
     if planted is not None:
         src = ("import time\n\ndef f():\n    time.sleep(1)\n" if planted
                else "def f():\n    return 1\n")
@@ -668,14 +675,17 @@ def test_lint_exit_codes(tmp_path, monkeypatch, capsys, argv, planted, rc):
         monkeypatch.setattr(tlint, "_repo_root", lambda: root)
     assert tcli.main(["lint", *argv]) == rc
     out = capsys.readouterr()
-    if rc == 2:
-        assert "item 10c" in out.err
-    elif "json" in argv:
+    if "json" in argv:
         doc = json.loads(out.out)
         assert doc["counts"]["findings"] == rc
         if "--no-jaxpr" not in argv:
             assert doc["entrypoints_audited"] == entrypoint_names()
-        if rc:
+        if "--scale" in argv:
+            assert sorted(doc["scale"]["entries"]) == sorted(
+                entrypoint_names())
+            assert [f["path"] for f in doc["findings"]] == [
+                "scale:baseline"]
+        elif rc:
             assert doc["findings"][0]["path"] == (
                 f"{trules.PACKAGE}/planted.py")
     else:
@@ -740,3 +750,61 @@ def test_lint_json_report_keys_parity(tmp_path, monkeypatch, capsys):
     assert docs["port"]["entrypoints_audited"] == entrypoint_names()
     assert docs["port"]["_event"]["entrypoints"] == len(entrypoint_names())
     assert docs["jax"]["entrypoints_audited"] == []
+
+
+# ---------------------------------------------------------------------------
+# layer 3 through the verb
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("rules", [None, ["STC212"]])
+def test_lint_scale_layer_runs_clean(rules):
+    """``lint --scale`` over the port's tree: every registered entry at
+    scale, no unwaived or stale finding against the committed record;
+    ``--rules STC212`` keeps only that rule's findings (none) and the
+    report whole."""
+    findings, audited, _, report, _ = tlint.run_lint(
+        REPO_ROOT, jaxpr=False, scale=True, rules=rules)
+    assert audited == []
+    assert sorted(report["entries"]) == sorted(entrypoint_names())
+    assert report["backend"] == "nvidia-h100"
+    scale = [f for f in findings if f.path.startswith("scale:")]
+    assert not [f for f in scale if not f.waived], [
+        (f.path, f.rule, f.message) for f in scale if not f.waived]
+    if rules:
+        # the rule filter leaves the other waivers matching nothing
+        assert {f.rule for f in findings} <= {"STC212", "STC000"}
+    else:
+        assert not [f for f in findings if not f.waived]
+
+
+def test_lint_scale_rebaseline_writes_the_record(tmp_path, capsys):
+    """``lint --scale --rebaseline`` with temp paths writes both files: the
+    waiver baseline (no waiver for the record's drift, which the rewrite
+    resolves) and the scale record, equal to the committed record entry
+    for entry, the measured section kept; the next run is clean, its
+    counters in the ``lint_run`` event and the registry."""
+    from spark_text_clustering_tpu_torch.analysis import scale_audit
+
+    bl = tmp_path / "lint_baseline.json"
+    bl.write_text(open(os.path.join(
+        REPO_ROOT, tfind.DEFAULT_BASELINE_PATH)).read())
+    rec = tmp_path / "scale.json"
+    rec.write_text(json.dumps({"entries": {}, "measured": {"m": 1}}))
+    assert tcli.main(["lint", "--no-jaxpr", "--scale", "--rebaseline",
+                      "--baseline", str(bl), "--scale-baseline",
+                      str(rec)]) == 0
+    assert "scale record rewritten" in capsys.readouterr().out
+    fresh = scale_audit.load_scale_record(str(rec))
+    committed = scale_audit.load_scale_record(os.path.join(
+        REPO_ROOT, scale_audit.DEFAULT_SCALE_BASELINE_PATH))
+    assert fresh["measured"] == {"m": 1}
+    assert fresh["entries"] == committed["entries"]
+    stream = tmp_path / "lint.jsonl"
+    assert tcli.main(["lint", "--no-jaxpr", "--scale", "--baseline",
+                      str(bl), "--scale-baseline", str(rec),
+                      "--telemetry-file", str(stream)]) == 0
+    recs = [json.loads(line)
+            for line in stream.read_text().splitlines() if line]
+    assert recs[1]["scale_entries"] == len(entrypoint_names())
+    counters = recs[-1]["snapshot"]["counters"]
+    assert counters["lint.scale_entries"] == len(entrypoint_names())
+    assert counters["lint.scale_findings"] == 0
