@@ -20,6 +20,14 @@
    ``jaxpr:`` finding, layer 3's scale audit at k=500, V=10M over at
    least 29 entry points with no unwaived ``scale:`` finding and no drift
    from the committed record, no CUDA context made, the build directory
+   unchanged); and ``metrics scale-check --run --fail-on-divergence
+   --json`` against the committed record: the measured-scale probe of the
+   five vocab-sharded entry families on a spawned 2x2 gloo grid of ranks
+   on this card (exit 0, mesh 2x2 with sharding forced, every entry
+   model-sharded without a retrace, each peak from the card's caching
+   allocator over a warm call, no divergence and no drift from the
+   record's measured section, the E-step kernel launched on the ranks
+   (their streams' ``dispatch.*.launches.*``), the build directory
    unchanged);
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it and at the edges of its contract, and
@@ -7436,6 +7444,99 @@ def check_lint(started, build_dir):
             "seconds": secs, "blocked_s": blocked}
 
 
+# the measured-scale probe's entries, kernels and ranks (scale-check)
+PROBE_ENTRIES = 5
+PROBE_RANKS = 4
+PROBE_KERNELS = ("gamma_fixed_point_bkl", "scatter_add_vtiles")
+
+
+def check_scale_probe(started, build_dir, probe_dir):
+    """``metrics scale-check --run --fail-on-divergence --json`` against
+    the committed record: exit 0, the probe's 2x2 grid with model
+    sharding forced, all five entries model-sharded with 0 retraces, each
+    measured peak from the card's caching allocator, no divergence, no
+    sharding mismatch and no drift from the record's measured section,
+    the E-step kernel launched on the ranks (their streams' ``dispatch.*
+    .launches.*``; the probed EM bucket step is the padded layout, which
+    launches no kernel, so the scatter's count is reported, not
+    demanded), and the build directory's listing as it was; with the
+    seconds it ran and the seconds main() waited."""
+    from spark_text_clustering_tpu_torch.telemetry.metrics_cli import (
+        load_run,
+        run_metrics,
+    )
+
+    out, secs, blocked = wait_cli(started, "scale-check")
+    proc = started["proc"]
+    try:
+        doc = json.loads(out.splitlines()[0])
+        with open(os.path.join(probe_dir, "probe.json")) as f:
+            evidence = json.load(f)
+    except (ValueError, IndexError, OSError) as exc:
+        raise AssertionError(
+            f"scale-check printed no JSON report: {out[-2000:]} "
+            f"{started['box'].get('err', '')[-2000:]}") from exc
+    recon = doc["reconciliation"]
+    entries = evidence["entries"]
+    launches = dict.fromkeys(PROBE_KERNELS, 0)
+    for rank in range(PROBE_RANKS):
+        _, events = load_run(os.path.join(probe_dir, f"probe-p{rank}.jsonl"))
+        for key, n in run_metrics(events).items():
+            name = key.rsplit(".launches.", 1)
+            if key.startswith("counter.dispatch.") and len(name) == 2:
+                launches[name[1]] = launches.get(name[1], 0) + int(n)
+    want = {
+        "exit 0": proc.returncode == 0,
+        "mesh 2x2": evidence["mesh"] == {"data_shards": 2,
+                                         "model_shards": 2},
+        "model sharding forced": evidence["forced_model_sharding"] is True,
+        "five entries": len(entries) == PROBE_ENTRIES,
+        "every entry model-sharded": all(
+            e["model_sharded"] is True for e in entries.values()),
+        "no retrace": all(e["retraces_after_first"] == 0
+                          for e in entries.values()),
+        "peaks from the card's allocator": all(
+            e["measured"]["mem_source"].startswith("cuda_allocator")
+            for e in entries.values()),
+        "no divergence": recon["divergences"] == 0,
+        "no sharding mismatch": recon["sharding_mismatches"] == 0,
+        "no record drift": doc["record_drift"] == [],
+        "the E-step kernel launched on the ranks":
+            launches["gamma_fixed_point_bkl"] > 0,
+        "the build directory unchanged":
+            sorted(os.listdir(build_dir)) == started["listing"],
+    }
+    failed = sorted(k for k, held in want.items() if not held)
+    if failed:
+        raise AssertionError(f"scale-check: {failed} failed: {out[-3000:]}")
+    return {"phase": "scale_probe", "rc": proc.returncode,
+            "device_kind": evidence["device_kind"],
+            "mesh": evidence["mesh"], "entries": len(entries),
+            "sharded": sum(e["model_sharded"] is True
+                           for e in entries.values()),
+            "retraces": sum(e["retraces_after_first"]
+                            for e in entries.values()),
+            "divergences": recon["divergences"],
+            "sharding_mismatches": recon["sharding_mismatches"],
+            "record_drift": len(doc["record_drift"]),
+            "launches": launches,
+            "per_entry": {
+                name: {"predicted_peak_bytes": r["predicted_peak_bytes"],
+                       "measured_peak_bytes": r["measured_peak_bytes"],
+                       "peak_ratio": (r.get("extrapolation") or {}).get(
+                           "peak_ratio"),
+                       "predicted_collective_bytes":
+                           r["predicted_collective_bytes"],
+                       "measured_collective_bytes":
+                           r["measured_collective_bytes"],
+                       "implied_per_chip_bytes": (
+                           r.get("extrapolation") or {}).get(
+                               "implied_per_chip_bytes"),
+                       "launches": entries[name]["launches"]}
+                for name, r in recon["entries"].items()},
+            "seconds": secs, "blocked_s": blocked}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7496,12 +7597,18 @@ def main() -> int:
     # the doctor and lint from this checkout, beside the corpora, the
     # kernel checks and configs A-D; checked after D (stop_started kills
     # them if anything before that raises)
-    doctor = lint = None
+    doctor = lint = probe = probe_dir = None
     if not args.kernels_only:
+        probe_dir = tempfile.mkdtemp(prefix="chip_smoke_probe_")
         doctor = start_cli(_build.BUILD_DIR, "doctor", "--probe-timeout",
                            "120", merge_stderr=True)
         lint = start_cli(_build.BUILD_DIR, "lint", "--protocol", "--scale",
                          "--format", "json")
+        probe = start_cli(
+            _build.BUILD_DIR, "metrics", "scale-check", "--run",
+            "--fail-on-divergence", "--json", "--probe-out",
+            os.path.join(probe_dir, "probe.json"), "--telemetry-file",
+            os.path.join(probe_dir, "probe.jsonl"))
     t0 = time.perf_counter()
     rows_a = en_books_rows(args.seed)
     rows_b = newsgroups_rows(args.seed)
@@ -7629,6 +7736,9 @@ def main() -> int:
         lint = check_lint(lint, _build.BUILD_DIR)
         emit(lint)
         record["lint"] = lint
+        probe = check_scale_probe(probe, _build.BUILD_DIR, probe_dir)
+        emit(probe)
+        record["scale_probe"] = probe
 
         # 7. config E, the CLI
         t0 = time.perf_counter()
@@ -7717,6 +7827,7 @@ def main() -> int:
               "spawn_to_fleet_ready_s": summary_o["spawn_to_fleet_ready_s"]})
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+        shutil.rmtree(probe_dir, ignore_errors=True)
 
     if args.profile:
         profile_configs(torch, rows_a, rows_b, args.seed, args.out)

@@ -113,7 +113,8 @@ COLLECTIVE_BUDGET_BYTES = 2 << 30
 PEAK_DRIFT_TOLERANCE = 0.10
 # committed measured-twin drift tolerance, the JAX package's: an absolute
 # band on the measured/predicted ratios of the record's "measured"
-# section (the port's measured probe is ROADMAP item 10c.3)
+# section (written by ``telemetry.scale_probe`` through ``metrics
+# scale-check --write-record``)
 MEASURED_DRIFT_TOLERANCE = 0.25
 # a real tensor above this in an audited call is a buffer materialised
 # at scale (layer 2's captured-constant budget)
@@ -240,15 +241,21 @@ class _Trace:
 
 
 def _modes(path: str, trace: _Trace, dims: Mapping[str, int],
-           full_widths: frozenset):
+           full_widths: frozenset, host_copies: bool = False):
     """The (function mode, dispatch mode) pair that records one scale
-    call."""
+    call.  ``host_copies``: answer ``Tensor.numpy`` / ``tolist`` of a fake
+    tensor with zeros of its shape instead of stopping the trace."""
+    import numpy as np
     import torch
     from torch._subclasses.fake_tensor import FakeTensor
     from torch.overrides import TorchFunctionMode
     from torch.utils._python_dispatch import TorchDispatchMode
 
     local_scalar = torch.ops.aten._local_scalar_dense.default
+    # the numpy dtype of a fake tensor's host copy (``host_copies``)
+    numpy_dtypes = {torch.float32: np.float32, torch.float64: np.float64,
+                    torch.int32: np.int32, torch.int64: np.int64,
+                    torch.bool: np.bool_}
 
     def stop(what: str, message: str) -> None:
         trace.stops.append(Finding(
@@ -291,6 +298,10 @@ def _modes(path: str, trace: _Trace, dims: Mapping[str, int],
             name = getattr(func, "__name__", "")
             if name in ("numpy", "tolist") and args and isinstance(
                     args[0], FakeTensor):
+                if host_copies:
+                    zeros = np.zeros(tuple(args[0].shape),
+                                     numpy_dtypes[args[0].dtype])
+                    return zeros if name == "numpy" else zeros.tolist()
                 what = f"Tensor.{name} @ {_call_site()}"
                 stop(what, f"host read {what} of a fake tensor: at scale "
                            f"the entry copies a device buffer to the host")
@@ -383,12 +394,15 @@ def _telemetry_off():
 
 
 def _trace(path: str, spec, dims: Mapping[str, int],
-           full_widths: frozenset = frozenset()):
+           full_widths: frozenset = frozenset(), host_copies: bool = False):
     """Build and call the entry once at ``dims`` under the audit's fake
     mode and recording modes; returns (trace, built args).  The default
     dtype is float64 for the call (layer 2's hard mode), restored after
     it, also when it raises.  A read the audit cannot answer ends the
-    trace with ``trace.done`` False and its finding in ``trace.stops``."""
+    trace with ``trace.done`` False and its finding in ``trace.stops``.
+    ``host_copies`` answers a copy of a fake tensor to the host with
+    zeros (the measured-scale probe's twin, whose entries may end by
+    copying a result to the host: the copy adds no device bytes)."""
     import torch
     from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
 
@@ -396,7 +410,7 @@ def _trace(path: str, spec, dims: Mapping[str, int],
 
     global _active_mode
     trace = _Trace()
-    fmode, dmode = _modes(path, trace, dims, full_widths)
+    fmode, dmode = _modes(path, trace, dims, full_widths, host_copies)
     mode = FakeTensorMode(allow_non_fake_inputs=True)
     default = torch.get_default_dtype()
     outer, _active_mode = _active_mode, mode
@@ -642,9 +656,9 @@ def save_scale_record(report: Dict, path: str) -> None:
     """Write the committed scale record.  The record schema carries TWO
     sections: the static audit's ``entries`` (regenerated by
     ``stc lint --scale --rebaseline``) and the measured-scale
-    observatory's ``measured`` twin (written by the JAX package's ``stc
-    metrics scale-check --write-record``; the port's is ROADMAP item
-    10c.3).  Each writer owns only its own section — a static rebaseline
+    observatory's ``measured`` twin (written by ``metrics scale-check
+    --write-record``, from a probe run on the card).  Each writer owns
+    only its own section — a static rebaseline
     must not silently drop the committed measured evidence, and vice
     versa."""
     import json

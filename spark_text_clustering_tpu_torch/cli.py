@@ -143,8 +143,10 @@ kernel, ``compile.*``, ``mem.<digest>.*``).  Each rank of a grid writes
 its own stream, ``<stem>-p<rank><ext>``.  ``metrics`` reads them, as the
 JAX package's verb does (``summarize``, ``merge`` of a grid's streams,
 ``trace``, ``tail``, ``diff``, ``bench-diff``, ``check``, ``slo``,
-``roofline`` against the card's peaks, ``compile-check``;
-``scale-check`` is item 10 and exits 2).
+``roofline`` against the card's peaks, ``compile-check``,
+``scale-check``: ``--run`` spawns the measured-scale probe on a 2x2 grid
+of ranks on ``--device`` and reconciles it with the committed scale
+record ``analysis/scale_baseline.json``).
 
 ``lint`` runs the JAX package's static analysis over the port's source:
 the AST invariant rules (STC000-007, STC101-102; STC005 roots at the
@@ -159,9 +161,9 @@ context and builds nothing.
 
 Exit codes: 0 on success; 1 for a fleet that spent its respawn budget,
 for a ``compile-cache verify`` with findings and for a ``lint`` with
-unwaived findings; 2 for a usage error, a missing or corrupt model, a
-resume mismatch and a verb not ported yet (``metrics
-scale-check``); 3 for
+unwaived findings, and for a ``metrics scale-check
+--fail-on-divergence`` with a divergence; 2 for a usage error, a missing
+or corrupt model and a resume mismatch; 3 for
 a stream whose ledger write was fenced and for a ``lineage`` target that
 names nothing.
 """

@@ -35,7 +35,7 @@ import sys
 import tempfile
 import threading
 import time
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -46,11 +46,13 @@ from ..resilience import retry
 
 __all__ = [
     "DATA_AXIS",
+    "DRYRUN_RANKS",
     "MODEL_AXIS",
     "ProcessGrid",
     "agree_checkpoint_exists",
     "check_backend",
     "default_backend",
+    "dryrun_grid",
     "initialize_distributed",
     "is_coordinator",
     "make_grid",
@@ -60,6 +62,10 @@ __all__ = [
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
+# The ranks the measured-scale probe spawns by default: a 2x2 grid, the
+# port's counterpart of the JAX package's 8 virtual devices (a 2x4 mesh);
+# eight CUDA processes on one card cost more start-up than the probe needs
+DRYRUN_RANKS = 4
 # How long a rank waits in a collective before torch.distributed gives up
 _TIMEOUT_S = 1800.0
 # How long run_grid lets the other ranks run on once one has failed
@@ -228,6 +234,30 @@ def make_grid(
             model_group = group
     return ProcessGrid(data_shards, model_shards, rank, dev, data_group,
                        model_group)
+
+
+def dryrun_grid(model_shards: Optional[int] = None,
+                ranks: int = DRYRUN_RANKS) -> Tuple[int, int]:
+    """The ``(data_shards, model_shards)`` shape that FORCES model-axis
+    sharding over ``ranks`` ranks: the grid the measured-scale probe
+    (``telemetry.scale_probe``) spawns, JAX's ``dryrun_mesh``.
+
+    ``model_shards`` defaults to 4 where ``ranks`` is at least 8 and a
+    multiple of 4, else 2 where it is even, else 1: 2x2 for the default
+    four ranks, so a lost vocabulary cut shows as a replicated leaf
+    instead of tracing through a 1x1 grid.  One rank gives 1x1, and the
+    probe then reports that sharding was not forced."""
+    if model_shards is None:
+        if ranks >= 8 and ranks % 4 == 0:
+            model_shards = 4
+        elif ranks >= 2 and ranks % 2 == 0:
+            model_shards = 2
+        else:
+            model_shards = 1
+    if model_shards < 1 or ranks < 1 or ranks % model_shards:
+        raise ValueError(f"{ranks} ranks not divisible by "
+                         f"model_shards={model_shards}")
+    return ranks // model_shards, model_shards
 
 
 def is_coordinator() -> bool:

@@ -2,8 +2,9 @@
 
 The JAX package's ``metrics`` verb, copied: the same subcommands, flags,
 output and exit codes on the same streams, whichever package wrote them.
-``scale-check`` (the measured-scale observatory) exits 2 naming ROADMAP
-item 10.
+``scale-check --run`` runs the measured-scale probe on a spawned grid of
+ranks and takes ``--device`` (default cuda); its ``--baseline`` is the
+port's record, ``analysis/scale_baseline.json``.
 
 Makes BENCH_* regression detection a first-class repo tool instead of
 ad-hoc JSON spelunking:
@@ -2288,15 +2289,228 @@ def cmd_compile_check(args) -> int:
 
 
 def cmd_scale_check(args) -> int:
-    """Exit 2: the measured-scale observatory and its static scale record
-    are ROADMAP item 10 (the port refuses what it has not ported)."""
-    print("error: metrics scale-check is not ported yet (ROADMAP.md "
-          "queue 1 item 10, the audit tiers)", file=sys.stderr)
-    return 2
+    try:
+        return _cmd_scale_check(args)
+    except BrokenPipeError:      # `... | head` closed the pipe
+        return 0
+
+
+def _cmd_scale_check(args) -> int:
+    """Reconcile measured-scale probe evidence against the committed
+    static scale record (``analysis/scale_baseline.json``).  ``--run``
+    runs the probe now on a spawned 2x2 grid of ranks on ``--device``
+    (``telemetry.scale_probe``); otherwise the positional argument is an
+    evidence JSON from an earlier run."""
+    from . import configure, count, event, manifest, shutdown
+    from .scale_probe import (
+        COLLECTIVE_TOLERANCE,
+        PEAK_TOLERANCE,
+        measured_section,
+        reconcile,
+    )
+    from ..analysis.scale_audit import (
+        compare_measured_with_record,
+        load_scale_record,
+        save_scale_record,
+    )
+
+    own_telemetry = bool(getattr(args, "telemetry_file", None))
+    if own_telemetry:
+        configure(args.telemetry_file)
+        manifest(kind="scale_check")
+
+    rc = 0
+    try:
+        if args.run:
+            from .scale_probe import run_probe
+
+            # the ranks write their own streams beside this one,
+            # <stem>-p<rank><ext>
+            evidence = run_probe(entries=args.entries or None,
+                                 device=args.device,
+                                 telemetry_file=args.telemetry_file)
+            if args.probe_out:
+                with open(args.probe_out, "w", encoding="utf-8") as f:
+                    json.dump(evidence, f, indent=2, sort_keys=True)
+                    f.write("\n")
+        elif args.probe:
+            try:
+                with open(args.probe, "r", encoding="utf-8") as f:
+                    evidence = json.load(f)
+            except (OSError, json.JSONDecodeError) as exc:
+                print(
+                    f"cannot read probe evidence {args.probe}: {exc}",
+                    file=sys.stderr,
+                )
+                return 2
+        else:
+            print(
+                "scale-check needs probe evidence: pass a probe JSON "
+                "or --run to execute the probe now",
+                file=sys.stderr,
+            )
+            return 2
+
+        record = load_scale_record(args.baseline)
+        if record is None:
+            print(
+                f"warning: no committed scale record at "
+                f"{args.baseline} — reconciling against the static "
+                f"law only (no extrapolation, no drift gate)",
+                file=sys.stderr,
+            )
+
+        tol = (
+            args.tolerance if args.tolerance is not None
+            else PEAK_TOLERANCE
+        )
+        ctol = (
+            args.collective_tolerance
+            if args.collective_tolerance is not None
+            else COLLECTIVE_TOLERANCE
+        )
+        recon = reconcile(
+            evidence, record,
+            peak_tolerance=tol, collective_tolerance=ctol,
+        )
+        fresh = measured_section(evidence, recon)
+        drift = (
+            [] if args.write_record
+            else compare_measured_with_record(fresh, record)
+        )
+
+        divergences = int(recon["divergences"]) + len(drift)
+        mismatches = int(recon["sharding_mismatches"])
+        # the scale. family: always materialized (exact-zero baselines
+        # need the counters present, not absent)
+        count("scale.probe_runs", 0)
+        count("scale.divergences", divergences)
+        count("scale.sharding_mismatches", mismatches)
+        event(
+            "scale_check",
+            baseline=args.baseline,
+            entries=len(recon["entries"]),
+            divergences=divergences,
+            sharding_mismatches=mismatches,
+            record_drift=len(drift),
+        )
+
+        if args.write_record:
+            if record is None:
+                print(
+                    f"cannot --write-record: no committed scale record "
+                    f"at {args.baseline} (run `stc lint --scale "
+                    f"--rebaseline` first)",
+                    file=sys.stderr,
+                )
+                return 2
+            record["measured"] = fresh
+            save_scale_record(record, args.baseline)
+
+        if getattr(args, "json", False):
+            doc = {
+                "reconciliation": recon,
+                "record_drift": drift,
+                "measured_section": fresh,
+                "baseline": args.baseline,
+            }
+            print(json.dumps(doc, sort_keys=True))
+        else:
+            _render_scale_check(args, evidence, recon, drift)
+        if args.write_record:
+            print(
+                f"measured record committed: {args.baseline} "
+                f"({len(fresh['entries'])} entr(ies))"
+            )
+        status_fail = bool(divergences or mismatches)
+        print(
+            f"{'FAIL' if status_fail else 'PASS'}: "
+            f"{len(recon['entries'])} probed entr(ies), "
+            f"{divergences} divergence(s), {mismatches} sharding "
+            f"mismatch(es) vs {args.baseline} "
+            f"(tolerance +{tol:.0%} peak / +{ctol:.0%} collective)"
+        )
+        if args.fail_on_divergence and status_fail:
+            rc = 1
+        return rc
+    finally:
+        if own_telemetry:
+            shutdown()
+
+
+def _render_scale_check(args, evidence, recon, drift) -> None:
+    mesh = recon["probe"].get("mesh") or {}
+    geom = recon["probe"].get("geometry") or {}
+    print(
+        f"probe: backend={recon['probe'].get('backend')} mesh="
+        f"{mesh.get('data_shards')}x{mesh.get('model_shards')} "
+        f"(data x model) devices={recon['probe'].get('device_count')} "
+        f"geometry "
+        + " ".join(f"{k}={v}" for k, v in sorted(geom.items()))
+    )
+    if recon.get("probe_divergence"):
+        print(f"PROBE DIVERGENCE: {recon['probe_divergence']}")
+    names = list(recon["entries"])
+    w = max((len(n) for n in names), default=5)
+    print(
+        f"{'entry'.ljust(w)}  {'pred_peak':>9}  {'meas_peak':>9}  "
+        f"{'err':>7}  {'pred_coll':>9}  {'meas_coll':>9}  {'err':>7}  "
+        f"{'shard':>5}  {'retr':>4}  {'V=10M GiB':>9}  {'budget':>7}"
+    )
+
+    def _err(v):
+        return f"{v:+.1%}" if v is not None else "-"
+
+    for name in names:
+        r = recon["entries"][name]
+        sh = r.get("sharding", {})
+        shard_cell = (
+            "-" if sh.get("measured_model_sharded") is None
+            else "yes" if sh.get("measured_model_sharded") else "NO"
+        )
+        extra = r.get("extrapolation") or {}
+        implied = extra.get("implied_per_chip_bytes")
+        budget = extra.get("hbm_budget_bytes")
+        print(
+            f"{name.ljust(w)}  "
+            f"{_fmt_bytes(r.get('predicted_peak_bytes')):>9}  "
+            f"{_fmt_bytes(r.get('measured_peak_bytes')):>9}  "
+            f"{_err(r.get('peak_rel_error')):>7}  "
+            f"{_fmt_bytes(r.get('predicted_collective_bytes')):>9}  "
+            f"{_fmt_bytes(r.get('measured_collective_bytes')):>9}  "
+            f"{_err(r.get('collective_rel_error')):>7}  "
+            f"{shard_cell:>5}  {r.get('retraces_after_first', 0):>4}  "
+            f"{(f'{implied / 2**30:.2f}' if implied is not None else '-'):>9}  "
+            f"{(f'{budget / 2**30:.1f}' if budget else '-'):>7}"
+            + ("  <<OVER BUDGET"
+               if extra.get("within_budget") is False else "")
+        )
+    for name in names:
+        r = recon["entries"][name]
+        for d in r.get("divergences", ()):
+            print(f"DIVERGENCE {name}: {d}")
+        for n_ in r.get("notes", ()):
+            print(f"note {name}: {n_}")
+    for d in drift:
+        print(
+            f"RECORD DRIFT {d['entry']}.{d['field']}: {d['why']}"
+        )
+    dm = evidence.get("device_memory", {})
+    if dm:
+        print(
+            f"device memory_stats: {dm.get('reporting', 0)}/"
+            f"{dm.get('devices', 0)} device(s) reporting"
+            + ("" if dm.get("reporting") else
+               " (CPU backend: per-device peaks unavailable — the "
+               "dispatch record's per-call attribution carries the "
+               "reconciliation)")
+        )
 
 
 def add_metrics_subparser(sub) -> None:
     """Attach the ``metrics`` subcommand tree to the CLI's subparsers."""
+    from ..analysis.scale_audit import DEFAULT_SCALE_BASELINE_PATH
+
     mt = sub.add_parser(
         "metrics",
         help="summarize / diff / regression-check telemetry runs",
@@ -2505,12 +2719,11 @@ def add_metrics_subparser(sub) -> None:
     sc = msub.add_parser(
         "scale-check",
         help="measured-scale observatory gate: run (or load) the "
-             "dryrun-mesh probe of the vocab-sharded entry families "
-             "and reconcile measured per-chip peak bytes, collective "
-             "bytes, and executable shardings against the committed "
-             "static scale record (scripts/records/"
-             "scale_baseline.json), with a V=10M extrapolation row "
-             "against the HBM budget",
+             "dryrun-grid probe of the vocab-sharded entry families "
+             "and reconcile measured per-card peak bytes, collective "
+             "bytes, and runtime shardings against the committed "
+             "static scale record (analysis/scale_baseline.json), "
+             "with a V=10M extrapolation row against the HBM budget",
     )
     sc.add_argument(
         "probe", nargs="?", default=None,
@@ -2519,9 +2732,13 @@ def add_metrics_subparser(sub) -> None:
     )
     sc.add_argument(
         "--run", action="store_true",
-        help="execute the probe now on this process's devices "
-             "(forces a model-sharded dryrun mesh; the CI gate runs "
-             "this under the 8-virtual-device host platform)",
+        help="execute the probe now on a spawned 2x2 grid of ranks "
+             "over gloo (model-axis sharding forced), on --device",
+    )
+    sc.add_argument(
+        "--device", choices=("cuda", "cpu"), default="cuda",
+        help="with --run: the device every rank runs on (default "
+             "cuda: all ranks share the card)",
     )
     sc.add_argument(
         "--entries", action="append", default=[],
@@ -2534,9 +2751,7 @@ def add_metrics_subparser(sub) -> None:
     )
     sc.add_argument(
         "--baseline",
-        default=os.path.join(
-            "scripts", "records", "scale_baseline.json"
-        ),
+        default=DEFAULT_SCALE_BASELINE_PATH,
         help="the committed static scale record to reconcile against",
     )
     sc.add_argument(
@@ -2564,7 +2779,8 @@ def add_metrics_subparser(sub) -> None:
     sc.add_argument(
         "--telemetry-file", default=None,
         help="emit the check's own run stream (scale.* counters, "
-             "scale_check event; with --run the probe's dispatch "
-             "attribution and scale_probe_entry events land here too)",
+             "scale_check event); with --run each probe rank writes "
+             "<stem>-p<rank><ext> beside it (dispatch attribution, "
+             "scale_probe_entry events, scale.probe_runs)",
     )
     sc.set_defaults(fn=cmd_scale_check)

@@ -3,6 +3,7 @@ its entry points run on the card unless the caller asks for the CPU."""
 
 from __future__ import annotations
 
+import json
 import os
 import re
 import subprocess
@@ -128,14 +129,14 @@ def test_the_streaming_modules_are_scanned():
 def test_the_telemetry_modules_are_scanned():
     """The import and source scans cover the telemetry core and the
     dispatch layer with its readers: dispatch, the recompile sentinel,
-    the roofline, the trace export, SLOs, the ``metrics`` verb, and the
-    alert engine with the ``monitor`` verb."""
+    the roofline, the trace export, SLOs, the ``metrics`` verb with its
+    scale probe, and the alert engine with the ``monitor`` verb."""
     mods = set(_port_modules())
     assert {f"spark_text_clustering_tpu_torch.telemetry{m}" for m in (
         "", ".registry", ".names", ".tracing", ".transport", ".prometheus",
         ".events", ".spans", ".memory", ".dispatch", ".compilation",
         ".roofline", ".trace_export", ".slo", ".metrics_cli", ".alerts",
-        ".monitor_cli")} <= mods
+        ".monitor_cli", ".scale_probe")} <= mods
 
 
 def test_the_monitor_verb_loads_no_jax(tmp_path):
@@ -175,12 +176,23 @@ def test_the_monitor_verb_loads_no_jax(tmp_path):
 
 def test_the_metrics_verb_loads_no_jax(tmp_path):
     """An instrumented call's stream read back by every ``metrics``
-    subcommand of the port's CLI (``scale-check`` refused with exit 2)
-    leaves jax and the JAX package out of ``sys.modules``."""
+    subcommand of the port's CLI (``scale-check`` on a planted probe, exit
+    0) leaves jax and the JAX package out of ``sys.modules``, the scale
+    probe's module included."""
     stream = str(tmp_path / "t.jsonl")
+    probe, record = str(tmp_path / "probe.json"), str(tmp_path / "sb.json")
+    with open(probe, "w") as f:
+        json.dump({"forced_model_sharding": True, "entries": {
+            "sharded_eval.top_terms": {"model_sharded": True,
+                                       "measured": {}, "predicted": {}}}},
+                  f)
+    with open(record, "w") as f:
+        json.dump({"entries": {}}, f)
     code = (
         "import contextlib, io, sys, torch\n"
         "from spark_text_clustering_tpu_torch import cli, telemetry\n"
+        "from spark_text_clustering_tpu_torch.telemetry import "
+        "scale_probe\n"
         f"s = {stream!r}\n"
         "telemetry.configure(s, device='cpu')\n"
         "telemetry.manifest(kind='train')\n"
@@ -191,11 +203,12 @@ def test_the_metrics_verb_loads_no_jax(tmp_path):
         "for argv in (['summarize', s], ['roofline', s], ['trace', s],\n"
         "             ['merge', s, s], ['diff', s, s], ['bench-diff', s, s],\n"
         "             ['tail', s, '--once'], ['slo', s],\n"
-        "             ['scale-check', '--run']):\n"
+        f"             ['scale-check', {probe!r}, '--baseline', "
+        f"{record!r}]):\n"
         "    with contextlib.redirect_stdout(io.StringIO()), \\\n"
         "            contextlib.redirect_stderr(io.StringIO()):\n"
         "        rcs.append(cli.main(['metrics', *argv]))\n"
-        "assert rcs[-1] == 2 and 2 not in rcs[:-1], rcs\n"
+        "assert rcs[-1] == 0 and 2 not in rcs, rcs\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'spark_text_clustering_tpu')]\n"
         "assert not bad, bad\n"

@@ -6,7 +6,8 @@ serve counters, ``front_request`` and ``probe_request`` events and a
 ``micro_batch``.  Every ``metrics`` subcommand of both CLIs then reads
 the JAX-written and the port-written stream: the same stdout and exit
 code, ``roofline`` under the same ``--peaks`` and under the stream's own
-backend.  ``scale-check`` (ROADMAP item 10) exits 2 in the port.
+backend.  ``scale-check`` on planted evidence gives its exit codes
+(``tests/test_torch_scale_probe.py`` holds it against JAX's).
 """
 
 from __future__ import annotations
@@ -169,9 +170,41 @@ def test_resolve_peaks_names_the_h100():
     assert troofline.live_peaks("cpu")[0] == "cpu"
 
 
-def test_scale_check_is_item_10(capsys):
-    assert _port(["scale-check", "--run"]) == 2
-    assert "item 10" in capsys.readouterr().err
+def test_scale_check_is_item_10(tmp_path, capsys):
+    """``scale-check`` (ROADMAP item 10c.3) on planted evidence: exit 0 on
+    a clean probe, 1 on a replicated one under ``--fail-on-divergence``,
+    2 without evidence or with evidence it cannot read."""
+    evidence = {
+        "forced_model_sharding": True,
+        "mesh": {"data_shards": 2, "model_shards": 2},
+        "entries": {"em_lda.bucket_step": {
+            "label": "scale_probe.em_bucket_step",
+            "measured": {"per_chip_peak_bytes": 100,
+                         "collective_bytes_per_step": 10},
+            "predicted": {"per_chip_peak_bytes": 120,
+                          "collective_bytes_per_step": 10},
+            "model_sharded": True, "retraces_after_first": 0}},
+    }
+    record = {"entries": {"em_lda.bucket_step": {
+        "per_chip_peak_bytes": 1000, "hbm_budget_bytes": 10_000,
+        "collective_bytes_per_step": 100, "model_shards": 16}}}
+    probe, rec = tmp_path / "probe.json", tmp_path / "record.json"
+    probe.write_text(json.dumps(evidence))
+    rec.write_text(json.dumps(record))
+    gate = ["scale-check", str(probe), "--baseline", str(rec),
+            "--fail-on-divergence"]
+    assert _port(gate) == 0
+    assert "PASS: 1 probed entr(ies), 0 divergence(s)" in \
+        capsys.readouterr().out
+    evidence["entries"]["em_lda.bucket_step"]["model_sharded"] = False
+    probe.write_text(json.dumps(evidence))
+    assert _port(gate) == 1
+    assert "REPLICATED" in capsys.readouterr().out
+    assert _port(["scale-check", "--baseline", str(rec)]) == 2
+    assert "needs probe evidence" in capsys.readouterr().err
+    probe.write_text("{not json")
+    assert _port(gate) == 2
+    assert "cannot read probe evidence" in capsys.readouterr().err
 
 
 def test_roofline_of_a_card_stream_reads_the_h100_row(tmp_path):

@@ -669,15 +669,20 @@ def test_compare_measured_with_record_parity(fresh):
 
 
 def test_committed_record_keys_cover_jax_record():
-    """The port's record: all entries at ``nvidia-h100``, no measured
-    section yet (item 10c.3), its top-level and per-entry keys a superset
-    of the JAX package's record's."""
+    """The port's record: all entries at ``nvidia-h100``, the measured
+    section the card's (``metrics scale-check --write-record`` on the
+    2x2 grid of ranks, item 10c.3) with the JAX section's keys, its
+    top-level and per-entry keys a superset of the JAX package's
+    record's."""
     with open(RECORD) as f:
         port = json.load(f)
     with open(JAX_RECORD) as f:
         jax_rec = json.load(f)
-    assert set(port) >= set(jax_rec) - {"measured"}
-    assert "measured" not in port
+    assert set(port) >= set(jax_rec)
+    assert set(port["measured"]) == set(jax_rec["measured"])
+    assert port["measured"]["backend"] == "cuda"
+    assert sorted(port["measured"]["entries"]) == sorted(
+        jax_rec["measured"]["entries"])
     assert port["backend"] == "nvidia-h100"
     assert sorted(port["entries"]) == sorted(ep.name for ep in ENTRYPOINTS)
     jax_keys = set().union(*(set(e) for e in jax_rec["entries"].values()))
